@@ -1,0 +1,110 @@
+"""The port stands alone: no JAX, no JAX package, no pyarrow, no silent CPU.
+
+A fresh interpreter imports transferia_tpu_torch and runs the fused
+chain on the CPU; afterwards neither jax, pyarrow, transferia_tpu nor
+any transferia_tpu.* module may be loaded.  And without CUDA, an entry
+point that was not asked for the CPU raises instead of running there.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
+from transferia_tpu_torch.columnar.batch import ColumnBatch
+from transferia_tpu_torch.ops.fused import FusedMaskFilterProgram
+from transferia_tpu_torch.runtime.device import resolve_device
+from transferia_tpu_torch.transform import build_chain
+from transferia_tpu_torch.transform.fused import set_placement
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CONFIG = {"transformers": [
+    {"mask_field": {"columns": ["url"], "salt": "s"}},
+    {"filter_rows": {"filter": "region < 400"}},
+]}
+
+_CHILD = """
+import sys
+import numpy as np
+from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
+from transferia_tpu_torch.columnar.batch import ColumnBatch
+from transferia_tpu_torch.transform import build_chain
+from transferia_tpu_torch.transform.fused import DeviceFusedStep, set_placement
+import transferia_tpu_torch.ops.linkprobe, transferia_tpu_torch.weights  # noqa
+
+schema = new_table_schema([("url", "utf8"), ("region", "int32")])
+batch = ColumnBatch.from_pydict(TableID("", "t"), schema, {
+    "url": [f"u{i}" for i in range(300)], "region": list(range(300, 600))})
+set_placement("device")
+chain = build_chain(%r, device="cpu")
+out = chain.apply(batch)
+step = chain.plan_for(batch.table_id, batch.schema).steps[0]
+assert isinstance(step, DeviceFusedStep), step
+assert out.n_rows == 100, out.n_rows
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+                                    "transferia_tpu"))
+print("LOADED", bad)
+""" % (CONFIG,)
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def small_batch():
+    schema = new_table_schema([("url", "utf8"), ("region", "int32")])
+    return ColumnBatch.from_pydict(TableID("", "t"), schema, {
+        "url": ["a", "b"], "region": [1, 500]})
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_no_silent_cpu_fallback(device, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedMaskFilterProgram([b"k"], None, device)
+    set_placement("device")
+    try:
+        chain = build_chain(CONFIG, device=device)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            chain.apply(small_batch())
+    finally:
+        set_placement(None)
+
+
+def test_explicit_cpu_runs_plain_versions():
+    set_placement("device")
+    try:
+        out = build_chain(CONFIG, device="cpu").apply(small_batch())
+    finally:
+        set_placement(None)
+    assert out.n_rows == 1
+    assert len(bytes(out.column("url").data)) == 64
+
+
+def test_unported_transformer_names_the_ported_ones():
+    with pytest.raises(KeyError, match="not yet ported"):
+        build_chain({"transformers": [{"rename_tables": {"tables": []}}]},
+                    device="cpu")
+
+
+def test_pass_through_plan_needs_no_device():
+    # a chain with no fusable run plans no device step, so it runs
+    # anywhere (the filter alone stays on the vectorized host path)
+    batch = small_batch()
+    chain = build_chain({"transformers": [
+        {"filter_rows": {"filter": "region < 400"}}]})
+    assert np.array_equal(chain.apply(batch).column("region").data, [1])

@@ -1,0 +1,326 @@
+"""Compressed device dispatch: ship encoded columns, decode on device.
+
+The host half of transferia_tpu/ops/dispatch.py, copied: predicate
+columns cross the host-to-device link in their compact encodings
+(bit-packed validity and bool data, delta+bit-pack or frame-of-reference
+integers) and kernel K-B (ops/decode.py) reconstructs them on the card.
+The keep mask returns bit-packed (kernel K-C packs it).
+
+`TRANSFERIA_TPU_DISPATCH_ENCODING` picks the mode: `auto` (default —
+encode whenever it shrinks) or `raw`.  The dict-pool route and the
+per-shard mesh encodings are not ported yet (ROADMAP.md).
+
+`stage_h2d` is the single host-to-device point: it copies host arrays
+into pinned buffers and enqueues non-blocking copies on a copy stream.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from transferia_tpu_torch.runtime import knobs
+
+_mode_cached: Optional[str] = None
+
+# zigzag'd deltas wider than this fall back to raw: the device prefix
+# sum runs in int32 and must never wrap (30 bits of |delta| keeps every
+# partial sum an exact int32), and past ~30 bits the shrink is gone
+_DELTA_MAX_BITS = 30
+# below this many rows the encode/decode round trip costs more than the
+# handful of saved bytes
+_DELTA_MIN_ROWS = 256
+
+_for_frame_cached: Optional[int] = None
+
+
+def for_frame() -> int:
+    """Frame size of the frame-of-reference integer encoding
+    (TRANSFERIA_TPU_FOR_FRAME; default 256 — every row bucket is a
+    multiple; 0 disables FOR)."""
+    global _for_frame_cached
+    if _for_frame_cached is None:
+        _for_frame_cached = max(
+            0, knobs.env_int("TRANSFERIA_TPU_FOR_FRAME", 256))
+    return _for_frame_cached
+
+
+def set_for_frame(n: Optional[int]) -> None:
+    """Force the FOR frame size (None = re-read the env)."""
+    global _for_frame_cached
+    _for_frame_cached = n
+
+
+def dispatch_encoding() -> str:
+    """auto (encode whenever it shrinks, default) | raw."""
+    global _mode_cached
+    if _mode_cached is None:
+        mode = knobs.env_str(
+            "TRANSFERIA_TPU_DISPATCH_ENCODING", "auto").lower()
+        _mode_cached = mode if mode in ("auto", "raw") else "auto"
+    return _mode_cached
+
+
+def set_dispatch_encoding(mode: Optional[str]) -> None:
+    """Force the dispatch encoding mode (None = re-read the env)."""
+    global _mode_cached
+    _mode_cached = mode
+
+
+def encoding_enabled() -> bool:
+    return dispatch_encoding() != "raw"
+
+
+# -- host-side packers -------------------------------------------------------
+
+def pack_bits_host(values: np.ndarray, bit_width: int) -> np.ndarray:
+    """Non-negative values -> the little-endian packed uint32 word
+    stream K-B consumes (value i occupies bits [i*bw, (i+1)*bw))."""
+    n = len(values)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint32)
+    shifts = np.arange(bit_width, dtype=np.uint64)
+    bits = ((values.astype(np.uint64)[:, None] >> shifts) & 1).astype(
+        np.uint8)
+    packed = np.packbits(bits.reshape(-1), bitorder="little")
+    pad = (-len(packed)) % 4
+    if pad:
+        packed = np.pad(packed, (0, pad))
+    return packed.view(np.uint32)
+
+
+def encode_validity(validity: np.ndarray) -> np.ndarray:
+    """(n,) bool -> packed little-endian uint32 bitmap words."""
+    packed = np.packbits(np.ascontiguousarray(validity, dtype=np.uint8),
+                         bitorder="little")
+    pad = (-len(packed)) % 4
+    if pad:
+        packed = np.pad(packed, (0, pad))
+    return packed.view(np.uint32)
+
+
+def unpack_mask_host(words: np.ndarray, n: int) -> np.ndarray:
+    """Packed uint32 keep-mask words (D2H) -> (n,) bool, host side."""
+    bits = np.unpackbits(np.ascontiguousarray(words).view(np.uint8),
+                         bitorder="little")
+    return bits[:n].astype(np.bool_)
+
+
+def _delta_plan(values: np.ndarray
+                ) -> Optional[tuple[np.ndarray, np.ndarray, int]]:
+    """The delta-encoding guard chain (values: (n_shards, per)).
+    Returns (bases int32 (n_shards,), zigzag'd deltas uint64 (n_shards,
+    per), bit_width) or None when any guard rejects: every value must
+    fit int32 exactly, zigzag widths past _DELTA_MAX_BITS could wrap a
+    partial sum, and the packed form must shrink the raw dtype."""
+    n_shards, per = values.shape
+    if values.dtype.kind not in "iu" or per < _DELTA_MIN_ROWS:
+        return None
+    v = values.astype(np.int64)
+    if int(v.min()) < -2**31 or int(v.max()) > 2**31 - 1:
+        return None
+    bases = v[:, :1]
+    deltas = np.diff(v, axis=1, prepend=bases)
+    zz = ((deltas << 1) ^ (deltas >> 63)).astype(np.uint64)
+    bw = max(1, int(zz.max()).bit_length())
+    if bw > _DELTA_MAX_BITS:
+        return None
+    if bw * per >= values.dtype.itemsize * 8 * per:
+        return None  # no shrink over the raw dtype
+    return bases[:, 0].astype(np.int32), zz, bw
+
+
+def encode_delta(data: np.ndarray
+                 ) -> Optional[tuple[int, np.ndarray, int]]:
+    """Delta+bit-pack an integer array: (base, packed words, bit_width),
+    or None when the encoding would not shrink the transfer."""
+    if data.ndim != 1:
+        return None
+    plan = _delta_plan(data.reshape(1, -1))
+    if plan is None:
+        return None
+    bases, zz, bw = plan
+    return int(bases[0]), pack_bits_host(zz[0], bw), bw
+
+
+def _for_plan(values: np.ndarray
+              ) -> Optional[tuple[np.ndarray, np.ndarray, int, int]]:
+    """The frame-of-reference guard chain (values: (n_shards, per)).
+    Returns (mins int32 (n_shards, n_frames), rel uint64 (n_shards,
+    per), bit_width, frame) or None when any guard rejects: every value
+    must fit int32 exactly, the frame must divide the padded row count,
+    and packed remainders + per-frame mins must shrink the raw dtype."""
+    frame = for_frame()
+    n_shards, per = values.shape
+    if (frame <= 0 or values.dtype.kind not in "iu"
+            or per < _DELTA_MIN_ROWS or per % frame):
+        return None
+    v = values.astype(np.int64)
+    if int(v.min()) < -2**31 or int(v.max()) > 2**31 - 1:
+        return None
+    framed = v.reshape(n_shards, per // frame, frame)
+    mins = framed.min(axis=2)
+    rel = (framed - mins[:, :, None]).reshape(n_shards, per) \
+        .astype(np.uint64)
+    bw = max(1, int(rel.max()).bit_length())
+    if bw > 32:
+        return None
+    n_frames = per // frame
+    if bw * per + n_frames * 32 >= values.dtype.itemsize * 8 * per:
+        return None  # no shrink over the raw dtype
+    return mins.astype(np.int32), rel, bw, frame
+
+
+def encode_for(data: np.ndarray
+               ) -> Optional[tuple[np.ndarray, np.ndarray, int, int]]:
+    """FOR-encode an integer array: (mins (n_frames,) int32, packed
+    words, bit_width, frame), or None when the guards reject."""
+    if data.ndim != 1:
+        return None
+    plan = _for_plan(data.reshape(1, -1))
+    if plan is None:
+        return None
+    mins, rel, bw, frame = plan
+    return mins[0], pack_bits_host(rel[0], bw), bw, frame
+
+
+# -- per-column dispatch encodings ------------------------------------------
+
+@dataclass(frozen=True)
+class PredEnc:
+    """Static half of one predicate column's dispatch encoding.
+
+    kind: raw (dtype bytes as-is) | delta (base + packed zigzag deltas)
+    | for (per-frame mins + packed remainders) | bits (bit-packed bool
+    data).
+    valid_mode: none (all-valid) | bits (bit-packed bitmap) | raw (bool
+    bytes, the uncompressed wire).
+    frame: FOR frame size (0 for every other kind).
+    """
+
+    name: str
+    dtype: str
+    kind: str
+    bit_width: int
+    valid_mode: str
+    frame: int = 0
+
+
+def encode_pred_column(name: str, data: np.ndarray,
+                       validity: Optional[np.ndarray], n_rows: int,
+                       bucket: int, encoded: bool
+                       ) -> tuple[PredEnc, tuple]:
+    """Encode one predicate column for dispatch.
+
+    Returns (spec, host arrays ready for H2D).  Data pads to the bucket
+    with its edge value (keeps delta widths narrow); validity pads False,
+    so padded rows never pass the predicate regardless of data padding.
+    """
+    if bucket != n_rows:
+        data = np.pad(data, (0, bucket - n_rows),
+                      mode="edge" if n_rows else "constant")
+        if validity is not None:
+            validity = np.pad(validity, (0, bucket - n_rows))
+    if not encoded:
+        if validity is None:
+            validity = np.ones(bucket, dtype=np.bool_)
+        return PredEnc(name, str(data.dtype), "raw", 0, "raw"), \
+            (data, validity)
+    if validity is None:
+        valid_mode, val_arrays = "none", ()
+    else:
+        valid_mode, val_arrays = "bits", (encode_validity(validity),)
+    if data.dtype == np.bool_:
+        spec = PredEnc(name, str(data.dtype), "bits", 1, valid_mode)
+        return spec, (encode_validity(data),) + val_arrays
+    delta = encode_delta(data)
+    if delta is not None:
+        base, words, bw = delta
+        spec = PredEnc(name, str(data.dtype), "delta", bw, valid_mode)
+        return spec, (words, np.int32(base)) + val_arrays
+    forenc = encode_for(data)
+    if forenc is not None:
+        mins, words, bw, frame = forenc
+        spec = PredEnc(name, str(data.dtype), "for", bw, valid_mode,
+                       frame)
+        return spec, (words, mins) + val_arrays
+    return PredEnc(name, str(data.dtype), "raw", 0, valid_mode), \
+        (data,) + val_arrays
+
+
+def decode_pred_device(spec: PredEnc, arrays, bucket: int
+                       ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Decode one staged predicate column: (data, validity or None when
+    every row is valid) — the column form kernel K-C reads.  Encoded
+    kinds run kernel K-B; delta/FOR data stays int32."""
+    from transferia_tpu_torch.ops.decode import (
+        delta_prefix_sum,
+        for_frame_decode,
+        unpack_validity,
+    )
+
+    if spec.kind == "raw":
+        data = arrays[0]
+    elif spec.kind == "bits":
+        data = unpack_validity(arrays[0], bucket)
+    elif spec.kind == "for":
+        data = for_frame_decode(arrays[0], arrays[1], spec.bit_width,
+                                spec.frame, bucket)
+    else:  # delta
+        data = delta_prefix_sum(arrays[0], int(arrays[1]), spec.bit_width,
+                                bucket)
+    if spec.valid_mode == "none":
+        valid = None
+    elif spec.valid_mode == "bits":
+        valid = unpack_validity(arrays[-1], bucket)
+    else:
+        valid = arrays[-1]
+    return data, valid
+
+
+# -- H2D staging -------------------------------------------------------------
+
+def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
+    """A numpy array as a CPU tensor (uint32 words become int32 with the
+    same bits); `pin` copies it into page-locked memory."""
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    if not pin:
+        if not a.flags.writeable or not a.flags.c_contiguous:
+            a = np.array(a)
+        return torch.from_numpy(a)
+    t = torch.empty(a.shape,
+                    dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                    pin_memory=True)
+    t.numpy()[...] = a
+    return t
+
+
+def stage_h2d(arrays, device: torch.device,
+              stream: Optional["torch.cuda.Stream"]):
+    """Stage a nested tuple of host arrays on `device`.
+
+    numpy arrays become tensors (on a CUDA device: pinned, copied with
+    non_blocking on `stream`); numpy scalars become Python ints (they
+    travel as kernel arguments).  Returns (the same structure of
+    tensors, an event recorded after the copies, or None on the CPU)."""
+    cuda = device.type == "cuda"
+
+    def put(x):
+        if isinstance(x, tuple):
+            return tuple(put(a) for a in x)
+        if isinstance(x, np.ndarray):
+            t = host_tensor(x, pin=cuda)
+            return t.to(device, non_blocking=True) if cuda else t
+        return int(x)
+
+    if not cuda:
+        return put(arrays), None
+    with torch.cuda.stream(stream):
+        staged = put(arrays)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return staged, event

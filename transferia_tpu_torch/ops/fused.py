@@ -1,0 +1,351 @@
+"""Fused device transform program: HMAC mask + row predicate per batch.
+
+The port of transferia_tpu/ops/fused.py `FusedMaskFilterProgram`.  One
+run of a batch (or of each chunk of it) stages the host-packed SHA
+blocks and the encoded predicate columns on the card, then launches, on
+one compute stream:
+  - kernel K-A (HMAC-SHA256) once per masked column;
+  - kernel K-B once per encoded predicate array (data and validity);
+  - kernel K-C once: the three-valued predicate, keep mask bit-packed
+    when the dispatch encoding is on.
+Raw (N, 8) digest words and the keep mask come back to pinned host
+buffers; the host expands digests to hex (columnar/hexcol.py).  Fusing
+the three kernels into one launch is later work (ROADMAP.md).
+
+Batches larger than the chunk size (32768 rows on a CUDA device) run as
+a double-buffered pipeline: chunk k+1's host pack and H2D (on a copy
+stream) overlap chunk k's kernels and chunk k-1's D2H (on the compute
+stream), ordered by CUDA events.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from collections import deque
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from transferia_tpu_torch.columnar.batch import bucket_rows
+from transferia_tpu_torch.columnar.hexcol import digests_to_hex
+from transferia_tpu_torch.ops.dispatch import (
+    decode_pred_device,
+    encode_pred_column,
+    encoding_enabled,
+    stage_h2d,
+    unpack_mask_host,
+)
+from transferia_tpu_torch.ops.sha256 import (
+    _hmac_key_states,
+    hmac_device_core,
+    prepare_padded_blocks,
+)
+from transferia_tpu_torch.runtime import knobs
+from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.weights import as_key_state
+
+_chunk_rows_forced: Optional[int] = None
+
+
+def _chunk_rows(device: torch.device) -> int:
+    """Chunk size for pipelined dispatch; 0 disables chunking.
+
+    32768 rows on a CUDA device (enough work per launch to amortize it,
+    small enough for 4 chunks per 131k batch); 0 on the CPU, where
+    pipelining only adds overhead, and through a link whose launch
+    overhead exceeds 5 ms.  TRANSFERIA_TPU_CHUNK_ROWS overrides (0 = off);
+    set_chunk_rows forces it.
+    """
+    if _chunk_rows_forced is not None:
+        return _chunk_rows_forced
+    env = knobs.env_raw("TRANSFERIA_TPU_CHUNK_ROWS")
+    if env is not None:
+        return max(0, int(env))
+    if device.type == "cpu":
+        return 0
+    from transferia_tpu_torch.ops.linkprobe import probe_link
+
+    return 0 if probe_link(device).launch_overhead_s > 0.005 else 32768
+
+
+def set_chunk_rows(n: Optional[int]) -> None:
+    """Force the pipelined-dispatch chunk size (None = re-detect)."""
+    global _chunk_rows_forced
+    _chunk_rows_forced = n
+
+
+def _dispatch_depth() -> int:
+    """Launches kept in flight by the pipelined path.
+    TRANSFERIA_TPU_DISPATCH_DEPTH overrides; floor 1."""
+    return max(1, knobs.env_int("TRANSFERIA_TPU_DISPATCH_DEPTH", 2))
+
+
+def pow2_blocks(max_len: int) -> int:
+    """Block count bucket for a max row length (bytes, before padding)."""
+    nb = (max_len + 9 + 63) // 64
+    return 1 << (nb - 1).bit_length() if nb > 1 else 1
+
+
+class _Staged(NamedTuple):
+    blocks: tuple          # per masked column: (bucket, mb*64) uint8
+    nblocks: tuple         # per masked column: (bucket,) int32
+    pred: tuple            # per predicate column: its staged arrays
+    max_blocks: tuple
+    pred_specs: tuple
+    bucket: int
+    n_rows: int
+    pack_keep: bool
+    h2d_done: Optional[torch.cuda.Event]
+
+
+class _InFlight(NamedTuple):
+    digests: list          # host (or CPU) (bucket, 8) int32 tensors
+    keep: Optional[torch.Tensor]
+    n_rows: int
+    pack_keep: bool
+    done: Optional[torch.cuda.Event]
+    staged: _Staged        # keeps device inputs alive until done
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """Enqueue a D2H copy into a pinned buffer on the current stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+class FusedMaskFilterProgram:
+    """HMAC every masked column and evaluate the keep predicate, on one
+    device.
+
+    mask_keys: HMAC key per masked column (parallel to the columns the
+    caller passes); pred_node: predicate AST or None; the caller supplies
+    the predicate columns as (data, validity) arrays.
+    """
+
+    # lowered predicate programs shared across instances, keyed by the
+    # predicate AST repr (frozen dataclasses — the repr is the full
+    # content).  Bounded FIFO: a long-lived worker cycling through
+    # transfers with distinct predicate constants must not pin a program
+    # per constant forever.
+    _program_cache: dict = {}
+    _PROGRAM_CACHE_MAX = 64
+    _cache_lock = threading.Lock()
+
+    def __init__(self, mask_keys: Sequence[bytes], pred_node=None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self._states = [_hmac_key_states(bytes(k), self.device)
+                        for k in mask_keys]
+        self._pred = None
+        if pred_node is not None:
+            self._pred = self._lowered(pred_node)
+        self._copy_stream = self._compute_stream = None
+        if self.device.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(self.device)
+            self._compute_stream = torch.cuda.Stream(self.device)
+
+    @classmethod
+    def _lowered(cls, pred_node):
+        from transferia_tpu_torch.predicate.device import (
+            compile_mask_program,
+        )
+
+        key = repr(pred_node)
+        with cls._cache_lock:
+            program = cls._program_cache.get(key)
+            if program is None:
+                program = compile_mask_program(pred_node)
+                while len(cls._program_cache) >= cls._PROGRAM_CACHE_MAX:
+                    cls._program_cache.pop(next(iter(cls._program_cache)))
+                cls._program_cache[key] = program
+            return program
+
+    def run(self, mask_cols: Sequence[tuple[np.ndarray, np.ndarray]],
+            pred_cols: dict[str, tuple[np.ndarray, Optional[np.ndarray]]],
+            n_rows: int, states: Optional[list] = None
+            ) -> tuple[list[np.ndarray], Optional[np.ndarray]]:
+        """mask_cols: per masked column (flat uint8 data, int32 offsets).
+        pred_cols: name -> (fixed-width data, validity or None).
+        states: HMAC key states parallel to mask_cols, the port's tensors
+        or the JAX package's numpy arrays (weights.py); defaults to the
+        constructor's.
+        Returns ([hex (n_rows, 64) per masked column], keep mask or None).
+        """
+        states = (self._states if states is None else
+                  [as_key_state(s, self.device) for s in states])
+        if self.device.type == "cuda":
+            # work the caller enqueued before this run (key states,
+            # inputs) is visible to both of the program's streams
+            current = torch.cuda.current_stream(self.device)
+            self._copy_stream.wait_stream(current)
+            self._compute_stream.wait_stream(current)
+        chunk = _chunk_rows(self.device)
+        if chunk and n_rows > chunk:
+            return self._run_pipelined(mask_cols, pred_cols, n_rows, chunk,
+                                       states)
+        return self._run_single(mask_cols, pred_cols, n_rows, states)
+
+    def _stage(self, mask_cols, pred_cols, n_rows, bucket) -> _Staged:
+        """Pack + encode on the host and enqueue the (async) H2D of one
+        chunk — compute does NOT launch here, so a pipelined caller can
+        overlap this chunk's transfer with the previous chunk's
+        kernels."""
+        blocks_t, nblocks_t, mb_t = self._pack_inputs(mask_cols, n_rows,
+                                                      bucket)
+        enc = encoding_enabled()
+        specs, arrays = [], []
+        for name, (data, validity) in pred_cols.items():
+            spec, arrs = encode_pred_column(
+                name, data, validity, n_rows, bucket, enc)
+            specs.append(spec)
+            arrays.append(arrs)
+        (blocks, nblocks, pred), event = stage_h2d(
+            (tuple(blocks_t), tuple(nblocks_t), tuple(arrays)),
+            self.device, self._copy_stream)
+        pack_keep = self._pred is not None and enc
+        return _Staged(blocks, nblocks, pred, tuple(mb_t), tuple(specs),
+                       bucket, n_rows, pack_keep, event)
+
+    @staticmethod
+    def _pack_inputs(mask_cols, n_rows, bucket):
+        blocks_t, nblocks_t, mb_t = [], [], []
+        for data, offsets in mask_cols:
+            lens = offsets[1:] - offsets[:-1]
+            max_len = int(lens.max()) if n_rows else 0
+            mb = pow2_blocks(max_len)
+            blocks, n_blocks, _ = prepare_padded_blocks(
+                data, offsets, prefix_len=64, max_blocks=mb)
+            if bucket != n_rows:
+                # pad rows carry n_blocks = 0 and never update state
+                blocks = np.pad(blocks, ((0, bucket - n_rows), (0, 0)))
+                n_blocks = np.pad(n_blocks, (0, bucket - n_rows))
+            blocks_t.append(blocks)
+            nblocks_t.append(n_blocks)
+            mb_t.append(mb)
+        return blocks_t, nblocks_t, mb_t
+
+    def _stream(self):
+        if self._compute_stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._compute_stream)
+
+    def _launch(self, staged: _Staged, states) -> _InFlight:
+        """Launch the kernels over a staged chunk (async) and enqueue
+        the D2H of its results; does not wait for them."""
+        from transferia_tpu_torch.predicate.device import pred3vl_mask
+
+        with self._stream():
+            stream = self._compute_stream
+            if stream is not None:
+                stream.wait_event(staged.h2d_done)
+                for t in _tensors(staged):
+                    t.record_stream(stream)
+            digests = [
+                hmac_device_core(b, nb, st[0], st[1], mb)
+                for b, nb, st, mb in zip(staged.blocks, staged.nblocks,
+                                         states, staged.max_blocks)
+            ]
+            keep = None
+            if self._pred is not None:
+                cols = [decode_pred_device(spec, arrs, staged.bucket)
+                        for spec, arrs in zip(staged.pred_specs,
+                                              staged.pred)]
+                keep = pred3vl_mask(self._pred, cols, staged.bucket,
+                                    staged.pack_keep, self.device)
+            done = None
+            if stream is not None:
+                digests = [_to_host(d) for d in digests]
+                keep = _to_host(keep) if keep is not None else None
+                done = torch.cuda.Event()
+                done.record(stream)
+        return _InFlight(digests, keep, staged.n_rows, staged.pack_keep,
+                         done, staged)
+
+    def _collect(self, inflight: _InFlight
+                 ) -> tuple[list[np.ndarray], Optional[np.ndarray]]:
+        """Wait for a launch's D2H, trim bucket padding, hex-expand."""
+        if inflight.done is not None:
+            inflight.done.synchronize()
+        n_rows = inflight.n_rows
+        # digests_to_hex and unpack_mask_host allocate fresh arrays, so
+        # nothing returned aliases a (reusable) pinned buffer
+        hexes = [digests_to_hex(d.numpy().view(np.uint32)[:n_rows])
+                 for d in inflight.digests]
+        keep = None
+        if inflight.keep is not None:
+            if inflight.pack_keep:
+                keep = unpack_mask_host(
+                    inflight.keep.numpy().view(np.uint32), n_rows)
+            else:
+                keep = inflight.keep.numpy()[:n_rows].copy()
+        return hexes, keep
+
+    def _run_single(self, mask_cols, pred_cols, n_rows, states):
+        staged = self._stage(mask_cols, pred_cols, n_rows,
+                             bucket_rows(n_rows))
+        return self._collect(self._launch(staged, states))
+
+    def _run_pipelined(self, mask_cols, pred_cols, n_rows, chunk, states,
+                       depth: Optional[int] = None):
+        """Split the batch into fixed-size chunks and keep `depth` launches
+        in flight, with one chunk's H2D always staged AHEAD of the
+        compute launches: stage(k+1) overlaps compute(k) and D2H(k-1)."""
+        if depth is None:
+            depth = _dispatch_depth()
+        staged_q: deque = deque()
+        inflight: deque = deque()
+        hex_parts: list[list[np.ndarray]] = []
+        keep_parts: list[np.ndarray] = []
+
+        def drain_one():
+            hexes, keep = self._collect(inflight.popleft())
+            hex_parts.append(hexes)
+            if keep is not None:
+                keep_parts.append(keep)
+
+        for lo in range(0, n_rows, chunk):
+            hi = min(lo + chunk, n_rows)
+            rows = hi - lo
+            sub_mask = []
+            for data, offsets in mask_cols:
+                base = int(offsets[lo])
+                sub_off = (offsets[lo:hi + 1] - base).astype(
+                    offsets.dtype, copy=False)
+                sub_mask.append((data[base:int(offsets[hi])], sub_off))
+            sub_pred = {
+                name: (data[lo:hi],
+                       validity[lo:hi] if validity is not None else None)
+                for name, (data, validity) in pred_cols.items()
+            }
+            staged_q.append(self._stage(sub_mask, sub_pred, rows,
+                                        bucket_rows(rows)))
+            # launch all but the freshest chunk: its H2D streams while
+            # the previous chunk's kernels run (double-buffered H2D)
+            while len(staged_q) > 1:
+                inflight.append(self._launch(staged_q.popleft(), states))
+            while len(inflight) > depth:
+                drain_one()
+        while staged_q:
+            inflight.append(self._launch(staged_q.popleft(), states))
+        while inflight:
+            drain_one()
+        hexes = [np.concatenate([p[i] for p in hex_parts])
+                 for i in range(len(mask_cols))]
+        keep = (np.concatenate(keep_parts) if self._pred is not None
+                else None)
+        return hexes, keep
+
+
+def _tensors(staged: _Staged):
+    """Every device tensor of a staged chunk."""
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, tuple):
+            for a in x:
+                yield from walk(a)
+
+    yield from walk((staged.blocks, staged.nblocks, staged.pred))

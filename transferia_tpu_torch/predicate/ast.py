@@ -1,0 +1,86 @@
+"""Predicate AST nodes (pkg/predicate/ast.go)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Union
+
+Literal = Union[int, float, str, bool, None]
+
+
+class Node:
+    """Base predicate node."""
+
+    def columns(self) -> set[str]:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class Cmp(Node):
+    """column <op> literal; op in = != < <= > >= ~ (LIKE)."""
+
+    column: str
+    op: str
+    value: Literal
+
+    def columns(self) -> set[str]:
+        return {self.column}
+
+
+@dataclass(frozen=True)
+class InList(Node):
+    column: str
+    values: tuple[Literal, ...]
+    negate: bool = False
+
+    def columns(self) -> set[str]:
+        return {self.column}
+
+
+@dataclass(frozen=True)
+class IsNull(Node):
+    column: str
+    negate: bool = False  # True => IS NOT NULL
+
+    def columns(self) -> set[str]:
+        return {self.column}
+
+
+@dataclass(frozen=True)
+class Between(Node):
+    column: str
+    low: Literal
+    high: Literal
+
+    def columns(self) -> set[str]:
+        return {self.column}
+
+
+@dataclass(frozen=True)
+class And(Node):
+    parts: tuple[Node, ...]
+
+    def columns(self) -> set[str]:
+        return set().union(*(p.columns() for p in self.parts))
+
+
+@dataclass(frozen=True)
+class Or(Node):
+    parts: tuple[Node, ...]
+
+    def columns(self) -> set[str]:
+        return set().union(*(p.columns() for p in self.parts))
+
+
+@dataclass(frozen=True)
+class Not(Node):
+    inner: Node
+
+    def columns(self) -> set[str]:
+        return self.inner.columns()
+
+
+@dataclass(frozen=True)
+class TrueNode(Node):
+    def columns(self) -> set[str]:
+        return set()

@@ -1,0 +1,196 @@
+"""Recursive-descent parser for WHERE-like predicates (pkg/predicate/parser.go).
+
+Grammar (case-insensitive keywords):
+
+    expr     := term (OR term)*
+    term     := factor (AND factor)*
+    factor   := NOT factor | '(' expr ')' | condition
+    condition:= ident op literal
+              | ident [NOT] IN '(' literal (',' literal)* ')'
+              | ident IS [NOT] NULL
+              | ident BETWEEN literal AND literal
+              | ident [NOT] LIKE string
+    op       := = | == | != | <> | < | <= | > | >=
+    literal  := number | 'string' | "string" | TRUE | FALSE | NULL
+    ident    := bare | "quoted" | `quoted`
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Optional
+
+from transferia_tpu_torch.predicate.ast import (
+    And, Between, Cmp, InList, IsNull, Node, Not, Or, TrueNode,
+)
+
+
+class ParseError(ValueError):
+    pass
+
+
+_TOKEN_RE = re.compile(
+    r"""\s*(?:
+        (?P<num>-?\d+\.\d+(?:[eE][+-]?\d+)?|-?\d+)
+      | (?P<str>'(?:[^'\\]|\\.)*'|"(?:[^"\\]|\\.)*")
+      | (?P<ident>[A-Za-z_][A-Za-z_0-9.]*|`[^`]+`)
+      | (?P<op><=|>=|!=|<>|==|=|<|>|~)
+      | (?P<punct>[(),])
+    )""",
+    re.VERBOSE,
+)
+
+_KEYWORDS = {"and", "or", "not", "in", "is", "null", "between", "like",
+             "true", "false"}
+
+
+class _Lexer:
+    def __init__(self, text: str):
+        self.text = text
+        self.pos = 0
+        self.tokens: list[tuple[str, Any]] = []
+        self._lex()
+        self.i = 0
+
+    def _lex(self):
+        pos = 0
+        while pos < len(self.text):
+            m = _TOKEN_RE.match(self.text, pos)
+            if not m:
+                rest = self.text[pos:].strip()
+                if not rest:
+                    break
+                raise ParseError(f"bad token at: {rest[:30]!r}")
+            pos = m.end()
+            if m.lastgroup == "num":
+                s = m.group("num")
+                self.tokens.append(("lit", float(s) if "." in s or "e" in s.lower() else int(s)))
+            elif m.lastgroup == "str":
+                raw = m.group("str")[1:-1]
+                self.tokens.append(("lit", re.sub(r"\\(.)", r"\1", raw)))
+            elif m.lastgroup == "ident":
+                word = m.group("ident")
+                if word.startswith("`"):
+                    self.tokens.append(("ident", word[1:-1]))
+                elif word.lower() in _KEYWORDS:
+                    self.tokens.append(("kw", word.lower()))
+                else:
+                    self.tokens.append(("ident", word))
+            elif m.lastgroup == "op":
+                self.tokens.append(("op", m.group("op")))
+            else:
+                self.tokens.append(("punct", m.group("punct")))
+
+    def peek(self) -> Optional[tuple[str, Any]]:
+        return self.tokens[self.i] if self.i < len(self.tokens) else None
+
+    def next(self) -> tuple[str, Any]:
+        t = self.peek()
+        if t is None:
+            raise ParseError("unexpected end of predicate")
+        self.i += 1
+        return t
+
+    def accept_kw(self, kw: str) -> bool:
+        t = self.peek()
+        if t is not None and t[0] == "kw" and t[1] == kw:
+            self.i += 1
+            return True
+        return False
+
+    def expect(self, kind: str, value: Any = None) -> Any:
+        t = self.next()
+        if t[0] != kind or (value is not None and t[1] != value):
+            raise ParseError(f"expected {value or kind}, got {t[1]!r}")
+        return t[1]
+
+
+def parse(text: str) -> Node:
+    """Parse a predicate string; empty string parses to TRUE."""
+    if not text or not text.strip():
+        return TrueNode()
+    lx = _Lexer(text)
+    node = _expr(lx)
+    if lx.peek() is not None:
+        raise ParseError(f"trailing tokens: {lx.peek()[1]!r}")
+    return node
+
+
+def _expr(lx: _Lexer) -> Node:
+    parts = [_term(lx)]
+    while lx.accept_kw("or"):
+        parts.append(_term(lx))
+    return parts[0] if len(parts) == 1 else Or(tuple(parts))
+
+
+def _term(lx: _Lexer) -> Node:
+    parts = [_factor(lx)]
+    while lx.accept_kw("and"):
+        parts.append(_factor(lx))
+    return parts[0] if len(parts) == 1 else And(tuple(parts))
+
+
+def _factor(lx: _Lexer) -> Node:
+    if lx.accept_kw("not"):
+        return Not(_factor(lx))
+    t = lx.peek()
+    if t is not None and t == ("punct", "("):
+        lx.next()
+        node = _expr(lx)
+        lx.expect("punct", ")")
+        return node
+    return _condition(lx)
+
+
+def _literal(lx: _Lexer) -> Any:
+    t = lx.next()
+    if t[0] == "lit":
+        return t[1]
+    if t[0] == "kw" and t[1] in ("true", "false"):
+        return t[1] == "true"
+    if t[0] == "kw" and t[1] == "null":
+        return None
+    raise ParseError(f"expected literal, got {t[1]!r}")
+
+
+def _condition(lx: _Lexer) -> Node:
+    col = lx.expect("ident")
+    t = lx.peek()
+    if t is None:
+        raise ParseError(f"dangling column {col!r}")
+    # IS [NOT] NULL
+    if lx.accept_kw("is"):
+        negate = lx.accept_kw("not")
+        if not lx.accept_kw("null"):
+            raise ParseError("expected NULL after IS")
+        return IsNull(col, negate=negate)
+    # [NOT] IN / [NOT] LIKE
+    negate = lx.accept_kw("not")
+    if lx.accept_kw("in"):
+        lx.expect("punct", "(")
+        vals = [_literal(lx)]
+        while True:
+            t = lx.next()
+            if t == ("punct", ")"):
+                break
+            if t != ("punct", ","):
+                raise ParseError(f"expected , or ) in IN list, got {t[1]!r}")
+            vals.append(_literal(lx))
+        return InList(col, tuple(vals), negate=negate)
+    if lx.accept_kw("like"):
+        pattern = _literal(lx)
+        node = Cmp(col, "~", pattern)
+        return Not(node) if negate else node
+    if negate:
+        raise ParseError("NOT must be followed by IN or LIKE")
+    if lx.accept_kw("between"):
+        low = _literal(lx)
+        if not lx.accept_kw("and"):
+            raise ParseError("expected AND in BETWEEN")
+        high = _literal(lx)
+        return Between(col, low, high)
+    t = lx.next()
+    if t[0] != "op":
+        raise ParseError(f"expected comparison operator, got {t[1]!r}")
+    op = {"==": "=", "<>": "!="}.get(t[1], t[1])
+    return Cmp(col, op, _literal(lx))

@@ -1,0 +1,41 @@
+"""The port's "weights": HMAC key states.
+
+The fused transform's only learned-free parameters are the per-key HMAC
+inner/outer states (one SHA-256 compression of key^ipad and key^opad).
+The JAX package keeps them as numpy uint32 arrays
+(``transferia_tpu.ops.sha256._hmac_key_states``); the port keeps them as
+(8,) int32 tensors on its device with the same bits.  `states_from_jax`
+converts the former into the latter, so tests can feed both packages
+identical key material, and `FusedMaskFilterProgram.run(states=...)`
+takes either kind.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import numpy as np
+import torch
+
+from transferia_tpu_torch.ops.sha256 import words_to_tensor
+from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+
+KeyState = tuple[torch.Tensor, torch.Tensor]
+
+
+def states_from_jax(inner: np.ndarray, outer: np.ndarray,
+                    device: DeviceLike = None) -> KeyState:
+    """JAX-package key states (numpy uint32, (8,) or (1, 8)) -> the
+    port's (inner, outer) int32 tensors on `device`."""
+    dev = resolve_device(device)
+    return (words_to_tensor(np.asarray(inner).reshape(8), dev),
+            words_to_tensor(np.asarray(outer).reshape(8), dev))
+
+
+def as_key_state(state: Union[KeyState, tuple[np.ndarray, np.ndarray]],
+                 device: torch.device) -> KeyState:
+    """Either kind of key state as the port's tensors on `device`."""
+    inner, outer = state
+    if isinstance(inner, torch.Tensor):
+        return inner.to(device), outer.to(device)
+    return states_from_jax(inner, outer, device)
