@@ -13,13 +13,26 @@ final line):
   3. main_path: 2,000,000 ClickBench-shaped rows (made as bench.py makes
      them, seed 42) through build_chain(...).apply in 131072-row batches
      with device placement and the default chunking; the output must be
-     byte-identical to the host strategy on the same batches, and every
-     kernel must have been launched;
-  4. timing: each kernel at the main path's chunk shapes, beside its
-     plain version, a PyTorch library call where one exists, and its
-     bound on an H100 (3.35 TB/s HBM, 67 T 32-bit ops/s).
-Any failure raises and exits non-zero.  Without CUDA it exits 2 and
-prints no result.
+     byte-identical to the host strategy on the same batches;
+  4. fingerprint_flat: the same rows through
+     TableFingerprinter(backend="device"); the digest must equal the
+     plain version's on the card, the digest of the rows cut into
+     100,003-row batches, and the digest with one batch permuted;
+  5. fingerprint_dict: bench.py measure_checksum_dict's shape (8 x
+     262,144 rows, seed 13, an int64 id and three dictionary columns over
+     4,096-value pools); the dict digest must equal the flat digest and
+     the plain version's, with no flat materialization, and
+     batch_row_keys on the card must equal the plain keys;
+  6. decode: bench.py measure_device_decode's shape (4,194,304 codes of
+     17 bits, a 131,072-entry int32 pool, seed 13); the output must equal
+     pool[codes], and a 64-iteration decode_dict_loop its plain version;
+  7. timing: each kernel at its path's shapes, beside its plain version,
+     a PyTorch library call where one exists, and its bound on an H100
+     (3.35 TB/s HBM, 67 T 32-bit ops/s).
+Each path names the kernels it must launch (PATH_KERNELS); the launch
+counts are zeroed just before the path runs and read just after it, and
+a kernel of the path that never launched fails the run.  Any failure
+raises and exits non-zero.  Without CUDA it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -36,12 +49,26 @@ import numpy as np
 import torch
 
 from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
-from transferia_tpu_torch.columnar.batch import Column, ColumnBatch
+from transferia_tpu_torch.columnar.batch import (
+    Column,
+    ColumnBatch,
+    DictEnc,
+    DictPool,
+    _offsets_from_lengths,
+    flat_materializations,
+    reset_flat_materializations,
+)
 from transferia_tpu_torch.ops import _build
+from transferia_tpu_torch.ops import rowhash
 from transferia_tpu_torch.ops.decode import (
     MODE_BITS,
     MODE_DELTA,
     MODE_FOR,
+    MODE_UNPACK,
+    decode_dict_loop,
+    decode_dict_loop_plain,
+    decode_dict_run,
+    decode_dict_run_plain,
     pack_mask_words,
     pred_decode,
     pred_decode_plain,
@@ -92,11 +119,55 @@ KERNEL_META = {
                     "transferia_tpu/ops/decode.py:142"),
     "pred3vl_mask": ("transferia_tpu_torch/csrc/pred3vl_mask.cu",
                      "transferia_tpu/predicate/device.py:131"),
+    "rowhash_lanes": ("transferia_tpu_torch/csrc/rowhash.cu",
+                      "transferia_tpu/ops/rowhash.py:520"),
+    "var_accumulators": ("transferia_tpu_torch/csrc/rowhash.cu",
+                         "transferia_tpu/ops/rowhash.py:562"),
+    "dict_decode": ("transferia_tpu_torch/csrc/pred_decode.cu",
+                    "transferia_tpu/ops/decode.py:44"),
 }
+# the kernels each path must launch, and the path whose launches and
+# shapes a kernel's line in the kernels JSON reports
+PATH_KERNELS = {
+    "main_path": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
+    "fingerprint_flat": ("rowhash_lanes",),
+    "fingerprint_dict": ("rowhash_lanes", "var_accumulators"),
+    "decode": ("dict_decode",),
+}
+# the first path that lists a kernel reports it
+KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
+FP_CUT_ROWS = 100_003
+DICT_ROWS, DICT_BATCHES, DICT_UNIQUES = 262_144, 8, 4096  # bench.py
+DICT_COLUMNS = ("URL", "Referer", "SearchPhrase")
+DECODE_ROWS, DECODE_BITS, DECODE_ITERS = 1 << 22, 17, 64  # bench.py
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class PathLaunches:
+    """Zero the launch counts, run a path, read them; fail when a kernel
+    of the path never launched."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.counts: dict[str, int] = {}
+
+    def __enter__(self):
+        _build.reset_launch_counts()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.counts = _build.launch_counts()
+        if exc_type is not None:
+            return False
+        missing = [k for k in PATH_KERNELS[self.path]
+                   if self.counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the "
+                                 f"{self.path} path: {missing}")
+        return False
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -266,6 +337,141 @@ def check_pred3vl_mask(dev: torch.device) -> int:
     return err
 
 
+def staged(batch: ColumnBatch, dev) -> tuple[list, int]:
+    """A batch's canonical columns on the card (pool accumulators by
+    kernel K10)."""
+    cols, n = rowhash.prep_batch(batch, dev)
+    on_card = rowhash._stage(cols, dev)
+    torch.cuda.synchronize(dev)
+    return on_card, n
+
+
+def lane_check_batch(n: int) -> ColumnBatch:
+    """Every canonical kind K10 must hash alike: integers of each width
+    (full range), uint64, float32/64 with +-0.0 and NaNs, bool, date;
+    strings with nulls, empties, the 64-byte block boundaries and one
+    row over 1 KB; dict columns with a null sentinel."""
+    rng = np.random.default_rng(10)
+    kinds = [("i8", "int8", np.int8), ("i16", "int16", np.int16),
+             ("i32", "int32", np.int32), ("i64", "int64", np.int64),
+             ("u64", "uint64", np.uint64), ("date", "date", np.int32)]
+    spec, cols = [], {}
+    for name, ctype, dt in kinds:
+        info = np.iinfo(dt)
+        data = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+        spec.append((name, ctype))
+        cols[name] = (data, None, rng.random(n) > 0.2)
+    edges = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, 1.5,
+                      np.uint64(0xFFF8000000000123).view(np.float64)])
+    for name, ctype, dt in (("f32", "float", np.float32),
+                            ("f64", "double", np.float64)):
+        with np.errstate(invalid="ignore"):
+            data = rng.choice(edges, n).astype(dt)
+        spec.append((name, ctype))
+        cols[name] = (data, None, rng.random(n) > 0.1)
+    spec.append(("b", "boolean"))
+    cols["b"] = (rng.integers(0, 2, n).astype(np.bool_), None, None)
+    lens = rng.choice([0, 1, 55, 56, 63, 64, 119, 120], n)
+    lens[7] = 1500
+    strs = [rng.integers(0, 256, ln, dtype=np.uint8).tobytes() for ln in lens]
+    spec.append(("s", "string"))
+    cols["s"] = (*_flat_bytes(strs), rng.random(n) > 0.2)
+    schema = new_table_schema(spec + [(c, "utf8") for c in ("d1", "d2")])
+    out = {cs.name: Column(cs.name, cs.data_type, *cols[cs.name])
+           for cs in schema if cs.name in cols}
+    values = [b"", b"x" * 55, b"y" * 56, b"z" * 64, b"w" * 1100, b"v"]
+    pool = DictPool(*_flat_bytes(values + [b""]), null_code=len(values))
+    for name in ("d1", "d2"):
+        valid = rng.random(n) > 0.3
+        codes = np.where(valid, rng.integers(0, len(values), n),
+                         pool.null_code).astype(np.int32)
+        out[name] = Column(name, schema.find(name).data_type,
+                           validity=valid, dict_enc=DictEnc(codes, pool=pool))
+    return ColumnBatch(TableID("", "lanes"), schema, out)
+
+
+def _flat_bytes(values: list) -> tuple[np.ndarray, np.ndarray]:
+    data = np.frombuffer(b"".join(values), dtype=np.uint8).copy()
+    return data, _offsets_from_lengths([len(v) for v in values])
+
+
+def check_rowhash_lanes(dev: torch.device) -> int:
+    err = 0
+    for n in (3 * 1024 + 17, 100):
+        batch = lane_check_batch(n)
+        cols, n = staged(batch, dev)
+        r1, r2 = rowhash.rowhash_lanes(cols, n)
+        p1, p2 = rowhash.rowhash_lanes_plain(cols, n)
+        err = max(err, require_equal(r1, rowhash._to_i32(p1), "lanes r1"),
+                  require_equal(r2, rowhash._to_i32(p2), "lanes r2"))
+        acc = torch.zeros(4, dtype=torch.int32, device=dev)
+        rowhash.rowhash_lanes(cols, n, acc)
+        want = rowhash.fingerprint_host(cols, n)
+        got = rowhash.FingerprintAggregate.from_acc(acc, n)
+        if got != want:
+            raise AssertionError(f"rowhash_lanes reduce {got.digest()} != "
+                                 f"plain {want.digest()}")
+        host = rowhash.fingerprint_host(*rowhash.prep_batch(batch))
+        if host != want:
+            raise AssertionError("rowhash plain on the card differs from "
+                                 "the plain version on the CPU")
+    return err
+
+
+def check_var_accumulators(dev: torch.device) -> int:
+    rng = np.random.default_rng(11)
+    lens = list(rng.choice([0, 1, 55, 56, 63, 64, 119, 120, 300], 5000))
+    lens += [1500, 0]
+    values = [rng.integers(0, 256, ln, dtype=np.uint8).tobytes()
+              for ln in lens]
+    data, offsets = _flat_bytes(values)
+    d = torch.from_numpy(data).to(dev)
+    o = torch.from_numpy(offsets).to(dev)
+    got = rowhash.var_accumulators(d, o)
+    want = rowhash._var_accs_host(d, o)
+    err = max(require_equal(got[0], want[0], "var_accumulators lane 1"),
+              require_equal(got[1], want[1], "var_accumulators lane 2"))
+    # offsets past the bytes: the kernel clamps each row to the buffer
+    bad = torch.tensor([0, 2, 1 << 20], dtype=torch.int32, device=dev)
+    got = rowhash.var_accumulators(d[:5].clone(), bad)
+    want = rowhash._var_accs_host(d[:5].clone(), torch.tensor(
+        [0, 2, 5], dtype=torch.int32, device=dev))
+    return max(err, require_equal(got[0], want[0], "clamped row lane 1"),
+               require_equal(got[1], want[1], "clamped row lane 2"))
+
+
+def packed_codes(codes: np.ndarray, bw: int, dev) -> torch.Tensor:
+    return torch.from_numpy(
+        pack_bits_host(codes, bw).view(np.int32).copy()).to(dev)
+
+
+def check_dict_decode(dev: torch.device) -> int:
+    rng = np.random.default_rng(12)
+    err = 0
+    k = 1000
+    pool = torch.from_numpy(
+        rng.integers(-2**31, 2**31, k).astype(np.int32)).to(dev)
+    n = 100_003
+    for bw in (1, 7, 17, 31, 32):
+        hi = 1 << bw
+        codes = rng.integers(0, min(hi, k + k // 8), n, dtype=np.uint64)
+        if bw == 32:
+            codes[::5] = rng.integers(2**31, 2**32, len(codes[::5]),
+                                      dtype=np.uint64)
+        w = packed_codes(codes, bw, dev)
+        err = max(err, require_equal(
+            decode_dict_run(w, pool, bw, n),
+            decode_dict_run_plain(w, pool, bw, n), f"dict_decode bw={bw}"))
+        err = max(err, require_equal(
+            pred_decode(MODE_UNPACK, w, n, bw),
+            pred_decode_plain(MODE_UNPACK, w, n, bw), f"unpack bw={bw}"))
+        err = max(err, require_equal(
+            decode_dict_loop(w, pool, bw, n, 3),
+            decode_dict_loop_plain(w, pool, bw, n, 3),
+            f"dict_decode loop bw={bw}"))
+    return err
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def _flat(strings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -273,7 +479,7 @@ def _flat(strings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     bufs = [s.encode() for s in strings.tolist()]
     offsets = np.zeros(len(bufs) + 1, dtype=np.int64)
     np.cumsum([len(b) for b in bufs], out=offsets[1:])
-    return (np.frombuffer(b"".join(bufs), dtype=np.uint8),
+    return (np.frombuffer(b"".join(bufs), dtype=np.uint8).copy(),
             offsets.astype(np.int32))
 
 
@@ -315,11 +521,12 @@ def clickbench_rows(n: int):
     return schema, fixed, var
 
 
-def clickbench_batches(schema, fixed, var, n: int) -> list[ColumnBatch]:
+def clickbench_batches(schema, fixed, var, n: int,
+                       batch_rows: int = BATCH_ROWS) -> list[ColumnBatch]:
     tid = TableID("", "hits")
     out = []
-    for lo in range(0, n, BATCH_ROWS):
-        hi = min(lo + BATCH_ROWS, n)
+    for lo in range(0, n, batch_rows):
+        hi = min(lo + batch_rows, n)
         cols = {}
         for cs in schema:
             if cs.name in fixed:
@@ -365,7 +572,178 @@ def batches_identical(a: ColumnBatch, b: ColumnBatch) -> bool:
     return True
 
 
-# -- phase 4: timing ------------------------------------------------------------
+# -- phases 4-6: the fingerprint and decode paths -----------------------------
+
+def device_digest(batches, dev) -> tuple[str, float]:
+    """TableFingerprinter(backend="device") over the batches: digest and
+    seconds (the result waits for the card)."""
+    t0 = time.perf_counter()
+    fp = rowhash.TableFingerprinter(backend="device", device=dev)
+    for b in batches:
+        fp.push(b)
+    digest = fp.result().digest()
+    return digest, time.perf_counter() - t0
+
+
+def breakdown(batches, dev) -> dict:
+    """Where the device path's host time goes, batch by batch as the
+    path runs them: canonicalizing (prep_batch) and staging on the card
+    (one pinned copy, waited for here), each batch's buffers released
+    before the next as in the path."""
+    prep_s = stage_s = 0.0
+    for b in batches:
+        t0 = time.perf_counter()
+        cols, _ = rowhash.prep_batch(b, dev)
+        t1 = time.perf_counter()
+        held = rowhash._stage(cols, dev)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        prep_s += t1 - t0
+        stage_s += t2 - t1
+        del cols, held
+    return {"prep_seconds": prep_s, "stage_seconds": stage_s}
+
+
+def plain_digest(batches, dev) -> str:
+    """The plain version on the card over the same batches."""
+    agg = rowhash.FingerprintAggregate()
+    for b in batches:
+        agg.merge(rowhash.fingerprint_host(*staged(b, dev)))
+    return agg.digest()
+
+
+def check_keys(batch: ColumnBatch, dev, what: str) -> None:
+    got = rowhash.batch_row_keys(batch, backend="device", device=dev)
+    r1, r2 = rowhash.rowhash_lanes_plain(*staged(batch, dev))
+    want = ((r1.cpu().numpy().astype(np.uint64) << np.uint64(32))
+            | r2.cpu().numpy().astype(np.uint64))
+    if not np.array_equal(got, want):
+        raise AssertionError(f"batch_row_keys on the card differ from the "
+                             f"plain version ({what})")
+
+
+def fingerprint_flat(batches, schema, fixed, var, dev) -> dict:
+    with PathLaunches("fingerprint_flat") as launches:
+        digest, cold_s = device_digest(batches, dev)
+    _, seconds = device_digest(batches, dev)
+    plain = plain_digest(batches, dev)
+    cut, _ = device_digest(clickbench_batches(schema, fixed, var, ROWS,
+                                              FP_CUT_ROWS), dev)
+    permuted = list(batches)
+    perm = np.random.default_rng(1).permutation(permuted[3].n_rows)
+    permuted[3] = permuted[3].take(perm)
+    shuffled, _ = device_digest(permuted, dev)
+    for name, other in (("plain", plain), ("cut", cut),
+                        ("permuted", shuffled)):
+        if other != digest:
+            raise AssertionError(f"fingerprint_flat: {name} digest {other} "
+                                 f"!= device digest {digest}")
+    check_keys(batches[0], dev, "ClickBench batch")
+    return dict(rows=ROWS, batch_rows=BATCH_ROWS, digest=digest,
+                cold_seconds=cold_s, device_seconds=seconds,
+                device_rows_per_s=ROWS / seconds,
+                **breakdown(batches, dev), launches=launches.counts,
+                equal_to=["plain", "cut", "permuted"])
+
+
+def dict_batches(flat: bool) -> list[ColumnBatch]:
+    """bench.py measure_checksum_dict's batches, uncut."""
+    schema = new_table_schema(
+        [("id", "int64", True)] + [(c, "utf8") for c in DICT_COLUMNS])
+    rng = np.random.default_rng(13)
+    pools = {}
+    for ci, cname in enumerate(DICT_COLUMNS):
+        vals = [f"https://bench{ci}-{i}.example/path/{i % 97}/{i}".encode()
+                for i in range(DICT_UNIQUES)]
+        pools[cname] = DictPool(*_flat_bytes(vals + [b""]),
+                                null_code=DICT_UNIQUES)
+    out = []
+    for i in range(DICT_BATCHES):
+        ids = np.arange(i * DICT_ROWS, (i + 1) * DICT_ROWS, dtype=np.int64)
+        codes = {c: rng.integers(0, DICT_UNIQUES, DICT_ROWS).astype(np.int32)
+                 for c in DICT_COLUMNS}
+        cols = {"id": Column("id", schema.find("id").data_type, ids)}
+        for c in DICT_COLUMNS:
+            enc = DictEnc(codes[c], pool=pools[c])
+            ct = schema.find(c).data_type
+            cols[c] = (Column(c, ct, *enc.materialize()) if flat
+                       else Column(c, ct, dict_enc=enc))
+        out.append(ColumnBatch(TableID("bench", "checksum_dict"), schema,
+                               cols))
+    return out
+
+
+def fingerprint_dict(dev) -> dict:
+    rows = DICT_ROWS * DICT_BATCHES
+    encoded = dict_batches(flat=False)
+    flat = dict_batches(flat=True)
+    reset_flat_materializations()
+    with PathLaunches("fingerprint_dict") as launches:
+        digest, dict_cold_s = device_digest(encoded, dev)
+    _, dict_s = device_digest(encoded, dev)
+    dict_parts = breakdown(encoded, dev)
+    materialized = flat_materializations()
+    if materialized:
+        raise AssertionError(f"fingerprint_dict flattened {materialized} "
+                             "dictionary columns")
+    flat_digest, flat_cold_s = device_digest(flat, dev)
+    _, flat_s = device_digest(flat, dev)
+    flat_parts = breakdown(flat, dev)
+    plain = plain_digest(flat, dev)
+    if not digest == flat_digest == plain:
+        raise AssertionError(f"fingerprint_dict: dict {digest}, flat "
+                             f"{flat_digest}, plain {plain}")
+    check_keys(encoded[0], dev, "dict batch")
+    if flat_materializations():
+        raise AssertionError("keys of a dict batch flattened it")
+    return dict(rows=rows, batch_rows=DICT_ROWS, pool_values=DICT_UNIQUES,
+                digest=digest, flat_materializations=materialized,
+                dict_cold_seconds=dict_cold_s, dict_seconds=dict_s,
+                dict_rows_per_s=rows / dict_s,
+                dict_breakdown=dict_parts, flat_cold_seconds=flat_cold_s,
+                flat_seconds=flat_s, flat_rows_per_s=rows / flat_s,
+                flat_breakdown=flat_parts,
+                launches=launches.counts,
+                equal_to=["flat", "plain"])
+
+
+def decode_inputs(dev):
+    """bench.py measure_device_decode's words, pool and codes."""
+    rng = np.random.default_rng(13)
+    n_pool = 1 << DECODE_BITS
+    pool = rng.integers(-10**9, 10**9, n_pool).astype(np.int32)
+    codes = rng.integers(0, n_pool, DECODE_ROWS, dtype=np.uint64)
+    return (packed_codes(codes, DECODE_BITS, dev),
+            torch.from_numpy(pool).to(dev),
+            torch.from_numpy(codes.astype(np.int32)).to(dev))
+
+
+def decode_path(dev) -> dict:
+    words, pool, codes = decode_inputs(dev)
+    torch.cuda.synchronize(dev)
+    with PathLaunches("decode") as launches:
+        out = decode_dict_run(words, pool, DECODE_BITS, DECODE_ROWS)
+        decode_dict_loop(words, pool, DECODE_BITS, DECODE_ROWS, 1)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        carry = decode_dict_loop(words, pool, DECODE_BITS, DECODE_ROWS,
+                                 DECODE_ITERS)
+        carry = int(carry)  # waits for the card
+        seconds = time.perf_counter() - t0
+    require_equal(out, pool[codes.to(torch.int64)], "decode vs pool[codes]")
+    want = int(decode_dict_loop_plain(words, pool, DECODE_BITS, DECODE_ROWS,
+                                      DECODE_ITERS))
+    if carry != want:
+        raise AssertionError(f"decode_dict_loop carry {carry} != plain "
+                             f"{want}")
+    return dict(rows=DECODE_ROWS, bit_width=DECODE_BITS,
+                pool_entries=int(pool.numel()), loop_iters=DECODE_ITERS,
+                loop_seconds=seconds,
+                sustained_rows_per_s=DECODE_ROWS * DECODE_ITERS / seconds,
+                launches=launches.counts, equal_to=["pool[codes]", "plain"])
+
+
+# -- phase 7: timing ------------------------------------------------------------
 
 def kernel_ms(fn, dev, iters: int = 20, reps: int = 5) -> float:
     """Median device time of one call: a sleep kernel holds the stream
@@ -462,6 +840,8 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
               + chunk // 8, 4 * len(program.instrs) * chunk))
 
     out = {}
+    calls.update(fingerprint_calls(batch, dev))
+    calls.update(decode_calls(dev))
     for name, (kernel, plain, library, (bound_ms, bound_by)) in calls.items():
         out[name] = dict(
             max_abs_err=require_equal(kernel(), plain(), f"{name} at the "
@@ -470,6 +850,77 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
             library_ms=kernel_ms(library, dev) if library else None,
             bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def lane_work(batch: ColumnBatch, cols, n) -> tuple[int, int]:
+    """(bytes, 32-bit operations) of one K10 reduce launch, from the
+    code.  Bytes: each of the batch's column buffers read once at its own
+    width (a fixed column's dtype, var bytes and offsets, dict codes and
+    the pool's accumulators, validity), 16 bytes written; the 8-byte
+    canonical fixed values that prep_batch makes are the port's choice,
+    not work the function needs.  Operations, per row and column, both
+    lanes: fixed 72 (four mixes of 8, the xors and adds), dict 40, var 6
+    per byte plus ~130 for the terminator, the length bytes and the
+    mixes; per row 16 for the final mixes and 4 for the reduction."""
+    n_bytes, ops = 16, 20 * n
+    for c in cols:
+        col = batch.column(c.name)
+        if col.validity is not None:
+            n_bytes += np.asarray(col.validity).nbytes
+        if c.kind == "fixed":
+            n_bytes += np.asarray(col.data).nbytes
+            ops += 72 * n
+        elif c.kind == "dict":
+            n_bytes += 4 * n + 8 * c.acc1.numel()
+            ops += 40 * n
+        else:
+            n_bytes += np.asarray(col.data).nbytes + 4 * (n + 1)
+            ops += 6 * c.data.numel() + 130 * n
+    return n_bytes, ops
+
+
+def fingerprint_calls(batch: ColumnBatch, dev) -> dict:
+    """K10 at the fingerprint paths' shapes: one ClickBench batch in
+    reduce mode, and one 4,096-value pool's accumulators."""
+    cols, n = staged(batch, dev)
+    acc = torch.zeros(4, dtype=torch.int32, device=dev)
+    plain_acc = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def kernel():
+        acc.zero_()
+        rowhash.rowhash_lanes(cols, n, acc)
+        return acc
+
+    def plain():
+        plain_acc.zero_()
+        rowhash._reduce_into(plain_acc, *rowhash.rowhash_lanes_plain(cols, n))
+        return plain_acc
+
+    pool = dict_batches(flat=False)[0].column("URL").dict_enc.pool
+    data = torch.from_numpy(pool.values_data).to(dev)
+    offsets = torch.from_numpy(pool.values_offsets).to(dev)
+    k = offsets.numel() - 1
+    return {
+        "rowhash_lanes": (kernel, plain, None, bound(*lane_work(batch, cols, n))),
+        "var_accumulators": (
+            lambda: torch.stack(rowhash.var_accumulators(data, offsets)),
+            lambda: torch.stack(rowhash._var_accs_host(data, offsets)),
+            None,
+            bound(data.numel() + 4 * (k + 1) + 8 * k,
+                  6 * data.numel() + 130 * k)),
+    }
+
+
+def decode_calls(dev) -> dict:
+    """K11 at the decode path's shape."""
+    words, pool, codes = decode_inputs(dev)
+    n = DECODE_ROWS
+    return {"dict_decode": (
+        lambda: decode_dict_run(words, pool, DECODE_BITS, n),
+        lambda: decode_dict_run_plain(words, pool, DECODE_BITS, n),
+        lambda: torch.index_select(pool, 0, codes),
+        # ~12 operations per value: unpack, clamp, gather address
+        bound(words.numel() * 4 + pool.numel() * 4 + 4 * n, 12 * n))}
 
 
 def main() -> int:
@@ -485,7 +936,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     card = f"{torch.cuda.get_device_name(dev)} ({smi})"
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     builds = _build.build_all()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "card": smi, "libraries": {
@@ -496,7 +947,10 @@ def main() -> int:
 
     errs = {"sha256_hmac": check_sha256_hmac(dev),
             "pred_decode": check_pred_decode(dev),
-            "pred3vl_mask": check_pred3vl_mask(dev)}
+            "pred3vl_mask": check_pred3vl_mask(dev),
+            "rowhash_lanes": check_rowhash_lanes(dev),
+            "var_accumulators": check_var_accumulators(dev),
+            "dict_decode": check_dict_decode(dev)}
     torch.cuda.synchronize(dev)
     emit({"phase": "kernels", "check": "exact", "max_abs_err": errs})
 
@@ -506,16 +960,14 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     link = probe_link(dev)
     chunk = _chunk_rows(dev)
-    _build.reset_launch_counts()
-    dev_outs, dev_s, steps = run_chain(batches, "device", dev)
-    launches = _build.launch_counts()
+    phase_s = {}
+    t_phase = time.perf_counter()
+    with PathLaunches("main_path") as main_launches:
+        dev_outs, dev_s, steps = run_chain(batches, "device", dev)
+    launches = {"main_path": main_launches.counts}
     if len(steps) != 1 or not isinstance(steps[0], DeviceFusedStep):
         raise AssertionError(f"main path planned {steps}, not one "
                              "DeviceFusedStep")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
     host_outs, host_s, _ = run_chain(batches, "host", dev)
     kept = sum(b.n_rows for b in dev_outs)
     want = int(((fixed["RegionID"] < 400)
@@ -528,23 +980,44 @@ def main() -> int:
                                  "the host strategy")
     emit({"phase": "main_path", "card": card, "rows": ROWS,
           "batch_rows": BATCH_ROWS, "chunk_rows": chunk,
-          "kept": kept, "launches": launches,
+          "kept": kept, "launches": launches["main_path"],
           "device_seconds": dev_s, "device_rows_per_s": ROWS / dev_s,
           "host_seconds": host_s, "host_rows_per_s": ROWS / host_s,
           "data_gen_seconds": gen_s, "link": link.describe(),
           "identical_to_host": True})
+    phase_s["main_path"] = time.perf_counter() - t_phase
 
+    for path, run in (
+            ("fingerprint_flat",
+             lambda: fingerprint_flat(batches, schema, fixed, var, dev)),
+            ("fingerprint_dict", lambda: fingerprint_dict(dev)),
+            ("decode", lambda: decode_path(dev))):
+        t_phase = time.perf_counter()
+        result = run()
+        phase_s[path] = time.perf_counter() - t_phase
+        launches[path] = result["launches"]
+        emit({"phase": path, "card": card, **result,
+              "phase_seconds": phase_s[path]})
+
+    t_phase = time.perf_counter()
     timing = time_kernels(batches[0], chunk or 32768, dev)
+    phase_s["timing"] = time.perf_counter() - t_phase
     kernels = []
     for name, t in timing.items():
         source, replaces = KERNEL_META[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[KERNEL_PATH[name]][name],
+            "path": KERNEL_PATH[name],
+            "launches_by_path": {p: c[name] for p, c in launches.items()
+                                 if c[name]},
             **t, "max_abs_err": max(errs[name], t["max_abs_err"]),
             "check": "exact",
         })
-    emit({"phase": "timing", "card": card, "shape_rows": chunk or 32768})
+    emit({"phase": "timing", "card": card, "shape_rows": chunk or 32768,
+          "phase_seconds": phase_s,
+          "total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

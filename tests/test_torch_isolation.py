@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no JAX package, no pyarrow, no silent CPU.
 
 A fresh interpreter imports transferia_tpu_torch and runs the fused
-chain on the CPU; afterwards neither jax, pyarrow, transferia_tpu nor
-any transferia_tpu.* module may be loaded.  And without CUDA, an entry
-point that was not asked for the CPU raises instead of running there.
+chain and a table fingerprint on the CPU; afterwards neither jax,
+pyarrow, transferia_tpu nor any transferia_tpu.* module may be loaded.
+And without CUDA, an entry point that was not asked for the CPU raises
+instead of running there.
 """
 
 import os
@@ -17,6 +18,11 @@ import torch
 from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.ops.fused import FusedMaskFilterProgram
+from transferia_tpu_torch.ops.rowhash import (
+    DeviceFingerprintProgram,
+    TableFingerprinter,
+    batch_row_keys,
+)
 from transferia_tpu_torch.runtime.device import resolve_device
 from transferia_tpu_torch.transform import build_chain
 from transferia_tpu_torch.transform.fused import set_placement
@@ -35,6 +41,8 @@ from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.transform import build_chain
 from transferia_tpu_torch.transform.fused import DeviceFusedStep, set_placement
+from transferia_tpu_torch.ops.decode import decode_dict_run
+from transferia_tpu_torch.ops.rowhash import TableFingerprinter, batch_row_keys
 import transferia_tpu_torch.ops.linkprobe, transferia_tpu_torch.weights  # noqa
 
 schema = new_table_schema([("url", "utf8"), ("region", "int32")])
@@ -46,6 +54,14 @@ out = chain.apply(batch)
 step = chain.plan_for(batch.table_id, batch.schema).steps[0]
 assert isinstance(step, DeviceFusedStep), step
 assert out.n_rows == 100, out.n_rows
+fp = TableFingerprinter(backend="device", device="cpu")
+fp.push(batch)
+assert fp.result().count == 300
+assert len(batch_row_keys(batch, backend="device", device="cpu")) == 300
+import torch
+codes = torch.tensor([0b1011], dtype=torch.int32)
+pool = torch.tensor([7, 8], dtype=torch.int32)
+assert decode_dict_run(codes, pool, 1, 4).tolist() == [8, 8, 7, 8]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "transferia_tpu"))
@@ -83,6 +99,26 @@ def test_no_silent_cpu_fallback(device, monkeypatch):
             chain.apply(small_batch())
     finally:
         set_placement(None)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_fingerprint_needs_a_card_or_the_cpu(device, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TableFingerprinter(device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TableFingerprinter(backend="device", device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceFingerprintProgram(device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_row_keys(small_batch(), backend="device", device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_row_keys(small_batch(), device=device)
+    if device is None:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            batch_row_keys(small_batch())
+    keys = batch_row_keys(small_batch(), backend="device", device="cpu")
+    assert keys.shape == (2,)
 
 
 def test_explicit_cpu_runs_plain_versions():

@@ -1,15 +1,20 @@
-"""ColumnBatch: Arrow-style columnar block (the port's copy of the slice's part).
+"""ColumnBatch: Arrow-style columnar block (the port's copy of what it uses).
 
 Copied from ``transferia_tpu/columnar/batch.py`` down to what the fused
-mask+filter path uses: flat columns, the row-count buckets and the
-offsets guard.  Dictionary encodings (`DictEnc`/`DictPool`), Arrow interop
-and `ChangeItem` rows are not ported yet (ROADMAP.md).
+mask+filter path and the table fingerprint use: flat columns, dictionary
+encodings (`DictPool` with its memo, `DictEnc`, lazy dict columns), the
+row-count buckets and the offsets guard.  Pool interning (`intern_pool`),
+Arrow interop and `ChangeItem` rows are not ported yet (ROADMAP.md).
 
 - Fixed-width canonical types map 1:1 to numpy dtypes
   (`CanonicalType.np_dtype`).
 - Variable-width types (string/utf8/any/decimal) are a flat uint8 byte
   buffer plus (n_rows+1) int32 offsets.
 - NULLs are a boolean validity array (True = valid), matching Arrow.
+- A dictionary-encoded column keeps int32 codes into a shared `DictPool`;
+  its flat (data, offsets) materialize only when a consumer asks, and
+  every such flattening is counted (`flat_materializations`): the
+  code-native paths (the fingerprint) must keep that count at 0.
 - `bucket_rows` pads batches to a few standard sizes, so the device
   program sees a handful of shapes instead of one per batch.
 """
@@ -17,6 +22,7 @@ and `ChangeItem` rows are not ported yet (ROADMAP.md).
 from __future__ import annotations
 
 import json
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -77,6 +83,89 @@ def _contiguous_span(indices) -> Optional[tuple[int, int]]:
     return lo, hi
 
 
+def _gather_fixed(data: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Fixed-width gather (numpy semantics: out-of-range raises)."""
+    return data[indices]
+
+
+_materialize_lock = threading.Lock()
+_materializations = 0
+
+
+def flat_materializations() -> int:
+    """How many dictionary columns were flattened since the last reset
+    (the counterpart of the JAX package's dict_flat_materializations)."""
+    return _materializations
+
+
+def reset_flat_materializations() -> None:
+    global _materializations
+    with _materialize_lock:
+        _materializations = 0
+
+
+def _count_materialization() -> None:
+    global _materializations
+    with _materialize_lock:
+        _materializations += 1
+
+
+class DictPool:
+    """The value pool of a dictionary encoding, shareable across batches.
+
+    values_data/values_offsets: the pool as flat uint8 bytes + (k+1) int32.
+    null_code: index of the designated empty-bytes sentinel entry, if one
+    was appended (nulls materialize as empty bytes, the canonical null
+    representation of the flat path).
+    memos: per-pool computation cache (e.g. the fingerprint's per-entry
+    accumulators): a pool shared by many batches is hashed once.
+    """
+
+    __slots__ = ("values_data", "values_offsets", "null_code", "_memos")
+
+    def __init__(self, values_data: np.ndarray, values_offsets: np.ndarray,
+                 null_code: Optional[int] = None):
+        self.values_data = values_data
+        self.values_offsets = values_offsets
+        self.null_code = null_code
+        self._memos: dict = {}
+
+    @property
+    def n_values(self) -> int:
+        return len(self.values_offsets) - 1
+
+    def value_bytes(self, code: int) -> bytes:
+        return bytes(self.values_data[
+            self.values_offsets[code]:self.values_offsets[code + 1]])
+
+    def memo_get(self, key):
+        return self._memos.get(key)
+
+    def memo_set(self, key, value) -> None:
+        self._memos[key] = value
+
+
+class DictEnc:
+    """Dictionary encoding of a variable-width column.
+
+    indices: (n,) int32 codes into the shared value pool.  Flat (data,
+    offsets) materialize lazily the first time a consumer asks, so
+    correctness never depends on a consumer knowing the encoding.
+    """
+
+    __slots__ = ("indices", "pool")
+
+    def __init__(self, indices: np.ndarray, pool: DictPool):
+        self.indices = indices
+        self.pool = pool
+
+    def materialize(self) -> tuple[np.ndarray, np.ndarray]:
+        """Flatten to (data, offsets): a gather of the pool by codes."""
+        return _gather_varwidth(self.pool.values_data,
+                                self.pool.values_offsets,
+                                self.indices.astype(np.int64))
+
+
 def bucket_rows(n: int) -> int:
     """Smallest standard bucket >= n."""
     for b in _BUCKETS:
@@ -94,27 +183,67 @@ class Column:
           variable-width -> (total_bytes,) uint8 buffer
     offsets: (n+1,) int32 — only for variable-width columns
     validity: (n,) bool (True = present) or None meaning all-valid
+    dict_enc: optional dictionary encoding (var-width only); when set with
+          data=None the flat buffers materialize lazily on first access
     """
 
-    __slots__ = ("name", "ctype", "data", "offsets", "validity")
+    __slots__ = ("name", "ctype", "_data", "_offsets", "validity",
+                 "dict_enc")
 
     def __init__(self, name: str, ctype: CanonicalType,
-                 data: np.ndarray,
+                 data: Optional[np.ndarray] = None,
                  offsets: Optional[np.ndarray] = None,
-                 validity: Optional[np.ndarray] = None):
-        if ctype.is_variable_width and offsets is None:
-            raise ValueError(f"column {name}: var-width requires offsets")
+                 validity: Optional[np.ndarray] = None,
+                 dict_enc: Optional[DictEnc] = None):
+        if ctype.is_variable_width:
+            if offsets is None and dict_enc is None:
+                raise ValueError(f"column {name}: var-width requires offsets")
+        elif data is None:
+            raise ValueError(f"column {name}: fixed-width requires data")
         self.name = name
         self.ctype = ctype
-        self.data = data
-        self.offsets = offsets
+        self._data = data
+        self._offsets = offsets
         self.validity = validity
+        self.dict_enc = dict_enc
+
+    def _materialize(self) -> None:
+        if self._data is None:
+            _count_materialization()
+            self._data, self._offsets = self.dict_enc.materialize()
+
+    @property
+    def data(self) -> np.ndarray:
+        if self._data is None:
+            self._materialize()
+        return self._data
+
+    @data.setter
+    def data(self, v: np.ndarray) -> None:
+        self._data = v
+
+    @property
+    def offsets(self) -> Optional[np.ndarray]:
+        if self._offsets is None and self.dict_enc is not None:
+            self._materialize()
+        return self._offsets
+
+    @offsets.setter
+    def offsets(self, v: Optional[np.ndarray]) -> None:
+        self._offsets = v
+
+    @property
+    def is_lazy_dict(self) -> bool:
+        """True while dictionary-encoded with no flat copy materialized."""
+        return self.dict_enc is not None and self._data is None
 
     @property
     def n_rows(self) -> int:
-        if self.offsets is not None:
-            return len(self.offsets) - 1
-        return len(self.data)
+        if self.dict_enc is not None and self._offsets is None:
+            return len(self.dict_enc.indices)
+        if self._offsets is not None:
+            return len(self._offsets) - 1
+        return len(self._data)
 
     def is_valid(self, i: int) -> bool:
         return self.validity is None or bool(self.validity[i])
@@ -123,6 +252,10 @@ class Column:
         """Python value at row i (None when invalid)."""
         if not self.is_valid(i):
             return None
+        if self.is_lazy_dict:
+            raw = self.dict_enc.pool.value_bytes(
+                int(self.dict_enc.indices[i]))
+            return _decode_varwidth(self.ctype, raw)
         if self.offsets is not None:
             raw = bytes(self.data[self.offsets[i]:self.offsets[i + 1]])
             return _decode_varwidth(self.ctype, raw)
@@ -140,15 +273,22 @@ class Column:
         return [self.value(i) for i in range(self.n_rows)]
 
     def take(self, indices: np.ndarray) -> "Column":
-        """Gather rows; a contiguous ascending range returns views."""
+        """Gather rows; a contiguous ascending range returns views, and a
+        lazy dict column gathers only its codes (the pool stays shared)."""
         span = _contiguous_span(indices)
         if span is not None and span[1] <= self.n_rows:
             return self._take_contiguous(*span)
-        validity = (self.validity[indices]
+        validity = (_gather_fixed(self.validity, indices)
                     if self.validity is not None else None)
+        if self.is_lazy_dict:
+            enc = self.dict_enc
+            return Column(
+                self.name, self.ctype, validity=validity,
+                dict_enc=DictEnc(_gather_fixed(enc.indices, indices),
+                                 pool=enc.pool))
         if self.offsets is None:
-            return Column(self.name, self.ctype, self.data[indices], None,
-                          validity)
+            return Column(self.name, self.ctype,
+                          _gather_fixed(self.data, indices), None, validity)
         out, new_offsets = _gather_varwidth(
             self.data, self.offsets,
             np.ascontiguousarray(indices, dtype=np.int64))
@@ -157,6 +297,11 @@ class Column:
     def _take_contiguous(self, lo: int, hi: int) -> "Column":
         """take() of [lo, hi) as views over the existing buffers."""
         validity = self.validity[lo:hi] if self.validity is not None else None
+        if self.is_lazy_dict:
+            enc = self.dict_enc
+            return Column(
+                self.name, self.ctype, validity=validity,
+                dict_enc=DictEnc(enc.indices[lo:hi], pool=enc.pool))
         if self.offsets is None:
             return Column(self.name, self.ctype, self.data[lo:hi], None,
                           validity)

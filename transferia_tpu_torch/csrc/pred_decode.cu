@@ -1,15 +1,20 @@
-// K-B: on-device decode of one dispatch-encoded predicate column.
+// K-B: on-device decode of one dispatch-encoded predicate column, and
+// K11: the dictionary decode (bit-unpack of codes + clamped pool gather).
 //
-// Replaces the JAX device programs transferia_tpu/ops/decode.py
+// K-B replaces the JAX device programs transferia_tpu/ops/decode.py
 // `_unpack_core` (line 142) as reached through `unpack_validity` (line 64),
-// `delta_prefix_sum` (line 73) and `for_frame_decode` (line 91), which
-// transferia_tpu/ops/dispatch.py `decode_pred_device` (line 306) composes.
+// `delta_prefix_sum` (line 73), `for_frame_decode` (line 91) and
+// `unpack_bits` (line 34), which transferia_tpu/ops/dispatch.py
+// `decode_pred_device` (line 306) composes.  K11 (`trt_dict_decode`,
+// below) replaces `decode_dict_run` (line 44) and `decode_dict_loop`
+// (line 126).
 //
 // Values arrive bit-packed in a little-endian uint32 word stream: value i
 // occupies bits [i*bw, (i+1)*bw).  The mode is a launch argument:
 //   bits  (0): width 1 -> bool bytes (validity bitmaps, bool data);
 //   delta (1): zigzag deltas -> base + inclusive int32 prefix sum;
-//   for   (2): frame-of-reference remainders -> mins[i / frame] + rel[i].
+//   for   (2): frame-of-reference remainders -> mins[i / frame] + rel[i];
+//   unpack (3): any width 1..32 -> the raw value as int32 (`unpack_bits`).
 // All int32 arithmetic wraps two's-complement, as the reference's does:
 // the zigzag decode uses an arithmetic shift of the int32 code, and the
 // sums run in uint32 and are reinterpreted.  Word reads past the stream
@@ -32,20 +37,22 @@
 
 namespace {
 
-enum Mode { kBits = 0, kDelta = 1, kFor = 2 };
+enum Mode { kBits = 0, kDelta = 1, kFor = 2, kUnpack = 3 };
 
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 8;
 constexpr int kScanTile = kScanThreads * kScanItems;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// value i of the stream whose every word is XORed with `flip` on load
 __device__ __forceinline__ uint32_t unpack(const uint32_t* __restrict__ w,
-                                           int n_words, int64_t i, int bw) {
+                                           int n_words, int64_t i, int bw,
+                                           uint32_t flip = 0u) {
   const uint64_t start = static_cast<uint64_t>(i) * bw;
   const int wi = static_cast<int>(start >> 5);
   const int off = static_cast<int>(start & 31);
-  uint32_t v = w[min(wi, n_words - 1)] >> off;
-  if (off > 0) v |= w[min(wi + 1, n_words - 1)] << (32 - off);
+  uint32_t v = (w[min(wi, n_words - 1)] ^ flip) >> off;
+  if (off > 0) v |= (w[min(wi + 1, n_words - 1)] ^ flip) << (32 - off);
   if (bw < 32) v &= (1u << bw) - 1u;
   return v;
 }
@@ -62,6 +69,8 @@ __global__ void decode_elementwise_kernel(int mode,
     const uint32_t v = unpack(words, n_words, i, bw);
     if (mode == kBits) {
       static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(v & 1u);
+    } else if (mode == kUnpack) {
+      static_cast<int32_t*>(out)[i] = static_cast<int32_t>(v);
     } else {
       static_cast<int32_t*>(out)[i] = static_cast<int32_t>(
           static_cast<uint32_t>(mins[i / frame]) + v);
@@ -126,6 +135,53 @@ __global__ void __launch_bounds__(kScanThreads)
   }
 }
 
+// K11: value i = pool[clamp(int32(code_i), 0, k - 1)], code_i unpacked at
+// width bw from words ^ (carry & 1) -- jnp.take(mode="clip") on the int32
+// code, so at bw = 32 a code >= 2^31 is negative and takes entry 0.  With
+// a carry (decode_dict_loop) the values are not written: each block sums
+// its values in uint32 and adds the sum into carry_out with one atomic,
+// and block 0 also adds the incoming carry, so carry_out (zeroed) ends as
+// carry_in + sum(values) mod 2^32, the reference's fori_loop body.
+__global__ void dict_decode_kernel(const uint32_t* __restrict__ words,
+                                   int n_words, int64_t n, int bw,
+                                   const int32_t* __restrict__ pool, int k,
+                                   const uint32_t* __restrict__ carry_in,
+                                   uint32_t* __restrict__ carry_out,
+                                   int32_t* __restrict__ out) {
+  __shared__ uint32_t warp_sums[32];
+  const uint32_t flip = carry_in ? (*carry_in & 1u) : 0u;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  uint32_t sum = 0;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const int32_t code =
+        static_cast<int32_t>(unpack(words, n_words, i, bw, flip));
+    const int32_t value = pool[code < 0 ? 0 : (code >= k ? k - 1 : code)];
+    if (carry_out) {
+      sum += static_cast<uint32_t>(value);
+    } else {
+      out[i] = value;
+    }
+  }
+  if (!carry_out) return;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFullMask, sum, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = sum;
+  __syncthreads();
+  if (warp == 0) {
+    sum = lane < (blockDim.x >> 5) ? warp_sums[lane] : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFullMask, sum, o);
+    if (lane == 0) {
+      if (blockIdx.x == 0 && carry_in) sum += *carry_in;
+      atomicAdd(carry_out, sum);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int trt_pred_decode(int mode, const void* words, int n_words,
@@ -134,7 +190,7 @@ extern "C" int trt_pred_decode(int mode, const void* words, int n_words,
                                void* stream) {
   if (n <= 0 || n_words <= 0 || bw < 1 || bw > 32 ||
       (mode == kBits && bw != 1) || (mode == kFor && frame <= 0) ||
-      mode < kBits || mode > kFor) {
+      mode < kBits || mode > kUnpack) {
     return cudaErrorInvalidValue;
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -150,6 +206,25 @@ extern "C" int trt_pred_decode(int mode, const void* words, int n_words,
         mode, w, n_words, n, bw, static_cast<const int32_t*>(mins), frame,
         out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int trt_dict_decode(const void* words, int n_words, long long n,
+                               int bw, const void* pool, int k,
+                               const void* carry_in, void* carry_out,
+                               void* out, void* stream) {
+  if (n <= 0 || n_words <= 0 || bw < 1 || bw > 32 || k <= 0 ||
+      (carry_out == nullptr) == (out == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int kThreads = 256;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);
+  dict_decode_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), n_words, n, bw,
+      static_cast<const int32_t*>(pool), k,
+      static_cast<const uint32_t*>(carry_in),
+      static_cast<uint32_t*>(carry_out), static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,6 +46,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "pred_decode": {
         # mode, words, n_words, n, bw, base, mins, frame, out, stream
         "trt_pred_decode": [_I, _P, _I, _L, _I, _I, _P, _I, _P, _P],
+        # words, n_words, n, bw, pool, k, carry_in, carry_out, out, stream
+        "trt_dict_decode": [_P, _I, _L, _I, _P, _I, _P, _P, _P, _P],
     },
     "pred3vl_mask": {
         # instr, n_instr, ilit, flit, lit_is_float, n_lits, data ptrs,
@@ -53,14 +55,21 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "trt_pred3vl_mask": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _L,
                              _I, _P, _P],
     },
+    "rowhash": {
+        # desc, n_cols, n, reduce, r1, r2, acc, stream
+        "trt_rowhash_lanes": [_P, _I, _L, _I, _P, _P, _P, _P],
+        # data, n_bytes, offsets, n, acc1, acc2, stream
+        "trt_var_accumulators": [_P, _L, _P, _L, _P, _P, _P],
+    },
     "probe": {
         "trt_empty_launch": [_P],
     },
 }
 
 # kernels whose launches are counted (the probe is a timer, not a kernel
-# of the transform path)
-KERNELS = ("sha256_hmac", "pred_decode", "pred3vl_mask")
+# of a data path)
+KERNELS = ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
+           "var_accumulators", "dict_decode")
 
 
 @dataclass(frozen=True)

@@ -1,9 +1,17 @@
-"""On-device decode of dispatch-encoded predicate columns: kernel K-B.
+"""On-device columnar decode: kernels K-B (predicate columns) and K11 (dict).
 
 `pred_decode` runs kernel K-B (csrc/pred_decode.cu) on a CUDA tensor and
 its plain PyTorch version, `pred_decode_plain`, on a CPU tensor.  The
-named entry points mirror transferia_tpu/ops/decode.py: `unpack_validity`
-(line 64), `delta_prefix_sum` (line 73) and `for_frame_decode` (line 91).
+named entry points mirror transferia_tpu/ops/decode.py: `unpack_bits`
+(line 34), `unpack_validity` (line 64), `delta_prefix_sum` (line 73) and
+`for_frame_decode` (line 91).
+
+`decode_dict_run` (line 44) and `decode_dict_loop` (line 126) run kernel
+K11 (`trt_dict_decode` in the same source): bit-unpack of dictionary
+codes and a clamped gather from a 4-byte pool; their plain versions are
+`decode_dict_run_plain` and `decode_dict_loop_plain`.
+`gather_pool_accumulators` (line 52) is the plain version of the gather
+that kernel K10 (ops/rowhash.py) fuses.
 
 Packed words are int32 tensors holding the little-endian uint32 word
 stream bit for bit.  Decoded integers come back as int32 (the reference
@@ -24,8 +32,9 @@ import torch
 
 from transferia_tpu_torch.ops import _build
 
-MODE_BITS, MODE_DELTA, MODE_FOR = 0, 1, 2
-_MODES = {MODE_BITS: "bits", MODE_DELTA: "delta", MODE_FOR: "for"}
+MODE_BITS, MODE_DELTA, MODE_FOR, MODE_UNPACK = 0, 1, 2, 3
+_MODES = {MODE_BITS: "bits", MODE_DELTA: "delta", MODE_FOR: "for",
+          MODE_UNPACK: "unpack"}
 _M32 = 0xFFFFFFFF
 
 
@@ -36,7 +45,8 @@ def pred_decode(mode: int, words: torch.Tensor, n: int, bit_width: int,
 
     mode bits: width 1 -> (n,) bool.  delta: zigzag deltas -> base +
     inclusive int32 prefix sum.  for: mins[i // frame] + rel[i] (mins
-    (n // frame,) int32).  Int32 arithmetic wraps two's-complement."""
+    (n // frame,) int32).  unpack: the values as int32.  Int32 arithmetic
+    wraps two's-complement."""
     dev = words.device
     _build.require(mode in _MODES, f"unknown decode mode {mode}")
     _build.require(words.dtype == torch.int32 and words.dim() == 1
@@ -103,6 +113,8 @@ def pred_decode_plain(mode: int, words: torch.Tensor, n: int,
     v = unpack_plain(words, bit_width, n)
     if mode == MODE_BITS:
         return v.to(torch.bool)
+    if mode == MODE_UNPACK:
+        return _wrap_i32(v)
     if mode == MODE_FOR:
         rel = v
         frames = mins.to(torch.int64).repeat_interleave(frame)
@@ -110,6 +122,15 @@ def pred_decode_plain(mode: int, words: torch.Tensor, n: int,
     zz = _wrap_i32(v).to(torch.int64)  # the int32 code, sign included
     deltas = (zz >> 1) ^ -(zz & 1)
     return _wrap_i32(base + torch.cumsum(deltas, dim=0))
+
+
+def unpack_bits(words: torch.Tensor, bit_width: int, n: int
+                ) -> torch.Tensor:
+    """values[i] = bits [i*bw, (i+1)*bw) of the packed stream, as int32
+    (a value of 32 bits >= 2^31 comes back negative)."""
+    if not 0 < bit_width <= 32:
+        raise ValueError(f"bit_width {bit_width} outside (0, 32]")
+    return pred_decode(MODE_UNPACK, words, n, bit_width)
 
 
 def unpack_validity(words: torch.Tensor, n: int) -> torch.Tensor:
@@ -140,3 +161,98 @@ def pack_mask_words(bits: torch.Tensor, n: int) -> torch.Tensor:
     weights = torch.ones(32, dtype=torch.int64, device=bits.device) \
         << torch.arange(32, dtype=torch.int64, device=bits.device)
     return _wrap_i32((b * weights).sum(dim=1))
+
+
+# -- kernel K11: dictionary decode -------------------------------------------
+
+def gather_pool_accumulators(accs: torch.Tensor, codes: torch.Tensor
+                             ) -> torch.Tensor:
+    """accs[clamp(codes, 0, k - 1)] (jnp.take(mode="clip")): per-row
+    values from per-pool-entry values by int32 code.  Plain version of
+    the gather that kernels K10 and K11 fuse."""
+    return accs[codes.to(torch.int64).clamp(0, accs.numel() - 1)]
+
+
+def _check_dict_args(words: torch.Tensor, pool: torch.Tensor,
+                     bit_width: int, n: int) -> None:
+    if not 0 < bit_width <= 32:
+        raise ValueError(f"bit_width {bit_width} outside (0, 32]")
+    _build.require(words.dtype == torch.int32 and words.dim() == 1
+                   and words.is_contiguous() and words.numel() > 0,
+                   "words must be a non-empty contiguous 1-D int32")
+    _build.require(pool.dtype == torch.int32 and pool.dim() == 1
+                   and pool.is_contiguous() and 0 < pool.numel() < 2**31
+                   and pool.device == words.device,
+                   "pool must be a non-empty contiguous 1-D int32 on "
+                   "words' device")
+    _build.require(n > 0 and words.numel() * 32 >= n * bit_width,
+                   f"need n > 0 and {n} values of {bit_width} bits in "
+                   f"{words.numel()} words")
+
+
+def _dict_decode_launch(words: torch.Tensor, pool: torch.Tensor,
+                        bit_width: int, n: int,
+                        carry_in: Optional[torch.Tensor],
+                        carry_out: Optional[torch.Tensor],
+                        out: Optional[torch.Tensor]) -> None:
+    lib = _build.library("pred_decode")
+    rc = lib.trt_dict_decode(words.data_ptr(), words.numel(), n, bit_width,
+                             pool.data_ptr(), pool.numel(),
+                             _build.ptr(carry_in), _build.ptr(carry_out),
+                             _build.ptr(out), _build.stream_of(words))
+    _build.check(lib, rc, "dict_decode")
+    _build.count_launch("dict_decode")
+
+
+def decode_dict_run(words: torch.Tensor, pool: torch.Tensor,
+                    bit_width: int, n: int) -> torch.Tensor:
+    """Bit-unpack n dictionary codes and gather their pool values:
+    (n,) int32 pool[clamp(code, 0, k - 1)].  A CUDA tensor runs kernel
+    K11; a CPU tensor runs `decode_dict_run_plain`."""
+    _check_dict_args(words, pool, bit_width, n)
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_dict_run_plain(words, pool, bit_width, n)
+    _build.require(dev.type == "cuda", f"unsupported device {dev}")
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    _dict_decode_launch(words, pool, bit_width, n, None, None, out)
+    return out
+
+
+def decode_dict_run_plain(words: torch.Tensor, pool: torch.Tensor,
+                          bit_width: int, n: int) -> torch.Tensor:
+    """Plain PyTorch version of K11's decode."""
+    codes = _wrap_i32(unpack_plain(words, bit_width, n))
+    return gather_pool_accumulators(pool, codes)
+
+
+def decode_dict_loop(words: torch.Tensor, pool: torch.Tensor,
+                     bit_width: int, n: int, iters: int) -> torch.Tensor:
+    """`iters` back-to-back decodes carrying a uint32 sum: each XORs the
+    input words with (carry & 1) and adds the sum of its values to the
+    carry.  Returns the final carry as a 0-dim int32 tensor holding the
+    uint32 bits, on the card without a host sync (one K11 launch per
+    iteration on one stream, the carry in device memory)."""
+    _check_dict_args(words, pool, bit_width, n)
+    _build.require(iters >= 0, f"iters must be >= 0, got {iters}")
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_dict_loop_plain(words, pool, bit_width, n, iters)
+    _build.require(dev.type == "cuda", f"unsupported device {dev}")
+    carries = torch.zeros(iters + 1, dtype=torch.int32, device=dev)
+    for i in range(iters):
+        _dict_decode_launch(words, pool, bit_width, n, carries[i],
+                            carries[i + 1], None)
+    return carries[iters]
+
+
+def decode_dict_loop_plain(words: torch.Tensor, pool: torch.Tensor,
+                           bit_width: int, n: int, iters: int
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of `decode_dict_loop`."""
+    acc = torch.zeros((), dtype=torch.int64, device=words.device)
+    for _ in range(iters):
+        flipped = words ^ (acc & 1).to(torch.int32)
+        vals = decode_dict_run_plain(flipped, pool, bit_width, n)
+        acc = (acc + vals.to(torch.int64).sum()) & _M32
+    return _wrap_i32(acc)

@@ -1,4 +1,4 @@
-"""The port's "weights": HMAC key states.
+"""The port's "weights": HMAC key states and pool accumulators.
 
 The fused transform's only learned-free parameters are the per-key HMAC
 inner/outer states (one SHA-256 compression of key^ipad and key^opad).
@@ -8,6 +8,12 @@ The JAX package keeps them as numpy uint32 arrays
 converts the former into the latter, so tests can feed both packages
 identical key material, and `FusedMaskFilterProgram.run(states=...)`
 takes either kind.
+
+The table fingerprint's per-pool-entry accumulators are the other state
+worth carrying across packages: the JAX package's `pool_accumulators`
+gives two numpy uint32 arrays; `accs_from_jax` turns them into the port's
+(k,) int32 tensors, which `DictPool.memo_set(ops.rowhash._ACC_MEMO_KEY,
+...)` seeds into a pool's memo.
 """
 
 from __future__ import annotations
@@ -39,3 +45,13 @@ def as_key_state(state: Union[KeyState, tuple[np.ndarray, np.ndarray]],
     if isinstance(inner, torch.Tensor):
         return inner.to(device), outer.to(device)
     return states_from_jax(inner, outer, device)
+
+
+def accs_from_jax(acc1: np.ndarray, acc2: np.ndarray,
+                  device: DeviceLike = None) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """JAX-package pool accumulators (numpy uint32, (k,)) -> the port's
+    (k,) int32 tensors with the same bits on `device`."""
+    dev = resolve_device(device)
+    return (words_to_tensor(np.asarray(acc1), dev),
+            words_to_tensor(np.asarray(acc2), dev))
