@@ -9,11 +9,22 @@ Phases (one JSON line each, then the kernels line, the card line and the
 final line):
   1. build: compile every CUDA kernel from the checkout's sources;
   2. kernels: each kernel against its plain PyTorch version on the card
-     (and against hashlib / the host evaluator), exact equality;
+     (and against hashlib / the host evaluator / the host SHA-block
+     pack), exact equality;
   3. main_path: 2,000,000 ClickBench-shaped rows (made as bench.py makes
      them, seed 42) through build_chain(...).apply in 131072-row batches
      with device placement and the default chunking; the output must be
      byte-identical to the host strategy on the same batches;
+  3b. main_path_devpack: the same with TRANSFERIA_TPU_PALLAS_PACK=1 (the
+     flat bytes ship and kernel K12 packs them on the card, one launch
+     per batch); the output must be byte-identical to main_path's;
+  3c. dispatch: bench.py measure_dispatch's shape (4 x 131,072 rows, URL
+     dictionary-encoded over 4,096 values, RegionID, seed 11; one warm
+     batch) with the dispatch encoding raw and auto and the host
+     strategy, each over a fresh pool; all three byte-identical, auto
+     keeps URL dict-encoded with no flat materialization and one K-A
+     launch over the pool; a pool of 2 x rows + 1 values launches no K-A
+     and equals the host strategy;
   4. fingerprint_flat: the same rows through
      TableFingerprinter(backend="device"); the digest must equal the
      plain version's on the card, the digest of the rows cut into
@@ -40,6 +51,7 @@ from __future__ import annotations
 import hashlib
 import hmac
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -55,6 +67,7 @@ from transferia_tpu_torch.columnar.batch import (
     DictEnc,
     DictPool,
     _offsets_from_lengths,
+    bucket_rows,
     flat_materializations,
     reset_flat_materializations,
 )
@@ -75,10 +88,22 @@ from transferia_tpu_torch.ops.decode import (
     unpack_plain,
 )
 from transferia_tpu_torch.ops.dispatch import (
+    dispatch_bytes,
     encode_pred_column,
     pack_bits_host,
+    reset_dispatch_bytes,
+    set_dispatch_encoding,
 )
-from transferia_tpu_torch.ops.fused import _chunk_rows, pow2_blocks
+from transferia_tpu_torch.ops.fused import (
+    _chunk_rows,
+    pack_hmac_blocks,
+    pow2_blocks,
+)
+from transferia_tpu_torch.ops.raggedpack import (
+    pack_blocks_device,
+    pack_blocks_plain,
+    ragged_pack,
+)
 from transferia_tpu_torch.ops.linkprobe import probe_link
 from transferia_tpu_torch.ops.sha256 import (
     OPS_PER_COMPRESSION,
@@ -125,11 +150,16 @@ KERNEL_META = {
                          "transferia_tpu/ops/rowhash.py:562"),
     "dict_decode": ("transferia_tpu_torch/csrc/pred_decode.cu",
                     "transferia_tpu/ops/decode.py:44"),
+    "ragged_pack": ("transferia_tpu_torch/csrc/raggedpack.cu",
+                    "transferia_tpu/ops/raggedpack.py:41"),
 }
 # the kernels each path must launch, and the path whose launches and
 # shapes a kernel's line in the kernels JSON reports
 PATH_KERNELS = {
     "main_path": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
+    "main_path_devpack": ("ragged_pack", "sha256_hmac", "pred_decode",
+                          "pred3vl_mask"),
+    "dispatch": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
     "fingerprint_flat": ("rowhash_lanes",),
     "fingerprint_dict": ("rowhash_lanes", "var_accumulators"),
     "decode": ("dict_decode",),
@@ -140,6 +170,11 @@ FP_CUT_ROWS = 100_003
 DICT_ROWS, DICT_BATCHES, DICT_UNIQUES = 262_144, 8, 4096  # bench.py
 DICT_COLUMNS = ("URL", "Referer", "SearchPhrase")
 DECODE_ROWS, DECODE_BITS, DECODE_ITERS = 1 << 22, 17, 64  # bench.py
+DISPATCH_ROWS, DISPATCH_BATCHES, DISPATCH_UNIQUES = 131_072, 4, 4096
+DISPATCH_CONFIG = {"transformers": [   # bench.py measure_dispatch
+    {"mask_field": {"columns": ["URL"], "salt": "bench-salt"}},
+    {"filter_rows": {"filter": "RegionID < 400"}},
+]}
 
 
 def emit(obj) -> None:
@@ -472,6 +507,47 @@ def check_dict_decode(dev: torch.device) -> int:
     return err
 
 
+def check_ragged_pack(dev: torch.device) -> int:
+    """K12 against its plain version and the host pack, byte for byte:
+    rows of 0-500 bytes across the 55/56 and 119/120 block boundaries at
+    1, 2, 4 and 8 blocks, bucket pad rows, a flat buffer that ends at
+    the last row's end; a row too long for its blocks raises."""
+    rng = np.random.default_rng(14)
+    err = 0
+    for mb in (1, 2, 4, 8):
+        fit = mb * 64 - 9
+        lens = [n for n in (0, 1, 54, 55, 56, 119, 120, 500) if n <= fit]
+        lens += [fit] + list(rng.integers(0, fit + 1, 3000))
+        values = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+                  for n in lens]
+        data, offsets = _flat_bytes(values)
+        n = len(values)
+        bucket = n + 37
+        blocks, nb = pack_blocks_device(data, offsets, bucket, mb, dev)
+        d = torch.from_numpy(data).to(dev)  # exactly off[n] bytes
+        o = torch.from_numpy(offsets).to(dev)
+        p_blocks, p_nb = pack_blocks_plain(d, o, bucket, mb)
+        err = max(err,
+                  require_equal(blocks, p_blocks, f"ragged_pack mb={mb}"),
+                  require_equal(nb, p_nb, f"ragged_pack counts mb={mb}"))
+        host, host_nb, _ = prepare_padded_blocks(data, offsets, prefix_len=64,
+                                                 max_blocks=mb)
+        got = blocks.cpu().numpy()
+        if not (np.array_equal(got[:n], host)
+                and np.array_equal(nb.cpu().numpy()[:n], host_nb)):
+            raise AssertionError(f"ragged_pack mb={mb} differs from the "
+                                 "host pack")
+        if got[n:].any() or nb[n:].any():
+            raise AssertionError("ragged_pack left bytes in pad rows")
+    try:
+        pack_blocks_device(data, offsets, bucket, 4, dev)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ragged_pack took a row longer than its blocks")
+    return err
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def _flat(strings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -554,22 +630,147 @@ def run_chain(batches, placement: str, dev) -> tuple[list, float, object]:
         set_placement(None)
 
 
+def column_arrays(col: Column) -> tuple:
+    """A column's (data, offsets, validity); a dictionary column is
+    flattened through its encoding, which counts no materialization."""
+    if col.is_lazy_dict:
+        data, offsets = col.dict_enc.materialize()
+    else:
+        data, offsets = col.data, col.offsets
+    return data, offsets, col.validity
+
+
 def batches_identical(a: ColumnBatch, b: ColumnBatch) -> bool:
     if a.schema != b.schema or a.n_rows != b.n_rows:
         return False
     for name in a.schema.names():
-        x, y = a.column(name), b.column(name)
-        if not np.array_equal(x.data, y.data):
-            return False
-        if (x.offsets is None) != (y.offsets is None) or (
-                x.offsets is not None
-                and not np.array_equal(x.offsets, y.offsets)):
-            return False
-        if (x.validity is None) != (y.validity is None) or (
-                x.validity is not None
-                and not np.array_equal(x.validity, y.validity)):
-            return False
+        for x, y in zip(column_arrays(a.column(name)),
+                        column_arrays(b.column(name))):
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x, y)):
+                return False
     return True
+
+
+def main_path_devpack(batches, dev_outs, main_bytes: dict, dev) -> dict:
+    """The main path with the device pack on: K12 packs each batch's URL
+    bytes on the card; the output must equal main_path's."""
+    os.environ["TRANSFERIA_TPU_PALLAS_PACK"] = "1"
+    try:
+        reset_dispatch_bytes()
+        with PathLaunches("main_path_devpack") as launches:
+            outs, seconds, _ = run_chain(batches, "device", dev)
+        staged = dispatch_bytes()
+    finally:
+        del os.environ["TRANSFERIA_TPU_PALLAS_PACK"]
+    for i, (a, b) in enumerate(zip(outs, dev_outs)):
+        if not batches_identical(a, b):
+            raise AssertionError(f"batch {i}: the device pack's output "
+                                 "differs from main_path's")
+    return dict(rows=ROWS, batch_rows=BATCH_ROWS, device_seconds=seconds,
+                device_rows_per_s=ROWS / seconds, h2d_bytes=staged,
+                main_path_h2d_bytes=main_bytes,
+                h2d_vs_main_path=staged["encoded"] / main_bytes["encoded"],
+                launches=launches.counts, identical_to="main_path")
+
+
+def dispatch_data():
+    """bench.py measure_dispatch's pool values and per-batch (codes,
+    RegionID), drawn in the same order from the same seed."""
+    rng = np.random.default_rng(11)
+    values = [f"https://bench{i}.example/path/{i % 97}/{i}".encode()
+              for i in range(DISPATCH_UNIQUES)]
+    batch_data = [
+        (rng.integers(0, DISPATCH_UNIQUES, DISPATCH_ROWS).astype(np.int32),
+         rng.integers(0, 500, DISPATCH_ROWS).astype(np.int32))
+        for _ in range(DISPATCH_BATCHES)]
+    return values, batch_data
+
+
+def dispatch_batches(pool: DictPool, batch_data) -> list[ColumnBatch]:
+    schema = new_table_schema([("URL", "utf8"), ("RegionID", "int32")])
+    return [ColumnBatch(TableID("bench", "dispatch"), schema, {
+        "URL": Column("URL", schema.find("URL").data_type,
+                      dict_enc=DictEnc(codes, pool=pool)),
+        "RegionID": Column("RegionID", schema.find("RegionID").data_type,
+                           regions)})
+        for codes, regions in batch_data]
+
+
+def run_dispatch(values, batch_data, mode: str, placement: str, dev):
+    """One mode over a fresh pool: a warm batch, then the batches timed.
+    Returns (outputs, seconds, bytes staged by the timed batches)."""
+    pool = DictPool(*_flat_bytes(values + [b""]), null_code=len(values))
+    data = dispatch_batches(pool, batch_data)
+    set_dispatch_encoding(mode)
+    set_placement(placement)
+    try:
+        chain = build_chain(DISPATCH_CONFIG, device=dev)
+        chain.apply(data[0])  # warm: the build, the link probe, the pool
+        torch.cuda.synchronize(dev)
+        reset_dispatch_bytes()
+        t0 = time.perf_counter()
+        outs = [chain.apply(b) for b in data]
+        torch.cuda.synchronize(dev)
+        return outs, time.perf_counter() - t0, dispatch_bytes()
+    finally:
+        set_dispatch_encoding(None)
+        set_placement(None)
+
+
+def dispatch_path(dev) -> dict:
+    values, batch_data = dispatch_data()
+    _hmac_key_states(b"bench-salt", dev)  # the key's states, made once
+    raw, raw_s, raw_bytes = run_dispatch(values, batch_data, "raw",
+                                         "device", dev)
+    reset_flat_materializations()
+    with PathLaunches("dispatch") as launches:
+        auto, auto_s, auto_bytes = run_dispatch(values, batch_data, "auto",
+                                                "device", dev)
+    materialized = flat_materializations()
+    lazy = all(b.column("URL").is_lazy_dict for b in auto)
+    chunk = _chunk_rows(dev) or DISPATCH_ROWS
+    chunks = (DISPATCH_BATCHES + 1) * -(-DISPATCH_ROWS // chunk)
+    want = {"sha256_hmac": 1, "pred_decode": chunks, "pred3vl_mask": chunks}
+    got = {k: launches.counts[k] for k in want}
+    if materialized or not lazy or got != want:
+        raise AssertionError(f"dispatch auto: {materialized} flat "
+                             f"materializations, URL encoded {lazy}, "
+                             f"launches {got} (want {want})")
+    host, host_s, _ = run_dispatch(values, batch_data, "auto", "host", dev)
+    for i, (a, r, h) in enumerate(zip(auto, raw, host)):
+        if not (batches_identical(a, r) and batches_identical(a, h)):
+            raise AssertionError(f"dispatch batch {i}: auto, raw and host "
+                                 "differ")
+    # a pool larger than twice the batch: hashed on the host (the
+    # referenced subset), no K-A for URL, still equal to the host's
+    big = [f"https://bench{i}.example/path/{i % 97}/{i}".encode()
+           for i in range(2 * DISPATCH_ROWS + 1)]
+    codes = np.random.default_rng(12).integers(
+        0, len(big), DISPATCH_ROWS).astype(np.int32)
+    big_data = [(codes, batch_data[0][1])]
+    _build.reset_launch_counts()
+    big_dev, _, _ = run_dispatch(big, big_data, "auto", "device", dev)
+    big_hmac = _build.launch_counts()["sha256_hmac"]
+    big_host, _, _ = run_dispatch(big, big_data, "auto", "host", dev)
+    if big_hmac or not batches_identical(big_dev[0], big_host[0]):
+        raise AssertionError(f"dispatch large pool: {big_hmac} K-A "
+                             "launches, or output differs from the host")
+    rows = DISPATCH_ROWS * DISPATCH_BATCHES
+    return dict(rows=rows, batch_rows=DISPATCH_ROWS,
+                pool_values=DISPATCH_UNIQUES,
+                auto_rows_per_s=rows / auto_s, raw_rows_per_s=rows / raw_s,
+                host_rows_per_s=rows / host_s,
+                auto_h2d_bytes=auto_bytes, raw_h2d_bytes=raw_bytes,
+                compression_ratio=(auto_bytes["raw_equiv"]
+                                   / max(auto_bytes["encoded"], 1)),
+                raw_over_auto_bytes=(raw_bytes["encoded"]
+                                     / max(auto_bytes["encoded"], 1)),
+                flat_materializations=materialized,
+                launches=launches.counts,
+                large_pool=dict(values=len(big),
+                                sha256_hmac_launches=big_hmac),
+                equal_to=["raw", "host"])
 
 
 # -- phases 4-6: the fingerprint and decode paths -----------------------------
@@ -842,6 +1043,7 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
     out = {}
     calls.update(fingerprint_calls(batch, dev))
     calls.update(decode_calls(dev))
+    calls.update(pack_calls(batch, dev))
     for name, (kernel, plain, library, (bound_ms, bound_by)) in calls.items():
         out[name] = dict(
             max_abs_err=require_equal(kernel(), plain(), f"{name} at the "
@@ -849,7 +1051,55 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
             ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
             library_ms=kernel_ms(library, dev) if library else None,
             bound_ms=bound_ms, bound_by=bound_by)
+    out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(dev)
     return out
+
+
+def pack_calls(batch: ColumnBatch, dev) -> dict:
+    """K12 at the shape main_path_devpack gives it: one ClickBench
+    batch's URL column into the batch's row bucket.  Bytes: the URL
+    bytes and offsets read once, the blocks and counts written once."""
+    url = batch.column("URL")
+    n = batch.n_rows
+    bucket = bucket_rows(n)
+    mb = pow2_blocks(int(np.diff(url.offsets).max()))
+    data = torch.from_numpy(np.ascontiguousarray(url.data)).to(dev)
+    offsets = torch.from_numpy(url.offsets.copy()).to(dev)
+    require_equal(ragged_pack(data, offsets, bucket, mb)[1],
+                  pack_blocks_plain(data, offsets, bucket, mb)[1],
+                  "ragged_pack counts at the main path's shape")
+    return {"ragged_pack": (
+        lambda: ragged_pack(data, offsets, bucket, mb)[0],
+        lambda: pack_blocks_plain(data, offsets, bucket, mb)[0],
+        None,
+        # ~12 operations per output byte: position compares, the read
+        bound(data.numel() + 4 * (n + 1) + bucket * (mb * 64 + 4),
+              12 * bucket * mb * 64))}
+
+
+def pool_hmac_timing(dev) -> dict:
+    """K-A at the dispatch path's pool shape: the 4,096 values and the
+    sentinel, one launch (the pool route's only kernel)."""
+    values, _ = dispatch_data()
+    data, offsets = _flat_bytes(values + [b""])
+    mb = pow2_blocks(int(np.diff(offsets).max()))
+    blocks, nb = pack_hmac_blocks(data, offsets, mb)
+    n = len(nb)
+    b_t = torch.from_numpy(blocks).to(dev)
+    nb_t = torch.from_numpy(nb).to(dev)
+    inner, outer = _hmac_key_states(b"bench-salt", dev)
+    bound_ms, bound_by = bound(
+        b_t.numel() + 4 * n + 64 + 32 * n,
+        OPS_PER_COMPRESSION * (int(np.minimum(nb, mb).sum()) + n))
+    return dict(
+        rows=n, max_abs_err=require_equal(
+            sha256_hmac(b_t, nb_t, inner, outer, mb),
+            sha256_hmac_plain(b_t, nb_t, inner, outer, mb),
+            "sha256_hmac at the pool's shape"),
+        ms=kernel_ms(lambda: sha256_hmac(b_t, nb_t, inner, outer, mb), dev),
+        plain_ms=wall_ms(
+            lambda: sha256_hmac_plain(b_t, nb_t, inner, outer, mb), dev),
+        bound_ms=bound_ms, bound_by=bound_by)
 
 
 def lane_work(batch: ColumnBatch, cols, n) -> tuple[int, int]:
@@ -950,7 +1200,8 @@ def main() -> int:
             "pred3vl_mask": check_pred3vl_mask(dev),
             "rowhash_lanes": check_rowhash_lanes(dev),
             "var_accumulators": check_var_accumulators(dev),
-            "dict_decode": check_dict_decode(dev)}
+            "dict_decode": check_dict_decode(dev),
+            "ragged_pack": check_ragged_pack(dev)}
     torch.cuda.synchronize(dev)
     emit({"phase": "kernels", "check": "exact", "max_abs_err": errs})
 
@@ -962,8 +1213,10 @@ def main() -> int:
     chunk = _chunk_rows(dev)
     phase_s = {}
     t_phase = time.perf_counter()
+    reset_dispatch_bytes()
     with PathLaunches("main_path") as main_launches:
         dev_outs, dev_s, steps = run_chain(batches, "device", dev)
+    main_bytes = dispatch_bytes()
     launches = {"main_path": main_launches.counts}
     if len(steps) != 1 or not isinstance(steps[0], DeviceFusedStep):
         raise AssertionError(f"main path planned {steps}, not one "
@@ -984,10 +1237,14 @@ def main() -> int:
           "device_seconds": dev_s, "device_rows_per_s": ROWS / dev_s,
           "host_seconds": host_s, "host_rows_per_s": ROWS / host_s,
           "data_gen_seconds": gen_s, "link": link.describe(),
-          "identical_to_host": True})
+          "h2d_bytes": main_bytes, "identical_to_host": True})
     phase_s["main_path"] = time.perf_counter() - t_phase
+    del host_outs
 
     for path, run in (
+            ("main_path_devpack",
+             lambda: main_path_devpack(batches, dev_outs, main_bytes, dev)),
+            ("dispatch", lambda: dispatch_path(dev)),
             ("fingerprint_flat",
              lambda: fingerprint_flat(batches, schema, fixed, var, dev)),
             ("fingerprint_dict", lambda: fingerprint_dict(dev)),

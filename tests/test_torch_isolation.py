@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, no JAX package, no pyarrow, no silent CPU.
 
 A fresh interpreter imports transferia_tpu_torch and runs the fused
-chain and a table fingerprint on the CPU; afterwards neither jax,
+chain (over a flat and a dictionary-encoded column), the ragged pack and
+a table fingerprint on the CPU; afterwards neither jax,
 pyarrow, transferia_tpu nor any transferia_tpu.* module may be loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there.
@@ -44,6 +45,8 @@ from transferia_tpu_torch.transform.fused import DeviceFusedStep, set_placement
 from transferia_tpu_torch.ops.decode import decode_dict_run
 from transferia_tpu_torch.ops.rowhash import TableFingerprinter, batch_row_keys
 import transferia_tpu_torch.ops.linkprobe, transferia_tpu_torch.weights  # noqa
+from transferia_tpu_torch.columnar.batch import Column, DictEnc, DictPool
+from transferia_tpu_torch.ops.raggedpack import pack_blocks_device
 
 schema = new_table_schema([("url", "utf8"), ("region", "int32")])
 batch = ColumnBatch.from_pydict(TableID("", "t"), schema, {
@@ -62,6 +65,18 @@ import torch
 codes = torch.tensor([0b1011], dtype=torch.int32)
 pool = torch.tensor([7, 8], dtype=torch.int32)
 assert decode_dict_run(codes, pool, 1, 4).tolist() == [8, 8, 7, 8]
+blocks, nb = pack_blocks_device(np.frombuffer(b"abc", dtype=np.uint8),
+                                np.array([0, 1, 3], dtype=np.int32), 4, 1,
+                                device="cpu")
+assert nb.tolist() == [1, 1, 0, 0], nb
+dpool = DictPool(np.frombuffer(b"u1u2", dtype=np.uint8).copy(),
+                 np.array([0, 2, 4, 4], dtype=np.int32), null_code=2)
+url = Column("url", schema.find("url").data_type, dict_enc=DictEnc(
+    np.array([i %% 2 for i in range(300)], dtype=np.int32), pool=dpool))
+dbatch = ColumnBatch(TableID("", "t"), schema,
+                     {"url": url, "region": batch.column("region")})
+dout = chain.apply(dbatch)
+assert dout.column("url").is_lazy_dict and dout.n_rows == 100
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "transferia_tpu"))

@@ -61,6 +61,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # data, n_bytes, offsets, n, acc1, acc2, stream
         "trt_var_accumulators": [_P, _L, _P, _L, _P, _P, _P],
     },
+    "raggedpack": {
+        # data, n_data, offsets, n_rows, bucket, max_blocks, blocks,
+        # n_blocks, stream
+        "trt_ragged_pack": [_P, _L, _P, _I, _I, _I, _P, _P, _P],
+    },
     "probe": {
         "trt_empty_launch": [_P],
     },
@@ -69,7 +74,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
 # kernels whose launches are counted (the probe is a timer, not a kernel
 # of a data path)
 KERNELS = ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
-           "var_accumulators", "dict_decode")
+           "var_accumulators", "dict_decode", "ragged_pack")
 
 
 @dataclass(frozen=True)

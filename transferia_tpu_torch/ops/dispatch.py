@@ -7,15 +7,21 @@ integers) and kernel K-B (ops/decode.py) reconstructs them on the card.
 The keep mask returns bit-packed (kernel K-C packs it).
 
 `TRANSFERIA_TPU_DISPATCH_ENCODING` picks the mode: `auto` (default —
-encode whenever it shrinks) or `raw`.  The dict-pool route and the
-per-shard mesh encodings are not ported yet (ROADMAP.md).
+encode whenever it shrinks) or `raw`.  In `auto`, a dictionary-encoded
+masked column takes the pool route (`device_hmac_dict_pool`): its value
+pool is hashed once on the card (kernel K-A over the pool's values) and
+the row codes never cross the link.  The per-shard mesh encodings are
+not ported yet (ROADMAP.md).
 
 `stage_h2d` is the single host-to-device point: it copies host arrays
-into pinned buffers and enqueues non-blocking copies on a copy stream.
+into pinned buffers and enqueues non-blocking copies on a copy stream,
+and counts the bytes staged beside what the uncompressed wire would
+have shipped (`dispatch_bytes`).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from transferia_tpu_torch.runtime import knobs
+from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
 
 _mode_cached: Optional[str] = None
 
@@ -281,6 +288,34 @@ def decode_pred_device(spec: PredEnc, arrays, bucket: int
     return data, valid
 
 
+# -- staged-bytes accounting --------------------------------------------------
+
+_bytes_lock = threading.Lock()
+_bytes = {"encoded": 0, "raw_equiv": 0}
+
+
+def record_dispatch(encoded_bytes: int, raw_equiv_bytes: int) -> None:
+    """One staging: the bytes that crossed the link, and what the
+    uncompressed wire (padded SHA blocks, raw predicate columns) would
+    have shipped for the same work."""
+    with _bytes_lock:
+        _bytes["encoded"] += int(encoded_bytes)
+        _bytes["raw_equiv"] += int(raw_equiv_bytes)
+
+
+def dispatch_bytes() -> dict[str, int]:
+    """{"encoded": bytes staged, "raw_equiv": raw-wire equivalent} since
+    the last reset."""
+    with _bytes_lock:
+        return dict(_bytes)
+
+
+def reset_dispatch_bytes() -> None:
+    with _bytes_lock:
+        for k in _bytes:
+            _bytes[k] = 0
+
+
 # -- H2D staging -------------------------------------------------------------
 
 def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
@@ -300,27 +335,158 @@ def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
 
 
 def stage_h2d(arrays, device: torch.device,
-              stream: Optional["torch.cuda.Stream"]):
+              stream: Optional["torch.cuda.Stream"],
+              raw_equiv_bytes: Optional[int] = None):
     """Stage a nested tuple of host arrays on `device`.
 
     numpy arrays become tensors (on a CUDA device: pinned, copied with
-    non_blocking on `stream`); numpy scalars become Python ints (they
-    travel as kernel arguments).  Returns (the same structure of
-    tensors, an event recorded after the copies, or None on the CPU)."""
+    non_blocking on `stream`, or on the current stream when it is None);
+    numpy scalars become Python ints (they travel as kernel arguments).
+    Counts the arrays' bytes against `raw_equiv_bytes` (the arrays' own
+    bytes when None).  Returns (the same structure of tensors, an event
+    recorded after the copies, or None on the CPU)."""
     cuda = device.type == "cuda"
+    encoded = 0
 
     def put(x):
+        nonlocal encoded
         if isinstance(x, tuple):
             return tuple(put(a) for a in x)
         if isinstance(x, np.ndarray):
+            encoded += x.nbytes
             t = host_tensor(x, pin=cuda)
             return t.to(device, non_blocking=True) if cuda else t
         return int(x)
 
     if not cuda:
-        return put(arrays), None
-    with torch.cuda.stream(stream):
-        staged = put(arrays)
-        event = torch.cuda.Event()
-        event.record(stream)
+        staged, event = put(arrays), None
+    else:
+        with torch.cuda.stream(stream):
+            staged = put(arrays)
+            event = torch.cuda.Event()
+            event.record(stream)
+    record_dispatch(encoded, encoded if raw_equiv_bytes is None
+                    else raw_equiv_bytes)
     return staged, event
+
+
+# -- device-resident dict-pool masking ------------------------------------------
+
+# serializes pool hashing, so threads racing on one pool upload it once
+_pool_hash_lock = threading.Lock()
+
+
+def device_hmac_dict_pool(key: bytes, pool, n_rows: int,
+                          device: DeviceLike = None):
+    """HMAC a DictPool's values on the card, once per (pool, key).
+
+    Returns the hexed pool (a DictPool of 64-char hex digests with the
+    null sentinel emptied), memoized on the shared pool under the same
+    key as the host path (transform/plugins/mask.mask_dict_column):
+    whichever strategy touches a pool first pays, the other rides the
+    memo.  Row codes never cross the link: the caller rebinds them to
+    the hexed pool.
+
+    Returns None when the pool is too large to pay for itself on this
+    batch (more than twice its rows): the caller then hashes the
+    referenced subset on the host, still dict-encoded."""
+    memo_key = ("hmac_hex", key)
+    hexed = pool.memo_get(memo_key)
+    if hexed is not None:
+        _record_avoided_batch_bytes(pool, n_rows)
+        return hexed
+    if pool.n_values > 2 * max(n_rows, 1):
+        return None
+    with _pool_hash_lock:
+        return _hash_pool_locked(key, pool, n_rows, memo_key,
+                                 resolve_device(device))
+
+
+def _hash_pool_locked(key: bytes, pool, n_rows: int, memo_key,
+                      device: torch.device):
+    # double-checked: a racing thread may have hashed this pool while
+    # this one waited on the lock
+    hexed = pool.memo_get(memo_key)
+    if hexed is not None:
+        _record_avoided_batch_bytes(pool, n_rows)
+        return hexed
+    from transferia_tpu_torch.columnar.hexcol import (
+        digests_to_hex,
+        hex_to_varwidth,
+    )
+    from transferia_tpu_torch.transform.plugins.mask import (
+        hexed_pool_from_flat,
+    )
+
+    digest_rows = _pool_digest_rows_locked(key, pool, device)
+    flat, flat_off = hex_to_varwidth(digests_to_hex(digest_rows), None)
+    hexed = hexed_pool_from_flat(pool, flat, flat_off)
+    pool.memo_set(memo_key, hexed)
+    _record_avoided_batch_bytes(pool, n_rows)
+    return hexed
+
+
+def _pool_digest_rows_locked(key: bytes, pool,
+                             device: torch.device) -> np.ndarray:
+    """The (n_values, 8) uint32 HMAC digest matrix of a pool's values:
+    one K-A launch over the pool (no bucket padding), memoized on the
+    pool.  The common substrate of the hexed pool and the mesh dict
+    route's digest gather.  Caller holds `_pool_hash_lock`."""
+    memo_key = ("hmac_digest_rows", bytes(key))
+    rows = pool.memo_get(memo_key)
+    if rows is not None:
+        return rows
+    from transferia_tpu_torch.ops.fused import pack_hmac_blocks
+    from transferia_tpu_torch.ops.sha256 import (
+        _hmac_key_states,
+        hmac_device_core,
+    )
+
+    mb = _pool_max_blocks(pool)
+    blocks, n_blocks = pack_hmac_blocks(pool.values_data,
+                                        pool.values_offsets, mb)
+    inner, outer = _hmac_key_states(bytes(key), device)
+    (dev_blocks, dev_nblocks), _ = stage_h2d((blocks, n_blocks), device,
+                                             None)
+    digests = hmac_device_core(dev_blocks, dev_nblocks, inner, outer, mb)
+    digest_rows = np.ascontiguousarray(
+        digests.cpu().numpy().view(np.uint32))
+    pool.memo_set(memo_key, digest_rows)
+    return digest_rows
+
+
+def device_hmac_pool_digests(key: bytes, pool, n_rows: int,
+                             device: DeviceLike = None
+                             ) -> Optional[np.ndarray]:
+    """The memoized (n_values, 8) uint32 digest matrix for the mesh dict
+    route (not ported yet), from which a sharded program gathers per-row
+    digest words by code.  None when the pool is too large to pay for
+    itself on this batch."""
+    memo_key = ("hmac_digest_rows", bytes(key))
+    rows = pool.memo_get(memo_key)
+    if rows is not None:
+        return rows
+    if pool.n_values > 2 * max(n_rows, 1):
+        return None
+    with _pool_hash_lock:
+        return _pool_digest_rows_locked(bytes(key), pool,
+                                        resolve_device(device))
+
+
+def _pool_max_blocks(pool) -> int:
+    """The SHA block bucket of a pool's longest value."""
+    from transferia_tpu_torch.ops.fused import pow2_blocks
+
+    lens = pool.values_offsets[1:] - pool.values_offsets[:-1]
+    return pow2_blocks(int(lens.max()) if pool.n_values else 0)
+
+
+def _record_avoided_batch_bytes(pool, n_rows: int) -> None:
+    """Credit the accounting with the per-batch bytes the raw wire would
+    have shipped for a pool-routed column: the bucket-padded SHA block
+    matrix plus per-row block counts (block width from the pool's
+    longest value)."""
+    from transferia_tpu_torch.columnar.batch import bucket_rows
+
+    record_dispatch(0, (_pool_max_blocks(pool) * 64 + 4)
+                    * bucket_rows(max(n_rows, 1)))

@@ -16,6 +16,13 @@ Batches larger than the chunk size (32768 rows on a CUDA device) run as
 a double-buffered pipeline: chunk k+1's host pack and H2D (on a copy
 stream) overlap chunk k's kernels and chunk k-1's D2H (on the compute
 stream), ordered by CUDA events.
+
+With TRANSFERIA_TPU_PALLAS_PACK=1 on a CUDA device (`_pallas_pack_enabled`)
+a masked column ships its flat bytes and offsets instead of host-packed
+blocks, and kernel K12 (ops/raggedpack.py) packs them on the compute
+stream just before K-A; the batch then runs as one launch, unchunked.
+A program may run with no masked column at all (every masked column of
+the step took the dictionary-pool route, transform/fused.py).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from transferia_tpu_torch.ops.dispatch import (
     stage_h2d,
     unpack_mask_host,
 )
+from transferia_tpu_torch.ops.raggedpack import check_rows_fit, ragged_pack
 from transferia_tpu_torch.ops.sha256 import (
     _hmac_key_states,
     hmac_device_core,
@@ -82,15 +90,39 @@ def _dispatch_depth() -> int:
     return max(1, knobs.env_int("TRANSFERIA_TPU_DISPATCH_DEPTH", 2))
 
 
+def _pallas_pack_enabled(device: torch.device) -> bool:
+    """Opt-in device-side ragged pack (kernel K12, ops/raggedpack.py),
+    under the reference's knob name TRANSFERIA_TPU_PALLAS_PACK=1, and
+    only on a CUDA device.  It ships the flat bytes (about half the
+    padded blocks' bytes for short strings) at the cost of one more
+    launch and of the chunked pipeline's overlap."""
+    return (knobs.env_str("TRANSFERIA_TPU_PALLAS_PACK", "") == "1"
+            and device.type == "cuda")
+
+
 def pow2_blocks(max_len: int) -> int:
     """Block count bucket for a max row length (bytes, before padding)."""
     nb = (max_len + 9 + 63) // 64
     return 1 << (nb - 1).bit_length() if nb > 1 else 1
 
 
+def pack_hmac_blocks(data: np.ndarray, offsets: np.ndarray,
+                     max_blocks: int) -> tuple[np.ndarray, np.ndarray]:
+    """Flat bytes+offsets -> ((N, max_blocks*64) padded HMAC message
+    blocks, (N,) block counts) on the host.  The 64-byte ipad block is
+    virtual (compressed separately from the cached key state), so the
+    lengths in the padding include it."""
+    blocks, n_blocks, _ = prepare_padded_blocks(
+        data, offsets, prefix_len=64, max_blocks=max_blocks)
+    return blocks, n_blocks
+
+
 class _Staged(NamedTuple):
-    blocks: tuple          # per masked column: (bucket, mb*64) uint8
-    nblocks: tuple         # per masked column: (bucket,) int32
+    # per masked column: (blocks (bucket, mb*64) uint8, n_blocks
+    # (bucket,) int32) packed on the host, or, when `devpack`, the
+    # column's (flat uint8 bytes, (n+1,) int32 offsets) for K12
+    mask: tuple
+    devpack: bool
     pred: tuple            # per predicate column: its staged arrays
     max_blocks: tuple
     pred_specs: tuple
@@ -183,7 +215,8 @@ class FusedMaskFilterProgram:
             self._copy_stream.wait_stream(current)
             self._compute_stream.wait_stream(current)
         chunk = _chunk_rows(self.device)
-        if chunk and n_rows > chunk:
+        if chunk and n_rows > chunk and not _pallas_pack_enabled(
+                self.device):
             return self._run_pipelined(mask_cols, pred_cols, n_rows, chunk,
                                        states)
         return self._run_single(mask_cols, pred_cols, n_rows, states)
@@ -193,8 +226,12 @@ class FusedMaskFilterProgram:
         chunk — compute does NOT launch here, so a pipelined caller can
         overlap this chunk's transfer with the previous chunk's
         kernels."""
-        blocks_t, nblocks_t, mb_t = self._pack_inputs(mask_cols, n_rows,
-                                                      bucket)
+        devpack = _pallas_pack_enabled(self.device)
+        mask_t, mb_t = self._pack_inputs(mask_cols, n_rows, bucket,
+                                         devpack)
+        # what the raw wire ships: padded blocks and counts per masked
+        # column, each predicate column's dtype bytes and a bool map
+        raw = sum((mb * 64 + 4) * bucket for mb in mb_t)
         enc = encoding_enabled()
         specs, arrays = [], []
         for name, (data, validity) in pred_cols.items():
@@ -202,30 +239,39 @@ class FusedMaskFilterProgram:
                 name, data, validity, n_rows, bucket, enc)
             specs.append(spec)
             arrays.append(arrs)
-        (blocks, nblocks, pred), event = stage_h2d(
-            (tuple(blocks_t), tuple(nblocks_t), tuple(arrays)),
-            self.device, self._copy_stream)
+            raw += bucket * data.dtype.itemsize + bucket
+        (mask, pred), event = stage_h2d(
+            (tuple(mask_t), tuple(arrays)), self.device, self._copy_stream,
+            raw_equiv_bytes=raw)
         pack_keep = self._pred is not None and enc
-        return _Staged(blocks, nblocks, pred, tuple(mb_t), tuple(specs),
+        return _Staged(mask, devpack, pred, tuple(mb_t), tuple(specs),
                        bucket, n_rows, pack_keep, event)
 
     @staticmethod
-    def _pack_inputs(mask_cols, n_rows, bucket):
-        blocks_t, nblocks_t, mb_t = [], [], []
+    def _pack_inputs(mask_cols, n_rows, bucket, devpack):
+        """Per masked column, what crosses the link: host-packed blocks
+        (pad rows carry n_blocks = 0 and never update state), or for K12
+        the flat bytes the offsets cover, rebased to start at 0."""
+        mask_t, mb_t = [], []
         for data, offsets in mask_cols:
             lens = offsets[1:] - offsets[:-1]
             max_len = int(lens.max()) if n_rows else 0
             mb = pow2_blocks(max_len)
-            blocks, n_blocks, _ = prepare_padded_blocks(
-                data, offsets, prefix_len=64, max_blocks=mb)
-            if bucket != n_rows:
-                # pad rows carry n_blocks = 0 and never update state
-                blocks = np.pad(blocks, ((0, bucket - n_rows), (0, 0)))
-                n_blocks = np.pad(n_blocks, (0, bucket - n_rows))
-            blocks_t.append(blocks)
-            nblocks_t.append(n_blocks)
+            if devpack:
+                offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+                check_rows_fit(offsets, mb)
+                lo = int(offsets[0])
+                mask_t.append((np.ascontiguousarray(
+                    data[lo:int(offsets[-1])]),
+                    (offsets - lo).astype(np.int32, copy=False)))
+            else:
+                blocks, n_blocks = pack_hmac_blocks(data, offsets, mb)
+                if bucket != n_rows:
+                    blocks = np.pad(blocks, ((0, bucket - n_rows), (0, 0)))
+                    n_blocks = np.pad(n_blocks, (0, bucket - n_rows))
+                mask_t.append((blocks, n_blocks))
             mb_t.append(mb)
-        return blocks_t, nblocks_t, mb_t
+        return mask_t, mb_t
 
     def _stream(self):
         if self._compute_stream is None:
@@ -243,10 +289,15 @@ class FusedMaskFilterProgram:
                 stream.wait_event(staged.h2d_done)
                 for t in _tensors(staged):
                     t.record_stream(stream)
+            packed = staged.mask
+            if staged.devpack:
+                packed = [ragged_pack(data, offsets, staged.bucket, mb)
+                          for (data, offsets), mb in zip(staged.mask,
+                                                         staged.max_blocks)]
             digests = [
                 hmac_device_core(b, nb, st[0], st[1], mb)
-                for b, nb, st, mb in zip(staged.blocks, staged.nblocks,
-                                         states, staged.max_blocks)
+                for (b, nb), st, mb in zip(packed, states,
+                                           staged.max_blocks)
             ]
             keep = None
             if self._pred is not None:
@@ -348,4 +399,4 @@ def _tensors(staged: _Staged):
             for a in x:
                 yield from walk(a)
 
-    yield from walk((staged.blocks, staged.nblocks, staged.pred))
+    yield from walk((staged.mask, staged.pred))

@@ -15,9 +15,12 @@ Fusion preconditions (checked against the schema at that chain position):
   evaluates on the run's input batch).
 
 Default: ON; kill switch TRANSFERIA_TPU_DEVICE=0 or set_device_fusion(False).
-The fused output is byte-identical to the host step-by-step path.  The
-dictionary-pool route and the multi-device mesh route of the reference
-are not ported yet (ROADMAP.md).
+The fused output is byte-identical to the host step-by-step path.  A
+dictionary-encoded masked column takes the pool route when the dispatch
+encoding is on: its value pool is hashed once on the card (or on the
+host, in the host strategy) and the output column stays
+dictionary-encoded over the hexed pool.  The multi-device mesh route of
+the reference is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from transferia_tpu_torch.transform.plugins.filter import FilterRows
 from transferia_tpu_torch.transform.plugins.mask import (
     MaskField,
     _host_hmac_hex,
+    dict_hex_column,
+    mask_dict_column,
 )
 
 logger = logging.getLogger(__name__)
@@ -137,40 +142,69 @@ class DeviceFusedStep(Transformer):
             for m in self.members:
                 out = m.apply(out).transformed
             return TransformResult(out)
-        if self._pick_strategy(batch.n_rows) == "host":
+        if self._pick_strategy(batch.n_rows, batch) == "host":
             return self._apply_host(batch)
         return self._apply_device(batch)
 
-    def _estimate_link_bytes(self, n_rows: int) -> tuple[float, float]:
-        """(h2d, d2h) bytes the device strategy moves for a batch: ~128
-        SHA-block bytes/row in and 32 digest bytes/row out per masked
-        column; predicate columns ship their dtype bytes plus a bitmap
-        (n/8 encoded, n raw) and the keep mask returns the same way."""
+    def _estimate_link_bytes(self, n_rows: int, batch=None
+                             ) -> tuple[float, float]:
+        """(h2d, d2h) bytes the device strategy would move for a batch,
+        with the dispatch encoding folded in: a dict-encoded masked
+        column whose hexed pool is memoized costs no link bytes, an
+        unhashed pool one pool upload (not per-row blocks), and a pool
+        too large for the batch none (it hashes on the host).  Otherwise
+        ~128 SHA-block bytes/row in and 32 digest bytes/row out per
+        masked column; predicate columns ship their dtype bytes plus a
+        bitmap (n/8 encoded, n raw) and the keep mask returns the same
+        way."""
         from transferia_tpu_torch.ops.dispatch import encoding_enabled
 
         enc = encoding_enabled()
-        h2d = 128.0 * n_rows * len(self.mask_entries)
-        d2h = 32.0 * n_rows * len(self.mask_entries)
+        h2d = 0.0
+        d2h = 0.0
+        for name, key in self.mask_entries:
+            col = None
+            if batch is not None and name in batch.columns:
+                col = batch.column(name)
+            if enc and col is not None and col.is_lazy_dict:
+                pool = col.dict_enc.pool
+                if pool.memo_get(("hmac_hex", bytes(key))) is not None:
+                    continue  # hexed pool already memoized: free
+                if pool.n_values <= 2 * max(n_rows, 1):
+                    # one pool upload (~2 SHA blocks/value) and its
+                    # digests back, charged to this batch
+                    h2d += 128.0 * pool.n_values
+                    d2h += 32.0 * pool.n_values
+                continue  # a rejected pool subset-hashes on the host
+            h2d += 128.0 * n_rows
+            d2h += 32.0 * n_rows
         if self.pred_node is not None:
-            per_row_mask = n_rows / 8 if enc else n_rows
-            h2d += len(self.pred_cols) * (8 * n_rows + per_row_mask)
-            d2h += per_row_mask
+            for name in self.pred_cols:
+                itemsize = 8
+                if (batch is not None and name in batch.columns
+                        and not batch.column(name).is_lazy_dict):
+                    itemsize = batch.column(name).data.dtype.itemsize
+                h2d += n_rows * itemsize
+                h2d += n_rows / 8 if enc else n_rows
+            d2h += n_rows / 8 if enc else n_rows  # the keep mask
         return h2d, d2h
 
-    def _predict_device_ns_row(self, n_rows: int) -> float:
+    def _predict_device_ns_row(self, n_rows: int, batch=None) -> float:
         """Link-model estimate of the device strategy's cost per row: two
-        syncs' launch overhead plus the bytes over the measured link
-        (compute is small next to either)."""
+        syncs' launch overhead, the bytes over the measured link
+        (`_estimate_link_bytes`, so auto placement judges the encoded
+        wire) and compute at ~10M rows/s."""
         from transferia_tpu_torch.ops.linkprobe import probe_link
 
         link = probe_link(self.program.device)
-        h2d_bytes, d2h_bytes = self._estimate_link_bytes(n_rows)
+        h2d_bytes, d2h_bytes = self._estimate_link_bytes(n_rows, batch)
         s = (2 * link.launch_overhead_s
              + h2d_bytes / link.h2d_bytes_per_s
-             + d2h_bytes / link.d2h_bytes_per_s)
+             + d2h_bytes / link.d2h_bytes_per_s
+             + n_rows / 10e6)
         return s * 1e9 / max(n_rows, 1)
 
-    def _pick_strategy(self, n_rows: int) -> str:
+    def _pick_strategy(self, n_rows: int, batch=None) -> str:
         mode = placement_mode()
         if mode in ("device", "host"):
             return mode
@@ -180,14 +214,14 @@ class DeviceFusedStep(Transformer):
         if host_ns < 0:
             return "host"
         if dev_ns < 0:
-            predicted = self._predict_device_ns_row(max(n_rows, 1))
+            predicted = self._predict_device_ns_row(max(n_rows, 1), batch)
             return ("host" if predicted > host_ns * self.PROBE_HEADROOM
                     else "device")
         winner = "host" if host_ns <= dev_ns else "device"
         if self._batch_no % self.REPROBE_EVERY == self.REPROBE_EVERY - 1:
             loser = "device" if winner == "host" else "host"
             if loser == "device" and self._predict_device_ns_row(
-                    max(n_rows, 1)) > host_ns * self.PROBE_HEADROOM:
+                    max(n_rows, 1), batch) > host_ns * self.PROBE_HEADROOM:
                 return winner
             return loser
         return winner
@@ -205,20 +239,48 @@ class DeviceFusedStep(Transformer):
         self._ns_row[strategy] = ns if prev < 0 else 0.7 * prev + 0.3 * ns
 
     def _apply_device(self, batch: ColumnBatch) -> TransformResult:
+        from transferia_tpu_torch.ops.dispatch import (
+            device_hmac_dict_pool,
+            encoding_enabled,
+        )
+
         t0 = time.perf_counter()
-        mask_inputs = [(batch.column(name).data, batch.column(name).offsets)
-                       for name, _ in self.mask_entries]
+        # the pool route: a dict column's pool hashes on the card once
+        # per (pool, key) and the codes rebind to the hexed pool on the
+        # host, so the batch's row bytes never cross the link; a pool
+        # too large for the batch hashes its referenced subset on the
+        # host, still encoded.  Only flat columns go to the program.
+        dict_cols: dict[str, Column] = {}
+        mask_inputs, flat_names, flat_states = [], [], []
+        use_pool_route = encoding_enabled()
+        for (name, key), states in zip(self.mask_entries,
+                                       self.program._states):
+            col = batch.column(name)
+            if use_pool_route and col.is_lazy_dict:
+                hexed = device_hmac_dict_pool(bytes(key), col.dict_enc.pool,
+                                              col.n_rows,
+                                              self.program.device)
+                dict_cols[name] = (
+                    dict_hex_column(col, hexed) if hexed is not None
+                    else mask_dict_column(bytes(key), col))
+                continue
+            mask_inputs.append((col.data, col.offsets))
+            flat_names.append(name)
+            flat_states.append(states)
         pred_inputs = {name: (batch.column(name).data,
                               batch.column(name).validity)
                        for name in self.pred_cols}
-        hexes, keep = self.program.run(mask_inputs, pred_inputs,
-                                       batch.n_rows)
+        hexes, keep = [], None  # everything rode the pool route
+        if mask_inputs or self.pred_node is not None:
+            hexes, keep = self.program.run(mask_inputs, pred_inputs,
+                                           batch.n_rows, states=flat_states)
         cols = dict(batch.columns)
-        for (name, _), hx in zip(self.mask_entries, hexes):
+        for name, hx in zip(flat_names, hexes):
             validity = batch.column(name).validity
             data, offsets = hex_to_varwidth(hx, validity)
             cols[name] = Column(name, CanonicalType.UTF8, data, offsets,
                                 validity)
+        cols.update(dict_cols)
         out = batch.with_columns(cols, self.result_schema(batch.schema))
         if keep is not None and not keep.all():
             out = out.filter(keep)
@@ -240,6 +302,11 @@ class DeviceFusedStep(Transformer):
         cols = dict(cur.columns)
         for name, key in self.mask_entries:
             col = cur.column(name)
+            if col.is_lazy_dict:
+                # O(unique) hashes: the pool once (or the referenced
+                # subset when the pool dwarfs the batch), codes stay
+                cols[name] = mask_dict_column(key, col)
+                continue
             data, offsets = _host_hmac_hex(key, col.data, col.offsets,
                                            col.validity)
             cols[name] = Column(name, CanonicalType.UTF8, data, offsets,

@@ -3,7 +3,10 @@
 
 The host path hashes each value with `hmac`/`hashlib`; the fused device
 step (transform/fused.py) hashes whole columns with kernel K-A and must
-give the same bytes (tests pin equality).
+give the same bytes (tests pin equality).  A dictionary-encoded column
+hashes its value pool once (`mask_dict_column`) and keeps its codes: the
+masked column stays dictionary-encoded.  The reference's hash-backend
+hook (`set_hash_backend`) is not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from transferia_tpu_torch.abstract.schema import (
 from transferia_tpu_torch.columnar.batch import (
     Column,
     ColumnBatch,
+    DictEnc,
+    DictPool,
+    _gather_varwidth,
     _offsets_from_lengths,
 )
 from transferia_tpu_torch.transform.base import TransformResult, Transformer
@@ -53,6 +59,103 @@ def _host_hmac_hex(key: bytes, data: np.ndarray, offsets: np.ndarray,
     return out_data, out_offsets
 
 
+def _hexed_pool(pool_hex: np.ndarray, pool_hex_off: np.ndarray,
+                null_code: Optional[int]) -> DictPool:
+    """Flat per-value hex digests -> a hexed DictPool with the null
+    sentinel's slot emptied (null rows materialize as empty bytes, not
+    HMAC of empty)."""
+    if null_code is not None:
+        lens = np.diff(pool_hex_off).astype(np.int64)
+        lens[null_code] = 0
+        new_off = _offsets_from_lengths(lens)
+        keep_mask = np.ones(len(pool_hex), dtype=bool)
+        s, e = (int(pool_hex_off[null_code]),
+                int(pool_hex_off[null_code + 1]))
+        keep_mask[s:e] = False
+        pool_hex = pool_hex[keep_mask]
+        pool_hex_off = new_off
+    return DictPool(pool_hex, pool_hex_off, null_code=null_code)
+
+
+def hexed_pool_from_flat(pool: DictPool, pool_hex: np.ndarray,
+                         pool_hex_off: np.ndarray) -> DictPool:
+    """Flat per-value hex digests -> the hexed DictPool, with the null
+    sentinel's slot emptied.  Shared by the host hash path
+    (mask_dict_column) and the device one (ops/dispatch
+    .device_hmac_dict_pool): both must give identical pools for the memo
+    they share to be sound."""
+    return _hexed_pool(pool_hex, pool_hex_off, pool.null_code)
+
+
+def dict_hex_column(col: Column, hexed: DictPool) -> Column:
+    """Rebind a dict column's codes to its hexed pool: the masked output
+    column, still dictionary-encoded, codes untouched unless a null
+    sentinel has to be appended for a sentinel-less pool."""
+    codes = col.dict_enc.indices
+    if (hexed.null_code is None and col.validity is not None
+            and not col.validity.all()):
+        # a pool built without a sentinel: append one now
+        data = hexed.values_data
+        off = np.append(hexed.values_offsets,
+                        hexed.values_offsets[-1]).astype(np.int32)
+        hexed = DictPool(data, off, null_code=hexed.n_values)
+        codes = np.where(col.validity, codes,
+                         hexed.null_code).astype(np.int32)
+    return Column(col.name, CanonicalType.UTF8, validity=col.validity,
+                  dict_enc=DictEnc(codes, pool=hexed))
+
+
+def _mask_dict_subset(key: bytes, col: Column) -> Column:
+    """HMAC only the pool values this batch references (a pool much
+    larger than the batch is not hashed whole, and the rows never
+    flatten into per-row HMAC input).  The column stays dict-encoded
+    over a fresh subset pool; output bytes equal the flat path's."""
+    enc = col.dict_enc
+    pool = enc.pool
+    uniq, ranks = np.unique(enc.indices, return_inverse=True)
+    sub_data, sub_off = _gather_varwidth(
+        pool.values_data,
+        np.ascontiguousarray(pool.values_offsets, dtype=np.int32),
+        uniq.astype(np.int64))
+    hex_data, hex_off = _host_hmac_hex(key, sub_data, sub_off, None)
+    sub_null = None
+    if pool.null_code is not None:
+        pos = int(np.searchsorted(uniq, pool.null_code))
+        if pos < len(uniq) and int(uniq[pos]) == pool.null_code:
+            sub_null = pos
+    sub = _hexed_pool(hex_data, hex_off, sub_null)
+    codes = ranks.astype(np.int32)
+    return dict_hex_column(
+        Column(col.name, col.ctype, validity=col.validity,
+               dict_enc=DictEnc(codes, pool=sub)),
+        sub)
+
+
+def mask_dict_column(key: bytes, col: Column) -> Column:
+    """HMAC a dictionary-encoded column by hashing its value pool once
+    and keeping the row codes: O(unique) hashes instead of O(rows), and
+    the hexed pool memoizes on the shared DictPool (key ("hmac_hex",
+    key)), so batches slicing one dictionary hash it once.  Valid rows
+    get the 64-char hex of their value, null rows empty bytes.  When the
+    pool is much larger than the batch and not memoized, only the
+    referenced subset hashes; the column never flattens either way."""
+    enc = col.dict_enc
+    pool = enc.pool
+    memo_key = ("hmac_hex", key)
+    hexed = pool.memo_get(memo_key)
+    if hexed is None:
+        # a pool bigger than ~2 batches of rows does not pay for itself
+        # unless shared (the memo then amortizes it); 2x covers the
+        # filtered-batch case
+        if pool.n_values > 2 * max(col.n_rows, 1):
+            return _mask_dict_subset(key, col)
+        pool_hex, pool_hex_off = _host_hmac_hex(
+            key, pool.values_data, pool.values_offsets, None)
+        hexed = hexed_pool_from_flat(pool, pool_hex, pool_hex_off)
+        pool.memo_set(memo_key, hexed)
+    return dict_hex_column(col, hexed)
+
+
 @register_transformer("mask_field")
 class MaskField(Transformer):
     """Replace column values with HMAC-SHA256(salt, value) hex digests.
@@ -82,6 +185,8 @@ class MaskField(Transformer):
         })
 
     def _mask_column(self, col: Column) -> Column:
+        if col.is_lazy_dict:
+            return mask_dict_column(self.key, col)
         if col.offsets is None:
             # stringify fixed-width values, then hash
             bufs = [

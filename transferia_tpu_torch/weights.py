@@ -14,15 +14,20 @@ worth carrying across packages: the JAX package's `pool_accumulators`
 gives two numpy uint32 arrays; `accs_from_jax` turns them into the port's
 (k,) int32 tensors, which `DictPool.memo_set(ops.rowhash._ACC_MEMO_KEY,
 ...)` seeds into a pool's memo.
+
+A dictionary's value pool is data rather than state, but tests feed one
+pool's content to both packages: `pool_from_jax` turns a JAX-package
+`DictPool`'s arrays into the port's `DictPool` (empty memo).
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from transferia_tpu_torch.columnar.batch import DictPool
 from transferia_tpu_torch.ops.sha256 import words_to_tensor
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
 
@@ -55,3 +60,13 @@ def accs_from_jax(acc1: np.ndarray, acc2: np.ndarray,
     dev = resolve_device(device)
     return (words_to_tensor(np.asarray(acc1), dev),
             words_to_tensor(np.asarray(acc2), dev))
+
+
+def pool_from_jax(values_data: np.ndarray, values_offsets: np.ndarray,
+                  null_code: Optional[int]) -> DictPool:
+    """A JAX-package DictPool's arrays (flat uint8 values, (k+1,) int32
+    offsets, the null sentinel's index or None) -> the port's DictPool
+    over copies of them, with an empty memo."""
+    return DictPool(np.array(values_data, dtype=np.uint8),
+                    np.array(values_offsets, dtype=np.int32),
+                    null_code=None if null_code is None else int(null_code))
