@@ -37,7 +37,25 @@ final line):
   6. decode: bench.py measure_device_decode's shape (4,194,304 codes of
      17 bits, a 131,072-entry int32 pool, seed 13); the output must equal
      pool[codes], and a 64-iteration decode_dict_loop its plain version;
-  7. timing: each kernel at its path's shapes, beside its plain version,
+  7. main_path_mesh: main_path's rows and config through the chain's
+     mesh route on a 4-shard virtual mesh of the card
+     (`testing.force_virtual_mesh(4)`, parallel/fusedmesh.py): every
+     batch runs sharded (K-A, K-B, K-C and the shard histogram on each
+     shard), the output byte-identical to main_path's, each batch's
+     kept count and shard histogram equal to a host bincount of its
+     output;
+  8. dispatch_mesh: the dispatch phase's dictionary batches through the
+     mesh's dict route: one K-A launch for the pool, the digest gather
+     on every shard, output byte-identical to the host strategy, URL
+     still dictionary-encoded with no flat materialization;
+  9. mesh_step: sharded_transform_step (K13) on the 4-shard mesh, 2
+     columns x 524,288 rows of 2-block messages (64 MB of blocks a
+     column), equal to a 1-shard mesh, to hashlib on sampled rows and
+     to a host bincount;
+ 10. mesh1: bench.py measure_mesh_1dev's shape (131,072 rows, RegionID <
+     400, seed 21) through ShardedFusedProgram on a 1-shard mesh against
+     FusedMaskFilterProgram, interleaved, medians of 9;
+ 11. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM, 67 T 32-bit ops/s).
 Each path names the kernels it must launch (PATH_KERNELS); the launch
@@ -95,6 +113,7 @@ from transferia_tpu_torch.ops.dispatch import (
     set_dispatch_encoding,
 )
 from transferia_tpu_torch.ops.fused import (
+    FusedMaskFilterProgram,
     _chunk_rows,
     pack_hmac_blocks,
     pow2_blocks,
@@ -114,6 +133,19 @@ from transferia_tpu_torch.ops.sha256 import (
     sha256_hmac_plain,
     sha256_padded,
 )
+from transferia_tpu_torch.parallel import make_mesh, sharded_transform_step
+from transferia_tpu_torch.parallel.fusedmesh import (
+    ShardedFusedProgram,
+    digest_gather,
+    digest_gather_plain,
+)
+from transferia_tpu_torch.parallel.mesh import (
+    example_step_args,
+    shard_hist_fused,
+    shard_hist_fused_plain,
+    shard_hist_step,
+    shard_hist_step_plain,
+)
 from transferia_tpu_torch.predicate import compile_mask, parse
 from transferia_tpu_torch.predicate.device import (
     compile_mask_program,
@@ -122,6 +154,7 @@ from transferia_tpu_torch.predicate.device import (
     pred3vl_mask,
 )
 from transferia_tpu_torch.runtime.device import resolve_device
+from transferia_tpu_torch.testing import force_virtual_mesh
 from transferia_tpu_torch.transform import build_chain
 from transferia_tpu_torch.transform.fused import (
     DeviceFusedStep,
@@ -152,7 +185,13 @@ KERNEL_META = {
                     "transferia_tpu/ops/decode.py:44"),
     "ragged_pack": ("transferia_tpu_torch/csrc/raggedpack.cu",
                     "transferia_tpu/ops/raggedpack.py:41"),
+    "shard_hist": ("transferia_tpu_torch/csrc/mesh.cu",
+                   "transferia_tpu/parallel/mesh.py:72"),
+    "digest_gather": ("transferia_tpu_torch/csrc/mesh.cu",
+                      "transferia_tpu/parallel/fusedmesh.py:171"),
 }
+# the histogram replaces two JAX programs' scatter-adds
+ALSO_REPLACES = {"shard_hist": "transferia_tpu/parallel/fusedmesh.py:191"}
 # the kernels each path must launch, and the path whose launches and
 # shapes a kernel's line in the kernels JSON reports
 PATH_KERNELS = {
@@ -163,6 +202,12 @@ PATH_KERNELS = {
     "fingerprint_flat": ("rowhash_lanes",),
     "fingerprint_dict": ("rowhash_lanes", "var_accumulators"),
     "decode": ("dict_decode",),
+    "main_path_mesh": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+                       "shard_hist"),
+    "dispatch_mesh": ("sha256_hmac", "digest_gather", "pred_decode",
+                      "pred3vl_mask", "shard_hist"),
+    "mesh_step": ("sha256_hmac", "shard_hist"),
+    "mesh1": ("sha256_hmac", "pred_decode", "pred3vl_mask", "shard_hist"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -175,6 +220,10 @@ DISPATCH_CONFIG = {"transformers": [   # bench.py measure_dispatch
     {"mask_field": {"columns": ["URL"], "salt": "bench-salt"}},
     {"filter_rows": {"filter": "RegionID < 400"}},
 ]}
+MESH_SHARDS = 4           # virtual shards of the one card (data 2 x model 2)
+TARGET_SHARDS = 16        # the shard histogram's bins (the programs' default)
+STEP_ROWS_PER_DEVICE, STEP_COLUMNS, STEP_MAX_BLOCKS = 262_144, 2, 2
+MESH1_ROWS, MESH1_ITERS = 1 << 17, 9   # bench.py measure_mesh_1dev
 
 
 def emit(obj) -> None:
@@ -545,6 +594,94 @@ def check_ragged_pack(dev: torch.device) -> int:
         pass
     else:
         raise AssertionError("ragged_pack took a row longer than its blocks")
+    return err
+
+
+def mask_layout(bits: np.ndarray, layout: str, dev) -> torch.Tensor:
+    """A bool mask as the kernels read it: bool bytes, or packed
+    little-endian words (bit j of word k = row 32k+j)."""
+    if layout == "bool":
+        return torch.from_numpy(bits.copy()).to(dev)
+    packed = np.packbits(bits.astype(np.uint8), bitorder="little")
+    packed = np.pad(packed, (0, (-len(packed)) % 4))
+    return torch.from_numpy(packed.view(np.int32).copy()).to(dev)
+
+
+def check_shard_hist(dev: torch.device) -> int:
+    """K13/K14's histogram against its plain version: fused mode with
+    the masks packed and as bools, with and without a predicate; step
+    mode over 1 and 3 columns with float32 and float64 scores (a
+    negative age, 1e300, inf, NaN); n_shards 1, 13, 16 and 4096; a
+    count above the limit raises."""
+    rng = np.random.default_rng(15)
+    err = 0
+    for n, n_shards in ((65_536, 16), (100_000, 13), (4_096, 4096),
+                        (1_000, 1)):
+        words = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (n, 8)).astype(np.int32)).to(dev)
+        valid, pred = rng.random(n) > 0.1, rng.random(n) > 0.4
+        for layout in ("packed", "bool"):
+            v = mask_layout(valid, layout, dev)
+            for keep in (mask_layout(pred, layout, dev), None):
+                got = shard_hist_fused(words, n_shards, v, keep)
+                err = max(err, require_equal(
+                    got, shard_hist_fused_plain(words, n_shards, v, keep),
+                    f"shard_hist fused n={n} shards={n_shards} {layout}"))
+                if int(got[:n_shards].sum()) != int(got[n_shards]) or \
+                        int(got[n_shards]) != int(
+                            (valid & (pred if keep is not None
+                                      else True)).sum()):
+                    raise AssertionError("shard_hist fused: counts do not "
+                                         "add up")
+        ages = torch.from_numpy(rng.integers(-3, 99, n).astype(
+            np.int32)).to(dev)
+        scores = rng.uniform(0, 100, n)
+        scores[[1, 2, 3]] = [1e300, np.inf, np.nan]
+        for dtype in (np.float64, np.float32):
+            with np.errstate(over="ignore"):  # 1e300 overflows to inf
+                sc = torch.from_numpy(scores.astype(dtype)).to(dev)
+            for c in (1, 3):
+                dig = torch.from_numpy(rng.integers(
+                    -2**31, 2**31, (c, n, 8)).astype(np.int32)).to(dev)
+                part, keep, s32 = shard_hist_step(dig, ages, sc, n_shards)
+                p_part, p_keep, p_s32 = shard_hist_step_plain(
+                    dig, ages, sc, n_shards)
+                what = f"shard_hist step n={n} c={c} {dtype.__name__}"
+                nan = torch.isnan(s32)
+                if not torch.equal(nan, torch.isnan(p_s32)) or \
+                        bool(keep[1:4].any()):
+                    raise AssertionError(f"{what}: NaN/inf rows differ")
+                err = max(err, require_equal(part, p_part, what),
+                          require_equal(keep, p_keep, what),
+                          require_equal(s32.view(torch.int32)[~nan],
+                                        p_s32.view(torch.int32)[~nan], what))
+    try:
+        shard_hist_fused(words, 4097, v)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("shard_hist took more than 4096 shards")
+    return err
+
+
+def check_digest_gather(dev: torch.device) -> int:
+    """K14's gather against its plain version, clipping negative and
+    out-of-range codes to the first and last rows (jnp.take "clip")."""
+    rng = np.random.default_rng(16)
+    err = 0
+    for k in (1, 7, 4097):
+        table = torch.from_numpy(rng.integers(
+            -2**31, 2**31, (k, 8)).astype(np.int32)).to(dev)
+        codes = rng.integers(-10, k + 10, 100_003).astype(np.int32)
+        codes[:6] = [-5, -1, k, k + 100, 2**31 - 1, -2**31]
+        c = torch.from_numpy(codes).to(dev)
+        got = digest_gather(table, c)
+        err = max(err, require_equal(got, digest_gather_plain(table, c),
+                                     f"digest_gather k={k}"))
+        if not (torch.equal(got[0], table[0]) and torch.equal(got[1], table[0])
+                and torch.equal(got[2], table[k - 1])
+                and torch.equal(got[5], table[0])):
+            raise AssertionError(f"digest_gather k={k} does not clip")
     return err
 
 
@@ -944,6 +1081,261 @@ def decode_path(dev) -> dict:
                 launches=launches.counts, equal_to=["pool[codes]", "plain"])
 
 
+# -- the mesh paths -------------------------------------------------------------
+
+def hex_word0(col: Column) -> np.ndarray:
+    """Digest word 0 of every row of a hex-masked column (its first 8
+    hex characters), from the column's bytes."""
+    data, offsets, _ = column_arrays(col)
+    if not np.all(np.diff(offsets) == 64):
+        raise AssertionError("a masked row is not 64 hex characters")
+    chars = data[offsets[:-1, None].astype(np.int64) + np.arange(8)]
+    nib = np.where(chars >= ord("a"), chars - ord("a") + 10,
+                   chars - ord("0")).astype(np.uint64)
+    return (nib << (4 * (7 - np.arange(8, dtype=np.uint64)))).sum(axis=1)
+
+
+def host_hist(word0: np.ndarray) -> np.ndarray:
+    return np.bincount((word0 % TARGET_SHARDS).astype(np.int64),
+                       minlength=TARGET_SHARDS)
+
+
+def run_mesh_chain(config, batches, warm, dev):
+    """Apply `config` to the batches under a MESH_SHARDS virtual mesh of
+    the card with device placement (after one warm batch, if given).
+    Returns (outputs, seconds, per batch (last_shard_hist, last_kept),
+    the step)."""
+    force_virtual_mesh(MESH_SHARDS)
+    set_placement("device")
+    try:
+        chain = build_chain(config, device=dev)
+        step = chain.plan_for(batches[0].table_id, batches[0].schema).steps[0]
+        if not (isinstance(step, DeviceFusedStep)
+                and step.sharded_program is not None
+                and step.sharded_program.n_dev == MESH_SHARDS):
+            raise AssertionError(f"no {MESH_SHARDS}-shard program: {step}")
+        if warm is not None:
+            chain.apply(warm)
+            torch.cuda.synchronize(dev)
+            reset_dispatch_bytes()
+        outs, sums = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            outs.append(chain.apply(b))
+            sums.append((step.sharded_program.last_shard_hist,
+                         step.sharded_program.last_kept))
+        torch.cuda.synchronize(dev)
+        return outs, time.perf_counter() - t0, sums, step
+    finally:
+        force_virtual_mesh(None)
+        set_placement(None)
+
+
+def check_mesh_sums(outs, sums, what: str) -> int:
+    """Each batch's cross-shard sums against the host: last_kept is the
+    output's rows, last_shard_hist a bincount of its URL digests' word 0
+    mod 16.  Returns the kept rows."""
+    kept = 0
+    for i, (out, (hist, n_kept)) in enumerate(zip(outs, sums)):
+        want = host_hist(hex_word0(out.column("URL")))
+        if n_kept != out.n_rows or not np.array_equal(hist, want):
+            raise AssertionError(f"{what} batch {i}: kept {n_kept} vs "
+                                 f"{out.n_rows}, hist {hist} vs {want}")
+        if np.count_nonzero(hist) < TARGET_SHARDS // 2:
+            raise AssertionError(f"{what} batch {i}: trivial hist {hist}")
+        kept += n_kept
+    return kept
+
+
+def main_path_mesh(batches, dev_outs, main_bytes: dict, dev) -> dict:
+    """main_path's rows and config through the chain's mesh route: one
+    sharded run per batch over MESH_SHARDS shards of the card."""
+    reset_dispatch_bytes()
+    with PathLaunches("main_path_mesh") as launches:
+        outs, seconds, sums, _ = run_mesh_chain(CONFIG, batches, None, dev)
+    staged = dispatch_bytes()
+    runs = len(batches) * MESH_SHARDS
+    for k in ("shard_hist", "sha256_hmac", "pred3vl_mask"):
+        if launches.counts[k] != runs:
+            raise AssertionError(f"main_path_mesh: {k} launched "
+                                 f"{launches.counts[k]} times, not {runs}: "
+                                 "a batch left the sharded program")
+    for i, (a, b) in enumerate(zip(outs, dev_outs)):
+        if not batches_identical(a, b):
+            raise AssertionError(f"main_path_mesh batch {i} differs from "
+                                 "main_path's")
+    kept = check_mesh_sums(outs, sums, "main_path_mesh")
+    pad_rows = sum(bucket_rows(-(-b.n_rows // MESH_SHARDS)) * MESH_SHARDS
+                   - b.n_rows for b in batches)
+    return dict(rows=ROWS, batch_rows=BATCH_ROWS, shards=MESH_SHARDS,
+                kept=kept, device_seconds=seconds,
+                device_rows_per_s=ROWS / seconds, h2d_bytes=staged,
+                main_path_h2d_bytes=main_bytes, pad_rows=pad_rows,
+                launches=launches.counts, identical_to="main_path",
+                sums_equal_to="host bincount")
+
+
+def dispatch_mesh(dev) -> dict:
+    """The dispatch phase's dictionary batches through the mesh's dict
+    route: the pool hashed once, each shard gathering its rows' digest
+    words; the output equals the host strategy's, URL stays encoded."""
+    values, batch_data = dispatch_data()
+    _hmac_key_states(b"bench-salt", dev)  # the key's states, made once
+    pool = DictPool(*_flat_bytes(values + [b""]), null_code=len(values))
+    data = dispatch_batches(pool, batch_data)
+    reset_flat_materializations()
+    with PathLaunches("dispatch_mesh") as launches:
+        outs, seconds, sums, _ = run_mesh_chain(DISPATCH_CONFIG, data,
+                                                data[0], dev)
+    staged = dispatch_bytes()
+    materialized = flat_materializations()
+    lazy = all(b.column("URL").is_lazy_dict for b in outs)
+    runs = (DISPATCH_BATCHES + 1) * MESH_SHARDS
+    want = {"sha256_hmac": 1, "digest_gather": runs, "shard_hist": runs,
+            "pred_decode": runs, "pred3vl_mask": runs}
+    got = {k: launches.counts[k] for k in want}
+    if materialized or not lazy or got != want:
+        raise AssertionError(f"dispatch_mesh: {materialized} flat "
+                             f"materializations, URL encoded {lazy}, "
+                             f"launches {got} (want {want})")
+    host, host_s, _ = run_dispatch(values, batch_data, "auto", "host", dev)
+    for i, (a, h) in enumerate(zip(outs, host)):
+        if not batches_identical(a, h):
+            raise AssertionError(f"dispatch_mesh batch {i} differs from the "
+                                 "host strategy")
+    kept = check_mesh_sums(outs, sums, "dispatch_mesh")
+    rows = DISPATCH_ROWS * DISPATCH_BATCHES
+    return dict(rows=rows, batch_rows=DISPATCH_ROWS, shards=MESH_SHARDS,
+                pool_values=DISPATCH_UNIQUES, kept=kept,
+                device_seconds=seconds, device_rows_per_s=rows / seconds,
+                host_rows_per_s=rows / host_s, h2d_bytes=staged,
+                flat_materializations=materialized, launches=launches.counts,
+                equal_to="host", sums_equal_to="host bincount")
+
+
+def step_inputs(mesh, dev):
+    """example_step_args at the phase's size, with one row in 4,099 of
+    each column a real HMAC message block (so hashlib can check it) and
+    a few 1e300/inf scores and negative ages."""
+    blocks, n_blocks, ages, scores = example_step_args(
+        mesh, STEP_ROWS_PER_DEVICE, STEP_COLUMNS, STEP_MAX_BLOCKS)
+    rows = np.arange(0, blocks.shape[1], 4099)
+    msgs = [f"row-{r}-{'m' * (r % 100)}".encode() for r in rows]
+    packed, counts = pack_hmac_blocks(*_flat_bytes(msgs), STEP_MAX_BLOCKS)
+    for c in range(STEP_COLUMNS):
+        blocks[c, rows] = packed
+        n_blocks[c, rows] = counts
+    scores[rows[1::3]] = 1e300
+    scores[rows[2::3]] = np.inf
+    ages[rows[::5]] = -1
+    return (blocks, n_blocks, ages, scores), rows, msgs
+
+
+def mesh_step(dev) -> dict:
+    """sharded_transform_step on MESH_SHARDS shards of the card against
+    a 1-shard mesh, hashlib and a host bincount."""
+    force_virtual_mesh(MESH_SHARDS)
+    try:
+        mesh = make_mesh(device=dev)
+    finally:
+        force_virtual_mesh(None)
+    if mesh.shape != {"data": 2, "model": 2}:
+        raise AssertionError(f"mesh {mesh.shape}")
+    t0 = time.perf_counter()
+    args, rows, msgs = step_inputs(mesh, dev)
+    gen_s = time.perf_counter() - t0
+    step = sharded_transform_step(mesh, STEP_MAX_BLOCKS, TARGET_SHARDS)
+    step(*args)  # warm: pinned buffers, the build
+    torch.cuda.synchronize(dev)
+    with PathLaunches("mesh_step") as launches:
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    if launches.counts["shard_hist"] != MESH_SHARDS or \
+            launches.counts["sha256_hmac"] != MESH_SHARDS:
+        raise AssertionError(f"mesh_step launches {launches.counts}")
+    one = sharded_transform_step(make_mesh(n_devices=1, device=dev),
+                                 STEP_MAX_BLOCKS, TARGET_SHARDS)(*args)
+    for name, a, b in zip(("digests", "keep", "scores_f32", "hist", "total"),
+                          out, one):
+        if not torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b):
+            raise AssertionError(f"mesh_step {name}: 4 shards differ from "
+                                 "1 shard")
+    digests, keep, _, hist, total = (t.cpu().numpy() for t in out)
+    words = digests.view(np.uint32)
+    for c in range(STEP_COLUMNS):
+        got = [bytes(r).hex() for r in
+               _words_to_bytes(words[c, rows])]
+        want = [hmac.new(b"mask-key", m, hashlib.sha256).hexdigest()
+                for m in msgs]
+        if got != want:
+            raise AssertionError(f"mesh_step column {c} differs from hashlib")
+    n_kept = int(keep.sum())
+    want_hist = sum(host_hist(words[c, keep, 0].astype(np.uint64))
+                    for c in range(STEP_COLUMNS))
+    if int(total) != n_kept or int(hist.sum()) != n_kept * STEP_COLUMNS or \
+            not np.array_equal(hist, want_hist) or keep[rows[1::3]].any():
+        raise AssertionError(f"mesh_step sums: total {total}, kept {n_kept}, "
+                             f"hist {hist} vs {want_hist}")
+    n_rows = words.shape[1]
+    return dict(shards=MESH_SHARDS, mesh=mesh.shape, columns=STEP_COLUMNS,
+                rows=n_rows, max_blocks=STEP_MAX_BLOCKS,
+                block_bytes=int(args[0].nbytes), kept=n_kept,
+                data_gen_seconds=gen_s, step_seconds=seconds,
+                rows_per_s=n_rows / seconds,
+                hashed_rows_per_s=n_rows * STEP_COLUMNS / seconds,
+                launches=launches.counts,
+                equal_to=["1-shard mesh", "hashlib", "host bincount"])
+
+
+def mesh1(dev) -> dict:
+    """bench.py measure_mesh_1dev's shape: ShardedFusedProgram on a
+    1-shard mesh against FusedMaskFilterProgram, interleaved, medians."""
+    rng = np.random.default_rng(21)
+    urls = np.char.add("https://example-",
+                       rng.integers(0, 997, MESH1_ROWS).astype("U4"))
+    data, offsets = _flat(urls)
+    region = rng.integers(0, 500, MESH1_ROWS).astype(np.int32)
+    node = parse("RegionID < 400")
+    mask_cols = [(data, offsets)]
+    pred_cols = {"RegionID": (region, None)}
+    plain = FusedMaskFilterProgram([b"bench-salt"], node, dev)
+    sharded = ShardedFusedProgram([b"bench-salt"], node,
+                                  make_mesh(n_devices=1, device=dev))
+    with PathLaunches("mesh1") as launches:
+        want = plain.run(mask_cols, pred_cols, MESH1_ROWS)
+        out = sharded.run(mask_cols, pred_cols, MESH1_ROWS)
+        plain_ts, mesh_ts = [], []
+        for _ in range(MESH1_ITERS):
+            t0 = time.perf_counter()
+            plain.run(mask_cols, pred_cols, MESH1_ROWS)
+            plain_ts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            out = sharded.run(mask_cols, pred_cols, MESH1_ROWS)
+            mesh_ts.append(time.perf_counter() - t0)
+    hexes, keep = out
+    if not (np.array_equal(hexes[0], want[0][0])
+            and np.array_equal(keep, want[1])):
+        raise AssertionError("mesh1: the 1-shard mesh differs from the "
+                             "fused program")
+    kept = int(keep.sum())
+    word0 = np.array([int(bytes(r[:8]), 16) for r in hexes[0][keep]],
+                     dtype=np.uint64)
+    if kept != int((region < 400).sum()) or sharded.last_kept != kept or \
+            not np.array_equal(sharded.last_shard_hist, host_hist(word0)):
+        raise AssertionError(f"mesh1: kept {sharded.last_kept} / {kept}, "
+                             f"hist {sharded.last_shard_hist}")
+    plain_s, mesh_s = statistics.median(plain_ts), statistics.median(mesh_ts)
+    return dict(rows=MESH1_ROWS, iters=MESH1_ITERS, devices=sharded.n_dev,
+                kept=kept, mesh_ms=mesh_s * 1e3, plain_device_ms=plain_s * 1e3,
+                mesh_overhead_pct=100 * (mesh_s - plain_s) / plain_s,
+                mesh_spread_pct=100 * (max(mesh_ts) - min(mesh_ts)) / mesh_s,
+                launches=launches.counts, equal_to="FusedMaskFilterProgram")
+
+
 # -- phase 7: timing ------------------------------------------------------------
 
 def kernel_ms(fn, dev, iters: int = 20, reps: int = 5) -> float:
@@ -1044,6 +1436,7 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
     calls.update(fingerprint_calls(batch, dev))
     calls.update(decode_calls(dev))
     calls.update(pack_calls(batch, dev))
+    calls.update(mesh_calls(dev))
     for name, (kernel, plain, library, (bound_ms, bound_by)) in calls.items():
         out[name] = dict(
             max_abs_err=require_equal(kernel(), plain(), f"{name} at the "
@@ -1052,7 +1445,79 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
             library_ms=kernel_ms(library, dev) if library else None,
             bound_ms=bound_ms, bound_by=bound_by)
     out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(dev)
+    out["shard_hist"]["at_step_shape"] = step_hist_timing(dev)
     return out
+
+
+def mesh_calls(dev) -> dict:
+    """K13/K14's histogram at main_path_mesh's shape (one shard of a
+    131,072-row batch: 65,536 rows, keep and run validity packed, keep
+    at main_path's ratio) and the digest gather at dispatch_mesh's (one
+    shard's 65,536 codes into the 4,097-row pool digest matrix).
+    Bytes: every row's keep and validity bits, one 32-byte sector of
+    digest per kept row, the partial; the gather's codes read and rows
+    written once, the table read once."""
+    rng = np.random.default_rng(17)
+    n = bucket_rows(BATCH_ROWS // MESH_SHARDS)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8)).astype(
+        np.int32)).to(dev)
+    pred = rng.random(n) < 0.8 * 6 / 7  # RegionID < 400, width >= 390
+    valid = np.ones(n, dtype=bool)
+    keep_w, valid_w = (mask_layout(b, "packed", dev) for b in (pred, valid))
+    bins = (words[:, 0].to(torch.int64) & 0xFFFFFFFF) % TARGET_SHARDS
+    weights = torch.from_numpy(pred.astype(np.float32)).to(dev)
+    kept = int(pred.sum())
+    calls = {"shard_hist": (
+        lambda: shard_hist_fused(words, TARGET_SHARDS, valid_w, keep_w),
+        lambda: shard_hist_fused_plain(words, TARGET_SHARDS, valid_w, keep_w),
+        lambda: torch.bincount(bins, weights=weights,
+                               minlength=TARGET_SHARDS),
+        # ~10 operations a row: two bit tests, the and, the modulo, adds
+        bound(2 * n // 8 + 32 * kept + 4 * (TARGET_SHARDS + 1), 10 * n))}
+
+    values, batch_data = dispatch_data()
+    pool = DictPool(*_flat_bytes(values + [b""]), null_code=len(values))
+    blocks, nb = pack_hmac_blocks(pool.values_data, pool.values_offsets,
+                                  pow2_blocks(int(np.diff(
+                                      pool.values_offsets).max())))
+    inner, outer = _hmac_key_states(b"bench-salt", dev)
+    table = sha256_hmac(torch.from_numpy(blocks).to(dev),
+                        torch.from_numpy(nb).to(dev), inner, outer,
+                        blocks.shape[1] // 64)
+    codes = torch.from_numpy(batch_data[0][0][:n].copy()).to(dev)
+    k = table.shape[0]
+    calls["digest_gather"] = (
+        lambda: digest_gather(table, codes),
+        lambda: digest_gather_plain(table, codes),
+        lambda: torch.index_select(table, 0, codes),
+        # ~4 operations per word: the clip, the address, the copy
+        bound(4 * n + 32 * n + 32 * k, 4 * 8 * n))
+    return calls
+
+
+def step_hist_timing(dev) -> dict:
+    """K13's histogram in step mode at mesh_step's shape: one shard's
+    262,144 rows of one column, float64 scores.  Bytes: ages and scores
+    read, keep and scores_f32 written, one 32-byte sector per kept row."""
+    rng = np.random.default_rng(18)
+    n = STEP_ROWS_PER_DEVICE
+    dig = torch.from_numpy(rng.integers(-2**31, 2**31, (1, n, 8)).astype(
+        np.int32)).to(dev)
+    ages = torch.from_numpy(rng.integers(0, 99, n).astype(np.int32)).to(dev)
+    scores = torch.from_numpy(rng.uniform(0, 100, n)).to(dev)
+
+    def kernel():
+        return shard_hist_step(dig, ages, scores, TARGET_SHARDS)[0]
+
+    def plain():
+        return shard_hist_step_plain(dig, ages, scores, TARGET_SHARDS)[0]
+
+    bound_ms, bound_by = bound((4 + 8 + 1 + 4) * n + 32 * n
+                               + 4 * (TARGET_SHARDS + 1), 12 * n)
+    return dict(rows=n, max_abs_err=require_equal(
+        kernel(), plain(), "shard_hist at the step's shape"),
+        ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
+        bound_ms=bound_ms, bound_by=bound_by)
 
 
 def pack_calls(batch: ColumnBatch, dev) -> dict:
@@ -1201,7 +1666,9 @@ def main() -> int:
             "rowhash_lanes": check_rowhash_lanes(dev),
             "var_accumulators": check_var_accumulators(dev),
             "dict_decode": check_dict_decode(dev),
-            "ragged_pack": check_ragged_pack(dev)}
+            "ragged_pack": check_ragged_pack(dev),
+            "shard_hist": check_shard_hist(dev),
+            "digest_gather": check_digest_gather(dev)}
     torch.cuda.synchronize(dev)
     emit({"phase": "kernels", "check": "exact", "max_abs_err": errs})
 
@@ -1248,7 +1715,12 @@ def main() -> int:
             ("fingerprint_flat",
              lambda: fingerprint_flat(batches, schema, fixed, var, dev)),
             ("fingerprint_dict", lambda: fingerprint_dict(dev)),
-            ("decode", lambda: decode_path(dev))):
+            ("decode", lambda: decode_path(dev)),
+            ("main_path_mesh",
+             lambda: main_path_mesh(batches, dev_outs, main_bytes, dev)),
+            ("dispatch_mesh", lambda: dispatch_mesh(dev)),
+            ("mesh_step", lambda: mesh_step(dev)),
+            ("mesh1", lambda: mesh1(dev))):
         t_phase = time.perf_counter()
         result = run()
         phase_s[path] = time.perf_counter() - t_phase
@@ -1272,6 +1744,8 @@ def main() -> int:
             **t, "max_abs_err": max(errs[name], t["max_abs_err"]),
             "check": "exact",
         })
+        if name in ALSO_REPLACES:
+            kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
     emit({"phase": "timing", "card": card, "shape_rows": chunk or 32768,
           "phase_seconds": phase_s,
           "total_seconds": time.perf_counter() - t_start})

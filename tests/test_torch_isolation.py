@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no pyarrow, no silent CPU.
 
 A fresh interpreter imports transferia_tpu_torch and runs the fused
-chain (over a flat and a dictionary-encoded column), the ragged pack and
-a table fingerprint on the CPU; afterwards neither jax,
+chain (over a flat and a dictionary-encoded column), the ragged pack, a
+table fingerprint, the sharded transform step and the chain's mesh
+route (on a 2-shard virtual mesh) on the CPU; afterwards neither jax,
 pyarrow, transferia_tpu nor any transferia_tpu.* module may be loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there.
@@ -24,6 +25,8 @@ from transferia_tpu_torch.ops.rowhash import (
     TableFingerprinter,
     batch_row_keys,
 )
+from transferia_tpu_torch.parallel import make_mesh, sharded_transform_step
+from transferia_tpu_torch.parallel.fusedmesh import ShardedFusedProgram
 from transferia_tpu_torch.runtime.device import resolve_device
 from transferia_tpu_torch.transform import build_chain
 from transferia_tpu_torch.transform.fused import set_placement
@@ -77,11 +80,26 @@ dbatch = ColumnBatch(TableID("", "t"), schema,
                      {"url": url, "region": batch.column("region")})
 dout = chain.apply(dbatch)
 assert dout.column("url").is_lazy_dict and dout.n_rows == 100
+from transferia_tpu_torch.parallel import make_mesh, sharded_transform_step
+from transferia_tpu_torch.parallel.fusedmesh import ShardedFusedProgram
+from transferia_tpu_torch.parallel.mesh import example_step_args
+from transferia_tpu_torch.testing import force_virtual_mesh
+force_virtual_mesh(2)
+mesh = make_mesh(device="cpu")
+out = sharded_transform_step(mesh, n_shards=4)(*example_step_args(mesh, 8))
+assert int(out[3].sum()) == int(out[4]) == 16, out
+mchain = build_chain(%r, device="cpu")
+big = ColumnBatch.from_pydict(TableID("", "t"), schema, {
+    "url": [f"u{i}" for i in range(2048)], "region": list(range(2048))})
+assert mchain.apply(big).n_rows == 400
+mstep = mchain.plan_for(big.table_id, big.schema).steps[0]
+assert mstep.sharded_program.last_kept == 400
+force_virtual_mesh(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "transferia_tpu"))
 print("LOADED", bad)
-""" % (CONFIG,)
+""" % (CONFIG, CONFIG)
 
 
 def test_port_runs_without_jax_or_the_jax_package():
@@ -114,6 +132,21 @@ def test_no_silent_cpu_fallback(device, monkeypatch):
             chain.apply(small_batch())
     finally:
         set_placement(None)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_mesh_needs_a_card_or_the_cpu(device, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedFusedProgram([b"k"], None, device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sharded_transform_step(make_mesh(device=device))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(devices=[device or "cuda"])
+    cpu_mesh = make_mesh(device="cpu")
+    assert ShardedFusedProgram([b"k"], None, cpu_mesh).n_dev == 1
+    assert ShardedFusedProgram([b"k"], None, device="cpu").n_dev == 1
+    assert sharded_transform_step(cpu_mesh).mesh is cpu_mesh
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])

@@ -66,6 +66,15 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # n_blocks, stream
         "trt_ragged_pack": [_P, _L, _P, _I, _I, _I, _P, _P, _P],
     },
+    "mesh": {
+        # mode, digests, n_mats, n_rows, n_shards, keep, valid,
+        # bool_layout, ages, scores, scores_f64, keep_out, scores_out,
+        # out, stream
+        "trt_shard_hist": [_I, _P, _I, _L, _I, _P, _P, _I, _P, _P, _I, _P,
+                           _P, _P, _P],
+        # table, n_values, codes, n_rows, out, stream
+        "trt_digest_gather": [_P, _I, _P, _L, _P, _P],
+    },
     "probe": {
         "trt_empty_launch": [_P],
     },
@@ -74,7 +83,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
 # kernels whose launches are counted (the probe is a timer, not a kernel
 # of a data path)
 KERNELS = ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
-           "var_accumulators", "dict_decode", "ragged_pack")
+           "var_accumulators", "dict_decode", "ragged_pack", "shard_hist",
+           "digest_gather")
 
 
 @dataclass(frozen=True)

@@ -10,8 +10,9 @@ The keep mask returns bit-packed (kernel K-C packs it).
 encode whenever it shrinks) or `raw`.  In `auto`, a dictionary-encoded
 masked column takes the pool route (`device_hmac_dict_pool`): its value
 pool is hashed once on the card (kernel K-A over the pool's values) and
-the row codes never cross the link.  The per-shard mesh encodings are
-not ported yet (ROADMAP.md).
+the row codes never cross the link.  The mesh (parallel/fusedmesh.py)
+ships the same encodings per shard (`encode_pred_column_sharded`): each
+shard's rows encode alone, with one bit width shared across shards.
 
 `stage_h2d` is the single host-to-device point: it copies host arrays
 into pinned buffers and enqueues non-blocking copies on a copy stream,
@@ -181,19 +182,6 @@ def _for_plan(values: np.ndarray
     return mins.astype(np.int32), rel, bw, frame
 
 
-def encode_for(data: np.ndarray
-               ) -> Optional[tuple[np.ndarray, np.ndarray, int, int]]:
-    """FOR-encode an integer array: (mins (n_frames,) int32, packed
-    words, bit_width, frame), or None when the guards reject."""
-    if data.ndim != 1:
-        return None
-    plan = _for_plan(data.reshape(1, -1))
-    if plan is None:
-        return None
-    mins, rel, bw, frame = plan
-    return mins[0], pack_bits_host(rel[0], bw), bw, frame
-
-
 # -- per-column dispatch encodings ------------------------------------------
 
 @dataclass(frozen=True)
@@ -220,42 +208,17 @@ def encode_pred_column(name: str, data: np.ndarray,
                        validity: Optional[np.ndarray], n_rows: int,
                        bucket: int, encoded: bool
                        ) -> tuple[PredEnc, tuple]:
-    """Encode one predicate column for dispatch.
+    """Encode one predicate column for dispatch: the mesh encoder over
+    one shard (`encode_pred_column_sharded`), its shard axis stripped.
 
-    Returns (spec, host arrays ready for H2D).  Data pads to the bucket
-    with its edge value (keeps delta widths narrow); validity pads False,
-    so padded rows never pass the predicate regardless of data padding.
+    Returns (spec, host arrays ready for H2D; a delta base as a numpy
+    scalar).  Data pads to the bucket with its edge value (keeps delta
+    widths narrow); validity pads False, so padded rows never pass the
+    predicate regardless of data padding.
     """
-    if bucket != n_rows:
-        data = np.pad(data, (0, bucket - n_rows),
-                      mode="edge" if n_rows else "constant")
-        if validity is not None:
-            validity = np.pad(validity, (0, bucket - n_rows))
-    if not encoded:
-        if validity is None:
-            validity = np.ones(bucket, dtype=np.bool_)
-        return PredEnc(name, str(data.dtype), "raw", 0, "raw"), \
-            (data, validity)
-    if validity is None:
-        valid_mode, val_arrays = "none", ()
-    else:
-        valid_mode, val_arrays = "bits", (encode_validity(validity),)
-    if data.dtype == np.bool_:
-        spec = PredEnc(name, str(data.dtype), "bits", 1, valid_mode)
-        return spec, (encode_validity(data),) + val_arrays
-    delta = encode_delta(data)
-    if delta is not None:
-        base, words, bw = delta
-        spec = PredEnc(name, str(data.dtype), "delta", bw, valid_mode)
-        return spec, (words, np.int32(base)) + val_arrays
-    forenc = encode_for(data)
-    if forenc is not None:
-        mins, words, bw, frame = forenc
-        spec = PredEnc(name, str(data.dtype), "for", bw, valid_mode,
-                       frame)
-        return spec, (words, mins) + val_arrays
-    return PredEnc(name, str(data.dtype), "raw", 0, valid_mode), \
-        (data,) + val_arrays
+    spec, arrays, _ = encode_pred_column_sharded(
+        name, data, validity, n_rows, 1, bucket, encoded)
+    return spec, tuple(a[0] for a in arrays)
 
 
 def decode_pred_device(spec: PredEnc, arrays, bucket: int
@@ -286,6 +249,113 @@ def decode_pred_device(spec: PredEnc, arrays, bucket: int
     else:
         valid = arrays[-1]
     return data, valid
+
+
+# -- per-shard (mesh) dispatch encodings -------------------------------------
+#
+# The mesh wire ships every array with a leading shard axis: each shard's
+# contiguous row chunk encodes on its own (a delta prefix sum or a packed
+# bitmap cannot span a shard boundary: each shard decodes alone), with
+# one bit width shared across shards.  parallel/fusedmesh.py is the only
+# consumer.
+
+def encode_validity_sharded(valid2d: np.ndarray) -> np.ndarray:
+    """(n_shards, per) bool -> (n_shards, W) packed little-endian uint32
+    bitmap words, each shard packed on its own."""
+    packed = np.packbits(np.ascontiguousarray(valid2d, dtype=np.uint8),
+                         axis=1, bitorder="little")
+    pad = (-packed.shape[1]) % 4
+    if pad:
+        packed = np.pad(packed, ((0, 0), (0, pad)))
+    return np.ascontiguousarray(packed).view(np.uint32)
+
+
+def _encode_delta_sharded(d2: np.ndarray
+                          ) -> Optional[tuple[np.ndarray, np.ndarray,
+                                              int]]:
+    """Per-shard delta+bit-pack: (bases (n_shards,) int32, words
+    (n_shards, W), bit_width) or None when the `_delta_plan` guards
+    reject."""
+    plan = _delta_plan(d2)
+    if plan is None:
+        return None
+    bases, zz, bw = plan
+    words = np.stack([pack_bits_host(row, bw) for row in zz])
+    return bases, words, bw
+
+
+def _encode_for_sharded(d2: np.ndarray
+                        ) -> Optional[tuple[np.ndarray, np.ndarray,
+                                            int, int]]:
+    """Per-shard frame-of-reference pack: (mins (n_shards, n_frames)
+    int32, words (n_shards, W), bit_width, frame) or None when the
+    `_for_plan` guards reject.  A frame never spans a shard boundary
+    (the rows per shard are a bucket, a multiple of the frame)."""
+    plan = _for_plan(d2)
+    if plan is None:
+        return None
+    mins, rel, bw, frame = plan
+    words = np.stack([pack_bits_host(row, bw) for row in rel])
+    return mins, words, bw, frame
+
+
+def encode_pred_column_sharded(name: str, data: np.ndarray,
+                               validity: Optional[np.ndarray],
+                               n_rows: int, n_shards: int, per_shard: int,
+                               encoded: bool
+                               ) -> tuple[PredEnc, tuple, int]:
+    """Encode one predicate column for the mesh wire.
+
+    Returns (spec, arrays each with a leading (n_shards, ...) axis,
+    raw_equiv_bytes).  Padding as in encode_pred_column: data pads with
+    its edge value, validity pads False, so pad rows never pass the
+    predicate through their data."""
+    total = n_shards * per_shard
+    raw_equiv = total * data.dtype.itemsize + total  # data + bool map
+    if total != n_rows:
+        data = np.pad(data, (0, total - n_rows),
+                      mode="edge" if n_rows else "constant")
+        if validity is not None:
+            validity = np.pad(validity, (0, total - n_rows))
+    d2 = data.reshape(n_shards, per_shard)
+    v2 = (validity.reshape(n_shards, per_shard)
+          if validity is not None else None)
+    if not encoded:
+        if v2 is None:
+            v2 = np.ones((n_shards, per_shard), dtype=np.bool_)
+        return (PredEnc(name, str(data.dtype), "raw", 0, "raw"),
+                (d2, v2), raw_equiv)
+    if v2 is None:
+        valid_mode, val_arrays = "none", ()
+    else:
+        valid_mode, val_arrays = "bits", (encode_validity_sharded(v2),)
+    if data.dtype == np.bool_:
+        spec = PredEnc(name, str(data.dtype), "bits", 1, valid_mode)
+        return spec, (encode_validity_sharded(d2),) + val_arrays, \
+            raw_equiv
+    delta = _encode_delta_sharded(d2)
+    if delta is not None:
+        bases, words, bw = delta
+        spec = PredEnc(name, str(data.dtype), "delta", bw, valid_mode)
+        return spec, (words, bases) + val_arrays, raw_equiv
+    forenc = _encode_for_sharded(d2)
+    if forenc is not None:
+        mins, words, bw, frame = forenc
+        spec = PredEnc(name, str(data.dtype), "for", bw, valid_mode,
+                       frame)
+        return spec, (words, mins) + val_arrays, raw_equiv
+    spec = PredEnc(name, str(data.dtype), "raw", 0, valid_mode)
+    return spec, (d2,) + val_arrays, raw_equiv
+
+
+def decode_pred_device_sharded(spec: PredEnc, arrays, bucket: int
+                               ) -> tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]:
+    """Decode one shard's rows of a mesh-encoded predicate column: every
+    array arrives as the shard's local (1, ...) block (a delta base as a
+    1-tuple of ints); strip the shard axis and run `decode_pred_device`
+    (kernel K-B)."""
+    return decode_pred_device(spec, tuple(a[0] for a in arrays), bucket)
 
 
 # -- staged-bytes accounting --------------------------------------------------
@@ -459,9 +529,9 @@ def device_hmac_pool_digests(key: bytes, pool, n_rows: int,
                              device: DeviceLike = None
                              ) -> Optional[np.ndarray]:
     """The memoized (n_values, 8) uint32 digest matrix for the mesh dict
-    route (not ported yet), from which a sharded program gathers per-row
-    digest words by code.  None when the pool is too large to pay for
-    itself on this batch."""
+    route (parallel/fusedmesh.py `dict_mask_input`), from which each
+    shard gathers its rows' digest words by code.  None when the pool is
+    too large to pay for itself on this batch."""
     memo_key = ("hmac_digest_rows", bytes(key))
     rows = pool.memo_get(memo_key)
     if rows is not None:

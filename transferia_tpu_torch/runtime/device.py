@@ -8,11 +8,15 @@ use.
 
 The kernels are built for ``sm_90a`` only (ops/_build.py), so a CUDA
 device must report compute capability (9, 0).
+
+`mesh_devices` is the counterpart of ``len(jax.devices())`` for the mesh
+(parallel/): every visible card on CUDA, one device on the CPU, or the
+count `testing.force_virtual_mesh` forces.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -44,3 +48,28 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             f"{cap}; the kernels are built for sm_90a "
             f"({REQUIRED_CAPABILITY})")
     return dev
+
+
+# forced by testing.force_virtual_mesh: the default mesh is this many
+# virtual shards over the one device an entry point asked for
+_virtual_mesh: Optional[int] = None
+
+
+def mesh_devices(device: DeviceLike = None) -> int:
+    """How many devices the default mesh spans: the counterpart of
+    ``len(jax.devices())``.  On CUDA every visible card, on the CPU 1,
+    and under `testing.force_virtual_mesh(n)` n virtual shards."""
+    dev = resolve_device(device)
+    if _virtual_mesh is not None:
+        return _virtual_mesh
+    return torch.cuda.device_count() if dev.type == "cuda" else 1
+
+
+def default_mesh_devices(device: DeviceLike = None) -> list[torch.device]:
+    """The devices of the default mesh, one per shard: every card, or
+    under a virtual mesh the caller's device repeated."""
+    dev = resolve_device(device)
+    n = mesh_devices(dev)
+    if _virtual_mesh is not None or dev.type == "cpu":
+        return [dev] * n
+    return [torch.device("cuda", i) for i in range(n)]

@@ -19,8 +19,15 @@ The fused output is byte-identical to the host step-by-step path.  A
 dictionary-encoded masked column takes the pool route when the dispatch
 encoding is on: its value pool is hashed once on the card (or on the
 host, in the host strategy) and the output column stays
-dictionary-encoded over the hexed pool.  The multi-device mesh route of
-the reference is not ported yet (ROADMAP.md).
+dictionary-encoded over the hexed pool.
+
+When the default mesh of the step's device spans more than one shard
+(runtime/device.py `mesh_devices`: several cards, or a virtual mesh),
+the step also builds the mesh-sharded program (parallel/fusedmesh.py)
+and runs batches of at least 1024 rows per shard through it.  There a
+dictionary column stays in the program (its codes shard, each shard
+gathers its rows' digests from the pool's digest matrix) and its output
+is still rebound to the hexed pool, so it stays dictionary-encoded.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from transferia_tpu_torch.columnar.batch import Column, ColumnBatch
 from transferia_tpu_torch.columnar.hexcol import hex_to_varwidth
 from transferia_tpu_torch.predicate.ast import And, TrueNode
 from transferia_tpu_torch.runtime import knobs
-from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.runtime.device import DeviceLike, mesh_devices
 from transferia_tpu_torch.transform.base import TransformResult, Transformer
 from transferia_tpu_torch.transform.plugins.filter import FilterRows
 from transferia_tpu_torch.transform.plugins.mask import (
@@ -112,8 +119,23 @@ class DeviceFusedStep(Transformer):
         self.mask_entries = list(mask_entries)
         self.pred_node = pred_node
         self.pred_cols = sorted(pred_node.columns()) if pred_node else []
-        self.program = FusedMaskFilterProgram(
-            [key for _, key in mask_entries], pred_node, device)
+        keys = [key for _, key in mask_entries]
+        self.program = FusedMaskFilterProgram(keys, pred_node, device)
+        # a mesh of more than one shard: also build the mesh-sharded
+        # program and route large batches through it
+        self.sharded_program = None
+        self._sharded_min_rows = 0
+        n_dev = mesh_devices(self.program.device)
+        if n_dev > 1:
+            from transferia_tpu_torch.parallel.fusedmesh import (
+                ShardedFusedProgram,
+            )
+
+            self.sharded_program = ShardedFusedProgram(
+                keys, pred_node, device=self.program.device)
+            # below ~1k rows a shard, the launches and the cross-shard
+            # sums cost more than the shards save
+            self._sharded_min_rows = 1024 * n_dev
         # host strategy: vectorized predicate pushed down before the mask
         self._host_pred_fn = (compile_mask(pred_node)
                               if pred_node is not None else None)
@@ -146,20 +168,28 @@ class DeviceFusedStep(Transformer):
             return self._apply_host(batch)
         return self._apply_device(batch)
 
+    def _use_mesh(self, n_rows: int) -> bool:
+        return (self.sharded_program is not None
+                and n_rows >= self._sharded_min_rows)
+
     def _estimate_link_bytes(self, n_rows: int, batch=None
                              ) -> tuple[float, float]:
         """(h2d, d2h) bytes the device strategy would move for a batch,
         with the dispatch encoding folded in: a dict-encoded masked
         column whose hexed pool is memoized costs no link bytes, an
         unhashed pool one pool upload (not per-row blocks), and a pool
-        too large for the batch none (it hashes on the host).  Otherwise
-        ~128 SHA-block bytes/row in and 32 digest bytes/row out per
-        masked column; predicate columns ship their dtype bytes plus a
-        bitmap (n/8 encoded, n raw) and the keep mask returns the same
-        way."""
+        too large for the batch none (it hashes on the host).  On the
+        mesh a dict column ships its codes (4 bytes/row) and the pool's
+        digest matrix with every batch, and gets its rows' digest words
+        back; a pool too large for the batch ships flat there.
+        Otherwise ~128 SHA-block bytes/row in and 32 digest bytes/row
+        out per masked column; predicate columns ship their dtype bytes
+        plus a bitmap (n/8 encoded, n raw) and the keep mask returns the
+        same way."""
         from transferia_tpu_torch.ops.dispatch import encoding_enabled
 
         enc = encoding_enabled()
+        mesh_route = self._use_mesh(n_rows)
         h2d = 0.0
         d2h = 0.0
         for name, key in self.mask_entries:
@@ -168,6 +198,22 @@ class DeviceFusedStep(Transformer):
                 col = batch.column(name)
             if enc and col is not None and col.is_lazy_dict:
                 pool = col.dict_enc.pool
+                if mesh_route:
+                    hashed = pool.memo_get(("hmac_digest_rows",
+                                            bytes(key))) is not None
+                    if not hashed and pool.n_values > 2 * max(n_rows, 1):
+                        h2d += 128.0 * n_rows  # rejected pool: flat wire
+                        d2h += 32.0 * n_rows
+                        continue
+                    if not hashed:
+                        h2d += 128.0 * pool.n_values  # one pool upload
+                        d2h += 32.0 * pool.n_values
+                    # the memo spares the pool's hash, not its digest
+                    # matrix, which ships with every batch
+                    h2d += 32.0 * pool.n_values
+                    h2d += 4.0 * n_rows   # the sharded codes
+                    d2h += 32.0 * n_rows  # the gathered digest words
+                    continue
                 if pool.memo_get(("hmac_hex", bytes(key))) is not None:
                     continue  # hexed pool already memoized: free
                 if pool.n_values <= 2 * max(n_rows, 1):
@@ -245,37 +291,64 @@ class DeviceFusedStep(Transformer):
         )
 
         t0 = time.perf_counter()
-        # the pool route: a dict column's pool hashes on the card once
-        # per (pool, key) and the codes rebind to the hexed pool on the
-        # host, so the batch's row bytes never cross the link; a pool
-        # too large for the batch hashes its referenced subset on the
-        # host, still encoded.  Only flat columns go to the program.
+        device = self.program.device
+        mesh = self._use_mesh(batch.n_rows)
+        # the pool route (one device): a dict column's pool hashes on the
+        # card once per (pool, key) and the codes rebind to the hexed
+        # pool on the host, so the batch's row bytes never cross the
+        # link; a pool too large for the batch hashes its referenced
+        # subset on the host, still encoded.  On the mesh a dict column
+        # stays in the program (its codes shard; digests gather by code)
+        # and its output still rebinds to the hexed pool.
         dict_cols: dict[str, Column] = {}
-        mask_inputs, flat_names, flat_states = [], [], []
-        use_pool_route = encoding_enabled()
+        mask_inputs, out_names, flat_states = [], [], []
+        encoded = encoding_enabled()
         for (name, key), states in zip(self.mask_entries,
                                        self.program._states):
             col = batch.column(name)
-            if use_pool_route and col.is_lazy_dict:
+            if encoded and col.is_lazy_dict and not mesh:
                 hexed = device_hmac_dict_pool(bytes(key), col.dict_enc.pool,
-                                              col.n_rows,
-                                              self.program.device)
+                                              col.n_rows, device)
                 dict_cols[name] = (
                     dict_hex_column(col, hexed) if hexed is not None
                     else mask_dict_column(bytes(key), col))
                 continue
+            if encoded and col.is_lazy_dict:
+                from transferia_tpu_torch.parallel.fusedmesh import (
+                    dict_mask_input,
+                )
+
+                dmi = dict_mask_input(bytes(key), col, device)
+                if dmi is not None:
+                    # the digest rows just memoized make the hexed pool
+                    # a conversion, not a second hash
+                    mask_inputs.append(dmi)
+                    hexed = device_hmac_dict_pool(
+                        bytes(key), col.dict_enc.pool, col.n_rows, device)
+                    if hexed is not None:
+                        dict_cols[name] = dict_hex_column(col, hexed)
+                        out_names.append(None)
+                    else:
+                        out_names.append(name)
+                    continue
+                # a pool too large for the batch: the flat block wire
             mask_inputs.append((col.data, col.offsets))
-            flat_names.append(name)
+            out_names.append(name)
             flat_states.append(states)
         pred_inputs = {name: (batch.column(name).data,
                               batch.column(name).validity)
                        for name in self.pred_cols}
         hexes, keep = [], None  # everything rode the pool route
-        if mask_inputs or self.pred_node is not None:
+        if mesh:
+            hexes, keep = self.sharded_program.run(
+                mask_inputs, pred_inputs, batch.n_rows)
+        elif mask_inputs or self.pred_node is not None:
             hexes, keep = self.program.run(mask_inputs, pred_inputs,
                                            batch.n_rows, states=flat_states)
         cols = dict(batch.columns)
-        for name, hx in zip(flat_names, hexes):
+        for name, hx in zip(out_names, hexes):
+            if name is None:
+                continue  # dict_cols holds the rebound column
             validity = batch.column(name).validity
             data, offsets = hex_to_varwidth(hx, validity)
             cols[name] = Column(name, CanonicalType.UTF8, data, offsets,

@@ -7,7 +7,9 @@ The JAX package keeps them as numpy uint32 arrays
 (8,) int32 tensors on its device with the same bits.  `states_from_jax`
 converts the former into the latter, so tests can feed both packages
 identical key material, and `FusedMaskFilterProgram.run(states=...)`
-takes either kind.
+and `ShardedFusedProgram.run(states=...)` (parallel/fusedmesh.py) take
+either kind.  The mesh keeps no other state: its shards share the key
+states and the dictionary pools.
 
 The table fingerprint's per-pool-entry accumulators are the other state
 worth carrying across packages: the JAX package's `pool_accumulators`
