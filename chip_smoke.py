@@ -55,7 +55,22 @@ final line):
  10. mesh1: bench.py measure_mesh_1dev's shape (131,072 rows, RegionID <
      400, seed 21) through ShardedFusedProgram on a 1-shard mesh against
      FusedMaskFilterProgram, interleaved, medians of 9;
- 11. timing: each kernel at its path's shapes, beside its plain version,
+ 11. lambda_stream: BASELINE config #5's chain (the lambda transformer
+     with the SR fan-in user function, ops.lambdas.bench_lambda) over
+     bench.py measure_kafka_sr2ch's rows, 64 partitions x 1,200
+     messages cut as the Kafka source fetches them (1,024 + 176 rows a
+     partition; the 176-row batches bucket to 256); device placement
+     launches K15 once a batch, host placement never; both equal the
+     plain reference column by column, id re-typed INT32;
+ 12. lambda_backlog: the same over a catch-up backlog of 64 x 16,384
+     messages (1,024 batches of 1,024 rows), and once more under auto
+     placement, reporting where its EWMA settled;
+ 13. kafka2ch: BASELINE config #1's chain (rename_tables .events ->
+     .events_clean, mask_field user_email) over 1,048,576 rows in
+     1,024-row batches: the mask fuses after the rename (one K-A launch
+     a batch), device and host placement byte-identical, sampled rows
+     equal to hashlib's HMAC;
+ 14. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM, 67 T 32-bit ops/s).
 Each path names the kernels it must launch (PATH_KERNELS); the launch
@@ -78,7 +93,11 @@ import time
 import numpy as np
 import torch
 
-from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
+from transferia_tpu_torch.abstract.schema import (
+    CanonicalType,
+    TableID,
+    new_table_schema,
+)
 from transferia_tpu_torch.columnar.batch import (
     Column,
     ColumnBatch,
@@ -117,6 +136,11 @@ from transferia_tpu_torch.ops.fused import (
     _chunk_rows,
     pack_hmac_blocks,
     pow2_blocks,
+)
+from transferia_tpu_torch.ops.lambdas import (
+    REGION_THRESHOLD,
+    region_sign_flip,
+    region_sign_flip_plain,
 )
 from transferia_tpu_torch.ops.raggedpack import (
     pack_blocks_device,
@@ -160,6 +184,10 @@ from transferia_tpu_torch.transform.fused import (
     DeviceFusedStep,
     set_placement,
 )
+from transferia_tpu_torch.transform.plugins.lambda_tf import (
+    LambdaTransformer,
+)
+from transferia_tpu_torch.transform.plugins.rename import RenameTables
 
 ROWS = 2_000_000          # bench.py BENCH_ROWS default
 BATCH_ROWS = 131_072      # bench.py BENCH_BATCH_ROWS default
@@ -189,9 +217,15 @@ KERNEL_META = {
                    "transferia_tpu/parallel/mesh.py:72"),
     "digest_gather": ("transferia_tpu_torch/csrc/mesh.cu",
                       "transferia_tpu/parallel/fusedmesh.py:171"),
+    "region_sign_flip": ("transferia_tpu_torch/csrc/lambda_select.cu",
+                         "bench.py:1015"),
 }
-# the histogram replaces two JAX programs' scatter-adds
-ALSO_REPLACES = {"shard_hist": "transferia_tpu/parallel/fusedmesh.py:191"}
+# the histogram replaces two JAX programs' scatter-adds; K15 the user
+# program the lambda transformer runs on the accelerator
+ALSO_REPLACES = {
+    "shard_hist": "transferia_tpu/parallel/fusedmesh.py:191",
+    "region_sign_flip": "transferia_tpu/transform/plugins/lambda_tf.py:172",
+}
 # the kernels each path must launch, and the path whose launches and
 # shapes a kernel's line in the kernels JSON reports
 PATH_KERNELS = {
@@ -208,6 +242,9 @@ PATH_KERNELS = {
                       "pred3vl_mask", "shard_hist"),
     "mesh_step": ("sha256_hmac", "shard_hist"),
     "mesh1": ("sha256_hmac", "pred_decode", "pred3vl_mask", "shard_hist"),
+    "lambda_stream": ("region_sign_flip",),
+    "lambda_backlog": ("region_sign_flip",),
+    "kafka2ch": ("sha256_hmac",),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -224,6 +261,20 @@ MESH_SHARDS = 4           # virtual shards of the one card (data 2 x model 2)
 TARGET_SHARDS = 16        # the shard histogram's bins (the programs' default)
 STEP_ROWS_PER_DEVICE, STEP_COLUMNS, STEP_MAX_BLOCKS = 262_144, 2, 2
 MESH1_ROWS, MESH1_ITERS = 1 << 17, 9   # bench.py measure_mesh_1dev
+# bench.py measure_kafka_sr2ch: 64 partitions x 1,200 messages, fetched
+# at most 1,024 a partition (providers/kafka/provider.py:149); then a
+# catch-up backlog of the same stream, 16,384 messages a partition
+SR_PARTITIONS, SR_MESSAGES, SR_BACKLOG, FETCH_MAX = 64, 1200, 16_384, 1024
+LAMBDA_CONFIG = {"transformers": [{"lambda": {
+    "function": "transferia_tpu_torch.ops.lambdas:bench_lambda"}}]}
+# BASELINE config #1 (examples/kafka2ch.yaml:25-27), a fixed MASK_SALT
+KAFKA2CH_ROWS, KAFKA2CH_BATCH, KAFKA2CH_SALT = 1 << 20, 1024, b"kafka2ch-salt"
+KAFKA2CH_CONFIG = {"transformers": [
+    {"rename_tables": {"tables": [{"from": ".events",
+                                   "to": ".events_clean"}]}},
+    {"mask_field": {"columns": ["user_email"],
+                    "salt": KAFKA2CH_SALT.decode()}},
+]}
 
 
 def emit(obj) -> None:
@@ -685,6 +736,46 @@ def check_digest_gather(dev: torch.device) -> int:
     return err
 
 
+def sign_flip_numpy(ids: np.ndarray, region: np.ndarray,
+                    threshold: int = REGION_THRESHOLD) -> np.ndarray:
+    """bench.py:1015 under jax.jit without x64, in numpy's int32."""
+    low = ids.astype(np.int32)
+    return np.where(region < threshold, low, -low)
+
+
+def check_region_sign_flip(dev: torch.device) -> int:
+    """K15 against its plain version and numpy's int32 arithmetic: the
+    edge ids (+-2^31, 2^31+5, 2^40, -2^63, 2^63-1) and regions (399, 400,
+    -1, int32's ends) first, then random int64 ids and regions from a
+    seed, at 1,023, 1,024 and 1,048,577 rows and three thresholds."""
+    rng = np.random.default_rng(15)
+    edge_ids = np.array([2**31, -2**31, 2**31 + 5, 2**40, -2**63, 2**63 - 1,
+                         -2**31 - 1, 1, -7, 0], dtype=np.int64)
+    edge_region = np.array([399, 400, -1, 500, 399, 400, -2**31, 2**31 - 1,
+                            450, 3], dtype=np.int32)
+    err = 0
+    for n in (1023, 1024, 1_048_577):
+        ids = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+        region = rng.integers(-600, 600, n).astype(np.int32)
+        ids[:len(edge_ids)], region[:len(edge_region)] = edge_ids, edge_region
+        i_t, r_t = torch.from_numpy(ids).to(dev), torch.from_numpy(region).to(
+            dev)
+        for threshold in (REGION_THRESHOLD, 0, -2**31):
+            got = region_sign_flip(i_t, r_t, threshold)
+            err = max(err, require_equal(
+                got, region_sign_flip_plain(i_t, r_t, threshold),
+                f"region_sign_flip n={n} threshold={threshold}"))
+            if got.dtype != torch.int32 or not np.array_equal(
+                    got.cpu().numpy(), sign_flip_numpy(ids, region,
+                                                       threshold)):
+                raise AssertionError(f"region_sign_flip n={n} differs "
+                                     "from numpy's int32")
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if region_sign_flip(empty, empty.to(torch.int32)).numel() != 0:
+        raise AssertionError("region_sign_flip of no rows")
+    return err
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 def _flat(strings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -734,12 +825,10 @@ def clickbench_rows(n: int):
     return schema, fixed, var
 
 
-def clickbench_batches(schema, fixed, var, n: int,
-                       batch_rows: int = BATCH_ROWS) -> list[ColumnBatch]:
-    tid = TableID("", "hits")
+def cut_batches(tid, schema, fixed, var, bounds) -> list[ColumnBatch]:
+    """Batches over [lo, hi) row ranges of whole columns (views)."""
     out = []
-    for lo in range(0, n, batch_rows):
-        hi = min(lo + batch_rows, n)
+    for lo, hi in bounds:
         cols = {}
         for cs in schema:
             if cs.name in fixed:
@@ -747,11 +836,18 @@ def clickbench_batches(schema, fixed, var, n: int,
                                        fixed[cs.name][lo:hi])
             else:
                 data, off = var[cs.name]
-                cols[cs.name] = Column(
-                    cs.name, cs.data_type, data[off[lo]:off[hi]],
-                    off[lo:hi + 1] - off[lo])
+                cols[cs.name] = Column(cs.name, cs.data_type,
+                                       data[off[lo]:off[hi]],
+                                       off[lo:hi + 1] - off[lo])
         out.append(ColumnBatch(tid, schema, cols))
     return out
+
+
+def clickbench_batches(schema, fixed, var, n: int,
+                       batch_rows: int = BATCH_ROWS) -> list[ColumnBatch]:
+    return cut_batches(TableID("", "hits"), schema, fixed, var,
+                       [(lo, min(lo + batch_rows, n))
+                        for lo in range(0, n, batch_rows)])
 
 
 def run_chain(batches, placement: str, dev) -> tuple[list, float, object]:
@@ -1335,6 +1431,187 @@ def mesh1(dev) -> dict:
                 mesh_spread_pct=100 * (max(mesh_ts) - min(mesh_ts)) / mesh_s,
                 launches=launches.counts, equal_to="FusedMaskFilterProgram")
 
+# -- the lambda (config #5) and kafka2ch (config #1) paths ------------------
+
+SR_SCHEMA = new_table_schema([("id", "int64"), ("url", "utf8"),
+                              ("region", "int32")])
+KAFKA2CH_SCHEMA = new_table_schema([  # examples/kafka2ch.yaml:9-15
+    ("id", "int64", True), ("user_email", "utf8"), ("amount", "double"),
+    ("ts", "timestamp")])
+
+
+def sr_batches(per_partition: int) -> list[ColumnBatch]:
+    """measure_kafka_sr2ch's rows (bench.py:1178-1186: id = p * m + i,
+    url = https://e.test/{id % 997}, region = id % 500) as the Kafka
+    source cuts them: each fetch cycle takes up to 1,024 messages from
+    every partition in turn."""
+    n = SR_PARTITIONS * per_partition
+    ids = np.arange(n, dtype=np.int64)
+    fixed = {"id": ids, "region": (ids % 500).astype(np.int32)}
+    var = {"url": _flat(np.char.add("https://e.test/",
+                                    (ids % 997).astype("U3")))}
+    bounds = [(p * per_partition + lo,
+               p * per_partition + min(lo + FETCH_MAX, per_partition))
+              for lo in range(0, per_partition, FETCH_MAX)
+              for p in range(SR_PARTITIONS)]
+    return cut_batches(TableID("", "hits"), SR_SCHEMA, fixed, var, bounds)
+
+
+def check_sign_flipped(batches, outs, what: str) -> None:
+    """Each output against the plain reference: id is bench.py:1015's
+    int32 column (INT32 in the schema, no validity), url and region are
+    the input's, the table and column order unchanged."""
+    if len(outs) != len(batches):
+        raise AssertionError(f"{what}: {len(outs)} outputs for "
+                             f"{len(batches)} batches")
+    for i, (b, o) in enumerate(zip(batches, outs)):
+        col = o.column("id")
+        want = sign_flip_numpy(b.column("id").data, b.column("region").data)
+        if (o.table_id != b.table_id or o.schema.names() != b.schema.names()
+                or o.schema.find("id").data_type != CanonicalType.INT32
+                or col.ctype != CanonicalType.INT32
+                or col.data.dtype != np.int32 or col.validity is not None
+                or not np.array_equal(col.data, want)):
+            raise AssertionError(f"{what} batch {i}: id differs from the "
+                                 "plain reference")
+        for name in ("url", "region"):
+            for x, y in zip(column_arrays(b.column(name)),
+                            column_arrays(o.column(name))):
+                if (x is None) != (y is None) or (
+                        x is not None and not np.array_equal(x, y)):
+                    raise AssertionError(f"{what} batch {i}: {name} "
+                                         "changed")
+
+
+def run_config(config, batches, placement: str, dev):
+    """A fresh chain over the batches with one placement: (outputs,
+    seconds, planned steps, output table and schema)."""
+    set_placement(placement)
+    try:
+        chain = build_chain(config, device=dev)
+        first = batches[0]
+        steps = chain.plan_for(first.table_id, first.schema).steps
+        table, schema = chain.output_schema(first.table_id, first.schema)
+        t0 = time.perf_counter()
+        outs = [chain.apply(b) for b in batches]
+        torch.cuda.synchronize(dev)
+        return outs, time.perf_counter() - t0, steps, table, schema
+    finally:
+        set_placement(None)
+
+
+def lambda_path(path: str, per_partition: int, dev,
+                auto: bool = False) -> dict:
+    """Config #5's chain over the SR stream (or its backlog) with device
+    placement (K15 once a batch) and host placement (no K15), both equal
+    to the plain reference; with `auto`, once more under auto placement,
+    reporting where its EWMA settled."""
+    t0 = time.perf_counter()
+    batches = sr_batches(per_partition)
+    gen_s = time.perf_counter() - t0
+    rows = sum(b.n_rows for b in batches)
+    run_config(LAMBDA_CONFIG, batches[:1], "device", dev)  # warm
+    with PathLaunches(path) as launches:
+        dev_outs, dev_s, steps, _, _ = run_config(LAMBDA_CONFIG, batches,
+                                                  "device", dev)
+    if len(steps) != 1 or not isinstance(steps[0], LambdaTransformer):
+        raise AssertionError(f"{path} planned {steps}")
+    if launches.counts["region_sign_flip"] != len(batches):
+        raise AssertionError(f"{path}: {launches.counts['region_sign_flip']}"
+                             f" K15 launches for {len(batches)} batches")
+    check_sign_flipped(batches, dev_outs, f"{path} device")
+    del dev_outs
+    _build.reset_launch_counts()
+    host_outs, host_s, _, _, _ = run_config(LAMBDA_CONFIG, batches, "host",
+                                            dev)
+    if _build.launch_counts()["region_sign_flip"]:
+        raise AssertionError(f"{path}: the host strategy launched K15")
+    check_sign_flipped(batches, host_outs, f"{path} host")
+    del host_outs
+    sizes = sorted({b.n_rows for b in batches})
+    result = dict(
+        rows=rows, batches=len(batches), batch_rows=sizes,
+        bucket_rows=sorted({max(256, 1 << (n - 1).bit_length())
+                            for n in sizes}),
+        launches=launches.counts, device_seconds=dev_s,
+        device_rows_per_s=rows / dev_s, host_seconds=host_s,
+        host_rows_per_s=rows / host_s, data_gen_seconds=gen_s,
+        equal_to="plain reference (numpy int32), id INT32")
+    if auto:
+        _build.reset_launch_counts()
+        auto_outs, auto_s, auto_steps, _, _ = run_config(
+            LAMBDA_CONFIG, batches, "auto", dev)
+        check_sign_flipped(batches, auto_outs, f"{path} auto")
+        ns = dict(auto_steps[0]._ns_row)
+        result["auto"] = dict(
+            settled=("host" if ns["device"] < 0 or ns["host"] <= ns["device"]
+                     else "device"),
+            ns_row=ns, rows_per_s=rows / auto_s,
+            k15_launches=_build.launch_counts()["region_sign_flip"])
+    return result
+
+
+def kafka2ch_batches() -> list[ColumnBatch]:
+    """Config #1's schema over 1,048,576 rows (seed 7): id = i, user_email
+    user{i}@example.test (bench.py measure_mysql2kafka), an amount and a
+    timestamp in microseconds; 1,024-row batches of table .events."""
+    rng = np.random.default_rng(7)
+    n = KAFKA2CH_ROWS
+    ids = np.arange(n, dtype=np.int64)
+    fixed = {"id": ids, "amount": rng.random(n) * 1000.0,
+             "ts": (1_700_000_000_000_000
+                    + rng.integers(0, 86_400_000_000, n)).astype(np.int64)}
+    var = {"user_email": _flat(np.char.add(
+        np.char.add("user", ids.astype("U7")), "@example.test"))}
+    bounds = [(lo, min(lo + KAFKA2CH_BATCH, n))
+              for lo in range(0, n, KAFKA2CH_BATCH)]
+    return cut_batches(TableID("", "events"), KAFKA2CH_SCHEMA, fixed, var,
+                       bounds)
+
+
+def kafka2ch_path(dev) -> dict:
+    """Config #1's chain: the rename stays on the host, the mask after it
+    fuses into a device step (one K-A launch a batch); device and host
+    placement byte-identical, the output table .events_clean, sampled
+    rows equal to hashlib's HMAC."""
+    t0 = time.perf_counter()
+    batches = kafka2ch_batches()
+    gen_s = time.perf_counter() - t0
+    run_config(KAFKA2CH_CONFIG, batches[:1], "device", dev)  # warm
+    with PathLaunches("kafka2ch") as launches:
+        dev_outs, dev_s, steps, table, schema = run_config(
+            KAFKA2CH_CONFIG, batches, "device", dev)
+    if [type(s) for s in steps] != [RenameTables, DeviceFusedStep] or \
+            steps[1].describe() != "device[mask_field]":
+        raise AssertionError(f"kafka2ch planned "
+                             f"{[s.describe() for s in steps]}")
+    if table != TableID("", "events_clean") or schema != KAFKA2CH_SCHEMA:
+        raise AssertionError(f"kafka2ch emits {table} {schema}")
+    others = {k: c for k, c in launches.counts.items()
+              if c and k != "sha256_hmac"}
+    if launches.counts["sha256_hmac"] != len(batches) or others:
+        raise AssertionError(f"kafka2ch launches {launches.counts}")
+    host_outs, host_s, _, _, _ = run_config(KAFKA2CH_CONFIG, batches, "host",
+                                            dev)
+    for i, (a, b) in enumerate(zip(dev_outs, host_outs)):
+        if a.table_id != table or b.table_id != table or \
+                not batches_identical(a, b):
+            raise AssertionError(f"kafka2ch batch {i}: device output "
+                                 "differs from the host strategy")
+    sample = dev_outs[7].to_pydict()["user_email"]
+    for j in (0, 1, 511, 1023):
+        email = f"user{7 * KAFKA2CH_BATCH + j}@example.test".encode()
+        if sample[j] != hmac.new(KAFKA2CH_SALT, email,
+                                 hashlib.sha256).hexdigest():
+            raise AssertionError(f"kafka2ch row {j} differs from hashlib")
+    rows = sum(b.n_rows for b in batches)
+    return dict(rows=rows, batches=len(batches), batch_rows=KAFKA2CH_BATCH,
+                out_table=str(table), launches=launches.counts,
+                device_seconds=dev_s, device_rows_per_s=rows / dev_s,
+                host_seconds=host_s, host_rows_per_s=rows / host_s,
+                data_gen_seconds=gen_s,
+                identical_to_host=True, equal_to="hashlib HMAC (sampled)")
+
 
 # -- phase 7: timing ------------------------------------------------------------
 
@@ -1437,6 +1714,7 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
     calls.update(decode_calls(dev))
     calls.update(pack_calls(batch, dev))
     calls.update(mesh_calls(dev))
+    calls.update(sign_flip_calls(FETCH_MAX, dev))
     for name, (kernel, plain, library, (bound_ms, bound_by)) in calls.items():
         out[name] = dict(
             max_abs_err=require_equal(kernel(), plain(), f"{name} at the "
@@ -1446,7 +1724,36 @@ def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
             bound_ms=bound_ms, bound_by=bound_by)
     out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(dev)
     out["shard_hist"]["at_step_shape"] = step_hist_timing(dev)
+    out["region_sign_flip"]["library_call"] = SIGN_FLIP_LIBRARY
+    (kernel, plain, library, (bound_ms, bound_by)), = sign_flip_calls(
+        SR_PARTITIONS * SR_BACKLOG, dev).values()
+    out["region_sign_flip"]["at_1048576_rows"] = dict(
+        rows=SR_PARTITIONS * SR_BACKLOG,
+        max_abs_err=require_equal(kernel(), plain(),
+                                  "region_sign_flip at 1,048,576 rows"),
+        ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
+        library_ms=kernel_ms(library, dev), bound_ms=bound_ms,
+        bound_by=bound_by)
     return out
+
+
+SIGN_FLIP_LIBRARY = ("torch.where(region < 400, i32, -i32) on ids cast to "
+                     "int32 beforehand: not one call (a compare, a "
+                     "negation and a select)")
+
+
+def sign_flip_calls(n: int, dev) -> dict:
+    """K15 at n rows of the SR stream (ids and regions as sr_batches makes
+    them): 8 bytes of ids and 4 of region read and 4 written a row, ~3
+    operations (compare, negate, select)."""
+    ids = torch.arange(n, dtype=torch.int64, device=dev)
+    region = (ids % 500).to(torch.int32)
+    i32 = ids.to(torch.int32)
+    return {"region_sign_flip": (
+        lambda: region_sign_flip(ids, region),
+        lambda: region_sign_flip_plain(ids, region),
+        lambda: torch.where(region < REGION_THRESHOLD, i32, -i32),
+        bound(16 * n, 3 * n))}
 
 
 def mesh_calls(dev) -> dict:
@@ -1668,7 +1975,8 @@ def main() -> int:
             "dict_decode": check_dict_decode(dev),
             "ragged_pack": check_ragged_pack(dev),
             "shard_hist": check_shard_hist(dev),
-            "digest_gather": check_digest_gather(dev)}
+            "digest_gather": check_digest_gather(dev),
+            "region_sign_flip": check_region_sign_flip(dev)}
     torch.cuda.synchronize(dev)
     emit({"phase": "kernels", "check": "exact", "max_abs_err": errs})
 
@@ -1720,7 +2028,13 @@ def main() -> int:
              lambda: main_path_mesh(batches, dev_outs, main_bytes, dev)),
             ("dispatch_mesh", lambda: dispatch_mesh(dev)),
             ("mesh_step", lambda: mesh_step(dev)),
-            ("mesh1", lambda: mesh1(dev))):
+            ("mesh1", lambda: mesh1(dev)),
+            ("lambda_stream",
+             lambda: lambda_path("lambda_stream", SR_MESSAGES, dev)),
+            ("lambda_backlog",
+             lambda: lambda_path("lambda_backlog", SR_BACKLOG, dev,
+                                 auto=True)),
+            ("kafka2ch", lambda: kafka2ch_path(dev))):
         t_phase = time.perf_counter()
         result = run()
         phase_s[path] = time.perf_counter() - t_phase

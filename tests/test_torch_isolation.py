@@ -2,9 +2,11 @@
 
 A fresh interpreter imports transferia_tpu_torch and runs the fused
 chain (over a flat and a dictionary-encoded column), the ragged pack, a
-table fingerprint, the sharded transform step and the chain's mesh
-route (on a 2-shard virtual mesh) on the CPU; afterwards neither jax,
-pyarrow, transferia_tpu nor any transferia_tpu.* module may be loaded.
+table fingerprint, the sharded transform step, the chain's mesh route
+(on a 2-shard virtual mesh), the lambda chain with the SR fan-in user
+function in both placements and a rename chain on the CPU; afterwards
+neither jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may
+be loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there.
 """
@@ -95,11 +97,27 @@ assert mchain.apply(big).n_rows == 400
 mstep = mchain.plan_for(big.table_id, big.schema).steps[0]
 assert mstep.sharded_program.last_kept == 400
 force_virtual_mesh(None)
+sr = new_table_schema([("id", "int64"), ("region", "int32")])
+sbatch = ColumnBatch.from_pydict(TableID("", "hits"), sr, {
+    "id": [2**31 + 5, 3], "region": [500, 1]})
+for mode in ("host", "device"):
+    set_placement(mode)
+    lout = build_chain({"transformers": [{"lambda": {
+        "function": "transferia_tpu_torch.ops.lambdas:bench_lambda"}}]},
+        device="cpu").apply(sbatch)
+    assert lout.column("id").data.tolist() == [2147483643, 3], lout
+rchain = build_chain({"transformers": [
+    {"rename_tables": {"tables": [{"from": ".t", "to": ".t2"}]}}]
+    + %r["transformers"]
+    + [{"rename_columns": {"columns": {"region": "r"}}}]}, device="cpu")
+rout = rchain.apply(batch)
+assert rout.table_id.name == "t2" and "r" in rout.columns, rout.columns
+set_placement(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "transferia_tpu"))
 print("LOADED", bad)
-""" % (CONFIG, CONFIG)
+""" % (CONFIG, CONFIG, CONFIG)
 
 
 def test_port_runs_without_jax_or_the_jax_package():
@@ -180,9 +198,26 @@ def test_explicit_cpu_runs_plain_versions():
 
 
 def test_unported_transformer_names_the_ported_ones():
-    with pytest.raises(KeyError, match="not yet ported"):
-        build_chain({"transformers": [{"rename_tables": {"tables": []}}]},
+    with pytest.raises(KeyError, match="not yet ported") as err:
+        build_chain({"transformers": [{"sharder": {"shard_count": 2}}]},
                     device="cpu")
+    for name in ("filter_rows", "lambda", "mask_field", "rename_columns",
+                 "rename_tables"):
+        assert name in str(err.value)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_lambda_needs_a_card_or_the_cpu(device, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    chain = build_chain({"transformers": [{"lambda": {
+        "function": "transferia_tpu_torch.ops.lambdas:bench_lambda"}}]},
+        device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chain.apply(small_batch())
+    # a rename plans no device step, so it runs anywhere
+    out = build_chain({"transformers": [{"rename_tables": {"tables": [
+        {"from": ".t", "to": ".u"}]}}]}, device=device).apply(small_batch())
+    assert out.table_id == TableID("", "u")
 
 
 def test_pass_through_plan_needs_no_device():

@@ -205,11 +205,19 @@ class TableSchema:
             self._fingerprint = hashlib.sha256(payload).hexdigest()[:16]
         return self._fingerprint
 
+    def rename(self, mapping: dict[str, str]) -> "TableSchema":
+        """Columns renamed by `mapping` (old -> new); the JAX package's
+        `TableSchema.rename` (abstract/schema.py:241)."""
+        return TableSchema(
+            replace(c, name=mapping.get(c.name, c.name)) for c in self.columns
+        )
+
     def with_types(self, mapping: dict[str, CanonicalType]) -> "TableSchema":
         return TableSchema(
             c.with_type(mapping[c.name]) if c.name in mapping else c
             for c in self.columns
         )
+
 
 def new_table_schema(cols: list[tuple], **kw) -> TableSchema:
     """Convenience constructor: list of (name, type[, primary_key]) tuples."""

@@ -1,9 +1,11 @@
 """ColumnBatch: Arrow-style columnar block (the port's copy of what it uses).
 
 Copied from ``transferia_tpu/columnar/batch.py`` down to what the fused
-mask+filter path and the table fingerprint use: flat columns, dictionary
-encodings (`DictPool` with its memo, `DictEnc`, lazy dict columns), the
-row-count buckets and the offsets guard.  Pool interning (`intern_pool`),
+mask+filter path, the table fingerprint and the rename and lambda
+transformers use: flat columns, dictionary encodings (`DictPool` with
+its memo, `DictEnc`, lazy dict columns), the row-count buckets, the
+offsets guard and the renames (`Column.renamed`,
+`ColumnBatch.rename_table`).  Pool interning (`intern_pool`),
 Arrow interop and `ChangeItem` rows are not ported yet (ROADMAP.md).
 
 - Fixed-width canonical types map 1:1 to numpy dtypes
@@ -272,6 +274,12 @@ class Column:
     def to_pylist(self) -> list[Any]:
         return [self.value(i) for i in range(self.n_rows)]
 
+    def renamed(self, name: str) -> "Column":
+        """Copy under a new name, buffers and encoding shared (the JAX
+        package's `Column.renamed`, columnar/batch.py:529)."""
+        return Column(name, self.ctype, self._data, self._offsets,
+                      self.validity, self.dict_enc)
+
     def take(self, indices: np.ndarray) -> "Column":
         """Gather rows; a contiguous ascending range returns views, and a
         lazy dict column gathers only its codes (the pool stays shared)."""
@@ -406,6 +414,11 @@ class ColumnBatch:
     def with_columns(self, columns: dict[str, Column],
                      schema: Optional[TableSchema] = None) -> "ColumnBatch":
         return ColumnBatch(self.table_id, schema or self.schema, columns)
+
+    def rename_table(self, table_id: TableID) -> "ColumnBatch":
+        """The same columns under another table id (the JAX package's
+        `ColumnBatch.rename_table`, columnar/batch.py:838)."""
+        return ColumnBatch(table_id, self.schema, self.columns)
 
     def filter(self, mask: np.ndarray) -> "ColumnBatch":
         return self.take(np.nonzero(np.asarray(mask))[0])

@@ -75,6 +75,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # table, n_values, codes, n_rows, out, stream
         "trt_digest_gather": [_P, _I, _P, _L, _P, _P],
     },
+    "lambda_select": {
+        # ids, region, n, threshold, out, stream
+        "trt_region_sign_flip": [_P, _P, _L, _I, _P, _P],
+    },
     "probe": {
         "trt_empty_launch": [_P],
     },
@@ -84,7 +88,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
 # of a data path)
 KERNELS = ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
            "var_accumulators", "dict_decode", "ragged_pack", "shard_hist",
-           "digest_gather")
+           "digest_gather", "region_sign_flip")
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,7 @@ from dataclasses import dataclass
 
 from transferia_tpu_torch.abstract.schema import TableID, TableSchema
 from transferia_tpu_torch.columnar.batch import ColumnBatch
+from transferia_tpu_torch.runtime.device import DeviceLike
 
 
 @dataclass
@@ -34,6 +35,14 @@ class Transformer(abc.ABC):
     def result_schema(self, schema: TableSchema) -> TableSchema:
         """Output schema for an input schema (identity by default)."""
         return schema
+
+    def result_table(self, table: TableID) -> TableID:
+        """Output table id (identity by default; rename overrides)."""
+        return table
+
+    def bind_device(self, device: DeviceLike) -> None:
+        """Called at plan time with the chain's device (nothing by
+        default; a step that places work on the device keeps it)."""
 
     @abc.abstractmethod
     def apply(self, batch: ColumnBatch) -> TransformResult:

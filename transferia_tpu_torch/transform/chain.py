@@ -3,8 +3,10 @@
 Reference parity: pkg/transformer/transformation.go:22-70 — the chain plans
 which transformers are Suitable per (TableID, schema hash), caches the plan,
 and re-plans when the schema fingerprint changes.  The port's chain takes
-columnar batches only (ChangeItem rows are not ported yet) and plans its
-fused steps onto the chain's device.
+columnar batches only (ChangeItem rows are not ported yet), plans its
+fused steps onto the chain's device and hands that device to every
+planned step (`Transformer.bind_device`; the lambda transformer's device
+strategy runs there).
 """
 
 from __future__ import annotations
@@ -25,13 +27,20 @@ _ERROR_BEHAVIORS = ("emit", "drop", "fail")
 
 
 class _Plan:
-    __slots__ = ("steps",)
+    __slots__ = ("steps", "out_schema", "out_table")
 
     def __init__(self, steps: list[Transformer], in_table: TableID,
                  in_schema: TableSchema, device: DeviceLike):
         from transferia_tpu_torch.transform.fused import maybe_fuse_steps
 
         self.steps = maybe_fuse_steps(steps, in_table, in_schema, device)
+        table, schema = in_table, in_schema
+        for t in self.steps:
+            t.bind_device(device)
+            table = t.result_table(table)
+            schema = t.result_schema(schema)
+        self.out_schema = schema
+        self.out_table = table
 
 
 class Transformation:
@@ -74,6 +83,12 @@ class Transformation:
                         or "(passthrough)",
                     )
         return plan
+
+    def output_schema(self, table: TableID,
+                      schema: TableSchema) -> tuple[TableID, TableSchema]:
+        """The (table, schema) the plan for an input table emits."""
+        plan = self.plan_for(table, schema)
+        return plan.out_table, plan.out_schema
 
     def apply(self, batch: ColumnBatch) -> ColumnBatch:
         """Transform one columnar batch through the planned steps."""

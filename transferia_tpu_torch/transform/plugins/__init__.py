@@ -1,3 +1,8 @@
 """Built-in transformers of the ported slice (self-registering)."""
 
-from transferia_tpu_torch.transform.plugins import filter, mask  # noqa: F401
+from transferia_tpu_torch.transform.plugins import (  # noqa: F401
+    filter,
+    lambda_tf,
+    mask,
+    rename,
+)

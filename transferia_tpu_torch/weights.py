@@ -20,6 +20,11 @@ gives two numpy uint32 arrays; `accs_from_jax` turns them into the port's
 A dictionary's value pool is data rather than state, but tests feed one
 pool's content to both packages: `pool_from_jax` turns a JAX-package
 `DictPool`'s arrays into the port's `DictPool` (empty memo).
+
+The rename and lambda transformers carry no state: a rename is its
+name mapping, and a registered lambda is code (the port's SR fan-in
+function, `ops.lambdas.bench_lambda`, is its own copy of bench.py's),
+so nothing of theirs crosses between the packages.
 """
 
 from __future__ import annotations
