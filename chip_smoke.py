@@ -72,7 +72,8 @@ final line):
      equal to hashlib's HMAC;
  14. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
-     (3.35 TB/s HBM, 67 T 32-bit ops/s).
+     (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
+     against the SASS instructions K-A's compression loop compiles to).
 Each path names the kernels it must launch (PATH_KERNELS); the launch
 counts are zeroed just before the path runs and read just after it, and
 a kernel of the path that never launched fails the run.  Any failure
@@ -85,6 +86,7 @@ import hashlib
 import hmac
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -111,14 +113,18 @@ from transferia_tpu_torch.columnar.batch import (
 from transferia_tpu_torch.ops import _build
 from transferia_tpu_torch.ops import rowhash
 from transferia_tpu_torch.ops.decode import (
+    DELTA_TILE,
     MODE_BITS,
     MODE_DELTA,
     MODE_FOR,
     MODE_UNPACK,
+    _dict_decode_launch,
+    _wrap_i32,
     decode_dict_loop,
     decode_dict_loop_plain,
     decode_dict_run,
     decode_dict_run_plain,
+    dict_staged_entries,
     pack_mask_words,
     pred_decode,
     pred_decode_plain,
@@ -149,7 +155,6 @@ from transferia_tpu_torch.ops.raggedpack import (
 )
 from transferia_tpu_torch.ops.linkprobe import probe_link
 from transferia_tpu_torch.ops.sha256 import (
-    OPS_PER_COMPRESSION,
     _hmac_key_states,
     _words_to_bytes,
     prepare_padded_blocks,
@@ -196,7 +201,14 @@ CONFIG = {"transformers": [   # bench.py make_transfer
     {"filter_rows": {"filter": "RegionID < 400 AND ResolutionWidth >= 390"}},
 ]}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-INT32_OPS_PER_S = 67e12     # H100 SXM non-tensor 32-bit peak
+# An H100 SM has 64 INT32 lanes against 128 FP32 ones (NVIDIA H100 Tensor
+# Core GPU Architecture white paper, the SM diagram; NVIDIA's table of
+# arithmetic instruction throughput: 64 results a clock a SM for 32-bit
+# integer add, shift, compare and logic at compute capability 9.0).  The
+# integer peak is 64 x SMs x the SM clock that
+# `nvidia-smi --query-gpu=clocks.max.sm` reports; main() sets it.
+INT32_LANES_PER_SM = 64
+INT32_OPS_PER_S = 0.0
 
 KERNEL_META = {
     "sha256_hmac": ("transferia_tpu_torch/csrc/sha256_hmac.cu",
@@ -406,6 +418,104 @@ def check_pred_decode(dev: torch.device) -> int:
     got = pred_decode(MODE_FOR, w, 256, 32, mins=mins, frame=256)
     err = max(err, require_equal(got, torch.from_numpy(
         span.astype(np.int32)).to(dev), "for 32-bit span"))
+    return max(err, check_delta_edges(dev), check_delta_streams(dev))
+
+
+def pack_on_card(vals: torch.Tensor, bw: int) -> torch.Tensor:
+    """pack_bits_host on the card: int64 values < 2^bw -> the packed
+    little-endian word stream as int32 (value bits never overlap, so
+    adding them into their words is OR-ing them)."""
+    n = vals.numel()
+    start = torch.arange(n, dtype=torch.int64, device=vals.device) * bw
+    wi, off = start >> 5, start & 31
+    words = torch.zeros((n * bw + 31) // 32 + 1, dtype=torch.int64,
+                        device=vals.device)
+    words.index_add_(0, wi, (vals << off) & 0xFFFFFFFF)
+    spill = off + bw > 32
+    words.index_add_(0, wi[spill] + 1, vals[spill] >> (32 - off[spill]))
+    return _wrap_i32(words[:(n * bw + 31) // 32])
+
+
+DELTA_EDGE_NS = (1, 31, 32, 33, DELTA_TILE - 1, DELTA_TILE, DELTA_TILE + 1,
+                 3 * DELTA_TILE + 5, 65_536, 131_072, 1 << 20)
+
+
+def wrapping_deltas(n: int, bw: int, gen: torch.Generator, dev):
+    """Zigzag codes of width bw, every other one a large positive delta
+    (an even code >= 2^(bw-1)), so at the wide widths the int32 sum wraps
+    within and across tiles."""
+    vals = torch.randint(0, 2**bw, (n,), generator=gen, device=dev,
+                         dtype=torch.int64)
+    if bw > 1:
+        vals[::2] = (vals[::2] | (1 << (bw - 1))) & ~1
+    return vals
+
+
+def check_delta_edges(dev) -> int:
+    """The delta scan at its tile edges, at every width, from a base near
+    the top of int32; the card's packer against the host's."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    vals = wrapping_deltas(1000, 13, gen, dev)
+    if not np.array_equal(
+            pack_on_card(vals, 13).cpu().numpy().view(np.uint32),
+            pack_bits_host(vals.cpu().numpy().astype(np.uint64), 13)):
+        raise AssertionError("pack_on_card differs from pack_bits_host")
+    err = 0
+    base = 2**31 - 7
+    for n in DELTA_EDGE_NS:
+        for bw in range(1, 33):
+            w = pack_on_card(wrapping_deltas(n, bw, gen, dev), bw)
+            err = max(err, require_equal(
+                pred_decode(MODE_DELTA, w, n, bw, base),
+                pred_decode_plain(MODE_DELTA, w, n, bw, base),
+                f"delta n={n} bw={bw}"))
+    return err
+
+
+def check_delta_streams(dev) -> int:
+    """Two delta scans in flight at once on two streams, released
+    together (each stream has its own scratch), eight times; then 1,000
+    back to back on one stream (1,000 epochs on one scratch), and a scan
+    of 1,025 tiles (the scratch grows)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    n, bw = 1 << 20, 30
+    inputs = [(pack_on_card(wrapping_deltas(n, bw, gen, dev), bw), base)
+              for base in (-2**31, 2**31 - 1)]
+    want = [pred_decode_plain(MODE_DELTA, w, n, bw, b) for w, b in inputs]
+    current = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    torch.cuda._sleep(10_000_000)
+    for s in streams:
+        s.wait_stream(current)
+    outs = [[] for _ in inputs]
+    for _ in range(8):
+        for i, ((w, b), s) in enumerate(zip(inputs, streams)):
+            with torch.cuda.stream(s):
+                outs[i].append(pred_decode(MODE_DELTA, w, n, bw, b))
+    for s in streams:
+        current.wait_stream(s)
+    torch.cuda.synchronize(dev)
+    err = 0
+    for i, got in enumerate(outs):
+        for o in got:
+            err = max(err, require_equal(o, want[i], f"delta stream {i}"))
+    n = 65_536
+    w = pack_on_card(wrapping_deltas(n, bw, gen, dev), bw)
+    zero = pred_decode_plain(MODE_DELTA, w, n, bw, 0).to(torch.int64)
+    bases = torch.randint(-2**31, 2**31, (1000,), generator=gen,
+                          device=dev).tolist()
+    got = [pred_decode(MODE_DELTA, w, n, bw, b) for b in bases]
+    for b, o in zip(bases, got):
+        err = max(err, require_equal(o, _wrap_i32(zero + b),
+                                     f"delta back to back base={b}"))
+    for n in ((1 << 21) + 3, 65_536):
+        w = pack_on_card(wrapping_deltas(n, bw, gen, dev), bw)
+        err = max(err, require_equal(
+            pred_decode(MODE_DELTA, w, n, bw, 5),
+            pred_decode_plain(MODE_DELTA, w, n, bw, 5),
+            f"delta n={n} after the scratch grew"))
     return err
 
 
@@ -580,6 +690,71 @@ def packed_codes(codes: np.ndarray, bw: int, dev) -> torch.Tensor:
         pack_bits_host(codes, bw).view(np.int32).copy()).to(dev)
 
 
+DICT_EDGE_NS = (1, 31, 32, 33, 1 << 22)
+# a pool of one entry; the dispatch pools; a pool just past the staged
+# prefix; the decode path's; Parquet's default dictionary page limit (1 MB)
+DICT_POOLS = (1, 4096, 56_000, 131_072, 262_144)
+
+
+def dict_splits(k: int) -> list[int]:
+    """The splits of a k-entry pool K11 runs: none staged (every gather
+    from L2) and the wrapper's."""
+    return [0, dict_staged_entries(k)]
+
+
+def check_dict_edges(dev) -> int:
+    """K11 at every width, at n = 1, 31, 32, 33 and 4,194,304, over pools
+    of 1 to 262,144 entries, through the wrapper and in each split of
+    dict_splits (the pool whole or its prefix staged, none staged: a
+    branch each); codes past the pool and,
+    at width 32, negative ones; the carry mode with an odd carry in each
+    split."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+    err = 0
+    for k in DICT_POOLS:
+        pool = torch.randint(-2**31, 2**31, (k,), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+        for n in DICT_EDGE_NS:
+            for bw in range(1, 33):
+                hi = 1 << bw
+                codes = torch.randint(0, min(hi, k + k // 8 + 1), (n,),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int64)
+                codes[::10] = torch.randint(0, hi, codes[::10].shape,
+                                            generator=gen, device=dev,
+                                            dtype=torch.int64)
+                if bw == 32:
+                    codes[::7] = torch.randint(2**31, 2**32,
+                                               codes[::7].shape,
+                                               generator=gen, device=dev,
+                                               dtype=torch.int64)
+                w = pack_on_card(codes, bw)
+                what = f"dict_decode n={n} bw={bw} k={k}"
+                want = decode_dict_run_plain(w, pool, bw, n)
+                err = max(err, require_equal(
+                    decode_dict_run(w, pool, bw, n), want, what))
+                carry0 = 0x9E3779B9  # odd: the words flip their low bit
+                flipped = decode_dict_run_plain(w ^ 1, pool, bw, n)
+                carry_want = _wrap_i32(
+                    (carry0 + flipped.to(torch.int64).sum()).reshape(1))
+                for staged in dict_splits(k):
+                    out = torch.empty(n, dtype=torch.int32, device=dev)
+                    _dict_decode_launch(w, pool, bw, n, None, None, out,
+                                        staged)
+                    err = max(err, require_equal(
+                        out, want, f"{what} staged={staged}"))
+                    if n in (33, 1 << 22) and bw in (1, 17, 32):
+                        carries = _wrap_i32(torch.tensor(
+                            [carry0, 0], dtype=torch.int64, device=dev))
+                        _dict_decode_launch(w, pool, bw, n, carries[0],
+                                            carries[1], None, staged)
+                        err = max(err, require_equal(
+                            carries[1:], carry_want,
+                            f"{what} staged={staged} carry"))
+    return err
+
+
 def check_dict_decode(dev: torch.device) -> int:
     rng = np.random.default_rng(12)
     err = 0
@@ -604,7 +779,7 @@ def check_dict_decode(dev: torch.device) -> int:
             decode_dict_loop(w, pool, bw, n, 3),
             decode_dict_loop_plain(w, pool, bw, n, 3),
             f"dict_decode loop bw={bw}"))
-    return err
+    return max(err, check_dict_edges(dev))
 
 
 def check_ragged_pack(dev: torch.device) -> int:
@@ -1171,7 +1346,9 @@ def decode_path(dev) -> dict:
         raise AssertionError(f"decode_dict_loop carry {carry} != plain "
                              f"{want}")
     return dict(rows=DECODE_ROWS, bit_width=DECODE_BITS,
-                pool_entries=int(pool.numel()), loop_iters=DECODE_ITERS,
+                pool_entries=int(pool.numel()),
+                staged=dict_staged_entries(pool.numel()),
+                loop_iters=DECODE_ITERS,
                 loop_seconds=seconds,
                 sustained_rows_per_s=DECODE_ROWS * DECODE_ITERS / seconds,
                 launches=launches.counts, equal_to=["pool[codes]", "plain"])
@@ -1652,77 +1829,133 @@ def wall_ms(fn, dev, reps: int = 3) -> float:
     return statistics.median(samples)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+# Opcodes of K-A's loop that do not issue on the ALU pipe (Nsight
+# Compute's pipe descriptions: IMAD and IMUL run on the FMA pipe, loads on
+# the LSU, branches on the branch unit).  Whether IMAD does so on an H100
+# is not measured here, so the bound is also given with every instruction.
+NOT_ALU = ("IMAD", "IMUL", "LDG", "BRA")
+
+
+def sass_per_compression(lib_path) -> dict:
+    """SASS instructions of one compression in K-A's block loop, counted
+    from `cuobjdump -sass` of the built library: the loop is the backward
+    branch of sha256_hmac_kernel that spans the most instructions; each
+    compression reads its 64-byte block as four 16-byte loads, so the
+    loop's instructions over its loads / 4 is one compression with its
+    load, byte swap and loop control.  Raises where no such loop is
+    found."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = "sha256_hmac_kernel" in line
+        elif inside:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                body.append((int(m.group(1), 16), m.group(2)))
+    addrs = [a for a, _ in body]
+    loops = []
+    for i, (addr, ins) in enumerate(body):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            target = int(m.group(1), 16)
+            lo = next(j for j, a in enumerate(addrs) if a >= target)
+            loops.append(body[lo:i + 1])
+    loop = max(loops, key=len, default=[])
+    loads = sum(1 for _, ins in loop if ins.startswith("LDG") and
+                ".128" in ins)
+    if loads == 0 or loads % 4:
+        raise AssertionError(
+            f"no loop of 16-byte loads found in sha256_hmac_kernel's SASS "
+            f"({len(body)} instructions, {len(loops)} loops, {loads} loads)")
+    ops = {}
+    for _, ins in loop:
+        op = ins.split()[0] if not ins.startswith("@") else ins.split()[1]
+        ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+    alu = len(loop) - sum(ops.get(op, 0) for op in NOT_ALU)
+    return dict(instructions_per_compression=len(loop) * 4 / loads,
+                alu_per_compression=alu * 4 / loads,
+                loop_instructions=len(loop), loop_loads_128=loads,
+                kernel_instructions=len(body), not_alu=list(NOT_ALU),
+                by_opcode=dict(sorted(ops.items(), key=lambda x: -x[1])))
+
+
+def bound(n_bytes: float, n_ops: float = 0) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(batch: ColumnBatch, chunk: int, dev) -> dict:
+def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
+                 sass: dict, dev) -> dict:
     """Each kernel at the shapes the main path gives it: the first chunk
-    of a ClickBench batch."""
+    of a ClickBench batch, padded to its row bucket as ops/fused.py pads
+    it (K-A's pad rows have no blocks; K-B decodes and K-C evaluates
+    every bucket row).  K-A's bound counts its ALU-pipe instructions
+    (`sass`); `bound_ms_all_instructions` counts every one of them."""
     rows = batch.slice(0, chunk)
+    bucket = bucket_rows(chunk)
     url = rows.column("URL")
     mb = pow2_blocks(int(np.diff(url.offsets).max()))
-    blocks, nb, _ = prepare_padded_blocks(url.data, url.offsets,
-                                          prefix_len=64, max_blocks=mb)
+    blocks, nb = pack_hmac_blocks(url.data, url.offsets, mb)
+    blocks = np.pad(blocks, ((0, bucket - chunk), (0, 0)))
+    nb = np.pad(nb, (0, bucket - chunk))
     b_t = torch.from_numpy(blocks).to(dev)
     nb_t = torch.from_numpy(nb).to(dev)
     inner, outer = _hmac_key_states(b"bench-salt", dev)
-    n_comp = int(np.minimum(nb, mb).sum()) + chunk
+    # every row compresses its own blocks and one outer block
+    n_comp = int(np.minimum(nb, mb).sum()) + bucket
+    n_bytes = blocks[:chunk].nbytes + 4 * bucket + 64 + 32 * bucket
     # name -> (kernel call, plain call, library call or None, bound)
     calls = {"sha256_hmac": (
         lambda: sha256_hmac(b_t, nb_t, inner, outer, mb),
         lambda: sha256_hmac_plain(b_t, nb_t, inner, outer, mb),
         None,
-        bound(b_t.numel() + 4 * chunk + 64 + 32 * chunk,
-              OPS_PER_COMPRESSION * n_comp))}
+        # the real rows' blocks, every row's count and digest, the states
+        bound(n_bytes, sass["alu_per_compression"] * n_comp))}
 
-    region = rows.column("RegionID").data
-    spec, arrs = encode_pred_column("RegionID", region, None, chunk,
-                                       chunk, True)
-    if spec.kind != "delta":
-        raise AssertionError(f"RegionID shipped as {spec}, not delta")
-    w = torch.from_numpy(arrs[0].view(np.int32).copy()).to(dev)
-    base, bw = int(arrs[1]), spec.bit_width
-    zz = unpack_plain(w, bw, chunk)
-    deltas = ((zz >> 1) ^ -(zz & 1)).to(torch.int32)
-    calls["pred_decode"] = (
-        lambda: pred_decode(MODE_DELTA, w, chunk, bw, base),
-        lambda: pred_decode_plain(MODE_DELTA, w, chunk, bw, base),
-        lambda: torch.cumsum(deltas, 0, dtype=torch.int32),
-        # ~10 ops per value: unpack, zigzag, scan add
-        bound(w.numel() * 4 + 4 * chunk, 10 * chunk))
+    calls["pred_decode"] = delta_calls(region[:chunk], bucket, dev)
 
     program = compile_mask_program(
         parse("RegionID < 400 AND ResolutionWidth >= 390"))
-    cols = [(torch.from_numpy(rows.column(c).data.copy()).to(dev), None)
+    cols = [(torch.from_numpy(np.pad(rows.column(c).data, (0, bucket - chunk),
+                                     mode="edge")).to(dev), None)
             for c in program.columns]
     calls["pred3vl_mask"] = (
-        lambda: pred3vl_mask(program, cols, chunk, True, dev),
+        lambda: pred3vl_mask(program, cols, bucket, True, dev),
         lambda: pack_mask_words(eval3_torch(
-            program.node, dict(zip(program.columns, cols)), chunk, dev),
-            chunk),
+            program.node, dict(zip(program.columns, cols)), bucket, dev),
+            bucket),
         None,
         # ~4 ops per instruction per row
         bound(sum(d.numel() * d.element_size() for d, _ in cols)
-              + chunk // 8, 4 * len(program.instrs) * chunk))
+              + bucket // 8, 4 * len(program.instrs) * bucket))
 
     out = {}
+    all_ops_ms = bound(n_bytes, sass["instructions_per_compression"]
+                       * n_comp)[0]
     calls.update(fingerprint_calls(batch, dev))
     calls.update(decode_calls(dev))
     calls.update(pack_calls(batch, dev))
     calls.update(mesh_calls(dev))
     calls.update(sign_flip_calls(FETCH_MAX, dev))
-    for name, (kernel, plain, library, (bound_ms, bound_by)) in calls.items():
-        out[name] = dict(
-            max_abs_err=require_equal(kernel(), plain(), f"{name} at the "
-                                      "main path's shapes"),
-            ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
-            library_ms=kernel_ms(library, dev) if library else None,
-            bound_ms=bound_ms, bound_by=bound_by)
-    out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(dev)
+    for name, call in calls.items():
+        out[name] = timed(call, dev, f"{name} at the main path's shapes")
+    out["sha256_hmac"]["bound_ms_all_instructions"] = all_ops_ms
+    out["sha256_hmac"]["sass"] = sass
+    out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(
+        sass["alu_per_compression"], dev)
+    out["pred_decode"]["shape_values"] = bucket
+    out["pred_decode"]["at_shapes"] = {
+        str(n): timed(delta_calls(region[:n], n, dev), dev,
+                      f"pred_decode at {n} values")
+        for n in (BATCH_ROWS, 1 << 20)}
+    out["dict_decode"].update(dict_timing(dev))
     out["shard_hist"]["at_step_shape"] = step_hist_timing(dev)
     out["region_sign_flip"]["library_call"] = SIGN_FLIP_LIBRARY
     (kernel, plain, library, (bound_ms, bound_by)), = sign_flip_calls(
@@ -1830,7 +2063,9 @@ def step_hist_timing(dev) -> dict:
 def pack_calls(batch: ColumnBatch, dev) -> dict:
     """K12 at the shape main_path_devpack gives it: one ClickBench
     batch's URL column into the batch's row bucket.  Bytes: the URL
-    bytes and offsets read once, the blocks and counts written once."""
+    bytes and offsets read once, the blocks and counts written once.
+    Its operations are not counted from its SASS yet, so its bound is the
+    bytes'."""
     url = batch.column("URL")
     n = batch.n_rows
     bucket = bucket_rows(n)
@@ -1844,12 +2079,10 @@ def pack_calls(batch: ColumnBatch, dev) -> dict:
         lambda: ragged_pack(data, offsets, bucket, mb)[0],
         lambda: pack_blocks_plain(data, offsets, bucket, mb)[0],
         None,
-        # ~12 operations per output byte: position compares, the read
-        bound(data.numel() + 4 * (n + 1) + bucket * (mb * 64 + 4),
-              12 * bucket * mb * 64))}
+        bound(data.numel() + 4 * (n + 1) + bucket * (mb * 64 + 4)))}
 
 
-def pool_hmac_timing(dev) -> dict:
+def pool_hmac_timing(alu_per_compression: float, dev) -> dict:
     """K-A at the dispatch path's pool shape: the 4,096 values and the
     sentinel, one launch (the pool route's only kernel)."""
     values, _ = dispatch_data()
@@ -1862,7 +2095,7 @@ def pool_hmac_timing(dev) -> dict:
     inner, outer = _hmac_key_states(b"bench-salt", dev)
     bound_ms, bound_by = bound(
         b_t.numel() + 4 * n + 64 + 32 * n,
-        OPS_PER_COMPRESSION * (int(np.minimum(nb, mb).sum()) + n))
+        alu_per_compression * (int(np.minimum(nb, mb).sum()) + n))
     return dict(
         rows=n, max_abs_err=require_equal(
             sha256_hmac(b_t, nb_t, inner, outer, mb),
@@ -1874,31 +2107,25 @@ def pool_hmac_timing(dev) -> dict:
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def lane_work(batch: ColumnBatch, cols, n) -> tuple[int, int]:
-    """(bytes, 32-bit operations) of one K10 reduce launch, from the
-    code.  Bytes: each of the batch's column buffers read once at its own
-    width (a fixed column's dtype, var bytes and offsets, dict codes and
-    the pool's accumulators, validity), 16 bytes written; the 8-byte
-    canonical fixed values that prep_batch makes are the port's choice,
-    not work the function needs.  Operations, per row and column, both
-    lanes: fixed 72 (four mixes of 8, the xors and adds), dict 40, var 6
-    per byte plus ~130 for the terminator, the length bytes and the
-    mixes; per row 16 for the final mixes and 4 for the reduction."""
-    n_bytes, ops = 16, 20 * n
+def lane_bytes(batch: ColumnBatch, cols) -> int:
+    """Bytes of one K10 reduce launch: each of the batch's column buffers
+    read once at its own width (a fixed column's dtype, var bytes and
+    offsets, dict codes and the pool's accumulators, validity), 16 bytes
+    written; the 8-byte canonical fixed values that prep_batch makes are
+    the port's choice, not work the function needs.  K10's operations are
+    not counted from its SASS yet, so its bound is the bytes'."""
+    n_bytes = 16
     for c in cols:
         col = batch.column(c.name)
         if col.validity is not None:
             n_bytes += np.asarray(col.validity).nbytes
         if c.kind == "fixed":
             n_bytes += np.asarray(col.data).nbytes
-            ops += 72 * n
         elif c.kind == "dict":
-            n_bytes += 4 * n + 8 * c.acc1.numel()
-            ops += 40 * n
+            n_bytes += 4 * batch.n_rows + 8 * c.acc1.numel()
         else:
-            n_bytes += np.asarray(col.data).nbytes + 4 * (n + 1)
-            ops += 6 * c.data.numel() + 130 * n
-    return n_bytes, ops
+            n_bytes += np.asarray(col.data).nbytes + 4 * (batch.n_rows + 1)
+    return n_bytes
 
 
 def fingerprint_calls(batch: ColumnBatch, dev) -> dict:
@@ -1923,26 +2150,82 @@ def fingerprint_calls(batch: ColumnBatch, dev) -> dict:
     offsets = torch.from_numpy(pool.values_offsets).to(dev)
     k = offsets.numel() - 1
     return {
-        "rowhash_lanes": (kernel, plain, None, bound(*lane_work(batch, cols, n))),
+        "rowhash_lanes": (kernel, plain, None, bound(lane_bytes(batch, cols))),
         "var_accumulators": (
             lambda: torch.stack(rowhash.var_accumulators(data, offsets)),
             lambda: torch.stack(rowhash._var_accs_host(data, offsets)),
             None,
-            bound(data.numel() + 4 * (k + 1) + 8 * k,
-                  6 * data.numel() + 130 * k)),
+            bound(data.numel() + 4 * (k + 1) + 8 * k)),
     }
+
+
+def timed(call, dev, what: str) -> dict:
+    """A (kernel, plain, library, bound) call: the kernel against its
+    plain version, then each timed."""
+    kernel, plain, library, (bound_ms, bound_by) = call
+    return dict(max_abs_err=require_equal(kernel(), plain(), what),
+                ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
+                library_ms=kernel_ms(library, dev) if library else None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def delta_calls(region: np.ndarray, bucket: int, dev) -> tuple:
+    """K-B's delta scan over RegionID's delta wire as the dispatch encoder
+    ships it (len(region) rows padded to `bucket`), and torch.cumsum over
+    the same deltas, decoded beforehand."""
+    spec, arrs = encode_pred_column("RegionID", region, None, len(region),
+                                    bucket, True)
+    if spec.kind != "delta":
+        raise AssertionError(f"RegionID shipped as {spec}, not delta")
+    w = torch.from_numpy(arrs[0].view(np.int32).copy()).to(dev)
+    base, bw = int(arrs[1]), spec.bit_width
+    zz = unpack_plain(w, bw, bucket)
+    deltas = ((zz >> 1) ^ -(zz & 1)).to(torch.int32)
+    return (
+        lambda: pred_decode(MODE_DELTA, w, bucket, bw, base),
+        lambda: pred_decode_plain(MODE_DELTA, w, bucket, bw, base),
+        lambda: torch.cumsum(deltas, 0, dtype=torch.int32),
+        # ~10 ops per value: unpack, zigzag, scan add
+        bound(w.numel() * 4 + 4 * bucket, 10 * bucket))
+
+
+def dict_call(words, pool, codes, bw: int, staged=None) -> tuple:
+    """K11 over n codes into `pool` (the wrapper's split, or `staged`
+    entries in shared memory), beside torch.index_select over the codes
+    decoded beforehand."""
+    n = codes.numel()
+
+    def kernel():
+        if staged is None:
+            return decode_dict_run(words, pool, bw, n)
+        out = torch.empty(n, dtype=torch.int32, device=words.device)
+        _dict_decode_launch(words, pool, bw, n, None, None, out, staged)
+        return out
+
+    return (
+        kernel,
+        lambda: decode_dict_run_plain(words, pool, bw, n),
+        lambda: torch.index_select(pool, 0, codes),
+        # ~12 operations per value: unpack, clamp, gather address
+        bound(words.numel() * 4 + pool.numel() * 4 + 4 * n, 12 * n))
 
 
 def decode_calls(dev) -> dict:
     """K11 at the decode path's shape."""
     words, pool, codes = decode_inputs(dev)
-    n = DECODE_ROWS
-    return {"dict_decode": (
-        lambda: decode_dict_run(words, pool, DECODE_BITS, n),
-        lambda: decode_dict_run_plain(words, pool, DECODE_BITS, n),
-        lambda: torch.index_select(pool, 0, codes),
-        # ~12 operations per value: unpack, clamp, gather address
-        bound(words.numel() * 4 + pool.numel() * 4 + 4 * n, 12 * n))}
+    return {"dict_decode": dict_call(words, pool, codes, DECODE_BITS)}
+
+
+def dict_timing(dev) -> dict:
+    """K11 at the decode path's shape with every gather from L2, beside
+    the wrapper's split that decode_calls times; and the split the
+    wrapper picks at each checked pool size."""
+    words, pool, codes = decode_inputs(dev)
+    return {"staged": dict_staged_entries(pool.numel()),
+            "l2_only": timed(dict_call(words, pool, codes, DECODE_BITS, 0),
+                             dev, "dict_decode with every gather from L2"),
+            "staged_by_pool": {str(k): dict_staged_entries(k)
+                               for k in DICT_POOLS}}
 
 
 def main() -> int:
@@ -1957,6 +2240,15 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     card = f"{torch.cuda.get_device_name(dev)} ({smi})"
+    global INT32_OPS_PER_S
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    INT32_OPS_PER_S = (INT32_LANES_PER_SM
+                       * torch.cuda.get_device_properties(dev)
+                       .multi_processor_count * max_sm_mhz * 1e6)
 
     t_start = t0 = time.perf_counter()
     builds = _build.build_all()
@@ -2043,7 +2335,9 @@ def main() -> int:
               "phase_seconds": phase_s[path]})
 
     t_phase = time.perf_counter()
-    timing = time_kernels(batches[0], chunk or 32768, dev)
+    timing = time_kernels(batches[0], fixed["RegionID"], chunk or 32768,
+                          sass_per_compression(builds["sha256_hmac"].path),
+                          dev)
     phase_s["timing"] = time.perf_counter() - t_phase
     kernels = []
     for name, t in timing.items():
@@ -2060,7 +2354,9 @@ def main() -> int:
         })
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
-    emit({"phase": "timing", "card": card, "shape_rows": chunk or 32768,
+    emit({"phase": "timing", "card": card, "chunk_rows": chunk or 32768,
+          "shape_rows": bucket_rows(chunk or 32768),
+          "int32_ops_per_s": INT32_OPS_PER_S,
           "phase_seconds": phase_s,
           "total_seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -192,3 +192,73 @@ def test_wrapper_rejects_bad_arguments(bad):
         kw.update(mode=port_decode.MODE_FOR, frame=48)
     with pytest.raises(ValueError):
         port_decode.pred_decode(**kw)
+
+
+# -- the delta scan at its tile edges --------------------------------------------
+
+TILE = port_decode.DELTA_TILE
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, TILE - 1, TILE, TILE + 1,
+                               3 * TILE + 5, 65536])
+@pytest.mark.parametrize("bw", [1, 17, 30, 32])
+def test_delta_at_tile_edges_matches_jax(bw, n):
+    """Deltas of every width, whose running sum wraps int32 again and
+    again (a base near the top, codes up to 2^bw - 1), across tiles."""
+    rng = np.random.default_rng(bw * 100_003 + n)
+    vals = rng.integers(0, 2**bw, n, dtype=np.uint64)
+    if bw >= 30:
+        # large positive deltas (even zigzag codes): the sum wraps at
+        # least once a tile
+        vals[::2] = (vals[::2] | np.uint64(2**(bw - 1))) & ~np.uint64(1)
+    words = port_dispatch.pack_bits_host(vals, bw)
+    base = 2**31 - 7
+    got = port_decode.delta_prefix_sum(to_words(words), base, bw, n)
+    want = np.asarray(ref_decode.delta_prefix_sum(
+        jnp.asarray(words), jnp.int32(base), bw, n))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_delta_tiles():
+    assert [port_decode.delta_tiles(n) for n in
+            (1, TILE - 1, TILE, TILE + 1, 65536, 1 << 20)] == [
+        1, 1, 1, 2, 65536 // TILE, (1 << 20) // TILE]
+    # the scratch made first holds the largest row bucket's tiles
+    assert port_decode.ScanScratch.MIN_TILES == (1 << 20) // TILE
+
+
+def test_scan_scratch_epochs_and_tickets_per_stream():
+    scratch = port_decode.ScanScratch()
+    cpu = torch.device("cpu")
+    seen = []
+    for stream, tiles in ((7, 16), (7, 32), (9, 2), (7, 1)):
+        with scratch.launch(cpu, stream, tiles) as (buf, epoch, base):
+            seen.append((stream, id(buf), epoch, base))
+            assert buf.dtype == torch.int64 and not buf.any()
+            assert buf.numel() == scratch.MIN_TILES + 1
+    (_, b7, e1, t1), (_, b7b, e2, t2), (_, b9, e9, t9), (_, b7c, e3, t3) = seen
+    assert b7 == b7b == b7c != b9          # one buffer a stream
+    assert (e1, e2, e3, e9) == (1, 2, 3, 1)  # a new epoch every launch
+    assert (t1, t2, t3, t9) == (0, 16, 48, 0)  # the counter's value
+
+
+def test_scan_scratch_grows_wraps_and_skips_failed_launches():
+    scratch = port_decode.ScanScratch()
+    cpu = torch.device("cpu")
+    with scratch.launch(cpu, 1, 4) as (buf, epoch, base):
+        buf[0] = 4  # the kernel's ticket counter after 4 tiles
+    with pytest.raises(RuntimeError):
+        with scratch.launch(cpu, 1, 4) as (_, epoch, base):
+            assert (epoch, base) == (2, 4)
+            raise RuntimeError("launch refused")
+    with scratch.launch(cpu, 1, 4) as (_, epoch, base):
+        assert (epoch, base) == (2, 4)     # the refused launch took nothing
+    big = scratch.MIN_TILES + 10
+    with scratch.launch(cpu, 1, big) as (buf, epoch, base):
+        # a larger scan gets a new zeroed buffer, its counter at 0
+        assert buf.numel() == big + 1 and not buf.any()
+        assert (epoch, base) == (1, 0)
+    scratch._slots[(cpu, 1)].epoch = scratch.EPOCH_MAX
+    with scratch.launch(cpu, 1, 1) as (buf, epoch, base):
+        # the epoch field is full: a new buffer, the epochs start again
+        assert (epoch, base) == (1, 0) and buf.numel() == big + 1

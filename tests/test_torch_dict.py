@@ -289,3 +289,40 @@ def test_decode_rejects_bad_shapes():
         port_decode.decode_dict_run(words, pool, 32, 5)
     with pytest.raises(ValueError, match="pool"):
         port_decode.decode_dict_run(words, pool[:0], 8, 4)
+
+
+@pytest.mark.parametrize("k", [1, 131_072])
+@pytest.mark.parametrize("bw", range(1, 33))
+def test_decode_dict_run_every_width_ragged_equals_jax(bw, k):
+    """n not a multiple of 32 (the reference's gather path), a pool of
+    one entry and one of 131,072 (the decode path's), codes past the
+    pool and, at width 32, negative ones."""
+    n = 32 * 31 + 13
+    codes = codes_for(bw, n, k, seed=bw * 7 + k)
+    words = pack(codes, bw)
+    pool = np.random.default_rng(k + bw).integers(-2**31, 2**31, k,
+                                                  dtype=np.int64)
+    pool = pool.astype(np.int32)
+    got = port_decode.decode_dict_run(words_tensor(words),
+                                      torch.from_numpy(pool), bw, n)
+    want = np.asarray(ref_decode.decode_dict_run(words, pool, bw, n))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,staged", [
+    (1, 1),
+    (31, 31),
+    (4096, 4096),
+    (port_decode.POOL_PREFIX_ENTRIES - 1, port_decode.POOL_PREFIX_ENTRIES - 1),
+    (port_decode.POOL_PREFIX_ENTRIES, port_decode.POOL_PREFIX_ENTRIES),
+    # past the prefix: its first 40,960 entries, one block an SM
+    (port_decode.POOL_PREFIX_ENTRIES + 1, port_decode.POOL_PREFIX_ENTRIES),
+    (56_000, 40_960),
+    (131_072, 40_960),
+    (262_144, 40_960),
+    (2**31 - 1, 40_960),
+])
+def test_dict_staged_entries_by_size(k, staged):
+    assert port_decode.dict_staged_entries(k) == staged
+    # the staged entries (and the kernel's 64 bytes) fit a block's 227 KB
+    assert 4 * staged + 64 <= 232_448 and staged <= k

@@ -38,11 +38,13 @@
 // mod 2^32, so the result is exact in any order and accumulates across
 // launches (one accumulator serves a whole table scan).
 //
-// Bound on an H100: each input byte is read once, and the work is ~72
+// Bound on an H100: each input byte is read once.  The source does ~72
 // 32-bit operations per 8-byte fixed value (both lanes), ~40 per 4-byte
 // dict code and ~6 per var byte plus ~130 per var row; at 3.35 TB/s
-// against 67 T operations/s, fixed and dict values and var rows of more
-// than a few bytes are bound by bytes.  One thread per row walks its own bytes
+// against ~16.7 T integer operations/s (64 INT32 lanes a SM) that would
+// make every kind of value bound by operations, but those are
+// source-level estimates, not counted from the SASS, so the stated bound
+// is the bytes' until they are.  One thread per row walks its own bytes
 // in order (neighbouring threads read neighbouring rows, so the lines are
 // shared in L1): simple and right; reading the bytes in 16-byte vectors
 // is later work.

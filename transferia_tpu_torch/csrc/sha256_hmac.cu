@@ -22,10 +22,11 @@
 // so the work done is what the data needs, not the bucket's maximum.
 //
 // Bound on an H100: SHA-256 is pure 32-bit integer ALU work (no tensor
-// cores).  One compression is about 2,232 32-bit operations (64 rounds of
-// ~25 plus 48 schedule steps of ~13, plus the final adds), against 100 bytes
-// of traffic per one-block row (64 in, 4 count, 32 out): it is bound by
-// operations, not bytes.
+// cores).  One compression compiles to ~1,400 SASS instructions (mostly
+// SHF, LOP3 and IADD3: ~2,232 source-level operations fused; chip_smoke.py
+// counts them from the build it runs), against 100 bytes of traffic per
+// one-block row (64 in, 4 count, 32 out): it is bound by operations, not
+// bytes, at 64 INT32 lanes a SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>

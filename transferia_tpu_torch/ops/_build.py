@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_UL, _U = ctypes.c_ulonglong, ctypes.c_uint
 
 # library -> C function -> argtypes (every function returns a cudaError_t)
 SIGNATURES: dict[str, dict[str, list]] = {
@@ -44,10 +45,13 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "trt_sha256_hmac": [_P, _P, _I, _I, _P, _P, _P, _P],
     },
     "pred_decode": {
-        # mode, words, n_words, n, bw, base, mins, frame, out, stream
-        "trt_pred_decode": [_I, _P, _I, _L, _I, _I, _P, _I, _P, _P],
-        # words, n_words, n, bw, pool, k, carry_in, carry_out, out, stream
-        "trt_dict_decode": [_P, _I, _L, _I, _P, _I, _P, _P, _P, _P],
+        # mode, words, n_words, n, bw, base, mins, frame, scratch,
+        # scratch_tiles, ticket_base, epoch, out, stream
+        "trt_pred_decode": [_I, _P, _I, _L, _I, _I, _P, _I, _P, _I, _UL,
+                            _U, _P, _P],
+        # words, n_words, n, bw, pool, k, staged, carry_in, carry_out,
+        # out, stream
+        "trt_dict_decode": [_P, _I, _L, _I, _P, _I, _I, _P, _P, _P, _P],
     },
     "pred3vl_mask": {
         # instr, n_instr, ilit, flit, lit_is_float, n_lits, data ptrs,

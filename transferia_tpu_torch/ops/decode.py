@@ -22,11 +22,18 @@ whatever their width, so the port keeps int32).
 `pack_mask_words` (line 114) has no kernel of its own here: on a card
 the keep mask is packed inside the predicate kernel K-C; this module
 keeps its plain version, which K-C's plain path uses.
+
+Two choices the kernels leave to their wrappers live here, where the CPU
+tests reach them: the delta scan's per-stream scratch (`ScanScratch`)
+and how much of a dictionary pool K11 stages (`dict_staged_entries`).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Iterator, Optional
 
 import torch
 
@@ -36,6 +43,63 @@ MODE_BITS, MODE_DELTA, MODE_FOR, MODE_UNPACK = 0, 1, 2, 3
 _MODES = {MODE_BITS: "bits", MODE_DELTA: "delta", MODE_FOR: "for",
           MODE_UNPACK: "unpack"}
 _M32 = 0xFFFFFFFF
+
+# values one block of the delta scan decodes (kScanTile in the source)
+DELTA_TILE = 2048
+
+
+def delta_tiles(n: int) -> int:
+    """Tiles, and so blocks and status words, of a delta scan of n values."""
+    return -(-n // DELTA_TILE)
+
+
+@dataclass
+class _ScanSlot:
+    buf: torch.Tensor   # int64: [0] the tile ticket counter, [1:] statuses
+    epoch: int = 0      # of the last launch on this slot
+    tickets: int = 0    # tiles handed out so far: the counter's value
+
+
+class ScanScratch:
+    """The delta scan's status words and tile counter, one buffer per
+    (device, stream).
+
+    A buffer is made once, zeroed, on the stream that uses it; every
+    launch on it takes the next epoch (a status word of an older epoch
+    reads as not ready, so no launch clears the buffer) and passes the
+    counter's value, which launches on one stream leave in order.  Two
+    streams never share a buffer, so two scans can be in flight at once.
+    A launch that raises advances nothing."""
+
+    EPOCH_MAX = 2**31 - 1   # the epoch field's 31 bits
+    MIN_TILES = 512         # the largest row bucket, 1,048,576 values
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._slots: dict[tuple[torch.device, int], _ScanSlot] = {}
+
+    @contextlib.contextmanager
+    def launch(self, device: torch.device, stream: int, tiles: int
+               ) -> Iterator[tuple[torch.Tensor, int, int]]:
+        """(buffer, epoch, ticket base) for one launch of `tiles` tiles
+        on `stream`; held under a lock until the launch is enqueued, and
+        committed only if the body returns."""
+        with self._lock:
+            key = (device, stream)
+            slot = self._slots.get(key)
+            if slot is None or slot.buf.numel() - 1 < tiles \
+                    or slot.epoch >= self.EPOCH_MAX:
+                cap = max(tiles, self.MIN_TILES,
+                          slot.buf.numel() - 1 if slot else 0)
+                slot = _ScanSlot(torch.zeros(cap + 1, dtype=torch.int64,
+                                             device=device))
+                self._slots[key] = slot
+            yield slot.buf, slot.epoch + 1, slot.tickets
+            slot.epoch += 1
+            slot.tickets += tiles
+
+
+_SCAN_SCRATCH = ScanScratch()
 
 
 def pred_decode(mode: int, words: torch.Tensor, n: int, bit_width: int,
@@ -73,10 +137,16 @@ def pred_decode(mode: int, words: torch.Tensor, n: int, bit_width: int,
     out = torch.empty(n, dtype=torch.bool if mode == MODE_BITS
                       else torch.int32, device=dev)
     lib = _build.library("pred_decode")
-    rc = lib.trt_pred_decode(mode, words.data_ptr(), words.numel(), n,
-                             bit_width, int(base), _build.ptr(mins),
-                             frame, out.data_ptr(), _build.stream_of(words))
-    _build.check(lib, rc, f"pred_decode[{_MODES[mode]}]")
+    stream = _build.stream_of(words)
+    scan = (_SCAN_SCRATCH.launch(dev, stream, delta_tiles(n))
+            if mode == MODE_DELTA else contextlib.nullcontext((None, 0, 0)))
+    with scan as (scratch, epoch, ticket_base):
+        rc = lib.trt_pred_decode(
+            mode, words.data_ptr(), words.numel(), n, bit_width, int(base),
+            _build.ptr(mins), frame, _build.ptr(scratch),
+            0 if scratch is None else scratch.numel() - 1, ticket_base,
+            epoch, out.data_ptr(), stream)
+        _build.check(lib, rc, f"pred_decode[{_MODES[mode]}]")
     _build.count_launch("pred_decode")
     return out
 
@@ -190,14 +260,33 @@ def _check_dict_args(words: torch.Tensor, pool: torch.Tensor,
                    f"{words.numel()} words")
 
 
+# How much of the pool K11's blocks keep in shared memory
+# (csrc/pred_decode.cu): the pool's first 40,960 entries (160 KB: one
+# block an SM, ~90 KB of L1 left for the rest), or the whole pool where
+# it is smaller.  The prefix's size was measured at the decode path's
+# shape (4,194,304 codes into 131,072 entries).
+POOL_PREFIX_ENTRIES = 40_960
+
+
+def dict_staged_entries(k: int) -> int:
+    """How many of a k-entry pool's first entries K11 stages in each
+    block's shared memory."""
+    return min(k, POOL_PREFIX_ENTRIES)
+
+
 def _dict_decode_launch(words: torch.Tensor, pool: torch.Tensor,
                         bit_width: int, n: int,
                         carry_in: Optional[torch.Tensor],
                         carry_out: Optional[torch.Tensor],
-                        out: Optional[torch.Tensor]) -> None:
+                        out: Optional[torch.Tensor],
+                        staged: Optional[int] = None) -> None:
+    """One K11 launch; `staged` defaults to `dict_staged_entries(k)`
+    (given only to time or check another split)."""
+    if staged is None:
+        staged = dict_staged_entries(pool.numel())
     lib = _build.library("pred_decode")
     rc = lib.trt_dict_decode(words.data_ptr(), words.numel(), n, bit_width,
-                             pool.data_ptr(), pool.numel(),
+                             pool.data_ptr(), pool.numel(), staged,
                              _build.ptr(carry_in), _build.ptr(carry_out),
                              _build.ptr(out), _build.stream_of(words))
     _build.check(lib, rc, "dict_decode")

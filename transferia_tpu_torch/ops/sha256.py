@@ -49,11 +49,6 @@ _H0 = np.array([
 
 _M32 = 0xFFFFFFFF
 
-# SHA-256 operation count of one compression, for the kernel's bound:
-# 64 rounds of ~25 32-bit ops, 48 schedule steps of ~13, 8 final adds
-OPS_PER_COMPRESSION = 64 * 25 + 48 * 13 + 8
-
-
 def words_to_tensor(words: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint32 words (numpy) -> int32 tensor with the same bits."""
     arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
