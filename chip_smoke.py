@@ -10,7 +10,12 @@ final line):
   1. build: compile every CUDA kernel from the checkout's sources;
   2. kernels: each kernel against its plain PyTorch version on the card
      (and against hashlib / the host evaluator / the host SHA-block
-     pack), exact equality;
+     pack), exact equality; K10 and var_accumulators also at their edges
+     (rows of 0-100,000 bytes at every start offset mod 16, UTF-8, nulls,
+     mixed kinds, the by-value column limit and one past it), the shard
+     histogram at every bin count from 1 to 4,096, none and all kept,
+     1,000 launches back to back, two streams in flight and a launch
+     whose error comes back after it ran, also against torch.bincount;
   3. main_path: 2,000,000 ClickBench-shaped rows (made as bench.py makes
      them, seed 42) through build_chain(...).apply in 131072-row batches
      with device placement and the default chunking; the output must be
@@ -73,7 +78,9 @@ final line):
  14. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
-     against the SASS instructions K-A's compression loop compiles to).
+     against the SASS instructions counted from this run's build: K-A's
+     compression loop, K10's paths, K12's thread, the histogram's warp
+     step); and the launch floor, probe.cu's empty kernel timed alike.
 Each path names the kernels it must launch (PATH_KERNELS); the launch
 counts are zeroed just before the path runs and read just after it, and
 a kernel of the path that never launched fails the run.  Any failure
@@ -91,6 +98,8 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -153,7 +162,7 @@ from transferia_tpu_torch.ops.raggedpack import (
     pack_blocks_plain,
     ragged_pack,
 )
-from transferia_tpu_torch.ops.linkprobe import probe_link
+from transferia_tpu_torch.ops.linkprobe import _empty_launch, probe_link
 from transferia_tpu_torch.ops.sha256 import (
     _hmac_key_states,
     _words_to_bytes,
@@ -685,6 +694,105 @@ def check_var_accumulators(dev: torch.device) -> int:
                require_equal(got[1], want[1], "clamped row lane 2"))
 
 
+# where len + 9 crosses a 64-byte block, and a row over one base-64 digit
+VAR_EDGE_LENS = (0, 1, 54, 55, 56, 63, 64, 65, 119, 120, 100_000)
+UTF8_VALUES = ("наушники", "☃ snow", "𝄞 clef", "ü", "日本語テキスト")
+
+
+def edge_var_values(rng) -> list[bytes]:
+    """Each VAR_EDGE_LENS row starting at every offset mod 16 of the flat
+    buffer (a spacer row of 0-15 bytes before each), then multi-byte
+    UTF-8 rows."""
+    values, total = [], 0
+    for ln in VAR_EDGE_LENS:
+        for k in range(16):
+            pad = (k - total) % 16
+            values += [rng.integers(0, 256, pad, dtype=np.uint8).tobytes(),
+                       rng.integers(0, 256, ln, dtype=np.uint8).tobytes()]
+            total += pad + ln
+    values += [v.encode() for v in UTF8_VALUES]
+    starts = np.cumsum([0] + [len(v) for v in values])[:-1]
+    for ln in VAR_EDGE_LENS:
+        at = {int(st) % 16 for st, v in zip(starts, values) if len(v) == ln}
+        if len(at) != 16:
+            raise AssertionError(f"edge rows of {ln} bytes start at only "
+                                 f"{len(at)} offsets mod 16")
+    return values
+
+
+def edge_lane_batch(n_cols: int, n: int, rng) -> ColumnBatch:
+    """n_cols columns cycling fixed int64, var (edge rows, nulls), dict
+    (a pool of edge values, nulls) and float64, n rows."""
+    var_values = edge_var_values(rng)
+    pool = DictPool(*_flat_bytes(var_values[:40] + [b""]), null_code=40)
+    kinds = ("int64", "utf8", "dict", "double")
+    spec = [(f"c{i}", "utf8" if kinds[i % 4] == "dict" else kinds[i % 4])
+            for i in range(n_cols)]
+    schema = new_table_schema(spec)
+    cols = {}
+    for i, cs in enumerate(schema):
+        valid = rng.random(n) > 0.2
+        kind = kinds[i % 4]
+        if kind == "int64":
+            data = rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64)
+            cols[cs.name] = Column(cs.name, cs.data_type, data, None,
+                                   valid if i % 8 == 0 else None)
+        elif kind == "double":
+            data = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, 1.5]), n)
+            cols[cs.name] = Column(cs.name, cs.data_type, data, None, valid)
+        elif kind == "utf8":
+            pick = rng.integers(0, len(var_values), n)
+            pick[:min(n, len(var_values))] = np.arange(min(n,
+                                                           len(var_values)))
+            cols[cs.name] = Column(cs.name, cs.data_type, *_flat_bytes(
+                [var_values[j] for j in pick]), valid)
+        else:
+            codes = np.where(valid, rng.integers(0, 40, n), 40).astype(
+                np.int32)
+            cols[cs.name] = Column(cs.name, cs.data_type, validity=valid,
+                                   dict_enc=DictEnc(codes, pool=pool))
+    return ColumnBatch(TableID("", "edges"), schema, cols)
+
+
+def check_lanes_exact(batch: ColumnBatch, dev, what: str) -> int:
+    """K10 in keys and reduce mode against its plain version on the card;
+    the reduce launch adds into an accumulator that already holds a
+    value, as the fingerprint's second batch does."""
+    cols, n = staged(batch, dev)
+    r1, r2 = rowhash.rowhash_lanes(cols, n)
+    p1, p2 = rowhash.rowhash_lanes_plain(cols, n)
+    err = max(require_equal(r1, rowhash._to_i32(p1), f"{what} r1"),
+              require_equal(r2, rowhash._to_i32(p2), f"{what} r2"))
+    start = torch.tensor([7, -3, 0x1234, -0x5678], dtype=torch.int32,
+                         device=dev)
+    acc, want = start.clone(), start.clone()
+    rowhash.rowhash_lanes(cols, n, acc)
+    rowhash._reduce_into(want, p1, p2)
+    return max(err, require_equal(acc, want, f"{what} reduce"))
+
+
+def check_rowhash_edges(dev: torch.device) -> int:
+    """K10 and var_accumulators at the edges: rows of VAR_EDGE_LENS bytes
+    at every start offset mod 16, multi-byte UTF-8, nulls, fixed, var and
+    dict columns in one batch; the by-value column limit and one column
+    past it (the descriptors in device memory); keys and reduce mode."""
+    rng = np.random.default_rng(19)
+    values = edge_var_values(rng)
+    data, offsets = _flat_bytes(values)
+    d = torch.from_numpy(data).to(dev)
+    o = torch.from_numpy(offsets).to(dev)
+    want = rowhash._var_accs_host(d, o)
+    got = rowhash.var_accumulators(d, o)
+    err = max(require_equal(got[0], want[0], "var_accumulators edges"),
+              require_equal(got[1], want[1], "var_accumulators edges lane 2"))
+    for n_cols in (10, rowhash.BY_VALUE_COLS, rowhash.BY_VALUE_COLS + 1):
+        err = max(err, check_lanes_exact(
+            edge_lane_batch(n_cols, 400, rng), dev,
+            f"rowhash_lanes {n_cols} columns "
+            f"({rowhash.descriptor_route(n_cols)})"))
+    return err
+
+
 def packed_codes(codes: np.ndarray, bw: int, dev) -> torch.Tensor:
     return torch.from_numpy(
         pack_bits_host(codes, bw).view(np.int32).copy()).to(dev)
@@ -888,6 +996,103 @@ def check_shard_hist(dev: torch.device) -> int:
     else:
         raise AssertionError("shard_hist took more than 4096 shards")
     return err
+
+
+EDGE_SHARDS = (1, 2, 3, 4, 31, 32, 33, 4096)
+
+
+def hist_exact(got, words, n_shards, keep_rows, plain, what) -> int:
+    """A fused/step partial against its plain version and torch.bincount
+    of the kept rows' bins."""
+    err = require_equal(got, plain, what)
+    bins = (words.to(torch.int64) & 0xFFFFFFFF) % n_shards
+    counted = torch.bincount(bins[keep_rows.expand_as(bins)],
+                             minlength=n_shards).to(torch.int32)
+    return max(err, require_equal(got[:n_shards], counted,
+                                  f"{what} against bincount"),
+               require_equal(got[n_shards:], keep_rows.sum().reshape(1),
+                             f"{what} kept count"))
+
+
+def check_shard_hist_edges(dev: torch.device) -> int:
+    """The histogram at every route edge (n_shards 1 to 4,096), at a row
+    count no multiple of 32 in both layouts, none and all kept, step
+    mode over inf, NaN and 1e300 at each shard count; 1,000 launches
+    back to back on one stream alternating the two routes (each must
+    leave its scratch zero for the next), launches on two streams in
+    flight at once, and a launch on the current stream after one whose
+    error came back once it had run, each checked."""
+    rng = np.random.default_rng(23)
+    err = 0
+    n = 65_536 + 17
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8)).astype(
+        np.int32)).to(dev)
+    masks = {"random": (rng.random(n) > 0.1, rng.random(n) > 0.4),
+             "none": (np.zeros(n, bool), np.ones(n, bool)),
+             "all": (np.ones(n, bool), np.ones(n, bool))}
+    ages = torch.from_numpy(rng.integers(-3, 99, n).astype(np.int32)).to(dev)
+    scores = rng.uniform(0, 100, n)
+    scores[:6] = [1e300, np.inf, np.nan, -np.inf, -1e300, 3.0]
+    sc = torch.from_numpy(scores).to(dev)
+    dig3 = torch.from_numpy(rng.integers(-2**31, 2**31, (3, n, 8)).astype(
+        np.int32)).to(dev)
+    for ns in EDGE_SHARDS:
+        for name, (valid, pred) in masks.items():
+            for layout in ("packed", "bool"):
+                v = mask_layout(valid, layout, dev)
+                p = mask_layout(pred, layout, dev)
+                kept = torch.from_numpy(valid & pred).to(dev)
+                what = f"shard_hist fused {name} {layout} shards={ns}"
+                err = max(err, hist_exact(
+                    shard_hist_fused(words, ns, v, p), words[:, 0], ns,
+                    kept, shard_hist_fused_plain(words, ns, v, p), what))
+        part, keep, s32 = shard_hist_step(dig3, ages, sc, ns)
+        p_part, p_keep, _ = shard_hist_step_plain(dig3, ages, sc, ns)
+        if bool(keep[:5].any()) or not bool(keep[5]):
+            raise AssertionError("shard_hist step kept inf/NaN/1e300")
+        err = max(err, require_equal(keep, p_keep, f"step keep {ns}"),
+                  hist_exact(part, dig3[:, :, 0], ns, keep[None, :],
+                             p_part, f"shard_hist step shards={ns}"))
+    v = mask_layout(masks["random"][0], "packed", dev)
+    p = mask_layout(masks["random"][1], "packed", dev)
+    want = {ns: shard_hist_fused_plain(words, ns, v, p) for ns in (16, 4096)}
+    outs = [(ns, shard_hist_fused(words, ns, v, p))
+            for ns in (16, 4096) * 500]
+    for i, (ns, got) in enumerate(outs):
+        err = max(err, require_equal(got, want[ns],
+                                     f"shard_hist back to back #{i}"))
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    in_flight = []
+    for i in range(8):
+        ns = 16 if i % 2 else 4096
+        with torch.cuda.stream(streams[i % 2]):
+            if i == 0:
+                torch.cuda._sleep(10_000_000)  # hold stream 0 back
+            in_flight.append((ns, shard_hist_fused(words, ns, v, p)))
+    torch.cuda.synchronize(dev)
+    for i, (ns, got) in enumerate(in_flight):
+        err = max(err, require_equal(got, want[ns],
+                                     f"shard_hist two streams #{i}"))
+    # a launch whose error comes back after it ran: it has added into the
+    # stream's pending output, which the next launch must not reuse
+    check = _build.check
+
+    def refuse(lib, rc, what):
+        raise RuntimeError(f"{what}: an error reported after the launch")
+
+    _build.check = refuse
+    try:
+        shard_hist_fused(words, 16, v, p)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("shard_hist did not raise")
+    finally:
+        _build.check = check
+    return max(err, require_equal(shard_hist_fused(words, 16, v, p),
+                                  want[16], "shard_hist after an error"))
 
 
 def check_digest_gather(dev: torch.device) -> int:
@@ -1829,59 +2034,325 @@ def wall_ms(fn, dev, reps: int = 3) -> float:
     return statistics.median(samples)
 
 
-# Opcodes of K-A's loop that do not issue on the ALU pipe (Nsight
-# Compute's pipe descriptions: IMAD and IMUL run on the FMA pipe, loads on
-# the LSU, branches on the branch unit).  Whether IMAD does so on an H100
-# is not measured here, so the bound is also given with every instruction.
-NOT_ALU = ("IMAD", "IMUL", "LDG", "BRA")
+# Opcodes that do not issue on the ALU pipe (Nsight Compute's pipe
+# descriptions: IMAD and IMUL run on the FMA pipe; loads, stores, atomics
+# and shuffles on the LSU; branches and barriers elsewhere).  Whether IMAD
+# does so on an H100 is not measured here, so each bound is also given
+# with every instruction.
+NOT_ALU = ("IMAD", "IMUL", "LDG", "LDS", "LDC", "STG", "STS", "ATOMS",
+           "ATOMG", "ATOM", "RED", "SHFL", "BAR", "MEMBAR", "BRA", "BSSY",
+           "BSYNC", "WARPSYNC", "EXIT", "NOP")
+SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
 
-def sass_per_compression(lib_path) -> dict:
-    """SASS instructions of one compression in K-A's block loop, counted
-    from `cuobjdump -sass` of the built library: the loop is the backward
-    branch of sha256_hmac_kernel that spans the most instructions; each
-    compression reads its 64-byte block as four 16-byte loads, so the
-    loop's instructions over its loads / 4 is one compression with its
-    load, byte swap and loop control.  Raises where no such loop is
-    found."""
+def sass_text(lib_path) -> str:
+    """`cuobjdump -sass` of one built library."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+    return subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    body, inside = [], False
-    for line in text.splitlines():
-        if "Function :" in line:
-            inside = "sha256_hmac_kernel" in line
-        elif inside:
-            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-            if m:
-                body.append((int(m.group(1), 16), m.group(2)))
-    addrs = [a for a, _ in body]
-    loops = []
-    for i, (addr, ins) in enumerate(body):
-        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) < addr:
-            target = int(m.group(1), 16)
-            lo = next(j for j, a in enumerate(addrs) if a >= target)
-            loops.append(body[lo:i + 1])
-    loop = max(loops, key=len, default=[])
-    loads = sum(1 for _, ins in loop if ins.startswith("LDG") and
-                ".128" in ins)
+
+
+class Sass:
+    """One kernel's SASS as (address, instruction) pairs, with its loops
+    (backward branches) and counts of the instructions along paths."""
+
+    def __init__(self, text: str, function: str):
+        self.body, inside = [], False
+        for line in text.splitlines():
+            if "Function :" in line:
+                inside = function in line
+            elif inside:
+                m = SASS_LINE.match(line)
+                if m:
+                    self.body.append((int(m.group(1), 16), m.group(2)))
+        if not self.body:
+            raise AssertionError(f"no SASS for {function}")
+        self.index = {a: i for i, (a, _) in enumerate(self.body)}
+        self.ops = [self.opcode(ins) for _, ins in self.body]
+        # what runs when the warp stays converged: BRA.DIV's targets (the
+        # compiler's slow paths for a diverged warp) are left out
+        self.live, todo = set(), [0]
+        while todo:
+            i = todo.pop()
+            if i in self.live or i >= len(self.body):
+                continue
+            self.live.add(i)
+            todo.extend(self.successors(i, backward=True))
+
+    @staticmethod
+    def opcode(ins: str) -> str:
+        return ins.split()[1] if ins.startswith("@") else ins.split()[0]
+
+    def target(self, i: int) -> Optional[int]:
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", self.body[i][1])
+        return None if m is None else self.index.get(int(m.group(1), 16))
+
+    def successors(self, i: int, backward: bool = False) -> list[int]:
+        """Where instruction i goes next (BRA.DIV falls through)."""
+        op, ins = self.ops[i], self.body[i][1]
+        cond = ins.startswith("@")
+        base = op.split(".")[0]
+        if base == "BRA" and not op.startswith("BRA.DIV"):
+            t = self.target(i)
+            jump = [t] if t is not None and (backward or t > i) else []
+            return ([i + 1] if cond else []) + jump
+        if base == "EXIT" and not cond:
+            return []
+        return [i + 1]
+
+    def loops(self) -> list[tuple[int, int]]:
+        """(first, last) instruction indices of every loop that runs
+        while the warp stays converged."""
+        out = []
+        for i in sorted(self.live):
+            t = self.target(i)
+            if t is not None and t < i and \
+                    not self.ops[i].startswith("BRA.DIV"):
+                out.append((t, i))
+        return out
+
+    def innermost(self, *has, outside=None, inside=None,
+                  without=()) -> tuple[int, int]:
+        """The smallest loop holding, for each predicate of `has`, an
+        instruction it accepts, none that a predicate of `without`
+        accepts, and (if given) strictly the loop `outside`, or lying
+        within the loop `inside`."""
+        def holds(r, f):
+            return any(f(self.body[i][1]) for i in range(r[0], r[1] + 1))
+
+        def contains(big, small):
+            return big[0] <= small[0] and small[1] <= big[1]
+        found = [r for r in self.loops()
+                 if all(holds(r, f) for f in has)
+                 and not any(holds(r, f) for f in without)
+                 and (outside is None or (contains(r, outside)
+                                          and r != outside))
+                 and (inside is None or contains(inside, r))]
+        if not found:
+            raise AssertionError("no such loop in the SASS")
+        return min(found, key=lambda r: r[1] - r[0])
+
+    def children(self, loop) -> list[tuple[int, int]]:
+        inner = [r for r in self.loops() if loop[0] <= r[0] and
+                 r[1] <= loop[1] and r != loop]
+        return [r for r in inner if not any(
+            o != r and o[0] <= r[0] and r[1] <= o[1] for o in inner)]
+
+    def count(self, lo: int, hi: int, must=(), avoid=(), skip=(),
+              alu_only: bool = False, best=min) -> int:
+        """Instructions on the path from lo to hi (inclusive) with the
+        fewest (best=max: the most), following forward edges only (each
+        loop inside runs its body once), passing an instruction each
+        `must` predicate accepts and none an `avoid` predicate accepts
+        (predicates take the instruction's text); the loops in `skip`
+        cost nothing and are passed over.  Predicated instructions count
+        (they issue); NOPs do not, nor, with alu_only, NOT_ALU
+        opcodes."""
+        full = (1 << len(must)) - 1
+        paths: dict[int, dict[int, int]] = {lo: {0: 0}}
+        for i in range(lo, hi + 1):
+            states = paths.pop(i, None)
+            if not states:
+                continue
+            jump = next((b for a, b in skip if a <= i <= b), None)
+            if jump is not None:
+                nxt, cost, bits = [jump + 1], 0, 0
+            else:
+                ins = self.body[i][1]
+                if any(f(ins) for f in avoid):
+                    continue
+                base = self.ops[i].split(".")[0]
+                cost = 0 if base == "NOP" or (
+                    alu_only and base in NOT_ALU) else 1
+                bits = sum(1 << k for k, f in enumerate(must) if f(ins))
+                nxt = self.successors(i)
+            if i == hi:
+                done = [c + cost for m, c in states.items()
+                        if m | bits == full]
+                if not done:
+                    break
+                return best(done)
+            for j in nxt:
+                if j > hi:
+                    continue
+                slot = paths.setdefault(j, {})
+                for m, c in states.items():
+                    key, val = m | bits, c + cost
+                    slot[key] = best(slot.get(key, val), val)
+        raise AssertionError(f"no path from {lo} to {hi} in the SASS")
+
+    def alu(self, lo: int, hi: int, **kw) -> tuple[int, int]:
+        """(ALU-pipe, every) instruction counts of `count`'s path."""
+        return (self.count(lo, hi, alu_only=True, **kw),
+                self.count(lo, hi, **kw))
+
+
+def width_of(op: str) -> int:
+    """A load's or store's width in bits from its opcode."""
+    for w in ("128", "64"):
+        if f".{w}" in op:
+            return int(w)
+    return 8 if (".U8" in op or ".S8" in op) else 32
+
+
+def is_ldg(bits: int):
+    """A global (LDG) or generic (LD) load of `bits` bits."""
+    def has(ins: str) -> bool:
+        op = Sass.opcode(ins)
+        return op.startswith(("LDG", "LD.")) and width_of(op) == bits
+    return has
+
+
+def is_op(prefix: str):
+    return lambda ins: Sass.opcode(ins).startswith(prefix)
+
+
+def has_text(text: str):
+    return lambda ins: text in ins
+
+
+def has_imm(value: int):
+    """An instruction with the 32-bit immediate `value` (SASS prints one
+    at or past 2^31 as its negative)."""
+    forms = (f"{value:#x}", f"-{(1 << 32) - value:#x}")
+    return lambda ins: any(re.search(rf"{f}\b", ins) for f in forms)
+
+
+
+def sass_per_compression(text: str) -> dict:
+    """SASS instructions of one compression in K-A's block loop: the loop
+    is the backward branch of sha256_hmac_kernel that spans the most
+    instructions; each compression reads its 64-byte block as four
+    16-byte loads, so the loop's instructions over its loads / 4 is one
+    compression with its load, byte swap and loop control.  Raises where
+    no such loop is found."""
+    sass = Sass(text, "sha256_hmac_kernel")
+    lo, hi = max(sass.loops(), key=lambda r: r[1] - r[0], default=(0, -1))
+    loop = sass.ops[lo:hi + 1]
+    loads = sum(1 for op in loop if op.startswith("LDG") and ".128" in op)
     if loads == 0 or loads % 4:
         raise AssertionError(
             f"no loop of 16-byte loads found in sha256_hmac_kernel's SASS "
-            f"({len(body)} instructions, {len(loops)} loops, {loads} loads)")
+            f"({len(sass.body)} instructions, {loads} loads)")
     ops = {}
-    for _, ins in loop:
-        op = ins.split()[0] if not ins.startswith("@") else ins.split()[1]
+    for op in loop:
         ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
     alu = len(loop) - sum(ops.get(op, 0) for op in NOT_ALU)
     return dict(instructions_per_compression=len(loop) * 4 / loads,
                 alu_per_compression=alu * 4 / loads,
                 loop_instructions=len(loop), loop_loads_128=loads,
-                kernel_instructions=len(body), not_alu=list(NOT_ALU),
+                kernel_instructions=len(sass.body), not_alu=list(NOT_ALU),
                 by_opcode=dict(sorted(ops.items(), key=lambda x: -x[1])))
+
+
+ROWHASH_SOURCE = (Path(_build.CSRC) / "rowhash.cu").read_text()
+K10_BATCH = int(re.search(r"kBatch = (\d+);", ROWHASH_SOURCE).group(1))
+
+
+def sass_rowhash(text: str) -> dict:
+    """K10's lane instructions (ALU pipe, every instruction) from the
+    kernels the wrapper launches (descriptors by value), each the fewest
+    on its path, with global byte loads (null tests) left out:
+    - per batch of K10_BATCH fixed or dict values: the longest path of
+      its column loop (every slot live);
+    - per row: the row loop, its inner loops passed over;
+    - a var row: its var column loop's path through the length term of a
+      row of at most 64 bytes (P^64 as an immediate), the inner loops
+      passed over; per byte: the Horner loop's path over the byte loads
+      it takes a pass;
+    - var_accumulators alike, its entry loop (through the stores).
+    A row over 64 bytes takes the same per-row count: its
+    square-and-multiply is left out."""
+    sass = Sass(text, "rowhash_lanes_kernelILb1E")
+    mixed = has_text("0x7feb352d")
+    bytes_ = (is_ldg(8),)
+    fixed = sass.innermost(is_ldg(64), mixed)
+    dict_loop = sass.innermost(mixed, is_ldg(32),
+                               without=(is_ldg(64), has_text("0x1000193")))
+    rows = max((r for r in sass.loops() if r[0] <= fixed[0] and
+                fixed[1] <= r[1]), key=lambda r: r[1] - r[0])
+    per = {
+        "fixed_batch": sass.alu(*fixed, avoid=bytes_, best=max),
+        "dict_batch": sass.alu(*dict_loop, avoid=bytes_, best=max),
+        "row": sass.alu(*rows, skip=sass.children(rows)),
+    }
+    accs = Sass(text, "var_accumulators_kernel")
+    length_term = has_imm(pow(rowhash._P1, 64, 1 << 32))
+    for prefix, code in (("var", sass), ("entry", accs)):
+        horner = code.innermost(is_ldg(8), has_text("0x1000193"))
+        n_bytes = sum(is_ldg(8)(code.body[i][1])
+                      for i in range(horner[0], horner[1] + 1))
+        if prefix == "var":
+            row_loop = code.innermost(mixed, outside=horner)
+            must = (length_term,)
+        else:
+            row_loop = max(code.loops(), key=lambda r: r[1] - r[0])
+            must = (length_term, is_op("STG"))
+        per[f"{prefix}_row"] = code.alu(
+            *row_loop, must=must, avoid=bytes_, skip=code.children(row_loop))
+        per[f"{prefix}_byte"] = tuple(
+            v / n_bytes for v in code.alu(*horner, must=(is_ldg(8),)))
+    return {k: {"alu": a, "all": t} for k, (a, t) in per.items()}
+
+
+def sass_ragged_pack(text: str) -> dict:
+    """K12's instructions per 16 output bytes that hold row bytes: one
+    thread's fewest on a path through a byte load and its 16-byte
+    store."""
+    sass = Sass(text, "ragged_pack_kernel")
+    store = max(i for i, op in enumerate(sass.ops)
+                if op.startswith("STG") and ".128" in op)
+    end = next(i for i in range(store, len(sass.ops))
+               if sass.ops[i].startswith("EXIT")
+               and not sass.body[i][1].startswith("@"))
+    alu, total = sass.alu(0, end, must=(is_ldg(8), is_op("STG.E.128")))
+    return {"per_16_bytes": {"alu": alu, "all": total}}
+
+
+MESH_UNROLL = int(re.search(
+    r"kUnroll = (\d+);", (Path(_build.CSRC) / "mesh.cu").read_text()).group(1))
+
+
+def sass_shard_hist(text: str, step_mode: bool,
+                    unroll: int = MESH_UNROLL) -> dict:
+    """The ballot-route histogram's warp instructions per 32-row step:
+    the step loop's fewest (fused mode: on the packed path, through its
+    shuffles), each inner loop run once (one digest column, one bin bit),
+    over the `unroll` steps an iteration takes; and one more bin bit's
+    (the smallest loop with a ballot)."""
+    sass = Sass(text, f"shard_hist_kernelILb{int(step_mode)}ELb1E")
+    bit = sass.innermost(is_op("VOTE"))
+    step = max(sass.loops(), key=lambda r: r[1] - r[0])
+    must = () if step_mode else (is_op("SHFL"),)
+    alu, total = sass.alu(*step, must=must)
+    b_alu, b_total = sass.alu(*bit)
+    return {"per_step": {"alu": alu / unroll, "all": total / unroll},
+            "per_extra_bin_bit": {"alu": b_alu, "all": b_total},
+            "unroll": unroll}
+
+
+def hist_ops(counts: dict, n: int, n_shards: int) -> dict:
+    """Lane operations of one histogram launch over n rows and one digest
+    column (32 lanes a warp instruction): each step's, with one more bin
+    bit's for each bit of n_shards - 1 past the first."""
+    steps = -(-n // 32)
+    extra = max(max(n_shards - 1, 0).bit_length() - 1, 0)
+    return {k: 32 * steps * (counts["per_step"][k]
+                             + extra * counts["per_extra_bin_bit"][k])
+            for k in ("alu", "all")}
+
+
+def sass_counts(builds: dict) -> dict:
+    """Every SASS count the bounds use, from this run's build."""
+    text = {name: sass_text(builds[name].path)
+            for name in ("sha256_hmac", "rowhash", "raggedpack", "mesh")}
+    return {"sha256_hmac": sass_per_compression(text["sha256_hmac"]),
+            "rowhash_lanes": sass_rowhash(text["rowhash"]),
+            "ragged_pack": sass_ragged_pack(text["raggedpack"]),
+            "shard_hist": sass_shard_hist(text["mesh"], False),
+            "shard_hist_step": sass_shard_hist(text["mesh"], True)}
 
 
 def bound(n_bytes: float, n_ops: float = 0) -> tuple[float, str]:
@@ -1892,12 +2363,14 @@ def bound(n_bytes: float, n_ops: float = 0) -> tuple[float, str]:
 
 
 def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
-                 sass: dict, dev) -> dict:
+                 counts: dict, dev) -> dict:
     """Each kernel at the shapes the main path gives it: the first chunk
     of a ClickBench batch, padded to its row bucket as ops/fused.py pads
     it (K-A's pad rows have no blocks; K-B decodes and K-C evaluates
     every bucket row).  K-A's bound counts its ALU-pipe instructions
-    (`sass`); `bound_ms_all_instructions` counts every one of them."""
+    (`counts`, from sass_counts); so do K10's, K12's and the
+    histogram's; `bound_ms_all_instructions` counts every one of them."""
+    sass = counts["sha256_hmac"]
     rows = batch.slice(0, chunk)
     bucket = bucket_rows(chunk)
     url = rows.column("URL")
@@ -1939,15 +2412,16 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
     out = {}
     all_ops_ms = bound(n_bytes, sass["instructions_per_compression"]
                        * n_comp)[0]
-    calls.update(fingerprint_calls(batch, dev))
+    calls.update(fingerprint_calls(batch, counts["rowhash_lanes"], dev))
     calls.update(decode_calls(dev))
-    calls.update(pack_calls(batch, dev))
-    calls.update(mesh_calls(dev))
+    calls.update(pack_calls(batch, counts["ragged_pack"], dev))
+    calls.update(mesh_calls(counts["shard_hist"], dev))
     calls.update(sign_flip_calls(FETCH_MAX, dev))
     for name, call in calls.items():
         out[name] = timed(call, dev, f"{name} at the main path's shapes")
     out["sha256_hmac"]["bound_ms_all_instructions"] = all_ops_ms
-    out["sha256_hmac"]["sass"] = sass
+    for name in ("sha256_hmac", "rowhash_lanes", "ragged_pack", "shard_hist"):
+        out[name]["sass"] = counts[name]
     out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(
         sass["alu_per_compression"], dev)
     out["pred_decode"]["shape_values"] = bucket
@@ -1956,7 +2430,11 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
                       f"pred_decode at {n} values")
         for n in (BATCH_ROWS, 1 << 20)}
     out["dict_decode"].update(dict_timing(dev))
-    out["shard_hist"]["at_step_shape"] = step_hist_timing(dev)
+    out["shard_hist"]["at_step_shape"] = step_hist_timing(
+        counts["shard_hist_step"], dev)
+    out["shard_hist"]["at_step_shape"]["sass"] = counts["shard_hist_step"]
+    out["rowhash_lanes"]["at_dict_shape"] = timed(dict_lane_call(
+        counts["rowhash_lanes"], dev), dev, "rowhash_lanes at the dict shape")
     out["region_sign_flip"]["library_call"] = SIGN_FLIP_LIBRARY
     (kernel, plain, library, (bound_ms, bound_by)), = sign_flip_calls(
         SR_PARTITIONS * SR_BACKLOG, dev).values()
@@ -1989,14 +2467,15 @@ def sign_flip_calls(n: int, dev) -> dict:
         bound(16 * n, 3 * n))}
 
 
-def mesh_calls(dev) -> dict:
+def mesh_calls(counts: dict, dev) -> dict:
     """K13/K14's histogram at main_path_mesh's shape (one shard of a
     131,072-row batch: 65,536 rows, keep and run validity packed, keep
     at main_path's ratio) and the digest gather at dispatch_mesh's (one
     shard's 65,536 codes into the 4,097-row pool digest matrix).
     Bytes: every row's keep and validity bits, one 32-byte sector of
     digest per kept row, the partial; the gather's codes read and rows
-    written once, the table read once."""
+    written once, the table read once.  The histogram's operations: its
+    SASS count (`counts`, hist_ops)."""
     rng = np.random.default_rng(17)
     n = bucket_rows(BATCH_ROWS // MESH_SHARDS)
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 8)).astype(
@@ -2007,13 +2486,16 @@ def mesh_calls(dev) -> dict:
     bins = (words[:, 0].to(torch.int64) & 0xFFFFFFFF) % TARGET_SHARDS
     weights = torch.from_numpy(pred.astype(np.float32)).to(dev)
     kept = int(pred.sum())
+    n_bytes = 2 * n // 8 + 32 * kept + 4 * (TARGET_SHARDS + 1)
+    ops = hist_ops(counts, n, TARGET_SHARDS)
     calls = {"shard_hist": (
         lambda: shard_hist_fused(words, TARGET_SHARDS, valid_w, keep_w),
         lambda: shard_hist_fused_plain(words, TARGET_SHARDS, valid_w, keep_w),
         lambda: torch.bincount(bins, weights=weights,
                                minlength=TARGET_SHARDS),
-        # ~10 operations a row: two bit tests, the and, the modulo, adds
-        bound(2 * n // 8 + 32 * kept + 4 * (TARGET_SHARDS + 1), 10 * n))}
+        bound(n_bytes, ops["alu"]),
+        {"bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
+         "lane_ops": ops})}
 
     values, batch_data = dispatch_data()
     pool = DictPool(*_flat_bytes(values + [b""]), null_code=len(values))
@@ -2035,16 +2517,21 @@ def mesh_calls(dev) -> dict:
     return calls
 
 
-def step_hist_timing(dev) -> dict:
+def step_hist_timing(counts: dict, dev) -> dict:
     """K13's histogram in step mode at mesh_step's shape: one shard's
-    262,144 rows of one column, float64 scores.  Bytes: ages and scores
-    read, keep and scores_f32 written, one 32-byte sector per kept row."""
+    262,144 rows of one column, float64 scores, beside torch.bincount.
+    Bytes: ages and scores read, keep and scores_f32 written, one 32-byte
+    sector per kept row."""
     rng = np.random.default_rng(18)
     n = STEP_ROWS_PER_DEVICE
     dig = torch.from_numpy(rng.integers(-2**31, 2**31, (1, n, 8)).astype(
         np.int32)).to(dev)
     ages = torch.from_numpy(rng.integers(0, 99, n).astype(np.int32)).to(dev)
     scores = torch.from_numpy(rng.uniform(0, 100, n)).to(dev)
+    # the library call: torch.bincount over the bins, the keep mask as
+    # weights, both computed beforehand
+    bins = (dig[0, :, 0].to(torch.int64) & 0xFFFFFFFF) % TARGET_SHARDS
+    weights = ((ages >= 0) & torch.isfinite(scores.float())).float()
 
     def kernel():
         return shard_hist_step(dig, ages, scores, TARGET_SHARDS)[0]
@@ -2052,20 +2539,26 @@ def step_hist_timing(dev) -> dict:
     def plain():
         return shard_hist_step_plain(dig, ages, scores, TARGET_SHARDS)[0]
 
-    bound_ms, bound_by = bound((4 + 8 + 1 + 4) * n + 32 * n
-                               + 4 * (TARGET_SHARDS + 1), 12 * n)
+    n_bytes = (4 + 8 + 1 + 4) * n + 32 * n + 4 * (TARGET_SHARDS + 1)
+    ops = hist_ops(counts, n, TARGET_SHARDS)
+    bound_ms, bound_by = bound(n_bytes, ops["alu"])
     return dict(rows=n, max_abs_err=require_equal(
         kernel(), plain(), "shard_hist at the step's shape"),
         ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
-        bound_ms=bound_ms, bound_by=bound_by)
+        library_ms=kernel_ms(lambda: torch.bincount(
+            bins, weights=weights, minlength=TARGET_SHARDS), dev),
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_ms_all_instructions=bound(n_bytes, ops["all"])[0],
+        lane_ops=ops)
 
 
-def pack_calls(batch: ColumnBatch, dev) -> dict:
+def pack_calls(batch: ColumnBatch, counts: dict, dev) -> dict:
     """K12 at the shape main_path_devpack gives it: one ClickBench
     batch's URL column into the batch's row bucket.  Bytes: the URL
     bytes and offsets read once, the blocks and counts written once.
-    Its operations are not counted from its SASS yet, so its bound is the
-    bytes'."""
+    Operations: one thread's SASS count (`counts`) for each 16 output
+    bytes that hold bytes of a row; the chunks of terminator, length,
+    zeros and pad rows are charged as the bytes they write alone."""
     url = batch.column("URL")
     n = batch.n_rows
     bucket = bucket_rows(n)
@@ -2075,11 +2568,17 @@ def pack_calls(batch: ColumnBatch, dev) -> dict:
     require_equal(ragged_pack(data, offsets, bucket, mb)[1],
                   pack_blocks_plain(data, offsets, bucket, mb)[1],
                   "ragged_pack counts at the main path's shape")
+    n_bytes = data.numel() + 4 * (n + 1) + bucket * (mb * 64 + 4)
+    lens = np.diff(url.offsets.astype(np.int64))
+    data_chunks = int((-(-lens // 16)).sum())
+    ops = {k: data_chunks * counts["per_16_bytes"][k]
+           for k in ("alu", "all")}
     return {"ragged_pack": (
         lambda: ragged_pack(data, offsets, bucket, mb)[0],
         lambda: pack_blocks_plain(data, offsets, bucket, mb)[0],
-        None,
-        bound(data.numel() + 4 * (n + 1) + bucket * (mb * 64 + 4)))}
+        None, bound(n_bytes, ops["alu"]),
+        {"bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
+         "lane_ops": ops, "data_chunks": data_chunks})}
 
 
 def pool_hmac_timing(alu_per_compression: float, dev) -> dict:
@@ -2112,8 +2611,7 @@ def lane_bytes(batch: ColumnBatch, cols) -> int:
     read once at its own width (a fixed column's dtype, var bytes and
     offsets, dict codes and the pool's accumulators, validity), 16 bytes
     written; the 8-byte canonical fixed values that prep_batch makes are
-    the port's choice, not work the function needs.  K10's operations are
-    not counted from its SASS yet, so its bound is the bytes'."""
+    the port's choice, not work the function needs."""
     n_bytes = 16
     for c in cols:
         col = batch.column(c.name)
@@ -2128,45 +2626,97 @@ def lane_bytes(batch: ColumnBatch, cols) -> int:
     return n_bytes
 
 
-def fingerprint_calls(batch: ColumnBatch, dev) -> dict:
-    """K10 at the fingerprint paths' shapes: one ClickBench batch in
-    reduce mode, and one 4,096-value pool's accumulators."""
+def var_ops(offsets, counts: dict, prefix: str, k: str) -> float:
+    """Lane operations of a var column's (prefix "var") or a pool's
+    ("entry") rows, one thread a row: each row's count and each byte's."""
+    off = np.asarray(offsets, dtype=np.int64)
+    return ((len(off) - 1) * counts[f"{prefix}_row"][k]
+            + int(off[-1] - off[0]) * counts[f"{prefix}_byte"][k])
+
+
+def lane_ops(batch: ColumnBatch, cols, counts: dict) -> dict:
+    """Lane operations of one K10 launch over a batch, from its SASS
+    counts (sass_rowhash): fixed and dict values, var columns by route."""
+    n = batch.n_rows
+    out = {}
+    for k in ("alu", "all"):
+        ops = n * counts["row"][k]
+        for kind in ("fixed", "dict"):
+            n_cols = sum(c.kind == kind for c in cols)
+            ops += n * n_cols * counts[f"{kind}_batch"][k] / K10_BATCH
+        for c in cols:
+            if c.kind == "var":
+                ops += var_ops(c.offsets.cpu().numpy(), counts, "var", k)
+        out[k] = ops
+    return out
+
+
+def lane_call(batch: ColumnBatch, counts: dict, dev, what: str) -> tuple:
+    """K10 in reduce mode over one batch, adding into one accumulator
+    launch after launch as the fingerprint does (the timed call runs no
+    fill); checked once against its plain version first."""
     cols, n = staged(batch, dev)
     acc = torch.zeros(4, dtype=torch.int32, device=dev)
     plain_acc = torch.zeros(4, dtype=torch.int32, device=dev)
-
-    def kernel():
-        acc.zero_()
-        rowhash.rowhash_lanes(cols, n, acc)
-        return acc
 
     def plain():
         plain_acc.zero_()
         rowhash._reduce_into(plain_acc, *rowhash.rowhash_lanes_plain(cols, n))
         return plain_acc
 
+    rowhash.rowhash_lanes(cols, n, acc)
+    err = require_equal(acc, plain(), what)
+    n_bytes = lane_bytes(batch, cols)
+    ops = lane_ops(batch, cols, counts)
+    return (lambda: rowhash.rowhash_lanes(cols, n, acc), plain, None,
+            bound(n_bytes, ops["alu"]),
+            {"max_abs_err": err, "rows": n,
+             "bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
+             "lane_ops": ops})
+
+
+def dict_lane_call(counts: dict, dev) -> tuple:
+    """K10 at fingerprint_dict's batch (262,144 rows: an int64 id and
+    three dictionary columns)."""
+    return lane_call(dict_batches(flat=False)[0], counts, dev,
+                     "rowhash_lanes at the dict shape")
+
+
+def fingerprint_calls(batch: ColumnBatch, counts: dict, dev) -> dict:
+    """K10 at the fingerprint paths' shapes: one ClickBench batch in
+    reduce mode, and one 4,096-value pool's accumulators."""
     pool = dict_batches(flat=False)[0].column("URL").dict_enc.pool
     data = torch.from_numpy(pool.values_data).to(dev)
     offsets = torch.from_numpy(pool.values_offsets).to(dev)
     k = offsets.numel() - 1
+    n_bytes = data.numel() + 4 * (k + 1) + 8 * k
+    ops = {m: var_ops(pool.values_offsets, counts, "entry", m)
+           for m in ("alu", "all")}
     return {
-        "rowhash_lanes": (kernel, plain, None, bound(lane_bytes(batch, cols))),
+        "rowhash_lanes": lane_call(batch, counts, dev,
+                                   "rowhash_lanes at the batch shape"),
         "var_accumulators": (
             lambda: torch.stack(rowhash.var_accumulators(data, offsets)),
             lambda: torch.stack(rowhash._var_accs_host(data, offsets)),
-            None,
-            bound(data.numel() + 4 * (k + 1) + 8 * k)),
+            None, bound(n_bytes, ops["alu"]),
+            {"bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
+             "lane_ops": ops}),
     }
 
 
 def timed(call, dev, what: str) -> dict:
-    """A (kernel, plain, library, bound) call: the kernel against its
-    plain version, then each timed."""
-    kernel, plain, library, (bound_ms, bound_by) = call
-    return dict(max_abs_err=require_equal(kernel(), plain(), what),
-                ms=kernel_ms(kernel, dev), plain_ms=wall_ms(plain, dev),
+    """A (kernel, plain, library, bound[, extra]) call: the kernel against
+    its plain version (unless `extra` holds the check's max_abs_err
+    already), then each timed; `extra`'s other keys join the result."""
+    kernel, plain, library, (bound_ms, bound_by), *rest = call
+    extra = dict(rest[0]) if rest else {}
+    err = extra.pop("max_abs_err", None)
+    if err is None:
+        err = require_equal(kernel(), plain(), what)
+    return dict(max_abs_err=err, ms=kernel_ms(kernel, dev),
+                plain_ms=wall_ms(plain, dev),
                 library_ms=kernel_ms(library, dev) if library else None,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, **extra)
 
 
 def delta_calls(region: np.ndarray, bucket: int, dev) -> tuple:
@@ -2262,11 +2812,13 @@ def main() -> int:
     errs = {"sha256_hmac": check_sha256_hmac(dev),
             "pred_decode": check_pred_decode(dev),
             "pred3vl_mask": check_pred3vl_mask(dev),
-            "rowhash_lanes": check_rowhash_lanes(dev),
+            "rowhash_lanes": max(check_rowhash_lanes(dev),
+                                 check_rowhash_edges(dev)),
             "var_accumulators": check_var_accumulators(dev),
             "dict_decode": check_dict_decode(dev),
             "ragged_pack": check_ragged_pack(dev),
-            "shard_hist": check_shard_hist(dev),
+            "shard_hist": max(check_shard_hist(dev),
+                              check_shard_hist_edges(dev)),
             "digest_gather": check_digest_gather(dev),
             "region_sign_flip": check_region_sign_flip(dev)}
     torch.cuda.synchronize(dev)
@@ -2336,8 +2888,9 @@ def main() -> int:
 
     t_phase = time.perf_counter()
     timing = time_kernels(batches[0], fixed["RegionID"], chunk or 32768,
-                          sass_per_compression(builds["sha256_hmac"].path),
-                          dev)
+                          sass_counts(builds), dev)
+    # the launch floor: probe.cu's empty kernel, timed as the kernels are
+    floor_ms = kernel_ms(lambda: _empty_launch(dev), dev)
     phase_s["timing"] = time.perf_counter() - t_phase
     kernels = []
     for name, t in timing.items():
@@ -2355,6 +2908,9 @@ def main() -> int:
         if name in ALSO_REPLACES:
             kernels[-1]["also_replaces"] = ALSO_REPLACES[name]
     emit({"phase": "timing", "card": card, "chunk_rows": chunk or 32768,
+          "launch_floor_ms": floor_ms,
+          "region_sign_flip_over_floor": timing["region_sign_flip"]["ms"]
+          / floor_ms,
           "shape_rows": bucket_rows(chunk or 32768),
           "int32_ops_per_s": INT32_OPS_PER_S,
           "phase_seconds": phase_s,

@@ -25,6 +25,9 @@ is not kept in either).
   histogram; and the link model's mesh branches equal the reference's.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,7 +49,9 @@ from transferia_tpu_torch.ops import dispatch as port_dispatch
 from transferia_tpu_torch.parallel import fusedmesh as port_fm
 from transferia_tpu_torch.parallel import make_mesh, sharded_transform_step
 from transferia_tpu_torch.parallel.mesh import (
+    BALLOT_SHARDS,
     MAX_SHARDS,
+    HistOutputs,
     example_step_args,
     shard_hist_fused,
     shard_hist_step,
@@ -369,3 +374,82 @@ def test_link_model_mesh_branches_match_jax(state, mesh8):
 
 def test_virtual_jax_mesh_present():
     assert len(jax.devices()) == 8  # conftest's virtual CPU mesh
+
+
+# -- kernel K13/K14's counting routes and scratch (host side) ----------------
+
+MESH_SOURCE = (Path(port_fm.__file__).resolve().parent.parent / "csrc"
+               / "mesh.cu").read_text()
+
+
+def test_hist_limits_match_the_source():
+    """Up to BALLOT_SHARDS bins the kernel counts by warp ballots, above
+    by shared-memory adds, up to MAX_SHARDS."""
+    assert BALLOT_SHARDS == int(re.search(
+        r"kBallotShards = (\d+);", MESH_SOURCE).group(1)) == 32
+    assert MAX_SHARDS == int(re.search(
+        r"kMaxShards = (\d+);", MESH_SOURCE).group(1))
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 31, 32, 33, MAX_SHARDS])
+def test_fused_hist_at_the_route_edges_matches_jax(n_shards):
+    """The bin counts on each side of the kernel's route edge (ballots up
+    to BALLOT_SHARDS bins, shared-memory adds above) and at its limit,
+    over a row count no multiple of 32, in both layouts."""
+    rng = np.random.default_rng(300 + n_shards)
+    n = 1000
+    words = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    valid = rng.random(n) > 0.1
+    pred = rng.random(n) > 0.3
+    dig = torch.from_numpy(words.view(np.int32))
+    want = jax_hist(words[None, :, 0], valid & pred, n_shards)
+    def packed(bits):  # whole words, the pad bits clear
+        return pack_words(np.pad(bits, (0, -n % 32)))
+
+    for as_t in (packed, torch.from_numpy):
+        got = shard_hist_fused(dig, n_shards, as_t(valid), as_t(pred))
+        np.testing.assert_array_equal(got.numpy()[:n_shards], want)
+        assert got[n_shards] == (valid & pred).sum()
+
+
+def test_hist_outputs_one_pending_buffer_per_stream():
+    """Each launch adds into its stream's pending zeros and hands the
+    next launch the buffer it zeroes; a raising launch leaves its stream
+    no pending buffer."""
+    outputs = HistOutputs()
+    cpu = torch.device("cpu")
+    with outputs.launch(cpu, 7, 17) as (out1, next1):
+        assert not out1.any() and out1.numel() == HistOutputs.MIN_WORDS
+        assert next1.numel() == out1.numel() and next1 is not out1
+        next1.zero_()  # what the kernel does
+    with outputs.launch(cpu, 9, 5) as (other, _):
+        assert other is not next1  # another stream, another buffer
+    with pytest.raises(RuntimeError):
+        with outputs.launch(cpu, 7, 17) as (out2, _):
+            assert out2 is next1
+            raise RuntimeError("launch refused")
+    with outputs.launch(cpu, 7, MAX_SHARDS + 1) as (out3, next3):
+        # more bins than the pending buffer holds: a new one, zeros
+        assert out3 is not next1 and out3.numel() == MAX_SHARDS + 1
+        assert not out3.any() and next3.numel() == MAX_SHARDS + 1
+    with outputs.launch(cpu, 7, MAX_SHARDS + 1) as (out4, _):
+        assert out4 is next3
+
+
+def test_hist_outputs_after_a_raising_launch():
+    """A launch can run and then report an error: it has added into its
+    output and zeroed nothing that can be trusted, so the stream's next
+    launch must start from new zeros, not from either buffer."""
+    outputs = HistOutputs()
+    cpu = torch.device("cpu")
+    with outputs.launch(cpu, 3, 5) as (_, nxt):
+        nxt.zero_()
+    with pytest.raises(RuntimeError):
+        with outputs.launch(cpu, 3, 5) as (out, nxt2):
+            assert out is nxt
+            out += 7  # the kernel ran: the output holds counts
+            nxt2.fill_(-1)  # and the next buffer was not zeroed
+            raise RuntimeError("an error reported after the launch")
+    with outputs.launch(cpu, 3, 5) as (out, _):
+        assert out is not nxt and out is not nxt2
+        assert not out.any() and out.numel() == HistOutputs.MIN_WORDS

@@ -9,6 +9,10 @@ equal the JAX package's `fingerprint_host`, `DeviceFingerprintProgram`
 Exact: digests and keys are integers.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -343,3 +347,64 @@ def test_prep_batch_rejects_offsets_outside_the_bytes(offsets):
     pool = port_batch.DictPool(data, np.array(offsets, dtype=np.int32))
     with pytest.raises(ValueError, match="offsets"):
         port.pool_accumulators(pool, CPU)
+
+
+# -- kernel K10's launch arguments and var-row decomposition (host side) ------
+
+RH_SOURCE = (Path(port.__file__).resolve().parent.parent / "csrc"
+             / "rowhash.cu").read_text()
+
+
+def _source_int(pattern):
+    return int(re.search(pattern, RH_SOURCE).group(1))
+
+
+def test_lane_args_layout_matches_the_source():
+    """The ctypes twins of ColDesc and LaneArgs have the sizes and
+    offsets csrc/rowhash.cu static_asserts, and fit a kernel's 32,764
+    parameter bytes with room for 128 columns (ClickBench's hits has
+    105)."""
+    assert port.BY_VALUE_COLS == _source_int(r"kByValueCols = (\d+);") == 128
+    assert ctypes.sizeof(port.ColDesc) == _source_int(
+        r"sizeof\(ColDesc\) == (\d+)") == 48
+    assert ctypes.sizeof(port.LaneArgs) == _source_int(
+        r"sizeof\(LaneArgs\) == (\d+)") <= 32_764
+    for field in ("dev_cols", "n", "n_var"):
+        assert getattr(port.LaneArgs, field).offset == _source_int(
+            rf"offsetof\(LaneArgs, {field}\) == (\d+)")
+    assert port.LaneArgs.cols.size == 48 * port.BY_VALUE_COLS
+
+
+@pytest.mark.parametrize("n_cols,route", [
+    (0, "by_value"), (1, "by_value"), (10, "by_value"), (105, "by_value"),
+    (128, "by_value"), (129, "device"), (300, "device")])
+def test_descriptor_route_by_column_count(n_cols, route):
+    assert port.descriptor_route(n_cols) == route
+
+
+# where len + 9 crosses a 64-byte block (the kernel's constant length-term
+# powers end at 64 bytes), and rows whose q = (len + 8) >> 6 needs one, two
+# and three bits of square-and-multiply
+VAR_EDGE_LENS = (0, 1, 15, 16, 17, 54, 55, 56, 63, 64, 65, 119, 120, 300,
+                 100_000)
+
+
+@pytest.mark.parametrize("length", VAR_EDGE_LENS)
+def test_var_accumulators_at_edge_lengths_match_jax(length):
+    """`var_accumulators` (its plain version here) over rows of one edge
+    length at every start offset mod 16 of the flat buffer, with
+    multi-byte UTF-8 between them, equals the JAX package's pool
+    accumulators."""
+    rng = np.random.default_rng(21 + length)
+    values = []
+    for k in range(16):
+        values += [bytes(k), rng.integers(0, 256, length,
+                                          dtype=np.uint8).tobytes()]
+    values.append("наушники ☃ 𝄞".encode())
+    data, offsets = _flat(values)
+    got = port.var_accumulators(torch.from_numpy(data),
+                                torch.from_numpy(offsets))
+    want = ref.pool_accumulators(ref_batch.DictPool(data, offsets))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      np.asarray(w).view(np.uint32))

@@ -60,8 +60,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
                              _I, _P, _P],
     },
     "rowhash": {
-        # desc, n_cols, n, reduce, r1, r2, acc, stream
-        "trt_rowhash_lanes": [_P, _I, _L, _I, _P, _P, _P, _P],
+        # LaneArgs (a host struct, passed on by value), stream
+        "trt_rowhash_lanes": [_P, _P],
         # data, n_bytes, offsets, n, acc1, acc2, stream
         "trt_var_accumulators": [_P, _L, _P, _L, _P, _P, _P],
     },
@@ -73,9 +73,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "mesh": {
         # mode, digests, n_mats, n_rows, n_shards, keep, valid,
         # bool_layout, ages, scores, scores_f64, keep_out, scores_out,
-        # out, stream
+        # out, next, next_words, stream
         "trt_shard_hist": [_I, _P, _I, _L, _I, _P, _P, _I, _P, _P, _I, _P,
-                           _P, _P, _P],
+                           _P, _P, _P, _I, _P],
         # table, n_values, codes, n_rows, out, stream
         "trt_digest_gather": [_P, _I, _P, _L, _P, _P],
     },

@@ -37,6 +37,7 @@ host library to weigh it against.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import zlib
 from dataclasses import dataclass, replace
@@ -59,6 +60,39 @@ _NULL2 = 0x5A5A5A5A
 
 _CPU = torch.device("cpu")
 _KINDS = {"fixed": 0, "var": 1, "dict": 2}
+
+# K10's launch arguments (csrc/rowhash.cu ColDesc, LaneArgs; the source
+# static_asserts the same sizes and offsets)
+BY_VALUE_COLS = 128  # kByValueCols: wider tables keep descriptors on the card
+
+
+class ColDesc(ctypes.Structure):
+    """One column of a K10 launch: its buffers, size and seeds."""
+
+    _fields_ = [("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("c", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("size", ctypes.c_int64), ("seed1", ctypes.c_uint32),
+                ("seed2", ctypes.c_uint32)]
+
+
+class LaneArgs(ctypes.Structure):
+    """K10's `__grid_constant__` argument: up to BY_VALUE_COLS
+    descriptors by value, or `dev_cols` pointing at them on the card;
+    fixed columns first, then dict, then var ones."""
+
+    _fields_ = [("cols", ColDesc * BY_VALUE_COLS),
+                ("dev_cols", ctypes.c_void_p),
+                ("r1", ctypes.c_void_p), ("r2", ctypes.c_void_p),
+                ("acc", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("n_fixed", ctypes.c_int32), ("n_dict", ctypes.c_int32),
+                ("n_var", ctypes.c_int32), ("reduce", ctypes.c_int32)]
+
+
+def descriptor_route(n_cols: int) -> str:
+    """Where a launch's descriptors travel: "by_value" in the kernel's
+    parameters up to BY_VALUE_COLS columns, else "device" (one pinned
+    copy to the card a launch)."""
+    return "by_value" if n_cols <= BY_VALUE_COLS else "device"
 
 
 def _mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -404,6 +438,18 @@ def _stage(cols: Sequence[_PreppedColumn], device: torch.device
 
 # -- kernel K10 and its plain version -----------------------------------------
 
+def _col_desc(c: _PreppedColumn) -> ColDesc:
+    ptrs = {"fixed": (c.bits, None, None),
+            "var": (c.data, c.offsets, None),
+            "dict": (c.codes, c.acc1, c.acc2)}[c.kind]
+    # var: the byte buffer's size (no int32 offset reaches past 2^31 - 1);
+    # dict: the pool's
+    size = (min(c.data.numel(), 2**31 - 1) if c.kind == "var"
+            else c.acc1.numel() if c.kind == "dict" else 0)
+    return ColDesc(*(_build.ptr(t) for t in ptrs), _build.ptr(c.validity),
+                   size, _col_seed(c.name, 0), _col_seed(c.name, 1))
+
+
 def _check_columns(cols: Sequence[_PreppedColumn], n: int) -> torch.device:
     devices = {t.device for c in cols for t in c.tensors()}
     _build.require(len(devices) <= 1, "columns on several devices")
@@ -466,26 +512,26 @@ def rowhash_lanes(cols: Sequence[_PreppedColumn], n: int,
         r2 = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return None if acc is not None else (r1, r2)
-    desc = np.zeros((max(len(cols), 1), 8), dtype=np.int64)
-    for i, c in enumerate(cols):
-        ptrs = {"fixed": (c.bits, None, None),
-                "var": (c.data, c.offsets, None),
-                "dict": (c.codes, c.acc1, c.acc2)}[c.kind]
-        # var: the byte buffer's size; dict: the pool's
-        size = (c.data.numel() if c.kind == "var"
-                else c.acc1.numel() if c.kind == "dict" else 0)
-        desc[i] = (_KINDS[c.kind], _col_seed(c.name, 0),
-                   _col_seed(c.name, 1),
-                   *(0 if t is None else t.data_ptr() for t in ptrs),
-                   0 if c.validity is None else c.validity.data_ptr(),
-                   size)
-    # the pinned copy of the descriptors is held by PyTorch's host
-    # allocator until the copy recorded on this stream has run
-    desc_t = torch.from_numpy(desc).pin_memory().to(dev, non_blocking=True)
+    # the kernel takes fixed, then dict, then var columns (the lanes add
+    # over columns: any order hashes alike)
+    by_kind = {k: [c for c in cols if c.kind == k] for k in _KINDS}
+    descs = [_col_desc(c) for k in ("fixed", "dict", "var")
+             for c in by_kind[k]]
+    args = LaneArgs(n=n, n_fixed=len(by_kind["fixed"]),
+                    n_dict=len(by_kind["dict"]), n_var=len(by_kind["var"]),
+                    reduce=int(acc is not None), r1=_build.ptr(r1),
+                    r2=_build.ptr(r2), acc=_build.ptr(acc))
+    if descriptor_route(len(cols)) == "by_value":
+        args.cols[:len(descs)] = descs
+    else:
+        # the pinned copy is held by PyTorch's host allocator until the
+        # copy recorded on this stream has run
+        table = (ColDesc * len(descs))(*descs)
+        dev_cols = torch.frombuffer(bytearray(table), dtype=torch.uint8
+                                    ).pin_memory().to(dev, non_blocking=True)
+        args.dev_cols = dev_cols.data_ptr()
     lib = _build.library("rowhash")
-    rc = lib.trt_rowhash_lanes(desc_t.data_ptr(), len(cols), n,
-                               int(acc is not None), _build.ptr(r1),
-                               _build.ptr(r2), _build.ptr(acc),
+    rc = lib.trt_rowhash_lanes(ctypes.addressof(args),
                                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "rowhash_lanes")
     _build.count_launch("rowhash_lanes")

@@ -23,7 +23,8 @@ On CPU tensors both run their plain PyTorch versions.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import threading
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from transferia_tpu_torch.runtime.device import (
 )
 
 MAX_SHARDS = 4096  # csrc/mesh.cu kMaxShards
+BALLOT_SHARDS = 32  # csrc/mesh.cu kBallotShards: above it, shared atomics
 _M32 = 0xFFFFFFFF
 
 
@@ -177,6 +179,67 @@ def sum_partials(partials: list[torch.Tensor], dev0: torch.device,
 
 # -- kernel K13/K14's shard histogram and its plain versions ---------------------
 
+class HistOutputs:
+    """The histogram's zeroed outputs, one pending buffer per (device,
+    stream).
+
+    A launch adds into the pending buffer and zeroes a new one that the
+    next launch on the stream adds into, so no launch needs a fill: only
+    the first on a stream (or the first with more bins than its stream's
+    buffer holds) takes a buffer made with zeros.  Launches on one stream
+    run in order, and two streams never share a buffer, so two histograms
+    can be in flight at once.  A launch that raises drops its stream's
+    pending buffer (the kernel may have run before the error came back),
+    so the next launch there starts from new zeros."""
+
+    MIN_WORDS = BALLOT_SHARDS + 1
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pending: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+    @contextlib.contextmanager
+    def launch(self, device: torch.device, stream: int, words: int
+               ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
+        """(out: zeros of at least `words`, next: an empty buffer of the
+        same size for the launch to zero), held under a lock until the
+        launch is enqueued; `next` becomes the stream's pending buffer if
+        the body returns, and the stream has none if it raises."""
+        with self._lock:
+            key = (device, stream)
+            out = self._pending.pop(key, None)
+            if out is None or out.numel() < words:
+                out = torch.zeros(max(words, self.MIN_WORDS,
+                                      0 if out is None else out.numel()),
+                                  dtype=torch.int32, device=device)
+            nxt = torch.empty_like(out)
+            yield out, nxt
+            self._pending[key] = nxt
+
+
+_HIST_OUTPUTS = HistOutputs()
+
+
+def _launch_hist(mode: int, digests: torch.Tensor, n_mats: int, n: int,
+                 n_shards: int, keep, valid, bool_layout: bool, ages, scores,
+                 keep_out, scores_out) -> torch.Tensor:
+    """One `trt_shard_hist` launch; returns its (n_shards + 1,) partial."""
+    dev = digests.device
+    stream = _build.stream_of(digests)
+    lib = _build.library("mesh")
+    with _HIST_OUTPUTS.launch(dev, stream, n_shards + 1) as (out, nxt):
+        rc = lib.trt_shard_hist(
+            mode, digests.data_ptr(), n_mats, n, n_shards, _build.ptr(keep),
+            _build.ptr(valid), int(bool_layout), _build.ptr(ages),
+            _build.ptr(scores),
+            int(scores is not None and scores.dtype == torch.float64),
+            _build.ptr(keep_out), _build.ptr(scores_out), out.data_ptr(),
+            nxt.data_ptr(), nxt.numel(), stream)
+        _build.check(lib, rc, "shard_hist")
+    _build.count_launch("shard_hist")
+    return out[:n_shards + 1]
+
+
 def check_shards(n_shards: int) -> None:
     _build.require(1 <= n_shards <= MAX_SHARDS,
                    f"n_shards must be in [1, {MAX_SHARDS}], not {n_shards}")
@@ -221,15 +284,8 @@ def shard_hist_fused(digest0: torch.Tensor, n_shards: int,
     if dev.type == "cpu":
         return shard_hist_fused_plain(digest0, n_shards, valid, keep)
     _build.require(dev.type == "cuda", f"unsupported device {dev}")
-    out = torch.zeros(n_shards + 1, dtype=torch.int32, device=dev)
-    lib = _build.library("mesh")
-    rc = lib.trt_shard_hist(0, digest0.data_ptr(), 1, n, n_shards,
-                            _build.ptr(keep), valid.data_ptr(),
-                            int(bool_layout), None, None, 0, None, None,
-                            out.data_ptr(), _build.stream_of(digest0))
-    _build.check(lib, rc, "shard_hist")
-    _build.count_launch("shard_hist")
-    return out
+    return _launch_hist(0, digest0, 1, n, n_shards, keep, valid,
+                        bool_layout, None, None, None, None)
 
 
 def shard_hist_step(digests: torch.Tensor, ages: torch.Tensor,
@@ -263,18 +319,10 @@ def shard_hist_step(digests: torch.Tensor, ages: torch.Tensor,
     if dev.type == "cpu":
         return shard_hist_step_plain(digests, ages, scores, n_shards)
     _build.require(dev.type == "cuda", f"unsupported device {dev}")
-    out = torch.zeros(n_shards + 1, dtype=torch.int32, device=dev)
     keep = torch.empty(n, dtype=torch.bool, device=dev)
     scores_f32 = torch.empty(n, dtype=torch.float32, device=dev)
-    lib = _build.library("mesh")
-    rc = lib.trt_shard_hist(1, digests.data_ptr(), digests.shape[0], n,
-                            n_shards, None, None, 0, ages.data_ptr(),
-                            scores.data_ptr(),
-                            int(scores.dtype == torch.float64),
-                            keep.data_ptr(), scores_f32.data_ptr(),
-                            out.data_ptr(), _build.stream_of(digests))
-    _build.check(lib, rc, "shard_hist")
-    _build.count_launch("shard_hist")
+    out = _launch_hist(1, digests, digests.shape[0], n, n_shards, None, None,
+                       False, ages, scores, keep, scores_f32)
     return out, keep, scores_f32
 
 
