@@ -16,6 +16,12 @@ final line):
      histogram at every bin count from 1 to 4,096, none and all kept,
      1,000 launches back to back, two streams in flight and a launch
      whose error comes back after it ran, also against torch.bincount;
+     K-C also at row counts that are not a multiple of a block's rows
+     or of 32 x R, with validity on every dtype and without, and over
+     predicates of any size on 320 columns (a 70-literal OR, IN of 70
+     and of 4,000 literals, NOT IN with NULL, an AND over 20 and over 320
+     columns, a 70-deep nesting, 70 comparisons); the digest gather at
+     row counts that are not a multiple of a warp's rows, and n = 1;
   3. main_path: 2,000,000 ClickBench-shaped rows (made as bench.py makes
      them, seed 42) through build_chain(...).apply in 131072-row batches
      with device placement and the default chunking; the output must be
@@ -80,7 +86,10 @@ final line):
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
      against the SASS instructions counted from this run's build: K-A's
      compression loop, K10's paths, K12's thread, the histogram's warp
-     step); and the launch floor, probe.cu's empty kernel timed alike.
+     step, K-C's interpreter passes, the gather's thread); K-C also with
+     validity, with the 70-literal OR and 70 comparisons, and at R = 1,
+     2 and 4 rows a thread; and the launch floor, probe.cu's empty
+     kernel timed alike.
 Each path names the kernels it must launch (PATH_KERNELS); the launch
 counts are zeroed just before the path runs and read just after it, and
 a kernel of the path that never launched fails the run.  Any failure
@@ -186,6 +195,11 @@ from transferia_tpu_torch.parallel.mesh import (
 )
 from transferia_tpu_torch.predicate import compile_mask, parse
 from transferia_tpu_torch.predicate.device import (
+    OP_AND,
+    OP_IN,
+    ROWS_PER_THREAD,
+    SORTED_INTS,
+    _launch as pred3vl_launch,
     compile_mask_program,
     device_compatible,
     eval3_torch,
@@ -536,7 +550,9 @@ PRED_CASES = [
     "i32 IS NOT NULL", "NOT i32 IS NULL", "i8 = NULL", "NOT i8 > 0",
     "NOT (i8 > 0 AND u8 < 100)", "NOT (i8 > 0 OR f < 0.5)",
     "(b = true OR i16 > 0) AND NOT (u16 < 100 OR i32 >= 0)",
-    "i16 > 2.5", "u8 <= 100.5", "",
+    "i16 > 2.5", "u8 <= 100.5", "i16 IN (3, 1, 2, 3, 1)",
+    "i32 IN (-2147483648, 2147483647, 0)", "u16 NOT IN (65535, 0, 7)",
+    "b IN (true)", "i8 IN (5)", "",
 ]
 PRED_SCHEMA = new_table_schema([
     ("b", "boolean"), ("i8", "int8"), ("u8", "uint8"), ("i16", "int16"),
@@ -561,33 +577,122 @@ def pred_columns(n: int, seed: int) -> dict[str, tuple[np.ndarray,
     return {k: (v, rng.random(n) > 0.2) for k, v in data.items()}
 
 
+# row counts: a whole bucket, and counts that are not a multiple of a
+# block's rows (R x blockDim) or, packed, of 32 x R
+PRED_NS = (32768, 999, 544, 33, 1)
+# predicates of any size over WIDE_COLS columns of every dtype (a fourth
+# of them with validity): more than 64 literals and 128 instructions
+# (the earlier by-value program's limits), more columns than K-C takes
+# by value, a 70-deep nesting, a program too large for a block's shared
+# memory (4,000 literals, 64 KB), and more columns than the value tile
+# holds (305 at R = 1 and 32 threads)
+WIDE_TYPES = ("boolean", "int8", "uint8", "int16", "uint16", "int32", "float")
+WIDE_COLS = 320
+WIDE_SCHEMA = new_table_schema([(f"w{k}", WIDE_TYPES[k % len(WIDE_TYPES)])
+                                for k in range(WIDE_COLS)])
+WIDE_COND = {"boolean": "{} IN (true, false)", "int8": "{} > -120",
+             "uint8": "{} != 7", "int16": "{} BETWEEN -90 AND 90",
+             "uint16": "{} >= 100", "int32": "{} < 2000000000",
+             "float": "{} != 2.5"}
+
+
+def nested(depth: int) -> str:
+    """`col > i OP (...)` nested `depth` deep, AND and OR alternating."""
+    ints = ("w1", "w3", "w5", "w2", "w4")
+    text = "w3 = 1"
+    for i in range(depth):
+        text = (f"{ints[i % len(ints)]} > {i} "
+                f"{'AND' if i % 2 else 'OR'} ({text})")
+    return text
+
+
+def rare_cmps(cols, lows, highs, steps, k: int = 70) -> str:
+    """An OR of k comparisons, each true on a few rows: column i % 3
+    below its low end or above its high end by a margin that grows with
+    i; no IN list can stand for them (k instructions)."""
+    parts = []
+    for i in range(k):
+        j = i % len(cols)
+        m = steps[j] * (i // 6 + 1)
+        parts.append(f"{cols[j]} < {lows[j] + m}" if i % 2
+                     else f"{cols[j]} > {highs[j] - m}")
+    return " OR ".join(parts)
+
+
+def wide_and(k: int) -> str:
+    return " AND ".join(WIDE_COND[WIDE_TYPES[c % len(WIDE_TYPES)]].format(
+        f"w{c}") for c in range(k))
+
+
+LARGE_PRED_CASES = {
+    "or70": " OR ".join(f"w3 = {i - 35}" for i in range(70)),
+    "in70": f"w3 IN ({', '.join(str(i - 35) for i in range(70))})",
+    "not_in_null": "w3 NOT IN ("
+                   f"{', '.join(str(i) for i in range(0, 140, 2))}, NULL)",
+    "and20": wide_and(20),
+    "deep70": nested(70),
+    "cmp70": rare_cmps(("w1", "w3", "w5"), (-128, -100, -2**31),
+                       (127, 99, 2**31 - 1), (1, 1, 2**24)),
+    "in4000": f"w3 IN ({', '.join(str(i) for i in range(-2000, 2000))})",
+    "and320": wide_and(WIDE_COLS),
+}
+
+
+def wide_columns(n: int, seed: int) -> dict:
+    base = pred_columns(n, seed)
+    by_type = dict(zip(("boolean", "int8", "uint8", "int16", "uint16",
+                        "int32", "float"), base))
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    for k in range(WIDE_COLS):
+        data, _ = base[by_type[WIDE_TYPES[k % len(WIDE_TYPES)]]]
+        data = rng.permutation(data)
+        out[f"w{k}"] = (data, rng.random(n) > 0.01 if k % 4 == 0 else None)
+    return out
+
+
+def check_pred(text: str, schema, cols_np: dict, n: int, dev) -> int:
+    """K-C against its plain version and the host evaluator, unpacked and
+    (n a multiple of 32) packed."""
+    node = parse(text)
+    if not device_compatible(node, schema):
+        raise AssertionError(f"{text[:80]!r} is not device-eligible")
+    batch = ColumnBatch(TableID("", "t"), schema, {
+        k: Column(k, schema.find(k).data_type, d, None, v)
+        for k, (d, v) in cols_np.items()})
+    program = compile_mask_program(node)
+    cols = [(torch.from_numpy(cols_np[c][0]).to(dev),
+             None if cols_np[c][1] is None
+             else torch.from_numpy(cols_np[c][1]).to(dev))
+            for c in program.columns]
+    got = pred3vl_mask(program, cols, n, False, dev)
+    want = eval3_torch(node, dict(zip(program.columns, cols)), n, dev)
+    err = require_equal(got, want, f"pred3vl {text[:80]!r} n={n}")
+    host = compile_mask(node)(batch)
+    if not np.array_equal(got.cpu().numpy(), host):
+        raise AssertionError(f"pred3vl {text[:80]!r} n={n} differs from "
+                             "the host evaluator")
+    if n % 32 == 0:
+        packed = pred3vl_mask(program, cols, n, True, dev)
+        err = max(err, require_equal(packed, pack_mask_words(want, n),
+                                     f"packed {text[:80]!r} n={n}"))
+    return err
+
+
 def check_pred3vl_mask(dev: torch.device) -> int:
     err = 0
-    for n in (32768, 999):
+    for n in PRED_NS:
         cols_np = pred_columns(n, seed=n)
-        batch = ColumnBatch(TableID("", "t"), PRED_SCHEMA, {
-            k: Column(k, PRED_SCHEMA.find(k).data_type, d, None, v)
-            for k, (d, v) in cols_np.items()})
         for text in PRED_CASES:
-            node = parse(text)
-            if not device_compatible(node, PRED_SCHEMA):
-                raise AssertionError(f"{text!r} is not device-eligible")
-            program = compile_mask_program(node)
-            cols = [(torch.from_numpy(cols_np[c][0]).to(dev),
-                     torch.from_numpy(cols_np[c][1]).to(dev))
-                    for c in program.columns]
-            got = pred3vl_mask(program, cols, n, False, dev)
-            want = eval3_torch(node, dict(zip(program.columns, cols)), n,
-                               dev)
-            err = max(err, require_equal(got, want, f"pred3vl {text!r}"))
-            host = compile_mask(node)(batch)
-            if not np.array_equal(got.cpu().numpy(), host):
-                raise AssertionError(f"pred3vl {text!r} differs from the "
-                                     "host evaluator")
-            if n % 32 == 0:
-                packed = pred3vl_mask(program, cols, n, True, dev)
-                err = max(err, require_equal(
-                    packed, pack_mask_words(want, n), f"packed {text!r}"))
+            err = max(err, check_pred(text, PRED_SCHEMA, cols_np, n, dev))
+        # every column valid (no validity tensor)
+        all_valid = {k: (d, None) for k, (d, _) in cols_np.items()}
+        for text in PRED_CASES[-4:]:
+            err = max(err, check_pred(text, PRED_SCHEMA, all_valid, n, dev))
+    for n in (999, 4096):
+        cols_np = wide_columns(n, seed=n)
+        for text in LARGE_PRED_CASES.values():
+            err = max(err, check_pred(text, WIDE_SCHEMA, cols_np, n, dev))
     return err
 
 
@@ -1097,22 +1202,27 @@ def check_shard_hist_edges(dev: torch.device) -> int:
 
 def check_digest_gather(dev: torch.device) -> int:
     """K14's gather against its plain version, clipping negative and
-    out-of-range codes to the first and last rows (jnp.take "clip")."""
+    out-of-range codes to the first and last rows (jnp.take "clip"), at
+    row counts that are not a multiple of a warp's rows, and n = 1."""
     rng = np.random.default_rng(16)
     err = 0
     for k in (1, 7, 4097):
         table = torch.from_numpy(rng.integers(
             -2**31, 2**31, (k, 8)).astype(np.int32)).to(dev)
-        codes = rng.integers(-10, k + 10, 100_003).astype(np.int32)
-        codes[:6] = [-5, -1, k, k + 100, 2**31 - 1, -2**31]
-        c = torch.from_numpy(codes).to(dev)
-        got = digest_gather(table, c)
-        err = max(err, require_equal(got, digest_gather_plain(table, c),
-                                     f"digest_gather k={k}"))
-        if not (torch.equal(got[0], table[0]) and torch.equal(got[1], table[0])
-                and torch.equal(got[2], table[k - 1])
-                and torch.equal(got[5], table[0])):
-            raise AssertionError(f"digest_gather k={k} does not clip")
+        for n in (100_003, 65, 33, 1):
+            codes = rng.integers(-10, k + 10, n).astype(np.int32)
+            edge = np.array([-5, -1, k, k + 100, 2**31 - 1, -2**31],
+                            dtype=np.int32)[:n]
+            codes[:len(edge)] = edge
+            c = torch.from_numpy(codes).to(dev)
+            got = digest_gather(table, c)
+            err = max(err, require_equal(got, digest_gather_plain(table, c),
+                                         f"digest_gather k={k} n={n}"))
+            want = [table[0], table[0], table[k - 1], table[k - 1],
+                    table[k - 1], table[0]][:n]
+            if not all(torch.equal(got[i], w) for i, w in enumerate(want)):
+                raise AssertionError(f"digest_gather k={k} n={n} does not "
+                                     "clip")
     return err
 
 
@@ -2344,15 +2454,114 @@ def hist_ops(counts: dict, n: int, n_shards: int) -> dict:
             for k in ("alu", "all")}
 
 
+K_C_ROWS_PER_THREAD = (1, 2, 4)
+
+
+def sass_pred3vl(text: str, rows_per_thread: int) -> dict:
+    """K-C's thread instructions (ALU pipe, every instruction) in the
+    kernel the main path launches (value tile, descriptors by value, R
+    rows a thread), each the fewest on its path:
+    - entry: from the start through a 32-bit column load and the block
+      barrier to the interpreter loop;
+    - leaf: one pass of the interpreter loop through a load of the value
+      tile (a comparison, IN or IS NULL), the IN loops passed over;
+    - connective: one pass that loads nothing from the tile (AND, OR,
+      NOT, TRUE);
+    - in_literal: the IN literal scan's instructions over its literal
+      loads (a float column or literal);
+    - in_search_step: one step of the binary searches of a sorted
+      integer IN list, for the thread's R rows;
+    - exit: from the loop to the end through the store of the mask.
+    Raises where no such loop or path is found."""
+    sass = Sass(text, f"pred3vl_mask_kernelILb1ELb1ELi{rows_per_thread}E")
+    bar = next(i for i, op in enumerate(sass.ops) if op.startswith("BAR"))
+    loop = max((r for r in sass.loops() if r[0] > bar),
+               key=lambda r: r[1] - r[0], default=None)
+    if loop is None:
+        raise AssertionError("no interpreter loop in K-C's SASS")
+    kids = sass.children(loop)
+
+    def loads(r, bits):
+        return sum(sass.ops[i].startswith("LD")
+                   and width_of(sass.ops[i]) == bits
+                   for i in range(r[0], r[1] + 1))
+    # the scan reads whole 16-byte literals, four a pass; a search step
+    # reads a literal's int64 only
+    scans = [r for r in kids if loads(r, 128) > 1]
+    searches = [r for r in kids if loads(r, 64) == 1 and not loads(r, 128)]
+    if len(scans) != 1 or len(searches) != rows_per_thread:
+        raise AssertionError("K-C's IN loops not found in its SASS")
+    lit64 = (lambda ins: Sass.opcode(ins).startswith("LD")
+             and width_of(Sass.opcode(ins)) == 64,)
+    tile = lambda ins: Sass.opcode(ins) == "LDS"  # noqa: E731
+    end = max(i for i, op in enumerate(sass.ops) if op == "EXIT")
+    search = [sass.alu(*r, must=lit64) for r in searches]
+    per = {
+        "entry": sass.alu(0, loop[0] - 1, must=(is_ldg(32), is_op("BAR"))),
+        "leaf": sass.alu(*loop, must=(tile,), skip=kids),
+        "connective": sass.alu(*loop, avoid=(tile, is_op("LDS.U8")),
+                               skip=kids),
+        "exit": sass.alu(loop[1] + 1, end, must=(is_op("STG"),)),
+        "in_literal": tuple(v / loads(scans[0], 128)
+                            for v in sass.alu(*scans[0])),
+        "in_search_step": tuple(sum(v) for v in zip(*search)),
+    }
+    return {k: {"alu": a, "all": t} for k, (a, t) in per.items()}
+
+
+def pred_ops(program, n: int, counts: dict, rows_per_thread: int,
+             f32_slots=()) -> dict:
+    """K-C's lane operations over n rows: every thread's entry and exit,
+    a leaf or connective pass a program instruction, and each IN list's
+    literals, scanned or (sorted integers against an integer column)
+    binary-searched, a step for each bit of the list's length (SASS
+    counts from sass_pred3vl for R = rows_per_thread; `f32_slots`, the
+    float32 columns' slots)."""
+    c = counts[str(rows_per_thread)]
+    words = program.code[:program.n_instr].view(np.uint32)
+    leaves = int(((words[:, 0] & 7) < OP_AND).sum())
+    threads = -(-n // rows_per_thread)
+    out = {}
+    for k in ("alu", "all"):
+        per = (c["entry"][k] + c["exit"][k] + leaves * c["leaf"][k]
+               + (program.n_instr - leaves) * c["connective"][k])
+        for word, _, count, _ in words.tolist():
+            if word & 7 != OP_IN:
+                continue
+            if word & SORTED_INTS and (word >> 12) not in f32_slots:
+                per += count.bit_length() * c["in_search_step"][k]
+            else:
+                per += count * c["in_literal"][k]
+        out[k] = threads * per
+    return out
+
+
+def sass_digest_gather(text: str) -> dict:
+    """The gather's thread instructions on its longest path (every row of
+    the warp's groups in range, every 16-byte store taken); a warp moves
+    32 x kGatherGroups rows."""
+    sass = Sass(text, "digest_gather_kernel")
+    end = max(i for i, op in enumerate(sass.ops) if op == "EXIT")
+    alu, total = sass.alu(0, end, must=(is_op("STG.E.128"),), best=max)
+    groups = int(re.search(r"kGatherGroups = (\d+);", (
+        Path(_build.CSRC) / "mesh.cu").read_text()).group(1))
+    return {"per_thread": {"alu": alu, "all": total},
+            "rows_per_warp": 32 * groups}
+
+
 def sass_counts(builds: dict) -> dict:
     """Every SASS count the bounds use, from this run's build."""
     text = {name: sass_text(builds[name].path)
-            for name in ("sha256_hmac", "rowhash", "raggedpack", "mesh")}
+            for name in ("sha256_hmac", "rowhash", "raggedpack", "mesh",
+                         "pred3vl_mask")}
     return {"sha256_hmac": sass_per_compression(text["sha256_hmac"]),
             "rowhash_lanes": sass_rowhash(text["rowhash"]),
             "ragged_pack": sass_ragged_pack(text["raggedpack"]),
             "shard_hist": sass_shard_hist(text["mesh"], False),
-            "shard_hist_step": sass_shard_hist(text["mesh"], True)}
+            "shard_hist_step": sass_shard_hist(text["mesh"], True),
+            "pred3vl_mask": {str(r): sass_pred3vl(text["pred3vl_mask"], r)
+                             for r in K_C_ROWS_PER_THREAD},
+            "digest_gather": sass_digest_gather(text["mesh"])}
 
 
 def bound(n_bytes: float, n_ops: float = 0) -> tuple[float, str]:
@@ -2360,6 +2569,71 @@ def bound(n_bytes: float, n_ops: float = 0) -> tuple[float, str]:
     t_ops = n_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# the 70-literal OR of equalities (one IN list once lowered), and 70
+# comparisons that no list can stand for (70 instructions)
+OR70 = " OR ".join(f"RegionID = {i}" for i in range(70))
+CMP70 = rare_cmps(("RegionID", "ResolutionWidth"), (0, 360), (499, 2560),
+                  (1, 10))
+
+
+def pred_call(text: str, cols: dict, n: int, counts: dict, dev,
+              rows_per_thread: Optional[int] = None) -> tuple:
+    """K-C over n rows of `cols` (name -> (data, validity or None)),
+    the keep mask packed, as the main path launches it (the wrapper's R,
+    or `rows_per_thread` through the launch itself), beside its plain
+    version.  Bytes: each referenced column's data and validity read
+    once, the program table read once, the packed mask written once.
+    Operations: pred_ops."""
+    program = compile_mask_program(parse(text))
+    slots = [cols[c] for c in program.columns]
+    r = ROWS_PER_THREAD if rows_per_thread is None else rows_per_thread
+    if rows_per_thread is None:
+        def kernel():
+            return pred3vl_mask(program, slots, n, True, dev)
+    else:
+        out = torch.empty(n // 32, dtype=torch.int32, device=dev)
+
+        def kernel():
+            pred3vl_launch(program, slots, n, True, out, r)
+            return out
+    n_bytes = (sum(d[:n].numel() * d.element_size()
+                   + (0 if v is None else n) for d, v in slots)
+               + program.code.nbytes + n // 8)
+    ops = pred_ops(program, n, counts, r,
+                   {i for i, (d, _) in enumerate(slots)
+                    if d.dtype == torch.float32})
+    return (kernel,
+            lambda: pack_mask_words(eval3_torch(
+                program.node, dict(zip(program.columns, slots)), n, dev), n),
+            None, bound(n_bytes, ops["alu"]),
+            {"bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
+             "lane_ops": ops, "instructions": program.n_instr,
+             "literals": program.n_lits, "rows_per_thread": r})
+
+
+def pred_timing(cols: dict, n: int, counts: dict, dev) -> dict:
+    """K-C at the main path's bucket beside the main-path call: with a
+    validity mask on both columns, with the 70-literal OR on RegionID,
+    with 70 comparisons, and the main path's program at each
+    rows-per-thread R."""
+    rng = np.random.default_rng(23)
+    valid = {c: (d, torch.from_numpy(rng.random(d.numel()) > 0.1).to(dev))
+             for c, (d, _) in cols.items()}
+    text = "RegionID < 400 AND ResolutionWidth >= 390"
+    return {
+        "with_validity": timed(pred_call(text, valid, n, counts, dev), dev,
+                               "pred3vl_mask with validity"),
+        "or70": timed(pred_call(OR70, cols, n, counts, dev), dev,
+                      "pred3vl_mask with the 70-literal OR"),
+        "cmp70": timed(pred_call(CMP70, cols, n, counts, dev), dev,
+                       "pred3vl_mask with 70 comparisons"),
+        "rows_per_thread": {
+            str(r): timed(pred_call(text, cols, n, counts, dev, r), dev,
+                          f"pred3vl_mask at R={r}")
+            for r in K_C_ROWS_PER_THREAD},
+    }
 
 
 def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
@@ -2394,20 +2668,13 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
 
     calls["pred_decode"] = delta_calls(region[:chunk], bucket, dev)
 
-    program = compile_mask_program(
-        parse("RegionID < 400 AND ResolutionWidth >= 390"))
-    cols = [(torch.from_numpy(np.pad(rows.column(c).data, (0, bucket - chunk),
-                                     mode="edge")).to(dev), None)
-            for c in program.columns]
-    calls["pred3vl_mask"] = (
-        lambda: pred3vl_mask(program, cols, bucket, True, dev),
-        lambda: pack_mask_words(eval3_torch(
-            program.node, dict(zip(program.columns, cols)), bucket, dev),
-            bucket),
-        None,
-        # ~4 ops per instruction per row
-        bound(sum(d.numel() * d.element_size() for d, _ in cols)
-              + bucket // 8, 4 * len(program.instrs) * bucket))
+    cols = {c: (torch.from_numpy(np.pad(rows.column(c).data,
+                                        (0, bucket - chunk), mode="edge")
+                                 ).to(dev), None)
+            for c in ("RegionID", "ResolutionWidth")}
+    calls["pred3vl_mask"] = pred_call(
+        "RegionID < 400 AND ResolutionWidth >= 390", cols, bucket,
+        counts["pred3vl_mask"], dev)
 
     out = {}
     all_ops_ms = bound(n_bytes, sass["instructions_per_compression"]
@@ -2415,13 +2682,17 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
     calls.update(fingerprint_calls(batch, counts["rowhash_lanes"], dev))
     calls.update(decode_calls(dev))
     calls.update(pack_calls(batch, counts["ragged_pack"], dev))
-    calls.update(mesh_calls(counts["shard_hist"], dev))
+    calls.update(mesh_calls(counts["shard_hist"], counts["digest_gather"],
+                            dev))
     calls.update(sign_flip_calls(FETCH_MAX, dev))
     for name, call in calls.items():
         out[name] = timed(call, dev, f"{name} at the main path's shapes")
     out["sha256_hmac"]["bound_ms_all_instructions"] = all_ops_ms
-    for name in ("sha256_hmac", "rowhash_lanes", "ragged_pack", "shard_hist"):
+    for name in ("sha256_hmac", "rowhash_lanes", "ragged_pack", "shard_hist",
+                 "pred3vl_mask", "digest_gather"):
         out[name]["sass"] = counts[name]
+    out["pred3vl_mask"].update(pred_timing(cols, bucket,
+                                           counts["pred3vl_mask"], dev))
     out["sha256_hmac"]["at_pool_shape"] = pool_hmac_timing(
         sass["alu_per_compression"], dev)
     out["pred_decode"]["shape_values"] = bucket
@@ -2467,7 +2738,7 @@ def sign_flip_calls(n: int, dev) -> dict:
         bound(16 * n, 3 * n))}
 
 
-def mesh_calls(counts: dict, dev) -> dict:
+def mesh_calls(counts: dict, gather_counts: dict, dev) -> dict:
     """K13/K14's histogram at main_path_mesh's shape (one shard of a
     131,072-row batch: 65,536 rows, keep and run validity packed, keep
     at main_path's ratio) and the digest gather at dispatch_mesh's (one
@@ -2508,12 +2779,17 @@ def mesh_calls(counts: dict, dev) -> dict:
                         blocks.shape[1] // 64)
     codes = torch.from_numpy(batch_data[0][0][:n].copy()).to(dev)
     k = table.shape[0]
+    g = gather_counts
+    warps = -(-n // g["rows_per_warp"])
+    gops = {k: 32 * warps * g["per_thread"][k] for k in ("alu", "all")}
+    g_bytes = 4 * n + 32 * n + 32 * k
     calls["digest_gather"] = (
         lambda: digest_gather(table, codes),
         lambda: digest_gather_plain(table, codes),
         lambda: torch.index_select(table, 0, codes),
-        # ~4 operations per word: the clip, the address, the copy
-        bound(4 * n + 32 * n + 32 * k, 4 * 8 * n))
+        bound(g_bytes, gops["alu"]),
+        {"bound_ms_all_instructions": bound(g_bytes, gops["all"])[0],
+         "lane_ops": gops})
     return calls
 
 

@@ -75,56 +75,92 @@ def make_batches(n, seed):
     return data, valid, port, ref
 
 
+def kleene(fold, a, b):
+    """(t, u) of a AND b (fold FOLD_AND) or a OR b, Kleene."""
+    (t1, u1), (t2, u2) = a, b
+    f1, f2 = ~t1 & ~u1, ~t2 & ~u2
+    if fold == port_device.FOLD_AND:
+        t, f = t1 & t2, f1 | f2
+    else:
+        t, f = t1 | t2, f1 & f2
+    return t, ~t & ~f
+
+
 def interpret(program, cols, n):
-    """numpy interpreter of K-C's instruction set (the kernel's spec)."""
+    """numpy interpreter of K-C's program table (the kernel's spec):
+    `program.code` holds n_instr records {word, y, z, w} with word = op |
+    fold << 3 | flags | compare mask << 8 | slot << 12 (a comparison's
+    literal in y, z (int64) and w (float32 bits); an IN's first literal
+    and count in y, z), then n_lits IN literals {int64 low word, high
+    word, float32 bits, is_float}.  Checks that the stack never holds more
+    than `program.max_depth` <= 64 entries (the kernel keeps the top in
+    registers and 63 below it in 64-bit registers)."""
+    assert program.code.shape == (program.n_instr + program.n_lits, 4)
+    instrs = program.code[:program.n_instr].view(np.uint32)
+    lits = program.code[program.n_instr:]
+    lit_i = np.ascontiguousarray(lits[:, :2]).view(np.int64)[:, 0]
+    lit_f = np.ascontiguousarray(lits[:, 2]).view(np.float32)
+    lit_is_float = lits[:, 3] != 0
+    assert program.max_depth <= 64
     stack = []
-    for op, slot, a, b in program.instrs.tolist():
-        if op == port_device.OP_TRUE:
-            stack.append((np.ones(n, bool), np.zeros(n, bool)))
-            continue
-        if op in (port_device.OP_AND, port_device.OP_OR):
-            t2, u2 = stack.pop()
-            t1, u1 = stack.pop()
-            f1, f2 = ~t1 & ~u1, ~t2 & ~u2
-            if op == port_device.OP_AND:
-                t, f = t1 & t2, f1 | f2
-            else:
-                t, f = t1 | t2, f1 & f2
-            stack.append((t, ~t & ~f))
-            continue
+    for word, y, z, w in instrs.tolist():
+        op, fold = word & 7, (word >> 3) & 3
         if op == port_device.OP_NOT:
             t, u = stack.pop()
             stack.append((~t & ~u, u))
             continue
-        data, valid = cols[slot]
+        if op in (port_device.OP_AND, port_device.OP_OR):
+            b, a = stack.pop(), stack.pop()
+            stack.append(kleene(port_device.FOLD_AND if op ==
+                                port_device.OP_AND else port_device.FOLD_OR,
+                                a, b))
+            continue
+        data, valid = cols[word >> 12] if op != port_device.OP_TRUE \
+            else (None, None)
         valid = np.ones(n, bool) if valid is None else valid
 
-        def cmp(code, lit):
-            if data.dtype == np.float32 or program.lit_is_float[lit]:
-                x, y = data.astype(np.float32), program.flits[lit]
+        def cmp(mask, is_float, ilit, flit):
+            # the outcome's bit of the mask: <, ==, >, unordered
+            if data.dtype == np.float32 or is_float:
+                x = data.astype(np.float32)
+                outcome = np.select([x < flit, x == flit, x > flit],
+                                    [0, 1, 2], 3)
             else:
-                x, y = data.astype(np.int64), program.ilits[lit]
-            return [x == y, x != y, x < y, x <= y, x > y, x >= y][code]
+                x = data.astype(np.int64)
+                outcome = np.select([x < ilit, x == ilit], [0, 1], 2)
+            return (mask >> outcome) & 1 == 1
 
-        if op == port_device.OP_CMP:
-            stack.append((valid & cmp(a, b), ~valid))
+        if op == port_device.OP_TRUE:
+            leaf = (np.ones(n, bool), np.zeros(n, bool))
+        elif op == port_device.OP_CMP:
+            ilit = np.array([y, z], np.uint32).view(np.int64)[0]
+            flit = np.array([w], np.uint32).view(np.float32)[0]
+            leaf = (valid & cmp((word >> 8) & 15,
+                                word & port_device.LIT_FLOAT, ilit, flit),
+                    ~valid)
         elif op == port_device.OP_CMP_NULL:
-            stack.append((np.zeros(n, bool), np.ones(n, bool)))
+            leaf = (np.zeros(n, bool), np.ones(n, bool))
         elif op == port_device.OP_ISNULL:
-            stack.append((valid == bool(a), np.zeros(n, bool)))
+            leaf = (valid == bool(word & port_device.NEGATE),
+                    np.zeros(n, bool))
         elif op == port_device.OP_IN:
-            count, flags = b & 0xFFFF, b >> 16
             m = np.zeros(n, bool)
-            for k in range(count):
-                m |= cmp(0, a + k)
+            for k in range(y, y + z):
+                m |= cmp(port_device.CMP_MASKS["="], lit_is_float[k],
+                         lit_i[k], lit_f[k])
             t, f = m & valid, ~m & valid
-            if flags & port_device.IN_HAS_NULL:
+            if word & port_device.HAS_NULL:
                 f = np.zeros(n, bool)
-            if flags & port_device.IN_NEGATE:
+            if word & port_device.NEGATE:
                 t, f = f, t
-            stack.append((t, ~t & ~f))
+            leaf = (t, ~t & ~f)
         else:
             raise AssertionError(f"unknown op {op}")
+        if fold == port_device.PUSH:
+            stack.append(leaf)
+        else:
+            stack.append(kleene(fold, stack.pop(), leaf))
+        assert len(stack) <= program.max_depth
     assert len(stack) == 1
     return stack[0][0]
 
@@ -184,9 +220,3 @@ def test_no_column_program_needs_a_device():
     got = port_device.pred3vl_mask(program, [], 64, True,
                                    torch.device("cpu"))
     assert got.numpy().view(np.uint32).tolist() == [0xFFFFFFFF] * 2
-
-
-def test_oversized_predicate_is_refused():
-    text = " OR ".join(f"id = {i}" for i in range(70))
-    with pytest.raises(ValueError, match="too large"):
-        port_device.compile_mask_program(parse(text))

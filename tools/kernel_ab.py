@@ -26,7 +26,13 @@ port keeps.  Shapes:
 - the shard histogram in fused mode over 65,536 rows (one shard of
   main_path_mesh's batch), masks packed, 16 bins (the programs' default)
   and 4, and in step mode over 262,144 rows (one shard of mesh_step),
-  float64 scores, 16 bins.
+  float64 scores, 16 bins;
+- K-C at the main path's bucket: a 32,768-row ClickBench chunk (seed 42)
+  of RegionID and ResolutionWidth padded to 65,536 rows, the keep mask
+  packed, with the main path's predicate and with a 70-literal OR of
+  equalities on RegionID (null where the checkout refuses to lower it);
+- the digest gather at dispatch_mesh's shape: one shard's 65,536 codes
+  of bench.py's dispatch batch into a 4,097-row digest table.
 Each time is the median of 5 runs of 20 launches held behind a sleep
 kernel, as chip_smoke.py's `kernel_ms`.  Prints one JSON line; needs a
 card.
@@ -57,10 +63,19 @@ from transferia_tpu_torch.ops.dispatch import (
     encode_pred_column,
     pack_bits_host,
 )
+from transferia_tpu_torch.parallel.fusedmesh import digest_gather
 from transferia_tpu_torch.parallel.mesh import (
     shard_hist_fused,
     shard_hist_step,
 )
+from transferia_tpu_torch.predicate import parse
+from transferia_tpu_torch.predicate.device import (
+    compile_mask_program,
+    pred3vl_mask,
+)
+
+K_C_MAIN = "RegionID < 400 AND ResolutionWidth >= 390"
+K_C_OR70 = " OR ".join(f"RegionID = {i}" for i in range(70))
 
 
 def kernel_ms(fn, dev, iters: int = 20, reps: int = 5) -> float:
@@ -191,11 +206,38 @@ def hist_ms(dev) -> dict:
     }
 
 
+def pred_ms(dev) -> dict:
+    _, fixed, _ = chip_smoke.clickbench_rows(32_768)
+    cols = {c: (torch.from_numpy(np.pad(fixed[c], (0, 32_768), mode="edge"))
+                .to(dev), None) for c in ("RegionID", "ResolutionWidth")}
+    out = {}
+    for name, text in (("pred3vl_65536", K_C_MAIN),
+                       ("pred3vl_or70_65536", K_C_OR70)):
+        try:
+            program = compile_mask_program(parse(text))
+        except ValueError:  # a checkout whose K-C refuses the program
+            out[name] = None
+            continue
+        slots = [cols[c] for c in program.columns]
+        out[name] = kernel_ms(
+            lambda: pred3vl_mask(program, slots, 65_536, True, dev), dev)
+    return out
+
+
+def gather_ms(dev) -> dict:
+    values, batch_data = chip_smoke.dispatch_data()
+    codes = torch.from_numpy(batch_data[0][0][:65_536].copy()).to(dev)
+    table = torch.from_numpy(np.random.default_rng(17).integers(
+        -2**31, 2**31, (len(values) + 1, 8)).astype(np.int32)).to(dev)
+    return {"digest_gather_65536": kernel_ms(
+        lambda: digest_gather(table, codes), dev)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: needs a card", file=sys.stderr)
         return 2
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     region = region_ids(2_000_000)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,6 +251,8 @@ def main() -> int:
         "dict_4096_pool": dict_ms(4096, 12, 19, dev),
         **k10_ms(dev),
         **hist_ms(dev),
+        **pred_ms(dev),
+        **gather_ms(dev),
     }
     print(json.dumps({"package": transferia_tpu_torch.__file__,
                       "card": smi, "ms": ms}), flush=True)

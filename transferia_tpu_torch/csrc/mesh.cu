@@ -66,9 +66,14 @@
 // 170-173, `jnp.take(dg, cd, axis=0, mode="clip")`: out[r, w] =
 // table[clip(codes[r], 0, n_values - 1), w] over an (n_values, 8) digest
 // table.  Out-of-range codes clip, as jnp's "clip" mode does (it does not
-// raise).  One thread per (row, word): a warp writes 128 neighbouring
-// bytes, and the table (a pool's digests, small) stays in L2.  Bound:
-// bytes (4 B of code read and 32 B written per row).
+// raise).  Bound: bytes (4 B of code read and 32 B written per row; the
+// table, a pool's digests, read once and kept in L2).  Design: a warp
+// takes kGatherGroups groups of 32 rows; each lane loads one row's code of
+// a group (each code once, coalesced), and two lanes move each row's 32
+// bytes as two 16-byte loads of the table (__ldg) and two 16-byte stores,
+// the code handed over by a shuffle, so a warp's store covers 16
+// neighbouring rows (512 bytes).  Every group's loads are issued before
+// any store.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,6 +87,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 2;        // steps of 32 rows a warp loads at once
 constexpr int kBlocksPerSm = 4;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kGatherGroups = 2;  // 32-row groups a warp gathers
 
 struct HistArgs {
   const int32_t* digests;
@@ -208,17 +214,39 @@ __global__ void __launch_bounds__(kThreads)
     if (s_hist[i] != 0) atomicAdd(&a.out[i], s_hist[i]);
 }
 
-__global__ void digest_gather_kernel(const int32_t* __restrict__ table,
-                                     int n_values,
-                                     const int32_t* __restrict__ codes,
-                                     long long n_rows,
-                                     int32_t* __restrict__ out) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_rows * 8) return;
-  int c = codes[t >> 3];
-  c = c < 0 ? 0 : (c >= n_values ? n_values - 1 : c);
-  out[t] = table[static_cast<long long>(c) * 8 + (t & 7)];
+__global__ void __launch_bounds__(kThreads)
+    digest_gather_kernel(const int4* __restrict__ table, int n_values,
+                         const int32_t* __restrict__ codes,
+                         long long n_rows, int4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long base = warp * 32 * kGatherGroups;
+  int code[kGatherGroups];
+#pragma unroll
+  for (int g = 0; g < kGatherGroups; ++g) {
+    const long long r = base + g * 32 + lane;
+    const int c = r < n_rows ? __ldg(codes + r) : 0;
+    code[g] = c < 0 ? 0 : (c >= n_values ? n_values - 1 : c);
+  }
+  // lane pair (2i, 2i+1) moves row i of the half-group h: 16 bytes each
+  int4 v[kGatherGroups][2];
+#pragma unroll
+  for (int g = 0; g < kGatherGroups; ++g) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = __shfl_sync(kFull, code[g], h * 16 + (lane >> 1));
+      v[g][h] = __ldg(table + 2 * static_cast<long long>(c) + (lane & 1));
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kGatherGroups; ++g) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long r = base + g * 32 + h * 16 + (lane >> 1);
+      if (r < n_rows) out[2 * r + (lane & 1)] = v[g][h];
+    }
+  }
 }
 
 template <bool kStep>
@@ -291,20 +319,20 @@ extern "C" int trt_shard_hist(int mode, const void* digests, int n_mats,
   return static_cast<int>(cudaGetLastError());
 }
 
+// table 16-byte aligned (the wrapper checks it)
 extern "C" int trt_digest_gather(const void* table, int n_values,
                                  const void* codes, long long n_rows,
                                  void* out, void* stream) {
   if (n_rows < 0 || (n_rows > 0 && n_values < 1))
     return cudaErrorInvalidValue;
   if (n_rows == 0) return cudaSuccess;
-  const long long total = n_rows * 8;
-  const long long grid = (total + kThreads - 1) / kThreads;
+  const long long per_block = 32LL * kGatherGroups * kWarps;
+  const long long grid = (n_rows + per_block - 1) / per_block;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   digest_gather_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), n_values,
-      static_cast<const int32_t*>(codes), n_rows,
-      static_cast<int32_t*>(out));
+      static_cast<const int4*>(table), n_values,
+      static_cast<const int32_t*>(codes), n_rows, static_cast<int4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

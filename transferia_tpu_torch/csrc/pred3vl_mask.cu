@@ -7,42 +7,90 @@
 // mask.
 //
 // The predicate AST is lowered on the host (predicate/device.py
-// compile_mask_program) to a short postfix program that travels as the
-// kernel's by-value parameter block.  Each thread evaluates the program
-// for its row on a stack of (TRUE, UNKNOWN) bit pairs held in two 64-bit
-// registers.  Instructions:
-//   TRUE                  push (T, !U)
-//   CMP  slot op lit      T = valid & (col op lit), U = !valid
-//   CMP_NULL              col op NULL: always UNKNOWN
-//   ISNULL slot negate    T = valid == negate, U = false
-//   IN   slot lits flags  SQL IN over a literal range (NULL literal, NOT)
-//   AND / OR              binary Kleene fold of the top two entries
-//   NOT                   T = !T & !U, U kept
-// n-ary AND/OR fold pairwise: the Kleene connectives are associative, and
-// the reference's n-ary formulas equal the pairwise fold.
+// PredProgram) to a postfix program of 16-byte records: n_instr
+// instructions {word, y, z, w}, then n_lits IN literals {int64 low word,
+// high word, float32 bits, is_float}.  The program lives on the card
+// (uploaded once per program and device) and the kernel takes its
+// pointer, so a program has no size limit.  An instruction's word holds
+// its op (bits 0-2), a fold (bits 3-4), flags (bits 5-7: negate, a NULL
+// literal, a float literal), a comparison mask (bits 8-11) and the column
+// slot (bits 12-31).  Instructions:
+//   TRUE                   (T, U) = (1, 0)
+//   CMP  slot mask lit     T = valid & (col ~ lit), U = !valid; the
+//                          literal inline: y, z its int64 words, w its
+//                          float32 bits
+//   CMP_NULL               col op NULL: always UNKNOWN
+//   ISNULL slot negate     T = valid == negate, U = false
+//   IN   slot first count  SQL IN over the literals y .. y + z - 1
+//                          (flags: NOT, a NULL literal, sorted integers:
+//                          an integer column binary-searches them)
+//   AND / OR               binary Kleene fold of the top two entries
+//   NOT                    T = !T & !U, U kept
+// A leaf (TRUE, CMP, CMP_NULL, ISNULL, IN) pushes its pair, or with a fold
+// (AND or OR) combines it into the top entry at once: `a AND b AND c` is
+// three leaves, two of them folded, and touches no stack.  A comparison's
+// `mask` holds the result for each outcome of comparing the column value
+// x with the literal y: bit 0 x < y, bit 1 x == y, bit 2 x > y, bit 3
+// unordered (a NaN: only != holds).  So `=` is 0b0010 and `!=` 0b1101,
+// and no compare operator is decoded per row.  The top entry lives in
+// registers, the ones below it in two 64-bit registers of bits (TRUE,
+// UNKNOWN); the lowering emits the child with the larger stack need
+// first (Sethi-Ullman order), which keeps the depth at most log2(leaves)
+// + 1.
 //
 // Comparisons follow jnp's weak-type promotion, as the reference traced
 // them: an integer column (bool, int8/16/32, uint8/16, date32) against an
 // integer or bool literal compares in integer; a float32 column, or any
 // float literal, compares in float32.  Float compares are IEEE (the build
-// uses no fast-math), so NaN is unequal to everything.
+// uses no fast-math).
 //
 // Output: the TRUE mask (UNKNOWN rows do not match).  With `pack` set it
 // is packed with __ballot_sync into little-endian uint32 words, bit j of
 // word k = row 32k+j; n must then be a multiple of 32.
 //
 // Bound on an H100: a few bytes per row per referenced column read once,
-// one bit (packed) or byte written: bound by bytes.
+// one bit (packed) or byte written; at the main path's bucket the launch,
+// the parameters' and the columns' round trips to memory, then the
+// interpreter's instructions (chip_smoke.py counts them from the SASS).
+//
+// Design:
+//   - Column descriptors by value (__grid_constant__) up to
+//     kByValueCols columns; wider predicates point at a descriptor array
+//     on the card, which the wrapper copies there with the launch.
+//   - A thread takes R rows, row = block base + k * blockDim + tid, so a
+//     warp's loads and stores of one k are coalesced and one ballot packs
+//     a word.  The wrapper launches R = 1: at the main path's bucket the
+//     kernel waits on memory and on the interpreter's dependent steps,
+//     and fewer warps hide less of either (R = 2 and 4 were slower on
+//     every program timed, PERF.md).
+//   - A prologue issues every load before any evaluation: for each
+//     referenced column (kGroup at a time) the value and validity byte of
+//     each of the thread's rows, and the block's first program records.
+//     The values land in a shared-memory tile [slot][row] that only their
+//     own thread reads, converted to 32 bits (a float32 keeps its bits),
+//     and the program in shared memory; one barrier, then the
+//     interpreter reads shared memory only.  A predicate over so many
+//     columns that the tile does not fit in a block's 48 KB even at 32
+//     threads (305 columns at R = 1) loads each value where an
+//     instruction uses it (kTile false); a program too large for what is
+//     left reads its records from device memory through the cache (the
+//     same generic pointer).
+//   - Each instruction is fetched once for the thread's R rows; a
+//     comparison carries its literal, so it costs one shared load of the
+//     program and one of the tile.
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxInstr = 128;
-constexpr int kMaxLits = 64;
-constexpr int kMaxCols = 16;
-// the host lowering keeps the stack depth <= 64 (predicate/device.py)
+constexpr int kByValueCols = 16;  // predicate/device.py BY_VALUE_COLS
+constexpr int kMaxDepth = 64;     // bits of the stacks
+constexpr int kThreads = 256;
+constexpr int kGroup = 4;         // columns whose loads are issued together
+constexpr size_t kSmemBudget = 48 * 1024;  // a block's default limit
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Op {
   kOpTrue = 0,
@@ -54,7 +102,15 @@ enum Op {
   kOpOr = 6,
   kOpNot = 7,
 };
-enum CmpOp { kEq = 0, kNe = 1, kLt = 2, kLe = 3, kGt = 4, kGe = 5 };
+enum Fold { kPush = 0, kFoldAnd = 1, kFoldOr = 2 };
+// bit 7: a comparison's literal is a float; an IN list's literals are
+// all integers, sorted and distinct
+enum Flags {
+  kNegate = 1 << 5,
+  kHasNull = 1 << 6,
+  kLitFloat = 1 << 7,
+  kSortedInts = 1 << 7,
+};
 enum DType {
   kBool = 0,
   kI8 = 1,
@@ -64,186 +120,414 @@ enum DType {
   kI32 = 5,
   kF32 = 6,
 };
-enum InFlags { kInNegate = 1, kInHasNull = 2 };
+constexpr int kEqMask = 0b0010;
 
-struct Program {
-  // instr[k] = {op, slot, a, b}; CMP: a = compare op, b = literal index;
-  // ISNULL: a = negate; IN: a = first literal, b = count | flags << 16
-  int32_t instr[kMaxInstr][4];
-  int64_t ilit[kMaxLits];
-  float flit[kMaxLits];
-  int32_t lit_is_float[kMaxLits];
-  const void* data[kMaxCols];
-  const uint8_t* valid[kMaxCols];  // nullptr: every row valid
-  int32_t dtype[kMaxCols];
-  int32_t n_instr;
+struct ColDesc {
+  const void* data;
+  const uint8_t* valid;  // nullptr: every row valid
+  int32_t dtype;
+  int32_t pad;
 };
-static_assert(sizeof(Program) <= 4096, "kernel parameter block too large");
 
-__device__ __forceinline__ int64_t load_int(const Program& p, int slot,
-                                            int64_t row) {
-  const void* d = p.data[slot];
-  switch (p.dtype[slot]) {
+struct PredArgs {
+  ColDesc cols[kByValueCols];  // by value when n_cols <= kByValueCols
+  const ColDesc* dev_cols;     // on the card when more
+  const int4* prog;            // n_instr instructions, then n_lits literals
+  void* out;
+  int64_t n;
+  int32_t n_instr;
+  int32_t n_lits;
+  int32_t n_cols;
+  int32_t pack;
+  int32_t depth;
+  int32_t pad;
+};
+
+static_assert(sizeof(ColDesc) == 24, "predicate/device.py ColDesc");
+static_assert(sizeof(PredArgs) == 440, "predicate/device.py PredArgs");
+static_assert(offsetof(PredArgs, dev_cols) == 384, "PredArgs layout");
+static_assert(offsetof(PredArgs, n) == 408, "PredArgs layout");
+static_assert(offsetof(PredArgs, depth) == 432, "PredArgs layout");
+
+// column s's descriptor: from the parameters (the constant bank) or from
+// device memory
+template <bool kByValue>
+__device__ __forceinline__ ColDesc col_desc(const PredArgs& a, int s) {
+  if constexpr (kByValue) return a.cols[s];
+  return a.dev_cols[s];
+}
+
+// a column value widened to 32 bits (a float32 keeps its bits)
+__device__ __forceinline__ int32_t load_value(const ColDesc& d, int64_t row) {
+  switch (d.dtype) {
     case kBool:
     case kU8:
-      return static_cast<const uint8_t*>(d)[row];
+      return __ldg(static_cast<const uint8_t*>(d.data) + row);
     case kI8:
-      return static_cast<const int8_t*>(d)[row];
+      return __ldg(static_cast<const signed char*>(d.data) + row);
     case kI16:
-      return static_cast<const int16_t*>(d)[row];
+      return __ldg(static_cast<const int16_t*>(d.data) + row);
     case kU16:
-      return static_cast<const uint16_t*>(d)[row];
+      return __ldg(static_cast<const uint16_t*>(d.data) + row);
     default:
-      return static_cast<const int32_t*>(d)[row];
+      return __ldg(static_cast<const int32_t*>(d.data) + row);
   }
 }
 
-__device__ __forceinline__ float load_float(const Program& p, int slot,
-                                            int64_t row) {
-  if (p.dtype[slot] == kF32) return static_cast<const float*>(p.data[slot])[row];
-  return static_cast<float>(load_int(p, slot, row));
+// a truth value, 0 or 1 (a 32-bit register: no byte packing of bools)
+using Bit = uint32_t;
+
+__device__ __forceinline__ Bit compare(int32_t v, bool col_f32, bool lit_f32,
+                                       int64_t ilit, float flit, int mask) {
+  int outcome;
+  if (col_f32 || lit_f32) {
+    const float x = col_f32 ? __int_as_float(v) : static_cast<float>(v);
+    outcome = x < flit ? 0 : (x == flit ? 1 : (x > flit ? 2 : 3));
+  } else {
+    outcome = v < ilit ? 0 : (v == ilit ? 1 : 2);
+  }
+  return (mask >> outcome) & 1;
 }
 
-template <typename T>
-__device__ __forceinline__ bool compare(T x, T y, int op) {
-  switch (op) {
-    case kEq:
-      return x == y;
-    case kNe:
-      return x != y;
-    case kLt:
-      return x < y;
-    case kLe:
-      return x <= y;
-    case kGt:
-      return x > y;
-    default:
-      return x >= y;
+__device__ __forceinline__ int64_t int_literal(int lo, int hi) {
+  return static_cast<int64_t>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32) |
+      static_cast<uint32_t>(lo));
+}
+
+// (t, u) = (t, u) AND / OR (t2, u2), Kleene: (1, 0) TRUE, (0, 1)
+// UNKNOWN, (0, 0) FALSE; a side that is not FALSE has t | u set
+__device__ __forceinline__ void kleene(int fold, Bit& t, Bit& u, Bit t2,
+                                       Bit u2) {
+  const Bit nf1 = t | u, nf2 = t2 | u2;
+  if (fold == kFoldAnd) {
+    t &= t2;
+    u = nf1 & nf2 & (t ^ 1u);
+  } else {
+    t |= t2;
+    u = (nf1 | nf2) & (t ^ 1u);
   }
 }
 
-__device__ __forceinline__ bool cmp_at(const Program& p, int slot,
-                                       int64_t row, int op, int lit) {
-  if (p.dtype[slot] == kF32 || p.lit_is_float[lit]) {
-    return compare(load_float(p, slot, row), p.flit[lit], op);
+// where the thread's values come from: the shared tile, or device memory
+template <bool kTile, bool kByValue, int R>
+struct Rows {
+  const PredArgs& a;
+  const int32_t* val;     // tile: [slot][R * blockDim]
+  const uint8_t* ok;
+  const uint8_t* is_f32;  // tile: per slot
+  int64_t base;
+  int tile;
+
+  __device__ __forceinline__ bool col_f32(int slot) const {
+    if constexpr (kTile) return is_f32[slot] != 0;
+    return col_desc<kByValue>(a, slot).dtype == kF32;
   }
-  return compare(load_int(p, slot, row), p.ilit[lit], op);
-}
 
-__device__ __forceinline__ bool valid_at(const Program& p, int slot,
-                                         int64_t row) {
-  return p.valid[slot] == nullptr || p.valid[slot][row] != 0;
-}
+  __device__ __forceinline__ void fetch(int slot, int32_t (&v)[R],
+                                        Bit (&valid)[R]) const {
+    if constexpr (kTile) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int i = slot * tile + k * blockDim.x + threadIdx.x;
+        v[k] = val[i];
+        valid[k] = ok[i];
+      }
+    } else {
+      const ColDesc d = col_desc<kByValue>(a, slot);
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int64_t row = base + static_cast<int64_t>(k) * blockDim.x;
+        v[k] = 0;
+        valid[k] = 0;
+        if (row < a.n) {
+          v[k] = load_value(d, row);
+          valid[k] = d.valid == nullptr ? 1u : __ldg(d.valid + row);
+        }
+      }
+    }
+  }
+};
 
-__global__ void pred3vl_mask_kernel(const __grid_constant__ Program p,
-                                    int64_t n, int pack,
-                                    void* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (row >= n) return;  // with pack, n % 32 == 0: whole warps leave
-  uint64_t ts = 0, us = 0;  // stacks of TRUE / UNKNOWN bits
-  int sp = 0;
-  for (int pc = 0; pc < p.n_instr; ++pc) {
-    const int op = p.instr[pc][0];
-    const int slot = p.instr[pc][1];
-    const int a = p.instr[pc][2];
-    const int b = p.instr[pc][3];
-    bool t = false, u = false;
-    if (op == kOpTrue) {
-      t = true;
-    } else if (op == kOpCmp) {
-      const bool v = valid_at(p, slot, row);
-      t = v && cmp_at(p, slot, row, a, b);
-      u = !v;
-    } else if (op == kOpCmpNull) {
-      u = true;
-    } else if (op == kOpIsNull) {
-      t = valid_at(p, slot, row) == (a != 0);
-    } else if (op == kOpIn) {
-      const bool v = valid_at(p, slot, row);
-      const int count = b & 0xffff;
-      const int flags = b >> 16;
-      bool m = false;
-      for (int k = 0; k < count; ++k) m = m || cmp_at(p, slot, row, kEq, a + k);
-      bool tt = m && v;
-      bool ff = !m && v;
-      if (flags & kInHasNull) ff = false;
-      if (flags & kInNegate) {
-        const bool tmp = tt;
+// a leaf's (TRUE, UNKNOWN) pair for the thread's rows (validity ANDed in
+// without a branch: a row's NULL must not make its warp diverge)
+template <bool kTile, bool kByValue, int R>
+__device__ __forceinline__ void leaf(const Rows<kTile, kByValue, R>& rows,
+                                     int4 ins, const int4* lits, int op,
+                                     Bit (&t)[R], Bit (&u)[R]) {
+  const int slot = static_cast<int>(static_cast<uint32_t>(ins.x) >> 12);
+  if (op == kOpCmp) {
+    int32_t v[R];
+    Bit valid[R];
+    rows.fetch(slot, v, valid);
+    const bool col_f32 = rows.col_f32(slot);
+    const int64_t ilit = int_literal(ins.y, ins.z);
+    const float flit = __int_as_float(ins.w);
+    const int mask = (ins.x >> 8) & 15;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      t[k] = valid[k] &
+             compare(v[k], col_f32, ins.x & kLitFloat, ilit, flit, mask);
+      u[k] = valid[k] ^ 1u;
+    }
+  } else if (op == kOpIn) {
+    int32_t v[R];
+    Bit valid[R], m[R];
+    rows.fetch(slot, v, valid);
+    const bool col_f32 = rows.col_f32(slot);
+#pragma unroll
+    for (int k = 0; k < R; ++k) m[k] = 0;
+    const int4* list = lits + ins.y;
+    if (!col_f32 && (ins.x & kSortedInts)) {
+      // an integer column against sorted integers: a binary search of
+      // fixed steps, the same count in every lane
+      int top = 1;
+      while (top <= ins.z) top <<= 1;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        int pos = 0;  // literals below v: list[0 .. pos)
+        for (int step = top >> 1; step > 0; step >>= 1) {
+          if (pos + step <= ins.z) {
+            const int4 lit = list[pos + step - 1];
+            if (int_literal(lit.x, lit.y) < v[k]) pos += step;
+          }
+        }
+        if (pos < ins.z) {
+          const int4 lit = list[pos];
+          m[k] = int_literal(lit.x, lit.y) == v[k];
+        }
+      }
+    } else {
+      // no early exit: a row's match must not make its warp diverge
+#pragma unroll 4
+      for (int j = 0; j < ins.z; ++j) {
+        const int4 lit = list[j];
+        const int64_t ilit = int_literal(lit.x, lit.y);
+        const float flit = __int_as_float(lit.z);
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          m[k] |= compare(v[k], col_f32, lit.w, ilit, flit, kEqMask);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      Bit tt = m[k] & valid[k];
+      Bit ff = (m[k] ^ 1u) & valid[k] & ((ins.x & kHasNull) ? 0u : 1u);
+      if (ins.x & kNegate) {
+        const Bit tmp = tt;
         tt = ff;
         ff = tmp;
       }
-      t = tt;
-      u = !tt && !ff;
-    } else {
-      --sp;
-      const bool t2 = (ts >> sp) & 1u, u2 = (us >> sp) & 1u;
-      if (op == kOpNot) {
-        t = !t2 && !u2;
-        u = u2;
-      } else {
-        --sp;
-        const bool t1 = (ts >> sp) & 1u, u1 = (us >> sp) & 1u;
-        const bool f1 = !t1 && !u1, f2 = !t2 && !u2;
-        bool f;
-        if (op == kOpAnd) {
-          t = t1 && t2;
-          f = f1 || f2;
-        } else {
-          t = t1 || t2;
-          f = f1 && f2;
+      t[k] = tt;
+      u[k] = (tt | ff) ^ 1u;
+    }
+  } else if (op == kOpIsNull) {
+    int32_t v[R];
+    Bit valid[R];
+    rows.fetch(slot, v, valid);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      t[k] = valid[k] ^ ((ins.x & kNegate) ? 0u : 1u);
+      u[k] = 0;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      t[k] = op == kOpTrue;
+      u[k] = op == kOpCmpNull;
+    }
+  }
+}
+
+template <bool kTile, bool kByValue, int R>
+__global__ void __launch_bounds__(kThreads)
+    pred3vl_mask_kernel(const __grid_constant__ PredArgs a,
+                        int prog_in_smem) {
+  extern __shared__ int4 smem[];
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const int tile = R * T;
+  const int n_cols = a.n_cols;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile + tid;
+  const int n_prog = prog_in_smem ? a.n_instr + a.n_lits : 0;
+  auto* s_val = reinterpret_cast<int32_t*>(smem + n_prog);
+  auto* s_ok = reinterpret_cast<uint8_t*>(s_val + (kTile ? n_cols * tile : 0));
+  uint8_t* s_f32 = s_ok + (kTile ? n_cols * tile : 0);
+
+  // prologue: the first program records and every column value in flight
+  // before any of them is stored
+  int4 first = make_int4(0, 0, 0, 0);
+  if (tid < n_prog) first = __ldg(a.prog + tid);
+  if constexpr (kTile) {
+    for (int s0 = 0; s0 < n_cols; s0 += kGroup) {
+      int32_t v[kGroup][R];
+      uint8_t ok[kGroup][R];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          v[j][k] = 0;
+          ok[j][k] = 0;
         }
-        u = !t && !f;
+        if (s0 + j < n_cols) {
+          const ColDesc d = col_desc<kByValue>(a, s0 + j);
+          if (tid == 0) s_f32[s0 + j] = d.dtype == kF32;
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            const int64_t row = base + static_cast<int64_t>(k) * T;
+            if (row < a.n) {
+              v[j][k] = load_value(d, row);
+              ok[j][k] = d.valid == nullptr ? 1 : __ldg(d.valid + row);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        if (s0 + j < n_cols) {
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            s_val[(s0 + j) * tile + k * T + tid] = v[j][k];
+            s_ok[(s0 + j) * tile + k * T + tid] = ok[j][k];
+          }
+        }
       }
     }
-    const uint64_t bit = 1ull << sp;
-    ts = t ? (ts | bit) : (ts & ~bit);
-    us = u ? (us | bit) : (us & ~bit);
-    ++sp;
   }
-  const bool keep = (ts >> (sp - 1)) & 1u;
-  if (pack) {
-    const uint32_t word = __ballot_sync(0xffffffffu, keep);
-    if ((threadIdx.x & 31) == 0) static_cast<uint32_t*>(out)[row >> 5] = word;
-  } else {
-    static_cast<uint8_t*>(out)[row] = keep ? 1 : 0;
+  if (tid < n_prog) smem[tid] = first;
+  for (int i = tid + T; i < n_prog; i += T) smem[i] = __ldg(a.prog + i);
+  __syncthreads();
+
+  const int4* prog = prog_in_smem ? smem : a.prog;
+  const int4* lits = prog + a.n_instr;
+  const Rows<kTile, kByValue, R> rows{a, s_val, s_ok, s_f32, base, tile};
+  Bit top_t[R], top_u[R];   // the top entry
+  uint64_t ts[R], us[R];    // the entries below it: TRUE / UNKNOWN bits
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    top_t[k] = top_u[k] = 0;
+    ts[k] = us[k] = 0;
   }
+  int sp = 0;  // entries below the top
+  int4 ins = prog[0];
+  for (int pc = 0; pc < a.n_instr; ++pc) {
+    // the next record loads while this one runs
+    const int4 next = prog[min(pc + 1, a.n_instr - 1)];
+    const int op = ins.x & 7;
+    if (op < kOpAnd) {
+      Bit t[R], u[R];
+      leaf<kTile, kByValue, R>(rows, ins, lits, op, t, u);
+      const int fold = (ins.x >> 3) & 3;
+      if (fold != kPush) {
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          kleene(fold, top_t[k], top_u[k], t[k], u[k]);
+      } else {
+        if (pc > 0) {  // the first instruction pushes onto an empty stack
+          const uint64_t bit = 1ull << sp;
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            ts[k] = (ts[k] & ~bit) | (static_cast<uint64_t>(top_t[k]) << sp);
+            us[k] = (us[k] & ~bit) | (static_cast<uint64_t>(top_u[k]) << sp);
+          }
+          ++sp;
+        }
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          top_t[k] = t[k];
+          top_u[k] = u[k];
+        }
+      }
+    } else if (op == kOpNot) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) top_t[k] = (top_t[k] | top_u[k]) ^ 1u;
+    } else {
+      --sp;
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        kleene(op == kOpAnd ? kFoldAnd : kFoldOr, top_t[k], top_u[k],
+               static_cast<Bit>(ts[k] >> sp) & 1u,
+               static_cast<Bit>(us[k] >> sp) & 1u);
+    }
+    ins = next;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int64_t row = base + static_cast<int64_t>(k) * T;
+    const bool keep = row < a.n && top_t[k] != 0;
+    if (a.pack) {
+      // n % 32 == 0 and T % 32 == 0: a warp's 32 rows are all in or out
+      const uint32_t word = __ballot_sync(kFull, keep);
+      if ((tid & 31) == 0 && row < a.n)
+        static_cast<uint32_t*>(a.out)[row >> 5] = word;
+    } else if (row < a.n) {
+      static_cast<uint8_t*>(a.out)[row] = keep ? 1 : 0;
+    }
+  }
+}
+
+template <bool kTile, bool kByValue>
+void launch(const PredArgs& a, int r, int grid, int threads, size_t smem,
+            int prog_in_smem, cudaStream_t s) {
+  if (r == 1)
+    pred3vl_mask_kernel<kTile, kByValue, 1>
+        <<<grid, threads, smem, s>>>(a, prog_in_smem);
+  else if (r == 2)
+    pred3vl_mask_kernel<kTile, kByValue, 2>
+        <<<grid, threads, smem, s>>>(a, prog_in_smem);
+  else
+    pred3vl_mask_kernel<kTile, kByValue, 4>
+        <<<grid, threads, smem, s>>>(a, prog_in_smem);
 }
 
 }  // namespace
 
-extern "C" int trt_pred3vl_mask(const int32_t* instr, int n_instr,
-                                const int64_t* ilit, const float* flit,
-                                const int32_t* lit_is_float, int n_lits,
-                                const void* const* data,
-                                const void* const* valid,
-                                const int32_t* dtype, int n_cols,
-                                long long n, int pack, void* out,
+// rows_per_thread: 1, 2 or 4 (R).  The block size is kThreads, halved
+// (down to 32) until the value tile fits kSmemBudget; with no fit the
+// values load where they are used.  The program goes to shared memory
+// when it fits beside the tile.
+// (args points at a PredArgs: a type of this file's unnamed namespace
+// would give the entry point internal linkage)
+extern "C" int trt_pred3vl_mask(const void* args, int rows_per_thread,
                                 void* stream) {
-  if (n <= 0 || n_instr <= 0 || n_instr > kMaxInstr || n_lits < 0 ||
-      n_lits > kMaxLits || n_cols < 0 || n_cols > kMaxCols ||
-      (pack && n % 32 != 0)) {
+  const PredArgs& a = *static_cast<const PredArgs*>(args);
+  const int r = rows_per_thread;
+  if (a.n <= 0 || a.n_instr <= 0 || a.n_lits < 0 || a.n_cols < 0 ||
+      a.prog == nullptr || a.out == nullptr || a.depth < 1 ||
+      a.depth > kMaxDepth || (a.pack && a.n % 32 != 0) ||
+      (a.n_cols > kByValueCols && a.dev_cols == nullptr) ||
+      (r != 1 && r != 2 && r != 4))
     return cudaErrorInvalidValue;
+  int threads = kThreads;
+  size_t tile_bytes = 0;
+  bool tile = false;
+  for (int t = kThreads; t >= 32 && !tile; t /= 2) {
+    const size_t bytes =
+        static_cast<size_t>(a.n_cols) * (5 * static_cast<size_t>(r) * t + 1);
+    if (bytes <= kSmemBudget) {
+      threads = t;
+      tile_bytes = bytes;
+      tile = true;
+    }
   }
-  Program p = {};
-  for (int k = 0; k < n_instr; ++k) {
-    for (int j = 0; j < 4; ++j) p.instr[k][j] = instr[4 * k + j];
-  }
-  for (int k = 0; k < n_lits; ++k) {
-    p.ilit[k] = ilit[k];
-    p.flit[k] = flit[k];
-    p.lit_is_float[k] = lit_is_float[k];
-  }
-  for (int k = 0; k < n_cols; ++k) {
-    p.data[k] = data[k];
-    p.valid[k] = static_cast<const uint8_t*>(valid[k]);
-    p.dtype[k] = dtype[k];
-  }
-  p.n_instr = n_instr;
-  constexpr int kThreads = 256;
-  const int grid = static_cast<int>((n + kThreads - 1) / kThreads);
-  pred3vl_mask_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p, n, pack, out);
+  const size_t prog_bytes =
+      16 * (static_cast<size_t>(a.n_instr) + static_cast<size_t>(a.n_lits));
+  const int prog_in_smem = tile_bytes + prog_bytes <= kSmemBudget;
+  const size_t smem = (prog_in_smem ? prog_bytes : 0) + tile_bytes;
+  const long long per_block = static_cast<long long>(r) * threads;
+  const long long grid = (a.n + per_block - 1) / per_block;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int g = static_cast<int>(grid);
+  const bool by_value = a.n_cols <= kByValueCols;
+  if (tile && by_value)
+    launch<true, true>(a, r, g, threads, smem, prog_in_smem, s);
+  else if (tile)
+    launch<true, false>(a, r, g, threads, smem, prog_in_smem, s);
+  else if (by_value)
+    launch<false, true>(a, r, g, threads, smem, prog_in_smem, s);
+  else
+    launch<false, false>(a, r, g, threads, smem, prog_in_smem, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,10 +54,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "trt_dict_decode": [_P, _I, _L, _I, _P, _I, _I, _P, _P, _P, _P],
     },
     "pred3vl_mask": {
-        # instr, n_instr, ilit, flit, lit_is_float, n_lits, data ptrs,
-        # valid ptrs, dtypes, n_cols, n, pack, out, stream
-        "trt_pred3vl_mask": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _L,
-                             _I, _P, _P],
+        # PredArgs (a host struct, passed on by value), rows_per_thread,
+        # stream
+        "trt_pred3vl_mask": [_P, _I, _P],
     },
     "rowhash": {
         # LaneArgs (a host struct, passed on by value), stream

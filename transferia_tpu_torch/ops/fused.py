@@ -159,9 +159,9 @@ class FusedMaskFilterProgram:
 
     # lowered predicate programs shared across instances, keyed by the
     # predicate AST repr (frozen dataclasses — the repr is the full
-    # content).  Bounded FIFO: a long-lived worker cycling through
-    # transfers with distinct predicate constants must not pin a program
-    # per constant forever.
+    # content), each with its table on the cards that run it.  Bounded
+    # FIFO: a long-lived worker cycling through transfers with distinct
+    # predicate constants must not pin a program per constant forever.
     _program_cache: dict = {}
     _PROGRAM_CACHE_MAX = 64
     _cache_lock = threading.Lock()
@@ -173,14 +173,16 @@ class FusedMaskFilterProgram:
                         for k in mask_keys]
         self._pred = None
         if pred_node is not None:
-            self._pred = self._lowered(pred_node)
+            self._pred = self._lowered(pred_node, (self.device,))
         self._copy_stream = self._compute_stream = None
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
             self._compute_stream = torch.cuda.Stream(self.device)
 
     @classmethod
-    def _lowered(cls, pred_node):
+    def _lowered(cls, pred_node, devices):
+        """The cached program of `pred_node`, its table uploaded to
+        each CUDA device of `devices` (once per program and device)."""
         from transferia_tpu_torch.predicate.device import (
             compile_mask_program,
         )
@@ -193,7 +195,10 @@ class FusedMaskFilterProgram:
                 while len(cls._program_cache) >= cls._PROGRAM_CACHE_MAX:
                     cls._program_cache.pop(next(iter(cls._program_cache)))
                 cls._program_cache[key] = program
-            return program
+        for dev in devices:
+            if dev.type == "cuda":
+                program.on_device(dev)
+        return program
 
     def run(self, mask_cols: Sequence[tuple[np.ndarray, np.ndarray]],
             pred_cols: dict[str, tuple[np.ndarray, Optional[np.ndarray]]],

@@ -123,6 +123,9 @@ def digest_gather(table: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return digest_gather_plain(table, codes)
     _build.require(dev.type == "cuda", f"unsupported device {dev}")
+    _build.require(table.data_ptr() % 16 == 0,
+                   "the kernel reads the table in 16-byte rows: it must be "
+                   "16-byte aligned")
     out = torch.empty((n, 8), dtype=torch.int32, device=dev)
     if n == 0:
         return out
@@ -169,7 +172,7 @@ class ShardedFusedProgram:
         physical = list(self.mesh.shards_by_device())
         self._states = [{d: _hmac_key_states(bytes(k), d) for d in physical}
                         for k in mask_keys]
-        self._pred = (FusedMaskFilterProgram._lowered(pred_node)
+        self._pred = (FusedMaskFilterProgram._lowered(pred_node, physical)
                       if pred_node is not None else None)
         self.last_kept: int = 0
         self.last_shard_hist: Optional[np.ndarray] = None

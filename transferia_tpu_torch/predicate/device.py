@@ -19,6 +19,8 @@ integer; a float32 column, or any float literal, compares in float32.
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import Optional
 
 import numpy as np
@@ -109,16 +111,19 @@ def _literal_device_safe(v, ctype: CanonicalType) -> bool:
 
 # -- lowering to the kernel's postfix program ---------------------------------
 
-# limits of the kernel's by-value parameter block (csrc/pred3vl_mask.cu)
-MAX_INSTR = 128
-MAX_LITS = 64
-MAX_COLS = 16
-MAX_DEPTH = 64
-
 OP_TRUE, OP_CMP, OP_CMP_NULL, OP_ISNULL, OP_IN, OP_AND, OP_OR, OP_NOT = \
     range(8)
-_CMP_CODES = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
-IN_NEGATE, IN_HAS_NULL = 1, 2
+# a leaf's fold: push its pair, or combine it into the top entry
+PUSH, FOLD_AND, FOLD_OR = range(3)
+# bit 7: a comparison's literal is a float; an IN list's literals are all
+# integers, sorted and distinct (an integer column binary-searches them)
+NEGATE, HAS_NULL, LIT_FLOAT, SORTED_INTS = 1 << 5, 1 << 6, 1 << 7, 1 << 7
+# a comparison's outcome mask: bit 0 x < y, bit 1 x == y, bit 2 x > y,
+# bit 3 unordered (a NaN, where only != holds)
+CMP_MASKS = {"=": 0b0010, "!=": 0b1101, "<": 0b0001, "<=": 0b0011,
+             ">": 0b0100, ">=": 0b0110}
+MAX_SLOTS = 1 << 20   # the slot's 20 bits of an instruction word
+M32 = 0xFFFFFFFF
 
 # column dtype codes of the kernel
 _DTYPE_CODES = {
@@ -126,85 +131,202 @@ _DTYPE_CODES = {
     torch.uint16: 4, torch.int32: 5, torch.float32: 6,
 }
 
+# K-C's launch arguments (csrc/pred3vl_mask.cu ColDesc, PredArgs; the
+# source static_asserts the same sizes and offsets)
+BY_VALUE_COLS = 16   # kByValueCols; more columns' descriptors go to the card
+ROWS_PER_THREAD = 1  # R, rows a thread takes: 1, 2 or 4 (1 was fastest)
+
+
+class ColDesc(ctypes.Structure):
+    """One column of a K-C launch: data, validity (0: all valid), dtype."""
+
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("dtype", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+class PredArgs(ctypes.Structure):
+    """K-C's `__grid_constant__` argument: up to BY_VALUE_COLS
+    descriptors by value, or `dev_cols` pointing at them on the card."""
+
+    _fields_ = [("cols", ColDesc * BY_VALUE_COLS),
+                ("dev_cols", ctypes.c_void_p), ("prog", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("n_instr", ctypes.c_int32), ("n_lits", ctypes.c_int32),
+                ("n_cols", ctypes.c_int32), ("pack", ctypes.c_int32),
+                ("depth", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+def _is_leaf(node: Node) -> bool:
+    return isinstance(node, (TrueNode, IsNull, InList, Cmp))
+
+
+def _list_values(node: Node, negate: bool) -> Optional[tuple]:
+    """The literals of `node` as an IN list (NOT IN when `negate`), or
+    None: `col = v` is `col IN (v)`, `col != v` is `col NOT IN (v)`."""
+    if isinstance(node, InList) and node.negate == negate:
+        return node.values
+    if (isinstance(node, Cmp) and node.value is not None
+            and node.op == ("!=" if negate else "=")):
+        return (node.value,)
+    return None
+
+
+def _merge_lists(parts, is_and: bool) -> list[Node]:
+    """The parts of an OR with every column's equalities and IN lists
+    merged into one IN list, or of an AND with its inequalities and NOT
+    IN lists merged into one NOT IN: the same Kleene value (a NULL
+    literal in any of them keeps the list from being FALSE), one
+    instruction and one pass over the literals."""
+    lists: dict[str, list] = {}
+    out: list[Node] = []
+    for p in parts:
+        values = _list_values(p, is_and)
+        if values is None:
+            out.append(p)
+        else:
+            lists.setdefault(p.column, []).append((p, values))
+    for column, members in lists.items():
+        out.append(members[0][0] if len(members) == 1 else InList(
+            column, tuple(v for _, vs in members for v in vs), is_and))
+    return out
+
+
+def _need(node: Node) -> int:
+    """Stack entries that evaluating `node` takes at most, children
+    emitted in Sethi-Ullman order (PredProgram._emit)."""
+    if isinstance(node, (And, Or)):
+        needs = sorted((_need(p) for p in node.parts), reverse=True)
+        return max(needs[0], 1 + needs[1]) if len(needs) > 1 else needs[0]
+    if isinstance(node, Not):
+        return _need(node.inner)
+    return 2 if isinstance(node, Between) else 1
+
 
 class PredProgram:
-    """A predicate lowered for K-C: postfix instructions {op, slot, a, b}
-    over column slots (`columns`, sorted names) and a literal table."""
+    """A predicate lowered for K-C: `code`, one (n_instr + n_lits, 4)
+    int32 table of 16-byte records over column slots (`columns`, sorted
+    names): `n_instr` postfix instructions {word, y, z, w}, then the
+    `n_lits` literals of IN lists {int64 low word, high word, float32
+    bits, is_float}.  word = op | fold << 3 | flags (NEGATE, HAS_NULL,
+    LIT_FLOAT or SORTED_INTS) | compare mask << 8 | slot << 12; a
+    comparison carries its literal (y, z the int64 words, w the float32
+    bits), an IN its literals' first index (y) and count (z).  `max_depth` is the most
+    stack entries the program holds.  The table goes to each card once
+    (`on_device`)."""
 
     def __init__(self, node: Node):
         self.node = node
         self.columns: tuple[str, ...] = tuple(sorted(node.columns()))
         self._slot = {c: i for i, c in enumerate(self.columns)}
         self._instrs: list[tuple[int, int, int, int]] = []
-        self._ilits: list[int] = []
-        self._flits: list[float] = []
-        self._lit_is_float: list[int] = []
+        self._lits: list[tuple[int, int, int, int]] = []
         self._depth = 0
         self.max_depth = 0
         self._emit(node)
-        if (len(self._instrs) > MAX_INSTR or len(self._ilits) > MAX_LITS
-                or len(self.columns) > MAX_COLS
-                or self.max_depth > MAX_DEPTH):
-            raise ValueError(
-                f"predicate too large for the device kernel "
-                f"({len(self._instrs)} instructions > {MAX_INSTR}, "
-                f"{len(self._ilits)} literals > {MAX_LITS}, "
-                f"{len(self.columns)} columns > {MAX_COLS} or depth "
-                f"{self.max_depth} > {MAX_DEPTH}): {node!r}")
-        self.instrs = np.array(self._instrs, dtype=np.int32).reshape(-1, 4)
-        self.ilits = np.array(self._ilits, dtype=np.int64)
-        self.flits = np.array(self._flits, dtype=np.float32)
-        self.lit_is_float = np.array(self._lit_is_float, dtype=np.int32)
+        self.n_instr, self.n_lits = len(self._instrs), len(self._lits)
+        self.code = np.array(self._instrs + self._lits, dtype=np.uint32
+                             ).view(np.int32).reshape(-1, 4)
+        self._on_device: dict[torch.device, torch.Tensor] = {}
+        self._upload_lock = threading.Lock()
 
-    def _push(self, op: int, slot: int = 0, a: int = 0, b: int = 0,
-              pops: int = 0) -> None:
-        self._instrs.append((op, slot, a, b))
-        self._depth += 1 - pops
+    def on_device(self, device: torch.device) -> torch.Tensor:
+        """The program table on a CUDA device, uploaded at first use."""
+        with self._upload_lock:
+            table = self._on_device.get(device)
+            if table is None:
+                table = torch.from_numpy(self.code).to(device)
+                self._on_device[device] = table
+            return table
+
+    def _push(self, word: int, y: int = 0, z: int = 0, w: int = 0,
+              depth: int = 1) -> None:
+        """Emit one instruction that changes the depth by `depth`."""
+        self._instrs.append((word & M32, y & M32, z & M32, w & M32))
+        self._depth += depth
         self.max_depth = max(self.max_depth, self._depth)
 
-    def _literal(self, v) -> int:
+    def _slot_word(self, op: int, column: str, fold: int, flags: int = 0,
+                   mask: int = 0) -> int:
+        slot = self._slot[column]
+        if slot >= MAX_SLOTS:
+            raise ValueError(f"predicate over more than {MAX_SLOTS} "
+                             f"columns")
+        return op | fold << 3 | flags | mask << 8 | slot << 12
+
+    @staticmethod
+    def _literal_words(v) -> tuple[int, int, int, bool]:
+        """(int64 low word, high word, float32 bits, is_float)."""
         is_float = isinstance(v, float)
-        self._ilits.append(0 if is_float else int(v))
-        self._flits.append(float(np.float32(v)))
-        self._lit_is_float.append(int(is_float))
-        return len(self._ilits) - 1
+        lo, hi = np.array([0 if is_float else int(v)],
+                          dtype=np.int64).view(np.int32).tolist()
+        bits = int(np.array(v, dtype=np.float32).view(np.int32))
+        return lo, hi, bits, is_float
 
     def _emit(self, node: Node) -> None:
-        if isinstance(node, TrueNode):
-            self._push(OP_TRUE)
-        elif isinstance(node, (And, Or)):
-            op = OP_AND if isinstance(node, And) else OP_OR
-            self._emit(node.parts[0])
-            for p in node.parts[1:]:
-                # Kleene AND/OR are associative: fold pairwise
-                self._emit(p)
-                self._push(op, pops=2)
+        """Emit `node`, pushing one entry."""
+        if isinstance(node, (And, Or)):
+            # Kleene AND/OR are associative and commutative and evaluate
+            # every part: fold pairwise, the part with the largest stack
+            # need first (Sethi-Ullman), so the depth grows at most by one
+            # per doubling of the leaves; a leaf part folds in directly
+            is_and = isinstance(node, And)
+            parts = sorted(_merge_lists(node.parts, is_and), key=_need,
+                           reverse=True)
+            self._emit(parts[0])
+            for p in parts[1:]:
+                if _is_leaf(p):
+                    self._leaf(p, FOLD_AND if is_and else FOLD_OR)
+                else:
+                    self._emit(p)
+                    self._push(OP_AND if is_and else OP_OR, depth=-1)
         elif isinstance(node, Not):
             self._emit(node.inner)
-            self._push(OP_NOT, pops=1)
-        elif isinstance(node, IsNull):
-            self._push(OP_ISNULL, self._slot[node.column], int(node.negate))
+            self._push(OP_NOT, depth=0)
         elif isinstance(node, Between):
             self._emit(And((Cmp(node.column, ">=", node.low),
                             Cmp(node.column, "<=", node.high))))
+        else:
+            self._leaf(node, PUSH)
+
+    def _leaf(self, node: Node, fold: int) -> None:
+        """Emit a leaf that pushes its pair or folds into the top."""
+        depth = 1 if fold == PUSH else 0
+        if isinstance(node, TrueNode):
+            self._push(OP_TRUE | fold << 3, depth=depth)
+        elif isinstance(node, IsNull):
+            self._push(self._slot_word(OP_ISNULL, node.column, fold,
+                                       NEGATE if node.negate else 0),
+                       depth=depth)
         elif isinstance(node, InList):
             lits = [v for v in node.values if v is not None]
-            first = len(self._ilits)
+            has_null = len(lits) < len(node.values)
+            sorted_ints = not any(isinstance(v, float) for v in lits)
+            if sorted_ints:
+                # membership ignores order and repeats
+                lits = sorted({int(v) for v in lits})
+            first = len(self._lits)
             for v in lits:
-                self._literal(v)
-            flags = ((IN_NEGATE if node.negate else 0)
-                     | (IN_HAS_NULL if len(lits) < len(node.values) else 0))
-            self._push(OP_IN, self._slot[node.column], first,
-                       len(lits) | flags << 16)
+                lo, hi, bits, is_float = self._literal_words(v)
+                self._lits.append((lo & M32, hi & M32, bits & M32,
+                                   int(is_float)))
+            flags = ((NEGATE if node.negate else 0)
+                     | (HAS_NULL if has_null else 0)
+                     | (SORTED_INTS if sorted_ints else 0))
+            self._push(self._slot_word(OP_IN, node.column, fold, flags),
+                       first, len(lits), depth=depth)
         elif isinstance(node, Cmp):
             if node.value is None:
                 # col <op> NULL is always UNKNOWN
-                self._push(OP_CMP_NULL, self._slot[node.column])
-            elif node.op not in _CMP_CODES:
+                self._push(self._slot_word(OP_CMP_NULL, node.column, fold),
+                           depth=depth)
+            elif node.op not in CMP_MASKS:
                 raise ValueError(f"unsupported device op {node.op!r}")
             else:
-                self._push(OP_CMP, self._slot[node.column],
-                           _CMP_CODES[node.op], self._literal(node.value))
+                lo, hi, bits, is_float = self._literal_words(node.value)
+                self._push(self._slot_word(
+                    OP_CMP, node.column, fold,
+                    LIT_FLOAT if is_float else 0, CMP_MASKS[node.op]),
+                    lo, hi, bits, depth=depth)
         else:
             raise TypeError(f"unknown predicate node {node!r}")
 
@@ -260,24 +382,40 @@ def pred3vl_mask(program: PredProgram, cols: list[DeviceCol], n: int,
     _build.require(dev.type == "cuda", f"unsupported device {dev}")
     out = (torch.empty(n // 32, dtype=torch.int32, device=dev) if pack_keep
            else torch.empty(n, dtype=torch.bool, device=dev))
-    n_cols = len(cols)
-    data_ptrs = np.array([d.data_ptr() for d, _ in cols] or [0],
-                         dtype=np.uint64)
-    valid_ptrs = np.array([0 if v is None else v.data_ptr()
-                           for _, v in cols] or [0], dtype=np.uint64)
-    dtypes = np.array([_DTYPE_CODES[d.dtype] for d, _ in cols] or [0],
-                      dtype=np.int32)
-    lib = _build.library("pred3vl_mask")
-    rc = lib.trt_pred3vl_mask(
-        program.instrs.ctypes.data, len(program.instrs),
-        program.ilits.ctypes.data, program.flits.ctypes.data,
-        program.lit_is_float.ctypes.data, len(program.ilits),
-        data_ptrs.ctypes.data, valid_ptrs.ctypes.data,
-        dtypes.ctypes.data, n_cols, n, int(pack_keep), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "pred3vl_mask")
+    _launch(program, cols, n, pack_keep, out, ROWS_PER_THREAD)
     _build.count_launch("pred3vl_mask")
     return out
+
+
+def _launch(program: PredProgram, cols: list[DeviceCol], n: int,
+            pack_keep: bool, out: torch.Tensor, rows_per_thread: int
+            ) -> None:
+    """One K-C launch on the current stream of `out`'s device (checked
+    arguments; `rows_per_thread` is R)."""
+    dev = out.device
+    stream = torch.cuda.current_stream(dev)
+    table = program.on_device(dev)
+    # launches on other streams than the upload's keep the table alive
+    table.record_stream(stream)
+    args = PredArgs(prog=table.data_ptr(), out=out.data_ptr(), n=n,
+                    n_instr=program.n_instr, n_lits=program.n_lits,
+                    n_cols=len(cols), pack=int(pack_keep),
+                    depth=program.max_depth)
+    descs = [ColDesc(d.data_ptr(), _build.ptr(v), _DTYPE_CODES[d.dtype])
+             for d, v in cols]
+    if len(descs) <= BY_VALUE_COLS:
+        args.cols[:len(descs)] = descs
+    else:
+        # the pinned copy is held by PyTorch's host allocator until the
+        # copy recorded on this stream has run
+        dev_cols = torch.frombuffer(
+            bytearray((ColDesc * len(descs))(*descs)), dtype=torch.uint8
+        ).pin_memory().to(dev, non_blocking=True)
+        args.dev_cols = dev_cols.data_ptr()
+    lib = _build.library("pred3vl_mask")
+    rc = lib.trt_pred3vl_mask(ctypes.addressof(args), rows_per_thread,
+                              stream.cuda_stream)
+    _build.check(lib, rc, "pred3vl_mask")
 
 
 def eval3_torch(node: Node, cols: dict[str, DeviceCol], n: int,
