@@ -17,7 +17,7 @@ final line):
      1,000 launches back to back, two streams in flight and a launch
      whose error comes back after it ran, also against torch.bincount;
      K-C also at row counts that are not a multiple of a block's rows
-     or of 32 x R, with validity on every dtype and without, and over
+     or of 32, with validity on every dtype and without, and over
      predicates of any size on 320 columns (a 70-literal OR, IN of 70
      and of 4,000 literals, NOT IN with NULL, an AND over 20 and over 320
      columns, a 70-deep nesting, 70 comparisons); the digest gather at
@@ -86,10 +86,11 @@ final line):
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
      against the SASS instructions counted from this run's build: K-A's
      compression loop, K10's paths, K12's thread, the histogram's warp
-     step, K-C's interpreter passes, the gather's thread); K-C also with
-     validity, with the 70-literal OR and 70 comparisons, and at R = 1,
-     2 and 4 rows a thread; and the launch floor, probe.cu's empty
-     kernel timed alike.
+     step, the gather's thread; K-C against the compares and folds its
+     predicate needs, its interpreter's SASS count reported beside
+     them); K-C also with validity, with the 70-literal OR and 70
+     comparisons; and the launch floor, probe.cu's empty kernel timed
+     alike.
 Each path names the kernels it must launch (PATH_KERNELS); the launch
 counts are zeroed just before the path runs and read just after it, and
 a kernel of the path that never launched fails the run.  Any failure
@@ -195,11 +196,14 @@ from transferia_tpu_torch.parallel.mesh import (
 )
 from transferia_tpu_torch.predicate import compile_mask, parse
 from transferia_tpu_torch.predicate.device import (
+    HAS_NULL,
     OP_AND,
+    OP_CMP,
+    OP_CMP_NULL,
     OP_IN,
-    ROWS_PER_THREAD,
-    SORTED_INTS,
-    _launch as pred3vl_launch,
+    OP_ISNULL,
+    OP_NOT,
+    OP_OR,
     compile_mask_program,
     device_compatible,
     eval3_torch,
@@ -578,14 +582,14 @@ def pred_columns(n: int, seed: int) -> dict[str, tuple[np.ndarray,
 
 
 # row counts: a whole bucket, and counts that are not a multiple of a
-# block's rows (R x blockDim) or, packed, of 32 x R
+# block's rows or, packed, of 32
 PRED_NS = (32768, 999, 544, 33, 1)
 # predicates of any size over WIDE_COLS columns of every dtype (a fourth
 # of them with validity): more than 64 literals and 128 instructions
 # (the earlier by-value program's limits), more columns than K-C takes
 # by value, a 70-deep nesting, a program too large for a block's shared
 # memory (4,000 literals, 64 KB), and more columns than the value tile
-# holds (305 at R = 1 and 32 threads)
+# holds (305 at 32 threads)
 WIDE_TYPES = ("boolean", "int8", "uint8", "int16", "uint16", "int32", "float")
 WIDE_COLS = 320
 WIDE_SCHEMA = new_table_schema([(f"w{k}", WIDE_TYPES[k % len(WIDE_TYPES)])
@@ -2454,26 +2458,21 @@ def hist_ops(counts: dict, n: int, n_shards: int) -> dict:
             for k in ("alu", "all")}
 
 
-K_C_ROWS_PER_THREAD = (1, 2, 4)
-
-
-def sass_pred3vl(text: str, rows_per_thread: int) -> dict:
+def sass_pred3vl(text: str) -> dict:
     """K-C's thread instructions (ALU pipe, every instruction) in the
-    kernel the main path launches (value tile, descriptors by value, R
-    rows a thread), each the fewest on its path:
+    kernel the main path launches (value tile, descriptors by value),
+    each the fewest on its path:
     - entry: from the start through a 32-bit column load and the block
       barrier to the interpreter loop;
     - leaf: one pass of the interpreter loop through a load of the value
-      tile (a comparison, IN or IS NULL), the IN loops passed over;
+      tile (a comparison, IN or IS NULL), the IN scan passed over;
     - connective: one pass that loads nothing from the tile (AND, OR,
       NOT, TRUE);
     - in_literal: the IN literal scan's instructions over its literal
-      loads (a float column or literal);
-    - in_search_step: one step of the binary searches of a sorted
-      integer IN list, for the thread's R rows;
+      loads;
     - exit: from the loop to the end through the store of the mask.
     Raises where no such loop or path is found."""
-    sass = Sass(text, f"pred3vl_mask_kernelILb1ELb1ELi{rows_per_thread}E")
+    sass = Sass(text, "pred3vl_mask_kernelILb1ELb1EE")
     bar = next(i for i, op in enumerate(sass.ops) if op.startswith("BAR"))
     loop = max((r for r in sass.loops() if r[0] > bar),
                key=lambda r: r[1] - r[0], default=None)
@@ -2481,59 +2480,77 @@ def sass_pred3vl(text: str, rows_per_thread: int) -> dict:
         raise AssertionError("no interpreter loop in K-C's SASS")
     kids = sass.children(loop)
 
-    def loads(r, bits):
+    def loads(r):
         return sum(sass.ops[i].startswith("LD")
-                   and width_of(sass.ops[i]) == bits
+                   and width_of(sass.ops[i]) == 128
                    for i in range(r[0], r[1] + 1))
-    # the scan reads whole 16-byte literals, four a pass; a search step
-    # reads a literal's int64 only
-    scans = [r for r in kids if loads(r, 128) > 1]
-    searches = [r for r in kids if loads(r, 64) == 1 and not loads(r, 128)]
-    if len(scans) != 1 or len(searches) != rows_per_thread:
-        raise AssertionError("K-C's IN loops not found in its SASS")
-    lit64 = (lambda ins: Sass.opcode(ins).startswith("LD")
-             and width_of(Sass.opcode(ins)) == 64,)
+    # the scan reads whole 16-byte literals, four a pass
+    scans = [r for r in kids if loads(r) > 1]
+    if len(scans) != 1:
+        raise AssertionError("K-C's IN scan not found in its SASS")
     tile = lambda ins: Sass.opcode(ins) == "LDS"  # noqa: E731
     end = max(i for i, op in enumerate(sass.ops) if op == "EXIT")
-    search = [sass.alu(*r, must=lit64) for r in searches]
     per = {
         "entry": sass.alu(0, loop[0] - 1, must=(is_ldg(32), is_op("BAR"))),
         "leaf": sass.alu(*loop, must=(tile,), skip=kids),
         "connective": sass.alu(*loop, avoid=(tile, is_op("LDS.U8")),
                                skip=kids),
         "exit": sass.alu(loop[1] + 1, end, must=(is_op("STG"),)),
-        "in_literal": tuple(v / loads(scans[0], 128)
+        "in_literal": tuple(v / loads(scans[0])
                             for v in sass.alu(*scans[0])),
-        "in_search_step": tuple(sum(v) for v in zip(*search)),
     }
     return {k: {"alu": a, "all": t} for k, (a, t) in per.items()}
 
 
-def pred_ops(program, n: int, counts: dict, rows_per_thread: int,
-             f32_slots=()) -> dict:
-    """K-C's lane operations over n rows: every thread's entry and exit,
-    a leaf or connective pass a program instruction, and each IN list's
-    literals, scanned or (sorted integers against an integer column)
-    binary-searched, a step for each bit of the list's length (SASS
-    counts from sass_pred3vl for R = rows_per_thread; `f32_slots`, the
-    float32 columns' slots)."""
-    c = counts[str(rows_per_thread)]
-    words = program.code[:program.n_instr].view(np.uint32)
-    leaves = int(((words[:, 0] & 7) < OP_AND).sum())
-    threads = -(-n // rows_per_thread)
-    out = {}
-    for k in ("alu", "all"):
-        per = (c["entry"][k] + c["exit"][k] + leaves * c["leaf"][k]
-               + (program.n_instr - leaves) * c["connective"][k])
-        for word, _, count, _ in words.tolist():
-            if word & 7 != OP_IN:
-                continue
-            if word & SORTED_INTS and (word >> 12) not in f32_slots:
-                per += count.bit_length() * c["in_search_step"][k]
-            else:
-                per += count * c["in_literal"][k]
-        out[k] = threads * per
-    return out
+def program_words(program) -> list:
+    """The program's instruction records as (word, y, z, w) of uint32."""
+    return program.code[:program.n_instr].view(np.uint32).tolist()
+
+
+def interpreter_ops(program, n: int, counts: dict) -> dict:
+    """The lane instructions K-C's interpreter issues over n rows, a row a
+    thread: every thread's entry and exit, a leaf or connective pass a
+    program instruction and a scan step an IN literal (SASS counts from
+    sass_pred3vl).  The cost of the design, reported beside the bound,
+    not the bound: function_ops is what the predicate needs."""
+    words = program_words(program)
+    leaves = sum((w & 7) < OP_AND for w, *_ in words)
+    in_lits = sum(z for w, _, z, _ in words if w & 7 == OP_IN)
+    return {k: n * (counts["entry"][k] + counts["exit"][k]
+                    + leaves * counts["leaf"][k]
+                    + (len(words) - leaves) * counts["connective"][k]
+                    + in_lits * counts["in_literal"][k])
+            for k in ("alu", "all")}
+
+
+def function_ops(program, slots: list, n: int) -> int:
+    """The lane operations the predicate itself needs over n rows: a
+    compare a comparison, one a literal of an IN list, one an IS NULL;
+    two more a leaf whose column has validity (its TRUE and FALSE
+    masks); a fold a connective or folded leaf, one where no row can be
+    UNKNOWN (two-valued logic) and two on Kleene's (TRUE, FALSE) pairs
+    (NOT a swap, free); a ballot a 32-row word.  No decode, dispatch,
+    staging or address arithmetic."""
+    words = program_words(program)
+    kleene = any(
+        (w & 7 in (OP_CMP, OP_IN, OP_ISNULL)
+         and slots[w >> 12][1] is not None)
+        or w & 7 == OP_CMP_NULL or (w & 7 == OP_IN and w & HAS_NULL)
+        for w, *_ in words)
+    per_row = 0
+    for w, _, z, _ in words:
+        op, fold = w & 7, (w >> 3) & 3
+        if op in (OP_CMP, OP_ISNULL):
+            per_row += 1
+        elif op == OP_IN:
+            per_row += z
+        if op in (OP_CMP, OP_IN) and slots[w >> 12][1] is not None:
+            per_row += 2
+        if fold or op in (OP_AND, OP_OR):
+            per_row += 2 if kleene else 1
+        elif op == OP_NOT and not kleene:
+            per_row += 1
+    return n * per_row + n // 32
 
 
 def sass_digest_gather(text: str) -> dict:
@@ -2559,8 +2576,7 @@ def sass_counts(builds: dict) -> dict:
             "ragged_pack": sass_ragged_pack(text["raggedpack"]),
             "shard_hist": sass_shard_hist(text["mesh"], False),
             "shard_hist_step": sass_shard_hist(text["mesh"], True),
-            "pred3vl_mask": {str(r): sass_pred3vl(text["pred3vl_mask"], r)
-                             for r in K_C_ROWS_PER_THREAD},
+            "pred3vl_mask": sass_pred3vl(text["pred3vl_mask"]),
             "digest_gather": sass_digest_gather(text["mesh"])}
 
 
@@ -2578,46 +2594,31 @@ CMP70 = rare_cmps(("RegionID", "ResolutionWidth"), (0, 360), (499, 2560),
                   (1, 10))
 
 
-def pred_call(text: str, cols: dict, n: int, counts: dict, dev,
-              rows_per_thread: Optional[int] = None) -> tuple:
+def pred_call(text: str, cols: dict, n: int, counts: dict, dev) -> tuple:
     """K-C over n rows of `cols` (name -> (data, validity or None)),
-    the keep mask packed, as the main path launches it (the wrapper's R,
-    or `rows_per_thread` through the launch itself), beside its plain
+    the keep mask packed, as the main path launches it, beside its plain
     version.  Bytes: each referenced column's data and validity read
     once, the program table read once, the packed mask written once.
-    Operations: pred_ops."""
+    Operations: function_ops; the interpreter's SASS count
+    (interpreter_ops) is reported beside them."""
     program = compile_mask_program(parse(text))
     slots = [cols[c] for c in program.columns]
-    r = ROWS_PER_THREAD if rows_per_thread is None else rows_per_thread
-    if rows_per_thread is None:
-        def kernel():
-            return pred3vl_mask(program, slots, n, True, dev)
-    else:
-        out = torch.empty(n // 32, dtype=torch.int32, device=dev)
-
-        def kernel():
-            pred3vl_launch(program, slots, n, True, out, r)
-            return out
     n_bytes = (sum(d[:n].numel() * d.element_size()
                    + (0 if v is None else n) for d, v in slots)
                + program.code.nbytes + n // 8)
-    ops = pred_ops(program, n, counts, r,
-                   {i for i, (d, _) in enumerate(slots)
-                    if d.dtype == torch.float32})
-    return (kernel,
+    return (lambda: pred3vl_mask(program, slots, n, True, dev),
             lambda: pack_mask_words(eval3_torch(
                 program.node, dict(zip(program.columns, slots)), n, dev), n),
-            None, bound(n_bytes, ops["alu"]),
-            {"bound_ms_all_instructions": bound(n_bytes, ops["all"])[0],
-             "lane_ops": ops, "instructions": program.n_instr,
-             "literals": program.n_lits, "rows_per_thread": r})
+            None, bound(n_bytes, function_ops(program, slots, n)),
+            {"function_ops": function_ops(program, slots, n),
+             "interpreter_ops": interpreter_ops(program, n, counts),
+             "instructions": program.n_instr, "literals": program.n_lits})
 
 
 def pred_timing(cols: dict, n: int, counts: dict, dev) -> dict:
     """K-C at the main path's bucket beside the main-path call: with a
-    validity mask on both columns, with the 70-literal OR on RegionID,
-    with 70 comparisons, and the main path's program at each
-    rows-per-thread R."""
+    validity mask on both columns, with the 70-literal OR on RegionID
+    and with 70 comparisons."""
     rng = np.random.default_rng(23)
     valid = {c: (d, torch.from_numpy(rng.random(d.numel()) > 0.1).to(dev))
              for c, (d, _) in cols.items()}
@@ -2629,10 +2630,6 @@ def pred_timing(cols: dict, n: int, counts: dict, dev) -> dict:
                       "pred3vl_mask with the 70-literal OR"),
         "cmp70": timed(pred_call(CMP70, cols, n, counts, dev), dev,
                        "pred3vl_mask with 70 comparisons"),
-        "rows_per_thread": {
-            str(r): timed(pred_call(text, cols, n, counts, dev, r), dev,
-                          f"pred3vl_mask at R={r}")
-            for r in K_C_ROWS_PER_THREAD},
     }
 
 

@@ -22,8 +22,7 @@
 //   CMP_NULL               col op NULL: always UNKNOWN
 //   ISNULL slot negate     T = valid == negate, U = false
 //   IN   slot first count  SQL IN over the literals y .. y + z - 1
-//                          (flags: NOT, a NULL literal, sorted integers:
-//                          an integer column binary-searches them)
+//                          (flags: NOT, a NULL literal), scanned in order
 //   AND / OR               binary Kleene fold of the top two entries
 //   NOT                    T = !T & !U, U kept
 // A leaf (TRUE, CMP, CMP_NULL, ISNULL, IN) pushes its pair, or with a fold
@@ -49,35 +48,35 @@
 // word k = row 32k+j; n must then be a multiple of 32.
 //
 // Bound on an H100: a few bytes per row per referenced column read once,
-// one bit (packed) or byte written; at the main path's bucket the launch,
-// the parameters' and the columns' round trips to memory, then the
-// interpreter's instructions (chip_smoke.py counts them from the SASS).
+// one bit (packed) or byte written, and a compare a literal and a fold a
+// connective per row.  At the main path's bucket the time goes to the
+// launch, the parameters' and the columns' round trips to memory, then
+// the interpreter's instructions (chip_smoke.py counts them from the
+// SASS).
 //
 // Design:
 //   - Column descriptors by value (__grid_constant__) up to
 //     kByValueCols columns; wider predicates point at a descriptor array
 //     on the card, which the wrapper copies there with the launch.
-//   - A thread takes R rows, row = block base + k * blockDim + tid, so a
-//     warp's loads and stores of one k are coalesced and one ballot packs
-//     a word.  The wrapper launches R = 1: at the main path's bucket the
-//     kernel waits on memory and on the interpreter's dependent steps,
-//     and fewer warps hide less of either (R = 2 and 4 were slower on
-//     every program timed, PERF.md).
+//   - One row a thread, so a warp's loads and stores are coalesced and
+//     one ballot packs a word.  At the main path's bucket the kernel
+//     waits on memory and on the interpreter's dependent steps, and
+//     fewer warps hide less of either (2 and 4 rows a thread were slower
+//     on every program timed, PERF.md).
 //   - A prologue issues every load before any evaluation: for each
 //     referenced column (kGroup at a time) the value and validity byte of
-//     each of the thread's rows, and the block's first program records.
+//     the thread's row, and the block's first program records.
 //     The values land in a shared-memory tile [slot][row] that only their
 //     own thread reads, converted to 32 bits (a float32 keeps its bits),
 //     and the program in shared memory; one barrier, then the
 //     interpreter reads shared memory only.  A predicate over so many
 //     columns that the tile does not fit in a block's 48 KB even at 32
-//     threads (305 columns at R = 1) loads each value where an
+//     threads (305 columns) loads each value where an
 //     instruction uses it (kTile false); a program too large for what is
 //     left reads its records from device memory through the cache (the
 //     same generic pointer).
-//   - Each instruction is fetched once for the thread's R rows; a
-//     comparison carries its literal, so it costs one shared load of the
-//     program and one of the tile.
+//   - A comparison carries its literal, so it costs one shared load of
+//     the program and one of the tile.
 
 #include <cstddef>
 #include <cstdint>
@@ -103,14 +102,7 @@ enum Op {
   kOpNot = 7,
 };
 enum Fold { kPush = 0, kFoldAnd = 1, kFoldOr = 2 };
-// bit 7: a comparison's literal is a float; an IN list's literals are
-// all integers, sorted and distinct
-enum Flags {
-  kNegate = 1 << 5,
-  kHasNull = 1 << 6,
-  kLitFloat = 1 << 7,
-  kSortedInts = 1 << 7,
-};
+enum Flags { kNegate = 1 << 5, kHasNull = 1 << 6, kLitFloat = 1 << 7 };
 enum DType {
   kBool = 0,
   kI8 = 1,
@@ -209,150 +201,100 @@ __device__ __forceinline__ void kleene(int fold, Bit& t, Bit& u, Bit t2,
   }
 }
 
-// where the thread's values come from: the shared tile, or device memory
-template <bool kTile, bool kByValue, int R>
-struct Rows {
+// where the thread's value comes from: the shared tile, or device memory
+template <bool kTile, bool kByValue>
+struct Row {
   const PredArgs& a;
-  const int32_t* val;     // tile: [slot][R * blockDim]
+  const int32_t* val;     // tile: [slot][blockDim]
   const uint8_t* ok;
   const uint8_t* is_f32;  // tile: per slot
-  int64_t base;
-  int tile;
+  int64_t row;
 
   __device__ __forceinline__ bool col_f32(int slot) const {
     if constexpr (kTile) return is_f32[slot] != 0;
     return col_desc<kByValue>(a, slot).dtype == kF32;
   }
 
-  __device__ __forceinline__ void fetch(int slot, int32_t (&v)[R],
-                                        Bit (&valid)[R]) const {
+  __device__ __forceinline__ void fetch(int slot, int32_t& v,
+                                        Bit& valid) const {
     if constexpr (kTile) {
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int i = slot * tile + k * blockDim.x + threadIdx.x;
-        v[k] = val[i];
-        valid[k] = ok[i];
-      }
+      const int i = slot * blockDim.x + threadIdx.x;
+      v = val[i];
+      valid = ok[i];
     } else {
       const ColDesc d = col_desc<kByValue>(a, slot);
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const int64_t row = base + static_cast<int64_t>(k) * blockDim.x;
-        v[k] = 0;
-        valid[k] = 0;
-        if (row < a.n) {
-          v[k] = load_value(d, row);
-          valid[k] = d.valid == nullptr ? 1u : __ldg(d.valid + row);
-        }
+      v = 0;
+      valid = 0;
+      if (row < a.n) {
+        v = load_value(d, row);
+        valid = d.valid == nullptr ? 1u : __ldg(d.valid + row);
       }
     }
   }
 };
 
-// a leaf's (TRUE, UNKNOWN) pair for the thread's rows (validity ANDed in
+// a leaf's (TRUE, UNKNOWN) pair for the thread's row (validity ANDed in
 // without a branch: a row's NULL must not make its warp diverge)
-template <bool kTile, bool kByValue, int R>
-__device__ __forceinline__ void leaf(const Rows<kTile, kByValue, R>& rows,
+template <bool kTile, bool kByValue>
+__device__ __forceinline__ void leaf(const Row<kTile, kByValue>& row,
                                      int4 ins, const int4* lits, int op,
-                                     Bit (&t)[R], Bit (&u)[R]) {
+                                     Bit& t, Bit& u) {
   const int slot = static_cast<int>(static_cast<uint32_t>(ins.x) >> 12);
   if (op == kOpCmp) {
-    int32_t v[R];
-    Bit valid[R];
-    rows.fetch(slot, v, valid);
-    const bool col_f32 = rows.col_f32(slot);
-    const int64_t ilit = int_literal(ins.y, ins.z);
-    const float flit = __int_as_float(ins.w);
-    const int mask = (ins.x >> 8) & 15;
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      t[k] = valid[k] &
-             compare(v[k], col_f32, ins.x & kLitFloat, ilit, flit, mask);
-      u[k] = valid[k] ^ 1u;
-    }
+    int32_t v;
+    Bit valid;
+    row.fetch(slot, v, valid);
+    t = valid & compare(v, row.col_f32(slot), ins.x & kLitFloat,
+                        int_literal(ins.y, ins.z), __int_as_float(ins.w),
+                        (ins.x >> 8) & 15);
+    u = valid ^ 1u;
   } else if (op == kOpIn) {
-    int32_t v[R];
-    Bit valid[R], m[R];
-    rows.fetch(slot, v, valid);
-    const bool col_f32 = rows.col_f32(slot);
-#pragma unroll
-    for (int k = 0; k < R; ++k) m[k] = 0;
+    int32_t v;
+    Bit valid, m = 0;
+    row.fetch(slot, v, valid);
+    const bool col_f32 = row.col_f32(slot);
     const int4* list = lits + ins.y;
-    if (!col_f32 && (ins.x & kSortedInts)) {
-      // an integer column against sorted integers: a binary search of
-      // fixed steps, the same count in every lane
-      int top = 1;
-      while (top <= ins.z) top <<= 1;
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        int pos = 0;  // literals below v: list[0 .. pos)
-        for (int step = top >> 1; step > 0; step >>= 1) {
-          if (pos + step <= ins.z) {
-            const int4 lit = list[pos + step - 1];
-            if (int_literal(lit.x, lit.y) < v[k]) pos += step;
-          }
-        }
-        if (pos < ins.z) {
-          const int4 lit = list[pos];
-          m[k] = int_literal(lit.x, lit.y) == v[k];
-        }
-      }
-    } else {
-      // no early exit: a row's match must not make its warp diverge
+    // no early exit: a row's match must not make its warp diverge
 #pragma unroll 4
-      for (int j = 0; j < ins.z; ++j) {
-        const int4 lit = list[j];
-        const int64_t ilit = int_literal(lit.x, lit.y);
-        const float flit = __int_as_float(lit.z);
-#pragma unroll
-        for (int k = 0; k < R; ++k)
-          m[k] |= compare(v[k], col_f32, lit.w, ilit, flit, kEqMask);
-      }
+    for (int j = 0; j < ins.z; ++j) {
+      const int4 lit = list[j];
+      m |= compare(v, col_f32, lit.w, int_literal(lit.x, lit.y),
+                   __int_as_float(lit.z), kEqMask);
     }
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      Bit tt = m[k] & valid[k];
-      Bit ff = (m[k] ^ 1u) & valid[k] & ((ins.x & kHasNull) ? 0u : 1u);
-      if (ins.x & kNegate) {
-        const Bit tmp = tt;
-        tt = ff;
-        ff = tmp;
-      }
-      t[k] = tt;
-      u[k] = (tt | ff) ^ 1u;
+    Bit tt = m & valid;
+    Bit ff = (m ^ 1u) & valid & ((ins.x & kHasNull) ? 0u : 1u);
+    if (ins.x & kNegate) {
+      const Bit tmp = tt;
+      tt = ff;
+      ff = tmp;
     }
+    t = tt;
+    u = (tt | ff) ^ 1u;
   } else if (op == kOpIsNull) {
-    int32_t v[R];
-    Bit valid[R];
-    rows.fetch(slot, v, valid);
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      t[k] = valid[k] ^ ((ins.x & kNegate) ? 0u : 1u);
-      u[k] = 0;
-    }
+    int32_t v;
+    Bit valid;
+    row.fetch(slot, v, valid);
+    t = valid ^ ((ins.x & kNegate) ? 0u : 1u);
+    u = 0;
   } else {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      t[k] = op == kOpTrue;
-      u[k] = op == kOpCmpNull;
-    }
+    t = op == kOpTrue;
+    u = op == kOpCmpNull;
   }
 }
 
-template <bool kTile, bool kByValue, int R>
+template <bool kTile, bool kByValue>
 __global__ void __launch_bounds__(kThreads)
     pred3vl_mask_kernel(const __grid_constant__ PredArgs a,
                         int prog_in_smem) {
   extern __shared__ int4 smem[];
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  const int tile = R * T;
   const int n_cols = a.n_cols;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile + tid;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * T + tid;
   const int n_prog = prog_in_smem ? a.n_instr + a.n_lits : 0;
   auto* s_val = reinterpret_cast<int32_t*>(smem + n_prog);
-  auto* s_ok = reinterpret_cast<uint8_t*>(s_val + (kTile ? n_cols * tile : 0));
-  uint8_t* s_f32 = s_ok + (kTile ? n_cols * tile : 0);
+  auto* s_ok = reinterpret_cast<uint8_t*>(s_val + (kTile ? n_cols * T : 0));
+  uint8_t* s_f32 = s_ok + (kTile ? n_cols * T : 0);
 
   // prologue: the first program records and every column value in flight
   // before any of them is stored
@@ -360,36 +302,26 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < n_prog) first = __ldg(a.prog + tid);
   if constexpr (kTile) {
     for (int s0 = 0; s0 < n_cols; s0 += kGroup) {
-      int32_t v[kGroup][R];
-      uint8_t ok[kGroup][R];
+      int32_t v[kGroup];
+      uint8_t ok[kGroup];
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          v[j][k] = 0;
-          ok[j][k] = 0;
-        }
+        v[j] = 0;
+        ok[j] = 0;
         if (s0 + j < n_cols) {
           const ColDesc d = col_desc<kByValue>(a, s0 + j);
           if (tid == 0) s_f32[s0 + j] = d.dtype == kF32;
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            const int64_t row = base + static_cast<int64_t>(k) * T;
-            if (row < a.n) {
-              v[j][k] = load_value(d, row);
-              ok[j][k] = d.valid == nullptr ? 1 : __ldg(d.valid + row);
-            }
+          if (row < a.n) {
+            v[j] = load_value(d, row);
+            ok[j] = d.valid == nullptr ? 1 : __ldg(d.valid + row);
           }
         }
       }
 #pragma unroll
       for (int j = 0; j < kGroup; ++j) {
         if (s0 + j < n_cols) {
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            s_val[(s0 + j) * tile + k * T + tid] = v[j][k];
-            s_ok[(s0 + j) * tile + k * T + tid] = ok[j][k];
-          }
+          s_val[(s0 + j) * T + tid] = v[j];
+          s_ok[(s0 + j) * T + tid] = ok[j];
         }
       }
     }
@@ -400,110 +332,70 @@ __global__ void __launch_bounds__(kThreads)
 
   const int4* prog = prog_in_smem ? smem : a.prog;
   const int4* lits = prog + a.n_instr;
-  const Rows<kTile, kByValue, R> rows{a, s_val, s_ok, s_f32, base, tile};
-  Bit top_t[R], top_u[R];   // the top entry
-  uint64_t ts[R], us[R];    // the entries below it: TRUE / UNKNOWN bits
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    top_t[k] = top_u[k] = 0;
-    ts[k] = us[k] = 0;
-  }
-  int sp = 0;  // entries below the top
+  const Row<kTile, kByValue> r{a, s_val, s_ok, s_f32, row};
+  Bit top_t = 0, top_u = 0;  // the top entry
+  uint64_t ts = 0, us = 0;   // the entries below it: TRUE / UNKNOWN bits
+  int sp = 0;                // entries below the top
   int4 ins = prog[0];
   for (int pc = 0; pc < a.n_instr; ++pc) {
     // the next record loads while this one runs
     const int4 next = prog[min(pc + 1, a.n_instr - 1)];
     const int op = ins.x & 7;
     if (op < kOpAnd) {
-      Bit t[R], u[R];
-      leaf<kTile, kByValue, R>(rows, ins, lits, op, t, u);
+      Bit t, u;
+      leaf<kTile, kByValue>(r, ins, lits, op, t, u);
       const int fold = (ins.x >> 3) & 3;
       if (fold != kPush) {
-#pragma unroll
-        for (int k = 0; k < R; ++k)
-          kleene(fold, top_t[k], top_u[k], t[k], u[k]);
+        kleene(fold, top_t, top_u, t, u);
       } else {
         if (pc > 0) {  // the first instruction pushes onto an empty stack
           const uint64_t bit = 1ull << sp;
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            ts[k] = (ts[k] & ~bit) | (static_cast<uint64_t>(top_t[k]) << sp);
-            us[k] = (us[k] & ~bit) | (static_cast<uint64_t>(top_u[k]) << sp);
-          }
+          ts = (ts & ~bit) | (static_cast<uint64_t>(top_t) << sp);
+          us = (us & ~bit) | (static_cast<uint64_t>(top_u) << sp);
           ++sp;
         }
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          top_t[k] = t[k];
-          top_u[k] = u[k];
-        }
+        top_t = t;
+        top_u = u;
       }
     } else if (op == kOpNot) {
-#pragma unroll
-      for (int k = 0; k < R; ++k) top_t[k] = (top_t[k] | top_u[k]) ^ 1u;
+      top_t = (top_t | top_u) ^ 1u;
     } else {
       --sp;
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        kleene(op == kOpAnd ? kFoldAnd : kFoldOr, top_t[k], top_u[k],
-               static_cast<Bit>(ts[k] >> sp) & 1u,
-               static_cast<Bit>(us[k] >> sp) & 1u);
+      kleene(op == kOpAnd ? kFoldAnd : kFoldOr, top_t, top_u,
+             static_cast<Bit>(ts >> sp) & 1u, static_cast<Bit>(us >> sp) & 1u);
     }
     ins = next;
   }
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int64_t row = base + static_cast<int64_t>(k) * T;
-    const bool keep = row < a.n && top_t[k] != 0;
-    if (a.pack) {
-      // n % 32 == 0 and T % 32 == 0: a warp's 32 rows are all in or out
-      const uint32_t word = __ballot_sync(kFull, keep);
-      if ((tid & 31) == 0 && row < a.n)
-        static_cast<uint32_t*>(a.out)[row >> 5] = word;
-    } else if (row < a.n) {
-      static_cast<uint8_t*>(a.out)[row] = keep ? 1 : 0;
-    }
+  const bool keep = row < a.n && top_t != 0;
+  if (a.pack) {
+    // n % 32 == 0 and T % 32 == 0: a warp's 32 rows are all in or out
+    const uint32_t word = __ballot_sync(kFull, keep);
+    if ((tid & 31) == 0 && row < a.n)
+      static_cast<uint32_t*>(a.out)[row >> 5] = word;
+  } else if (row < a.n) {
+    static_cast<uint8_t*>(a.out)[row] = keep ? 1 : 0;
   }
-}
-
-template <bool kTile, bool kByValue>
-void launch(const PredArgs& a, int r, int grid, int threads, size_t smem,
-            int prog_in_smem, cudaStream_t s) {
-  if (r == 1)
-    pred3vl_mask_kernel<kTile, kByValue, 1>
-        <<<grid, threads, smem, s>>>(a, prog_in_smem);
-  else if (r == 2)
-    pred3vl_mask_kernel<kTile, kByValue, 2>
-        <<<grid, threads, smem, s>>>(a, prog_in_smem);
-  else
-    pred3vl_mask_kernel<kTile, kByValue, 4>
-        <<<grid, threads, smem, s>>>(a, prog_in_smem);
 }
 
 }  // namespace
 
-// rows_per_thread: 1, 2 or 4 (R).  The block size is kThreads, halved
-// (down to 32) until the value tile fits kSmemBudget; with no fit the
-// values load where they are used.  The program goes to shared memory
-// when it fits beside the tile.
+// The block size is kThreads, halved (down to 32) until the value tile
+// fits kSmemBudget; with no fit the values load where they are used.  The
+// program goes to shared memory when it fits beside the tile.
 // (args points at a PredArgs: a type of this file's unnamed namespace
 // would give the entry point internal linkage)
-extern "C" int trt_pred3vl_mask(const void* args, int rows_per_thread,
-                                void* stream) {
+extern "C" int trt_pred3vl_mask(const void* args, void* stream) {
   const PredArgs& a = *static_cast<const PredArgs*>(args);
-  const int r = rows_per_thread;
   if (a.n <= 0 || a.n_instr <= 0 || a.n_lits < 0 || a.n_cols < 0 ||
       a.prog == nullptr || a.out == nullptr || a.depth < 1 ||
       a.depth > kMaxDepth || (a.pack && a.n % 32 != 0) ||
-      (a.n_cols > kByValueCols && a.dev_cols == nullptr) ||
-      (r != 1 && r != 2 && r != 4))
+      (a.n_cols > kByValueCols && a.dev_cols == nullptr))
     return cudaErrorInvalidValue;
   int threads = kThreads;
   size_t tile_bytes = 0;
   bool tile = false;
   for (int t = kThreads; t >= 32 && !tile; t /= 2) {
-    const size_t bytes =
-        static_cast<size_t>(a.n_cols) * (5 * static_cast<size_t>(r) * t + 1);
+    const size_t bytes = static_cast<size_t>(a.n_cols) * (5 * t + 1);
     if (bytes <= kSmemBudget) {
       threads = t;
       tile_bytes = bytes;
@@ -514,20 +406,20 @@ extern "C" int trt_pred3vl_mask(const void* args, int rows_per_thread,
       16 * (static_cast<size_t>(a.n_instr) + static_cast<size_t>(a.n_lits));
   const int prog_in_smem = tile_bytes + prog_bytes <= kSmemBudget;
   const size_t smem = (prog_in_smem ? prog_bytes : 0) + tile_bytes;
-  const long long per_block = static_cast<long long>(r) * threads;
-  const long long grid = (a.n + per_block - 1) / per_block;
+  const long long grid = (a.n + threads - 1) / threads;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const int g = static_cast<int>(grid);
   const bool by_value = a.n_cols <= kByValueCols;
   if (tile && by_value)
-    launch<true, true>(a, r, g, threads, smem, prog_in_smem, s);
+    pred3vl_mask_kernel<true, true><<<g, threads, smem, s>>>(a, prog_in_smem);
   else if (tile)
-    launch<true, false>(a, r, g, threads, smem, prog_in_smem, s);
+    pred3vl_mask_kernel<true, false><<<g, threads, smem, s>>>(a, prog_in_smem);
   else if (by_value)
-    launch<false, true>(a, r, g, threads, smem, prog_in_smem, s);
+    pred3vl_mask_kernel<false, true><<<g, threads, smem, s>>>(a, prog_in_smem);
   else
-    launch<false, false>(a, r, g, threads, smem, prog_in_smem, s);
+    pred3vl_mask_kernel<false, false>
+        <<<g, threads, smem, s>>>(a, prog_in_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

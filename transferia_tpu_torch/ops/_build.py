@@ -54,9 +54,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "trt_dict_decode": [_P, _I, _L, _I, _P, _I, _I, _P, _P, _P, _P],
     },
     "pred3vl_mask": {
-        # PredArgs (a host struct, passed on by value), rows_per_thread,
-        # stream
-        "trt_pred3vl_mask": [_P, _I, _P],
+        # PredArgs (a host struct, passed on by value), stream
+        "trt_pred3vl_mask": [_P, _P],
     },
     "rowhash": {
         # LaneArgs (a host struct, passed on by value), stream

@@ -115,9 +115,7 @@ OP_TRUE, OP_CMP, OP_CMP_NULL, OP_ISNULL, OP_IN, OP_AND, OP_OR, OP_NOT = \
     range(8)
 # a leaf's fold: push its pair, or combine it into the top entry
 PUSH, FOLD_AND, FOLD_OR = range(3)
-# bit 7: a comparison's literal is a float; an IN list's literals are all
-# integers, sorted and distinct (an integer column binary-searches them)
-NEGATE, HAS_NULL, LIT_FLOAT, SORTED_INTS = 1 << 5, 1 << 6, 1 << 7, 1 << 7
+NEGATE, HAS_NULL, LIT_FLOAT = 1 << 5, 1 << 6, 1 << 7
 # a comparison's outcome mask: bit 0 x < y, bit 1 x == y, bit 2 x > y,
 # bit 3 unordered (a NaN, where only != holds)
 CMP_MASKS = {"=": 0b0010, "!=": 0b1101, "<": 0b0001, "<=": 0b0011,
@@ -133,8 +131,7 @@ _DTYPE_CODES = {
 
 # K-C's launch arguments (csrc/pred3vl_mask.cu ColDesc, PredArgs; the
 # source static_asserts the same sizes and offsets)
-BY_VALUE_COLS = 16   # kByValueCols; more columns' descriptors go to the card
-ROWS_PER_THREAD = 1  # R, rows a thread takes: 1, 2 or 4 (1 was fastest)
+BY_VALUE_COLS = 16  # kByValueCols; more columns' descriptors go to the card
 
 
 class ColDesc(ctypes.Structure):
@@ -208,9 +205,9 @@ class PredProgram:
     names): `n_instr` postfix instructions {word, y, z, w}, then the
     `n_lits` literals of IN lists {int64 low word, high word, float32
     bits, is_float}.  word = op | fold << 3 | flags (NEGATE, HAS_NULL,
-    LIT_FLOAT or SORTED_INTS) | compare mask << 8 | slot << 12; a
-    comparison carries its literal (y, z the int64 words, w the float32
-    bits), an IN its literals' first index (y) and count (z).  `max_depth` is the most
+    LIT_FLOAT) | compare mask << 8 | slot << 12; a comparison carries its
+    literal (y, z the int64 words, w the float32 bits), an IN its
+    literals' first index (y) and count (z).  `max_depth` is the most
     stack entries the program holds.  The table goes to each card once
     (`on_device`)."""
 
@@ -300,18 +297,13 @@ class PredProgram:
         elif isinstance(node, InList):
             lits = [v for v in node.values if v is not None]
             has_null = len(lits) < len(node.values)
-            sorted_ints = not any(isinstance(v, float) for v in lits)
-            if sorted_ints:
-                # membership ignores order and repeats
-                lits = sorted({int(v) for v in lits})
             first = len(self._lits)
             for v in lits:
                 lo, hi, bits, is_float = self._literal_words(v)
                 self._lits.append((lo & M32, hi & M32, bits & M32,
                                    int(is_float)))
             flags = ((NEGATE if node.negate else 0)
-                     | (HAS_NULL if has_null else 0)
-                     | (SORTED_INTS if sorted_ints else 0))
+                     | (HAS_NULL if has_null else 0))
             self._push(self._slot_word(OP_IN, node.column, fold, flags),
                        first, len(lits), depth=depth)
         elif isinstance(node, Cmp):
@@ -382,16 +374,15 @@ def pred3vl_mask(program: PredProgram, cols: list[DeviceCol], n: int,
     _build.require(dev.type == "cuda", f"unsupported device {dev}")
     out = (torch.empty(n // 32, dtype=torch.int32, device=dev) if pack_keep
            else torch.empty(n, dtype=torch.bool, device=dev))
-    _launch(program, cols, n, pack_keep, out, ROWS_PER_THREAD)
+    _launch(program, cols, n, pack_keep, out)
     _build.count_launch("pred3vl_mask")
     return out
 
 
 def _launch(program: PredProgram, cols: list[DeviceCol], n: int,
-            pack_keep: bool, out: torch.Tensor, rows_per_thread: int
-            ) -> None:
+            pack_keep: bool, out: torch.Tensor) -> None:
     """One K-C launch on the current stream of `out`'s device (checked
-    arguments; `rows_per_thread` is R)."""
+    arguments)."""
     dev = out.device
     stream = torch.cuda.current_stream(dev)
     table = program.on_device(dev)
@@ -413,8 +404,7 @@ def _launch(program: PredProgram, cols: list[DeviceCol], n: int,
         ).pin_memory().to(dev, non_blocking=True)
         args.dev_cols = dev_cols.data_ptr()
     lib = _build.library("pred3vl_mask")
-    rc = lib.trt_pred3vl_mask(ctypes.addressof(args), rows_per_thread,
-                              stream.cuda_stream)
+    rc = lib.trt_pred3vl_mask(ctypes.addressof(args), stream.cuda_stream)
     _build.check(lib, rc, "pred3vl_mask")
 
 
