@@ -81,7 +81,21 @@ final line):
      1,024-row batches: the mask fuses after the rename (one K-A launch
      a batch), device and host placement byte-identical, sampled rows
      equal to hashlib's HMAC;
- 14. timing: each kernel at its path's shapes, beside its plain version,
+ 14. snapshot: the README's Quick-start transfer through the port's
+     SnapshotLoader on a memory coordinator: 2,000,000 `sample` users
+     rows (dictionary-encoded country), 4 parts on 4 upload threads,
+     16,384-row source batches merged by the memory sink's Bufferer into
+     131,072-row flushes, staged commits, fingerprint validation; the
+     README's chain (mask on the card, the utf8 IN filter on the host)
+     with device placement, and the chain with the filter `age >= 21`
+     (fused: K-A, K-B and K-C) with device, host and auto placement.
+     Per chain the sink's rows sorted by user_id are byte-identical
+     across placements and their ids equal numpy's over the generator's
+     columns; each published digest equals TableFingerprinter on the
+     card and the plain version over the sink's rows; every part is
+     completed and committed; the runs' launches, counted across the
+     threads, hold K-A, K-B, K-C, K10 and trt_var_accumulators;
+ 15. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
      against the SASS instructions counted from this run's build: K-A's
@@ -89,8 +103,9 @@ final line):
      step, the gather's thread; K-C against the compares and folds its
      predicate needs, its interpreter's SASS count reported beside
      them); K-C also with validity, with the 70-literal OR and 70
-     comparisons; and the launch floor, probe.cu's empty kernel timed
-     alike.
+     comparisons; K-A also at kafka2ch's 1,024-row batch and at the
+     snapshot phase's chunk of emails; and the launch floor, probe.cu's
+     empty kernel timed alike.
 Each path names the kernels it must launch (PATH_KERNELS); the launch
 counts are zeroed just before the path runs and read just after it, and
 a kernel of the path that never launched fails the run.  Any failure
@@ -209,7 +224,22 @@ from transferia_tpu_torch.predicate.device import (
     eval3_torch,
     pred3vl_mask,
 )
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.models import (
+    Runtime,
+    ShardingUploadParams,
+    Transfer,
+)
+from transferia_tpu_torch.providers.memory import (
+    MemoryTargetParams,
+    get_store,
+)
+from transferia_tpu_torch.providers.sample import (
+    SampleSourceParams,
+    make_batch,
+)
 from transferia_tpu_torch.runtime.device import resolve_device
+from transferia_tpu_torch.tasks import SnapshotLoader
 from transferia_tpu_torch.testing import force_virtual_mesh
 from transferia_tpu_torch.transform import build_chain
 from transferia_tpu_torch.transform.fused import (
@@ -284,6 +314,8 @@ PATH_KERNELS = {
     "lambda_stream": ("region_sign_flip",),
     "lambda_backlog": ("region_sign_flip",),
     "kafka2ch": ("sha256_hmac",),
+    "snapshot": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+                 "rowhash_lanes", "var_accumulators"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -314,6 +346,21 @@ KAFKA2CH_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["user_email"],
                     "salt": KAFKA2CH_SALT.decode()}},
 ]}
+# the README's Quick-start transfer: sample users -> memory, 4 parts on
+# 4 upload threads, Bufferer flushes of 131,072 rows, fingerprint
+# validation; its chain (the utf8 IN keeps the filter on the host) and
+# one whose filter fuses onto the card
+SNAP_ROWS, SNAP_PARTS, SNAP_THREADS = 2_000_000, 4, 4
+SNAP_BATCH, SNAP_TRIGGER, SNAP_SEED = 16_384, 131_072, 7
+SNAP_TABLE, SNAP_SALT = TableID("sample", "users"), "s3cr3t"
+SNAP_README = {"transformers": [
+    {"mask_field": {"columns": ["email"], "salt": SNAP_SALT}},
+    {"filter_rows": {"filter": "age >= 21 AND country IN ('de','us')"}},
+]}
+SNAP_FUSED = {"transformers": [
+    {"mask_field": {"columns": ["email"], "salt": SNAP_SALT}},
+    {"filter_rows": {"filter": "age >= 21"}},
+]}
 
 
 def emit(obj) -> None:
@@ -334,14 +381,17 @@ class PathLaunches:
 
     def __exit__(self, exc_type, exc, tb):
         self.counts = _build.launch_counts()
-        if exc_type is not None:
-            return False
-        missing = [k for k in PATH_KERNELS[self.path]
-                   if self.counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the "
-                                 f"{self.path} path: {missing}")
+        if exc_type is None:
+            require_launched(self.path, self.counts)
         return False
+
+
+def require_launched(path: str, counts: dict) -> None:
+    """Fail when a kernel of the path never launched."""
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} "
+                             f"path: {missing}")
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -2109,6 +2159,158 @@ def kafka2ch_path(dev) -> dict:
                 identical_to_host=True, equal_to="hashlib HMAC (sampled)")
 
 
+def snapshot_kept_ids(fused: bool) -> np.ndarray:
+    """The user ids the chain keeps, from the generator's columns in
+    numpy: each part's batches draw age, score and country from
+    default_rng(seed + start) in that order (providers/sample.py)."""
+    per = -(-SNAP_ROWS // SNAP_PARTS)
+    kept = []
+    for lo in range(0, SNAP_ROWS, per):
+        hi = min(SNAP_ROWS, lo + per)
+        for start in range(lo, hi, SNAP_BATCH):
+            n = min(SNAP_BATCH, hi - start)
+            rng = np.random.default_rng(SNAP_SEED + start)
+            age = rng.integers(18, 90, n)
+            rng.uniform(0, 1000, n)
+            country = rng.integers(0, 6, n)
+            keep = age >= 21
+            if not fused:
+                keep &= country < 2  # "de" and "us"
+            kept.append(np.arange(start, start + n)[keep])
+    return np.concatenate(kept)
+
+
+class StrategyCount:
+    """Counts the batches each fused step ran per strategy (what auto
+    placement chose), by wrapping DeviceFusedStep._observe."""
+
+    def __enter__(self):
+        self.batches = {"host": 0, "device": 0}
+        self._orig = DeviceFusedStep._observe
+        counts, orig = self.batches, self._orig
+
+        def observe(step, strategy, seconds, n_rows):
+            counts[strategy] += 1
+            return orig(step, strategy, seconds, n_rows)
+
+        DeviceFusedStep._observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        DeviceFusedStep._observe = self._orig
+        return False
+
+
+def snapshot_run(name: str, config, placement: str, dev) -> dict:
+    """One Quick-start transfer through SnapshotLoader on a memory
+    coordinator, the placement pinned (or auto); its launches, seconds,
+    parts, published digest and the sink's rows sorted by user_id."""
+    sid = f"chip-snapshot-{name}"
+    store = get_store(sid)
+    store.clear()
+    transfer = Transfer(
+        id=sid,
+        src=SampleSourceParams(preset="users", table=SNAP_TABLE.name,
+                               rows=SNAP_ROWS, batch_rows=SNAP_BATCH,
+                               seed=SNAP_SEED, shard_parts=SNAP_PARTS,
+                               dict_encode=True),
+        dst=MemoryTargetParams(sink_id=sid,
+                               bufferer={"trigger_rows": SNAP_TRIGGER}),
+        transformation=config,
+        runtime=Runtime(sharding=ShardingUploadParams(
+            process_count=SNAP_THREADS)),
+        validation={"fingerprint": True})
+    cp = MemoryCoordinator()
+    set_placement(None if placement == "auto" else placement)
+    try:
+        with StrategyCount() as strategies:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            SnapshotLoader(transfer, cp, device=dev).upload_tables()
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = _build.launch_counts()
+    finally:
+        set_placement(None)
+    parts = cp.operation_parts(f"op-{sid}")
+    if len(parts) != SNAP_PARTS or not all(
+            p.completed and p.commit_epoch == p.assignment_epoch
+            for p in parts):
+        raise AssertionError(f"snapshot {placement}: parts not all "
+                             f"completed and committed: {parts}")
+    digests = cp.get_operation_state(f"op-{sid}")["table_fingerprints"]
+    batches = [b for b in store.batches if hasattr(b, "columns")]
+    rows = ColumnBatch.concat(batches)
+    rows = rows.take(np.argsort(rows.column("user_id").data, kind="stable"))
+    store.clear()
+    return dict(launches=launches, seconds=seconds, digests=digests,
+                batches=batches, rows=rows,
+                strategy_batches=strategies.batches,
+                completed_rows=sum(p.completed_rows for p in parts))
+
+
+def snapshot_path(dev) -> dict:
+    """The README's Quick-start transfer (2,000,000 sample users rows, 4
+    parts on 4 upload threads, dictionary-encoded country, Bufferer
+    flushes of 131,072 rows, staged commits, fingerprint validation)
+    through the port's SnapshotLoader: its chain (mask on the card, the
+    utf8 IN filter on the host) with device placement, and with the
+    filter `age >= 21` fused onto the card with device, host and auto
+    placement.  Per chain the sink's rows sorted by user_id are
+    byte-identical across placements, the kept ids equal numpy's over
+    the generator's columns, the published digest equals
+    TableFingerprinter(backend="device") and the plain version on the
+    card over the sink's rows, and every part is completed and
+    committed; the launches of the runs, summed over the upload
+    threads, hold every kernel of the path."""
+    runs = {"readme_device": (SNAP_README, "device"),
+            "fused_device": (SNAP_FUSED, "device"),
+            "fused_host": (SNAP_FUSED, "host"),
+            "fused_auto": (SNAP_FUSED, "auto")}
+    launches = {k: 0 for k in _build.KERNELS}
+    result, first = {}, {}
+    for name, (config, placement) in runs.items():
+        run = snapshot_run(name, config, placement, dev)
+        for k, c in run["launches"].items():
+            launches[k] += c
+        fused = config is SNAP_FUSED
+        want = snapshot_kept_ids(fused)
+        got = run["rows"].column("user_id").data
+        if not np.array_equal(got, want):
+            raise AssertionError(f"snapshot {name}: kept {len(got)} rows, "
+                                 f"numpy keeps {len(want)}")
+        if fused in first:
+            if not batches_identical(run["rows"], first[fused]["rows"]):
+                raise AssertionError(f"snapshot {name}: rows differ from "
+                                     "device placement's")
+            if run["digests"] != first[fused]["digests"]:
+                raise AssertionError(f"snapshot {name}: digest differs "
+                                     "from device placement's")
+        else:
+            first[fused] = run
+        (digest,) = run["digests"].values()
+        if digest != device_digest(run["batches"], dev)[0] or \
+                digest != plain_digest(run["batches"], dev):
+            raise AssertionError(f"snapshot {name}: published digest "
+                                 "differs from the sink's rows")
+        if run["completed_rows"] != SNAP_ROWS:
+            raise AssertionError(f"snapshot {name}: parts read "
+                                 f"{run['completed_rows']} rows")
+        result[name] = dict(
+            kept=len(got), seconds=run["seconds"],
+            rows_per_s=SNAP_ROWS / run["seconds"], digest=digest,
+            launches={k: c for k, c in run["launches"].items() if c},
+            fused_step_batches=run["strategy_batches"])
+        del run
+    require_launched("snapshot", launches)
+    return dict(rows=SNAP_ROWS, parts=SNAP_PARTS, threads=SNAP_THREADS,
+                batch_rows=SNAP_BATCH, trigger_rows=SNAP_TRIGGER,
+                launches=launches, runs=result,
+                identical_across_placements=True,
+                digest_equal_to="TableFingerprinter(backend='device') and "
+                                "the plain version over the sink's rows")
+
+
 # -- phase 7: timing ------------------------------------------------------------
 
 def kernel_ms(fn, dev, iters: int = 20, reps: int = 5) -> float:
@@ -2633,6 +2835,31 @@ def pred_timing(cols: dict, n: int, counts: dict, dev) -> dict:
     }
 
 
+def hmac_call(col: Column, key: bytes, bucket: int, sass: dict,
+              dev) -> tuple:
+    """K-A over a flat column's rows padded to `bucket` rows, as
+    ops/fused.py packs and pads a chunk (pad rows have no blocks).
+    Bytes: the real rows' blocks, every row's count and digest, the key
+    states; operations: every row compresses its own blocks and one
+    outer block, at the ALU-pipe instructions a compression (every
+    instruction: `bound_ms_all_instructions`)."""
+    n = col.n_rows
+    mb = pow2_blocks(int(np.diff(col.offsets).max()))
+    blocks, nb = pack_hmac_blocks(col.data, col.offsets, mb)
+    n_bytes = blocks.nbytes + 4 * bucket + 64 + 32 * bucket
+    blocks = np.pad(blocks, ((0, bucket - n), (0, 0)))
+    nb = np.pad(nb, (0, bucket - n))
+    b_t = torch.from_numpy(blocks).to(dev)
+    nb_t = torch.from_numpy(nb).to(dev)
+    inner, outer = _hmac_key_states(key, dev)
+    n_comp = int(np.minimum(nb, mb).sum()) + bucket
+    return (lambda: sha256_hmac(b_t, nb_t, inner, outer, mb),
+            lambda: sha256_hmac_plain(b_t, nb_t, inner, outer, mb),
+            None, bound(n_bytes, sass["alu_per_compression"] * n_comp),
+            {"bound_ms_all_instructions": bound(
+                n_bytes, sass["instructions_per_compression"] * n_comp)[0]})
+
+
 def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
                  counts: dict, dev) -> dict:
     """Each kernel at the shapes the main path gives it: the first chunk
@@ -2644,24 +2871,9 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
     sass = counts["sha256_hmac"]
     rows = batch.slice(0, chunk)
     bucket = bucket_rows(chunk)
-    url = rows.column("URL")
-    mb = pow2_blocks(int(np.diff(url.offsets).max()))
-    blocks, nb = pack_hmac_blocks(url.data, url.offsets, mb)
-    blocks = np.pad(blocks, ((0, bucket - chunk), (0, 0)))
-    nb = np.pad(nb, (0, bucket - chunk))
-    b_t = torch.from_numpy(blocks).to(dev)
-    nb_t = torch.from_numpy(nb).to(dev)
-    inner, outer = _hmac_key_states(b"bench-salt", dev)
-    # every row compresses its own blocks and one outer block
-    n_comp = int(np.minimum(nb, mb).sum()) + bucket
-    n_bytes = blocks[:chunk].nbytes + 4 * bucket + 64 + 32 * bucket
     # name -> (kernel call, plain call, library call or None, bound)
-    calls = {"sha256_hmac": (
-        lambda: sha256_hmac(b_t, nb_t, inner, outer, mb),
-        lambda: sha256_hmac_plain(b_t, nb_t, inner, outer, mb),
-        None,
-        # the real rows' blocks, every row's count and digest, the states
-        bound(n_bytes, sass["alu_per_compression"] * n_comp))}
+    calls = {"sha256_hmac": hmac_call(rows.column("URL"), b"bench-salt",
+                                      bucket, sass, dev)}
 
     calls["pred_decode"] = delta_calls(region[:chunk], bucket, dev)
 
@@ -2674,8 +2886,6 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
         counts["pred3vl_mask"], dev)
 
     out = {}
-    all_ops_ms = bound(n_bytes, sass["instructions_per_compression"]
-                       * n_comp)[0]
     calls.update(fingerprint_calls(batch, counts["rowhash_lanes"], dev))
     calls.update(decode_calls(dev))
     calls.update(pack_calls(batch, counts["ragged_pack"], dev))
@@ -2684,7 +2894,17 @@ def time_kernels(batch: ColumnBatch, region: np.ndarray, chunk: int,
     calls.update(sign_flip_calls(FETCH_MAX, dev))
     for name, call in calls.items():
         out[name] = timed(call, dev, f"{name} at the main path's shapes")
-    out["sha256_hmac"]["bound_ms_all_instructions"] = all_ops_ms
+    kafka = kafka2ch_batches()[0].column("user_email")
+    out["sha256_hmac"]["at_kafka2ch_batch"] = dict(
+        rows=KAFKA2CH_BATCH, bucket=bucket_rows(KAFKA2CH_BATCH),
+        **timed(hmac_call(kafka, KAFKA2CH_SALT, bucket_rows(KAFKA2CH_BATCH),
+                          sass, dev), dev, "sha256_hmac at kafka2ch's batch"))
+    email = make_batch("users", SNAP_TABLE, 0, chunk, SNAP_SEED).column(
+        "email")
+    out["sha256_hmac"]["at_snapshot_chunk"] = dict(
+        rows=chunk, bucket=bucket,
+        **timed(hmac_call(email, SNAP_SALT.encode(), bucket, sass, dev), dev,
+                "sha256_hmac at the snapshot phase's chunk"))
     for name in ("sha256_hmac", "rowhash_lanes", "ragged_pack", "shard_hist",
                  "pred3vl_mask", "digest_gather"):
         out[name]["sass"] = counts[name]
@@ -3151,7 +3371,8 @@ def main() -> int:
             ("lambda_backlog",
              lambda: lambda_path("lambda_backlog", SR_BACKLOG, dev,
                                  auto=True)),
-            ("kafka2ch", lambda: kafka2ch_path(dev))):
+            ("kafka2ch", lambda: kafka2ch_path(dev)),
+            ("snapshot", lambda: snapshot_path(dev))):
         t_phase = time.perf_counter()
         result = run()
         phase_s[path] = time.perf_counter() - t_phase

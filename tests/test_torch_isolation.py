@@ -4,7 +4,9 @@ A fresh interpreter imports transferia_tpu_torch and runs the fused
 chain (over a flat and a dictionary-encoded column), the ragged pack, a
 table fingerprint, the sharded transform step, the chain's mesh route
 (on a 2-shard virtual mesh), the lambda chain with the SR fan-in user
-function in both placements and a rename chain on the CPU; afterwards
+function in both placements, a rename chain and a snapshot transfer
+(sample -> memory through SnapshotLoader, with the mask, the filter,
+staged commits and fingerprint validation) on the CPU; afterwards
 neither jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may
 be loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
@@ -112,6 +114,29 @@ rchain = build_chain({"transformers": [
     + [{"rename_columns": {"columns": {"region": "r"}}}]}, device="cpu")
 rout = rchain.apply(batch)
 assert rout.table_id.name == "t2" and "r" in rout.columns, rout.columns
+set_placement("device")
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.models import Runtime, ShardingUploadParams, Transfer
+from transferia_tpu_torch.providers.memory import MemoryTargetParams, get_store
+from transferia_tpu_torch.providers.sample import SampleSourceParams
+from transferia_tpu_torch.tasks import SnapshotLoader
+snap = Transfer(id="iso", src=SampleSourceParams(
+    preset="users", table="users", rows=3000, shard_parts=2,
+    batch_rows=500, dict_encode=True),
+    dst=MemoryTargetParams(sink_id="iso", bufferer={"trigger_rows": 1000}),
+    transformation={"transformers": [
+        {"mask_field": {"columns": ["email"], "salt": "s"}},
+        {"filter_rows": {"filter": "age >= 21"}}]},
+    runtime=Runtime(sharding=ShardingUploadParams(process_count=2)),
+    validation={"fingerprint": True})
+cp = MemoryCoordinator()
+SnapshotLoader(snap, cp, device="cpu").upload_tables()
+parts = cp.operation_parts("op-iso")
+assert len(parts) == 2 and all(p.completed and p.commit_epoch == 1
+                               for p in parts), parts
+digest = cp.get_operation_state("op-iso")["table_fingerprints"]
+assert int(list(digest.values())[0].split(":")[1]) == \
+    get_store("iso").row_count() > 0, digest
 set_placement(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
@@ -218,6 +243,31 @@ def test_lambda_needs_a_card_or_the_cpu(device, monkeypatch):
     out = build_chain({"transformers": [{"rename_tables": {"tables": [
         {"from": ".t", "to": ".u"}]}}]}, device=device).apply(small_batch())
     assert out.table_id == TableID("", "u")
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_snapshot_needs_a_card_or_the_cpu(device, monkeypatch):
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.factories import make_async_sink, make_sinker
+    from transferia_tpu_torch.models import Transfer
+    from transferia_tpu_torch.providers.memory import (
+        MemorySourceParams,
+        MemoryTargetParams,
+    )
+    from transferia_tpu_torch.tasks import SnapshotLoader, upload
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = Transfer(id="nocard", src=MemorySourceParams(source_id="nocard"),
+                 dst=MemoryTargetParams(sink_id="nocard"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SnapshotLoader(t, MemoryCoordinator(), device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_async_sink(t, device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_sinker(t, device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        upload(t, MemoryCoordinator(), ["src.t"], device=device)
+    make_async_sink(t, device="cpu").close()
 
 
 def test_pass_through_plan_needs_no_device():

@@ -120,6 +120,9 @@ class TableID:
             return TableID(ns, name)
         return TableID("", s)
 
+    def fqtn(self) -> str:
+        return f'"{self.namespace}"."{self.name}"' if self.namespace else f'"{self.name}"'
+
     def include_matches(self, pattern: "TableID") -> bool:
         """Wildcard match: pattern parts of '*' or '' match anything."""
         ns_ok = pattern.namespace in ("", "*") or pattern.namespace == self.namespace
@@ -186,6 +189,12 @@ class TableSchema:
         i = self._index.get(name)
         return self.columns[i] if i is not None else None
 
+    def key_columns(self) -> list[ColSchema]:
+        return [c for c in self.columns if c.primary_key]
+
+    def has_primary_key(self) -> bool:
+        return any(c.primary_key for c in self.columns)
+
     def fingerprint(self) -> str:
         """Stable hash of the full schema — plan/compile cache key.
 
@@ -211,6 +220,9 @@ class TableSchema:
         return TableSchema(
             replace(c, name=mapping.get(c.name, c.name)) for c in self.columns
         )
+
+    def append(self, *cols: ColSchema) -> "TableSchema":
+        return TableSchema(self.columns + tuple(cols))
 
     def with_types(self, mapping: dict[str, CanonicalType]) -> "TableSchema":
         return TableSchema(

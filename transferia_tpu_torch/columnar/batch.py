@@ -5,8 +5,11 @@ mask+filter path, the table fingerprint and the rename and lambda
 transformers use: flat columns, dictionary encodings (`DictPool` with
 its memo, `DictEnc`, lazy dict columns), the row-count buckets, the
 offsets guard and the renames (`Column.renamed`,
-`ColumnBatch.rename_table`).  Pool interning (`intern_pool`),
-Arrow interop and `ChangeItem` rows are not ported yet (ROADMAP.md).
+`ColumnBatch.rename_table`), and the row view: CDC kinds, LSNs,
+commit times and row sidecars on `ColumnBatch`, the `ChangeItem` pivot
+(`from_rows`/`to_rows`) and the shared-pool `concat` that keeps a
+dictionary column encoded.  Pool interning (`intern_pool`) and Arrow
+interop are not ported yet (ROADMAP.md).
 
 - Fixed-width canonical types map 1:1 to numpy dtypes
   (`CanonicalType.np_dtype`).
@@ -29,6 +32,8 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
+from transferia_tpu_torch.abstract.change_item import ChangeItem, OldKeys
+from transferia_tpu_torch.abstract.kinds import CODE_KINDS, KIND_CODES, Kind
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
     TableID,
@@ -136,6 +141,9 @@ class DictPool:
     def n_values(self) -> int:
         return len(self.values_offsets) - 1
 
+    def nbytes(self) -> int:
+        return self.values_data.nbytes + self.values_offsets.nbytes
+
     def value_bytes(self, code: int) -> bytes:
         return bytes(self.values_data[
             self.values_offsets[code]:self.values_offsets[code + 1]])
@@ -160,6 +168,9 @@ class DictEnc:
     def __init__(self, indices: np.ndarray, pool: DictPool):
         self.indices = indices
         self.pool = pool
+
+    def nbytes(self) -> int:
+        return self.indices.nbytes + self.pool.nbytes()
 
     def materialize(self) -> tuple[np.ndarray, np.ndarray]:
         """Flatten to (data, offsets): a gather of the pool by codes."""
@@ -246,6 +257,17 @@ class Column:
         if self._offsets is not None:
             return len(self._offsets) - 1
         return len(self._data)
+
+    def nbytes(self) -> int:
+        if self.is_lazy_dict:
+            n = self.dict_enc.nbytes()
+        else:
+            n = self._data.nbytes
+            if self._offsets is not None:
+                n += self._offsets.nbytes
+        if self.validity is not None:
+            n += self.validity.nbytes
+        return n
 
     def is_valid(self, i: int) -> bool:
         return self.validity is None or bool(self.validity[i])
@@ -370,16 +392,37 @@ def _decode_varwidth(ctype: CanonicalType, raw: bytes) -> Any:
 
 
 class ColumnBatch:
-    """A columnar block of rows for one table (insert-only: CDC kinds,
-    LSNs and row sidecars are not ported yet)."""
+    """A columnar block of rows for one table.
 
-    __slots__ = ("table_id", "schema", "columns")
+    kinds is None for pure-insert (snapshot) blocks; otherwise an int8
+    array of KIND_CODES for mixed CDC blocks.  lsns/commit_times are
+    optional per-row metadata carried through the pipeline.  old_keys/
+    txn_ids are host-side per-row sidecars (never staged to the device)
+    that keep CDC row identity across the pivot.
+    """
+
+    __slots__ = ("table_id", "schema", "columns", "kinds", "lsns",
+                 "commit_times", "part_id", "read_bytes", "old_keys",
+                 "txn_ids")
 
     def __init__(self, table_id: TableID, schema: TableSchema,
-                 columns: dict[str, Column]):
+                 columns: dict[str, Column],
+                 kinds: Optional[np.ndarray] = None,
+                 lsns: Optional[np.ndarray] = None,
+                 commit_times: Optional[np.ndarray] = None,
+                 part_id: str = "", read_bytes: int = 0,
+                 old_keys: Optional[list[OldKeys]] = None,
+                 txn_ids: Optional[list[str]] = None):
         self.table_id = table_id
         self.schema = schema
         self.columns = columns
+        self.kinds = kinds
+        self.lsns = lsns
+        self.commit_times = commit_times
+        self.part_id = part_id
+        self.read_bytes = read_bytes
+        self.old_keys = old_keys
+        self.txn_ids = txn_ids
         n = self.n_rows
         for c in columns.values():
             if c.n_rows != n:
@@ -391,48 +434,165 @@ class ColumnBatch:
     @property
     def n_rows(self) -> int:
         if not self.columns:
-            return 0
+            return 0 if self.kinds is None else len(self.kinds)
         return next(iter(self.columns.values())).n_rows
+
+    def __len__(self) -> int:
+        return self.n_rows
+
+    def nbytes(self) -> int:
+        return sum(c.nbytes() for c in self.columns.values())
+
+    def kind_at(self, i: int) -> Kind:
+        if self.kinds is None:
+            return Kind.INSERT
+        return CODE_KINDS[int(self.kinds[i])]
 
     def column(self, name: str) -> Column:
         return self.columns[name]
 
+    def _meta(self) -> dict:
+        """The per-batch metadata every derived batch carries over."""
+        return dict(kinds=self.kinds, lsns=self.lsns,
+                    commit_times=self.commit_times, part_id=self.part_id,
+                    read_bytes=self.read_bytes, old_keys=self.old_keys,
+                    txn_ids=self.txn_ids)
+
     @staticmethod
     def from_pydict(table_id: TableID, schema: TableSchema,
-                    data: dict[str, Sequence[Any]]) -> "ColumnBatch":
+                    data: dict[str, Sequence[Any]], **kw) -> "ColumnBatch":
         cols = {}
         for cs in schema:
             if cs.name in data:
                 cols[cs.name] = Column.from_pylist(
                     cs.name, cs.data_type, data[cs.name]
                 )
-        return ColumnBatch(table_id, schema, cols)
+        return ColumnBatch(table_id, schema, cols, **kw)
+
+    @staticmethod
+    def from_rows(items: Sequence[ChangeItem]) -> "ColumnBatch":
+        """Pivot a uniform-table row batch into a columnar block.
+
+        All items must share table_id and table_schema; mixed kinds are
+        captured in the kinds array.
+        """
+        if not items:
+            raise ValueError("from_rows: empty batch")
+        first = items[0]
+        if first.table_schema is None:
+            raise ValueError("from_rows: items must carry table_schema")
+        schema = first.table_schema
+        tid = first.table_id
+        n = len(items)
+        per_col: dict[str, list[Any]] = {c.name: [None] * n for c in schema}
+        kinds = np.zeros(n, dtype=np.int8)
+        lsns = np.zeros(n, dtype=np.int64)
+        commit_times = np.zeros(n, dtype=np.int64)
+        mixed = False
+        old_keys: Optional[list[OldKeys]] = None
+        txn_ids: Optional[list[str]] = None
+        for i, it in enumerate(items):
+            if it.table_id != tid:
+                raise ValueError("from_rows: mixed tables in batch")
+            if it.table_schema is not schema and it.table_schema != schema:
+                raise ValueError(
+                    "from_rows: mixed table schemas in batch (schema changed "
+                    "mid-stream?) — split the batch on schema boundaries"
+                )
+            code = KIND_CODES.get(it.kind)
+            if code is None:
+                raise ValueError(f"from_rows: non-row kind {it.kind}")
+            kinds[i] = code
+            mixed = mixed or code != 0
+            lsns[i] = it.lsn
+            commit_times[i] = it.commit_time_ns
+            if it.old_keys.key_names:
+                if old_keys is None:
+                    old_keys = [OldKeys()] * n
+                old_keys[i] = it.old_keys
+            if it.txn_id:
+                if txn_ids is None:
+                    txn_ids = [""] * n
+                txn_ids[i] = it.txn_id
+            for name, value in zip(it.column_names, it.column_values):
+                if name in per_col:
+                    per_col[name][i] = value
+        cols = {
+            c.name: Column.from_pylist(c.name, c.data_type, per_col[c.name])
+            for c in schema
+        }
+        return ColumnBatch(
+            tid, schema, cols,
+            kinds=kinds if mixed else None,
+            lsns=lsns if lsns.any() else None,
+            commit_times=commit_times if commit_times.any() else None,
+            part_id=first.part_id,
+            read_bytes=sum(it.size_bytes for it in items),
+            old_keys=old_keys,
+            txn_ids=txn_ids,
+        )
+
+    def to_rows(self) -> list[ChangeItem]:
+        """Unpivot to ChangeItems (row-oriented edges only)."""
+        names = tuple(self.columns.keys())
+        cols = list(self.columns.values())
+        out = []
+        for i in range(self.n_rows):
+            out.append(ChangeItem(
+                kind=self.kind_at(i),
+                schema=self.table_id.namespace,
+                table=self.table_id.name,
+                column_names=names,
+                column_values=tuple(c.value(i) for c in cols),
+                table_schema=self.schema,
+                lsn=int(self.lsns[i]) if self.lsns is not None else 0,
+                commit_time_ns=int(self.commit_times[i])
+                if self.commit_times is not None else 0,
+                part_id=self.part_id,
+                old_keys=self.old_keys[i] if self.old_keys is not None
+                else OldKeys(),
+                txn_id=self.txn_ids[i] if self.txn_ids is not None else "",
+            ))
+        return out
 
     def to_pydict(self) -> dict[str, list[Any]]:
         return {name: c.to_pylist() for name, c in self.columns.items()}
 
     def with_columns(self, columns: dict[str, Column],
                      schema: Optional[TableSchema] = None) -> "ColumnBatch":
-        return ColumnBatch(self.table_id, schema or self.schema, columns)
+        return ColumnBatch(self.table_id, schema or self.schema, columns,
+                           **self._meta())
 
     def rename_table(self, table_id: TableID) -> "ColumnBatch":
         """The same columns under another table id (the JAX package's
         `ColumnBatch.rename_table`, columnar/batch.py:838)."""
-        return ColumnBatch(table_id, self.schema, self.columns)
+        return ColumnBatch(table_id, self.schema, self.columns,
+                           **self._meta())
 
     def filter(self, mask: np.ndarray) -> "ColumnBatch":
         return self.take(np.nonzero(np.asarray(mask))[0])
 
     def take(self, indices: np.ndarray) -> "ColumnBatch":
+        meta = self._meta()
+        for attr in ("kinds", "lsns", "commit_times"):
+            if meta[attr] is not None:
+                meta[attr] = meta[attr][indices]
+        for attr in ("old_keys", "txn_ids"):
+            if meta[attr] is not None:
+                meta[attr] = [meta[attr][int(i)] for i in indices]
         return ColumnBatch(self.table_id, self.schema,
                            {n: c.take(indices)
-                            for n, c in self.columns.items()})
+                            for n, c in self.columns.items()}, **meta)
 
     def slice(self, start: int, stop: int) -> "ColumnBatch":
         return self.take(np.arange(start, min(stop, self.n_rows)))
 
     @staticmethod
     def concat(batches: Sequence["ColumnBatch"]) -> "ColumnBatch":
+        """Row-wise concatenation.  A dictionary column whose parts all
+        share one pool (slices of one source batch, or batches of a
+        source with one pool per column) stays encoded: its codes
+        concatenate; any other column concatenates flat."""
         if not batches:
             raise ValueError("concat: empty")
         if len(batches) == 1:
@@ -448,6 +608,16 @@ class ColumnBatch:
                     else np.ones(p.n_rows, dtype=np.bool_)
                     for p in parts
                 ])
+            if (c0.is_lazy_dict and all(p.is_lazy_dict for p in parts)
+                    and all(p.dict_enc.pool is c0.dict_enc.pool
+                            for p in parts)):
+                cols[name] = Column(
+                    name, c0.ctype, validity=validity,
+                    dict_enc=DictEnc(
+                        np.concatenate([p.dict_enc.indices
+                                        for p in parts]),
+                        pool=c0.dict_enc.pool))
+                continue
             data = np.concatenate([p.data for p in parts])
             offsets = None
             if c0.offsets is not None:
@@ -455,4 +625,32 @@ class ColumnBatch:
                     p.offsets[1:] - p.offsets[:-1] for p in parts
                 ]))
             cols[name] = Column(name, c0.ctype, data, offsets, validity)
-        return ColumnBatch(first.table_id, first.schema, cols)
+
+        def cat(attr, fill_dtype):
+            arrs = [getattr(b, attr) for b in batches]
+            if all(a is None for a in arrs):
+                return None
+            return np.concatenate([
+                a if a is not None else np.zeros(b.n_rows, dtype=fill_dtype)
+                for a, b in zip(arrs, batches)
+            ])
+
+        def cat_list(attr, fill):
+            vals = [getattr(b, attr) for b in batches]
+            if all(v is None for v in vals):
+                return None
+            out = []
+            for v, b in zip(vals, batches):
+                out.extend(v if v is not None else [fill] * b.n_rows)
+            return out
+
+        return ColumnBatch(
+            first.table_id, first.schema, cols,
+            kinds=cat("kinds", np.int8),
+            lsns=cat("lsns", np.int64),
+            commit_times=cat("commit_times", np.int64),
+            part_id=first.part_id,
+            read_bytes=sum(b.read_bytes for b in batches),
+            old_keys=cat_list("old_keys", OldKeys()),
+            txn_ids=cat_list("txn_ids", ""),
+        )

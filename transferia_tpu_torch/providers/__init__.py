@@ -1,0 +1,23 @@
+"""Provider plugin registry of the port.
+
+Providers register under a name and expose optional capability
+constructors (snapshot storage, sinker, ...); factories resolve them at
+transfer build time.  The port ships the `sample` source and the
+`memory` source and sink; the other providers wait (ROADMAP.md A5).
+"""
+
+from transferia_tpu_torch.providers.registry import (
+    Provider,
+    get_provider,
+    register_provider,
+)
+
+__all__ = ["Provider", "get_provider", "register_provider"]
+
+
+def load_builtin_providers() -> None:
+    """Import the built-in providers (idempotent)."""
+    from transferia_tpu_torch.providers import (  # noqa: F401
+        memory,
+        sample,
+    )

@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["env_int", "env_raw", "env_str"]
+__all__ = ["env_float", "env_int", "env_raw", "env_str"]
 
 
 def env_raw(name: str) -> Optional[str]:
@@ -31,5 +31,15 @@ def env_int(name: str, default: int) -> int:
         return default
     try:
         return int(str(v).strip())
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if v is None or not str(v).strip():
+        return default
+    try:
+        return float(str(v).strip())
     except ValueError:
         return default

@@ -4,19 +4,35 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
+from typing import Optional
 
-from transferia_tpu_torch.abstract.schema import TableID, TableSchema
-from transferia_tpu_torch.columnar.batch import ColumnBatch
+import numpy as np
+
+from transferia_tpu_torch.abstract.schema import (
+    CanonicalType,
+    ColSchema,
+    TableID,
+    TableSchema,
+)
+from transferia_tpu_torch.columnar.batch import Column, ColumnBatch
 from transferia_tpu_torch.runtime.device import DeviceLike
+
+# Error column tagged onto rows that failed a transformer.
+TRANSFORM_ERROR_COL = "__transform_error"
 
 
 @dataclass
 class TransformResult:
-    """Output of one transformer application: the transformed block
-    (possibly empty).  The per-row error blocks of the reference are not
-    ported: no ported transformer emits them."""
+    """Output of one transformer application.
 
-    transformed: ColumnBatch
+    transformed: the successfully transformed block (possibly empty).
+    errors: rows that failed, in their pre-transform shape with an added
+            __transform_error utf8 column (the chain emits, drops or
+            fails on them per its error_behavior).
+    """
+
+    transformed: Optional[ColumnBatch]
+    errors: Optional[ColumnBatch] = None
 
 
 class Transformer(abc.ABC):
@@ -50,3 +66,21 @@ class Transformer(abc.ABC):
 
     def describe(self) -> str:
         return self.TYPE
+
+
+def error_batch(source: ColumnBatch, mask: np.ndarray,
+                message: str) -> Optional[ColumnBatch]:
+    """Build the __transform_error block for rows selected by mask."""
+    if not mask.any():
+        return None
+    failed = source.filter(mask)
+    n = failed.n_rows
+    err_col = Column.from_pylist(
+        TRANSFORM_ERROR_COL, CanonicalType.UTF8, [message] * n
+    )
+    cols = dict(failed.columns)
+    cols[TRANSFORM_ERROR_COL] = err_col
+    schema = failed.schema.append(
+        ColSchema(TRANSFORM_ERROR_COL, CanonicalType.UTF8)
+    )
+    return failed.with_columns(cols, schema)
