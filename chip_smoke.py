@@ -95,7 +95,22 @@ final line):
      card and the plain version over the sink's rows; every part is
      completed and committed; the runs' launches, counted across the
      threads, hold K-A, K-B, K-C, K10 and trt_var_accumulators;
- 15. timing: each kernel at its path's shapes, beside its plain version,
+ 15. replication: INCREMENT_ONLY transfers through the port's
+     run_replication on a memory coordinator, from the port's fake Kafka
+     broker into its fake ClickHouse, device and host placement: (a)
+     bench.py measure_kafka2ch's shape (16 partitions x 1,500 JSON
+     messages, parallelism 4, no Bufferer, mask_field url + filter_rows
+     "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
+     config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
+     the CH target's default Bufferer) over a backlog of 16 partitions
+     x 4,096 messages of the kafka2ch phase's generator (K-A).  Exact
+     row counts in the fake, rows sorted by id identical across
+     placements, sampled masks equal to hashlib's HMAC, kept ids equal
+     to numpy's, no unparsed rows, every partition's last offset
+     committed; it reports rows/s, the transform p50/p99 (the
+     Transformation's stage timer), the batch sizes the chain saw and
+     the seconds spent fetching, parsing, transforming and inserting;
+ 16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
      against the SASS instructions counted from this run's build: K-A's
@@ -122,6 +137,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -238,7 +254,21 @@ from transferia_tpu_torch.providers.sample import (
     SampleSourceParams,
     make_batch,
 )
+from transferia_tpu_torch.middlewares import sync as sync_mw
+from transferia_tpu_torch.models import TransferType
+from transferia_tpu_torch.parsers.generic import GenericJsonParser
+from transferia_tpu_torch.providers.clickhouse import CHTargetParams
+from transferia_tpu_torch.providers.clickhouse.provider import CHSinker
+from transferia_tpu_torch.providers.kafka import KafkaSourceParams
+from transferia_tpu_torch.providers.kafka.client import KafkaClient
+from transferia_tpu_torch.providers.kafka.protocol import Record
+from transferia_tpu_torch.providers.kafka.provider import _KafkaQueueClient
+from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
+from transferia_tpu_torch.recipes.fake_kafka import FakeKafka
 from transferia_tpu_torch.runtime.device import resolve_device
+from transferia_tpu_torch.runtime.local import run_replication
+from transferia_tpu_torch.stats import stagetimer
+from transferia_tpu_torch.stats.registry import Metrics
 from transferia_tpu_torch.tasks import SnapshotLoader
 from transferia_tpu_torch.testing import force_virtual_mesh
 from transferia_tpu_torch.transform import build_chain
@@ -316,6 +346,7 @@ PATH_KERNELS = {
     "kafka2ch": ("sha256_hmac",),
     "snapshot": ("sha256_hmac", "pred_decode", "pred3vl_mask",
                  "rowhash_lanes", "var_accumulators"),
+    "replication": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -361,6 +392,26 @@ SNAP_FUSED = {"transformers": [
     {"mask_field": {"columns": ["email"], "salt": SNAP_SALT}},
     {"filter_rows": {"filter": "age >= 21"}},
 ]}
+# replication through run_replication, fake Kafka -> fake ClickHouse:
+# bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
+# parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
+# (examples/kafka2ch.yaml: rename + mask, the CH target's default
+# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
+# kafka2ch phase's generator (cut from 16,384: PERF.md section 4)
+REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
+REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
+               {"name": "url", "type": "utf8"},
+               {"name": "region", "type": "int32"}]
+REPL_CONFIG = {"transformers": [
+    {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
+    {"filter_rows": {"filter": "region < 400"}},
+]}
+BACKLOG_MESSAGES = 4096
+K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
+               {"name": "user_email", "type": "utf8"},
+               {"name": "amount", "type": "double"},
+               {"name": "ts", "type": "timestamp"}]
+REPL_SETTLE_S = 120.0
 
 
 def emit(obj) -> None:
@@ -2311,6 +2362,320 @@ def snapshot_path(dev) -> dict:
                                 "the plain version over the sink's rows")
 
 
+class ReplicationProbe:
+    """Wraps the replication path's stages for one run: the row count of
+    every batch the chain sees and when the first arrived (the
+    Transformation middleware's push), and the seconds spent, summed
+    over threads, in the source's fetches (the round trip, CRC32C and
+    record decode on the source thread), the parser (on the parse
+    threads) and the ClickHouse sink's pushes (RowBinary and the HTTP
+    insert, on the sink thread)."""
+
+    TIMED = (("fetch", _KafkaQueueClient, "fetch"),
+             ("parse", GenericJsonParser, "do_batch"),
+             ("sink", CHSinker, "push"))
+
+    def __enter__(self):
+        self.sizes: dict[int, int] = {}
+        self.first_push: Optional[float] = None
+        self.seconds = {name: 0.0 for name, _, _ in self.TIMED}
+        self._lock = threading.Lock()
+        self._orig = [(sync_mw.Transformation, "push",
+                       sync_mw.Transformation.push)]
+        probe, chain_push = self, sync_mw.Transformation.push
+
+        def push(mw, batch):
+            with probe._lock:
+                if probe.first_push is None:
+                    probe.first_push = time.perf_counter()
+                n = sync_mw.batch_len(batch)
+                probe.sizes[n] = probe.sizes.get(n, 0) + 1
+            return chain_push(mw, batch)
+
+        sync_mw.Transformation.push = push
+        for name, cls, attr in self.TIMED:
+            orig = getattr(cls, attr)
+            self._orig.append((cls, attr, orig))
+            setattr(cls, attr, self._timed(name, orig))
+        return self
+
+    def _timed(self, name: str, orig):
+        probe = self
+
+        def call(obj, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(obj, *args, **kw)
+            finally:
+                with probe._lock:
+                    probe.seconds[name] += time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        for cls, attr, orig in self._orig:
+            setattr(cls, attr, orig)
+        return False
+
+
+def produce(port: int, partitions: int, per: int, chunk: int, value) -> None:
+    """Seed the fake broker over the wire: partition p holds messages
+    value(p, i) for i < per, produced `chunk` records a request."""
+    client = KafkaClient([f"127.0.0.1:{port}"])
+    try:
+        for p in range(partitions):
+            for lo in range(0, per, chunk):
+                client.produce("events", p, [
+                    Record(key=b"", value=value(p, i),
+                           timestamp_ms=1_700_000_000_000 + i)
+                    for i in range(lo, min(per, lo + chunk))])
+    finally:
+        client.close()
+
+
+def percentile(steady: list, q: float) -> float:
+    return steady[max(0, -(-int(q * 100) * len(steady) // 100) - 1)]
+
+
+def replication_run(name: str, broker: FakeKafka, src_schema, config,
+                    bufferer, expected: int, placement: str, dev) -> dict:
+    """One INCREMENT_ONLY transfer through run_replication from the
+    broker into a fresh fake ClickHouse, the placement pinned; waits for
+    `expected` rows and for every partition's offset to commit, then
+    stops.  Returns the readings and the rows sorted by id."""
+    ch = FakeCH().start()
+    tid = f"chip-repl-{name}-{placement}"
+    # the CH target's default Bufferer (100,000 rows or 1 s), or none
+    dst = CHTargetParams(host="127.0.0.1", port=ch.port) if bufferer \
+        else CHTargetParams(host="127.0.0.1", port=ch.port, bufferer=None)
+    transfer = Transfer(
+        id=tid, type=TransferType.INCREMENT_ONLY,
+        src=KafkaSourceParams(
+            brokers=[f"127.0.0.1:{broker.port}"], topic="events",
+            parallelism=4,
+            parser={"json": {"schema": src_schema, "table": "events"}}),
+        dst=dst, transformation=config)
+    cp, metrics, stop = MemoryCoordinator(), Metrics(), threading.Event()
+    last = {f"events:{p}": len(broker.topics["events"][p]) - 1
+            for p in range(REPL_PARTITIONS)}
+    stagetimer.enable(True)
+    stagetimer.collect_samples("transform")
+    stagetimer.reset()
+    set_placement(placement)
+    failure = []
+
+    def run():
+        try:
+            run_replication(transfer, cp, metrics=metrics, stop_event=stop,
+                            backoff=0.2, device=dev)
+        except BaseException as e:  # surfaced below
+            failure.append(e)
+
+    th = threading.Thread(target=run, daemon=True)
+    try:
+        with ReplicationProbe() as seen:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            th.start()
+            deadline = time.monotonic() + REPL_SETTLE_S
+            t_first = None
+            while ch.total_rows() < expected and not failure:
+                if t_first is None and ch.total_rows():
+                    t_first = time.perf_counter()
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"replication {name} {placement}: "
+                        f"{ch.total_rows()} of {expected} rows")
+                time.sleep(0.002)
+            t_done = time.perf_counter()
+            while cp.get_transfer_state(tid).get("kafka_offsets") != last \
+                    and not failure:
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"replication {name} {placement}: offsets "
+                        f"{cp.get_transfer_state(tid)}, want {last}")
+                time.sleep(0.01)
+            torch.cuda.synchronize(dev)
+            launches = _build.launch_counts()
+    finally:
+        stop.set()
+        th.join(30)
+        set_placement(None)
+        stagetimer.enable(False)
+        ch.stop()
+    if failure:
+        raise AssertionError(f"replication {name} {placement} failed: "
+                             f"{failure[0]!r}")
+    if th.is_alive():
+        raise AssertionError(f"replication {name} {placement}: the loop "
+                             "did not stop")
+    tables = {n: t for n, t in ch.tables.items()}
+    if ch.total_rows() != expected or len(tables) != 1:
+        raise AssertionError(f"replication {name} {placement}: "
+                             f"{ch.total_rows()} rows in {list(tables)}, "
+                             f"want {expected} in one table")
+    unparsed = metrics.value("publisher_data_unparsed_rows")
+    if unparsed:
+        raise AssertionError(f"replication {name} {placement}: {unparsed} "
+                             "unparsed rows")
+    (ch_table, tb), = tables.items()
+    columns = list(tb["rows"][0])
+    by_id = columns.index("id")
+    rows = sorted((tuple(r.values()) for r in tb["rows"]),
+                  key=lambda r: r[by_id])
+    lat = sorted(stagetimer.samples("transform"))
+    # bench.py measure_kafka2ch: drop the largest (the first batch's
+    # program build) when there are more than four
+    steady = lat[:max(1, len(lat) - 1)] if len(lat) > 4 else lat
+    return dict(
+        rows_sorted=rows, columns=columns, table=ch_table, launches=launches,
+        rows_per_s=expected / (t_done - t0),
+        rows_per_s_from_first_push=expected / (t_done - seen.first_push),
+        seconds=t_done - t0, first_push_s=seen.first_push - t0,
+        first_rows_s=(t_first or t_done) - t0,
+        transform_p50_ms=percentile(steady, 0.50) * 1000,
+        transform_p99_ms=percentile(steady, 0.99) * 1000,
+        transform_max_ms=lat[-1] * 1000 if lat else None,
+        transform_batches=len(lat),
+        chain_batch_rows={str(k): v for k, v in sorted(seen.sizes.items())},
+        stage_seconds={**seen.seconds, "transform": sum(lat)},
+        offsets_committed=len(last), parsed_rows=metrics.value(
+            "publisher_data_parsed_rows"),
+        restarts=metrics.value("replication_restarts"))
+
+
+def k2ch_message(p: int, i: int) -> bytes:
+    """bench.py measure_kafka2ch's message: id p * 1,500 + i, a URL and
+    region i % 500."""
+    return json.dumps({"id": p * REPL_MESSAGES + i,
+                       "url": f"https://bench.example/{i}",
+                       "region": i % 500}).encode()
+
+
+def backlog_columns() -> dict:
+    """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
+    backlog's 16 x 4,096 ids."""
+    n = REPL_PARTITIONS * BACKLOG_MESSAGES
+    rng = np.random.default_rng(7)
+    ids = np.arange(n, dtype=np.int64)
+    return {"id": ids, "amount": rng.random(n) * 1000.0,
+            "ts": (1_700_000_000_000_000
+                   + rng.integers(0, 86_400_000_000, n)).astype(np.int64)}
+
+
+def replication_path(dev) -> dict:
+    """run_replication over the port's fake broker into its fake
+    ClickHouse, device and host placement: (a) bench.py's
+    measure_kafka2ch shape with mask + filter and no Bufferer, (b)
+    config #1 (rename + mask, the default Bufferer) over a backlog.
+    Exact row counts, rows sorted by id identical across placements,
+    sampled masks equal to hashlib, kept ids equal to numpy's, no
+    unparsed rows, every partition's last offset committed, and the
+    device runs' launches."""
+    t0 = time.perf_counter()
+    bench_broker = FakeKafka(n_partitions=REPL_PARTITIONS).start()
+    backlog_broker = FakeKafka(n_partitions=REPL_PARTITIONS).start()
+    try:
+        bench_broker.create_topic("events")
+        backlog_broker.create_topic("events")
+        # bench.py produces each partition's 1,500 messages at once
+        produce(bench_broker.port, REPL_PARTITIONS, REPL_MESSAGES,
+                REPL_MESSAGES, k2ch_message)
+        cols = backlog_columns()
+
+        def backlog_message(p: int, i: int) -> bytes:
+            k = p * BACKLOG_MESSAGES + i
+            return json.dumps({
+                "id": int(cols["id"][k]),
+                "user_email": f"user{k}@example.test",
+                "amount": float(cols["amount"][k]),
+                "ts": int(cols["ts"][k])}).encode()
+
+        produce(backlog_broker.port, REPL_PARTITIONS, BACKLOG_MESSAGES,
+                FETCH_MAX, backlog_message)
+        gen_s = time.perf_counter() - t0
+        bench_keep = np.array([p * REPL_MESSAGES + i
+                               for p in range(REPL_PARTITIONS)
+                               for i in range(REPL_MESSAGES)
+                               if i % 500 < 400])
+        runs = {}
+        for shape, broker, schema, config, buf, expected in (
+                ("bench", bench_broker, REPL_SCHEMA, REPL_CONFIG, False,
+                 len(bench_keep)),
+                ("backlog", backlog_broker, K2CH_SCHEMA, KAFKA2CH_CONFIG,
+                 True, REPL_PARTITIONS * BACKLOG_MESSAGES)):
+            for placement in ("device", "host"):
+                runs[(shape, placement)] = replication_run(
+                    shape, broker, schema, config, buf, expected,
+                    placement, dev)
+    finally:
+        bench_broker.stop()
+        backlog_broker.stop()
+    want = {"bench": {"sha256_hmac", "pred_decode", "pred3vl_mask"},
+            "backlog": {"sha256_hmac"}}
+    launches = {k: 0 for k in _build.KERNELS}
+    result = {}
+    for shape in ("bench", "backlog"):
+        dev_run, host_run = runs[(shape, "device")], runs[(shape, "host")]
+        got = {k for k, c in dev_run["launches"].items() if c}
+        host_launched = {k: c for k, c in host_run["launches"].items() if c}
+        if got != want[shape] or host_launched:
+            raise AssertionError(f"replication {shape}: device launched "
+                                 f"{got} (want {want[shape]}), host "
+                                 f"{host_launched}")
+        for k, c in dev_run["launches"].items():
+            launches[k] += c
+        if dev_run["rows_sorted"] != host_run["rows_sorted"] or \
+                dev_run["columns"] != host_run["columns"]:
+            raise AssertionError(f"replication {shape}: device rows differ "
+                                 "from the host placement's")
+        rows = dev_run["rows_sorted"]
+        by_id = dev_run["columns"].index("id")
+        ids = np.array([r[by_id] for r in rows])
+        if shape == "bench":
+            if dev_run["table"] != "events" or not np.array_equal(
+                    ids, bench_keep):
+                raise AssertionError(f"replication bench: kept {len(ids)} "
+                                     f"ids, numpy keeps {len(bench_keep)}")
+            salt, col = REPL_SALT, dev_run["columns"].index("url")
+
+            def message(k):
+                return f"https://bench.example/{k % REPL_MESSAGES}"
+        else:
+            if dev_run["table"] != "events_clean" or not np.array_equal(
+                    ids, cols["id"]):
+                raise AssertionError(f"replication backlog: table "
+                                     f"{dev_run['table']}, {len(ids)} ids")
+            salt, col = KAFKA2CH_SALT, dev_run["columns"].index(
+                "user_email")
+
+            def message(k):
+                return f"user{k}@example.test"
+        for j in (0, 1, len(rows) // 2, len(rows) - 1):
+            k = int(ids[j])
+            want_hex = hmac.new(salt, message(k).encode(),
+                                hashlib.sha256).hexdigest().encode()
+            if rows[j][col] != want_hex:
+                raise AssertionError(f"replication {shape}: row {k}'s mask "
+                                     "differs from hashlib")
+        if shape == "backlog":
+            amount = dev_run["columns"].index("amount")
+            if [r[amount] for r in rows[:3]] != cols["amount"][:3].tolist():
+                raise AssertionError("replication backlog: amounts differ")
+        result[shape] = {
+            placement: {k: v for k, v in run.items() if k != "rows_sorted"}
+            for placement, run in (("device", dev_run),
+                                   ("host", host_run))}
+        result[shape]["rows"] = len(rows)
+    require_launched("replication", launches)
+    return dict(partitions=REPL_PARTITIONS,
+                bench_messages=REPL_MESSAGES,
+                backlog_messages=BACKLOG_MESSAGES, data_gen_seconds=gen_s,
+                launches=launches, runs=result,
+                identical_across_placements=True,
+                mask_equal_to="hashlib HMAC (sampled)",
+                kept_equal_to="numpy region < 400")
+
+
 # -- phase 7: timing ------------------------------------------------------------
 
 def kernel_ms(fn, dev, iters: int = 20, reps: int = 5) -> float:
@@ -3372,7 +3737,8 @@ def main() -> int:
              lambda: lambda_path("lambda_backlog", SR_BACKLOG, dev,
                                  auto=True)),
             ("kafka2ch", lambda: kafka2ch_path(dev)),
-            ("snapshot", lambda: snapshot_path(dev))):
+            ("snapshot", lambda: snapshot_path(dev)),
+            ("replication", lambda: replication_path(dev))):
         t_phase = time.perf_counter()
         result = run()
         phase_s[path] = time.perf_counter() - t_phase

@@ -6,7 +6,9 @@ table fingerprint, the sharded transform step, the chain's mesh route
 (on a 2-shard virtual mesh), the lambda chain with the SR fan-in user
 function in both placements, a rename chain and a snapshot transfer
 (sample -> memory through SnapshotLoader, with the mask, the filter,
-staged commits and fingerprint validation) on the CPU; afterwards
+staged commits and fingerprint validation) and a replication (Kafka
+JSON -> ClickHouse through run_replication with the mask and the
+filter, against the port's own wire fakes) on the CPU; afterwards
 neither jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may
 be loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
@@ -16,6 +18,7 @@ instead of running there.
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -137,12 +140,50 @@ assert len(parts) == 2 and all(p.completed and p.commit_epoch == 1
 digest = cp.get_operation_state("op-iso")["table_fingerprints"]
 assert int(list(digest.values())[0].split(":")[1]) == \
     get_store("iso").row_count() > 0, digest
+import json, threading, time
+import transferia_tpu_torch.parsers.plugins, transferia_tpu_torch.stats.stagetimer  # noqa
+from transferia_tpu_torch.models import TransferType
+from transferia_tpu_torch.providers.clickhouse import CHTargetParams
+from transferia_tpu_torch.providers.kafka import KafkaSourceParams
+from transferia_tpu_torch.providers.kafka.client import KafkaClient
+from transferia_tpu_torch.providers.kafka.protocol import Record
+from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
+from transferia_tpu_torch.recipes.fake_kafka import FakeKafka
+from transferia_tpu_torch.runtime.local import run_replication
+broker, ch = FakeKafka(n_partitions=2).start(), FakeCH().start()
+producer = KafkaClient([f"127.0.0.1:{broker.port}"])
+for p in range(2):
+    producer.produce("hits", p, [Record(key=b"", value=json.dumps(
+        {"id": p * 100 + i, "url": f"u{i}", "region": 5 * i}).encode())
+        for i in range(100)])
+producer.close()
+repl = Transfer(id="iso-repl", type=TransferType.INCREMENT_ONLY,
+    src=KafkaSourceParams(brokers=[f"127.0.0.1:{broker.port}"],
+        topic="hits", parser={"json": {"schema": [
+            {"name": "id", "type": "int64", "key": True},
+            {"name": "url", "type": "utf8"},
+            {"name": "region", "type": "int32"}], "table": "hits"}}),
+    dst=CHTargetParams(host="127.0.0.1", port=ch.port),
+    transformation=%r)
+stop = threading.Event()
+rcp = MemoryCoordinator()
+th = threading.Thread(target=run_replication, args=(repl, rcp), kwargs={
+    "stop_event": stop, "backoff": 0.1, "device": "cpu"}, daemon=True)
+th.start()
+deadline = time.monotonic() + 60
+while ch.total_rows() < 160 and time.monotonic() < deadline:
+    time.sleep(0.05)
+stop.set()
+th.join(10)
+broker.stop()
+ch.stop()
+assert ch.total_rows() == 160, ch.total_rows()
 set_placement(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
                                     "transferia_tpu"))
 print("LOADED", bad)
-""" % (CONFIG, CONFIG, CONFIG)
+""" % (CONFIG, CONFIG, CONFIG, CONFIG)
 
 
 def test_port_runs_without_jax_or_the_jax_package():
@@ -277,3 +318,35 @@ def test_pass_through_plan_needs_no_device():
     chain = build_chain({"transformers": [
         {"filter_rows": {"filter": "region < 400"}}]})
     assert np.array_equal(chain.apply(batch).column("region").data, [1])
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_replication_needs_a_card_or_the_cpu(device, monkeypatch):
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer, TransferType
+    from transferia_tpu_torch.providers.memory import (
+        MemoryTargetParams,
+        get_store,
+    )
+    from transferia_tpu_torch.providers.sample import SampleSourceParams
+    from transferia_tpu_torch.runtime.local import LocalWorker, run_replication
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = Transfer(id="nocard-repl", type=TransferType.INCREMENT_ONLY,
+                 src=SampleSourceParams(rows=0, replication_batch=64),
+                 dst=MemoryTargetParams(sink_id="nocard-repl"))
+    cp = MemoryCoordinator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_replication(t, cp, device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalWorker(t, cp, device=device)
+    assert cp.get_status("nocard-repl").value == "new"
+    # "cpu" runs: the worker pumps the sample stream until stopped
+    worker = LocalWorker(t, cp, device="cpu")
+    store = get_store("nocard-repl")
+    store.clear()
+    stopper = threading.Timer(0.3, worker.stop)
+    stopper.start()
+    worker.run()
+    stopper.join()
+    assert store.row_count() >= 64

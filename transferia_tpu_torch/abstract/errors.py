@@ -61,6 +61,17 @@ class Codes:
     SNAPSHOT_PARTS_ORPHANED = "snapshot.parts_orphaned"
 
 
+class CategorizedError(TransferError):
+    """Error attributed to the source or the target."""
+
+    SOURCE = "source"
+    TARGET = "target"
+
+    def __init__(self, category: str, message: str):
+        super().__init__(f"({category}) {message}")
+        self.category = category
+
+
 class TableUploadError(TransferError):
     """Per-part upload failure; retried with backoff by the snapshot
     loader."""

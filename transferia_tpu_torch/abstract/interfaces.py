@@ -33,6 +33,18 @@ def is_columnar(batch: Batch) -> bool:
     return hasattr(batch, "columns") and hasattr(batch, "n_rows")
 
 
+class Source(abc.ABC):
+    """Replication source: runs until stop() or a fatal error."""
+
+    @abc.abstractmethod
+    def run(self, sink: "AsyncSink") -> None:
+        """Block, pushing batches into sink until stop() is called."""
+
+    @abc.abstractmethod
+    def stop(self) -> None:
+        ...
+
+
 class Sinker(abc.ABC):
     """Synchronous, non-concurrent sink."""
 

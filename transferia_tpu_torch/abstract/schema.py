@@ -51,6 +51,14 @@ class CanonicalType(str, enum.Enum):
         return self in _INTS
 
     @property
+    def is_float(self) -> bool:
+        return self in (CanonicalType.FLOAT, CanonicalType.DOUBLE)
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.is_integer or self.is_float
+
+    @property
     def is_variable_width(self) -> bool:
         """True for types stored as bytes+offsets on device."""
         return self in (

@@ -1,8 +1,8 @@
 """Coordinator interface (the port's copy of the transfer, operation,
-part-queue, lease and staged-commit groups of
-``transferia_tpu/coordinator/interface.py``).  The fleet ticket queue,
-observability segments and the MVCC control plane wait for their slices
-(ROADMAP.md A5).
+part-queue, lease, staged-commit and replication (failure, status
+message, heartbeat) groups of ``transferia_tpu/coordinator/interface.py``).
+The fleet ticket queue, observability segments and the MVCC control plane
+wait for their slices (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -79,6 +79,14 @@ class Coordinator(abc.ABC):
     @abc.abstractmethod
     def get_status(self, transfer_id: str) -> TransferStatus:
         ...
+
+    def fail_replication(self, transfer_id: str, error: str) -> None:
+        self.set_status(transfer_id, TransferStatus.FAILED)
+        self.open_status_message(transfer_id, "replication", error)
+
+    def open_status_message(self, transfer_id: str, category: str,
+                            message: str) -> None:
+        """A user-visible status message of the transfer."""
 
     @abc.abstractmethod
     def set_transfer_state(self, transfer_id: str,
@@ -164,3 +172,7 @@ class Coordinator(abc.ABC):
     def get_operation_health(self, operation_id: str) -> dict[int, dict]:
         """Latest heartbeat per worker: {worker_index: {"ts", "payload"}}."""
         return {}
+
+    def transfer_health(self, transfer_id: str, worker_index: int = 0,
+                        healthy: bool = True) -> None:
+        """The replication loop's heartbeat."""

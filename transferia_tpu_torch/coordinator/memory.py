@@ -1,5 +1,6 @@
 """In-process coordinator (the port's copy of the operation, lease and
-staged-commit parts of ``transferia_tpu/coordinator/memory.py``).
+staged-commit parts of ``transferia_tpu/coordinator/memory.py``, with
+the replication loop's status messages and heartbeats).
 
 Thread-safe; used for single-process runs and tests.  One lock per
 operation guards its part queue and state, one the transfer-scoped maps,
@@ -46,6 +47,7 @@ class MemoryCoordinator(Coordinator):
         self._lock = threading.RLock()
         self._status: dict[str, TransferStatus] = {}
         self._state: dict[str, dict[str, Any]] = {}
+        self._messages: dict[str, list[tuple[str, str]]] = {}
         self._ops_lock = threading.Lock()
         self._ops: dict[str, _OpState] = {}
         self.lease_seconds = (default_lease_seconds()
@@ -75,6 +77,16 @@ class MemoryCoordinator(Coordinator):
     def get_status(self, transfer_id: str) -> TransferStatus:
         with self._lock:
             return self._status.get(transfer_id, TransferStatus.NEW)
+
+    def open_status_message(self, transfer_id: str, category: str,
+                            message: str) -> None:
+        with self._lock:
+            self._messages.setdefault(transfer_id, []).append(
+                (category, message))
+
+    def status_messages(self, transfer_id: str) -> list[tuple[str, str]]:
+        with self._lock:
+            return list(self._messages.get(transfer_id, []))
 
     def set_transfer_state(self, transfer_id: str,
                            state: dict[str, Any]) -> None:
@@ -222,4 +234,13 @@ class MemoryCoordinator(Coordinator):
                 widx: dict(rep)
                 for (scope, widx), rep in self._health_latest.items()
                 if scope == operation_id
+            }
+
+    def transfer_health(self, transfer_id: str, worker_index: int = 0,
+                        healthy: bool = True) -> None:
+        with self._health_lock:
+            self.health_reports.append((transfer_id, worker_index,
+                                        healthy))
+            self._health_latest[(transfer_id, worker_index)] = {
+                "ts": time.time(), "payload": {"healthy": healthy},
             }

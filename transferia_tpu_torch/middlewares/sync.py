@@ -4,7 +4,9 @@
 Reference parity: pkg/middlewares/{statistician,filter,nonrow_separator,
 fallback,retrier}.go, the Measurer and the Transformation middleware.
 The reference's trace spans, failpoints, torn-write injection, ledger and
-freshness watermarks are telemetry and are not ported (ROADMAP.md A5).
+freshness watermarks are telemetry and are not ported (ROADMAP.md A5);
+the Transformation's `stagetimer.stage("transform")` window is ported:
+the replication path's transform latency is read from it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from transferia_tpu_torch.middlewares.helpers import (
     batch_len,
     split_rows_controls,
 )
+from transferia_tpu_torch.stats import stagetimer
 from transferia_tpu_torch.stats.registry import SinkerStats
 from transferia_tpu_torch.utils.backoff import retry_with_backoff
 
@@ -172,6 +175,7 @@ class Transformation(_Wrap):
         self.chain = chain
 
     def push(self, batch: Batch) -> None:
-        out = self.chain.apply(batch)
+        with stagetimer.stage("transform"):
+            out = self.chain.apply(batch)
         if batch_len(out) or not batch_len(batch):
             self.inner.push(out)

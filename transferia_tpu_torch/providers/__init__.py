@@ -2,8 +2,10 @@
 
 Providers register under a name and expose optional capability
 constructors (snapshot storage, sinker, ...); factories resolve them at
-transfer build time.  The port ships the `sample` source and the
-`memory` source and sink; the other providers wait (ROADMAP.md A5).
+transfer build time.  The port ships the `sample` source (snapshot and
+replication), the `memory` source and sink, the `kafka` replication
+source and the `ch` (ClickHouse) sink on one shard; the other providers
+wait (ROADMAP.md A5).
 """
 
 from transferia_tpu_torch.providers.registry import (
@@ -18,6 +20,8 @@ __all__ = ["Provider", "get_provider", "register_provider"]
 def load_builtin_providers() -> None:
     """Import the built-in providers (idempotent)."""
     from transferia_tpu_torch.providers import (  # noqa: F401
+        clickhouse,
+        kafka,
         memory,
         sample,
     )

@@ -1,5 +1,6 @@
 """Provider base + registry (the port's copy of the parts of
-``transferia_tpu/providers/registry.py`` a snapshot transfer uses).
+``transferia_tpu/providers/registry.py`` a snapshot transfer and
+replication use).
 
 A provider gets the transfer and the device the transfer's pipeline
 runs on (the memory sink keys its staged rows there); capabilities it
@@ -14,6 +15,7 @@ from typing import Optional, Type
 from transferia_tpu_torch.abstract.interfaces import (
     AsyncSink,
     Sinker,
+    Source,
     Storage,
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
@@ -32,6 +34,10 @@ class Provider(abc.ABC):
         self.metrics = metrics or Metrics()
         self.coordinator = coordinator
         self.device = device
+
+    def source(self) -> Optional[Source]:
+        """Replication capability."""
+        return None
 
     def storage(self) -> Optional[Storage]:
         """Snapshot capability."""

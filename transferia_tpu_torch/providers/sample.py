@@ -1,12 +1,12 @@
 """Synthetic sample provider — the built-in load generator (the port's
-copy of the snapshot half of ``transferia_tpu/providers/sample.py``).
+copy of ``transferia_tpu/providers/sample.py``).
 
 Generates deterministic columnar batches directly, born device-ready.
 Presets `iot` and `users`; `dict_encode` emits the low-cardinality utf8
 columns (iot status/device_id, users country) as dictionary columns over
 one pool per (preset, column) and process, byte-identical to the flat
-emission when materialized.  The replication source waits for the
-replication slice (ROADMAP.md A5).
+emission when materialized.  `SampleReplicationSource` is the
+Kafka-free INCREMENT_ONLY source: an endless insert stream.
 """
 
 from __future__ import annotations
@@ -18,8 +18,10 @@ from dataclasses import dataclass
 import numpy as np
 
 from transferia_tpu_torch.abstract.interfaces import (
+    AsyncSink,
     Pusher,
     ShardingStorage,
+    Source,
     Storage,
     TableInfo,
 )
@@ -58,6 +60,8 @@ class SampleSourceParams(EndpointParams):
     table: str = "events"
     rows: int = 100_000          # snapshot rows
     batch_rows: int = 16_384
+    rate: float = 0.0            # replication rows/sec, 0 = unthrottled
+    replication_batch: int = 1024
     seed: int = 7
     shard_parts: int = 0         # >0: advertise ShardingStorage parts
     dict_encode: bool = False
@@ -256,9 +260,45 @@ class SampleStorage(Storage, ShardingStorage):
             pusher(batch)
 
 
+class SampleReplicationSource(Source):
+    """Endless insert stream (the replication mode's load generator)."""
+
+    def __init__(self, params: SampleSourceParams):
+        self.params = params
+        self.table = TableID("sample", params.table)
+        self._stop = threading.Event()
+
+    def run(self, sink: AsyncSink) -> None:
+        lsn = 0
+        start = self.params.rows  # continue after the snapshot range
+        bs = self.params.replication_batch
+        futures = []
+        while not self._stop.is_set():
+            batch = make_batch(self.params.preset, self.table, start, bs,
+                               self.params.seed)
+            lsn += 1
+            batch.lsns = np.full(bs, lsn, dtype=np.int64)
+            batch.commit_times = np.full(bs, time.time_ns(),
+                                         dtype=np.int64)
+            futures.append(sink.async_push(batch))
+            if len(futures) > 16:
+                futures.pop(0).result()
+            start += bs
+            if self.params.rate > 0:
+                self._stop.wait(bs / self.params.rate)
+        for f in futures:
+            f.result()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
 @register_provider
 class SampleProvider(Provider):
     NAME = "sample"
 
     def storage(self):
         return SampleStorage(self.transfer.src)
+
+    def source(self):
+        return SampleReplicationSource(self.transfer.src)

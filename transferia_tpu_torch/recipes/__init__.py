@@ -1,0 +1,4 @@
+"""In-process wire fakes of the brokers and databases the port's
+providers speak to: a Kafka broker and a ClickHouse HTTP endpoint.  They
+run the real clients against real localhost sockets; only the server
+side is fake."""

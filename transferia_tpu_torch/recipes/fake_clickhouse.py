@@ -1,0 +1,261 @@
+"""In-process fake ClickHouse HTTP endpoint: the port's copy of the parts
+of ``tests/recipes/fake_clickhouse.py`` that the port's sink speaks to.
+
+Query param parsing, CREATE/DROP/TRUNCATE TABLE, INSERT ... FORMAT
+RowBinary (the payload walked and counted at insert time and decoded on
+read with an independent minimal decoder).  Runs the
+real CHClient against real sockets; only the server side is fake.  The
+JAX fake's system-table queries, partition swaps and SELECTs serve the
+staged commit, cluster discovery and the snapshot source, which the port
+does not have yet.
+"""
+
+from __future__ import annotations
+
+import re
+import struct
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+
+class _LazyTable(dict):
+    """Table entry whose RowBinary inserts decode lazily.
+
+    INSERT bodies are structure-validated and row-COUNTED at insert time
+    (cheap walk), but full Python row objects materialize only when
+    someone reads ["rows"] — benches poll counts at high frequency and a
+    real server never builds Python rows at all."""
+
+    def __getitem__(self, key):
+        if key == "rows":
+            pend = dict.__getitem__(self, "pending")
+            if pend:
+                rows = dict.__getitem__(self, "rows")
+                for body, col_names, types, _count in pend:
+                    decoded = _decode_rowbinary_rows(body, types)
+                    rows.extend(dict(zip(col_names, r)) for r in decoded)
+                pend.clear()
+        return dict.__getitem__(self, key)
+
+    def __setitem__(self, key, value):
+        if key == "rows":  # truncate: discard pending blobs too
+            dict.__getitem__(self, "pending").clear()
+        dict.__setitem__(self, key, value)
+
+    def row_count(self) -> int:
+        # materialized rows (tests may mutate that list directly) plus
+        # not-yet-decoded inserts
+        return (len(dict.__getitem__(self, "rows"))
+                + sum(c for _, _, _, c in
+                      dict.__getitem__(self, "pending")))
+
+
+class FakeCH:
+    def __init__(self):
+        self.tables: dict[str, dict] = {}   # name -> {ddl, columns, rows}
+        self.lock = threading.Lock()
+        self._srv: ThreadingHTTPServer | None = None
+        self.port = 0
+
+    def total_rows(self) -> int:
+        """Inserted-row count without materializing rows (cheap to
+        poll)."""
+        with self.lock:
+            return sum(t.row_count() for t in self.tables.values())
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "FakeCH":
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            # real ClickHouse speaks HTTP/1.1 with keep-alive; the client
+            # pools per-thread connections, so the fake must match
+            protocol_version = "HTTP/1.1"
+
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(length)
+                qs = urllib.parse.parse_qs(
+                    urllib.parse.urlparse(self.path).query
+                )
+                query = (qs.get("query") or [""])[0]
+                try:
+                    out = fake.handle(query, body)
+                    self.send_response(200)
+                    self.send_header("Content-Length", str(len(out)))
+                    self.end_headers()
+                    self.wfile.write(out)
+                except Exception as e:
+                    msg = str(e).encode()
+                    self.send_response(500)
+                    self.send_header("Content-Length", str(len(msg)))
+                    self.end_headers()
+                    self.wfile.write(msg)
+
+            def log_message(self, *a):
+                pass
+
+        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self._srv.server_port
+        threading.Thread(target=self._srv.serve_forever,
+                         daemon=True).start()
+        return self
+
+    def stop(self):
+        if self._srv:
+            self._srv.shutdown()
+            self._srv.server_close()
+
+    # -- protocol -----------------------------------------------------------
+    def handle(self, query: str, body: bytes) -> bytes:
+        q = query.strip()
+        low = q.lower()
+        m = re.match(r"create table if not exists `?(\w+)`?\s*\((.*)\)\s*"
+                     r"engine\s*=\s*(.*?)\s+order by", low, re.S)
+        if m:
+            name = re.match(
+                r"CREATE TABLE IF NOT EXISTS `?(\w+)`?", q, re.I
+            ).group(1)
+            cols = self._parse_ddl_cols(q)
+            with self.lock:
+                if name not in self.tables:
+                    self.tables[name] = _LazyTable({
+                        "ddl": q, "columns": cols, "rows": [],
+                        "pending": [],
+                    })
+            return b""
+        m = re.match(r"(drop|truncate) table if exists `?(\w+)`?", low)
+        if m:
+            with self.lock:
+                if m.group(1) == "drop":
+                    self.tables.pop(m.group(2), None)
+                elif m.group(2) in self.tables:
+                    self.tables[m.group(2)]["rows"] = []
+            return b""
+        m = re.match(r"insert into `?(\w+)`?\s*\((.*?)\)\s*format rowbinary",
+                     low, re.S)
+        if m:
+            name = re.match(r"INSERT INTO `?(\w+)`?", q, re.I).group(1)
+            col_names = [
+                c.strip().strip("`")
+                for c in re.search(r"\((.*?)\)", q, re.S).group(1).split(",")
+            ]
+            with self.lock:
+                table = self.tables.get(name)
+                if table is None:
+                    raise ValueError(f"Table {name} does not exist")
+                types = [table["columns"][c] for c in col_names]
+                # validate structure + count rows now; decode lazily
+                n = _count_rowbinary_rows(body, types)
+                table["pending"].append((body, col_names, types, n))
+            return b""
+        raise ValueError(f"fake CH: unhandled query: {q[:120]}")
+
+    @staticmethod
+    def _parse_ddl_cols(ddl: str) -> dict[str, str]:
+        inner = re.search(r"\((.*)\)\s*ENGINE", ddl, re.S | re.I).group(1)
+        cols = {}
+        depth = 0
+        current = ""
+        parts = []
+        for ch in inner:
+            if ch == "(":
+                depth += 1
+            elif ch == ")":
+                depth -= 1
+            if ch == "," and depth == 0:
+                parts.append(current)
+                current = ""
+            else:
+                current += ch
+        if current.strip():
+            parts.append(current)
+        for p in parts:
+            toks = p.strip().split(None, 1)
+            cols[toks[0].strip("`")] = toks[1].strip()
+        return cols
+
+
+# -- independent minimal RowBinary decoder (not the framework's) ------------
+
+_FIXED = {
+    "Int8": ("<b", 1), "Int16": ("<h", 2), "Int32": ("<i", 4),
+    "Int64": ("<q", 8), "UInt8": ("<B", 1), "UInt16": ("<H", 2),
+    "UInt32": ("<I", 4), "UInt64": ("<Q", 8), "Float32": ("<f", 4),
+    "Float64": ("<d", 8), "Bool": ("<B", 1), "Date32": ("<i", 4),
+    "DateTime": ("<I", 4), "DateTime64(6)": ("<q", 8),
+}
+
+
+def _count_rowbinary_rows(data: bytes, types: list[str]) -> int:
+    """Walk-only structural validation + row count (no Python objects).
+    Raises on malformed payloads exactly where the decoder would."""
+    pos = 0
+    n = len(data)
+    count = 0
+    while pos < n:
+        for t in types:
+            nullable = t.startswith("Nullable(")
+            base = t[9:-1] if nullable else t
+            if nullable:
+                if data[pos] == 1:
+                    pos += 1
+                    continue
+                pos += 1
+            if base in _FIXED:
+                pos += _FIXED[base][1]
+            elif base == "String":
+                ln = 0
+                shift = 0
+                while True:
+                    b = data[pos]
+                    pos += 1
+                    ln |= (b & 0x7F) << shift
+                    if not b & 0x80:
+                        break
+                    shift += 7
+                pos += ln
+            else:
+                raise ValueError(f"fake CH decoder: type {t}")
+        if pos > n:
+            raise ValueError("rowbinary payload truncated")
+        count += 1
+    return count
+
+
+def _decode_rowbinary_rows(data: bytes, types: list[str]) -> list[list]:
+    pos = 0
+    rows = []
+    while pos < len(data):
+        row = []
+        for t in types:
+            nullable = t.startswith("Nullable(")
+            base = t[9:-1] if nullable else t
+            if nullable:
+                flag = data[pos]
+                pos += 1
+                if flag == 1:
+                    row.append(None)
+                    continue
+            if base in _FIXED:
+                fmt, w = _FIXED[base]
+                v = struct.unpack_from(fmt, data, pos)[0]
+                pos += w
+                row.append(bool(v) if base == "Bool" else v)
+            elif base == "String":
+                ln = 0
+                shift = 0
+                while True:
+                    b = data[pos]
+                    pos += 1
+                    ln |= (b & 0x7F) << shift
+                    if not b & 0x80:
+                        break
+                    shift += 7
+                row.append(data[pos:pos + ln])
+                pos += ln
+            else:
+                raise ValueError(f"fake CH decoder: type {t}")
+        rows.append(row)
+    return rows

@@ -1,1 +1,2 @@
-"""Runtime plumbing of the port: environment knobs and device resolution."""
+"""Runtime plumbing of the port: environment knobs, device resolution
+and the replication loop (`runtime.local`)."""

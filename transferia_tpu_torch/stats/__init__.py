@@ -1,1 +1,2 @@
-"""Metrics of the port: a local registry and the typed stat bundles."""
+"""Metrics of the port: a local registry, the typed stat bundles and the
+stage timer."""

@@ -1,5 +1,6 @@
 """Metrics facade + typed stat bundles (the port's copy of the bundles
-of ``transferia_tpu/stats/registry.py`` that the snapshot transfer uses).
+of ``transferia_tpu/stats/registry.py`` that the snapshot transfer and
+replication use).
 
 The JAX package registers its metrics with prometheus_client when that
 package is present and falls back to local counters otherwise; the port
@@ -84,6 +85,20 @@ class _Bundle:
         self.m = metrics or Metrics()
 
 
+class SourceStats(_Bundle):
+    """publisher.data.*"""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.changeitems = self.m.counter("publisher_data_changeitems")
+        self.parsed_rows = self.m.counter("publisher_data_parsed_rows")
+        self.unparsed_rows = self.m.counter("publisher_data_unparsed_rows")
+        self.read_bytes = self.m.counter("publisher_data_read_bytes")
+        self.decode_time = self.m.histogram("publisher_time_decode")
+        self.push_time = self.m.histogram("publisher_time_push")
+        self.usage_lag = self.m.gauge("publisher_lag_seconds")
+
+
 class SinkerStats(_Bundle):
     """sinker.*"""
 
@@ -112,6 +127,14 @@ class BuffererStats(_Bundle):
         self.buffered_rows = self.m.gauge("bufferer_buffered_rows")
         self.buffered_bytes = self.m.gauge("bufferer_buffered_bytes")
         self.flush_time = self.m.histogram("bufferer_time_flush")
+
+
+class ReplicationStats(_Bundle):
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.running = self.m.gauge("replication_running")
+        self.restarts = self.m.counter("replication_restarts")
+        self.fatal_errors = self.m.counter("replication_fatal_errors")
 
 
 class TransformStats(_Bundle):
