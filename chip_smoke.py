@@ -103,13 +103,12 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 4,096 messages of the kafka2ch phase's generator (K-A).  Exact
+     x 16,384 messages of the kafka2ch phase's generator (K-A).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
      committed; it reports rows/s, the transform p50/p99 (the
-     Transformation's stage timer), the batch sizes the chain saw and
-     the seconds spent fetching, parsing, transforming and inserting;
+     Transformation's stage timer) and the batch sizes the chain saw;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -256,13 +255,10 @@ from transferia_tpu_torch.providers.sample import (
 )
 from transferia_tpu_torch.middlewares import sync as sync_mw
 from transferia_tpu_torch.models import TransferType
-from transferia_tpu_torch.parsers.generic import GenericJsonParser
 from transferia_tpu_torch.providers.clickhouse import CHTargetParams
-from transferia_tpu_torch.providers.clickhouse.provider import CHSinker
 from transferia_tpu_torch.providers.kafka import KafkaSourceParams
 from transferia_tpu_torch.providers.kafka.client import KafkaClient
 from transferia_tpu_torch.providers.kafka.protocol import Record
-from transferia_tpu_torch.providers.kafka.provider import _KafkaQueueClient
 from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
 from transferia_tpu_torch.recipes.fake_kafka import FakeKafka
 from transferia_tpu_torch.runtime.device import resolve_device
@@ -396,8 +392,8 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
-# kafka2ch phase's generator (cut from 16,384: PERF.md section 4)
+# Bufferer) over a backlog of 16 partitions x 16,384 messages of the
+# kafka2ch phase's generator
 REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
 REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "url", "type": "utf8"},
@@ -406,12 +402,12 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 4096
+BACKLOG_MESSAGES = 16384
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
                {"name": "ts", "type": "timestamp"}]
-REPL_SETTLE_S = 120.0
+REPL_SETTLE_S = 400.0
 
 
 def emit(obj) -> None:
@@ -2363,26 +2359,15 @@ def snapshot_path(dev) -> dict:
 
 
 class ReplicationProbe:
-    """Wraps the replication path's stages for one run: the row count of
-    every batch the chain sees and when the first arrived (the
-    Transformation middleware's push), and the seconds spent, summed
-    over threads, in the source's fetches (the round trip, CRC32C and
-    record decode on the source thread), the parser (on the parse
-    threads) and the ClickHouse sink's pushes (RowBinary and the HTTP
-    insert, on the sink thread)."""
-
-    TIMED = (("fetch", _KafkaQueueClient, "fetch"),
-             ("parse", GenericJsonParser, "do_batch"),
-             ("sink", CHSinker, "push"))
+    """Wraps the Transformation middleware's push for one run: the row
+    count of every batch the chain sees and when the first arrived."""
 
     def __enter__(self):
         self.sizes: dict[int, int] = {}
         self.first_push: Optional[float] = None
-        self.seconds = {name: 0.0 for name, _, _ in self.TIMED}
         self._lock = threading.Lock()
-        self._orig = [(sync_mw.Transformation, "push",
-                       sync_mw.Transformation.push)]
-        probe, chain_push = self, sync_mw.Transformation.push
+        self._push = sync_mw.Transformation.push
+        probe, chain_push = self, self._push
 
         def push(mw, batch):
             with probe._lock:
@@ -2393,27 +2378,10 @@ class ReplicationProbe:
             return chain_push(mw, batch)
 
         sync_mw.Transformation.push = push
-        for name, cls, attr in self.TIMED:
-            orig = getattr(cls, attr)
-            self._orig.append((cls, attr, orig))
-            setattr(cls, attr, self._timed(name, orig))
         return self
 
-    def _timed(self, name: str, orig):
-        probe = self
-
-        def call(obj, *args, **kw):
-            t0 = time.perf_counter()
-            try:
-                return orig(obj, *args, **kw)
-            finally:
-                with probe._lock:
-                    probe.seconds[name] += time.perf_counter() - t0
-        return call
-
     def __exit__(self, *exc):
-        for cls, attr, orig in self._orig:
-            setattr(cls, attr, orig)
+        sync_mw.Transformation.push = self._push
         return False
 
 
@@ -2537,7 +2505,7 @@ def replication_run(name: str, broker: FakeKafka, src_schema, config,
         transform_max_ms=lat[-1] * 1000 if lat else None,
         transform_batches=len(lat),
         chain_batch_rows={str(k): v for k, v in sorted(seen.sizes.items())},
-        stage_seconds={**seen.seconds, "transform": sum(lat)},
+        transform_seconds=sum(lat),
         offsets_committed=len(last), parsed_rows=metrics.value(
             "publisher_data_parsed_rows"),
         restarts=metrics.value("replication_restarts"))
@@ -2553,7 +2521,7 @@ def k2ch_message(p: int, i: int) -> bytes:
 
 def backlog_columns() -> dict:
     """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
-    backlog's 16 x 4,096 ids."""
+    backlog's 16 x 16,384 ids."""
     n = REPL_PARTITIONS * BACKLOG_MESSAGES
     rng = np.random.default_rng(7)
     ids = np.arange(n, dtype=np.int64)

@@ -628,7 +628,8 @@ def test_kafka_to_memory_equals_jax():
                                                if i % 17]
 
 
-def kafka_to_ch(pkg: str, partitions: int = 16, per: int = 40):
+def kafka_to_ch(pkg: str, partitions: int = 16, per: int = 40,
+                shard_by: str = ""):
     if pkg == "port":
         fake, ch_fake, client, rec, params, ch_params, transfer, cp, run = (
             FakeKafka, FakeCH, KafkaClient, protocol.Record,
@@ -653,7 +654,8 @@ def kafka_to_ch(pkg: str, partitions: int = 16, per: int = 40):
             brokers=[f"127.0.0.1:{srv.port}"], topic="hits",
             parallelism=4,
             parser={"json": {"schema": HITS_SCHEMA, "table": "hits"}}),
-            dst=ch_params(host="127.0.0.1", port=ch.port, bufferer=None),
+            dst=ch_params(host="127.0.0.1", port=ch.port, bufferer=None,
+                          shard_by=shard_by),
             transformation=MASK_FILTER)
         expected = partitions * sum(1 for k in range(per) if k % 500 < 20)
         stop, th = start(run, t, cp, **kw)
@@ -682,6 +684,16 @@ def test_16_partition_fanin_to_clickhouse_equals_jax():
     assert all(len(dict(r)["url"]) == 64 for r in rows)
     assert sorted(dict(r)["id"] for r in rows) == \
         [p * 40 + k for p in range(16) for k in range(20)]
+
+
+def test_shard_by_on_one_shard_equals_jax():
+    # shard_by picks a shard among several; on one shard both packages
+    # write every row there
+    tables, offsets = kafka_to_ch("port", partitions=2, shard_by="region")
+    assert (tables, offsets) == kafka_to_ch("jax", partitions=2,
+                                            shard_by="region")
+    assert offsets == {"hits:0": 39, "hits:1": 39}
+    assert len(tables["hits"][1]) == 2 * 20
 
 
 # -- the retry loop -----------------------------------------------------------

@@ -3,11 +3,14 @@
 with their default Bufferer, the DDL generator and the insert-only sink.
 
 Left out, each raising NotImplementedError naming ROADMAP.md A5: more
-than one shard (`shards`, `cluster` discovery, `shard_by`), the staged
+than one shard (several `shards`, `cluster` discovery), the staged
 commit's begin/publish (the reference's REPLACE PARTITION publish; the
 capability answers as the reference's does, so a snapshot into a
 one-shard target asks to stage and is refused loudly), the snapshot
-source (`CHStorage`), the `a2` event target and cleanup.
+source (`CHStorage`), the `a2` event target and cleanup.  `shard_by`
+picks a shard among several; on the one shard the port writes, the
+reference routes every row there whatever it names, so the port
+accepts it and has nothing to read it for.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ class CHTargetParams(EndpointParams):
     secure: bool = False
     shards: dict = field(default_factory=dict)   # name -> [host:port,...]
     cluster: str = ""   # discover shards from system.clusters instead
-    shard_by: str = ""                           # column; "" = first PK
+    shard_by: str = ""   # several shards only; one shard takes every row
     engine: str = ""                             # override table engine
     insert_settings: dict = field(default_factory=dict)
     bufferer: Optional[dict] = field(
