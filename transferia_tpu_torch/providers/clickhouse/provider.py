@@ -86,6 +86,7 @@ class CHTargetParams(EndpointParams):
     shard_by: str = ""   # several shards only; one shard takes every row
     engine: str = ""                             # override table engine
     insert_settings: dict = field(default_factory=dict)
+    is_shardeable: bool = True
     bufferer: Optional[dict] = field(
         default_factory=lambda: {"trigger_rows": 100_000,
                                  "trigger_interval": 1.0}
@@ -172,6 +173,8 @@ class CHSinker(Sinker, StagedSinker):
                 "CH sink is insert-only; collapse updates/deletes upstream "
                 "or use a ReplacingMergeTree flow with version columns"
             )
+        if batch.n_rows == 0:
+            return  # no DDL and no INSERT, as the reference's shard loop
         nullable = {
             c.name: (not c.required and not c.primary_key)
             for c in batch.schema
