@@ -8,6 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (one JSON line each, then the kernels line, the card line and the
 final line):
   1. build: compile every CUDA kernel from the checkout's sources;
+  1b. hostlib: the port's C++ host library (transferia_tpu_torch/native,
+     built with g++) holds every bound entry point exactly against the
+     port's pure Python/numpy routes (Python specs here for the entry
+     points the port does not call yet) on the card's host CPU, whose
+     SHA-NI and SSE4.2 dispatch it reports;
   2. kernels: each kernel against its plain PyTorch version on the card
      (and against hashlib / the host evaluator / the host SHA-block
      pack), exact equality; K10 and var_accumulators also at their edges
@@ -103,12 +108,28 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 16,384 messages of the kafka2ch phase's generator (K-A).  Exact
+     x 4,096 messages of the kafka2ch phase's generator (K-A).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
      committed; it reports rows/s, the transform p50/p99 (the
      Transformation's stage timer) and the batch sizes the chain saw;
+ 15b. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
+     recipe writer (transferia_tpu_torch/recipes/) writes main_path's
+     2,000,000 rows as bench.py's Parquet file (131,072-row groups,
+     SNAPPY); the port's reader decodes row groups 0 and 15 equal to the
+     generator's columns byte for byte; then bench.py's make_transfer
+     shape (the fs source at 131,072-row batches, mask URL with
+     "bench-salt", the filter pushed into the scan, the devnull sink,
+     min(4, effective CPUs) upload threads) runs through SnapshotLoader
+     on a memory coordinator: one warm-up, then device, host and auto
+     placement.  Each run delivers exactly the rows numpy keeps
+     (bench.py's completeness gate), kept + pruned = 2,000,000, every
+     part committed; the device run launches K-A, K-B and K-C (their
+     counts predicted and printed before the runs), the host run
+     nothing; it reports rows/s over the source's 2,000,000 rows, the
+     stage timer's source_decode and pivot seconds, scan_rows_pruned,
+     the snappy route and the CPU's SHA-NI/SSE4.2 flags;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -128,14 +149,17 @@ raises and exits non-zero.  Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import hmac
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -259,6 +283,29 @@ from transferia_tpu_torch.providers.clickhouse import CHTargetParams
 from transferia_tpu_torch.providers.kafka import KafkaSourceParams
 from transferia_tpu_torch.providers.kafka.client import KafkaClient
 from transferia_tpu_torch.providers.kafka.protocol import Record
+from transferia_tpu_torch import native
+from transferia_tpu_torch.columnar.batch import (
+    _gather_fixed,
+    _gather_varwidth,
+    _gather_varwidth_plain,
+)
+from transferia_tpu_torch.ops.fused import pack_hmac_blocks_plain
+from transferia_tpu_torch.providers.clickhouse import rowbinary
+from transferia_tpu_torch.providers.file import FileProvider, FileSourceParams
+from transferia_tpu_torch.providers.kafka import protocol
+from transferia_tpu_torch.providers.parquet_meta import parquet_metadata
+from transferia_tpu_torch.providers.parquet_native import (
+    NativeParquetReader,
+    dict_encoded_columns,
+)
+from transferia_tpu_torch.providers.stdout import NullTargetParams
+from transferia_tpu_torch.recipes.clickbench import (
+    clickbench_rows,
+    flat_strings,
+    write_clickbench,
+)
+from transferia_tpu_torch.runtime.limits import effective_cpus
+from transferia_tpu_torch.transform.plugins import mask as mask_plugin
 from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
 from transferia_tpu_torch.recipes.fake_kafka import FakeKafka
 from transferia_tpu_torch.runtime.device import resolve_device
@@ -343,6 +390,7 @@ PATH_KERNELS = {
     "snapshot": ("sha256_hmac", "pred_decode", "pred3vl_mask",
                  "rowhash_lanes", "var_accumulators"),
     "replication": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
+    "clickbench": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -392,8 +440,9 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 16,384 messages of the
-# kafka2ch phase's generator
+# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
+# kafka2ch phase's generator (one fetch batch a Bufferer tick: ~66 s a
+# placement)
 REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
 REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "url", "type": "utf8"},
@@ -402,7 +451,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 16384
+BACKLOG_MESSAGES = 4096
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -1369,53 +1418,6 @@ def check_region_sign_flip(dev: torch.device) -> int:
 
 # -- phase 3: the main path ---------------------------------------------------
 
-def _flat(strings: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Unicode array -> (flat utf-8 bytes, int32 offsets)."""
-    bufs = [s.encode() for s in strings.tolist()]
-    offsets = np.zeros(len(bufs) + 1, dtype=np.int64)
-    np.cumsum([len(b) for b in bufs], out=offsets[1:])
-    return (np.frombuffer(b"".join(bufs), dtype=np.uint8).copy(),
-            offsets.astype(np.int32))
-
-
-def clickbench_rows(n: int):
-    """The columns bench.py generate_dataset writes, drawn in the same
-    order from the same seed (values identical to its parquet)."""
-    rng = np.random.default_rng(42)
-    watch_id = rng.integers(0, 2**62, n, dtype=np.int64)
-    user_id = rng.integers(0, 10_000_000, n, dtype=np.int64)
-    counter_id = rng.integers(0, 5000, n).astype(np.int32)
-    region_id = rng.integers(0, 500, n).astype(np.int32)
-    event_time = (1_700_000_000 + rng.integers(0, 86_400 * 30, n)).astype(
-        np.int64)
-    res_w = rng.choice(
-        np.array([1280, 1366, 1536, 1920, 2560, 360, 390], dtype=np.int32), n)
-    is_mobile = (rng.random(n) < 0.4).astype(np.int8)
-    host_ids = rng.integers(0, 997, n)
-    path_ids = rng.integers(0, 10_000_019, n)
-    urls = np.char.add(
-        np.char.add("https://example-", host_ids.astype("U4")),
-        np.char.add(".com/page/", path_ids.astype("U9")),
-    )
-    titles = np.char.add("Title ", rng.integers(0, 99_991, n).astype("U6"))
-    phrase_pool = np.array(["", "", "", "buy tpu", "fast etl",
-                            "weather tomorrow", "наушники"], dtype=object)
-    phrases = phrase_pool[rng.integers(0, len(phrase_pool), n)]
-    schema = new_table_schema([
-        ("WatchID", "int64"), ("UserID", "int64"), ("CounterID", "int32"),
-        ("RegionID", "int32"), ("EventTime", "datetime"),
-        ("ResolutionWidth", "int32"), ("IsMobile", "int8"),
-        ("URL", "utf8"), ("Title", "utf8"), ("SearchPhrase", "utf8"),
-    ])
-    fixed = {"WatchID": watch_id, "UserID": user_id,
-             "CounterID": counter_id, "RegionID": region_id,
-             "EventTime": event_time, "ResolutionWidth": res_w,
-             "IsMobile": is_mobile}
-    var = {"URL": _flat(urls), "Title": _flat(titles),
-           "SearchPhrase": _flat(phrases)}
-    return schema, fixed, var
-
-
 def cut_batches(tid, schema, fixed, var, bounds) -> list[ColumnBatch]:
     """Batches over [lo, hi) row ranges of whole columns (views)."""
     out = []
@@ -1986,7 +1988,7 @@ def mesh1(dev) -> dict:
     rng = np.random.default_rng(21)
     urls = np.char.add("https://example-",
                        rng.integers(0, 997, MESH1_ROWS).astype("U4"))
-    data, offsets = _flat(urls)
+    data, offsets = flat_strings(urls)
     region = rng.integers(0, 500, MESH1_ROWS).astype(np.int32)
     node = parse("RegionID < 400")
     mask_cols = [(data, offsets)]
@@ -2041,7 +2043,7 @@ def sr_batches(per_partition: int) -> list[ColumnBatch]:
     n = SR_PARTITIONS * per_partition
     ids = np.arange(n, dtype=np.int64)
     fixed = {"id": ids, "region": (ids % 500).astype(np.int32)}
-    var = {"url": _flat(np.char.add("https://e.test/",
+    var = {"url": flat_strings(np.char.add("https://e.test/",
                                     (ids % 997).astype("U3")))}
     bounds = [(p * per_partition + lo,
                p * per_partition + min(lo + FETCH_MAX, per_partition))
@@ -2154,7 +2156,7 @@ def kafka2ch_batches() -> list[ColumnBatch]:
     fixed = {"id": ids, "amount": rng.random(n) * 1000.0,
              "ts": (1_700_000_000_000_000
                     + rng.integers(0, 86_400_000_000, n)).astype(np.int64)}
-    var = {"user_email": _flat(np.char.add(
+    var = {"user_email": flat_strings(np.char.add(
         np.char.add("user", ids.astype("U7")), "@example.test"))}
     bounds = [(lo, min(lo + KAFKA2CH_BATCH, n))
               for lo in range(0, n, KAFKA2CH_BATCH)]
@@ -2521,7 +2523,7 @@ def k2ch_message(p: int, i: int) -> bytes:
 
 def backlog_columns() -> dict:
     """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
-    backlog's 16 x 16,384 ids."""
+    backlog's ids."""
     n = REPL_PARTITIONS * BACKLOG_MESSAGES
     rng = np.random.default_rng(7)
     ids = np.arange(n, dtype=np.int64)
@@ -2642,6 +2644,400 @@ def replication_path(dev) -> dict:
                 identical_across_placements=True,
                 mask_equal_to="hashlib HMAC (sampled)",
                 kept_equal_to="numpy region < 400")
+
+
+# -- phase 1b: the host library ----------------------------------------------
+
+HOST_EDGE_LENS = (0, 1, 54, 55, 56, 57, 63, 64, 65, 119, 120, 300)
+
+
+def cpu_flags() -> list:
+    """The CPU features the host library dispatches on at run time
+    (hostops.cpp: cpuid leaf 7 EBX bit 29, SHA-NI; leaf 1 ECX bit 20,
+    SSE4.2), as /proc/cpuinfo names them; avx512f for the record."""
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            if line.startswith("flags"):
+                have = set(line.split(":", 1)[1].split())
+                return sorted(have & {"sha_ni", "sse4_2", "avx512f"})
+    return []
+
+
+def snappy_route() -> str:
+    """The snappy decoder parquetdec.cpp takes: it dlopens libsnappy.so.1
+    and keeps its own decoder when that is absent."""
+    try:
+        ctypes.CDLL("libsnappy.so.1")
+    except OSError:
+        return "builtin"
+    return "system libsnappy.so.1"
+
+
+def mix32_np(x: np.ndarray) -> np.ndarray:
+    """hostops.cpp mix32, in uint64 numpy masked to 32 bits."""
+    x = x.astype(np.uint64)
+    x ^= x >> np.uint64(16)
+    x = (x * np.uint64(0x7FEB352D)) & np.uint64(0xFFFFFFFF)
+    x ^= x >> np.uint64(15)
+    x = (x * np.uint64(0x846CA68B)) & np.uint64(0xFFFFFFFF)
+    x ^= x >> np.uint64(16)
+    return x.astype(np.uint32)
+
+
+def polyhash_py(values: list, pw: np.ndarray) -> list:
+    """polyhash_varcol's spec: the row's SHA-padded block bytes (prefix
+    0) against per-byte powers, mod 2**32."""
+    out = []
+    pw = [int(p) for p in pw]
+    for v in values:
+        nb = (len(v) + 9 + 63) // 64
+        padded = bytearray(nb * 64)
+        padded[:len(v)] = v
+        padded[len(v)] = 0x80
+        padded[-8:] = (len(v) * 8).to_bytes(8, "big")
+        out.append(sum(b * pw[j] for j, b in enumerate(padded)) & 0xFFFFFFFF)
+    return out
+
+
+def zigzag_bytes(v: int) -> bytes:
+    u = (v << 1) ^ (v >> 63)
+    out = bytearray()
+    while True:
+        b = u & 0x7F
+        u >>= 7
+        out.append(b | (0x80 if u else 0))
+        if not u:
+            return bytes(out)
+
+
+def require_same(got, want, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"host library: {what} differs from its pure "
+                             f"Python/numpy route")
+
+
+def hostlib_path() -> dict:
+    """Every bound entry point of the port's host library against the
+    port's pure Python/numpy routes (or, where the port has no caller
+    yet, a Python spec here), exactly, on the card's host CPU: its
+    SHA-NI and SSE4.2 dispatch may take other branches than the CPU the
+    tests run on."""
+    t0 = time.perf_counter()
+    lib = native.lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(61)
+    values = [rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+              for n in HOST_EDGE_LENS] + [
+        rng.integers(0, 256, int(rng.integers(0, 200)),
+                     dtype=np.uint8).tobytes() for _ in range(2000)]
+    data, offsets = _flat_bytes(values)
+    n = len(values)
+    checked = {}
+    # Kafka wire: CRC32C, the record encoder and scanner
+    for v in values[:200] + [b"123456789"]:
+        require_same(protocol.crc32c(v), protocol.crc32c_py(v), "crc32c_buf")
+    require_same(protocol.crc32c_batch(values).tolist(),
+                 [protocol.crc32c_py(v) for v in values], "crc32c_batch")
+    checked["crc32c_buf"] = checked["crc32c_batch"] = n
+    recs = [Record(key=None if i % 7 == 3 else values[i][:20],
+                   value=None if i % 11 == 5 else values[i],
+                   timestamp_ms=1_700_000_000_000 + i % 9)
+            for i in range(n)]
+    now = 1_700_000_000_000
+    require_same(protocol._encode_records_native(recs, now, now),
+                 protocol.encode_records_py(recs, now, now),
+                 "kafka_encode_records")
+    blob = protocol.encode_record_batch(recs, base_offset=11)
+    state = [(r.key, r.value, r.offset, r.timestamp_ms)
+             for r in protocol.decode_record_batches(blob)]
+    require_same(state, [(r.key, r.value, r.offset, r.timestamp_ms)
+                         for r in protocol.decode_record_batches_py(blob)],
+                 "kafka_scan_records")
+    bad = bytearray(blob)
+    bad[100] ^= 0x5A
+    try:
+        protocol.decode_record_batches(bytes(bad))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("kafka_scan_records: a corrupted batch passed")
+    checked["kafka_encode_records"] = checked["kafka_scan_records"] = n
+    # RowBinary: varints and the row scatter
+    lens = np.diff(offsets).astype(np.uint64)
+    got, plain = (rowbinary._encode_varints(lens),
+                  rowbinary._encode_varints_plain(lens))
+    require_same((got[0].tobytes(), got[1].tolist()),
+                 (plain[0].tobytes(), plain[1].tolist()), "leb128_encode")
+    src_off = offsets[:-1].astype(np.int64)
+    row_lens = np.diff(offsets).astype(np.int64)
+    dst_off = src_off + np.arange(n, dtype=np.int64) * 3
+    out_native = np.zeros(int(dst_off[-1] + row_lens[-1]) + 1, np.uint8)
+    out_plain = out_native.copy()
+    lib.scatter_bytes(data, src_off, dst_off, row_lens, n, out_native)
+    rowbinary._scatter_plain(data, src_off, dst_off, row_lens, out_plain)
+    require_same(out_native.tobytes(), out_plain.tobytes(), "scatter_bytes")
+    checked["leb128_encode"] = checked["scatter_bytes"] = n
+    # the gathers under ColumnBatch.take/filter
+    idx = rng.integers(0, n, 3 * n).astype(np.int64)
+    got, plain = (_gather_varwidth(data, offsets, idx),
+                  _gather_varwidth_plain(data, offsets, idx))
+    require_same((got[0].tobytes(), got[1].tobytes()),
+                 (plain[0].tobytes(), plain[1].tobytes()),
+                 "gather_var_offsets/gather_var_bytes")
+    one = (np.zeros(len(got[0]), np.uint8), np.zeros(len(idx) + 1, np.int32))
+    lib.gather_varwidth(data, offsets, idx, len(idx), *one)
+    require_same((one[0].tobytes(), one[1].tobytes()),
+                 (plain[0].tobytes(), plain[1].tobytes()), "gather_varwidth")
+    for dtype in (np.bool_, np.int8, np.int16, np.int32, np.int64,
+                  np.float64):
+        col = rng.integers(0, 100, n).astype(dtype)
+        require_same(_gather_fixed(col, idx).tobytes(), col[idx].tobytes(),
+                     f"gather_fixed {np.dtype(dtype).name}")
+    for name in ("gather_var_offsets", "gather_var_bytes",
+                 "gather_varwidth", "gather_fixed"):
+        checked[name] = len(idx)
+    # the fused step's pack and the host mask
+    short = [v[:4 * 64 - 9] for v in values]
+    sdata, soff = _flat_bytes(short)
+    got, plain = (pack_hmac_blocks(sdata, soff, 4),
+                  pack_hmac_blocks_plain(sdata, soff, 4))
+    require_same((got[0].tobytes(), got[1].tobytes()),
+                 (plain[0].tobytes(), plain[1].tobytes()), "pack_sha_blocks")
+    checked["pack_sha_blocks"] = n
+    validity = rng.random(n) < 0.9
+    for key in (b"bench-salt", b"K" * 64, b"L" * 65, b""):
+        for valid in (None, validity):
+            got = mask_plugin._host_hmac_hex(key, data, offsets, valid)
+            plain = mask_plugin._host_hmac_hex_py(key, data, offsets, valid)
+            require_same((got[0].tobytes(), got[1].tobytes()),
+                         (plain[0].tobytes(), plain[1].tobytes()),
+                         "hmac_sha256_hex/sha256_block_state")
+    checked["hmac_sha256_hex"] = checked["sha256_block_state"] = 8 * n
+    # the fingerprint's host lanes (no caller in the port yet): Python specs
+    width = 64 * ((300 + 9 + 63) // 64)
+    pw1 = rng.integers(0, 2**32, width + 1, dtype=np.uint32)
+    pw2 = rng.integers(0, 2**32, width + 1, dtype=np.uint32)
+    a1, a2 = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    lib.polyhash_varcol(data, offsets, n, pw1, pw2, a1, a2)
+    require_same((a1.tolist(), a2.tolist()),
+                 (polyhash_py(values, pw1), polyhash_py(values, pw2)),
+                 "polyhash_varcol")
+    lo, hi = (rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(2))
+    s1, s2 = 0x9E3779B9, 0x7F4A7C15
+    o1, o2 = np.zeros(n, np.uint32), np.zeros(n, np.uint32)
+    lib.rowhash_mix_fixed(lo, hi, n, s1, s2, o1, o2)
+    for out, s in ((o1, s1), (o2, s2)):
+        want = mix32_np((mix32_np(lo ^ np.uint32(s)).astype(np.uint64)
+                         + mix32_np(hi ^ np.uint32(~s & 0xFFFFFFFF)))
+                        & np.uint64(0xFFFFFFFF))
+        require_same(out.tolist(), want.tolist(), "rowhash_mix_fixed")
+    lib.rowhash_mix_var(lo, hi, n, s1, s2, o1, o2)
+    require_same((o1.tolist(), o2.tolist()),
+                 (mix32_np(lo ^ np.uint32(s1)).tolist(),
+                  mix32_np(hi ^ np.uint32(s2)).tolist()), "rowhash_mix_var")
+    codes = rng.integers(0, n, n).astype(np.int32)
+    lib.rowhash_dict_lanes(lo, hi, codes, n, s1, s2, o1, o2)
+    require_same((o1.tolist(), o2.tolist()),
+                 (mix32_np(lo[codes] ^ np.uint32(s1)).tolist(),
+                  mix32_np(hi[codes] ^ np.uint32(s2)).tolist()),
+                 "rowhash_dict_lanes")
+    r1, r2 = o1.copy(), o2.copy()
+    lib.rowhash_accum(lo, hi, n, r1, r2)
+    require_same((r1.tolist(), r2.tolist()),
+                 (((o1.astype(np.uint64) + mix32_np(lo))
+                   & np.uint64(0xFFFFFFFF)).tolist(),
+                  ((o2.astype(np.uint64) + mix32_np(hi))
+                   & np.uint64(0xFFFFFFFF)).tolist()), "rowhash_accum")
+    for name in ("polyhash_varcol", "rowhash_mix_fixed", "rowhash_mix_var",
+                 "rowhash_dict_lanes", "rowhash_accum"):
+        checked[name] = n
+    # avro_decode_flat (its caller waits for the schema-registry slice):
+    # long id, ["null", string] name, double score
+    msgs, want = [], []
+    for i in range(500):
+        name = None if i % 4 == 0 else f"n-{i}".encode()
+        body = zigzag_bytes(i * 1_000_003 - 7)
+        body += zigzag_bytes(0) if name is None else (
+            zigzag_bytes(1) + zigzag_bytes(len(name)) + name)
+        msgs.append(body + struct.pack("<d", i * 1.5))
+        want.append((i * 1_000_003 - 7, name, i * 1.5))
+    mdata, moff = _flat_bytes(msgs)
+    ids, score = np.zeros(500, np.int64), np.zeros(500, np.float64)
+    sdata, soff = np.zeros(8192, np.uint8), np.zeros(501, np.int32)
+    svalid = np.zeros(500, np.uint8)
+    tasks = np.zeros((3, 6), dtype=np.int64)
+    tasks[0, 0], tasks[2, 0] = ids.ctypes.data, score.ctypes.data
+    tasks[1, 1:5] = [sdata.ctypes.data, soff.ctypes.data, 8192,
+                     svalid.ctypes.data]
+    rc = lib.avro_decode_flat(mdata, moff.astype(np.int64), 500,
+                              np.array([2, 5, 4], np.uint8),
+                              np.array([0, 1, 0], np.uint8),
+                              np.array([0, 0, 0], np.uint8), 3, tasks)
+    got = [(int(ids[i]), sdata[soff[i]:soff[i + 1]].tobytes()
+            if svalid[i] else None, float(score[i])) for i in range(500)]
+    require_same((rc, got), (500, want), "avro_decode_flat")
+    checked["avro_decode_flat"] = 500
+    codecs = {name: bool(lib.pq_codec_supported(code)) for name, code in
+              (("UNCOMPRESSED", 0), ("SNAPPY", 1), ("GZIP", 2),
+               ("ZSTD", 6))}
+    if not (codecs["UNCOMPRESSED"] and codecs["SNAPPY"]):
+        raise AssertionError(f"host library: codecs {codecs}")
+    return dict(library=lib._name, build_or_load_seconds=build_s,
+                cpu_flags=cpu_flags(), snappy=snappy_route(),
+                pq_codec_supported=codecs, checked=checked,
+                pq_entry_points="held in the clickbench phase's decode check",
+                check="exact", phase_seconds=time.perf_counter() - t0)
+
+
+# -- phase 15b: the ClickBench Parquet snapshot -------------------------------
+
+def clickbench_predicted(fixed: dict, chunk: int) -> dict:
+    """Launches of a device run: the scan keeps a row group's rows that
+    pass the filter; the chain re-applies it to each kept batch in
+    chunks of `chunk` rows, one K-A and K-C launch a chunk and one K-B
+    launch for each of the two predicate columns."""
+    keep = (fixed["RegionID"] < 400) & (fixed["ResolutionWidth"] >= 390)
+    chunks = sum(-(-int(keep[lo:lo + BATCH_ROWS].sum()) // chunk)
+                 for lo in range(0, len(keep), BATCH_ROWS))
+    return {"sha256_hmac": chunks, "pred_decode": 2 * chunks,
+            "pred3vl_mask": chunks}
+
+
+def decoded_equals_generator(path: str, fixed: dict, var: dict) -> dict:
+    """Row groups 0 and the last, as the port's reader decodes them,
+    against the generator's columns, byte for byte."""
+    meta = parquet_metadata(path)
+    reader = NativeParquetReader(path, meta, meta.table_schema())
+    out = {}
+    for g in (0, meta.num_row_groups - 1):
+        lo = g * BATCH_ROWS
+        hi = lo + meta.row_groups[g].num_rows
+        cols = reader.read_row_group(g)
+        for name, arr in fixed.items():
+            col = cols[name]
+            if col.validity is not None and not col.validity.all():
+                raise AssertionError(f"clickbench: {name} decoded nulls")
+            if col.data.tobytes() != arr[lo:hi].tobytes():
+                raise AssertionError(f"clickbench: row group {g} {name} "
+                                     "differs from the generator")
+        for name, (data, off) in var.items():
+            col = cols[name]
+            if col.data.tobytes() != data[off[lo]:off[hi]].tobytes() or \
+                    col.offsets.tobytes() != (off[lo:hi + 1]
+                                              - off[lo]).tobytes():
+                raise AssertionError(f"clickbench: row group {g} {name} "
+                                     "differs from the generator")
+        out[g] = hi - lo
+    return out
+
+
+def clickbench_run(name: str, path: str, placement: str, workers: int,
+                   dev) -> dict:
+    """bench.py's run_pipeline: the fs Parquet source through the port's
+    SnapshotLoader into the null sink, the placement pinned (or auto)."""
+    transfer = Transfer(
+        id=f"chip-cb-{name}",
+        src=FileSourceParams(path=path, format="parquet", table="hits",
+                             batch_rows=BATCH_ROWS),
+        dst=NullTargetParams(), transformation=CONFIG,
+        runtime=Runtime(sharding=ShardingUploadParams(
+            process_count=workers)))
+    storages, storage = [], FileProvider.storage
+
+    def capture(provider):
+        st = storage(provider)
+        storages.append(st)
+        return st
+
+    cp = MemoryCoordinator()
+    op = f"op-chip-cb-{name}"
+    FileProvider.storage = capture
+    set_placement(None if placement == "auto" else placement)
+    stagetimer.reset()
+    stagetimer.enable(True)
+    try:
+        with StrategyCount() as strategies:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            SnapshotLoader(transfer, cp, operation_id=op,
+                           device=dev).upload_tables()
+            torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = _build.launch_counts()
+    finally:
+        stagetimer.enable(False)
+        set_placement(None)
+        FileProvider.storage = storage
+    stages = stagetimer.snapshot()
+    # the null sink stages nothing: a part commits when it completes
+    parts = cp.operation_parts(op)
+    if not parts or not all(p.completed and p.commit_epoch in (
+            None, p.assignment_epoch) for p in parts):
+        raise AssertionError(f"clickbench {name}: parts not all completed "
+                             f"and committed: {parts}")
+    return dict(seconds=seconds, rows_per_s=ROWS / seconds,
+                completed_rows=cp.operation_progress(op).completed_rows,
+                parts=len(parts), launches=launches,
+                scan_rows_pruned=sum(s.scan_rows_pruned for s in storages),
+                source_decode_seconds=stages.get(
+                    "source_decode", {}).get("seconds", 0.0),
+                pivot_seconds=stages.get("pivot", {}).get("seconds", 0.0),
+                decode_wait_seconds=stages.get(
+                    "decode_wait", {}).get("seconds", 0.0),
+                fused_step_batches=strategies.batches)
+
+
+def clickbench_path(schema, fixed, var, chunk: int, dev) -> dict:
+    """BASELINE config #3: bench.py's 2,000,000-row ClickBench file,
+    written by the recipe writer, through bench.py's make_transfer shape
+    (the fs source at 131,072-row batches, mask URL, the pushed-down
+    filter, the null sink, min(4, effective CPUs) upload threads) in the
+    device, host and auto placements after one warm-up run.  Each run
+    must deliver exactly the rows numpy keeps (bench.py's completeness
+    gate) and commit every part; the device run launches K-A, K-B and
+    K-C, the host run nothing."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"hits_{ROWS}.parquet")
+        t0 = time.perf_counter()
+        size, kept = write_clickbench(path, ROWS, (schema, fixed, var))
+        write_s = time.perf_counter() - t0
+        decoded = decoded_equals_generator(path, fixed, var)
+        meta = parquet_metadata(path)
+        workers = max(1, min(4, int(effective_cpus())))
+        predicted = clickbench_predicted(fixed, chunk)
+        emit({"phase": "clickbench_prediction", "device_launches": predicted,
+              "kept": kept, "row_groups": meta.num_row_groups})
+        runs = {}
+        for name, placement in (("warmup", "device"), ("device", "device"),
+                                ("host", "host"), ("auto", "auto")):
+            run = clickbench_run(name, path, placement, workers, dev)
+            if run["completed_rows"] != kept:
+                raise AssertionError(
+                    f"clickbench {name}: row loss, the sink got "
+                    f"{run['completed_rows']} rows, the chain keeps {kept}")
+            if run["completed_rows"] + run["scan_rows_pruned"] != ROWS:
+                raise AssertionError(f"clickbench {name}: kept + pruned "
+                                     f"!= {ROWS}")
+            runs[name] = run
+        launches = {k: c for k, c in runs["device"]["launches"].items()}
+        require_launched("clickbench", launches)
+        if any(runs["host"]["launches"].values()):
+            raise AssertionError("clickbench host run launched "
+                                 f"{runs['host']['launches']}")
+        for run in runs.values():
+            run["launches"] = {k: c for k, c in run["launches"].items() if c}
+        url_encodings = sorted({", ".join(rg.columns[7].encoding_names)
+                                for rg in meta.row_groups})
+        return dict(rows=ROWS, file_bytes=size, write_seconds=write_s,
+                    row_groups=meta.num_row_groups, batch_rows=BATCH_ROWS,
+                    upload_threads=workers, kept=kept,
+                    decoded_row_groups_equal_generator=decoded,
+                    dict_encoded_columns=dict_encoded_columns(
+                        meta, ["URL", "Title", "SearchPhrase"]),
+                    url_chunk_encodings=url_encodings,
+                    predicted_device_launches=predicted,
+                    launches=launches, runs=runs, snappy=snappy_route(),
+                    cpu_flags=cpu_flags())
 
 
 # -- phase 7: timing ------------------------------------------------------------
@@ -3649,6 +4045,7 @@ def main() -> int:
             "region_sign_flip": check_region_sign_flip(dev)}
     torch.cuda.synchronize(dev)
     emit({"phase": "kernels", "check": "exact", "max_abs_err": errs})
+    emit({"phase": "hostlib", **hostlib_path()})
 
     t0 = time.perf_counter()
     schema, fixed, var = clickbench_rows(ROWS)
@@ -3706,7 +4103,10 @@ def main() -> int:
                                  auto=True)),
             ("kafka2ch", lambda: kafka2ch_path(dev)),
             ("snapshot", lambda: snapshot_path(dev)),
-            ("replication", lambda: replication_path(dev))):
+            ("replication", lambda: replication_path(dev)),
+            ("clickbench",
+             lambda: clickbench_path(schema, fixed, var, chunk or 32768,
+                                     dev))):
         t_phase = time.perf_counter()
         result = run()
         phase_s[path] = time.perf_counter() - t_phase

@@ -8,13 +8,16 @@ function in both placements, a rename chain and a snapshot transfer
 (sample -> memory through SnapshotLoader, with the mask, the filter,
 staged commits and fingerprint validation) and a replication (Kafka
 JSON -> ClickHouse through run_replication with the mask and the
-filter, against the port's own wire fakes) on the CPU; afterwards
-neither jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may
-be loaded.
+filter, against the port's own wire fakes) and a ClickBench Parquet
+snapshot (a file the recipe writer wrote -> fs -> devnull through
+SnapshotLoader under bench.py's chain) on the CPU; afterwards neither
+jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
+loaded, and the only host library mapped is the port's own build.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -178,6 +181,27 @@ th.join(10)
 broker.stop()
 ch.stop()
 assert ch.total_rows() == 160, ch.total_rows()
+import tempfile
+from transferia_tpu_torch.providers.file import FileSourceParams
+from transferia_tpu_torch.providers.stdout import NullTargetParams
+from transferia_tpu_torch.recipes.clickbench import write_clickbench
+with tempfile.TemporaryDirectory() as tmp:
+    path = tmp + "/hits.parquet"
+    _, kept = write_clickbench(path, 5000)
+    cb = Transfer(id="iso-cb", src=FileSourceParams(
+        path=path, table="hits", batch_rows=1024),
+        dst=NullTargetParams(), transformation={"transformers": [
+            {"mask_field": {"columns": ["URL"], "salt": "bench-salt"}},
+            {"filter_rows": {"filter":
+                "RegionID < 400 AND ResolutionWidth >= 390"}}]},
+        runtime=Runtime(sharding=ShardingUploadParams(process_count=2)))
+    fcp = MemoryCoordinator()
+    SnapshotLoader(cb, fcp, operation_id="op-cb",
+                   device="cpu").upload_tables()
+    assert fcp.operation_progress("op-cb").completed_rows == kept > 0
+with open("/proc/self/maps") as fh:
+    maps = {line.split()[-1] for line in fh if "libhostops" in line}
+print("MAPS", json.dumps(sorted(maps)))
 set_placement(None)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
@@ -194,6 +218,12 @@ def test_port_runs_without_jax_or_the_jax_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+    (maps,) = [line for line in proc.stdout.splitlines()
+               if line.startswith("MAPS ")]
+    mapped = json.loads(maps[5:])
+    assert len(mapped) == 1, mapped
+    assert mapped[0].startswith(os.path.join(REPO, "build", "torch_kernels",
+                                             "libhostops-")), mapped
 
 
 def small_batch():

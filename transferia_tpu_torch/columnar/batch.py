@@ -32,6 +32,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
+from transferia_tpu_torch import native
 from transferia_tpu_torch.abstract.change_item import ChangeItem, OldKeys
 from transferia_tpu_torch.abstract.kinds import CODE_KINDS, KIND_CODES, Kind
 from transferia_tpu_torch.abstract.schema import (
@@ -61,9 +62,53 @@ def _offsets_from_lengths(lengths) -> np.ndarray:
     return off64.astype(np.int32)
 
 
+def _gather_indices(indices, n: int) -> np.ndarray:
+    """Gather indices as contiguous int64, numpy's semantics checked up
+    front (the host library's loops are unchecked): a negative index
+    counts from the end, any other out-of-range one raises IndexError."""
+    idx = np.asarray(indices)
+    if idx.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    if idx.dtype.kind not in "iu":
+        raise IndexError("arrays used as indices must be of integer type")
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    lo, hi = int(idx.min()), int(idx.max())
+    if lo < -n or hi >= n:
+        bad = lo if lo < -n else hi
+        raise IndexError(f"index {bad} is out of bounds for axis 0 with "
+                         f"size {n}")
+    if lo < 0:
+        idx = np.where(idx < 0, idx + n, idx)
+    return idx
+
+
 def _gather_varwidth(data: np.ndarray, offsets: np.ndarray,
-                     indices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Gather var-width rows by index (vectorized numpy)."""
+                     indices) -> tuple[np.ndarray, np.ndarray]:
+    """Gather var-width rows by index in two host-library passes: the
+    lengths fold into offsets (`gather_var_offsets`), then one memcpy
+    loop (`gather_var_bytes`)."""
+    idx = _gather_indices(indices, len(offsets) - 1)
+    n = len(idx)
+    src_off = np.ascontiguousarray(offsets, dtype=np.int32)
+    out_offsets = np.empty(n + 1, dtype=np.int32)
+    cdll = native.lib()
+    total = cdll.gather_var_offsets(src_off, idx, n, out_offsets)
+    if total > _INT32_MAX:
+        raise ValueError(
+            f"variable-width column exceeds 2GiB in one batch "
+            f"({int(total)} bytes); split the batch"
+        )
+    out = np.empty(int(total), dtype=np.uint8)
+    if total:
+        cdll.gather_var_bytes(np.ascontiguousarray(data), src_off, idx, n,
+                              out_offsets, out)
+    return out, out_offsets
+
+
+def _gather_varwidth_plain(data: np.ndarray, offsets: np.ndarray,
+                           indices: np.ndarray
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """_gather_varwidth in vectorized numpy."""
     lens = (offsets[1:] - offsets[:-1])[indices].astype(np.int64)
     new_offsets = _offsets_from_lengths(lens)  # guards the 2GiB limit
     total = int(new_offsets[-1])
@@ -90,9 +135,16 @@ def _contiguous_span(indices) -> Optional[tuple[int, int]]:
     return lo, hi
 
 
-def _gather_fixed(data: np.ndarray, indices: np.ndarray) -> np.ndarray:
-    """Fixed-width gather (numpy semantics: out-of-range raises)."""
-    return data[indices]
+def _gather_fixed(data: np.ndarray, indices) -> np.ndarray:
+    """Fixed-width gather in the host library's width-specialized loop
+    (numpy semantics: out-of-range raises)."""
+    idx = _gather_indices(indices, len(data))
+    out = np.empty(len(idx), dtype=data.dtype)
+    if len(idx):
+        native.lib().gather_fixed(np.ascontiguousarray(data).view(np.uint8),
+                                  idx, len(idx), data.dtype.itemsize,
+                                  out.view(np.uint8))
+    return out
 
 
 _materialize_lock = threading.Lock()

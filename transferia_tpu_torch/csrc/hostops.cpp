@@ -1,0 +1,872 @@
+// Host-side hot-loop kernels (C++), ctypes-bound.
+//
+// The reference gets its performance from hand-optimized Go loops; here the
+// device (XLA) and arrow (C++) carry most of the weight, and this small
+// library covers the residual host loops that numpy can't fully vectorize
+// without large temporaries:
+//   - LEB128 varint encoding (RowBinary string length prefixes)
+//   - interleaved byte scatter (columnar -> row-major RowBinary assembly)
+//   - var-width gather (Column.take without index temporaries)
+//
+// Build: transferia_tpu/native/build.py (g++ -O3 -shared -fPIC).  All
+// callers fall back to the numpy implementations when the library is
+// absent — the extension is an accelerator, never a dependency.
+
+#include <cstdint>
+#include <cstring>
+
+extern "C" {
+
+// values[n] -> out varint bytes; out_lens[n] = bytes written per value.
+// Returns total bytes written.  out must be preallocated (<= 10*n).
+int64_t leb128_encode(const uint64_t* values, int64_t n,
+                      uint8_t* out, int32_t* out_lens) {
+    int64_t pos = 0;
+    for (int64_t i = 0; i < n; i++) {
+        uint64_t v = values[i];
+        int32_t len = 0;
+        do {
+            uint8_t b = v & 0x7F;
+            v >>= 7;
+            out[pos++] = v ? (b | 0x80) : b;
+            len++;
+        } while (v);
+        out_lens[i] = len;
+    }
+    return pos;
+}
+
+// Scatter per-row fields into row-major output:
+//   out[dst_offsets[i] .. +lens[i]] = src[src_offsets[i] .. +lens[i]]
+void scatter_bytes(const uint8_t* src, const int64_t* src_offsets,
+                   const int64_t* dst_offsets, const int64_t* lens,
+                   int64_t n, uint8_t* out) {
+    for (int64_t i = 0; i < n; i++) {
+        memcpy(out + dst_offsets[i], src + src_offsets[i],
+               (size_t)lens[i]);
+    }
+}
+
+// Gather var-width rows: for each index idx[i], copy
+// src[src_offsets[idx[i]] .. src_offsets[idx[i]+1]) into out sequentially;
+// writes out_offsets[n+1].  Returns total bytes.
+int64_t gather_varwidth(const uint8_t* src, const int32_t* src_offsets,
+                        const int64_t* idx, int64_t n,
+                        uint8_t* out, int32_t* out_offsets) {
+    int64_t pos = 0;
+    out_offsets[0] = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t j = idx[i];
+        int32_t start = src_offsets[j];
+        int32_t len = src_offsets[j + 1] - start;
+        memcpy(out + pos, src + start, (size_t)len);
+        pos += len;
+        out_offsets[i + 1] = (int32_t)pos;
+    }
+    return pos;
+}
+
+// Var-width gather, two-pass form (Column.take / DictEnc.materialize).
+// Pass 1 (gather_var_offsets): out_offsets[i] = running byte total of the
+// gathered rows — replaces the numpy lens-gather + int64 cumsum +
+// int32 cast chain, which profiled as most of _gather_varwidth's
+// non-memcpy time.  Returns the TOTAL byte count as int64 so the Python
+// caller can enforce the 2 GiB int32-offset invariant itself (offsets
+// written past that point have wrapped and must be discarded).
+int64_t gather_var_offsets(const int32_t* src_offsets, const int64_t* idx,
+                           int64_t n, int32_t* out_offsets) {
+    int64_t pos = 0;
+    out_offsets[0] = 0;
+    for (int64_t i = 0; i < n; i++) {
+        int64_t j = idx[i];
+        pos += src_offsets[j + 1] - src_offsets[j];
+        out_offsets[i + 1] = (int32_t)pos;
+    }
+    return pos;
+}
+
+// Pass 2: byte copies into the exactly-sized output the caller
+// allocated from pass 1's total.
+void gather_var_bytes(const uint8_t* src, const int32_t* src_offsets,
+                      const int64_t* idx, int64_t n,
+                      const int32_t* out_offsets, uint8_t* out) {
+    for (int64_t i = 0; i < n; i++) {
+        int64_t j = idx[i];
+        memcpy(out + out_offsets[i], src + src_offsets[j],
+               (size_t)(src_offsets[j + 1] - src_offsets[j]));
+    }
+}
+
+// Fixed-width row gather (Column.take host path): out row i gets the
+// `width` bytes at src[idx[i]*width].  Width-specialized loops for the
+// power-of-two widths every canonical fixed type uses (1/2/4/8) — the
+// numpy fancy-indexing equivalent pays per-element dispatch; this is a
+// straight typed copy loop.  memcpy fallback for exotic widths.
+void gather_fixed(const uint8_t* src, const int64_t* idx, int64_t n,
+                  int32_t width, uint8_t* out) {
+    switch (width) {
+    case 1:
+        for (int64_t i = 0; i < n; i++) out[i] = src[idx[i]];
+        break;
+    case 2: {
+        const uint16_t* s = (const uint16_t*)src;
+        uint16_t* o = (uint16_t*)out;
+        for (int64_t i = 0; i < n; i++) o[i] = s[idx[i]];
+        break;
+    }
+    case 4: {
+        const uint32_t* s = (const uint32_t*)src;
+        uint32_t* o = (uint32_t*)out;
+        for (int64_t i = 0; i < n; i++) o[i] = s[idx[i]];
+        break;
+    }
+    case 8: {
+        const uint64_t* s = (const uint64_t*)src;
+        uint64_t* o = (uint64_t*)out;
+        for (int64_t i = 0; i < n; i++) o[i] = s[idx[i]];
+        break;
+    }
+    default:
+        for (int64_t i = 0; i < n; i++) {
+            memcpy(out + i * (int64_t)width,
+                   src + idx[i] * (int64_t)width, (size_t)width);
+        }
+    }
+}
+
+// Pack var-width rows into padded SHA-256 block matrices (the host side of
+// the device HMAC path): row i of out gets src bytes, the 0x80 terminator,
+// zero fill, and the 8-byte big-endian bit length (including prefix_len
+// virtual bytes, e.g. the HMAC ipad block) at the end of its last block.
+// width must be a multiple of 64 and >= row_len + 9 for every row (callers
+// bucket width; rows that don't fit are a caller bug).  n_blocks[i] gets
+// the per-row block count.
+void pack_sha_blocks(const uint8_t* src, const int32_t* offsets,
+                     int64_t n, int32_t width, int32_t prefix_len,
+                     uint8_t* out, int32_t* n_blocks) {
+    for (int64_t i = 0; i < n; i++) {
+        int32_t start = offsets[i];
+        int32_t len = offsets[i + 1] - start;
+        uint8_t* row = out + (int64_t)i * width;
+        memcpy(row, src + start, (size_t)len);
+        memset(row + len, 0, (size_t)(width - len));
+        row[len] = 0x80;
+        int32_t nb = (len + 9 + 63) / 64;
+        n_blocks[i] = nb;
+        uint64_t bits = ((uint64_t)len + (uint64_t)prefix_len) * 8;
+        uint8_t* p = row + (int64_t)nb * 64 - 8;
+        for (int k = 0; k < 8; k++) {
+            p[k] = (uint8_t)(bits >> (8 * (7 - k)));
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Scalar SHA-256 (FIPS 180-4) — the host twin of the device kernel in
+// ops/sha256.py, used by the mask transformer's host path so CPU-only runs
+// hash at memcpy-adjacent speed instead of per-row Python hashlib calls.
+
+static const uint32_t K256[64] = {
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5,
+    0x3956c25b, 0x59f111f1, 0x923f82a4, 0xab1c5ed5,
+    0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174,
+    0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc,
+    0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7,
+    0xc6e00bf3, 0xd5a79147, 0x06ca6351, 0x14292967,
+    0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85,
+    0xa2bfe8a1, 0xa81a664b, 0xc24b8b70, 0xc76c51a3,
+    0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5,
+    0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f, 0x682e6ff3,
+    0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2,
+};
+
+static inline uint32_t rotr32(uint32_t x, int n) {
+    return (x >> n) | (x << (32 - n));
+}
+
+// ---- SHA-NI hardware path (x86 sha extensions; ~5-10x the scalar
+// compression).  Detected once at runtime; non-x86 or pre-SHA-NI CPUs
+// stay on the scalar path.
+#if defined(__x86_64__) || defined(__i386__)
+#include <immintrin.h>
+#include <cpuid.h>
+
+static int detect_sha_ni() {
+    unsigned int a, b, c, d;
+    if (__get_cpuid_count(7, 0, &a, &b, &c, &d)) {
+        return (b >> 29) & 1;  // EBX bit 29: SHA
+    }
+    return 0;
+}
+
+static int sha_ni_available() {
+    // magic-static init is thread-safe (ctypes calls run GIL-released,
+    // so concurrent first entries are real)
+    static const int cached = detect_sha_ni();
+    return cached;
+}
+
+__attribute__((target("sha,sse4.1")))
+static void sha256_compress_ni(uint32_t state[8], const uint8_t* p) {
+    const __m128i MASK = _mm_set_epi64x(0x0c0d0e0f08090a0bULL,
+                                        0x0405060700010203ULL);
+    // load state: ABEF/CDGH register layout
+    __m128i tmp = _mm_loadu_si128((const __m128i*)&state[0]);   // DCBA
+    __m128i s1  = _mm_loadu_si128((const __m128i*)&state[4]);   // HGFE
+    tmp = _mm_shuffle_epi32(tmp, 0xB1);                         // CDAB
+    s1  = _mm_shuffle_epi32(s1, 0x1B);                          // EFGH
+    __m128i st0 = _mm_alignr_epi8(tmp, s1, 8);                  // ABEF
+    __m128i st1 = _mm_blend_epi16(s1, tmp, 0xF0);               // CDGH
+    const __m128i abef_save = st0, cdgh_save = st1;
+
+    __m128i msg, msg0, msg1, msg2, msg3;
+#define QROUND(k_hi, k_lo, m)                                          \
+    msg = _mm_add_epi32(m, _mm_set_epi64x(k_hi, k_lo));                \
+    st1 = _mm_sha256rnds2_epu32(st1, st0, msg);                        \
+    msg = _mm_shuffle_epi32(msg, 0x0E);                                \
+    st0 = _mm_sha256rnds2_epu32(st0, st1, msg)
+
+    msg0 = _mm_shuffle_epi8(_mm_loadu_si128((const __m128i*)(p + 0)),
+                            MASK);
+    msg1 = _mm_shuffle_epi8(_mm_loadu_si128((const __m128i*)(p + 16)),
+                            MASK);
+    msg2 = _mm_shuffle_epi8(_mm_loadu_si128((const __m128i*)(p + 32)),
+                            MASK);
+    msg3 = _mm_shuffle_epi8(_mm_loadu_si128((const __m128i*)(p + 48)),
+                            MASK);
+
+    QROUND(0xE9B5DBA5B5C0FBCFULL, 0x71374491428A2F98ULL, msg0);
+    QROUND(0xAB1C5ED5923F82A4ULL, 0x59F111F13956C25BULL, msg1);
+    QROUND(0x550C7DC3243185BEULL, 0x12835B01D807AA98ULL, msg2);
+    QROUND(0xC19BF1749BDC06A7ULL, 0x80DEB1FE72BE5D74ULL, msg3);
+    for (int i = 0; i < 3; i++) {
+        msg0 = _mm_sha256msg1_epu32(msg0, msg1);
+        msg0 = _mm_add_epi32(msg0, _mm_alignr_epi8(msg3, msg2, 4));
+        msg0 = _mm_sha256msg2_epu32(msg0, msg3);
+        msg1 = _mm_sha256msg1_epu32(msg1, msg2);
+        msg1 = _mm_add_epi32(msg1, _mm_alignr_epi8(msg0, msg3, 4));
+        msg1 = _mm_sha256msg2_epu32(msg1, msg0);
+        msg2 = _mm_sha256msg1_epu32(msg2, msg3);
+        msg2 = _mm_add_epi32(msg2, _mm_alignr_epi8(msg1, msg0, 4));
+        msg2 = _mm_sha256msg2_epu32(msg2, msg1);
+        msg3 = _mm_sha256msg1_epu32(msg3, msg0);
+        msg3 = _mm_add_epi32(msg3, _mm_alignr_epi8(msg2, msg1, 4));
+        msg3 = _mm_sha256msg2_epu32(msg3, msg2);
+        switch (i) {
+        case 0:
+            QROUND(0x240CA1CC0FC19DC6ULL, 0xEFBE4786E49B69C1ULL, msg0);
+            QROUND(0x76F988DA5CB0A9DCULL, 0x4A7484AA2DE92C6FULL, msg1);
+            QROUND(0xBF597FC7B00327C8ULL, 0xA831C66D983E5152ULL, msg2);
+            QROUND(0x1429296706CA6351ULL, 0xD5A79147C6E00BF3ULL, msg3);
+            break;
+        case 1:
+            QROUND(0x53380D134D2C6DFCULL, 0x2E1B213827B70A85ULL, msg0);
+            QROUND(0x92722C8581C2C92EULL, 0x766A0ABB650A7354ULL, msg1);
+            QROUND(0xC76C51A3C24B8B70ULL, 0xA81A664BA2BFE8A1ULL, msg2);
+            QROUND(0x106AA070F40E3585ULL, 0xD6990624D192E819ULL, msg3);
+            break;
+        default:
+            QROUND(0x34B0BCB52748774CULL, 0x1E376C0819A4C116ULL, msg0);
+            QROUND(0x682E6FF35B9CCA4FULL, 0x4ED8AA4A391C0CB3ULL, msg1);
+            QROUND(0x8CC7020884C87814ULL, 0x78A5636F748F82EEULL, msg2);
+            QROUND(0xC67178F2BEF9A3F7ULL, 0xA4506CEB90BEFFFAULL, msg3);
+            break;
+        }
+    }
+#undef QROUND
+
+    st0 = _mm_add_epi32(st0, abef_save);
+    st1 = _mm_add_epi32(st1, cdgh_save);
+    // store back to HGFE/DCBA order
+    tmp = _mm_shuffle_epi32(st0, 0x1B);                         // FEBA
+    st1 = _mm_shuffle_epi32(st1, 0xB1);                         // DCHG
+    __m128i dcba = _mm_blend_epi16(tmp, st1, 0xF0);
+    __m128i hgfe = _mm_alignr_epi8(st1, tmp, 8);
+    _mm_storeu_si128((__m128i*)&state[0], dcba);
+    _mm_storeu_si128((__m128i*)&state[4], hgfe);
+}
+#else
+static int sha_ni_available() { return 0; }
+static void sha256_compress_ni(uint32_t state[8], const uint8_t* p) {
+    (void)state; (void)p;
+}
+#endif
+
+static inline uint32_t load_be32(const uint8_t* p) {
+    return ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
+           ((uint32_t)p[2] << 8) | (uint32_t)p[3];
+}
+
+static void sha256_compress(uint32_t h[8], const uint8_t* p) {
+    uint32_t w[64];
+    for (int i = 0; i < 16; i++) w[i] = load_be32(p + 4 * i);
+    for (int i = 16; i < 64; i++) {
+        uint32_t x15 = w[i - 15], x2 = w[i - 2];
+        uint32_t s0 = rotr32(x15, 7) ^ rotr32(x15, 18) ^ (x15 >> 3);
+        uint32_t s1 = rotr32(x2, 17) ^ rotr32(x2, 19) ^ (x2 >> 10);
+        w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    uint32_t a = h[0], b = h[1], c = h[2], d = h[3];
+    uint32_t e = h[4], f = h[5], g = h[6], hh = h[7];
+    for (int i = 0; i < 64; i++) {
+        uint32_t s1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+        uint32_t ch = (e & f) ^ (~e & g);
+        uint32_t t1 = hh + s1 + ch + K256[i] + w[i];
+        uint32_t s0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+        uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+        uint32_t t2 = s0 + maj;
+        hh = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + t2;
+    }
+    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+}
+
+static inline void sha256_block(uint32_t h[8], const uint8_t* p) {
+    if (sha_ni_available()) {
+        sha256_compress_ni(h, p);
+    } else {
+        sha256_compress(h, p);
+    }
+}
+
+static const char HEXD[] = "0123456789abcdef";
+
+// One SHA-256 compression of a 64-byte block from the initial state —
+// exposed for HMAC key-state setup (hashlib exposes no mid-state, and this
+// keeps the compression in exactly two places: here and ops/sha256.py).
+void sha256_block_state(const uint8_t* block, uint32_t* out_state) {
+    static const uint32_t H0[8] = {
+        0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19,
+    };
+    memcpy(out_state, H0, 32);
+    sha256_block(out_state, block);
+}
+
+// Batched HMAC-SHA256 -> ascii hex.  inner/outer are the precomputed key
+// states (ipad/opad blocks already compressed — same contract as the
+// device kernel's _hmac_key_states).  Rows with validity[i]==0 get 64
+// zero bytes (the caller maps them to empty strings).  validity may be
+// NULL (all valid).  out_hex must hold n*64 bytes.
+void hmac_sha256_hex(const uint8_t* data, const int32_t* offsets,
+                     int64_t n, const uint32_t* inner_state,
+                     const uint32_t* outer_state, const uint8_t* validity,
+                     uint8_t* out_hex) {
+    for (int64_t i = 0; i < n; i++) {
+        uint8_t* dst = out_hex + i * 64;
+        if (validity && !validity[i]) {
+            memset(dst, 0, 64);
+            continue;
+        }
+        const uint8_t* msg = data + offsets[i];
+        uint64_t len = (uint64_t)(offsets[i + 1] - offsets[i]);
+        uint32_t h[8];
+        memcpy(h, inner_state, 32);
+        uint64_t off = 0;
+        while (len - off >= 64) {
+            sha256_block(h, msg + off);
+            off += 64;
+        }
+        uint8_t tail[128];
+        uint64_t rem = len - off;
+        memcpy(tail, msg + off, (size_t)rem);
+        tail[rem] = 0x80;
+        uint64_t tail_len = (rem + 9 <= 64) ? 64 : 128;
+        memset(tail + rem + 1, 0, (size_t)(tail_len - rem - 1));
+        uint64_t bits = (64 + len) * 8;  // +64: virtual ipad prefix block
+        for (int k = 0; k < 8; k++) {
+            tail[tail_len - 8 + k] = (uint8_t)(bits >> (8 * (7 - k)));
+        }
+        sha256_block(h, tail);
+        if (tail_len == 128) sha256_block(h, tail + 64);
+        // outer: H(K^opad || inner_digest) — digest is 32 bytes, 1 block
+        uint8_t oblk[64];
+        for (int wi = 0; wi < 8; wi++) {
+            oblk[4 * wi + 0] = (uint8_t)(h[wi] >> 24);
+            oblk[4 * wi + 1] = (uint8_t)(h[wi] >> 16);
+            oblk[4 * wi + 2] = (uint8_t)(h[wi] >> 8);
+            oblk[4 * wi + 3] = (uint8_t)h[wi];
+        }
+        oblk[32] = 0x80;
+        memset(oblk + 33, 0, 23);  // bytes 33..55; 56..63 hold the length
+        uint64_t obits = (64 + 32) * 8;
+        for (int k = 0; k < 8; k++) {
+            oblk[56 + k] = (uint8_t)(obits >> (8 * (7 - k)));
+        }
+        uint32_t ho[8];
+        memcpy(ho, outer_state, 32);
+        sha256_block(ho, oblk);
+        for (int wi = 0; wi < 8; wi++) {
+            uint32_t v = ho[wi];
+            dst[8 * wi + 0] = HEXD[(v >> 28) & 0xF];
+            dst[8 * wi + 1] = HEXD[(v >> 24) & 0xF];
+            dst[8 * wi + 2] = HEXD[(v >> 20) & 0xF];
+            dst[8 * wi + 3] = HEXD[(v >> 16) & 0xF];
+            dst[8 * wi + 4] = HEXD[(v >> 12) & 0xF];
+            dst[8 * wi + 5] = HEXD[(v >> 8) & 0xF];
+            dst[8 * wi + 6] = HEXD[(v >> 4) & 0xF];
+            dst[8 * wi + 7] = HEXD[v & 0xF];
+        }
+    }
+}
+
+// Dual-lane polynomial row hash over a var-width column (ops/rowhash.py
+// host backend).  Semantically identical to hashing the SHA-style padded
+// block matrix (pack_sha_blocks with prefix_len=0) with per-byte powers:
+// zero padding contributes nothing to the sum, so only the row's real
+// bytes, the 0x80 terminator, and the 8 big-endian bit-length bytes at
+// the end of the row's last 64-byte block are touched.  pw1/pw2 are the
+// precomputed power tables (length >= the padded width of the longest
+// row); two lanes in one pass so the row bytes are read once.
+void polyhash_varcol(const uint8_t* data, const int32_t* offsets,
+                     int64_t n, const uint32_t* pw1, const uint32_t* pw2,
+                     uint32_t* out1, uint32_t* out2) {
+    for (int64_t i = 0; i < n; i++) {
+        const uint8_t* p = data + offsets[i];
+        int32_t len = offsets[i + 1] - offsets[i];
+        uint32_t a1 = 0, a2 = 0;
+        for (int32_t j = 0; j < len; j++) {
+            uint32_t b = p[j];
+            a1 += b * pw1[j];
+            a2 += b * pw2[j];
+        }
+        a1 += 0x80u * pw1[len];
+        a2 += 0x80u * pw2[len];
+        int32_t nb = (len + 9 + 63) / 64;
+        uint64_t bits = (uint64_t)len * 8;
+        int32_t base = nb * 64 - 8;
+        for (int k = 0; k < 8; k++) {
+            uint32_t b = (uint32_t)((bits >> (8 * (7 - k))) & 0xFF);
+            a1 += b * pw1[base + k];
+            a2 += b * pw2[base + k];
+        }
+        out1[i] = a1;
+        out2[i] = a2;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Fingerprint lane kernels (ops/rowhash.py host backend).  The lane math
+// is a handful of xorshift-multiply mixes per row; in numpy each mix is
+// ~6 full-array passes, so a two-column batch walks ~50 temporaries and
+// the mixing dominates the profile once the polynomial hash is native.
+// These fuse a column's whole lane chain into ONE pass, exact uint32
+// wraparound, byte-identical to the numpy fallback (pinned by tests).
+
+static inline uint32_t mix32(uint32_t x) {
+    x ^= x >> 16;
+    x *= 0x7FEB352Du;
+    x ^= x >> 15;
+    x *= 0x846CA68Bu;
+    x ^= x >> 16;
+    return x;
+}
+
+// Fixed-width column: both finalized lanes from the 64-bit pattern halves.
+void rowhash_mix_fixed(const uint32_t* lo, const uint32_t* hi, int64_t n,
+                       uint32_t seed1, uint32_t seed2,
+                       uint32_t* out1, uint32_t* out2) {
+    for (int64_t i = 0; i < n; i++) {
+        uint32_t h1 = mix32(lo[i] ^ seed1);
+        out1[i] = mix32(h1 + mix32(hi[i] ^ ~seed1));
+        uint32_t h2 = mix32(lo[i] ^ seed2);
+        out2[i] = mix32(h2 + mix32(hi[i] ^ ~seed2));
+    }
+}
+
+// Var-width column: seed + mix over precomputed polynomial accumulators.
+void rowhash_mix_var(const uint32_t* a1, const uint32_t* a2, int64_t n,
+                     uint32_t seed1, uint32_t seed2,
+                     uint32_t* out1, uint32_t* out2) {
+    for (int64_t i = 0; i < n; i++) {
+        out1[i] = mix32(a1[i] ^ seed1);
+        out2[i] = mix32(a2[i] ^ seed2);
+    }
+}
+
+// Dict column: gather the POOL-entry accumulators by code and mix — the
+// whole per-row cost of a dictionary column's fingerprint contribution.
+void rowhash_dict_lanes(const uint32_t* acc1, const uint32_t* acc2,
+                        const int32_t* codes, int64_t n,
+                        uint32_t seed1, uint32_t seed2,
+                        uint32_t* out1, uint32_t* out2) {
+    for (int64_t i = 0; i < n; i++) {
+        int32_t c = codes[i];
+        out1[i] = mix32(acc1[c] ^ seed1);
+        out2[i] = mix32(acc2[c] ^ seed2);
+    }
+}
+
+// Row reduction step: r += mix(h), both lanes in one pass.
+void rowhash_accum(const uint32_t* h1, const uint32_t* h2, int64_t n,
+                   uint32_t* r1, uint32_t* r2) {
+    for (int64_t i = 0; i < n; i++) {
+        r1[i] += mix32(h1[i]);
+        r2[i] += mix32(h2[i]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// CRC32C (Castagnoli).  SSE4.2 hardware instruction when available,
+// software table otherwise.  Kafka RecordBatch v2 checksums every
+// produced batch; the Python table implementation was a visible slice of
+// the produce path.
+
+static uint32_t crc32c_table[256];
+static int crc32c_table_ready = 0;
+
+static void crc32c_init_table() {
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; k++)
+            c = (c & 1) ? (0x82F63B78u ^ (c >> 1)) : (c >> 1);
+        crc32c_table[i] = c;
+    }
+    crc32c_table_ready = 1;
+}
+
+#if defined(__x86_64__)
+// cpuid.h already included above (SHA-NI detection); gcc 10's header
+// carries no include guard, so a second include is a redefinition error
+static int sse42_available() {
+    static int cached = -1;
+    if (cached < 0) {
+        unsigned a, b, c, d;
+        cached = __get_cpuid(1, &a, &b, &c, &d) ? ((c >> 20) & 1) : 0;
+    }
+    return cached;
+}
+
+__attribute__((target("sse4.2")))
+static uint32_t crc32c_hw(uint32_t crc, const uint8_t* p, int64_t n) {
+    uint64_t c = crc;
+    while (n >= 8) {
+        uint64_t w;
+        memcpy(&w, p, 8);
+        c = __builtin_ia32_crc32di(c, w);
+        p += 8;
+        n -= 8;
+    }
+    uint32_t c32 = (uint32_t)c;
+    while (n-- > 0) c32 = __builtin_ia32_crc32qi(c32, *p++);
+    return c32;
+}
+#else
+static int sse42_available() { return 0; }
+static uint32_t crc32c_hw(uint32_t crc, const uint8_t* p, int64_t n) {
+    (void)crc; (void)p; (void)n;
+    return 0;
+}
+#endif
+
+uint32_t crc32c_buf(const uint8_t* p, int64_t n, uint32_t init) {
+    uint32_t crc = init ^ 0xFFFFFFFFu;
+    if (sse42_available()) {
+        crc = crc32c_hw(crc, p, n);
+    } else {
+        if (!crc32c_table_ready) crc32c_init_table();
+        for (int64_t i = 0; i < n; i++)
+            crc = crc32c_table[(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    }
+    return crc ^ 0xFFFFFFFFu;
+}
+
+// ---------------------------------------------------------------------------
+// Kafka RecordBatch v2 record-section encoder (the per-record varint
+// framing that dominated the produce path in Python).  Records carry no
+// headers (the sink emits none); ts_delta is per record.  Null keys or
+// values are flagged via the *_null arrays (varint -1 markers).
+// Returns bytes written, or -1 when out_cap is too small (caller sizes
+// out with the exact formula below, so -1 means a caller bug).
+
+static inline int64_t put_varint(uint8_t* out, int64_t v) {
+    uint64_t u = ((uint64_t)v << 1) ^ (uint64_t)(v >> 63);
+    int64_t i = 0;
+    while (u >= 0x80) {
+        out[i++] = (uint8_t)(u | 0x80);
+        u >>= 7;
+    }
+    out[i++] = (uint8_t)u;
+    return i;
+}
+
+int64_t kafka_encode_records(const uint8_t* key_data,
+                             const int64_t* key_off,
+                             const uint8_t* key_null,
+                             const uint8_t* val_data,
+                             const int64_t* val_off,
+                             const uint8_t* val_null,
+                             const int64_t* ts_delta,
+                             int64_t n, uint8_t* out, int64_t out_cap) {
+    uint8_t tmp[64];
+    int64_t pos = 0;
+    for (int64_t i = 0; i < n; i++) {
+        // body renders into tmp up to the key bytes; lengths first so the
+        // record-length prefix is known without a second pass
+        int64_t klen = key_null && key_null[i] ? -1
+                       : key_off[i + 1] - key_off[i];
+        int64_t vlen = val_null && val_null[i] ? -1
+                       : val_off[i + 1] - val_off[i];
+        int64_t hl = 0;
+        tmp[hl++] = 0;  // attributes
+        hl += put_varint(tmp + hl, ts_delta ? ts_delta[i] : 0);
+        hl += put_varint(tmp + hl, i);          // offset delta
+        hl += put_varint(tmp + hl, klen);
+        int64_t body_len = hl + (klen > 0 ? klen : 0);
+        // varint(vlen) + value + varint(0 headers)
+        uint8_t vtmp[16];
+        int64_t vl = put_varint(vtmp, vlen);
+        body_len += vl + (vlen > 0 ? vlen : 0) + 1;
+        uint8_t ltmp[16];
+        int64_t ll = put_varint(ltmp, body_len);
+        if (pos + ll + body_len > out_cap) return -1;
+        memcpy(out + pos, ltmp, (size_t)ll);
+        pos += ll;
+        memcpy(out + pos, tmp, (size_t)hl);
+        pos += hl;
+        if (klen > 0) {
+            memcpy(out + pos, key_data + key_off[i], (size_t)klen);
+            pos += klen;
+        }
+        memcpy(out + pos, vtmp, (size_t)vl);
+        pos += vl;
+        if (vlen > 0) {
+            memcpy(out + pos, val_data + val_off[i], (size_t)vlen);
+            pos += vlen;
+        }
+        out[pos++] = 0;  // header count varint(0)
+    }
+    return pos;
+}
+
+// ---------------------------------------------------------------------------
+// Flat-record Avro batch decoder (the Confluent-SR consume hot loop).
+//
+// Decodes n_msgs concatenated Avro binary records (payloads AFTER the
+// 5-byte Confluent header) whose schema is a flat record of primitive
+// fields, straight into columnar buffers — the Python per-row reader was
+// ~6.5us/row and the dominant cost of the 64-partition fan-in bench.
+//
+// field type codes (ftypes): 1 boolean, 2 int/long (zigzag varint),
+// 3 float, 4 double, 5 string/bytes (varint length + bytes).
+// fnullable[i] != 0 marks the ["null", T] union idiom; fnullbranch[i]
+// is WHICH branch is null (writers emit either order).
+//
+// Per-field output slots in `tasks` (n_fields x 6 int64 row-major):
+//   0 out_values ptr (i64 for 2, f32 for 3, f64 for 4, u8 for 1)
+//   1 out_data ptr (type 5)     2 out_offsets ptr (type 5, int32)
+//   3 out_data cap (type 5)     4 validity ptr (u8; may be 0 when
+//   5 (reserved)                  the field is not nullable)
+//
+// Returns n_msgs on success; -(i+1) when message i is malformed or out
+// of envelope (caller falls back to the exact per-row reader).
+
+static inline bool avro_varint(const uint8_t*& p, const uint8_t* end,
+                               int64_t* out) {
+    uint64_t u = 0;
+    int shift = 0;
+    while (shift < 64) {
+        if (p >= end) return false;
+        uint8_t b = *p++;
+        u |= (uint64_t)(b & 0x7F) << shift;
+        if (!(b & 0x80)) {
+            *out = (int64_t)(u >> 1) ^ -(int64_t)(u & 1);
+            return true;
+        }
+        shift += 7;
+    }
+    return false;
+}
+
+// batched CRC32C over a var-width column (kafka key->partition routing:
+// one call per push instead of one ctypes round-trip per row)
+void crc32c_batch(const uint8_t* data, const int64_t* offsets, int64_t n,
+                  uint32_t* out) {
+    for (int64_t i = 0; i < n; i++) {
+        out[i] = crc32c_buf(data + offsets[i],
+                            offsets[i + 1] - offsets[i], 0);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Kafka RecordBatch v2 scanner: the consume-side twin of
+// kafka_encode_records.  Walks uncompressed frames and emits SIX int64s
+// per record — key_start, key_end (-1/-1 for null), val_start, val_end,
+// absolute offset, timestamp_ms — all byte ranges referencing the blob
+// itself (zero copy; the Python caller slices).  Frames are CRC32C-
+// validated.  Returns the record count, -1 on corrupt input, or -2 when
+// a frame needs the Python path (compression, control semantics beyond
+// skipping, per-record headers).
+
+static inline int64_t be32(const uint8_t* p) {
+    return ((int64_t)p[0] << 24) | ((int64_t)p[1] << 16)
+         | ((int64_t)p[2] << 8) | (int64_t)p[3];
+}
+
+static inline int64_t be64(const uint8_t* p) {
+    int64_t v = 0;
+    for (int i = 0; i < 8; i++) v = (v << 8) | p[i];
+    return v;
+}
+
+int64_t kafka_scan_records(const uint8_t* blob, int64_t blob_len,
+                           int64_t* out, int64_t max_records) {
+    int64_t pos = 0;
+    int64_t count = 0;
+    while (pos + 61 <= blob_len) {
+        int64_t base_offset = be64(blob + pos);
+        int64_t batch_len = be32(blob + pos + 8);
+        if (batch_len <= 0) return -1;
+        int64_t end = pos + 12 + batch_len;
+        if (end > blob_len) break;  // partial frame at fetch tail
+        if (blob[pos + 16] != 2) return -2;  // magic
+        uint32_t expect = (uint32_t)((blob[pos + 17] << 24)
+                                     | (blob[pos + 18] << 16)
+                                     | (blob[pos + 19] << 8)
+                                     | blob[pos + 20]);
+        if (crc32c_buf(blob + pos + 21, end - (pos + 21), 0) != expect)
+            return -1;
+        int64_t attrs = (blob[pos + 21] << 8) | blob[pos + 22];
+        if (attrs & 0x07) return -2;  // compressed: python path
+        if (attrs & 0x20) { pos = end; continue; }  // control batch
+        int64_t base_ts = be64(blob + pos + 27);
+        int64_t n = be32(blob + pos + 57);
+        const uint8_t* p = blob + pos + 61;
+        const uint8_t* fend = blob + end;
+        for (int64_t i = 0; i < n; i++) {
+            int64_t body_len;
+            if (!avro_varint(p, fend, &body_len) || body_len <= 0
+                || fend - p < body_len) return -1;
+            const uint8_t* rec_end = p + body_len;
+            if (p >= rec_end) return -1;
+            p++;  // record attributes
+            int64_t ts_delta, off_delta;
+            if (!avro_varint(p, rec_end, &ts_delta)) return -1;
+            if (!avro_varint(p, rec_end, &off_delta)) return -1;
+            int64_t klen;
+            if (!avro_varint(p, rec_end, &klen)) return -1;
+            int64_t ks = -1, ke = -1;
+            if (klen >= 0) {
+                if (rec_end - p < klen) return -1;
+                ks = p - blob;
+                ke = ks + klen;
+                p += klen;
+            }
+            int64_t vlen;
+            if (!avro_varint(p, rec_end, &vlen)) return -1;
+            int64_t vs = -1, ve = -1;
+            if (vlen >= 0) {
+                if (rec_end - p < vlen) return -1;
+                vs = p - blob;
+                ve = vs + vlen;
+                p += vlen;
+            }
+            int64_t n_headers;
+            if (!avro_varint(p, rec_end, &n_headers)) return -1;
+            if (n_headers != 0) return -2;  // headers: python path
+            if (p != rec_end) return -1;
+            if (count >= max_records) return -1;
+            int64_t* o = out + count * 6;
+            o[0] = ks; o[1] = ke; o[2] = vs; o[3] = ve;
+            o[4] = base_offset + off_delta;
+            o[5] = base_ts + ts_delta;
+            count++;
+        }
+        pos = end;
+    }
+    return count;
+}
+
+int64_t avro_decode_flat(const uint8_t* data, const int64_t* offs,
+                         int64_t n_msgs,
+                         const uint8_t* ftypes,
+                         const uint8_t* fnullable,
+                         const uint8_t* fnullbranch,
+                         int64_t n_fields, int64_t* tasks) {
+    // var-width write positions start at 0 per field
+    for (int64_t f = 0; f < n_fields; f++) {
+        int32_t* off_out = (int32_t*)tasks[f * 6 + 2];
+        if (off_out) off_out[0] = 0;
+    }
+    for (int64_t i = 0; i < n_msgs; i++) {
+        const uint8_t* p = data + offs[i];
+        const uint8_t* end = data + offs[i + 1];
+        for (int64_t f = 0; f < n_fields; f++) {
+            int64_t* t = tasks + f * 6;
+            uint8_t* validity = (uint8_t*)t[4];
+            bool is_null = false;
+            if (fnullable[f]) {
+                int64_t branch;
+                if (!avro_varint(p, end, &branch)) return -(i + 1);
+                if (branch != 0 && branch != 1) return -(i + 1);
+                is_null = (branch == fnullbranch[f]);
+            }
+            if (validity) validity[i] = is_null ? 0 : 1;
+            int ft = ftypes[f];
+            if (ft == 5) {
+                int32_t* off_out = (int32_t*)t[2];
+                uint8_t* dout = (uint8_t*)t[1];
+                int64_t pos = off_out[i];
+                if (!is_null) {
+                    int64_t len;
+                    if (!avro_varint(p, end, &len) || len < 0
+                        || end - p < len) return -(i + 1);
+                    if (pos + len > t[3]) return -(i + 1);
+                    memcpy(dout + pos, p, (size_t)len);
+                    p += len;
+                    pos += len;
+                }
+                off_out[i + 1] = (int32_t)pos;
+                continue;
+            }
+            if (is_null) {
+                // fixed-width null slots zero
+                switch (ft) {
+                case 1: ((uint8_t*)t[0])[i] = 0; break;
+                case 2: ((int64_t*)t[0])[i] = 0; break;
+                case 3: ((float*)t[0])[i] = 0.0f; break;
+                case 4: ((double*)t[0])[i] = 0.0; break;
+                default: return -(i + 1);
+                }
+                continue;
+            }
+            switch (ft) {
+            case 1: {
+                if (p >= end) return -(i + 1);
+                ((uint8_t*)t[0])[i] = (*p++ != 0);
+                break;
+            }
+            case 2: {
+                int64_t v;
+                if (!avro_varint(p, end, &v)) return -(i + 1);
+                ((int64_t*)t[0])[i] = v;
+                break;
+            }
+            case 3: {
+                if (end - p < 4) return -(i + 1);
+                memcpy(&((float*)t[0])[i], p, 4);
+                p += 4;
+                break;
+            }
+            case 4: {
+                if (end - p < 8) return -(i + 1);
+                memcpy(&((double*)t[0])[i], p, 8);
+                p += 8;
+                break;
+            }
+            default:
+                return -(i + 1);
+            }
+        }
+        if (p != end) return -(i + 1);  // trailing bytes: not this schema
+    }
+    return n_msgs;
+}
+
+}  // extern "C"

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from transferia_tpu_torch import native
 from transferia_tpu_torch.columnar.batch import bucket_rows
 from transferia_tpu_torch.columnar.hexcol import digests_to_hex
 from transferia_tpu_torch.ops.dispatch import (
@@ -109,9 +110,31 @@ def pow2_blocks(max_len: int) -> int:
 def pack_hmac_blocks(data: np.ndarray, offsets: np.ndarray,
                      max_blocks: int) -> tuple[np.ndarray, np.ndarray]:
     """Flat bytes+offsets -> ((N, max_blocks*64) padded HMAC message
-    blocks, (N,) block counts) on the host.  The 64-byte ipad block is
-    virtual (compressed separately from the cached key state), so the
-    lengths in the padding include it."""
+    blocks, (N,) block counts) on the host, in one host-library call
+    (`pack_sha_blocks`, GIL released, so part threads overlap the pack
+    with the card).  The 64-byte ipad block is virtual (compressed
+    separately from the cached key state), so the lengths in the padding
+    include it."""
+    n = len(offsets) - 1
+    off = np.ascontiguousarray(offsets, dtype=np.int32)
+    width = max_blocks * 64
+    if n:
+        # the C loop writes each row into its width unchecked
+        needed = (int((off[1:] - off[:-1]).max()) + 9 + 63) // 64
+        if needed > max_blocks:
+            raise ValueError(f"rows need {needed} SHA blocks > forced "
+                             f"bucket {max_blocks}")
+    out = np.empty((n, width), dtype=np.uint8)
+    n_blocks = np.empty(n, dtype=np.int32)
+    native.lib().pack_sha_blocks(np.ascontiguousarray(data), off, n, width,
+                                 64, out, n_blocks)
+    return out, n_blocks
+
+
+def pack_hmac_blocks_plain(data: np.ndarray, offsets: np.ndarray,
+                           max_blocks: int
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """pack_hmac_blocks through numpy (`prepare_padded_blocks`)."""
     blocks, n_blocks, _ = prepare_padded_blocks(
         data, offsets, prefix_len=64, max_blocks=max_blocks)
     return blocks, n_blocks

@@ -4,8 +4,9 @@ Providers register under a name and expose optional capability
 constructors (snapshot storage, sinker, ...); factories resolve them at
 transfer build time.  The port ships the `sample` source (snapshot and
 replication), the `memory` source and sink, the `kafka` replication
-source and the `ch` (ClickHouse) sink on one shard; the other providers
-wait (ROADMAP.md A5).
+source, the `ch` (ClickHouse) sink on one shard, the `fs` Parquet source
+and the `stdout` and `devnull` sinks; the other providers wait
+(ROADMAP.md A).
 """
 
 from transferia_tpu_torch.providers.registry import (
@@ -21,7 +22,9 @@ def load_builtin_providers() -> None:
     """Import the built-in providers (idempotent)."""
     from transferia_tpu_torch.providers import (  # noqa: F401
         clickhouse,
+        file,
         kafka,
         memory,
         sample,
+        stdout,
     )

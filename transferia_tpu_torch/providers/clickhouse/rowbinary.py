@@ -5,11 +5,12 @@ RowBinary is row-major (per row: each column's fixed-width value or
 varint-length-prefixed bytes).  The encoder never loops over rows in
 Python: per column it computes each row's field byte-length, derives
 global row offsets with cumsums, and scatters column bytes into the
-output with flat numpy gathers.  The JAX package hands the varints and
-the final scatter to its native host library when that loads; the port
-has none and runs the numpy route, which gives the same bytes.  The
-decoder serves the ClickHouse snapshot source, which waits (ROADMAP.md
-A5).
+output with flat numpy gathers.  As in the JAX package, the varints and
+the final scatter run in the host library (`leb128_encode`,
+`scatter_bytes`); the numpy routes (`_encode_varints_plain`,
+`_scatter_plain`) give the same bytes and are what tests hold them
+against.  The decoder serves the ClickHouse snapshot source, which
+waits (ROADMAP.md A5).
 
 Type wire formats (ClickHouse RowBinary):
   ints/floats: little-endian fixed width
@@ -26,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from transferia_tpu_torch import native
 from transferia_tpu_torch.abstract.schema import CanonicalType
 from transferia_tpu_torch.columnar.batch import Column, ColumnBatch
 
@@ -42,8 +44,19 @@ def _leb128_lengths(values: np.ndarray) -> np.ndarray:
 
 
 def _encode_varints(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """values -> (flat varint bytes, per-value byte length), numpy
-    multi-pass."""
+    """values -> (flat varint bytes, per-value byte length), one pass in
+    the host library."""
+    n = len(values)
+    out = np.empty(n * 10, dtype=np.uint8)
+    lens = np.empty(n, dtype=np.int32)
+    total = native.lib().leb128_encode(
+        np.ascontiguousarray(values, dtype=np.uint64), n, out, lens)
+    return out[:total].copy(), lens.astype(np.int64)
+
+
+def _encode_varints_plain(values: np.ndarray
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """_encode_varints in numpy, multi-pass."""
     n = len(values)
     vlens = _leb128_lengths(values)
     offsets = np.zeros(n + 1, dtype=np.int64)
@@ -220,8 +233,20 @@ def encode_rowbinary(batch: ColumnBatch,
         if total:
             src_off = np.zeros(n, dtype=np.int64)
             np.cumsum(lens[:-1], out=src_off[1:])
-            inner = np.arange(total) - np.repeat(src_off, lens)
-            dst = np.repeat(field_start, lens) + inner
-            out[dst] = e.data
+            native.lib().scatter_bytes(
+                np.ascontiguousarray(e.data), src_off,
+                np.ascontiguousarray(field_start),
+                np.ascontiguousarray(lens), n, out)
         field_start += lens
     return out.tobytes()
+
+
+def _scatter_plain(src: np.ndarray, src_off: np.ndarray,
+                   dst_off: np.ndarray, lens: np.ndarray,
+                   out: np.ndarray) -> None:
+    """scatter_bytes in numpy: row i's lens[i] bytes from src_off[i]
+    land at dst_off[i] in out."""
+    total = int(lens.sum())
+    inner = np.arange(total) - np.repeat(src_off, lens)
+    out[np.repeat(dst_off, lens) + inner] = src[np.repeat(src_off, lens)
+                                                 + inner]

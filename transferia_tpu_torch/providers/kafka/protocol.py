@@ -4,10 +4,14 @@ port's copy of ``transferia_tpu/providers/kafka/protocol.py``).
 Binary conventions: big-endian fixed ints; STRING = int16 len + utf8
 (-1 = null); BYTES = int32 len + data (-1 = null); record-batch internals
 use zigzag varints.  CRC32C (Castagnoli) covers the batch from the
-attributes field onward.  The JAX package prefers `google_crc32c` and its
-own native host library for the CRC and the record encode/scan; the port
-has neither (a native host library of its own is a later item), so it
-runs the pure-Python routes, which give the same bytes.
+attributes field onward.  As in the JAX package, the CRC and the
+record-section encode and scan run in the host library
+(`transferia_tpu_torch.native`: `crc32c_buf`, `kafka_encode_records`,
+`kafka_scan_records`).  The pure-Python routes (`crc32c_py`,
+`encode_records_py`, `decode_record_batches_py`) give the same bytes;
+tests hold the native ones against them.  Records with headers and
+gzip-compressed batches are outside the native encoder's and scanner's
+envelope and take the Python walk, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +20,10 @@ import struct
 import time
 from dataclasses import dataclass, field
 from typing import Optional
+
+import numpy as np
+
+from transferia_tpu_torch import native
 
 
 def _make_table() -> list[int]:
@@ -33,6 +41,25 @@ _TABLE = _make_table()
 
 
 def crc32c(data: bytes) -> int:
+    """CRC32C of a buffer (the host library's SSE4.2 or table loop)."""
+    return int(native.lib().crc32c_buf(np.frombuffer(data, np.uint8),
+                                       len(data), 0))
+
+
+def crc32c_batch(keys: list[bytes]) -> np.ndarray:
+    """CRC32C of each buffer in one host-library call (uint32)."""
+    offs = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum([len(k) for k in keys], out=offs[1:])
+    data = np.frombuffer(b"".join(keys), dtype=np.uint8)
+    out = np.empty(len(keys), dtype=np.uint32)
+    native.lib().crc32c_batch(
+        data if data.size else np.zeros(1, dtype=np.uint8), offs,
+        len(keys), out)
+    return out
+
+
+def crc32c_py(data: bytes) -> int:
+    """CRC32C in pure Python (the spec the host library is held to)."""
     crc = 0xFFFFFFFF
     table = _TABLE
     for b in data:
@@ -140,16 +167,43 @@ _CODEC_GZIP = 1
 _ATTR_TRANSACTIONAL = 0x10
 
 
-def encode_record_batch(records: list[Record],
-                        base_offset: int = 0,
-                        compression: str = "",
-                        producer_id: int = -1,
-                        producer_epoch: int = -1) -> bytes:
-    """Records -> one RecordBatch v2 blob (optionally gzip-compressed).
-    `producer_id`/`producer_epoch` stamp the header for transactional
-    produce."""
-    now = int(time.time() * 1000)
-    base_ts = records[0].timestamp_ms or now if records else now
+def _encode_records_native(records: list[Record], now: int,
+                           base_ts: int) -> bytes:
+    """The record section through the host library's encoder (records
+    without headers)."""
+    n = len(records)
+    key_parts = [r.key or b"" for r in records]
+    val_parts = [r.value or b"" for r in records]
+    key_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(k) for k in key_parts], out=key_off[1:])
+    val_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(v) for v in val_parts], out=val_off[1:])
+    key_null = np.fromiter((r.key is None for r in records),
+                           dtype=np.uint8, count=n)
+    val_null = np.fromiter((r.value is None for r in records),
+                           dtype=np.uint8, count=n)
+    ts = [(r.timestamp_ms or now) - base_ts for r in records]
+    ts_arr = np.asarray(ts, dtype=np.int64) if any(ts) else None
+    key_data = np.frombuffer(b"".join(key_parts), dtype=np.uint8) \
+        if key_off[-1] else np.zeros(0, dtype=np.uint8)
+    val_data = np.frombuffer(b"".join(val_parts), dtype=np.uint8) \
+        if val_off[-1] else np.zeros(0, dtype=np.uint8)
+    # a record takes at most 64 bytes besides its key and value
+    cap = int(key_off[-1] + val_off[-1]) + 64 * n + 64
+    out = np.empty(cap, dtype=np.uint8)
+    rc = native.lib().kafka_encode_records(
+        key_data, key_off, key_null.ctypes.data, val_data, val_off,
+        val_null.ctypes.data,
+        ts_arr.ctypes.data if ts_arr is not None else None,
+        n, out, cap)
+    if rc < 0:
+        raise RuntimeError(f"kafka_encode_records: {rc} (output cap {cap})")
+    return out[:rc].tobytes()
+
+
+def encode_records_py(records: list[Record], now: int,
+                      base_ts: int) -> bytes:
+    """The record section in pure Python (headers included)."""
     # accumulate in a list: += on bytes is O(total^2)
     parts: list[bytes] = []
     for i, r in enumerate(records):
@@ -175,7 +229,23 @@ def encode_record_batch(records: list[Record],
         blob = b"".join(body)
         parts.append(enc_varint(len(blob)))
         parts.append(blob)
-    recs = b"".join(parts)
+    return b"".join(parts)
+
+
+def encode_record_batch(records: list[Record],
+                        base_offset: int = 0,
+                        compression: str = "",
+                        producer_id: int = -1,
+                        producer_epoch: int = -1) -> bytes:
+    """Records -> one RecordBatch v2 blob (optionally gzip-compressed).
+    `producer_id`/`producer_epoch` stamp the header for transactional
+    produce."""
+    now = int(time.time() * 1000)
+    base_ts = records[0].timestamp_ms or now if records else now
+    if records and not any(r.headers for r in records):
+        recs = _encode_records_native(records, now, base_ts)
+    else:
+        recs = encode_records_py(records, now, base_ts)
     attrs = 0
     if compression == "gzip":
         import gzip as _gzip
@@ -210,8 +280,49 @@ def encode_record_batch(records: list[Record],
         + header + after_crc
 
 
+def _scan_records_native(data: bytes) -> Optional[list[Record]]:
+    """The host library's scan of uncompressed, header-less frames; None
+    when a frame is outside that envelope (the Python walk decides)."""
+    # upper bound on records: the sum of the frames' recordCount headers
+    max_n = 0
+    pos = 0
+    n = len(data)
+    while pos + 61 <= n:
+        batch_len = struct.unpack_from("!i", data, pos + 8)[0]
+        count = struct.unpack_from("!i", data, pos + 57)[0]
+        if batch_len <= 0 or count < 0 or data[pos + 16] != 2:
+            return None  # corrupt or foreign framing
+        max_n += count
+        pos += 12 + batch_len
+    if max_n == 0:
+        return [] if pos else None
+    arr = np.empty(max_n * 6, dtype=np.int64)
+    blob = np.frombuffer(data, dtype=np.uint8)
+    rc = native.lib().kafka_scan_records(blob, len(data), arr, max_n)
+    if rc < 0:
+        if rc == -1:
+            raise ValueError("record batch CRC mismatch or corrupt frame")
+        return None  # -2: compression or headers
+    out = []
+    for ks, ke, vs, ve, off, ts in arr[:rc * 6].reshape(-1, 6).tolist():
+        out.append(Record(
+            key=data[ks:ke] if ks >= 0 else None,
+            value=data[vs:ve] if vs >= 0 else None,
+            offset=off, timestamp_ms=ts))
+    return out
+
+
 def decode_record_batches(data: bytes) -> list[Record]:
     """RecordBatch v2 blob(s) -> Records with absolute offsets."""
+    scanned = _scan_records_native(data)
+    if scanned is not None:
+        return scanned
+    return decode_record_batches_py(data)
+
+
+def decode_record_batches_py(data: bytes) -> list[Record]:
+    """RecordBatch v2 blob(s) -> Records, in pure Python (gzip batches
+    and headers included)."""
     out: list[Record] = []
     pos = 0
     n = len(data)

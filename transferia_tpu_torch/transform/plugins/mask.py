@@ -1,7 +1,10 @@
 """PII masking transformer: HMAC-SHA256 field hashing
 (reference: pkg/transformer/registry/mask/hmac_hasher.go).
 
-The host path hashes each value with `hmac`/`hashlib`; the fused device
+The host path hashes a column in one call into the host library
+(`hmac_sha256_hex`, from the key's ipad/opad states `sha256_block_state`
+gives), as in the JAX package; `_host_hmac_hex_py` hashes each value with
+`hmac`/`hashlib`, the spec tests hold it to.  The fused device
 step (transform/fused.py) hashes whole columns with kernel K-A and must
 give the same bytes (tests pin equality).  A dictionary-encoded column
 hashes its value pool once (`mask_dict_column`) and keeps its codes: the
@@ -17,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 
+from transferia_tpu_torch import native
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
     TableID,
@@ -30,14 +34,53 @@ from transferia_tpu_torch.columnar.batch import (
     _gather_varwidth,
     _offsets_from_lengths,
 )
+from transferia_tpu_torch.columnar.hexcol import hex_to_varwidth
 from transferia_tpu_torch.transform.base import TransformResult, Transformer
 from transferia_tpu_torch.transform.registry import register_transformer
+
+
+def hmac_key_states(key: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """The key's ipad/opad SHA-256 states (uint32 x 8 each), from the
+    host library's one-block compression (hashlib exposes no mid-state);
+    memoized per key."""
+    states = _key_states.get(key)
+    if states is None:
+        k = hashlib.sha256(key).digest() if len(key) > 64 else key
+        block = np.zeros(64, dtype=np.uint8)
+        block[:len(k)] = np.frombuffer(k, dtype=np.uint8)
+        inner = np.empty(8, dtype=np.uint32)
+        outer = np.empty(8, dtype=np.uint32)
+        cdll = native.lib()
+        cdll.sha256_block_state(np.ascontiguousarray(block ^ 0x36), inner)
+        cdll.sha256_block_state(np.ascontiguousarray(block ^ 0x5C), outer)
+        states = _key_states.setdefault(key, (inner, outer))
+    return states
+
+
+_key_states: dict[bytes, tuple[np.ndarray, np.ndarray]] = {}
 
 
 def _host_hmac_hex(key: bytes, data: np.ndarray, offsets: np.ndarray,
                    validity: Optional[np.ndarray]
                    ) -> tuple[np.ndarray, np.ndarray]:
-    """64-char hex HMAC-SHA256 per valid row, empty bytes per null row."""
+    """64-char hex HMAC-SHA256 per valid row, empty bytes per null row:
+    one host-library call (it releases the GIL)."""
+    n = len(offsets) - 1
+    inner, outer = hmac_key_states(key)
+    out_hex = np.empty((n, 64), dtype=np.uint8)
+    valid_u8 = (np.ascontiguousarray(validity, dtype=np.uint8)
+                if validity is not None else None)
+    native.lib().hmac_sha256_hex(
+        np.ascontiguousarray(data),
+        np.ascontiguousarray(offsets, dtype=np.int32), n, inner, outer,
+        valid_u8.ctypes.data if valid_u8 is not None else None, out_hex)
+    return hex_to_varwidth(out_hex, validity)
+
+
+def _host_hmac_hex_py(key: bytes, data: np.ndarray, offsets: np.ndarray,
+                      validity: Optional[np.ndarray]
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """_host_hmac_hex with Python's `hmac`, value by value."""
     n = len(offsets) - 1
     # zero-copy row slices (memoryview over the column buffer — hmac
     # takes any buffer) and hoisted per-row int conversions
