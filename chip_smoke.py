@@ -108,7 +108,7 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 4,096 messages of the kafka2ch phase's generator (K-A).  Exact
+     x 16,384 messages of the kafka2ch phase's generator (K-A).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
@@ -440,9 +440,8 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
-# kafka2ch phase's generator (one fetch batch a Bufferer tick: ~66 s a
-# placement)
+# Bufferer) over a backlog of 16 partitions x 16,384 messages of the
+# kafka2ch phase's generator
 REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
 REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "url", "type": "utf8"},
@@ -451,7 +450,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 4096
+BACKLOG_MESSAGES = 16384
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -2523,7 +2522,7 @@ def k2ch_message(p: int, i: int) -> bytes:
 
 def backlog_columns() -> dict:
     """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
-    backlog's ids."""
+    backlog's 16 x 16,384 ids."""
     n = REPL_PARTITIONS * BACKLOG_MESSAGES
     rng = np.random.default_rng(7)
     ids = np.arange(n, dtype=np.int64)

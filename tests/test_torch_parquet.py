@@ -414,6 +414,44 @@ def test_file_case_equals_jax(tmp_path, case, threads):
     assert_reader_equals_jax(path, threads)
 
 
+@pytest.mark.parametrize("page", ["1.0", "2.0"])
+@pytest.mark.parametrize("codec", ["snappy", "NONE", "zstd", "gzip"])
+def test_all_null_fixed_chunks_equal_jax(tmp_path, codec, page):
+    """Fixed-width chunks whose every value is null carry an empty
+    dictionary page, which the fixed-width decoder refuses; the nulls
+    come from the pages' definition levels, in every codec and page
+    version, beside a row group where the same columns hold values."""
+    n = 1000
+    t = pa.table({
+        "i": pa.array([None] * n + list(range(n)), type=pa.int64()),
+        "j": pa.array([None] * n + list(range(n)), type=pa.int32()),
+        "d": pa.array([None] * n + [i / 7 for i in range(n)],
+                      type=pa.float64()),
+        "s": pa.array([None] * 2 * n, type=pa.string()),
+    })
+    path = write(t, tmp_path / "t.parquet", row_group_size=n,
+                 compression=codec, data_page_version=page)
+    if not codec_decodable(codec):
+        with pytest.raises(NotImplementedError):
+            reader_pair(path)[1].read_row_group(0)
+        return
+    assert_reader_equals_jax(path)
+
+
+def test_refused_dictionary_chunk_with_values_raises(tmp_path):
+    """The all-null check reads the definition levels, not the footer's
+    statistics: a chunk holding one value is refused, not emptied."""
+    path = write(pa.table({"i": pa.array([None] * 999 + [5],
+                                         type=pa.int64())}),
+                 tmp_path / "t.parquet")
+    meta = parquet_metadata(path)
+    schema = meta.table_schema()
+    reader = NativeParquetReader(path, meta, schema)
+    with pytest.raises(NotImplementedError, match="'i'"):
+        reader._all_null_column(0, schema.find("i"))
+    assert reader.read_row_group(0)["i"].to_pylist() == [None] * 999 + [5]
+
+
 def test_column_parallel_decode_byte_identical(tmp_path):
     path = write(mixed_table(), tmp_path / "t.parquet",
                  row_group_size=8192, compression="snappy")

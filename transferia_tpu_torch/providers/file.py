@@ -54,7 +54,6 @@ from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
 )
-from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.limits import effective_cpus
 from transferia_tpu_torch.stats import stagetimer
 
@@ -126,8 +125,7 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
 
     # -- decode-pipeline knob resolution ------------------------------------
     def _decode_threads(self) -> int:
-        env = knobs.env_raw("TRANSFERIA_TPU_DECODE_THREADS")
-        k = int(env) if env else self.params.decode_threads
+        k = self.params.decode_threads
         if k <= 0:
             # auto: each upload worker already runs a consumer thread
             # and a readahead decoder, so claim only half the per-worker
@@ -136,8 +134,7 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
         return max(1, min(8, k))
 
     def _readahead_groups(self) -> int:
-        env = knobs.env_raw("TRANSFERIA_TPU_READAHEAD_GROUPS")
-        n = int(env) if env else self.params.readahead_groups
+        n = self.params.readahead_groups
         if n < 0:  # auto: overlap decode unless there's a single core
             n = 2 if effective_cpus() >= 2 else 0
         return n

@@ -120,7 +120,7 @@ class NativeParquetReader:
             if meta.row_groups else {}
         self._leaves = {leaf.path: leaf for leaf in meta.leaves}
         self._codec_ok_cache: dict[int, bool] = {}
-        # (tasks template, specs, all-null columns) per row group
+        # (tasks template, specs) per row group
         self._task_cache: dict[int, tuple] = {}
         self._cache_lock = threading.Lock()
 
@@ -162,7 +162,6 @@ class NativeParquetReader:
             return cached
         specs: list[tuple] = []
         rows: list[list[int]] = []
-        all_null: list = []
         for cs in self._schema:
             found = self._column(g, cs)
             if found is None:
@@ -190,13 +189,6 @@ class NativeParquetReader:
                 name = PHYSICAL_NAMES[ptype] if 0 <= ptype < 8 else ptype
                 raise _unsupported(cs.name, f"physical type {name} as "
                                             f"{cs.data_type.name}")
-            st = col.statistics
-            if (kind == 0 and col.dictionary_page_offset is not None
-                    and st is not None and st.null_count == col.num_values):
-                # every value null: the writer's dictionary page is empty,
-                # which the decoder refuses; the column is all nulls
-                all_null.append(cs)
-                continue
             start, length = self._chunk_range(col)
             if start < 0 or start + length > len(self._mm):
                 raise ValueError(f"parquet column {cs.name!r}: chunk "
@@ -217,7 +209,7 @@ class NativeParquetReader:
                           dict_off, unit))
         tasks = (np.array(rows, dtype=np.int64)
                  if rows else np.zeros((0, _T_FIELDS), dtype=np.int64))
-        out = (tasks, specs, all_null)
+        out = (tasks, specs)
         with self._cache_lock:
             self._task_cache[g] = out
         return out
@@ -319,6 +311,33 @@ class NativeParquetReader:
         raise _unsupported(cs.name, f"row group {g} outgrew {cap} bytes "
                                     f"after four retries")
 
+    def _all_null_column(self, g: int, cs) -> Column:
+        """A fixed-width chunk with a dictionary page that the fixed-width
+        decoder refused.  A writer gives a column whose every value is
+        null an empty dictionary page, which that decoder cannot load.
+        The byte-array decoder walks the same pages and loads an empty
+        dictionary, so it reads the definition levels: the column is all
+        nulls only if they say so, and is refused otherwise."""
+        _, col = self._column(g, cs)
+        n = col.num_values
+        start, length = self._chunk_range(col)
+        chunk = np.ascontiguousarray(self._mm[start:start + length])
+        validity = np.ones(n, dtype=np.uint8)
+        codes = np.empty(n, dtype=np.int32)
+        rc = self._cdll.pq_decode_bytearray(
+            chunk, length, _CODECS[col.compression], n,
+            self._leaves[col.path_in_schema].max_def,
+            np.empty(1, dtype=np.uint8), 1, np.empty(n + 1, dtype=np.int32),
+            codes.ctypes.data, validity.ctypes.data,
+            ctypes.byref(ctypes.c_int32(-1)), ctypes.byref(ctypes.c_int64(0)))
+        if rc != 0 or validity.any():
+            raise _unsupported(cs.name, f"the decoder refused the chunk of "
+                                        f"row group {g} (its dictionary "
+                                        f"page, or a corrupt page)")
+        return Column(cs.name, cs.data_type,
+                      np.zeros(n, dtype=cs.data_type.np_dtype), None,
+                      np.zeros(n, dtype=np.bool_))
+
     def _decode_tasks(self, tasks: np.ndarray, n: int) -> None:
         """Run the native decoder over the task rows, column-parallel
         when decode_threads > 1.  Task rows are independent (each
@@ -363,7 +382,7 @@ class NativeParquetReader:
     # -- public --------------------------------------------------------------
     def read_row_group(self, g: int) -> dict[str, Column]:
         """All schema columns of one row group."""
-        template, specs, all_null = self._rg_tasks(g)
+        template, specs = self._rg_tasks(g)
         tasks = template.copy()
         holds: list[tuple] = []
         for i, (cs, kind, ow, n, max_def, cap, view_dt, _dict_off,
@@ -388,6 +407,7 @@ class NativeParquetReader:
             holds.append((bufs, val))
         self._decode_tasks(tasks, len(specs))
         cols: dict[str, Column] = {}
+        refused_with_dict: list = []
         for i, (cs, kind, ow, n, max_def, cap, view_dt, dict_off,
                 unit) in enumerate(specs):
             rc = int(tasks[i, _T_RESULT])
@@ -397,6 +417,8 @@ class NativeParquetReader:
             if kind == 1 and rc == _E_GROW:
                 cols[cs.name] = self._retry_bytearray(
                     g, cs, max(int(tasks[i, _T_NEEDED]), cap * 2), dict_off)
+            elif kind == 0 and rc < 0 and dict_off >= 0:
+                refused_with_dict.append(cs)
             elif rc < 0 or (kind != 1 and rc != n):
                 raise _unsupported(cs.name, f"the decoder refused the "
                                             f"chunk of row group {g} ({rc}: "
@@ -416,11 +438,8 @@ class NativeParquetReader:
                                                    unit)
         # after the decoded columns, where the JAX package appends the
         # columns it reads through arrow
-        n = self._meta.row_groups[g].num_rows
-        for cs in all_null:
-            cols[cs.name] = Column(cs.name, cs.data_type,
-                                   np.zeros(n, dtype=cs.data_type.np_dtype),
-                                   None, np.zeros(n, dtype=np.bool_))
+        for cs in refused_with_dict:
+            cols[cs.name] = self._all_null_column(g, cs)
         return cols
 
 
