@@ -114,7 +114,29 @@ final line):
      to numpy's, no unparsed rows, every partition's last offset
      committed; it reports rows/s, the transform p50/p99 (the
      Transformation's stage timer) and the batch sizes the chain saw;
- 15b. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
+ 15b. sr2ch: BASELINE config #5, bench.py measure_kafka_sr2ch's shape
+     through run_replication: 64 partitions x 1,200 confluent-wire Avro
+     records from the port's fake broker, resolved through its fake
+     schema registry by the confluent_schema_registry parser (the host
+     library's avro_decode_flat), the lambda (K15), the fake ClickHouse
+     with no Bufferer, parallelism 4; device and host placement.  All
+     76,800 rows land, ids equal numpy's sign flip truncated to int32,
+     rows identical across placements, K15 launched at least once a
+     chain batch on the card and never on the host; it reports rows/s,
+     the batches the chain saw and the columnar route's share;
+ 15c. pg2ch: BASELINE config #2, bench.py measure_pg2ch's shape through
+     activate_delivery: 300,000 rows from the port's fake Postgres (COPY
+     CSV decoded by the port), filter_rows "region < 400 AND score >=
+     10" (host path: a filter alone is not fused, in either package),
+     the fake ClickHouse with no Bufferer and staged commits, whose
+     dedup window keys each staged push with K10 on the card; device
+     and host placement.  The delivered count equals bench.py's
+     expected count, rows identical across placements, one
+     __trtpu_commits row a part, no staging table left, K10 alone
+     launched and as often in both runs, and the keys K10 gave each
+     staged push on the path equal to its plain version's over the same
+     batch, one push a launch; it reports rows/s over the 300,000;
+ 15d. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
      recipe writer (transferia_tpu_torch/recipes/) writes main_path's
      2,000,000 rows as bench.py's Parquet file (131,072-row groups,
      SNAPPY); the port's reader decodes row groups 0 and 15 equal to the
@@ -283,6 +305,13 @@ from transferia_tpu_torch.providers.clickhouse import CHTargetParams
 from transferia_tpu_torch.providers.kafka import KafkaSourceParams
 from transferia_tpu_torch.providers.kafka.client import KafkaClient
 from transferia_tpu_torch.providers.kafka.protocol import Record
+from transferia_tpu_torch.parsers.plugins import ConfluentSRParser
+from transferia_tpu_torch.providers.postgres import PGSourceParams
+from transferia_tpu_torch.providers import staging
+from transferia_tpu_torch.abstract.interfaces import is_columnar
+from transferia_tpu_torch.recipes.fake_postgres import FakePG, FakeTable
+from transferia_tpu_torch.recipes.fake_sr import FakeSchemaRegistry
+from transferia_tpu_torch.tasks import activate_delivery
 from transferia_tpu_torch import native
 from transferia_tpu_torch.columnar.batch import (
     _gather_fixed,
@@ -391,6 +420,13 @@ PATH_KERNELS = {
                  "rowhash_lanes", "var_accumulators"),
     "replication": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
     "clickbench": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
+    # the lambda's K15, once a chain batch
+    "sr2ch": ("region_sign_flip",),
+    # K10 in keys mode: the staged commit's dedup window keys each
+    # staged push on the loader's device, in either placement.  The
+    # filter alone is not fused (a run with no device mask stays on the
+    # host path, transform/fused.py), so K-B and K-C do not launch
+    "pg2ch": ("rowhash_lanes",),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -456,6 +492,22 @@ K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "amount", "type": "double"},
                {"name": "ts", "type": "timestamp"}]
 REPL_SETTLE_S = 400.0
+# BASELINE config #5, bench.py measure_kafka_sr2ch: 64 partitions x
+# 1,200 confluent-wire Avro records (id long, url string, region int)
+# through the schema-registry parser, parallelism 4, no Bufferer, the
+# lambda; each partition produced at once
+SR_AVRO_SCHEMA = {"type": "record", "name": "Hit", "fields": [
+    {"name": "id", "type": "long"}, {"name": "url", "type": "string"},
+    {"name": "region", "type": "int"}]}
+# BASELINE config #2, bench.py measure_pg2ch: a 300,000-row Postgres
+# table snapshotted through activate_delivery into ClickHouse with no
+# Bufferer, staged commits on (the default)
+PG2CH_ROWS = 300_000
+PG2CH_COLUMNS = [("id", "bigint", True, True), ("url", "text", False, False),
+                 ("region", "integer", False, False),
+                 ("score", "double precision", False, False)]
+PG2CH_CONFIG = {"transformers": [
+    {"filter_rows": {"filter": "region < 400 AND score >= 10"}}]}
 
 
 def emit(obj) -> None:
@@ -1638,12 +1690,16 @@ def plain_digest(batches, dev) -> str:
     return agg.digest()
 
 
+def plain_keys(batch: ColumnBatch, dev) -> np.ndarray:
+    """The row keys by K10's plain version on the card."""
+    r1, r2 = rowhash.rowhash_lanes_plain(*staged(batch, dev))
+    return ((r1.cpu().numpy().astype(np.uint64) << np.uint64(32))
+            | r2.cpu().numpy().astype(np.uint64))
+
+
 def check_keys(batch: ColumnBatch, dev, what: str) -> None:
     got = rowhash.batch_row_keys(batch, backend="device", device=dev)
-    r1, r2 = rowhash.rowhash_lanes_plain(*staged(batch, dev))
-    want = ((r1.cpu().numpy().astype(np.uint64) << np.uint64(32))
-            | r2.cpu().numpy().astype(np.uint64))
-    if not np.array_equal(got, want):
+    if not np.array_equal(got, plain_keys(batch, dev)):
         raise AssertionError(f"batch_row_keys on the card differ from the "
                              f"plain version ({what})")
 
@@ -2406,11 +2462,15 @@ def percentile(steady: list, q: float) -> float:
 
 
 def replication_run(name: str, broker: FakeKafka, src_schema, config,
-                    bufferer, expected: int, placement: str, dev) -> dict:
+                    bufferer, expected: int, placement: str, dev,
+                    parser: Optional[dict] = None,
+                    partitions: int = REPL_PARTITIONS) -> dict:
     """One INCREMENT_ONLY transfer through run_replication from the
     broker into a fresh fake ClickHouse, the placement pinned; waits for
     `expected` rows and for every partition's offset to commit, then
-    stops.  Returns the readings and the rows sorted by id."""
+    stops.  The source parses JSON rows of `src_schema` unless `parser`
+    names another parser.  Returns the readings and the rows sorted by
+    id."""
     ch = FakeCH().start()
     tid = f"chip-repl-{name}-{placement}"
     # the CH target's default Bufferer (100,000 rows or 1 s), or none
@@ -2421,11 +2481,12 @@ def replication_run(name: str, broker: FakeKafka, src_schema, config,
         src=KafkaSourceParams(
             brokers=[f"127.0.0.1:{broker.port}"], topic="events",
             parallelism=4,
-            parser={"json": {"schema": src_schema, "table": "events"}}),
+            parser=parser or {"json": {"schema": src_schema,
+                                       "table": "events"}}),
         dst=dst, transformation=config)
     cp, metrics, stop = MemoryCoordinator(), Metrics(), threading.Event()
     last = {f"events:{p}": len(broker.topics["events"][p]) - 1
-            for p in range(REPL_PARTITIONS)}
+            for p in range(partitions)}
     stagetimer.enable(True)
     stagetimer.collect_samples("transform")
     stagetimer.reset()
@@ -2643,6 +2704,251 @@ def replication_path(dev) -> dict:
                 identical_across_placements=True,
                 mask_equal_to="hashlib HMAC (sampled)",
                 kept_equal_to="numpy region < 400")
+
+
+# -- phases 15b, 15c: configs #5 and #2 --------------------------------------
+
+class SRProbe:
+    """Wraps the schema-registry parser's columnar Avro route for one
+    run (every Avro run tries it first; None sends the run row by row):
+    the records it was given and those it decoded."""
+
+    def __enter__(self):
+        self.records = 0
+        self.native = 0
+        self._lock = threading.Lock()
+        self._decode = ConfluentSRParser._avro_batch_native
+        probe, decode = self, self._decode
+
+        def avro_batch_native(parser, avro, msgs):
+            out = decode(parser, avro, msgs)
+            with probe._lock:
+                probe.records += len(msgs)
+                probe.native += len(msgs) if out is not None else 0
+            return out
+
+        ConfluentSRParser._avro_batch_native = avro_batch_native
+        return self
+
+    def __exit__(self, *exc):
+        ConfluentSRParser._avro_batch_native = self._decode
+        return False
+
+
+def register_schema(url: str, schema: dict) -> int:
+    """POST a schema to the fake registry (localhost), its id back."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/subjects/hits-value/versions",
+        data=json.dumps({"schema": json.dumps(schema)}).encode(),
+        headers={"Content-Type": "application/vnd.schemaregistry.v1+json"})
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        return json.loads(resp.read())["id"]
+
+
+def sr2ch_path(dev) -> dict:
+    """BASELINE config #5 end to end, bench.py measure_kafka_sr2ch's
+    shape through run_replication: the port's fake broker and fake
+    schema registry, the confluent_schema_registry parser (the host
+    library's avro_decode_flat), the lambda (K15 on the card with device
+    placement), the fake ClickHouse with no Bufferer; device and host
+    placement.  Every row lands, ids equal numpy's sign flip truncated
+    to int32, rows identical across placements, K15 at least once a
+    chain batch on the card and never on the host."""
+    t0 = time.perf_counter()
+    broker = FakeKafka(n_partitions=SR_PARTITIONS).start()
+    sr = FakeSchemaRegistry().start()
+    expected = SR_PARTITIONS * SR_MESSAGES
+    try:
+        broker.create_topic("events")
+        header = b"\x00" + register_schema(sr.url, SR_AVRO_SCHEMA).to_bytes(
+            4, "big")
+
+        def value(p: int, i: int) -> bytes:
+            rid = p * SR_MESSAGES + i
+            url = f"https://e.test/{rid % 997}".encode()
+            return (header + zigzag_bytes(rid) + zigzag_bytes(len(url))
+                    + url + zigzag_bytes(rid % 500))
+
+        produce(broker.port, SR_PARTITIONS, SR_MESSAGES, SR_MESSAGES, value)
+        gen_s = time.perf_counter() - t0
+        parser = {"confluent_schema_registry": {"registry_url": sr.url,
+                                                "table": "hits"}}
+        runs = {}
+        for placement in ("device", "host"):
+            with SRProbe() as probe:
+                run = replication_run(
+                    "sr2ch", broker, None, LAMBDA_CONFIG, False, expected,
+                    placement, dev, parser=parser, partitions=SR_PARTITIONS)
+            run["avro_records"] = probe.records
+            run["native_share"] = probe.native / max(1, probe.records)
+            runs[placement] = run
+    finally:
+        sr.stop()
+        broker.stop()
+    dev_run, host_run = runs["device"], runs["host"]
+    if dev_run["rows_sorted"] != host_run["rows_sorted"] or \
+            dev_run["columns"] != host_run["columns"]:
+        raise AssertionError("sr2ch: device rows differ from the host "
+                             "placement's")
+    rid = np.arange(expected, dtype=np.int64)
+    want = np.sort(np.where(rid % 500 < REGION_THRESHOLD, rid, -rid)
+                   .astype(np.int32))
+    by_id = dev_run["columns"].index("id")
+    ids = np.array([r[by_id] for r in dev_run["rows_sorted"]])
+    if dev_run["table"] != "hits" or not np.array_equal(ids, want):
+        raise AssertionError(f"sr2ch: {len(ids)} ids in "
+                             f"{dev_run['table']}, not numpy's sign flip")
+    for name, run in runs.items():
+        if run["avro_records"] < expected:
+            raise AssertionError(f"sr2ch {name}: {run['avro_records']} Avro "
+                                 f"records decoded, want {expected}")
+    batches = sum(dev_run["chain_batch_rows"].values())
+    k15 = dev_run["launches"]["region_sign_flip"]
+    got = {k for k, c in dev_run["launches"].items() if c}
+    host_launched = {k: c for k, c in host_run["launches"].items() if c}
+    if got != {"region_sign_flip"} or k15 < batches or host_launched:
+        raise AssertionError(f"sr2ch: device launched "
+                             f"{dev_run['launches']} over {batches} batches, "
+                             f"host {host_launched}")
+    launches = dict(dev_run["launches"])
+    require_launched("sr2ch", launches)
+    return dict(
+        partitions=SR_PARTITIONS, messages=SR_MESSAGES, rows=expected,
+        data_gen_seconds=gen_s, launches=launches, chain_batches=batches,
+        runs={placement: {k: v for k, v in run.items()
+                          if k != "rows_sorted"}
+              for placement, run in runs.items()},
+        identical_across_placements=True,
+        ids_equal_to="numpy sign flip of id where region >= 400, int32")
+
+
+def pg2ch_run(pg: FakePG, placement: str, dev) -> dict:
+    """One activation of config #2 into a fresh fake ClickHouse on a
+    fresh memory coordinator, the placement pinned."""
+    ch = FakeCH().start()
+    tid = "chip-pg2ch"
+    transfer = Transfer(
+        id=tid, src=PGSourceParams(host="127.0.0.1", port=pg.port,
+                                   database="db", user="u"),
+        dst=CHTargetParams(host="127.0.0.1", port=ch.port, bufferer=None),
+        transformation=PG2CH_CONFIG)
+    cp = MemoryCoordinator()
+    # every staged push and the keys K10 gave it on the path (a clean run
+    # never arms the dedup window, so nothing else reads them)
+    keyed, row_keys = [], staging._row_keys
+
+    def keep_keys(batch, device):
+        keys = row_keys(batch, device)
+        keyed.append((batch, keys))
+        return keys
+
+    staging._row_keys = keep_keys
+    set_placement(placement)
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        activate_delivery(transfer, cp, device=dev)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        rows = sorted(tuple(sorted(r.items()))
+                      for r in ch.rows("public__hits"))
+        fence = ch.rows("__trtpu_commits")
+        staging_tables = sorted(n for n in ch.tables
+                                if n.startswith("__trtpu_stg_"))
+    finally:
+        staging._row_keys = row_keys
+        set_placement(None)
+        ch.stop()
+    # K10 against its plain version on this path's own batches (int64
+    # key, utf8, int32, double; the filter's survivors), after the count
+    checked = 0
+    for batch, keys in keyed:
+        if keys is None:
+            continue
+        if not is_columnar(batch):
+            batch = ColumnBatch.from_rows(batch)
+        if not np.array_equal(keys, plain_keys(batch, dev)):
+            raise AssertionError(f"pg2ch {placement}: K10's keys of staged "
+                                 f"push {checked} ({batch.n_rows} rows) "
+                                 f"differ from the plain version")
+        checked += 1
+    parts = cp.operation_parts(f"op-{tid}")
+    return dict(rows_sorted=rows, seconds=seconds, launches=launches,
+                rows_per_s=PG2CH_ROWS / seconds, delivered=len(rows),
+                parts=len(parts), fence_rows=len(fence),
+                staging_tables=staging_tables,
+                keys_checked=checked,
+                committed=all(p.completed for p in parts),
+                status=cp.get_status(tid).value,
+                transfer_state=cp.get_transfer_state(tid))
+
+
+def pg2ch_path(dev) -> dict:
+    """BASELINE config #2 end to end, bench.py measure_pg2ch's shape
+    through activate_delivery: the port's fake Postgres (300,000 rows,
+    COPY CSV decoded by the port), filter_rows "region < 400 AND score
+    >= 10" (on the host path: a run with no mask is not fused), the fake
+    ClickHouse with no Bufferer and staged commits, whose dedup window
+    keys each staged push with K10 on the card; device and host
+    placement.  The delivered count equals bench.py's expected count,
+    rows identical across placements, one __trtpu_commits row a part, no
+    staging table left, K10 alone launched, as often in both runs, and
+    each staged push's keys from K10 equal to the plain version's."""
+    t0 = time.perf_counter()
+    pg = FakePG().start()
+    try:
+        pg.add_table(FakeTable(
+            "public", "hits", PG2CH_COLUMNS,
+            [{"id": str(i), "url": f"https://e.test/{i % 997}",
+              "region": str(i % 500), "score": f"{(i % 91) * 1.5}"}
+             for i in range(PG2CH_ROWS)]))
+        gen_s = time.perf_counter() - t0
+        runs = {p: pg2ch_run(pg, p, dev) for p in ("device", "host")}
+    finally:
+        pg.stop()
+    i = np.arange(PG2CH_ROWS)
+    expected = int(((i % 500 < 400) & ((i % 91) * 1.5 >= 10)).sum())
+    for name, run in runs.items():
+        if run["delivered"] != expected or run["status"] != "activated" \
+                or not run["committed"] or run["staging_tables"] \
+                or run["fence_rows"] != run["parts"] or not run["parts"]:
+            raise AssertionError(
+                f"pg2ch {name}: {run['delivered']} of {expected} rows, "
+                f"status {run['status']}, {run['parts']} parts, "
+                f"{run['fence_rows']} fence rows, staging "
+                f"{run['staging_tables']}")
+        if run["transfer_state"].get("snapshot_position") is None:
+            raise AssertionError(f"pg2ch {name}: no snapshot_position")
+        if run["keys_checked"] != run["launches"].get("rowhash_lanes"):
+            raise AssertionError(
+                f"pg2ch {name}: {run['keys_checked']} staged pushes' keys "
+                f"held against the plain version, "
+                f"{run['launches'].get('rowhash_lanes')} K10 launches")
+    dev_run, host_run = runs["device"], runs["host"]
+    if dev_run["rows_sorted"] != host_run["rows_sorted"]:
+        raise AssertionError("pg2ch: device rows differ from the host "
+                             "placement's")
+    # the same K10 launches in both placements (one a staged push), and
+    # no other kernel: the filter runs on the host path
+    for name, run in runs.items():
+        got = {k: c for k, c in run["launches"].items() if c}
+        if set(got) != set(PATH_KERNELS["pg2ch"]) or \
+                got != {k: c for k, c in dev_run["launches"].items() if c}:
+            raise AssertionError(f"pg2ch {name}: launched {got}, device "
+                                 f"{dev_run['launches']}")
+    launches = dict(dev_run["launches"])
+    require_launched("pg2ch", launches)
+    return dict(
+        rows=PG2CH_ROWS, expected=expected, data_gen_seconds=gen_s,
+        launches=launches,
+        runs={placement: {k: v for k, v in run.items()
+                          if k != "rows_sorted"}
+              for placement, run in runs.items()},
+        identical_across_placements=True,
+        delivered_equal_to="bench.py measure_pg2ch's expected count")
 
 
 # -- phase 1b: the host library ----------------------------------------------
@@ -2888,7 +3194,7 @@ def hostlib_path() -> dict:
                 check="exact", phase_seconds=time.perf_counter() - t0)
 
 
-# -- phase 15b: the ClickBench Parquet snapshot -------------------------------
+# -- phase 15d: the ClickBench Parquet snapshot -------------------------------
 
 def clickbench_predicted(fixed: dict, chunk: int) -> dict:
     """Launches of a device run: the scan keeps a row group's rows that
@@ -4103,6 +4409,8 @@ def main() -> int:
             ("kafka2ch", lambda: kafka2ch_path(dev)),
             ("snapshot", lambda: snapshot_path(dev)),
             ("replication", lambda: replication_path(dev)),
+            ("sr2ch", lambda: sr2ch_path(dev)),
+            ("pg2ch", lambda: pg2ch_path(dev)),
             ("clickbench",
              lambda: clickbench_path(schema, fixed, var, chunk or 32768,
                                      dev))):

@@ -10,7 +10,10 @@ staged commits and fingerprint validation) and a replication (Kafka
 JSON -> ClickHouse through run_replication with the mask and the
 filter, against the port's own wire fakes) and a ClickBench Parquet
 snapshot (a file the recipe writer wrote -> fs -> devnull through
-SnapshotLoader under bench.py's chain) on the CPU; afterwards neither
+SnapshotLoader under bench.py's chain), a pg2ch activation (the port's
+fake Postgres -> the filter -> its fake ClickHouse through
+activate_delivery, staged commits on) and an Avro run through the
+schema-registry parser on the CPU; afterwards neither
 jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
 loaded, and the only host library mapped is the port's own build.
 And without CUDA, an entry point that was not asked for the CPU raises
@@ -199,6 +202,36 @@ with tempfile.TemporaryDirectory() as tmp:
     SnapshotLoader(cb, fcp, operation_id="op-cb",
                    device="cpu").upload_tables()
     assert fcp.operation_progress("op-cb").completed_rows == kept > 0
+from transferia_tpu_torch.providers.postgres import PGSourceParams
+from transferia_tpu_torch.recipes.fake_postgres import FakePG, FakeTable
+from transferia_tpu_torch.tasks import activate_delivery
+pg, ch = FakePG().start(), FakeCH().start()
+pg.add_table(FakeTable("public", "hits", [
+    ("id", "bigint", True, True), ("region", "integer", False, False)],
+    [{"id": str(i), "region": str(i %% 500)} for i in range(1000)]))
+pg2ch = Transfer(id="iso-pg", src=PGSourceParams(host="127.0.0.1",
+    port=pg.port), dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+    bufferer=None), transformation={"transformers": [
+        {"filter_rows": {"filter": "region < 400"}}]})
+activate_delivery(pg2ch, MemoryCoordinator(), device="cpu")
+assert ch.total_rows() == 800, ch.total_rows()
+assert len(ch.rows("__trtpu_commits")) == 1
+pg.stop()
+ch.stop()
+from transferia_tpu_torch.parsers import Message, make_parser
+from transferia_tpu_torch.recipes.fake_sr import FakeSchemaRegistry
+import urllib.request
+sr = FakeSchemaRegistry().start()
+sid = json.loads(urllib.request.urlopen(urllib.request.Request(
+    sr.url + "/subjects/h-value/versions", data=json.dumps({"schema":
+    json.dumps({"type": "record", "name": "H", "fields": [
+        {"name": "id", "type": "long"}]})}).encode()),
+    timeout=10).read())["id"]
+srp = make_parser({"confluent_schema_registry": {"registry_url": sr.url}})
+res = srp.do_batch([Message(value=bytes(1) + sid.to_bytes(4, "big")
+                            + bytes([2 * i]), offset=i) for i in range(5)])
+assert res.batches[0].column("id").data.tolist() == list(range(5))
+sr.stop()
 with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
@@ -339,6 +372,21 @@ def test_snapshot_needs_a_card_or_the_cpu(device, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         upload(t, MemoryCoordinator(), ["src.t"], device=device)
     make_async_sink(t, device="cpu").close()
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_activation_needs_a_card_or_the_cpu(device, monkeypatch):
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer
+    from transferia_tpu_torch.providers.clickhouse import CHTargetParams
+    from transferia_tpu_torch.providers.postgres import PGSourceParams
+    from transferia_tpu_torch.tasks import activate_delivery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = Transfer(id="nocard-pg", src=PGSourceParams(),
+                 dst=CHTargetParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        activate_delivery(t, MemoryCoordinator(), device=device)
 
 
 def test_pass_through_plan_needs_no_device():

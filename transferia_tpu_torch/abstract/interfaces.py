@@ -195,6 +195,29 @@ class IncrementalStorage(abc.ABC):
         """Cursor values (str(table_id) -> value) to persist on success."""
 
 
+class SampleableStorage(abc.ABC):
+    """Checksum sampling."""
+
+    @abc.abstractmethod
+    def load_random_sample(self, table: TableDescription,
+                           pusher: Pusher) -> None:
+        ...
+
+    @abc.abstractmethod
+    def load_top_bottom_sample(self, table: TableDescription,
+                               pusher: Pusher) -> None:
+        ...
+
+    @abc.abstractmethod
+    def load_sample_by_set(self, table: TableDescription,
+                           key_set: Sequence[dict], pusher: Pusher) -> None:
+        """Load exactly the rows whose primary keys appear in key_set
+        (each entry maps key column name -> value)."""
+
+    def table_accessible(self, table: TableDescription) -> bool:
+        return True
+
+
 class ScanPredicateStorage(abc.ABC):
     """Scan-predicate pushdown: a storage that accepts a predicate
     pre-filters rows during the scan.  Advisory: the chain re-applies

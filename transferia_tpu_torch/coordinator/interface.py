@@ -2,7 +2,7 @@
 part-queue, lease, staged-commit and replication (failure, status
 message, heartbeat) groups of ``transferia_tpu/coordinator/interface.py``).
 The fleet ticket queue, observability segments and the MVCC control plane
-wait for their slices (ROADMAP.md A5).
+wait for their slices (ROADMAP.md A9, A10).
 """
 
 from __future__ import annotations

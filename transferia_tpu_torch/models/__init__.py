@@ -1,6 +1,7 @@
 """Transfer and endpoint models of the port."""
 
 from transferia_tpu_torch.models.endpoint import (
+    CleanupPolicy,
     EndpointParams,
     capability,
     register_endpoint,
@@ -14,6 +15,7 @@ from transferia_tpu_torch.models.transfer import (
 )
 
 __all__ = [
-    "EndpointParams", "capability", "register_endpoint", "DataObjects",
+    "CleanupPolicy", "EndpointParams", "capability", "register_endpoint",
+    "DataObjects",
     "Runtime", "ShardingUploadParams", "Transfer", "TransferType",
 ]

@@ -8,8 +8,17 @@ what they support.
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
 from typing import Any, Type
+
+
+class CleanupPolicy(str, enum.Enum):
+    """Destination cleanup on (re)activation."""
+
+    DROP = "drop"
+    TRUNCATE = "truncate"
+    DISABLED = "disabled"
 
 
 @dataclass
@@ -24,6 +33,8 @@ class EndpointParams:
     PROVIDER = ""
     IS_SOURCE = False
     IS_TARGET = False
+
+    cleanup_policy: CleanupPolicy = CleanupPolicy.DROP
 
     def provider(self) -> str:
         return type(self).PROVIDER

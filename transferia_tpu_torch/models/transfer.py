@@ -21,6 +21,16 @@ class TransferType(str, enum.Enum):
     INCREMENT_ONLY = "INCREMENT_ONLY"
     SNAPSHOT_AND_INCREMENT = "SNAPSHOT_AND_INCREMENT"
 
+    @property
+    def has_snapshot(self) -> bool:
+        return self in (TransferType.SNAPSHOT_ONLY,
+                        TransferType.SNAPSHOT_AND_INCREMENT)
+
+    @property
+    def has_replication(self) -> bool:
+        return self in (TransferType.INCREMENT_ONLY,
+                        TransferType.SNAPSHOT_AND_INCREMENT)
+
 
 @dataclass
 class ShardingUploadParams:
@@ -64,7 +74,7 @@ class IncrementalTableCfg:
 @dataclass
 class RegularSnapshot:
     """Cron-driven incremental re-snapshot (the port's snapshot loader
-    refuses incremental tables: ROADMAP.md A5)."""
+    refuses incremental tables: ROADMAP.md A9)."""
 
     enabled: bool = False
     cron: str = ""

@@ -2,13 +2,15 @@
 ``transferia_tpu/providers/clickhouse/client.py``).
 
 Pure stdlib http.client: POST queries, INSERT bodies, basic auth,
-per-query settings.  The streamed SELECT of the snapshot source waits
-with that source (ROADMAP.md A5).
+per-query settings, the JSON query helpers the staged commit reads the
+system tables and the fence with.  The streamed SELECT of the snapshot
+source waits with that source (ROADMAP.md A10).
 """
 
 from __future__ import annotations
 
 import http.client
+import json
 import logging
 import threading
 import time
@@ -176,3 +178,20 @@ class CHClient:
         self.execute(
             f"INSERT INTO {table} ({cols}) FORMAT RowBinary", payload
         )
+
+    def ping(self) -> None:
+        out = self.execute("SELECT 1")
+        if out.strip() != b"1":
+            raise CHError(f"unexpected ping response {out[:50]!r}")
+
+    def query_json(self, query: str) -> list[dict]:
+        raw = self.execute(query + " FORMAT JSON")
+        return json.loads(raw).get("data", [])
+
+    def query_rows(self, query: str) -> list[list]:
+        raw = self.execute(query + " FORMAT JSONCompact")
+        return json.loads(raw).get("data", [])
+
+    def scalar(self, query: str):
+        rows = self.query_rows(query)
+        return rows[0][0] if rows and rows[0] else None

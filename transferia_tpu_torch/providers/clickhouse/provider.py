@@ -1,16 +1,16 @@
 """ClickHouse sink on one shard (the port's copy of the sink half of
 ``transferia_tpu/providers/clickhouse/provider.py``): the target params
-with their default Bufferer, the DDL generator and the insert-only sink.
+with their default Bufferer, the DDL generator, the insert-only sink
+with its staged commit (a part stages into its own table and publishes
+with one `REPLACE PARTITION`, fenced by `__trtpu_commits`), and the
+activation cleanup.
 
-Left out, each raising NotImplementedError naming ROADMAP.md A5: more
-than one shard (several `shards`, `cluster` discovery), the staged
-commit's begin/publish (the reference's REPLACE PARTITION publish; the
-capability answers as the reference's does, so a snapshot into a
-one-shard target asks to stage and is refused loudly), the snapshot
-source (`CHStorage`), the `a2` event target and cleanup.  `shard_by`
-picks a shard among several; on the one shard the port writes, the
-reference routes every row there whatever it names, so the port
-accepts it and has nothing to read it for.
+Left out, each raising NotImplementedError naming ROADMAP.md A10: more
+than one shard (several `shards`, `cluster` discovery), the snapshot
+source (`CHStorage`) and the `a2` event target.  `shard_by` picks a
+shard among several; on the one shard the port writes, the reference
+routes every row there whatever it names, so the port accepts it and
+has nothing to read it for.
 """
 
 from __future__ import annotations
@@ -19,7 +19,10 @@ import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
+import struct
+
 from transferia_tpu_torch.abstract.commit import StagedSinker
+from transferia_tpu_torch.abstract.errors import StaleEpochPublishError
 from transferia_tpu_torch.abstract.interfaces import (
     Batch,
     Sinker,
@@ -33,10 +36,14 @@ from transferia_tpu_torch.abstract.schema import (
 )
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.models.endpoint import (
+    CleanupPolicy,
     EndpointParams,
     register_endpoint,
 )
-from transferia_tpu_torch.providers.clickhouse.client import CHClient
+from transferia_tpu_torch.providers.clickhouse.client import (
+    CHClient,
+    CHError,
+)
 from transferia_tpu_torch.providers.clickhouse.rowbinary import (
     encode_rowbinary,
 )
@@ -44,6 +51,14 @@ from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
 )
+from transferia_tpu_torch.providers.staging import (
+    COMMITS_TABLE,
+    META_COLUMN,
+    WireStage,
+    publish_guard,
+    stage_ident_prefix,
+)
+from transferia_tpu_torch.runtime.device import DeviceLike
 from transferia_tpu_torch.typesystem.rules import (
     map_target_type,
     register_target_rules,
@@ -51,8 +66,8 @@ from transferia_tpu_torch.typesystem.rules import (
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = "not ported yet (ROADMAP.md A5: the ClickHouse provider's " \
-             "multi-shard, staged-commit, snapshot-source and a2 parts)"
+NOT_PORTED = "not ported yet (ROADMAP.md A10: the ClickHouse provider's " \
+             "multi-shard, snapshot-source and a2 parts)"
 
 register_target_rules("ch", {
     CanonicalType.INT8: "Int8", CanonicalType.INT16: "Int16",
@@ -108,21 +123,27 @@ class CHTargetParams(EndpointParams):
 
 
 def ddl_for_schema(table: TableID, schema: TableSchema,
-                   engine: str = "") -> str:
-    """CREATE TABLE DDL from the canonical schema (the reference's, less
-    the staged commit's hidden part column and partition key)."""
+                   engine: str = "", extra_cols: Optional[list] = None,
+                   partition_by: str = "") -> str:
+    """CREATE TABLE DDL from the canonical schema.  `extra_cols` ([(name,
+    ch type)]) and `partition_by` serve the staged commit: the final
+    table carries the hidden `__trtpu_part` column and partitions by
+    it, so a publish is one REPLACE PARTITION."""
     cols = []
     for c in schema:
         ch_type = map_target_type("ch", c.data_type)
         if not c.required and not c.primary_key:
             ch_type = f"Nullable({ch_type})"
         cols.append(f"`{c.name}` {ch_type}")
+    for name_, ch_type in extra_cols or []:
+        cols.append(f"`{name_}` {ch_type}")
     keys = [f"`{c.name}`" for c in schema.key_columns()]
     order = ", ".join(keys) if keys else "tuple()"
     eng = engine or "MergeTree()"
+    part = f" PARTITION BY `{partition_by}`" if partition_by else ""
     return (
         f"CREATE TABLE IF NOT EXISTS `{ch_table_name(table)}` "
-        f"({', '.join(cols)}) ENGINE = {eng} ORDER BY ({order})"
+        f"({', '.join(cols)}) ENGINE = {eng}{part} ORDER BY ({order})"
     )
 
 
@@ -134,10 +155,21 @@ def ch_table_name(table: TableID) -> str:
 class CHSinker(Sinker, StagedSinker):
     """Insert sink on one shard.  Deletes and updates collapse upstream
     (ReplacingMergeTree semantics); the sink itself inserts and refuses
-    a batch that carries kinds."""
+    a batch that carries kinds.
 
-    def __init__(self, params: CHTargetParams):
+    Staged commit: a part's batches land in a per-(part, epoch) staging
+    table; the publish makes the final table's partition `<slug>` (the
+    final table is `PARTITION BY` the hidden `__trtpu_part` column)
+    exactly the staged rows with one `ALTER TABLE ... REPLACE PARTITION
+    ID`, fenced by the persisted max epoch per part in `__trtpu_commits`.
+    A final table an at-least-once run created has no partition key, so
+    the first staged publish into it fails at REPLACE PARTITION: recreate
+    it (CleanupPolicy.DROP does at activation).  The staged rows' keys
+    (the dedup window) are computed on `device`."""
+
+    def __init__(self, params: CHTargetParams, device: DeviceLike = None):
         self.params = params
+        self.device = device
         host, port = params.host_port()
         self.client = CHClient(
             host=host, port=port, database=params.database,
@@ -145,6 +177,8 @@ class CHSinker(Sinker, StagedSinker):
             secure=params.secure, settings=params.insert_settings,
         )
         self._created: set[str] = set()
+        self._stage: Optional[WireStage] = None
+        self._fence_ready = False
 
     def close(self) -> None:
         # keep-alive pools hold sockets until released
@@ -173,6 +207,9 @@ class CHSinker(Sinker, StagedSinker):
                 "CH sink is insert-only; collapse updates/deletes upstream "
                 "or use a ReplacingMergeTree flow with version columns"
             )
+        if self._stage is not None:
+            self._stage_push(batch)
+            return
         if batch.n_rows == 0:
             return  # no DDL and no INSERT, as the reference's shard loop
         nullable = {
@@ -190,20 +227,128 @@ class CHSinker(Sinker, StagedSinker):
             else "DROP TABLE IF EXISTS"
         self.client.execute(f"{stmt} `{ch_table_name(table)}`")
 
-    # -- StagedSinker --------------------------------------------------------
+    # -- StagedSinker (publish = atomic partition swap) ---------------------
     def staged_commit_available(self) -> bool:
-        # the reference stages on one-shard targets, which is all the
-        # port's sink writes
-        return True
+        # one shard: a sharded target (which host_port refuses) would
+        # spread a part's rows with no one atomic flip to publish them
+        return len(self.params.shards) <= 1
+
+    def _ensure_fence_table(self) -> None:
+        if self._fence_ready:
+            return
+        self.client.execute(
+            f"CREATE TABLE IF NOT EXISTS `{COMMITS_TABLE}` "
+            f"(`part_key` String, `epoch` Int64) "
+            f"ENGINE = MergeTree() ORDER BY (`part_key`)")
+        self._fence_ready = True
 
     def begin_part(self, key: str, epoch: int) -> None:
-        raise NotImplementedError(f"ch staged commit: {NOT_PORTED}")
+        stage = WireStage(key, epoch, device=self.device)
+        # begin replaces, for every epoch of this key: a crashed earlier
+        # owner's staging table would otherwise stay forever
+        pfx = stage_ident_prefix(key)
+        for r in self.client.query_json(
+                "SELECT name, total_rows FROM system.tables "
+                f"WHERE database = '{self.params.database}'"):
+            if str(r.get("name", "")).startswith(pfx):
+                self.client.execute(f"DROP TABLE IF EXISTS `{r['name']}`")
+        self._ensure_fence_table()
+        self._stage = stage
+
+    def _stage_push(self, batch: ColumnBatch) -> None:
+        stage = self._stage
+        staged = stage.state.stage(batch)
+        if stage.schema is None:
+            stage.tid = batch.table_id
+            stage.schema = batch.schema
+            # the final table's structure and partition key (REPLACE
+            # PARTITION needs both); the part column defaults to this
+            # part's slug, so the whole staging table is partition <slug>
+            self.client.execute(ddl_for_schema(
+                TableID("", stage.table), batch.schema, self.params.engine,
+                extra_cols=[(META_COLUMN, f"String DEFAULT '{stage.slug}'")],
+                partition_by=META_COLUMN))
+        if staged.n_rows == 0:
+            return
+        nullable = {
+            c.name: (not c.required and not c.primary_key)
+            for c in staged.schema
+        }
+        try:
+            payload = encode_rowbinary(staged, nullable)
+            self.client.insert_rowbinary(
+                stage.table, list(staged.columns), payload)
+        except BaseException:
+            # the staging write died after the dedup window took this
+            # batch's keys: only a full part restage is safe
+            stage.state.mark_failed()
+            raise
+
+    def _fence_epoch(self, slug: str) -> Optional[int]:
+        v = self.client.scalar(
+            f"SELECT max(`epoch`) FROM `{COMMITS_TABLE}` "
+            f"WHERE `part_key` = '{slug}'")
+        return int(v) if v is not None else None
+
+    @staticmethod
+    def _fence_row(slug: str, epoch: int) -> bytes:
+        """One RowBinary row (String part_key, Int64 epoch)."""
+        raw = slug.encode()
+        out = bytearray()
+        n = len(raw)
+        while True:
+            b7 = n & 0x7F
+            n >>= 7
+            if n:
+                out.append(b7 | 0x80)
+            else:
+                out.append(b7)
+                break
+        return bytes(out) + raw + struct.pack("<q", epoch)
 
     def publish_part(self, key: str, epoch: int) -> int:
-        raise NotImplementedError(f"ch staged commit: {NOT_PORTED}")
+        stage = self._stage
+        if stage is None or stage.key != key:
+            raise RuntimeError(f"ch sink: no open stage for {key!r}")
+        with publish_guard(key, epoch):
+            prev = self._fence_epoch(stage.slug)
+            if prev is not None and epoch < prev:
+                raise StaleEpochPublishError(key, epoch, prev)
+            if stage.schema is not None:
+                final = ch_table_name(stage.tid)
+                self.client.execute(ddl_for_schema(
+                    stage.tid, stage.schema, self.params.engine,
+                    extra_cols=[(META_COLUMN, "String")],
+                    partition_by=META_COLUMN))
+                # the atomic flip: this part's partition of the final
+                # table becomes exactly the staged rows
+                self.client.execute(
+                    f"ALTER TABLE `{final}` REPLACE PARTITION ID "
+                    f"'{stage.slug}' FROM `{stage.table}`")
+            # the fence after visibility: a crash in between republishes
+            # idempotently (REPLACE swaps the same rows in)
+            self.client.insert_rowbinary(
+                COMMITS_TABLE, ["part_key", "epoch"],
+                self._fence_row(stage.slug, epoch))
+            self.client.execute(f"DROP TABLE IF EXISTS `{stage.table}`")
+            self.last_dedup_dropped = stage.state.dedup_dropped
+            rows = stage.state.rows
+        self._stage = None
+        return rows
 
     def abort_part(self, key: str) -> None:
-        """Nothing is ever staged (begin_part raises)."""
+        stage = self._stage
+        if stage is None or stage.key != key:
+            return
+        self._stage = None
+        try:
+            self.client.execute(f"DROP TABLE IF EXISTS `{stage.table}`")
+        except CHError as e:
+            logger.warning("ch staged abort of %s: %s", key, e)
+
+    def note_push_retry(self) -> None:
+        if self._stage is not None:
+            self._stage.state.note_push_retry()
 
 
 @register_provider
@@ -212,5 +357,19 @@ class ClickHouseProvider(Provider):
 
     def sinker(self):
         if isinstance(self.transfer.dst, CHTargetParams):
-            return CHSinker(self.transfer.dst)
+            return CHSinker(self.transfer.dst, self.device)
         return None
+
+    def cleanup(self, tables: list) -> None:
+        """Activation cleanup of the target tables by the endpoint's
+        CleanupPolicy (DROP, else TRUNCATE)."""
+        params = self.transfer.dst
+        sinker = CHSinker(params, self.device)
+        kind = Kind.DROP if params.cleanup_policy == CleanupPolicy.DROP \
+            else Kind.TRUNCATE
+        try:
+            for td in tables or []:
+                tid = td.id if hasattr(td, "id") else td
+                sinker._apply_cleanup(tid, kind)
+        finally:
+            sinker.close()

@@ -10,7 +10,7 @@ the final scatter run in the host library (`leb128_encode`,
 `scatter_bytes`); the numpy routes (`_encode_varints_plain`,
 `_scatter_plain`) give the same bytes and are what tests hold them
 against.  The decoder serves the ClickHouse snapshot source, which
-waits (ROADMAP.md A5).
+waits (ROADMAP.md A10).
 
 Type wire formats (ClickHouse RowBinary):
   ints/floats: little-endian fixed width

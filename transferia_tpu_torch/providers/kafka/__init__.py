@@ -1,5 +1,5 @@
 """Kafka provider of the port: the replication source over the wire
-client.  The Kafka sink and its serializers wait (ROADMAP.md A5)."""
+client.  The Kafka sink and its serializers wait (ROADMAP.md A7)."""
 
 from transferia_tpu_torch.providers.kafka.provider import (
     KafkaProvider,

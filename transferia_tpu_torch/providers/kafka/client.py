@@ -9,8 +9,9 @@ non-flexible ones (Metadata v1, Produce v3, Fetch v4, ListOffsets v1).
 Partition leadership: Metadata responses populate a node table and a
 (topic, partition) -> leader map; produce/fetch/list_offsets route to the
 partition leader and refresh metadata and retry once on NOT_LEADER or
-connection failures.  TLS, SASL and the transactional produce of the
-staged-commit sink wait (ROADMAP.md A5) and raise NotImplementedError.
+connection failures.  TLS and SASL (ROADMAP.md A10) and the
+transactional produce of the Kafka sink (A7) wait and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ ERR_NOT_LEADER = 6
 
 _RETRIABLE = {ERR_LEADER_NOT_AVAILABLE, ERR_NOT_LEADER}
 
-NOT_PORTED = "not ported yet (ROADMAP.md A5: TLS and SASL for Kafka)"
+NOT_PORTED = "not ported yet (ROADMAP.md A10: TLS and SASL for Kafka)"
 
 
 class KafkaError(CategorizedError):

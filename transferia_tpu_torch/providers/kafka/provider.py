@@ -5,7 +5,7 @@ The source composes the shared QueueSource machinery (sequencer +
 parsequeue + post-push commits); offsets checkpoint through the transfer
 coordinator after the push (at-least-once).  The Kafka sink, its
 serializers and the partitioned (Kafka -> object storage) strategy wait
-(ROADMAP.md A5).
+(ROADMAP.md A7, A9).
 """
 
 from __future__ import annotations

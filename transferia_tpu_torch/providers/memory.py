@@ -3,7 +3,7 @@
 push for assertions, staged-commit capable, and a storage made of
 pre-loaded batches.  The storage's incremental cursors and the sink's
 read-back storage (for the checksum task) wait for their slices
-(ROADMAP.md A5).
+(ROADMAP.md A8, A9).
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ lacks return None.
 from __future__ import annotations
 
 import abc
-from typing import Optional, Type
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Type
 
 from transferia_tpu_torch.abstract.interfaces import (
     AsyncSink,
@@ -20,6 +21,34 @@ from transferia_tpu_torch.abstract.interfaces import (
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
 from transferia_tpu_torch.stats.registry import Metrics
+
+
+@dataclass
+class TestResult:
+    """Endpoint connectivity check result."""
+
+    __test__ = False  # not a pytest class
+
+    ok: bool
+    checks: dict[str, str] = field(default_factory=dict)  # name -> "ok"/err
+
+    def add(self, name: str, err: Optional[BaseException] = None) -> None:
+        self.checks[name] = "ok" if err is None else str(err)
+        if err is not None:
+            self.ok = False
+
+
+class ActivateCallbacks:
+    """Hooks handed to Provider.activate: the activation's cleanup and
+    upload, and the `rollbacks` (utils.rollbacks.Rollbacks) a hook that
+    acquires source resources registers its undos on."""
+
+    def __init__(self, cleanup: Callable[[list], None],
+                 upload: Callable[[list], None],
+                 rollbacks=None):
+        self.cleanup = cleanup
+        self.upload = upload
+        self.rollbacks = rollbacks
 
 
 class Provider(abc.ABC):
@@ -54,6 +83,24 @@ class Provider(abc.ABC):
     def async_sink(self) -> Optional[AsyncSink]:
         """Native AsyncSink."""
         return None
+
+    def activate(self, callbacks: ActivateCallbacks) -> None:
+        """Custom activation flow; the default (cleanup + upload of every
+        table) is the activate task's own."""
+        raise NotImplementedError
+
+    def supports_activate(self) -> bool:
+        return type(self).activate is not Provider.activate
+
+    def cleanup(self, tables: list) -> None:
+        """Drop/truncate target tables per cleanup_policy."""
+
+    def test(self) -> TestResult:
+        """Connectivity checks."""
+        return TestResult(ok=True)
+
+    def deactivate(self) -> None:
+        """Release source resources."""
 
 
 _PROVIDERS: dict[str, Type[Provider]] = {}

@@ -12,14 +12,20 @@ parts of ``transferia_tpu/providers/staging.py`` the memory sink uses).
   prefix drops; equal rows in different batches are source
   multiplicity and pass;
 - `EpochFence` is the sink-side publish fence: an epoch older than the
-  last accepted publish of a key raises `StaleEpochPublishError`.
+  last accepted publish of a key raises `StaleEpochPublishError`;
+- `WireStage` and the `__trtpu_` naming (`part_slug`, `stage_ident`,
+  `META_COLUMN`, `COMMITS_TABLE`) serve the wire sinks (ClickHouse):
+  a part stages into its own table and publish swaps it in.
 
 The reference's `sink.stage`/`sink.publish` failpoints and spans are
-telemetry and are not ported (ROADMAP.md A5).
+telemetry and are not ported (ROADMAP.md A5); `publish_guard` keeps the
+one call site they hang on.
 """
 
 from __future__ import annotations
 
+import hashlib
+import re
 import threading
 from typing import Optional
 
@@ -97,18 +103,30 @@ def _drop_prefix(batch: Batch, k: int) -> Batch:
 
 
 class PartStage:
-    """One part's staging state inside a sink: the staged batches (held
-    in memory until publish), their row count and the dedup window."""
+    """One part's staging state inside a sink: the dedup window, the row
+    count and, with `hold=True`, the staged batches held in memory until
+    publish (`hold=False`: the sink persists the filtered batch into its
+    own staging area)."""
 
-    def __init__(self, key: str, epoch: int,
+    def __init__(self, key: str, epoch: int, hold: bool = True,
                  dedup_rows: int = DEDUP_WINDOW_ROWS,
                  device: DeviceLike = None):
         self.key = key
         self.epoch = epoch
+        self.hold = hold
         self.batches: list[Batch] = []
         self.rows = 0
         self.dedup_dropped = 0
+        self.poisoned = False
         self._window = DedupWindow(dedup_rows, device)
+
+    def mark_failed(self) -> None:
+        """Poison the stage after a failure downstream of the dedup
+        window: the window already holds the batch's keys, so a push
+        retry could drop the unwritten suffix.  Every further stage()
+        fails until the part retries and `begin_part` replaces the
+        stage."""
+        self.poisoned = True
 
     def note_push_retry(self) -> None:
         """The Retrier is about to re-push a failed batch: arm the dedup
@@ -116,14 +134,88 @@ class PartStage:
         self._window.arm_replay()
 
     def stage(self, batch: Batch) -> Batch:
-        """Dedup one pushed batch against the window, count and hold
-        it."""
+        """Dedup one pushed batch against the window, count it and (when
+        holding) keep it."""
+        if self.poisoned:
+            raise ConnectionError(
+                f"stage for {self.key!r} poisoned by an earlier staging "
+                f"failure; the part must restage from scratch")
         batch, dropped = self._window.filter(batch)
         self.dedup_dropped += dropped
         self.rows += batch.n_rows if is_columnar(batch) else sum(
             1 for it in batch if it.is_row_event())
-        self.batches.append(batch)
+        if self.hold:
+            self.batches.append(batch)
         return batch
+
+
+class publish_guard:
+    """Context manager every wire `publish_part` enters: the one call
+    site of the reference's `sink.publish` failpoint and span, which are
+    telemetry and wait (ROADMAP.md A5)."""
+
+    def __init__(self, key: str, epoch: int):
+        self.key = key
+        self.epoch = epoch
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def part_slug(key: str) -> str:
+    """Wire-safe stable identity for a part key (a ClickHouse partition
+    id), the same for every epoch of the part."""
+    return re.sub(r"[^A-Za-z0-9._-]", "_", key)
+
+
+# -- wire-target staging conventions -----------------------------------------
+#
+# `__trtpu_` prefixes every object the staged commit creates in a target
+# (staging tables, the fence table, the hidden part column);
+# `__trtpu_commits` holds one row per publish with its epoch, the
+# persisted twin of EpochFence; `__trtpu_part` is the hidden part column
+# a REPLACE/DROP PARTITION addresses.
+
+META_PREFIX = "__trtpu"
+META_COLUMN = "__trtpu_part"
+COMMITS_TABLE = "__trtpu_commits"
+
+
+def is_meta_name(name: str) -> bool:
+    """True for identifiers owned by the staging plane."""
+    return name.startswith(META_PREFIX)
+
+
+def stage_ident_prefix(key: str, prefix: str = "__trtpu_stg_") -> str:
+    """Identifier prefix shared by every epoch's staging table of one
+    part key: `begin_part` sweeps the tables under it."""
+    h = hashlib.sha1(key.encode()).hexdigest()[:12]
+    return f"{prefix}{h}_e"
+
+
+def stage_ident(key: str, epoch: int, prefix: str = "__trtpu_stg_") -> str:
+    """Short, identifier-safe staging-table name for (part key, epoch):
+    a zombie and the owner that stole its part stage side by side."""
+    return f"{stage_ident_prefix(key, prefix)}{epoch}"
+
+
+class WireStage:
+    """One part's staging state inside a wire sink: the (key, epoch)
+    identity, its slug and staging-table name, the dedup-window
+    PartStage (not holding), and the first staged batch's table and
+    schema (a wire sink learns the shape from the data)."""
+
+    def __init__(self, key: str, epoch: int, device: DeviceLike = None):
+        self.key = key
+        self.epoch = epoch
+        self.slug = part_slug(key)
+        self.table = stage_ident(key, epoch)
+        self.state = PartStage(key, epoch, hold=False, device=device)
+        self.tid = None
+        self.schema = None
 
 
 class EpochFence:

@@ -3,15 +3,17 @@ of ``tests/recipes/fake_clickhouse.py`` that the port's sink speaks to.
 
 Query param parsing, CREATE/DROP/TRUNCATE TABLE, INSERT ... FORMAT
 RowBinary (the payload walked and counted at insert time and decoded on
-read with an independent minimal decoder).  Runs the
-real CHClient against real sockets; only the server side is fake.  The
-JAX fake's system-table queries, partition swaps and SELECTs serve the
-staged commit, cluster discovery and the snapshot source, which the port
-does not have yet.
+read with an independent minimal decoder), and what the staged commit
+speaks: the `system.tables` listing, `REPLACE`/`DROP PARTITION ID` over
+the rows' `__trtpu_part` membership, the fence's `SELECT max(...)` and
+`SELECT count()`.  Runs the real CHClient against real sockets; only the
+server side is fake.  The JAX fake's cluster discovery and row SELECTs
+serve parts the port does not have yet.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import struct
 import threading
@@ -60,9 +62,20 @@ class FakeCH:
 
     def total_rows(self) -> int:
         """Inserted-row count without materializing rows (cheap to
-        poll)."""
+        poll).  Staging-plane tables (__trtpu_*: the fence rows, per-part
+        staging) are not delivered data and are left out."""
         with self.lock:
-            return sum(t.row_count() for t in self.tables.values())
+            return sum(t.row_count() for n, t in self.tables.items()
+                       if not n.startswith("__trtpu"))
+
+    def rows(self, table: str) -> list[dict]:
+        with self.lock:
+            t = self.tables.get(table)
+            if t is None:
+                return []
+            # index, don't .get: dict.get would bypass _LazyTable and
+            # miss pending (undecoded) inserts
+            return list(t["rows"])
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "FakeCH":
@@ -111,6 +124,8 @@ class FakeCH:
     def handle(self, query: str, body: bytes) -> bytes:
         q = query.strip()
         low = q.lower()
+        if low == "select 1":
+            return b"1\n"
         m = re.match(r"create table if not exists `?(\w+)`?\s*\((.*)\)\s*"
                      r"engine\s*=\s*(.*?)\s+order by", low, re.S)
         if m:
@@ -150,6 +165,76 @@ class FakeCH:
                 n = _count_rowbinary_rows(body, types)
                 table["pending"].append((body, col_names, types, n))
             return b""
+        m = re.match(r"alter table `?(\w+)`? replace partition id "
+                     r"'([^']*)' from `?(\w+)`?", low)
+        if m:
+            # the staged-commit publish: partition `slug` of the final
+            # table atomically becomes the staging table's rows (rows
+            # carry partition membership in their __trtpu_part value)
+            final = re.match(r"ALTER TABLE `?(\w+)`?", q, re.I).group(1)
+            src_name = re.search(r"FROM `?(\w+)`?\s*$", q, re.I).group(1)
+            slug = m.group(2)
+            with self.lock:
+                dst = self.tables.get(final)
+                src = self.tables.get(src_name)
+                if dst is None or src is None:
+                    raise ValueError("no such table for REPLACE PARTITION")
+                moved = []
+                for row in src["rows"]:
+                    row = dict(row)
+                    row["__trtpu_part"] = slug
+                    moved.append(row)
+                kept = [r for r in dst["rows"]
+                        if r.get("__trtpu_part") != slug]
+                dst["rows"] = kept + moved
+            return b""
+        m = re.match(r"alter table `?(\w+)`? drop partition id '([^']*)'",
+                     low)
+        if m:
+            final = re.match(r"ALTER TABLE `?(\w+)`?", q, re.I).group(1)
+            slug = m.group(2)
+            with self.lock:
+                dst = self.tables.get(final)
+                if dst is not None:
+                    dst["rows"] = [r for r in dst["rows"]
+                                   if r.get("__trtpu_part") != slug]
+            return b""
+        m = re.match(r"select max\(`?(\w+)`?\) from `?(\w+)`? "
+                     r"where `?(\w+)`? = '([^']*)'", low)
+        if m:
+            col_name = re.search(r"max\(`?(\w+)`?\)", q, re.I).group(1)
+            tbl = re.search(r"FROM `?(\w+)`?", q, re.I).group(1)
+            kcol = re.search(r"WHERE `?(\w+)`?", q, re.I).group(1)
+            kval = m.group(4)
+            with self.lock:
+                t = self.tables.get(tbl)
+                vals = []
+                if t is not None:
+                    for r in t["rows"]:
+                        rv = r.get(kcol)
+                        if isinstance(rv, bytes):
+                            rv = rv.decode()
+                        if rv == kval and r.get(col_name) is not None:
+                            vals.append(int(r[col_name]))
+            best = max(vals) if vals else None
+            return json.dumps({"data": [[best]]}).encode()
+        if "from system.tables" in low:
+            mn = re.search(r"name = '(\w+)'", q)
+            with self.lock:
+                if mn and low.startswith("select count()"):
+                    n = 1 if mn.group(1) in self.tables else 0
+                    return json.dumps({"data": [[n]]}).encode()
+                data = [
+                    {"name": n, "total_rows": len(t["rows"])}
+                    for n, t in self.tables.items()
+                ]
+            return json.dumps({"data": data}).encode()
+        m = re.match(r"select count\(\) from `?(\w+)`?", low)
+        if m:
+            with self.lock:
+                t = self.tables.get(m.group(1))
+                n = t.row_count() if t is not None else 0
+            return json.dumps({"data": [[n]]}).encode()
         raise ValueError(f"fake CH: unhandled query: {q[:120]}")
 
     @staticmethod

@@ -8,7 +8,7 @@ restart after a fixed backoff) with a heartbeat.
 fused steps): None means CUDA, which must be present; "cpu" runs the
 kernels' plain versions.  The partitioned strategy (Kafka -> object
 storage, one pipeline a partition) and the cron-driven regular snapshot
-raise NotImplementedError (ROADMAP.md A5); the reference's root trace
+raise NotImplementedError (ROADMAP.md A9); the reference's root trace
 span, device-counter and ledger folds and observability export on the
 heartbeat are telemetry and wait too.
 """
@@ -34,7 +34,7 @@ logger = logging.getLogger(__name__)
 RETRY_BACKOFF_SECONDS = 10.0   # sleep between attempts
 HEARTBEAT_SECONDS = 60.0
 
-NOT_PORTED = "not ported yet (ROADMAP.md A5: the partitioned " \
+NOT_PORTED = "not ported yet (ROADMAP.md A9: the partitioned " \
              "replication strategy and the regular snapshot)"
 
 

@@ -17,8 +17,10 @@ chain's fused steps, the tap, the staged-row keys): None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions.
 
 Left out, each raising NotImplementedError when a transfer asks for it
-(ROADMAP.md A5): the sharded secondary flow, resume, incremental tables,
-PositionalStorage positions, async part discovery and fleet preemption.
+(ROADMAP.md A9): the sharded secondary flow, resume, incremental tables,
+async part discovery and fleet preemption.  A PositionalStorage's
+position at the start lands in the transfer state as
+`snapshot_position`.
 The reference's trace spans, ledger, stage timers, failpoints, fleet
 observability export and lock watch are telemetry and are not ported.
 """
@@ -124,7 +126,7 @@ TUNING = SnapshotTuning.from_env()
 def _left_out(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to transferia_tpu_torch yet "
-        f"(ROADMAP.md A5, the snapshot loader's left-out branches)")
+        f"(ROADMAP.md A9, the snapshot loader's left-out branches)")
 
 
 class SnapshotLoader:
@@ -193,8 +195,6 @@ class SnapshotLoader:
     # -- main worker ----------------------------------------------------------
     def _main_flow(self, storage: Storage,
                    tables: list[TableDescription]) -> None:
-        if isinstance(storage, PositionalStorage):
-            raise _left_out("PositionalStorage positions")
         if self.transfer.regular_snapshot.incremental:
             raise _left_out("incremental tables")
         if isinstance(storage, AsyncPartDiscovery):
@@ -202,6 +202,11 @@ class SnapshotLoader:
         if isinstance(storage, SnapshotableStorage):
             storage.begin_snapshot()
         try:
+            if isinstance(storage, PositionalStorage):
+                pos = storage.position()
+                if pos:
+                    self.cp.set_transfer_state(
+                        self.transfer.id, {"snapshot_position": pos})
             # main-worker restart detection: an incomplete queue means a
             # previous main crashed mid-operation with secondaries
             # possibly still attached; a completed one is the previous

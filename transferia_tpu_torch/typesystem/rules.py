@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from transferia_tpu_torch.abstract.schema import CanonicalType
 
+ANY_DEFAULT = "*"
+
 _SOURCE_RULES: dict[str, dict[str, CanonicalType]] = {}
 _TARGET_RULES: dict[str, dict[CanonicalType, str]] = {}
 
@@ -26,6 +28,23 @@ def register_target_rules(provider: str,
 
 def source_rules(provider: str) -> dict[str, CanonicalType]:
     return dict(_SOURCE_RULES.get(provider, {}))
+
+
+def map_source_type(provider: str, native_type: str,
+                    default: CanonicalType = CanonicalType.ANY
+                    ) -> CanonicalType:
+    """Provider-native type name -> canonical type: exact, then the
+    parametric base ("varchar(20)" -> "varchar"), then the provider's
+    "*" rule."""
+    rules = _SOURCE_RULES.get(provider, {})
+    if native_type in rules:
+        return rules[native_type]
+    base = native_type.split("(", 1)[0].strip().lower()
+    if base in rules:
+        return rules[base]
+    if ANY_DEFAULT in rules:
+        return rules[ANY_DEFAULT]
+    return default
 
 
 def map_target_type(provider: str, ctype: CanonicalType,
