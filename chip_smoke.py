@@ -136,7 +136,24 @@ final line):
      launched and as often in both runs, and the keys K10 gave each
      staged push on the path equal to its plain version's over the same
      batch, one push a launch; it reports rows/s over the 300,000;
- 15d. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
+ 15d. my2kf: BASELINE config #4, bench.py measure_mysql2kafka's shape
+     through activate_delivery: 200,000 rows from the port's fake MySQL
+     (id bigint key, email varchar(255), region int), mask_field email
+     with salt "bench" (K-A on the card, one launch a fused chunk and
+     one for the salt's key states), Debezium envelopes, the port's fake
+     Kafka with 16 partitions, topic cdc, staged commits on (one
+     InitProducerId and one transactional produce a part; the dedup
+     window keys each staged push with K10); device and host placement.
+     Each run lands 200,000 records by offsets and by live_size, no
+     superseded segment, every part committed; the records are
+     identical across placements once ts_ms is set aside; every record
+     decodes through the debezium parser to the generator's id and
+     region and to the host mask route's HMAC of its email, and lies in
+     crc32c(key) % 16 by the pure CRC32C; K-A launches on the card and
+     never on the host, K10 as often in both, and each staged push's
+     keys from K10 equal the plain version's; it reports rows/s over
+     the 200,000 and the transactional request's bytes;
+ 15e. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
      recipe writer (transferia_tpu_torch/recipes/) writes main_path's
      2,000,000 rows as bench.py's Parquet file (131,072-row groups,
      SNAPPY); the port's reader decodes row groups 0 and 15 equal to the
@@ -305,10 +322,15 @@ from transferia_tpu_torch.providers.clickhouse import CHTargetParams
 from transferia_tpu_torch.providers.kafka import KafkaSourceParams
 from transferia_tpu_torch.providers.kafka.client import KafkaClient
 from transferia_tpu_torch.providers.kafka.protocol import Record
+from transferia_tpu_torch.parsers import Message, make_parser
 from transferia_tpu_torch.parsers.plugins import ConfluentSRParser
+from transferia_tpu_torch.providers.kafka import KafkaTargetParams
+from transferia_tpu_torch.providers.kafka import client as kafka_client
+from transferia_tpu_torch.providers.mysql import MySQLSourceParams
 from transferia_tpu_torch.providers.postgres import PGSourceParams
 from transferia_tpu_torch.providers import staging
 from transferia_tpu_torch.abstract.interfaces import is_columnar
+from transferia_tpu_torch.recipes.fake_mysql import FakeMySQL, FakeMyTable
 from transferia_tpu_torch.recipes.fake_postgres import FakePG, FakeTable
 from transferia_tpu_torch.recipes.fake_sr import FakeSchemaRegistry
 from transferia_tpu_torch.tasks import activate_delivery
@@ -427,6 +449,9 @@ PATH_KERNELS = {
     # filter alone is not fused (a run with no device mask stays on the
     # host path, transform/fused.py), so K-B and K-C do not launch
     "pg2ch": ("rowhash_lanes",),
+    # the mask's K-A, one launch a fused chunk (no predicate), and K10
+    # keying each staged push for the dedup window, in either placement
+    "my2kf": ("sha256_hmac", "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -508,6 +533,17 @@ PG2CH_COLUMNS = [("id", "bigint", True, True), ("url", "text", False, False),
                  ("score", "double precision", False, False)]
 PG2CH_CONFIG = {"transformers": [
     {"filter_rows": {"filter": "region < 400 AND score >= 10"}}]}
+# BASELINE config #4, bench.py measure_mysql2kafka: a 200,000-row MySQL
+# table through mask_field email -> Debezium envelopes -> a 16-partition
+# Kafka topic, through activate_delivery, staged commits on (the
+# default): one transactional produce a part
+MY2KF_ROWS, MY2KF_PARTITIONS, MY2KF_SALT = 200_000, 16, b"bench"
+MY2KF_COLUMNS = [("id", "bigint", "bigint", True, True),
+                 ("email", "varchar", "varchar(255)", False, False),
+                 ("region", "int", "int", False, False)]
+MY2KF_CONFIG = {"transformers": [
+    {"mask_field": {"columns": ["email"], "salt": MY2KF_SALT.decode()}}]}
+TS_MS = re.compile(rb'"ts_ms":\d+')
 
 
 def emit(obj) -> None:
@@ -2951,6 +2987,203 @@ def pg2ch_path(dev) -> dict:
         delivered_equal_to="bench.py measure_pg2ch's expected count")
 
 
+def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
+    """One activation of config #4 into a fresh fake Kafka on a fresh
+    memory coordinator, the placement pinned; the staged pushes' keys
+    and the Kafka requests are recorded on the way."""
+    kf = FakeKafka(n_partitions=MY2KF_PARTITIONS).start()
+    tid = "chip-my2kf"
+    transfer = Transfer(
+        id=tid, src=MySQLSourceParams(host="127.0.0.1", port=my.port,
+                                      database="db", user="root"),
+        dst=KafkaTargetParams(brokers=[f"127.0.0.1:{kf.port}"],
+                              topic="cdc", serializer="debezium"),
+        transformation=MY2KF_CONFIG)
+    cp = MemoryCoordinator()
+    keyed, row_keys = [], staging._row_keys
+    requests, roundtrip = [], kafka_client.KafkaClient._roundtrip
+
+    def keep_keys(batch, device):
+        keys = row_keys(batch, device)
+        keyed.append((batch, keys))
+        return keys
+
+    def count_request(self, api_key, api_version, body, *args, **kw):
+        requests.append((api_key, len(body)))
+        return roundtrip(self, api_key, api_version, body, *args, **kw)
+
+    staging._row_keys = keep_keys
+    kafka_client.KafkaClient._roundtrip = count_request
+    set_placement(placement)
+    try:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        activate_delivery(transfer, cp, device=dev)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        offsets = sum(len(p) for p in kf.topics.get("cdc", []))
+        live = kf.live_size("cdc")
+        superseded = sum(1 for p in kf.topics.get("cdc", [])
+                         for seg in p._segments
+                         if seg[2] is None and seg[3] == [])
+        records = [[(r.key, r.value) for r in kf.records("cdc", i)]
+                   for i in range(MY2KF_PARTITIONS)]
+        txns = {k: v["epoch"] for k, v in kf.txns.items()}
+    finally:
+        staging._row_keys = row_keys
+        kafka_client.KafkaClient._roundtrip = roundtrip
+        set_placement(None)
+        kf.stop()
+    checked = 0
+    for batch, keys in keyed:
+        if keys is None:
+            continue
+        if not is_columnar(batch):
+            batch = ColumnBatch.from_rows(batch)
+        if not np.array_equal(keys, plain_keys(batch, dev)):
+            raise AssertionError(f"my2kf {placement}: K10's keys of staged "
+                                 f"push {checked} ({batch.n_rows} rows) "
+                                 f"differ from the plain version")
+        checked += 1
+    parts = cp.operation_parts(f"op-{tid}")
+    produce = [n for api, n in requests if api == kafka_client.API_PRODUCE]
+    return dict(records=records, seconds=seconds, launches=launches,
+                rows_per_s=rows / seconds, offsets=offsets,
+                live_size=live, superseded_segments=superseded,
+                parts=len(parts), part_keys=[p.key() for p in parts],
+                committed=all(p.completed for p in parts),
+                txns=txns, keys_checked=checked,
+                init_producer_calls=sum(
+                    1 for api, _ in requests
+                    if api == kafka_client.API_INIT_PRODUCER_ID),
+                txn_produce_calls=len(produce),
+                txn_request_bytes=produce,
+                status=cp.get_status(tid).value,
+                snapshot_position=cp.get_transfer_state(tid)
+                .get("snapshot_position"))
+
+
+def my2kf_check_content(records: list, rows: int) -> dict:
+    """Every record decoded by the debezium parser: ids and regions the
+    generator's, each email the host mask route's HMAC of the
+    generator's address, each record in crc32c(key) % 16 (the pure
+    CRC32C)."""
+    parser = make_parser({"debezium": {}})
+    ids, emails, regions = [], [], []
+    for p, recs in enumerate(records):
+        for key, _ in recs:
+            if protocol.crc32c_py(key) % MY2KF_PARTITIONS != p:
+                raise AssertionError(f"my2kf: a record of partition {p} "
+                                     f"hashes elsewhere: {key[:80]!r}")
+        res = parser.do_batch([Message(value=v, key=k, topic="cdc",
+                                       partition=p, offset=i)
+                               for i, (k, v) in enumerate(recs)])
+        if res.unparsed is not None:
+            raise AssertionError(f"my2kf: {res.unparsed.n_rows} records "
+                                 f"of partition {p} did not parse")
+        for b in res.batches:
+            ids.extend(b.column("id").to_pylist())
+            emails.extend(b.column("email").to_pylist())
+            regions.extend(b.column("region").to_pylist())
+    order = np.argsort(np.asarray(ids, dtype=np.int64), kind="stable")
+    ids = np.asarray(ids, dtype=np.int64)[order]
+    if not np.array_equal(ids, np.arange(rows)):
+        raise AssertionError(f"my2kf: {len(ids)} decoded ids are not "
+                             f"0..{rows - 1}")
+    if not np.array_equal(np.asarray(regions, dtype=np.int64)[order],
+                          np.arange(rows) % 500):
+        raise AssertionError("my2kf: decoded regions differ from i % 500")
+    src = [f"user{i}@example.test".encode() for i in range(rows)]
+    data = np.frombuffer(b"".join(src), dtype=np.uint8)
+    offs = _offsets_from_lengths([len(b) for b in src])
+    hex_data, hex_offs = mask_plugin._host_hmac_hex(MY2KF_SALT, data, offs,
+                                                    None)
+    want = bytes(hex_data).decode()
+    got = [emails[i] for i in order]
+    if any(e != want[64 * i:64 * i + 64] for i, e in enumerate(got)) or \
+            len(hex_offs) != rows + 1:
+        raise AssertionError("my2kf: decoded emails differ from the host "
+                             "mask route's HMAC-SHA256 hex")
+    return dict(decoded=len(ids), records_a_partition=[
+        len(r) for r in records])
+
+
+def my2kf_path(dev, rows: int = MY2KF_ROWS) -> dict:
+    """BASELINE config #4 end to end, bench.py measure_mysql2kafka's
+    shape through activate_delivery: the port's fake MySQL (`rows` rows,
+    keyset paging), mask_field email (K-A on the card, one launch a fused
+    chunk), Debezium envelopes, the port's fake Kafka with 16 partitions
+    and staged commits (one InitProducerId and one transactional
+    produce a part, the dedup window keying each staged push with K10);
+    device and host placement.  Both runs land every row once, their
+    records are identical once ts_ms is set aside, every record decodes
+    to the generator's row with the host mask's HMAC, lands in
+    crc32c(key) % 16, and K10's keys of each staged push equal the
+    plain version's."""
+    t0 = time.perf_counter()
+    my = FakeMySQL().start()
+    try:
+        my.add_table(FakeMyTable(
+            "db", "users", MY2KF_COLUMNS,
+            [{"id": i, "email": f"user{i}@example.test", "region": i % 500}
+             for i in range(rows)]))
+        gen_s = time.perf_counter() - t0
+        runs = {p: my2kf_run(my, rows, p, dev) for p in ("device", "host")}
+    finally:
+        my.stop()
+    for name, run in runs.items():
+        want_txns = {f"trtpu.{staging.part_slug(k)}" for k in
+                     run["part_keys"]}
+        if run["offsets"] != rows or run["live_size"] != rows \
+                or run["status"] != "activated" or not run["committed"] \
+                or run["superseded_segments"] or not run["parts"] \
+                or set(run["txns"]) != want_txns \
+                or run["init_producer_calls"] != run["parts"] \
+                or run["txn_produce_calls"] != run["parts"]:
+            raise AssertionError(
+                f"my2kf {name}: {run['offsets']} offsets, "
+                f"{run['live_size']} live of {rows}, status "
+                f"{run['status']}, {run['parts']} parts, txns "
+                f"{run['txns']}, {run['init_producer_calls']} "
+                f"InitProducerId, {run['txn_produce_calls']} produces, "
+                f"{run['superseded_segments']} superseded")
+        if run["snapshot_position"] is None:
+            raise AssertionError(f"my2kf {name}: no snapshot_position")
+        if run["keys_checked"] != run["launches"].get("rowhash_lanes"):
+            raise AssertionError(
+                f"my2kf {name}: {run['keys_checked']} staged pushes' keys "
+                f"held against the plain version, "
+                f"{run['launches'].get('rowhash_lanes')} K10 launches")
+    dev_run, host_run = runs["device"], runs["host"]
+    # K-A on the card only; K10 on both, as often
+    dev_got = {k: c for k, c in dev_run["launches"].items() if c}
+    host_got = {k: c for k, c in host_run["launches"].items() if c}
+    if set(dev_got) != set(PATH_KERNELS["my2kf"]) or \
+            host_got != {"rowhash_lanes": dev_got["rowhash_lanes"]}:
+        raise AssertionError(f"my2kf: launched {dev_got} on the card, "
+                             f"{host_got} on the host")
+    for p in range(MY2KF_PARTITIONS):
+        a, b = dev_run["records"][p], host_run["records"][p]
+        if len(a) != len(b) or any(
+                ka != kb or TS_MS.sub(b"", va) != TS_MS.sub(b"", vb)
+                for (ka, va), (kb, vb) in zip(a, b)):
+            raise AssertionError(f"my2kf: partition {p} differs between "
+                                 f"the placements (ts_ms set aside)")
+    t_check = time.perf_counter()
+    content = my2kf_check_content(dev_run["records"], rows)
+    check_s = time.perf_counter() - t_check
+    launches = dict(dev_run["launches"])
+    require_launched("my2kf", launches)
+    return dict(
+        rows=rows, partitions=MY2KF_PARTITIONS, data_gen_seconds=gen_s,
+        content_check_seconds=check_s, launches=launches, **content,
+        runs={placement: {k: v for k, v in run.items() if k != "records"}
+              for placement, run in runs.items()},
+        identical_across_placements="ts_ms set aside",
+        emails_equal_to="the host mask route's HMAC-SHA256 hex")
+
+
 # -- phase 1b: the host library ----------------------------------------------
 
 HOST_EDGE_LENS = (0, 1, 54, 55, 56, 57, 63, 64, 65, 119, 120, 300)
@@ -4411,6 +4644,7 @@ def main() -> int:
             ("replication", lambda: replication_path(dev)),
             ("sr2ch", lambda: sr2ch_path(dev)),
             ("pg2ch", lambda: pg2ch_path(dev)),
+            ("my2kf", lambda: my2kf_path(dev)),
             ("clickbench",
              lambda: clickbench_path(schema, fixed, var, chunk or 32768,
                                      dev))):

@@ -12,8 +12,11 @@ filter, against the port's own wire fakes) and a ClickBench Parquet
 snapshot (a file the recipe writer wrote -> fs -> devnull through
 SnapshotLoader under bench.py's chain), a pg2ch activation (the port's
 fake Postgres -> the filter -> its fake ClickHouse through
-activate_delivery, staged commits on) and an Avro run through the
-schema-registry parser on the CPU; afterwards neither
+activate_delivery, staged commits on), an Avro run through the
+schema-registry parser and a my2kf activation (the port's fake MySQL ->
+the mask -> Debezium envelopes -> its fake Kafka through
+activate_delivery, the transactional staged publish, the envelopes read
+back through the debezium parser) on the CPU; afterwards neither
 jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
 loaded, and the only host library mapped is the port's own build.
 And without CUDA, an entry point that was not asked for the CPU raises
@@ -232,6 +235,28 @@ res = srp.do_batch([Message(value=bytes(1) + sid.to_bytes(4, "big")
                             + bytes([2 * i]), offset=i) for i in range(5)])
 assert res.batches[0].column("id").data.tolist() == list(range(5))
 sr.stop()
+from transferia_tpu_torch.providers.kafka import KafkaTargetParams
+from transferia_tpu_torch.providers.mysql import MySQLSourceParams
+from transferia_tpu_torch.recipes.fake_mysql import FakeMySQL, FakeMyTable
+import transferia_tpu_torch.serializers  # noqa
+my, kf = FakeMySQL().start(), FakeKafka(n_partitions=4).start()
+my.add_table(FakeMyTable("db", "users", [
+    ("id", "bigint", "bigint", True, True),
+    ("email", "varchar", "varchar(255)", False, False)],
+    [{"id": i, "email": f"u{i}@e.test"} for i in range(1000)]))
+my2kf = Transfer(id="iso-my", src=MySQLSourceParams(host="127.0.0.1",
+    port=my.port, database="db"), dst=KafkaTargetParams(
+    brokers=[f"127.0.0.1:{kf.port}"], topic="cdc", serializer="debezium"),
+    transformation={"transformers": [
+        {"mask_field": {"columns": ["email"], "salt": "s"}}]})
+activate_delivery(my2kf, MemoryCoordinator(), device="cpu")
+assert kf.live_size("cdc") == 1000 and len(kf.txns) == 1, kf.txns
+dbz = make_parser({"debezium": {}}).do_batch([
+    Message(value=r.value, key=r.key, offset=r.offset)
+    for r in kf.records("cdc", 0)])
+assert sum(b.n_rows for b in dbz.batches) == len(kf.records("cdc", 0)) > 0
+my.stop()
+kf.stop()
 with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
@@ -385,6 +410,23 @@ def test_activation_needs_a_card_or_the_cpu(device, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     t = Transfer(id="nocard-pg", src=PGSourceParams(),
                  dst=CHTargetParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        activate_delivery(t, MemoryCoordinator(), device=device)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_my2kf_needs_a_card_or_the_cpu(device, monkeypatch):
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer
+    from transferia_tpu_torch.providers.kafka import KafkaTargetParams
+    from transferia_tpu_torch.providers.mysql import MySQLSourceParams
+    from transferia_tpu_torch.tasks import activate_delivery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = Transfer(id="nocard-my", src=MySQLSourceParams(),
+                 dst=KafkaTargetParams(topic="cdc", serializer="debezium"),
+                 transformation={"transformers": [
+                     {"mask_field": {"columns": ["email"], "salt": "s"}}]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         activate_delivery(t, MemoryCoordinator(), device=device)
 

@@ -288,8 +288,9 @@ def test_blank_parser_equals_jax():
 
 def test_unported_parser_names_the_ported_ones():
     with pytest.raises(KeyError, match="ROADMAP") as err:
-        parsers.make_parser({"debezium": {}})
-    for name in ("blank", "generic", "json", "raw_to_table", "tskv"):
+        parsers.make_parser({"cloudevents": {}})
+    for name in ("blank", "debezium", "generic", "json", "raw_to_table",
+                 "tskv"):
         assert name in str(err.value)
 
 

@@ -4,7 +4,8 @@
 `ChangeItem` is the row view used by control events and row-oriented
 sources and sinks; bulk data lives in `columnar.batch.ColumnBatch` and
 pivots to rows only at the row-oriented edges (`ColumnBatch.to_rows`).
-Both views share TableSchema.  JSON round trips are not ported.
+Both views share TableSchema.  `to_json` serves the native queue
+serializer; the JSON read side (`from_json`) is not ported.
 """
 
 from __future__ import annotations
@@ -100,6 +101,27 @@ class ChangeItem:
         return replace(
             self, column_names=tuple(names), column_values=tuple(values)
         )
+
+    def to_json(self) -> dict[str, Any]:
+        out = {
+            "kind": self.kind.value,
+            "schema": self.schema,
+            "table": self.table,
+            "columnnames": list(self.column_names),
+            "columnvalues": list(self.column_values),
+            "lsn": self.lsn,
+            "commit_time": self.commit_time_ns,
+            "id": self.counter,
+            "txn_id": self.txn_id,
+        }
+        if self.old_keys.key_names:
+            out["oldkeys"] = {
+                "keynames": list(self.old_keys.key_names),
+                "keyvalues": list(self.old_keys.key_values),
+            }
+        if self.table_schema is not None:
+            out["table_schema"] = self.table_schema.to_json()
+        return out
 
 
 # -- control-event constructors ----------------------------------------------

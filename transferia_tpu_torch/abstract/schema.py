@@ -238,6 +238,22 @@ class TableSchema:
             for c in self.columns
         )
 
+    def to_json(self) -> list[dict]:
+        """The column list as JSON objects (the native queue serializer's
+        `table_schema`)."""
+        return [
+            {
+                "name": c.name,
+                "type": c.data_type.value,
+                "key": c.primary_key,
+                "required": c.required,
+                "original_type": c.original_type,
+                "expression": c.expression,
+                "path": c.path,
+            }
+            for c in self.columns
+        ]
+
 
 def new_table_schema(cols: list[tuple], **kw) -> TableSchema:
     """Convenience constructor: list of (name, type[, primary_key]) tuples."""

@@ -4,9 +4,9 @@
 `do_batch` is the primary API and returns ColumnBatches: a whole message
 batch decodes at once.  Rows that fail to parse are routed to the
 `_unparsed` system table, never dropped.  The port ships the generic
-JSON/TSKV parser, the blank (raw) parser and the Confluent
-schema-registry parser (JSON schema and Avro); Debezium, CloudEvents,
-protobuf and native parsers wait (ROADMAP.md A7, A10).
+JSON/TSKV parser, the blank (raw) parser, the Debezium parser and the
+Confluent schema-registry parser (JSON schema and Avro); CloudEvents,
+protobuf and native parsers wait (ROADMAP.md A10).
 """
 
 from transferia_tpu_torch.parsers.base import (

@@ -1,8 +1,7 @@
 """Parser plugins beyond the generic JSON/TSKV pair (the port's copy of
-the blank and Confluent schema-registry parsers of
-``transferia_tpu/parsers/plugins.py``; the Debezium, CloudEvents,
-native, audit-trail, cloud-logging and protobuf parsers wait: ROADMAP.md
-A7, A10)."""
+the blank, Debezium and Confluent schema-registry parsers of
+``transferia_tpu/parsers/plugins.py``; the CloudEvents, native,
+audit-trail, cloud-logging and protobuf parsers wait: ROADMAP.md A10)."""
 
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import numpy as np
 
 from transferia_tpu_torch import native
 
+from transferia_tpu_torch.abstract.change_item import ChangeItem
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
     ColSchema,
@@ -72,6 +72,58 @@ class BlankParser(Parser):
             "data": [m.value for m in messages],
         })
         return ParseResult(batches=[batch])
+
+
+@register_parser("debezium")
+class DebeziumParser(Parser):
+    """Debezium envelopes -> ChangeItems -> columnar blocks; with a
+    registry URL, Confluent-framed messages (0x00 + schema id) unpack
+    through it."""
+
+    def __init__(self, schema_registry_url: str = "",
+                 schema_registry_user: str = "",
+                 schema_registry_password: str = "", **kw):
+        from transferia_tpu_torch.debezium import DebeziumReceiver
+
+        unpacker = None
+        if schema_registry_url:
+            from transferia_tpu_torch.debezium.packer import Unpacker
+
+            unpacker = Unpacker(SchemaRegistryClient(
+                schema_registry_url, user=schema_registry_user,
+                password=schema_registry_password))
+        self.receiver = DebeziumReceiver(unpacker=unpacker)
+
+    def do_batch(self, messages: Sequence[Message]) -> ParseResult:
+        items: list[ChangeItem] = []
+        bad: list[Message] = []
+        reasons: list[str] = []
+        for m in messages:
+            try:
+                it = self.receiver.receive(m.value, m.key or None)
+                if it is not None:
+                    items.append(it)
+            except (ValueError, KeyError, TypeError) as e:
+                bad.append(m)
+                reasons.append(f"debezium: {e}")
+        result = ParseResult()
+        # group consecutive same-(table, schema) runs into columnar blocks
+        run: list[ChangeItem] = []
+
+        def flush():
+            if run:
+                result.batches.append(ColumnBatch.from_rows(run))
+                run.clear()
+
+        for it in items:
+            if run and (it.table_id != run[0].table_id
+                        or it.table_schema != run[0].table_schema):
+                flush()
+            run.append(it)
+        flush()
+        if bad:
+            result.unparsed = unparsed_batch(bad, reasons)
+        return result
 
 
 @register_parser("confluent_schema_registry")

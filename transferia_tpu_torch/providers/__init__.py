@@ -4,10 +4,9 @@ Providers register under a name and expose optional capability
 constructors (snapshot storage, sinker, ...); factories resolve them at
 transfer build time.  The port ships the `sample` source (snapshot and
 replication), the `memory` source and sink, the `kafka` replication
-source, the `ch` (ClickHouse) sink on one shard, the `fs` Parquet source,
-the `pg` (Postgres) snapshot source and the `stdout` and `devnull`
-sinks; the other providers wait
-(ROADMAP.md A).
+source and sink, the `ch` (ClickHouse) sink on one shard, the `fs`
+Parquet source, the `pg` (Postgres) and `mysql` snapshot sources and the
+`stdout` and `devnull` sinks; the other providers wait (ROADMAP.md A).
 """
 
 from transferia_tpu_torch.providers.registry import (
@@ -26,6 +25,7 @@ def load_builtin_providers() -> None:
         file,
         kafka,
         memory,
+        mysql,
         postgres,
         sample,
         stdout,

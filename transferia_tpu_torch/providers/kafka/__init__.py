@@ -1,9 +1,10 @@
-"""Kafka provider of the port: the replication source over the wire
-client.  The Kafka sink and its serializers wait (ROADMAP.md A7)."""
+"""Kafka provider of the port: the replication source and the sink (with
+its transactional staged publish) over the wire client."""
 
 from transferia_tpu_torch.providers.kafka.provider import (
     KafkaProvider,
     KafkaSourceParams,
+    KafkaTargetParams,
 )
 
-__all__ = ["KafkaProvider", "KafkaSourceParams"]
+__all__ = ["KafkaProvider", "KafkaSourceParams", "KafkaTargetParams"]

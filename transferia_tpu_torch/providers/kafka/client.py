@@ -9,9 +9,15 @@ non-flexible ones (Metadata v1, Produce v3, Fetch v4, ListOffsets v1).
 Partition leadership: Metadata responses populate a node table and a
 (topic, partition) -> leader map; produce/fetch/list_offsets route to the
 partition leader and refresh metadata and retry once on NOT_LEADER or
-connection failures.  TLS and SASL (ROADMAP.md A10) and the
-transactional produce of the Kafka sink (A7) wait and raise
-NotImplementedError.
+connection failures.
+
+Transactions: the KIP-98 subset the staged-commit Kafka sink speaks
+(`init_producer`, InitProducerId v3 proposing the part's epoch, and
+`txn_produce`, one Produce v3 carrying the transactional id); a fenced
+producer surfaces as a KafkaError that `is_producer_fenced` names.  TLS
+and SASL wait (ROADMAP.md A10) and raise NotImplementedError.  The
+reference's `kafka_roundtrip` span and `client.kafka.roundtrip`
+failpoint are telemetry and wait too (A5).
 """
 
 from __future__ import annotations
@@ -39,14 +45,18 @@ API_PRODUCE = 0
 API_FETCH = 1
 API_LIST_OFFSETS = 2
 API_METADATA = 3
+API_INIT_PRODUCER_ID = 22
 
 ERR_NONE = 0
 ERR_OFFSET_OUT_OF_RANGE = 1
 ERR_UNKNOWN_TOPIC = 3
 ERR_LEADER_NOT_AVAILABLE = 5
 ERR_NOT_LEADER = 6
+ERR_INVALID_PRODUCER_EPOCH = 47
+ERR_PRODUCER_FENCED = 90
 
 _RETRIABLE = {ERR_LEADER_NOT_AVAILABLE, ERR_NOT_LEADER}
+_FENCED = {ERR_INVALID_PRODUCER_EPOCH, ERR_PRODUCER_FENCED}
 
 NOT_PORTED = "not ported yet (ROADMAP.md A10: TLS and SASL for Kafka)"
 
@@ -55,6 +65,14 @@ class KafkaError(CategorizedError):
     def __init__(self, message: str, code: int = -1):
         super().__init__(CategorizedError.SOURCE, message)
         self.code = code
+
+
+def is_producer_fenced(err: KafkaError) -> bool:
+    """True when the broker rejected a transactional operation because
+    a newer producer epoch owns the transactional id (KIP-98 zombie
+    fencing): the staged-commit publish maps this onto
+    StaleEpochPublishError."""
+    return err.code in _FENCED
 
 
 CLIENT_ID = "transferia-tpu"
@@ -245,6 +263,77 @@ class KafkaClient:
                 raise
             self.metadata([topic])
             return attempt()
+
+    # -- transactions (KIP-98 subset) ----------------------------------------
+    def init_producer(self, transactional_id: str,
+                      producer_epoch: int) -> tuple[int, int]:
+        """InitProducerId for an epoch-keyed transactional id.
+
+        KIP-360 shape: the client proposes its producer epoch (the part's
+        assignment epoch, monotone per part key) and the broker fences a
+        proposal older than the id's current epoch with PRODUCER_FENCED,
+        the zombie-publish fence.  Returns (producer_id,
+        accepted_epoch)."""
+        body = enc_str(transactional_id)
+        body += struct.pack("!i", 60_000)           # txn timeout
+        body += struct.pack("!qh", -1, producer_epoch)
+        r = self._roundtrip(API_INIT_PRODUCER_ID, 3, body)
+        r.i32()  # throttle
+        err = r.i16()
+        pid = r.i64()
+        epoch = r.i16()
+        if err != ERR_NONE:
+            e = KafkaError(
+                f"init_producer({transactional_id!r}) failed: "
+                f"error {err}", code=err)
+            # a fencing response carries the id's current epoch when the
+            # broker discloses it (the in-repo fake does; real brokers
+            # return -1): the staged-commit publish maps it onto
+            # StaleEpochPublishError's published_epoch
+            e.fence_epoch = int(epoch) if epoch >= 0 else None
+            raise e
+        return pid, epoch
+
+    def txn_produce(self, transactional_id: str, producer_id: int,
+                    producer_epoch: int,
+                    messages: dict[tuple[str, int], list[Record]],
+                    acks: int = -1, timeout_ms: int = 30_000) -> int:
+        """One transactional produce: every (topic, partition) record
+        list lands in a single Produce request carrying the transactional
+        id and batches stamped with the producer's id and epoch; the
+        broker applies it atomically and fences a stale epoch.  Returns
+        the records produced."""
+        by_topic: dict[str, list[tuple[int, list[Record]]]] = {}
+        for (topic, partition), records in sorted(messages.items()):
+            by_topic.setdefault(topic, []).append((partition, records))
+        body = enc_str(transactional_id)
+        body += struct.pack("!hi", acks, timeout_ms)
+        body += struct.pack("!i", len(by_topic))
+        total = 0
+        for topic, parts in sorted(by_topic.items()):
+            body += enc_str(topic)
+            body += struct.pack("!i", len(parts))
+            for partition, records in parts:
+                batch = encode_record_batch(
+                    records, producer_id=producer_id,
+                    producer_epoch=producer_epoch)
+                body += struct.pack("!i", partition)
+                body += enc_bytes(batch)
+                total += len(records)
+        r = self._roundtrip(API_PRODUCE, 3, body)
+        for _ in range(r.i32()):
+            r.string()
+            for _ in range(r.i32()):
+                r.i32()              # partition
+                err = r.i16()
+                r.i64()              # base offset
+                r.i64()              # log append time
+                if err != ERR_NONE:
+                    raise KafkaError(
+                        f"transactional produce failed: error {err}",
+                        code=err)
+        r.i32()  # throttle
+        return total
 
     # -- offsets ------------------------------------------------------------
     def list_offsets(self, topic: str, partition: int,

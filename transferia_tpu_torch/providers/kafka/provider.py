@@ -1,11 +1,16 @@
-"""Kafka replication source over the wire client (the port's copy of the
-source half of ``transferia_tpu/providers/kafka/provider.py``).
+"""Kafka source and sink over the wire client (the port's copy of
+``transferia_tpu/providers/kafka/provider.py``).
 
 The source composes the shared QueueSource machinery (sequencer +
 parsequeue + post-push commits); offsets checkpoint through the transfer
-coordinator after the push (at-least-once).  The Kafka sink, its
-serializers and the partitioned (Kafka -> object storage) strategy wait
-(ROADMAP.md A7, A9).
+coordinator after the push (at-least-once).  The sink serializes batches
+(`serializers/`) and produces per partition: the key's CRC32C in one
+host-library call (`crc32c_batch`), or the column hash under
+`partition_by`; with a staged part open it buffers the part's records
+and publishes them in one transactional produce.  The partitioned (Kafka
+-> object storage) strategy waits (ROADMAP.md A9).  The reference's
+`kafka_publish_txn` instant and `sink.kafka.publish` failpoint are
+telemetry and wait too (A5).
 """
 
 from __future__ import annotations
@@ -15,6 +20,15 @@ import threading
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
+
+from transferia_tpu_torch.abstract.commit import StagedSinker
+from transferia_tpu_torch.abstract.errors import StaleEpochPublishError
+from transferia_tpu_torch.abstract.interfaces import (
+    Batch,
+    Sinker,
+    is_columnar,
+)
 from transferia_tpu_torch.coordinator.interface import Coordinator
 from transferia_tpu_torch.models.endpoint import (
     EndpointParams,
@@ -24,6 +38,11 @@ from transferia_tpu_torch.parsers import Message
 from transferia_tpu_torch.providers.kafka.client import (
     KafkaClient,
     KafkaError,
+    is_producer_fenced,
+)
+from transferia_tpu_torch.providers.kafka.protocol import (
+    Record,
+    crc32c_batch,
 )
 from transferia_tpu_torch.providers.queue_common import (
     FetchedBatch,
@@ -32,6 +51,16 @@ from transferia_tpu_torch.providers.queue_common import (
 from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
+)
+from transferia_tpu_torch.providers.staging import (
+    PartStage,
+    part_slug,
+    publish_guard,
+)
+from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.serializers import make_queue_serializer
+from transferia_tpu_torch.transform.plugins.sharder import (
+    hash_column_to_shards,
 )
 
 logger = logging.getLogger(__name__)
@@ -62,6 +91,28 @@ class KafkaSourceParams(EndpointParams):
                 f"kafka start_from must be 'earliest' or 'latest', "
                 f"got {self.start_from!r}"
             )
+
+
+@register_endpoint
+@dataclass
+class KafkaTargetParams(EndpointParams):
+    PROVIDER = "kafka"
+    IS_TARGET = True
+
+    brokers: list[str] = field(default_factory=lambda: ["localhost:9092"])
+    topic: str = ""               # "" -> per-table "<ns>.<name>"
+    serializer: str = "json"
+    serializer_config: dict = field(default_factory=dict)
+    partition_by: str = ""
+    compression: str = ""         # "" | gzip
+    # security: the port's client refuses TLS and SASL
+    # (NotImplementedError, ROADMAP.md A10)
+    tls: bool = False
+    tls_ca: str = ""              # CA bundle path (custom/self-signed)
+    tls_verify: bool = True
+    sasl_mechanism: str = ""      # PLAIN | SCRAM-SHA-256 | SCRAM-SHA-512
+    sasl_username: str = ""
+    sasl_password: str = ""
 
 
 def _make_client(params) -> KafkaClient:
@@ -161,6 +212,160 @@ def topic_partitions(params: KafkaSourceParams) -> list[int]:
         client.close()
 
 
+class KafkaSinker(Sinker, StagedSinker):
+    """Produce sink; staged-commit capable (abstract/commit.py): with an
+    open part stage the serialized messages buffer sink-side and land in
+    the broker through one transactional produce tied to the part's
+    transactional id (`trtpu.<part slug>`).  Kafka's own KIP-98 producer
+    fencing rejects a zombie (its InitProducerId or produce with the
+    stale epoch fails PRODUCER_FENCED, raised as
+    StaleEpochPublishError), and a republish under the same
+    transactional id supersedes the previous publish instead of
+    appending duplicates.
+
+    Protocol bound: this speaks the KIP-98 subset the in-repo fake
+    broker implements: one transactional Produce request = one
+    committed transaction, with broker-side supersede-in-place of the
+    id's previous publish.  A full Apache Kafka deployment additionally
+    needs AddPartitionsToTxn/EndTxn, commit markers and read_committed
+    consumers; until then the exactly-once claim holds for the
+    fake-backed wire, and real brokers should keep the at-least-once
+    path.
+
+    `device` is where the staged pushes' dedup window keys each batch
+    (K10 in keys mode on a card)."""
+
+    def __init__(self, params: KafkaTargetParams, device: DeviceLike = None):
+        self.params = params
+        self.device = device
+        self.client = _make_client(params)
+        cfg = dict(params.serializer_config or {})
+        if params.serializer == "debezium" and params.topic:
+            # single-topic sinks: SR subjects must derive from the real
+            # topic (TopicNameStrategy)
+            cfg.setdefault("topic", params.topic)
+        self.serializer = make_queue_serializer(params.serializer, **cfg)
+        self._partitions: dict[str, list[int]] = {}
+        self._stage: Optional[PartStage] = None
+        self._stage_key = ""
+        self._staged: dict[tuple[str, int], list[Record]] = {}
+
+    def _topic_partitions(self, topic: str) -> list[int]:
+        if topic not in self._partitions:
+            meta = self.client.metadata([topic])
+            self._partitions[topic] = meta.get(topic) or [0]
+        return self._partitions[topic]
+
+    @staticmethod
+    def _key_partitions(pairs, n_parts: int) -> np.ndarray:
+        """crc32c(key) % n_parts per pair, in one host-library call (the
+        library builds or raises: there is no per-key loop)."""
+        return crc32c_batch([bytes(k or b"") for k, _ in pairs]) % n_parts
+
+    def _partitioned_records(self, batch: Batch
+                             ) -> dict[tuple[str, int], list[Record]]:
+        """Serialize one batch into per-(topic, partition) records."""
+        pairs = self.serializer.serialize_messages(batch)
+        if not pairs:
+            return {}
+        if is_columnar(batch):
+            topic = self.params.topic or str(batch.table_id)
+        else:
+            rows = [it for it in batch if it.is_row_event()]
+            topic = self.params.topic or (
+                str(rows[0].table_id) if rows else "controls"
+            )
+        partitions = self._topic_partitions(topic)
+        n_parts = len(partitions)
+        col_parts = None
+        if is_columnar(batch) and self.params.partition_by and \
+                self.params.partition_by in batch.columns and \
+                len(pairs) == batch.n_rows:
+            col_parts = hash_column_to_shards(
+                batch.column(self.params.partition_by), n_parts
+            )
+        if col_parts is not None:
+            part_idx = col_parts
+        else:
+            # deterministic key hash (crc32c): built-in hash() is
+            # randomized per process and would break per-key partition
+            # affinity across restarts
+            part_idx = self._key_partitions(pairs, n_parts)
+        out: dict[tuple[str, int], list[Record]] = {}
+        for i, (key, value) in enumerate(pairs):
+            p = partitions[int(part_idx[i])]
+            out.setdefault((topic, p), []).append(
+                Record(key=key, value=value)
+            )
+        return out
+
+    def push(self, batch: Batch) -> None:
+        if self._stage is not None:
+            batch = self._stage.stage(batch)
+            try:
+                for tp, records in self._partitioned_records(
+                        batch).items():
+                    self._staged.setdefault(tp, []).extend(records)
+            except BaseException:
+                # serialization died after the dedup window recorded the
+                # batch: only a full part restage is safe
+                self._stage.mark_failed()
+                raise
+            return
+        for (topic, p), records in self._partitioned_records(
+                batch).items():
+            self.client.produce(topic, p, records,
+                                compression=self.params.compression)
+
+    # -- StagedSinker (publish = one kafka transaction) ---------------------
+    def begin_part(self, key: str, epoch: int) -> None:
+        # hold=False: the serialized record buffer is the stage; the
+        # PartStage only runs the dedup window over the pushed batches
+        self._stage = PartStage(key, epoch, hold=False, device=self.device)
+        self._stage_key = key
+        self._staged = {}
+
+    def publish_part(self, key: str, epoch: int) -> int:
+        stage = self._stage
+        if stage is None or self._stage_key != key:
+            raise RuntimeError(f"kafka sink: no open stage for {key!r}")
+        with publish_guard(key, epoch):
+            txn_id = f"trtpu.{part_slug(key)}"
+            try:
+                pid, accepted = self.client.init_producer(txn_id, epoch)
+                self.client.txn_produce(txn_id, pid, accepted,
+                                        self._staged)
+            except KafkaError as e:
+                if is_producer_fenced(e):
+                    # KIP-98 zombie fencing is the sink-side epoch fence:
+                    # a newer owner holds the transactional id.  Brokers
+                    # that do not disclose the winning epoch (real ones
+                    # return -1) get the epoch+1 lower bound
+                    won = getattr(e, "fence_epoch", None)
+                    raise StaleEpochPublishError(
+                        key, epoch,
+                        won if won is not None else epoch + 1) from e
+                raise
+            self.last_dedup_dropped = stage.dedup_dropped
+            rows = stage.rows
+        self._stage = None
+        self._stage_key = ""
+        self._staged = {}
+        return rows
+
+    def abort_part(self, key: str) -> None:
+        self._stage = None
+        self._stage_key = ""
+        self._staged = {}
+
+    def note_push_retry(self) -> None:
+        if self._stage is not None:
+            self._stage.note_push_retry()
+
+    def close(self) -> None:
+        self.client.close()
+
+
 @register_provider
 class KafkaProvider(Provider):
     NAME = "kafka"
@@ -173,4 +378,9 @@ class KafkaProvider(Provider):
             return QueueSource(client, p.parser,
                                parallelism=p.parallelism,
                                metrics=self.metrics)
+        return None
+
+    def sinker(self):
+        if isinstance(self.transfer.dst, KafkaTargetParams):
+            return KafkaSinker(self.transfer.dst, self.device)
         return None

@@ -3,9 +3,13 @@
 
 Server side of what the port's client speaks: Metadata v1, Produce v3
 (stores the raw record batch and serves it again on fetch, as a real
-broker does), Fetch v4, ListOffsets v1.  The JAX fake's SASL, TLS and
-transactional produce serve clients the port does not have yet (its
-client refuses TLS and SASL) and are left out.
+broker does), Fetch v4, ListOffsets v1, and the KIP-98 subset of the
+staged-commit Kafka sink: InitProducerId (fences an older proposed
+epoch, error 90, disclosing the id's current one) and the transactional
+Produce (error 47 for an unknown producer or a stale epoch read from the
+frame; a republish under the same transactional id supersedes the id's
+earlier publish in place).  The JAX fake's SASL and TLS serve clients
+the port does not have yet (its client refuses both) and are left out.
 """
 
 from __future__ import annotations
@@ -109,6 +113,19 @@ class _PartitionLog:
             self._segments.append([self._n, 1, None, [rec]])
         self._n += 1
 
+    def _records_of(self, seg: list) -> list:
+        if seg[3] is None:
+            recs = decode_record_batches(seg[2])
+            for i, r in enumerate(recs):
+                r.offset = seg[0] + i
+            seg[3] = recs
+        return seg[3]
+
+    def __iter__(self):
+        for seg in self._segments:
+            yield from self._records_of(seg)
+
+
 class FakeKafka:
     def __init__(self, n_partitions: int = 2):
         self.n_partitions = n_partitions
@@ -117,6 +134,13 @@ class FakeKafka:
         self.lock = threading.RLock()
         self.port = 0
         self._srv = None
+        # transactional state (the KIP-98 subset of the staged-commit
+        # sink): transactional id -> {"pid", "epoch", "published":
+        # [(topic, partition, segment)] of the last committed
+        # transaction}, so a republish supersedes instead of appending
+        # and a stale producer epoch is fenced
+        self.txns: dict[str, dict] = {}
+        self._next_pid = 1000
 
     def create_topic(self, name: str,
                      n_partitions: Optional[int] = None) -> None:
@@ -126,6 +150,23 @@ class FakeKafka:
                     _PartitionLog()
                     for _ in range(n_partitions or self.n_partitions)
                 ]
+
+    def records(self, topic: str, partition: int = 0) -> list:
+        with self.lock:
+            return list(self.topics.get(topic, [[]])[partition])
+
+    def live_size(self, topic: str) -> int:
+        """Record count excluding superseded transactional segments
+        (offsets still cover them, like aborted-transaction gaps on a
+        real broker)."""
+        with self.lock:
+            n = 0
+            for p in self.topics.get(topic, []):
+                for seg in p._segments:
+                    if seg[2] is None and seg[3] == []:
+                        continue
+                    n += seg[1]
+            return n
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> "FakeKafka":
@@ -183,6 +224,7 @@ class FakeKafka:
             0: self._produce,
             1: self._fetch,
             2: self._list_offsets,
+            22: self._init_producer_id,
         }.get(api_key, lambda _r: b"")(r)
         return struct.pack("!i", corr) + body
 
@@ -211,8 +253,40 @@ class FakeKafka:
                     out += struct.pack("!i", 0)       # isr
         return out
 
+    @staticmethod
+    def _frame_producer_epoch(blob: bytes) -> int:
+        """producerEpoch of the first v2 frame (offset 51 of the frame:
+        the 12-byte outer header and 39 bytes to the epoch field)."""
+        if len(blob) < 61:
+            return -1
+        return struct.unpack_from("!h", blob, 51)[0]
+
+    def _init_producer_id(self, r: Reader) -> bytes:
+        """InitProducerId (KIP-360 shape): the client proposes its epoch;
+        a proposal older than the id's current epoch is fenced (error
+        90), else the id adopts it."""
+        txn_id = r.string()
+        r.i32()              # transaction timeout
+        r.i64()              # producer id proposal (-1)
+        epoch = r.i16()
+        with self.lock:
+            state = self.txns.get(txn_id)
+            if state is None:
+                state = {"pid": self._next_pid, "epoch": epoch,
+                         "published": []}
+                self._next_pid += 1
+                self.txns[txn_id] = state
+            elif epoch < state["epoch"]:
+                # fenced: disclose the id's current epoch so the client's
+                # StaleEpochPublishError names the real winner
+                return struct.pack("!ihqh", 0, 90, -1, state["epoch"])
+            else:
+                state["epoch"] = epoch
+            return struct.pack("!ihqh", 0, 0, state["pid"],
+                               state["epoch"])
+
     def _produce(self, r: Reader) -> bytes:
-        r.string()           # transactional id
+        txn_id = r.string()  # transactional id (None = plain produce)
         r.i16()              # acks
         r.i32()              # timeout
         incoming = []
@@ -222,23 +296,49 @@ class FakeKafka:
                 partition = r.i32()
                 blob = r.bytes_() or b""
                 incoming.append((topic, partition, blob))
+        err = 0
         bases = {}
         with self.lock:
-            for topic, partition, blob in incoming:
-                self.create_topic(topic)
-                plist = self.topics[topic][partition]
-                bases[(topic, partition)] = len(plist)
-                # store the raw blob (a real broker never decodes);
-                # unparseable frames fall back to eager decode so protocol
-                # errors still surface on produce
-                if not plist.append_blob(blob):
-                    for rec in decode_record_batches(blob):
-                        plist.append(rec)
+            state = self.txns.get(txn_id) if txn_id else None
+            if txn_id is not None:
+                if state is None:
+                    err = 47  # unknown producer for the txn id
+                else:
+                    for _t, _p, blob in incoming:
+                        if self._frame_producer_epoch(blob) \
+                                < state["epoch"]:
+                            err = 47  # stale producer epoch: fenced
+                            break
+            if not err:
+                if state is not None:
+                    # one transactional produce = one committed
+                    # transaction: supersede the id's previous publish in
+                    # place (offsets keep their slots, like aborted-txn
+                    # gaps)
+                    for _t, _p, seg in state["published"]:
+                        seg[2] = None
+                        seg[3] = []
+                    state["published"] = []
+                for topic, partition, blob in incoming:
+                    self.create_topic(topic)
+                    plist = self.topics[topic][partition]
+                    bases[(topic, partition)] = len(plist)
+                    segs_before = len(plist._segments)
+                    # store the raw blob (a real broker never decodes);
+                    # unparseable frames fall back to eager decode so
+                    # protocol errors still surface on produce
+                    if not plist.append_blob(blob):
+                        for rec in decode_record_batches(blob):
+                            plist.append(rec)
+                    if state is not None:
+                        for seg in plist._segments[segs_before:]:
+                            state["published"].append(
+                                (topic, partition, seg))
         out = struct.pack("!i", len(incoming))
         for topic, partition, _blob in incoming:
             base = bases.get((topic, partition), -1)
             out += enc_str(topic) + struct.pack("!i", 1)
-            out += struct.pack("!ihqq", partition, 0, base, -1)
+            out += struct.pack("!ihqq", partition, err, base, -1)
         out += struct.pack("!i", 0)  # throttle
         return out
 
