@@ -169,6 +169,27 @@ final line):
      nothing; it reports rows/s over the source's 2,000,000 rows, the
      stage timer's source_decode and pivot seconds, scan_rows_pruned,
      the snappy route and the CPU's SHA-NI/SSE4.2 flags;
+ 15f. telemetry: the telemetry plane on the card, every earlier phase
+     having run with tracing off.  With the trace, the stage timer and
+     the ledger on: (1) clickbench's file again, device then host
+     placement: the rows delivered equal the untraced phase's; on the
+     card the spans nest part > batch > fused_run > {pack,
+     device_dispatch, device_wait}, and source_decode,
+     native_rowgroup_decode and decode_readahead run on the readahead
+     threads with parent links that resolve; TELEMETRY's launches equal
+     K-A's launch count, its h2d bytes the path's staged bytes; the host
+     run records no device span and no launch; the ledger's rows in and
+     out equal the source's and the delivered rows and conservation
+     holds; the device run's Chrome trace is written under
+     build/torch_kernels/telemetry/ and loads with json.load;
+     (2) the device run again with the device.dispatch and
+     snapshot.part.batch failpoints armed to fire once each: the sink
+     Retrier absorbs the first, the second fails a part once, so two
+     fires, one part retry in the ledger and the same rows delivered; (3) replication (a) on the card: the spans hold
+     replication_attempt, kafka_roundtrip, source_decode, transform,
+     sink_wait and sink, and the transform spans' p50/p99 agree with
+     the stage timer's window within 5 %; (4) my2kf in both placements
+     with every my2kf check; each run prints its stage table;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -361,7 +382,9 @@ from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
 from transferia_tpu_torch.recipes.fake_kafka import FakeKafka
 from transferia_tpu_torch.runtime.device import resolve_device
 from transferia_tpu_torch.runtime.local import run_replication
-from transferia_tpu_torch.stats import stagetimer
+from transferia_tpu_torch.chaos import failpoints
+from transferia_tpu_torch.stats import stagetimer, trace
+from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import Metrics
 from transferia_tpu_torch.tasks import SnapshotLoader
 from transferia_tpu_torch.testing import force_virtual_mesh
@@ -452,6 +475,9 @@ PATH_KERNELS = {
     # the mask's K-A, one launch a fused chunk (no predicate), and K10
     # keying each staged push for the dedup window, in either placement
     "my2kf": ("sha256_hmac", "rowhash_lanes"),
+    # clickbench, replication (a) and my2kf again, traced
+    "telemetry": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+                  "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -2987,10 +3013,13 @@ def pg2ch_path(dev) -> dict:
         delivered_equal_to="bench.py measure_pg2ch's expected count")
 
 
-def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
+def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev,
+              traced: bool = False) -> dict:
     """One activation of config #4 into a fresh fake Kafka on a fresh
     memory coordinator, the placement pinned; the staged pushes' keys
-    and the Kafka requests are recorded on the way."""
+    and the Kafka requests are recorded on the way.  `traced` turns the
+    trace and the stage timer on for the activation and adds its stage
+    tables to the result."""
     kf = FakeKafka(n_partitions=MY2KF_PARTITIONS).start()
     tid = "chip-my2kf"
     transfer = Transfer(
@@ -3015,6 +3044,8 @@ def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
     staging._row_keys = keep_keys
     kafka_client.KafkaClient._roundtrip = count_request
     set_placement(placement)
+    if traced:
+        trace_on()
     try:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3022,6 +3053,7 @@ def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
         torch.cuda.synchronize(dev)
         seconds = time.perf_counter() - t0
         launches = _build.launch_counts()
+        tables = trace_off(seconds) if traced else {}
         offsets = sum(len(p) for p in kf.topics.get("cdc", []))
         live = kf.live_size("cdc")
         superseded = sum(1 for p in kf.topics.get("cdc", [])
@@ -3031,6 +3063,8 @@ def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
                    for i in range(MY2KF_PARTITIONS)]
         txns = {k: v["epoch"] for k, v in kf.txns.items()}
     finally:
+        trace.enable(False)
+        stagetimer.enable(False)
         staging._row_keys = row_keys
         kafka_client.KafkaClient._roundtrip = roundtrip
         set_placement(None)
@@ -3061,7 +3095,7 @@ def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev) -> dict:
                 txn_request_bytes=produce,
                 status=cp.get_status(tid).value,
                 snapshot_position=cp.get_transfer_state(tid)
-                .get("snapshot_position"))
+                .get("snapshot_position"), **tables)
 
 
 def my2kf_check_content(records: list, rows: int) -> dict:
@@ -3109,7 +3143,7 @@ def my2kf_check_content(records: list, rows: int) -> dict:
         len(r) for r in records])
 
 
-def my2kf_path(dev, rows: int = MY2KF_ROWS) -> dict:
+def my2kf_path(dev, rows: int = MY2KF_ROWS, traced: bool = False) -> dict:
     """BASELINE config #4 end to end, bench.py measure_mysql2kafka's
     shape through activate_delivery: the port's fake MySQL (`rows` rows,
     keyset paging), mask_field email (K-A on the card, one launch a fused
@@ -3129,7 +3163,8 @@ def my2kf_path(dev, rows: int = MY2KF_ROWS) -> dict:
             [{"id": i, "email": f"user{i}@example.test", "region": i % 500}
              for i in range(rows)]))
         gen_s = time.perf_counter() - t0
-        runs = {p: my2kf_run(my, rows, p, dev) for p in ("device", "host")}
+        runs = {p: my2kf_run(my, rows, p, dev, traced)
+                for p in ("device", "host")}
     finally:
         my.stop()
     for name, run in runs.items():
@@ -3470,13 +3505,15 @@ def decoded_equals_generator(path: str, fixed: dict, var: dict) -> dict:
 
 
 def clickbench_run(name: str, path: str, placement: str, workers: int,
-                   dev) -> dict:
+                   dev, groups_per_part: int = 0) -> dict:
     """bench.py's run_pipeline: the fs Parquet source through the port's
-    SnapshotLoader into the null sink, the placement pinned (or auto)."""
+    SnapshotLoader into the null sink, the placement pinned (or auto);
+    `groups_per_part` > 0 overrides the source's row groups a part."""
     transfer = Transfer(
         id=f"chip-cb-{name}",
         src=FileSourceParams(path=path, format="parquet", table="hits",
-                             batch_rows=BATCH_ROWS),
+                             batch_rows=BATCH_ROWS,
+                             rowgroups_per_part=groups_per_part),
         dst=NullTargetParams(), transformation=CONFIG,
         runtime=Runtime(sharding=ShardingUploadParams(
             process_count=workers)))
@@ -3525,7 +3562,8 @@ def clickbench_run(name: str, path: str, placement: str, workers: int,
                 fused_step_batches=strategies.batches)
 
 
-def clickbench_path(schema, fixed, var, chunk: int, dev) -> dict:
+def clickbench_path(schema, fixed, var, chunk: int, path: str,
+                    dev) -> dict:
     """BASELINE config #3: bench.py's 2,000,000-row ClickBench file,
     written by the recipe writer, through bench.py's make_transfer shape
     (the fs source at 131,072-row batches, mask URL, the pushed-down
@@ -3533,49 +3571,342 @@ def clickbench_path(schema, fixed, var, chunk: int, dev) -> dict:
     device, host and auto placements after one warm-up run.  Each run
     must deliver exactly the rows numpy keeps (bench.py's completeness
     gate) and commit every part; the device run launches K-A, K-B and
-    K-C, the host run nothing."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"hits_{ROWS}.parquet")
-        t0 = time.perf_counter()
-        size, kept = write_clickbench(path, ROWS, (schema, fixed, var))
-        write_s = time.perf_counter() - t0
-        decoded = decoded_equals_generator(path, fixed, var)
-        meta = parquet_metadata(path)
-        workers = max(1, min(4, int(effective_cpus())))
-        predicted = clickbench_predicted(fixed, chunk)
-        emit({"phase": "clickbench_prediction", "device_launches": predicted,
-              "kept": kept, "row_groups": meta.num_row_groups})
-        runs = {}
-        for name, placement in (("warmup", "device"), ("device", "device"),
-                                ("host", "host"), ("auto", "auto")):
-            run = clickbench_run(name, path, placement, workers, dev)
-            if run["completed_rows"] != kept:
-                raise AssertionError(
-                    f"clickbench {name}: row loss, the sink got "
-                    f"{run['completed_rows']} rows, the chain keeps {kept}")
-            if run["completed_rows"] + run["scan_rows_pruned"] != ROWS:
-                raise AssertionError(f"clickbench {name}: kept + pruned "
-                                     f"!= {ROWS}")
-            runs[name] = run
-        launches = {k: c for k, c in runs["device"]["launches"].items()}
-        require_launched("clickbench", launches)
-        if any(runs["host"]["launches"].values()):
-            raise AssertionError("clickbench host run launched "
-                                 f"{runs['host']['launches']}")
-        for run in runs.values():
-            run["launches"] = {k: c for k, c in run["launches"].items() if c}
-        url_encodings = sorted({", ".join(rg.columns[7].encoding_names)
-                                for rg in meta.row_groups})
-        return dict(rows=ROWS, file_bytes=size, write_seconds=write_s,
-                    row_groups=meta.num_row_groups, batch_rows=BATCH_ROWS,
-                    upload_threads=workers, kept=kept,
-                    decoded_row_groups_equal_generator=decoded,
-                    dict_encoded_columns=dict_encoded_columns(
-                        meta, ["URL", "Title", "SearchPhrase"]),
-                    url_chunk_encodings=url_encodings,
-                    predicted_device_launches=predicted,
-                    launches=launches, runs=runs, snappy=snappy_route(),
-                    cpu_flags=cpu_flags())
+    K-C, the host run nothing.  The file stays at `path` for the
+    telemetry phase."""
+    t0 = time.perf_counter()
+    size, kept = write_clickbench(path, ROWS, (schema, fixed, var))
+    write_s = time.perf_counter() - t0
+    decoded = decoded_equals_generator(path, fixed, var)
+    meta = parquet_metadata(path)
+    workers = max(1, min(4, int(effective_cpus())))
+    predicted = clickbench_predicted(fixed, chunk)
+    emit({"phase": "clickbench_prediction", "device_launches": predicted,
+          "kept": kept, "row_groups": meta.num_row_groups})
+    runs = {}
+    for name, placement in (("warmup", "device"), ("device", "device"),
+                            ("host", "host"), ("auto", "auto")):
+        run = clickbench_run(name, path, placement, workers, dev)
+        if run["completed_rows"] != kept:
+            raise AssertionError(
+                f"clickbench {name}: row loss, the sink got "
+                f"{run['completed_rows']} rows, the chain keeps {kept}")
+        if run["completed_rows"] + run["scan_rows_pruned"] != ROWS:
+            raise AssertionError(f"clickbench {name}: kept + pruned "
+                                 f"!= {ROWS}")
+        runs[name] = run
+    launches = {k: c for k, c in runs["device"]["launches"].items()}
+    require_launched("clickbench", launches)
+    if any(runs["host"]["launches"].values()):
+        raise AssertionError("clickbench host run launched "
+                             f"{runs['host']['launches']}")
+    for run in runs.values():
+        run["launches"] = {k: c for k, c in run["launches"].items() if c}
+    url_encodings = sorted({", ".join(rg.columns[7].encoding_names)
+                            for rg in meta.row_groups})
+    return dict(rows=ROWS, file_bytes=size, write_seconds=write_s,
+                row_groups=meta.num_row_groups, batch_rows=BATCH_ROWS,
+                upload_threads=workers, kept=kept,
+                decoded_row_groups_equal_generator=decoded,
+                dict_encoded_columns=dict_encoded_columns(
+                    meta, ["URL", "Title", "SearchPhrase"]),
+                url_chunk_encodings=url_encodings,
+                predicted_device_launches=predicted,
+                launches=launches, runs=runs, snappy=snappy_route(),
+                cpu_flags=cpu_flags())
+
+
+# -- phase 15f: the telemetry plane ------------------------------------------
+
+TELEMETRY_DIR = Path(_build.BUILD_DIR) / "telemetry"
+DEVICE_SPANS = ("fused_run", "pack", "device_decode", "device_dispatch",
+                "device_wait")
+WORKER_SPANS = ("decode_readahead", "source_decode",
+                "native_rowgroup_decode")
+REPL_SPANS = ("replication_attempt", "kafka_roundtrip", "source_decode",
+              "transform", "sink_wait", "sink")
+
+
+def trace_on() -> None:
+    """Fresh trace, device counters, ledger, stage timer and staged-byte
+    counts, then tracing and the stage timer on."""
+    trace.reset()
+    trace.TELEMETRY.reset()
+    LEDGER.reset()
+    stagetimer.reset()
+    reset_dispatch_bytes()
+    stagetimer.enable(True)
+    trace.enable(True)
+
+
+def trace_off(wall: float) -> dict:
+    """Tracing and the stage timer off; the run's stage tables (the
+    trace's per-span summary and the stage timer's breakdown, the text
+    that bench.py prints) and the device counters."""
+    trace.enable(False)
+    stagetimer.enable(False)
+    summary = trace.format_summary(wall)
+    breakdown = stagetimer.format_breakdown(wall)
+    print(summary, flush=True)
+    print(breakdown, flush=True)
+    return dict(stage_summary=trace.stage_summary(wall),
+                stage_breakdown=breakdown,
+                device_telemetry=trace.TELEMETRY.snapshot())
+
+
+def span_index(spans) -> dict:
+    """span id -> record, instants aside."""
+    return {s[9]: s for s in spans if s[6] >= 0}
+
+
+def ancestors(rec, by_id: dict) -> list:
+    """Names of a span's ancestors, innermost first."""
+    out, seen = [], set()
+    while rec[10] in by_id and rec[10] not in seen:
+        seen.add(rec[10])
+        rec = by_id[rec[10]]
+        out.append(rec[0])
+    return out
+
+
+def span_names(spans) -> dict:
+    names: dict = {}
+    for s in spans:
+        if s[6] >= 0:
+            names[s[0]] = names.get(s[0], 0) + 1
+    return names
+
+
+def check_card_nesting(spans, readahead: bool) -> dict:
+    """part > batch > fused_run > {pack, device_dispatch, device_wait}
+    on the card, and the decode spans under their part with parent links
+    that resolve; with `readahead` (parts of several row groups) the
+    decodes run on the readahead threads, under decode_readahead."""
+    by_id = span_index(spans)
+    names = span_names(spans)
+    want = WORKER_SPANS if readahead else WORKER_SPANS[1:]
+    for name in ("part", "batch", "fused_run", "pack", "device_dispatch",
+                 "device_wait") + want:
+        if not names.get(name):
+            raise AssertionError(f"telemetry: no {name} span, {names}")
+    for rec in by_id.values():
+        up = ancestors(rec, by_id)
+        if rec[0] == "fused_run" and not (
+                "batch" in up and "part" in up
+                and up.index("batch") < up.index("part")):
+            raise AssertionError(f"telemetry: fused_run under {up}")
+        if rec[0] in ("pack", "device_dispatch", "device_wait") and \
+                up[:1] != ["fused_run"]:
+            raise AssertionError(f"telemetry: {rec[0]} under {up}")
+        if rec[0] in WORKER_SPANS and (rec[10] not in by_id
+                                       or "part" not in up):
+            raise AssertionError(f"telemetry: {rec[0]} on {rec[2]} with "
+                                 f"an unresolved parent ({up})")
+    threads = {s[2] for s in by_id.values() if s[0] in WORKER_SPANS}
+    # a decode under decode_readahead ran on that part's readahead
+    # thread, a hop from the part's upload thread
+    hopped = [s for s in by_id.values() if s[0] == "native_rowgroup_decode"
+              and "decode_readahead" in ancestors(s, by_id)]
+    for s in hopped:
+        part = s
+        while part[0] != "part":
+            part = by_id[part[10]]
+        if s[2] != "decode-readahead" or s[1] == part[1]:
+            raise AssertionError(f"telemetry: a readahead decode ran on "
+                                 f"{s[2]}, its part on {part[2]}")
+    if readahead and not hopped:
+        raise AssertionError(f"telemetry: no decode ran on a readahead "
+                             f"thread ({threads})")
+    cross = sum(1 for s in by_id.values() if s[10] in by_id
+                and by_id[s[10]][1] != s[1])
+    return dict(spans=names, cross_thread_links=cross,
+                decode_threads=sorted(threads), readahead_decodes=len(hopped))
+
+
+def clickbench_traced(name: str, path: str, placement: str, workers: int,
+                      kept: int, dev, spec: str = "",
+                      groups_per_part: int = 0) -> dict:
+    """clickbench_run with the trace, the stage timer and the ledger on
+    (and `spec` armed); the rows it must deliver, the ledger's rows and
+    conservation, the counters against the launches and staged bytes."""
+    trace_on()
+    if spec:
+        failpoints.configure(spec, seed=0)
+    try:
+        run = clickbench_run(name, path, placement, workers, dev,
+                             groups_per_part)
+    finally:
+        fires = failpoints.fire_counts()
+        failpoints.reset()
+        trace.enable(False)
+    run.update(trace_off(run["seconds"]))
+    spans = trace.spans()
+    tel = run["device_telemetry"]
+    staged = dispatch_bytes()
+    ledger = LEDGER.snapshot()
+    entry = ledger["transfers"][f"chip-cb-{name}"]
+    # the scan pushes only the rows its filter keeps, which the chain's
+    # filter keeps too: the rows in are the rows out (a retried part's
+    # pruned rows count again in scan_rows_pruned, never in the ledger)
+    source_rows = ROWS - run["scan_rows_pruned"]
+    if run["completed_rows"] != kept or entry["rows_out"] != kept or \
+            entry["rows_in"] != kept or (
+                not entry["retries"] and source_rows != kept):
+        raise AssertionError(
+            f"telemetry {name}: delivered {run['completed_rows']}, ledger "
+            f"rows in {entry['rows_in']} (source {source_rows}) out "
+            f"{entry['rows_out']}, want {kept}")
+    if not ledger["conservation"]["ok"]:
+        raise AssertionError(f"telemetry {name}: ledger drift "
+                             f"{ledger['conservation']}")
+    ka = run["launches"].get("sha256_hmac", 0)
+    if tel["device_launches"] != ka or entry["launches"] != ka:
+        raise AssertionError(
+            f"telemetry {name}: TELEMETRY launches "
+            f"{tel['device_launches']}, ledger {entry['launches']}, K-A "
+            f"launched {ka}")
+    if tel["h2d_bytes"] != staged["encoded"]:
+        raise AssertionError(f"telemetry {name}: h2d {tel['h2d_bytes']} "
+                             f"bytes, staged {staged['encoded']}")
+    names = span_names(spans)
+    device_spans = {k: names[k] for k in DEVICE_SPANS if names.get(k)}
+    if placement == "host":
+        if device_spans or ka:
+            raise AssertionError(f"telemetry host: device spans "
+                                 f"{device_spans}, {ka} launches")
+    else:
+        if names.get("device_dispatch") != ka:
+            raise AssertionError(f"telemetry {name}: "
+                                 f"{names.get('device_dispatch')} "
+                                 f"device_dispatch spans, {ka} launches")
+        run["nesting"] = check_card_nesting(spans, groups_per_part > 1)
+    run["ledger"] = {k: entry[k] for k in (
+        "rows_in", "rows_out", "bytes_in", "launches", "h2d_bytes",
+        "d2h_bytes", "kernel_seconds", "retries", "chaos_fires",
+        "decode_wait_seconds")}
+    run["staged_bytes"] = staged
+    run["failpoint_fires"] = fires
+    run["instants"] = sorted({s[0] for s in spans if s[6] < 0})
+    return run
+
+
+def transform_percentiles(spans) -> tuple:
+    """The transform spans' p50/p99 in ms, over the samples the
+    replication phase keeps (the largest dropped past four)."""
+    lat = sorted(s[4] for s in spans if s[0] == "transform" and s[6] >= 0)
+    steady = lat[:max(1, len(lat) - 1)] if len(lat) > 4 else lat
+    return (percentile(steady, 0.50) * 1000,
+            percentile(steady, 0.99) * 1000, len(lat))
+
+
+def replication_traced(dev) -> dict:
+    """Replication (a), bench.py's kafka2ch shape, on the card, traced."""
+    broker = FakeKafka(n_partitions=REPL_PARTITIONS).start()
+    try:
+        broker.create_topic("events")
+        produce(broker.port, REPL_PARTITIONS, REPL_MESSAGES, REPL_MESSAGES,
+                k2ch_message)
+        expected = sum(1 for _ in range(REPL_PARTITIONS)
+                       for i in range(REPL_MESSAGES) if i % 500 < 400)
+        trace_on()
+        try:
+            run = replication_run("bench", broker, REPL_SCHEMA,
+                                  REPL_CONFIG, False, expected, "device",
+                                  dev)
+        finally:
+            trace.enable(False)
+    finally:
+        broker.stop()
+    run.pop("rows_sorted")
+    run.update(trace_off(run["seconds"]))
+    spans = trace.spans()
+    names = span_names(spans)
+    missing = [k for k in REPL_SPANS if not names.get(k)]
+    if missing:
+        raise AssertionError(f"telemetry replication: no {missing} span, "
+                             f"{names}")
+    by_id = span_index(spans)
+    loose = [s[0] for s in by_id.values() if s[0] in (
+        "source_decode", "sink_wait", "transform")
+        and "replication_attempt" not in ancestors(s, by_id)]
+    if loose:
+        raise AssertionError(f"telemetry replication: {len(loose)} spans "
+                             f"outside replication_attempt: {loose[:5]}")
+    p50, p99, n = transform_percentiles(spans)
+    if n != run["transform_batches"] or \
+            abs(p50 - run["transform_p50_ms"]) > 0.05 * run[
+                "transform_p50_ms"] or \
+            abs(p99 - run["transform_p99_ms"]) > 0.05 * run[
+                "transform_p99_ms"]:
+        raise AssertionError(
+            f"telemetry replication: transform spans p50/p99 {p50}/{p99} "
+            f"ms over {n}, the stage timer {run['transform_p50_ms']}/"
+            f"{run['transform_p99_ms']} over {run['transform_batches']}")
+    run.update(span_transform_p50_ms=p50, span_transform_p99_ms=p99,
+               spans=names)
+    return run
+
+
+def telemetry_path(path: str, kept: int, dev) -> dict:
+    """Phase 15f: the telemetry plane over clickbench (device, host and
+    the device run with device.dispatch armed once), replication (a) and
+    my2kf, each traced; every check exact."""
+    workers = max(1, min(4, int(effective_cpus())))
+    launches = {k: 0 for k in _build.KERNELS}
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] += c
+
+    device = clickbench_traced("tel-device", path, "device", workers,
+                               kept, dev)
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    trace_file = TELEMETRY_DIR / "clickbench_device.json"
+    events = trace.write_chrome_trace(str(trace_file))
+    with open(trace_file) as fh:
+        loaded = len(json.load(fh)["traceEvents"])
+    if loaded != events:
+        raise AssertionError(f"telemetry: the Chrome trace holds {loaded} "
+                             f"events, {events} written")
+    add(device["launches"])
+    # four parts of four row groups: each part's readahead thread
+    # decodes, its spans parented across the thread hop
+    readahead = clickbench_traced("tel-readahead", path, "device", workers,
+                                  kept, dev, groups_per_part=4)
+    add(readahead["launches"])
+    host = clickbench_traced("tel-host", path, "host", workers, kept, dev)
+    # the card's device.dispatch fires once, inside the chain, and the
+    # snapshot stage's sink Retrier re-pushes the batch (both packages
+    # compose the Retrier over the chain); snapshot.part.batch, armed
+    # once too, fails a part before its first push: one part retry
+    fault = clickbench_traced(
+        "tel-fault", path, "device", workers, kept, dev,
+        spec="device.dispatch=times:1;snapshot.part.batch=times:1")
+    add(fault["launches"])
+    if fault["failpoint_fires"] != {"device.dispatch": 1,
+                                    "snapshot.part.batch": 1} or \
+            fault["ledger"]["retries"] != 1 or \
+            fault["ledger"]["chaos_fires"] != 2 or \
+            fault["completed_rows"] != device["completed_rows"] or \
+            fault["ledger"]["rows_out"] != device["ledger"]["rows_out"] \
+            or fault["ledger"]["rows_in"] != device["ledger"]["rows_in"] \
+            or "part_retry" not in fault["instants"]:
+        raise AssertionError(
+            f"telemetry fault: fires {fault['failpoint_fires']}, ledger "
+            f"{fault['ledger']}, delivered {fault['completed_rows']} "
+            f"(untraced-equal run {device['completed_rows']})")
+    replication = replication_traced(dev)
+    add(replication["launches"])
+    my2kf = my2kf_path(dev, traced=True)
+    add(my2kf["launches"])
+    require_launched("telemetry", launches)
+    return dict(kept=kept, upload_threads=workers, launches=launches,
+                chrome_trace=str(trace_file.relative_to(
+                    Path(__file__).resolve().parent)),
+                chrome_trace_events=events,
+                clickbench={"device": device, "host": host,
+                            "device_readahead": readahead,
+                            "device_fault_once": fault},
+                replication_bench=replication, my2kf=my2kf)
 
 
 # -- phase 7: timing ------------------------------------------------------------
@@ -4620,6 +4951,10 @@ def main() -> int:
           "h2d_bytes": main_bytes, "identical_to_host": True})
     phase_s["main_path"] = time.perf_counter() - t_phase
     del host_outs
+    # clickbench's file, which the telemetry phase reads again
+    cb_dir = tempfile.TemporaryDirectory()
+    cb_file = os.path.join(cb_dir.name, f"hits_{ROWS}.parquet")
+    results = {}
 
     for path, run in (
             ("main_path_devpack",
@@ -4647,13 +4982,18 @@ def main() -> int:
             ("my2kf", lambda: my2kf_path(dev)),
             ("clickbench",
              lambda: clickbench_path(schema, fixed, var, chunk or 32768,
-                                     dev))):
+                                     cb_file, dev)),
+            ("telemetry", lambda: telemetry_path(
+                cb_file,
+                results["clickbench"]["runs"]["device"]["completed_rows"],
+                dev))):
         t_phase = time.perf_counter()
-        result = run()
+        result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase
         launches[path] = result["launches"]
         emit({"phase": path, "card": card, **result,
               "phase_seconds": phase_s[path]})
+    cb_dir.cleanup()
 
     t_phase = time.perf_counter()
     timing = time_kernels(batches[0], fixed["RegionID"], chunk or 32768,

@@ -19,6 +19,11 @@ activate_delivery, the transactional staged publish, the envelopes read
 back through the debezium parser) on the CPU; afterwards neither
 jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
 loaded, and the only host library mapped is the port's own build.
+A second fresh interpreter imports every module of the telemetry plane
+and turns tracing, the stage timer, the lock watch, a failpoint and the
+profiler on over a fused chain: neither jax, jax.monitoring,
+prometheus_client nor the JAX package may be loaded, and a disabled
+span is the shared no-op singleton.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there.
 """
@@ -282,6 +287,64 @@ def test_port_runs_without_jax_or_the_jax_package():
     assert len(mapped) == 1, mapped
     assert mapped[0].startswith(os.path.join(REPO, "build", "torch_kernels",
                                              "libhostops-")), mapped
+
+
+_TELEMETRY_CHILD = """
+import sys
+import transferia_tpu_torch.chaos, transferia_tpu_torch.chaos.sites  # noqa
+from transferia_tpu_torch.chaos import failpoints
+from transferia_tpu_torch.runtime import lockwatch
+from transferia_tpu_torch.stats import (hdr, ledger, profiler, stagetimer,
+                                        trace, watermark)
+from transferia_tpu_torch.stats.registry import ChaosStats, DeviceStats
+from transferia_tpu_torch.abstract.schema import TableID, new_table_schema
+from transferia_tpu_torch.columnar.batch import ColumnBatch
+from transferia_tpu_torch.transform import build_chain
+from transferia_tpu_torch.transform.fused import set_placement
+
+noop = trace.span("a")
+assert noop is trace.span("b") and not noop, noop
+trace.enable(True)
+stagetimer.enable(True)
+lockwatch.arm()
+failpoints.configure("rowhash.pool_accs=times:1")
+schema = new_table_schema([("url", "utf8"), ("region", "int32")])
+batch = ColumnBatch.from_pydict(TableID("", "t"), schema, {
+    "url": [f"u{i}" for i in range(300)], "region": list(range(300, 600))})
+set_placement("device")
+with profiler.profile(hz=200) as p:
+    with ledger.LEDGER.context(transfer_id="iso"):
+        out = build_chain(%r, device="cpu").apply(batch)
+assert out.n_rows == 100, out.n_rows
+names = {s[0] for s in trace.spans()}
+assert {"fused_run", "device_dispatch", "device_wait"} <= names, names
+assert trace.TELEMETRY.snapshot()["device_launches"] == 1
+assert ledger.LEDGER.snapshot()["conservation"]["ok"]
+print(trace.format_summary())
+print(stagetimer.format_breakdown(1.0))
+print(p.report.format(3))
+lockwatch.disarm()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+                                    "prometheus_client", "transferia_tpu"))
+print("LOADED", bad)
+""" % (CONFIG,)
+
+
+def test_telemetry_plane_imports_nothing_of_jax():
+    """Every telemetry module of the port, with tracing, the stage
+    timer, the lock watch, a failpoint and the profiler on over a fused
+    chain: no jax (nor jax.monitoring), no prometheus_client, nothing of
+    the JAX package is loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("TRANSFERIA_TPU_FAILPOINTS", None)
+    proc = subprocess.run([sys.executable, "-c", _TELEMETRY_CHILD],
+                          cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+    assert "device: launches=1" in proc.stdout, proc.stdout
 
 
 def small_batch():

@@ -98,6 +98,13 @@ def is_fatal(err: BaseException) -> bool:
                for cur in cause_chain(err))
 
 
+def is_worker_kill(err: BaseException) -> bool:
+    """True when a WorkerKilledError sits anywhere in the cause chain
+    (the snapshot loader wraps part failures in TableUploadError)."""
+    return any(isinstance(cur, WorkerKilledError)
+               for cur in cause_chain(err))
+
+
 # Programming/schema errors: a retry re-runs the same code on the same
 # input, so they fail fast, walked through the cause chain like is_fatal.
 _NON_RETRIABLE_TYPES = (TypeError, AttributeError, NameError, KeyError,

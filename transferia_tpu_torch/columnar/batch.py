@@ -27,7 +27,6 @@ interop are not ported yet (ROADMAP.md).
 from __future__ import annotations
 
 import json
-import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -147,26 +146,18 @@ def _gather_fixed(data: np.ndarray, indices) -> np.ndarray:
     return out
 
 
-_materialize_lock = threading.Lock()
-_materializations = 0
-
-
 def flat_materializations() -> int:
-    """How many dictionary columns were flattened since the last reset
-    (the counterpart of the JAX package's dict_flat_materializations)."""
-    return _materializations
+    """How many dictionary columns were flattened since the last reset:
+    `TELEMETRY`'s dict_flat_materializations."""
+    from transferia_tpu_torch.stats.trace import TELEMETRY
+
+    return TELEMETRY.dict_flat_materializations
 
 
 def reset_flat_materializations() -> None:
-    global _materializations
-    with _materialize_lock:
-        _materializations = 0
+    from transferia_tpu_torch.stats.trace import TELEMETRY
 
-
-def _count_materialization() -> None:
-    global _materializations
-    with _materialize_lock:
-        _materializations += 1
+    TELEMETRY.reset_dict_materializations()
 
 
 class DictPool:
@@ -274,7 +265,12 @@ class Column:
 
     def _materialize(self) -> None:
         if self._data is None:
-            _count_materialization()
+            # counted: every flatten of a dict column is a defeat of the
+            # code-native pipeline — the dict_flat_materializations /
+            # lazy_dict_preserved pair makes regressions visible
+            from transferia_tpu_torch.stats.trace import TELEMETRY
+
+            TELEMETRY.record_dict_materialize()
             self._data, self._offsets = self.dict_enc.materialize()
 
     @property
@@ -528,6 +524,16 @@ class ColumnBatch:
         All items must share table_id and table_schema; mixed kinds are
         captured in the kinds array.
         """
+        from transferia_tpu_torch.stats import trace
+
+        sp = trace.span("pivot")
+        if sp:
+            sp.add(rows=len(items), direction="rows_to_columns")
+        with sp:
+            return ColumnBatch._from_rows_impl(items)
+
+    @staticmethod
+    def _from_rows_impl(items: Sequence[ChangeItem]) -> "ColumnBatch":
         if not items:
             raise ValueError("from_rows: empty batch")
         first = items[0]
@@ -586,6 +592,15 @@ class ColumnBatch:
 
     def to_rows(self) -> list[ChangeItem]:
         """Unpivot to ChangeItems (row-oriented edges only)."""
+        from transferia_tpu_torch.stats import trace
+
+        sp = trace.span("pivot")
+        if sp:
+            sp.add(rows=self.n_rows, direction="columns_to_rows")
+        with sp:
+            return self._to_rows_impl()
+
+    def _to_rows_impl(self) -> list[ChangeItem]:
         names = tuple(self.columns.keys())
         cols = list(self.columns.values())
         out = []
@@ -663,6 +678,11 @@ class ColumnBatch:
             if (c0.is_lazy_dict and all(p.is_lazy_dict for p in parts)
                     and all(p.dict_enc.pool is c0.dict_enc.pool
                             for p in parts)):
+                # slices of one row group share one DictPool: a pure
+                # code concat, the column stays encoded end to end
+                from transferia_tpu_torch.stats.trace import TELEMETRY
+
+                TELEMETRY.record_dict_preserved()
                 cols[name] = Column(
                     name, c0.ctype, validity=validity,
                     dict_enc=DictEnc(

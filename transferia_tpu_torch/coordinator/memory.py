@@ -4,23 +4,27 @@ the replication loop's status messages and heartbeats).
 
 Thread-safe; used for single-process runs and tests.  One lock per
 operation guards its part queue and state, one the transfer-scoped maps,
-one the health stream.
+one the health stream; each is a `lockwatch.named_lock`.  The state
+writes and the part commit carry the reference's `coordinator.*`
+failpoints and `coord_*` spans.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Optional
 
 from transferia_tpu_torch.abstract.table import OperationTablePart
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.coordinator.interface import (
     Coordinator,
     TransferStatus,
     default_lease_seconds,
     lease_expired,
 )
+from transferia_tpu_torch.runtime import lockwatch
+from transferia_tpu_torch.stats import trace
 
 # bounded health history: the latest report per (scope, worker) plus a
 # small rolling window
@@ -33,7 +37,7 @@ class _OpState:
     __slots__ = ("lock", "parts", "state")
 
     def __init__(self):
-        self.lock = threading.RLock()
+        self.lock = lockwatch.named_lock("coordinator.op", kind="rlock")
         self.parts: list[OperationTablePart] = []
         self.state: dict[str, Any] = {}
 
@@ -44,15 +48,17 @@ def _copy(p: OperationTablePart) -> OperationTablePart:
 
 class MemoryCoordinator(Coordinator):
     def __init__(self, lease_seconds: Optional[float] = None):
-        self._lock = threading.RLock()
+        self._lock = lockwatch.named_lock("coordinator.transfers",
+                                          kind="rlock")
         self._status: dict[str, TransferStatus] = {}
         self._state: dict[str, dict[str, Any]] = {}
         self._messages: dict[str, list[tuple[str, str]]] = {}
-        self._ops_lock = threading.Lock()
+        self._ops_lock = lockwatch.named_lock("coordinator.ops_map")
         self._ops: dict[str, _OpState] = {}
         self.lease_seconds = (default_lease_seconds()
                               if lease_seconds is None else lease_seconds)
-        self._health_lock = threading.Lock()
+        self._health_lock = lockwatch.named_lock(
+            "coordinator.health")
         self.health_reports: deque = deque(maxlen=HEALTH_HISTORY_LIMIT)
         self._health_latest: dict[tuple[str, int], dict] = {}
 
@@ -90,7 +96,11 @@ class MemoryCoordinator(Coordinator):
 
     def set_transfer_state(self, transfer_id: str,
                            state: dict[str, Any]) -> None:
-        with self._lock:
+        failpoint("coordinator.set_state")  # before the lock: may sleep
+        # the span covers the lock wait too: coordinator contention
+        # shows up as coord_set_state time
+        with trace.span("coord_set_state", transfer=transfer_id), \
+                self._lock:
             self._state.setdefault(transfer_id, {}).update(state)
 
     def get_transfer_state(self, transfer_id: str) -> dict[str, Any]:
@@ -99,8 +109,10 @@ class MemoryCoordinator(Coordinator):
 
     def set_operation_state(self, operation_id: str,
                             state: dict[str, Any]) -> None:
+        failpoint("coordinator.set_op_state")  # before the lock: may sleep
         op = self._op(operation_id)
-        with op.lock:
+        with trace.span("coord_set_op_state", operation=operation_id), \
+                op.lock:
             op.state.update(state)
 
     def get_operation_state(self, operation_id: str) -> dict[str, Any]:
@@ -173,10 +185,16 @@ class MemoryCoordinator(Coordinator):
 
     def commit_part(self, operation_id: str,
                     part: OperationTablePart) -> Optional[bool]:
+        # before the lock: may sleep/raise (a coordinator fault here
+        # must surface as a failed — retriable — commit RPC, with
+        # nothing published)
+        failpoint("coordinator.commit_part")
         op = self._op_peek(operation_id)
         if op is None:
             return False
-        with op.lock:
+        with trace.span("coord_commit_part", operation=operation_id,
+                        part=part.key(), epoch=part.assignment_epoch), \
+                op.lock:
             for cur in op.parts:
                 if cur.key() != part.key():
                     continue

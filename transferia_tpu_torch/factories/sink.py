@@ -93,7 +93,8 @@ def make_sinker(transfer, metrics: Optional[Metrics] = None,
         s = TypeFallbacks(s, src_fb)
     agent = metering_agent(transfer.id)
     s = OutputMetering(s, agent)
-    s = Statistician(s, stats or SinkerStats(metrics))
+    s = Statistician(s, stats or SinkerStats(metrics),
+                     transfer_id=transfer.id)
     s = Filter(s, _system_table_filter)
     s = NonRowSeparator(s)
     if post_transform_wrap is not None:

@@ -5,14 +5,16 @@ The Bufferer is where the chain's batch sizes are born: it accumulates
 small pushes until a row/byte/interval trigger fires, merging adjacent
 compatible units into large ColumnBatches so the transform kernels see
 large blocks.  Control events flush the buffer and pass through
-standalone, keeping the Init/DoneTableLoad ordering contract.  The
-reference runs each push under its submitter's contextvars (trace and
-ledger scopes); the port has no such scopes yet and pushes directly.
+standalone, keeping the Init/DoneTableLoad ordering contract.  Each
+push runs under its submitter's contextvars, so the trace and ledger
+scopes follow the work onto the Asynchronizer's thread and the
+Bufferer's flushing thread.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import logging
 import queue
 import threading
@@ -31,6 +33,7 @@ from transferia_tpu_torch.middlewares.helpers import (
     batch_len,
     is_control_batch,
 )
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.stats.registry import BuffererStats
 
 logger = logging.getLogger(__name__)
@@ -39,12 +42,14 @@ Future = concurrent.futures.Future
 
 
 class Synchronizer(SyncAsAsyncSink):
-    """Sync sinker as AsyncSink with inline resolution."""
+    """Sync sinker as AsyncSink with inline resolution
+    (middlewares/synchronizer)."""
 
 
 class Asynchronizer(AsyncSink):
-    """Order-preserving async adapter: one worker thread drains a queue,
-    so the source keeps reading while the sink writes."""
+    """Order-preserving async adapter: single worker thread drains a queue
+    (middlewares/asynchronizer.go).  Lets the source continue reading while
+    the sink writes."""
 
     def __init__(self, inner: Sinker, max_queue: int = 16):
         self.inner = inner
@@ -56,27 +61,39 @@ class Asynchronizer(AsyncSink):
         )
         self._worker.start()
 
+    def _push_one(self, batch, fut) -> None:
+        try:
+            with trace.span("sink_push"):
+                self.inner.push(batch)
+            fut.set_result(None)
+        except BaseException as e:
+            fut.set_exception(e)
+
     def _run(self):
         while True:
             item = self._q.get()
             if item is None:
                 return
-            batch, fut = item
-            try:
-                self.inner.push(batch)
-                fut.set_result(None)
-            except BaseException as e:
-                fut.set_exception(e)
+            batch, fut, cvctx = item
+            # run under the SUBMITTER's contextvars snapshot: the
+            # sink_push span parents to the submitting span (part /
+            # batch) and the push's resource events bill the
+            # submitter's ledger scope, even though this is the
+            # asynchronizer's own thread
+            if cvctx is not None:
+                cvctx.run(self._push_one, batch, fut)
+            else:
+                self._push_one(batch, fut)
 
     def async_push(self, batch: Batch) -> "Future[None]":
         fut: Future = Future()
-        # closed-check + enqueue are atomic with close()'s shutdown, or a
-        # racing push could land behind the sentinel with no worker left
+        # closed-check + enqueue must be atomic with close()'s shutdown, or
+        # a racing push can land behind the sentinel with no worker left
         with self._close_lock:
             if self._closed.is_set():
                 fut.set_exception(RuntimeError("asynchronizer closed"))
                 return fut
-            self._q.put((batch, fut))
+            self._q.put((batch, fut, contextvars.copy_context()))
         return fut
 
     def close(self) -> None:
@@ -90,7 +107,9 @@ class Asynchronizer(AsyncSink):
 
 
 class ErrorTracker(AsyncSink):
-    """Latches the first push error; later pushes fail fast."""
+    """Latches the first push error; subsequent pushes fail fast
+    (middlewares/error_tracker.go).  The replication loop reads
+    `failure` to decide restart vs fatal."""
 
     def __init__(self, inner: AsyncSink):
         self.inner = inner
@@ -119,8 +138,11 @@ class ErrorTracker(AsyncSink):
 
 
 class MemThrottler(AsyncSink):
-    """Bounds in-flight buffered bytes: async_push blocks while
-    outstanding (pushed-but-unresolved) bytes exceed the limit."""
+    """Bounds in-flight buffered bytes (middlewares/memthrottle).
+
+    async_push blocks while outstanding (pushed-but-unresolved) bytes exceed
+    the limit — backpressure for fast sources / slow sinks.
+    """
 
     def __init__(self, inner: AsyncSink, limit_bytes: int = 512 << 20):
         self.inner = inner
@@ -150,7 +172,7 @@ class MemThrottler(AsyncSink):
 
 
 class BuffererConfig:
-    """Flush triggers."""
+    """Flush triggers (synchronizer/bufferer/bufferer.go:15-33)."""
 
     def __init__(self, trigger_rows: int = 100_000,
                  trigger_bytes: int = 64 << 20,
@@ -164,7 +186,7 @@ class Bufferer(AsyncSink):
     """Accumulate pushes, flush on count/size/interval/non-row/close.
 
     Futures resolve when the flush containing their batch completes (or
-    fails).  Control batches flush pending data first, then push
+    fails).  Control/system batches flush pending data first, then push
     standalone — never reordered relative to surrounding data.
     """
 
@@ -174,7 +196,7 @@ class Bufferer(AsyncSink):
         self.cfg = cfg or BuffererConfig()
         self.stats = stats or BuffererStats()
         self._lock = threading.RLock()
-        self._buf: list[tuple] = []  # (batch, future)
+        self._buf: list[tuple] = []  # (batch, future, contextvars ctx)
         self._rows = 0
         self._bytes = 0
         self._closed = False
@@ -186,6 +208,7 @@ class Bufferer(AsyncSink):
             )
             self._ticker.start()
 
+    # -- internals ----------------------------------------------------------
     def _tick(self):
         while not self._closed:
             self._wake.wait(timeout=self.cfg.trigger_interval)
@@ -208,24 +231,29 @@ class Bufferer(AsyncSink):
 
     def _flush_locked(self) -> None:
         buf, self._buf = self._buf, []
-        self._rows = 0
-        self._bytes = 0
+        rows, self._rows = self._rows, 0
+        nbytes, self._bytes = self._bytes, 0
         self.stats.buffered_rows.set(0)
         self.stats.buffered_bytes.set(0)
-        if buf:
+        if not buf:
+            return
+        sp = trace.span("bufferer_flush")
+        if sp:
+            sp.add(rows=rows, bytes=nbytes, units=len(buf))
+        with sp:
             self._flush_groups(buf)
 
     def _flush_groups(self, buf: list[tuple]) -> None:
         # merge adjacent compatible units into big pushes
-        groups: list[tuple[list[Batch], list[Future]]] = []
-        for batch, fut in buf:
+        groups: list[tuple[list[Batch], list[Future], object]] = []
+        for batch, fut, cvctx in buf:
             if groups and self._mergeable(groups[-1][0][-1], batch):
                 groups[-1][0].append(batch)
                 groups[-1][1].append(fut)
             else:
-                groups.append(([batch], [fut]))
+                groups.append(([batch], [fut], cvctx))
         failed: Optional[BaseException] = None
-        for batches, futs in groups:
+        for batches, futs, cvctx in groups:
             if failed is not None:
                 for f in futs:
                     f.set_exception(failed)
@@ -237,7 +265,14 @@ class Bufferer(AsyncSink):
                     merged = ColumnBatch.concat(batches)
                 else:
                     merged = [it for b in batches for it in b]
-                self.inner.push(merged)
+                # a flush may run on the ticker thread or a later
+                # pusher's thread: push under the contextvars snapshot
+                # of the group's FIRST submitter so the merged write
+                # bills/links to the pipeline that buffered it
+                if cvctx is not None:
+                    cvctx.run(self.inner.push, merged)
+                else:
+                    self.inner.push(merged)
                 for f in futs:
                     f.set_result(None)
                 self.stats.flush_count.inc()
@@ -247,6 +282,7 @@ class Bufferer(AsyncSink):
                 for f in futs:
                     f.set_exception(e)
 
+    # -- AsyncSink ----------------------------------------------------------
     def async_push(self, batch: Batch) -> "Future[None]":
         fut: Future = Future()
         with self._lock:
@@ -254,7 +290,7 @@ class Bufferer(AsyncSink):
                 fut.set_exception(RuntimeError("bufferer closed"))
                 return fut
             if is_control_batch(batch):
-                # flush pending data, then push the control batch alone
+                # flush pending data, then push the control batch standalone
                 self._flush_locked()
                 try:
                     self.inner.push(batch)
@@ -262,7 +298,7 @@ class Bufferer(AsyncSink):
                 except BaseException as e:
                     fut.set_exception(e)
                 return fut
-            self._buf.append((batch, fut))
+            self._buf.append((batch, fut, contextvars.copy_context()))
             self._rows += batch_len(batch)
             self._bytes += batch_bytes(batch)
             self.stats.buffered_rows.set(self._rows)

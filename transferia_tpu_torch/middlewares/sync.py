@@ -2,29 +2,40 @@
 ``transferia_tpu/middlewares/sync.py``.
 
 Reference parity: pkg/middlewares/{statistician,filter,nonrow_separator,
-fallback,retrier}.go, the Measurer and the Transformation middleware.
-The reference's trace spans, failpoints, torn-write injection, ledger and
-freshness watermarks are telemetry and are not ported (ROADMAP.md A5);
-the Transformation's `stagetimer.stage("transform")` window is ported:
-the replication path's transform latency is read from it.
+fallback,retrier}.go, the Measurer and the Transformation middleware,
+with the reference's telemetry: the `sink` and `transform` spans, the
+`sink.push`/`sink.push.torn`/`transform.chain` failpoints, the ledger's
+rows_out/bytes_out, the publish watermark, and the Transformation's
+`stagetimer.stage("transform")` window (where the replication path's
+transform latency is read).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+import threading
 import time
+import weakref
 from typing import Callable, Optional, Sequence
 
 from transferia_tpu_torch.abstract.errors import is_retriable
 from transferia_tpu_torch.abstract.interfaces import Batch, Sinker, is_columnar
 from transferia_tpu_torch.abstract.schema import TableID
+from transferia_tpu_torch.chaos.failpoints import (
+    TornWriteError,
+    failpoint,
+    torn_rows,
+)
 from transferia_tpu_torch.middlewares.helpers import (
     batch_bytes,
     batch_len,
     split_rows_controls,
 )
-from transferia_tpu_torch.stats import stagetimer
+from transferia_tpu_torch.stats import stagetimer, trace
+from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import SinkerStats
+from transferia_tpu_torch.stats.watermark import WATERMARKS
 from transferia_tpu_torch.utils.backoff import retry_with_backoff
 
 logger = logging.getLogger(__name__)
@@ -48,17 +59,37 @@ class _Wrap(Sinker):
 class Statistician(_Wrap):
     """Counts pushed rows/bytes per table."""
 
-    def __init__(self, inner: Sinker, stats: SinkerStats):
+    def __init__(self, inner: Sinker, stats: SinkerStats,
+                 transfer_id: str = ""):
         super().__init__(inner)
         self.stats = stats
+        # explicit identity (not a contextvar): pushes arrive on
+        # parsequeue/asynchronizer threads that never saw the
+        # submitting thread's context
+        self.transfer_id = transfer_id
+
+    @staticmethod
+    def _prefix(batch: Batch, k: int) -> Batch:
+        return batch.slice(0, k) if is_columnar(batch) else batch[:k]
 
     def push(self, batch: Batch) -> None:
         n = batch_len(batch)
         nbytes = batch_bytes(batch)
         self.stats.inflight_rows.inc(n)
+        sp = trace.span("sink")
+        if sp:
+            sp.add(rows=n, bytes=nbytes)
         t0 = time.monotonic()
         try:
-            self.inner.push(batch)
+            with sp:
+                failpoint("sink.push")
+                torn = torn_rows("sink.push.torn", n)
+                if torn is not None:
+                    # torn write: land a prefix, then fail — the
+                    # at-least-once duplicate generator for chaos runs
+                    self.inner.push(self._prefix(batch, torn))
+                    raise TornWriteError("sink.push.torn", torn, n)
+                self.inner.push(batch)
         except BaseException:
             self.stats.errors.inc()
             raise
@@ -67,12 +98,24 @@ class Statistician(_Wrap):
         self.stats.push_time.observe(time.monotonic() - t0)
         self.stats.rows.inc(n)
         self.stats.bytes.inc(nbytes)
+        # ledger attribution: delivered ROW events bill the ambient
+        # (transfer, tenant, part) scope — control items (Init/Done
+        # table loads) are delivery protocol, not tenant work, so they
+        # stay out of rows_out even though SinkerStats counts them; the
+        # asynchronizer/bufferer carried the submitter's contextvars
+        n_rows = n if is_columnar(batch) else sum(
+            1 for it in batch if it.is_row_event())
+        LEDGER.add(rows_out=n_rows, bytes_out=nbytes)
         if is_columnar(batch):
             self.stats.record_table(str(batch.table_id), n)
         else:
             for it in batch:
                 if it.is_row_event():
                     self.stats.record_table(str(it.table_id), 1)
+        if self.transfer_id and n_rows:
+            # freshness: the batch has durably reached the sink — the
+            # publish-watermark advance + end-to-end lag sample
+            WATERMARKS.observe_publish(self.transfer_id, batch)
 
 
 class Filter(_Wrap):
@@ -151,20 +194,61 @@ class Retrier(_Wrap):
 
 
 class Measurer(_Wrap):
-    """Logs slow pushes.  The reference's push-latency window and its
-    quantile reads come with the telemetry slice."""
+    """Logs slow pushes and keeps a push-latency window.
+
+    The window (bounded ring of recent push durations) backs quantile
+    reads: a near-minute push hiding inside an otherwise-green run is
+    invisible to averages."""
+
+    WINDOW = 4096
+    # weak registry of live instances: every pipeline's Measurer, so a
+    # stall in any of them is visible; weak refs so a stopped
+    # transfer's sink chain is not pinned in memory
+    _instances: "weakref.WeakSet[Measurer]" = weakref.WeakSet()
+    _registry_lock = threading.Lock()
 
     def __init__(self, inner: Sinker, warn_seconds: float = 30.0):
         super().__init__(inner)
         self.warn_seconds = warn_seconds
+        self._lat = collections.deque(maxlen=self.WINDOW)
+        self._lock = threading.Lock()
+        with Measurer._registry_lock:
+            Measurer._instances.add(self)
 
     def push(self, batch: Batch) -> None:
         t0 = time.monotonic()
         self.inner.push(batch)
         dt = time.monotonic() - t0
+        with self._lock:
+            self._lat.append(dt)
         if dt > self.warn_seconds:
             logger.warning("slow sink push: %d rows took %.1fs",
                            batch_len(batch), dt)
+
+    def quantile(self, q: float) -> float:
+        """Push-latency quantile (seconds) over the recent window; 0.0
+        before any push."""
+        with self._lock:
+            lat = sorted(self._lat)
+        if not lat:
+            return 0.0
+        idx = min(len(lat) - 1, int(q * len(lat)))
+        return lat[idx]
+
+    @classmethod
+    def global_quantile(cls, q: float) -> float:
+        """Quantile over every live pipeline's recent window."""
+        lat: list[float] = []
+        with cls._registry_lock:
+            instances = list(cls._instances)
+        for inst in instances:
+            with inst._lock:
+                lat.extend(inst._lat)
+        if not lat:
+            return 0.0
+        lat.sort()
+        idx = min(len(lat) - 1, int(q * len(lat)))
+        return lat[idx]
 
 
 class Transformation(_Wrap):
@@ -175,7 +259,11 @@ class Transformation(_Wrap):
         self.chain = chain
 
     def push(self, batch: Batch) -> None:
-        with stagetimer.stage("transform"):
+        sp = trace.span("transform")
+        if sp:
+            sp.add(rows=batch_len(batch))
+        with stagetimer.stage("transform"), sp:
+            failpoint("transform.chain")
             out = self.chain.apply(batch)
         if batch_len(out) or not batch_len(batch):
             self.inner.push(out)

@@ -50,7 +50,7 @@ HOSTOPS_SOURCES = (CSRC / "hostops.cpp", CSRC / "parquetdec.cpp")
 HOSTOPS_DEPS = (CSRC / "parquetdec_ba.inc",)  # parquetdec.cpp includes it
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional["_ProfiledLib"] = None
 
 
 def _compiler() -> str:
@@ -142,8 +142,43 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     return cdll
 
 
-def lib() -> ctypes.CDLL:
-    """The host library, built and bound at first use."""
+class _ProfiledLib:
+    """CDLL proxy: every exported-function call publishes a "this
+    thread is inside native symbol S" marker for the sampling profiler
+    (stats/profiler.py native_call) — without it, samples landing in
+    the C++ code attribute to the CALLER's Python line.
+
+    Everything else forwards to the wrapped CDLL: `hasattr` probes for
+    optional symbols and non-callable attributes behave identically.
+    The wrapper costs two dict operations per native CALL (calls are
+    per-batch/per-column, never per-row)."""
+
+    __slots__ = ("_cdll", "_wrapped")
+
+    def __init__(self, cdll: ctypes.CDLL):
+        self._cdll = cdll
+        self._wrapped: dict = {}
+
+    def __getattr__(self, name):
+        w = self._wrapped.get(name)
+        if w is not None:
+            return w
+        fn = getattr(self._cdll, name)  # AttributeError propagates
+        if not callable(fn):
+            return fn
+        from transferia_tpu_torch.stats.profiler import native_call
+
+        def call(*args, _fn=fn, _name=name):
+            with native_call(_name):
+                return _fn(*args)
+
+        self._wrapped[name] = call
+        return call
+
+
+def lib() -> _ProfiledLib:
+    """The host library, built and bound at first use, behind the
+    profiler's native-call markers."""
     global _lib
     if _lib is not None:
         return _lib
@@ -151,5 +186,5 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             path = build_host_library("hostops", HOSTOPS_SOURCES,
                                       HOSTOPS_DEPS)
-            _lib = _bind(ctypes.CDLL(str(path)))
+            _lib = _ProfiledLib(_bind(ctypes.CDLL(str(path))))
     return _lib

@@ -156,6 +156,7 @@ def build_all() -> dict[str, BuildInfo]:
                 continue
             os.replace(tmp, path)
             _builds[name] = BuildInfo(path, seconds, err)
+            _record_build(name, seconds)
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failures))
@@ -168,6 +169,18 @@ def build_all() -> dict[str, BuildInfo]:
             lib.trt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return dict(_builds)
+
+
+def _record_build(name: str, seconds: float) -> None:
+    """One `nvcc` build is the port's compile event: it stands where the
+    reference's `xla_compile` instant and `TELEMETRY.record_compile`
+    (jax's backend-compile hook, `stats/trace.py::install_jit_hooks`)
+    do, so a build inside a measured window shows in the trace."""
+    from transferia_tpu_torch.stats import trace
+
+    trace.TELEMETRY.record_compile(seconds)
+    trace.instant("kernel_build", source=f"{name}.cu",
+                  seconds=round(seconds, 4))
 
 
 def library(name: str) -> ctypes.CDLL:

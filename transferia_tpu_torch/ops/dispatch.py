@@ -14,10 +14,12 @@ the row codes never cross the link.  The mesh (parallel/fusedmesh.py)
 ships the same encodings per shard (`encode_pred_column_sharded`): each
 shard's rows encode alone, with one bit width shared across shards.
 
-`stage_h2d` is the single host-to-device point: it copies host arrays
-into pinned buffers and enqueues non-blocking copies on a copy stream,
-and counts the bytes staged beside what the uncompressed wire would
-have shipped (`dispatch_bytes`).
+`stage_h2d_counted` is the single host-to-device point: it copies host
+arrays into pinned buffers and enqueues non-blocking copies on a copy
+stream, and counts the bytes staged beside what the uncompressed wire
+would have shipped (`dispatch_bytes`, and `TELEMETRY.record_h2d` and
+`record_dispatch` from the same numbers).  The `dispatch.h2d` failpoint
+and the `device_decode` span live there, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,8 +31,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.stats import trace
+from transferia_tpu_torch.stats.trace import TELEMETRY
 
 _mode_cached: Optional[str] = None
 
@@ -368,6 +373,7 @@ def record_dispatch(encoded_bytes: int, raw_equiv_bytes: int) -> None:
     """One staging: the bytes that crossed the link, and what the
     uncompressed wire (padded SHA blocks, raw predicate columns) would
     have shipped for the same work."""
+    TELEMETRY.record_dispatch(int(encoded_bytes), int(raw_equiv_bytes))
     with _bytes_lock:
         _bytes["encoded"] += int(encoded_bytes)
         _bytes["raw_equiv"] += int(raw_equiv_bytes)
@@ -406,15 +412,27 @@ def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
 
 def stage_h2d(arrays, device: torch.device,
               stream: Optional["torch.cuda.Stream"],
-              raw_equiv_bytes: Optional[int] = None):
+              raw_equiv_bytes: Optional[int] = None, what: str = "batch"):
+    """`stage_h2d_counted` without the byte count: (tensors, event)."""
+    staged, event, _ = stage_h2d_counted(arrays, device, stream,
+                                         raw_equiv_bytes, what)
+    return staged, event
+
+
+def stage_h2d_counted(arrays, device: torch.device,
+                      stream: Optional["torch.cuda.Stream"],
+                      raw_equiv_bytes: Optional[int] = None,
+                      what: str = "batch"):
     """Stage a nested tuple of host arrays on `device`.
 
     numpy arrays become tensors (on a CUDA device: pinned, copied with
     non_blocking on `stream`, or on the current stream when it is None);
     numpy scalars become Python ints (they travel as kernel arguments).
     Counts the arrays' bytes against `raw_equiv_bytes` (the arrays' own
-    bytes when None).  Returns (the same structure of tensors, an event
-    recorded after the copies, or None on the CPU)."""
+    bytes when None), as one `TELEMETRY` transfer.  Returns (the same
+    structure of tensors, an event recorded after the copies or None on
+    the CPU, the bytes staged)."""
+    failpoint("dispatch.h2d")
     cuda = device.type == "cuda"
     encoded = 0
 
@@ -428,16 +446,20 @@ def stage_h2d(arrays, device: torch.device,
             return t.to(device, non_blocking=True) if cuda else t
         return int(x)
 
-    if not cuda:
-        staged, event = put(arrays), None
-    else:
-        with torch.cuda.stream(stream):
-            staged = put(arrays)
-            event = torch.cuda.Event()
-            event.record(stream)
-    record_dispatch(encoded, encoded if raw_equiv_bytes is None
-                    else raw_equiv_bytes)
-    return staged, event
+    with trace.span("device_decode", what=what) as sp:
+        if not cuda:
+            staged, event = put(arrays), None
+        else:
+            with torch.cuda.stream(stream):
+                staged = put(arrays)
+                event = torch.cuda.Event()
+                event.record(stream)
+        raw = encoded if raw_equiv_bytes is None else raw_equiv_bytes
+        if sp:
+            sp.add(encoded_bytes=encoded, raw_equiv_bytes=int(raw))
+    TELEMETRY.record_h2d(encoded)
+    record_dispatch(encoded, raw)
+    return staged, event, encoded
 
 
 # -- device-resident dict-pool masking ------------------------------------------
@@ -463,6 +485,7 @@ def device_hmac_dict_pool(key: bytes, pool, n_rows: int,
     memo_key = ("hmac_hex", key)
     hexed = pool.memo_get(memo_key)
     if hexed is not None:
+        TELEMETRY.record_pool_hit()
         _record_avoided_batch_bytes(pool, n_rows)
         return hexed
     if pool.n_values > 2 * max(n_rows, 1):
@@ -478,6 +501,7 @@ def _hash_pool_locked(key: bytes, pool, n_rows: int, memo_key,
     # this one waited on the lock
     hexed = pool.memo_get(memo_key)
     if hexed is not None:
+        TELEMETRY.record_pool_hit()
         _record_avoided_batch_bytes(pool, n_rows)
         return hexed
     from transferia_tpu_torch.columnar.hexcol import (
@@ -516,11 +540,17 @@ def _pool_digest_rows_locked(key: bytes, pool,
     blocks, n_blocks = pack_hmac_blocks(pool.values_data,
                                         pool.values_offsets, mb)
     inner, outer = _hmac_key_states(bytes(key), device)
-    (dev_blocks, dev_nblocks), _ = stage_h2d((blocks, n_blocks), device,
-                                             None)
-    digests = hmac_device_core(dev_blocks, dev_nblocks, inner, outer, mb)
-    digest_rows = np.ascontiguousarray(
-        digests.cpu().numpy().view(np.uint32))
+    with trace.span("pool_upload", values=pool.n_values,
+                    bytes=int(blocks.nbytes)):
+        (dev_blocks, dev_nblocks), _ = stage_h2d(
+            (blocks, n_blocks), device, None, what="dict_pool")
+        digests = hmac_device_core(dev_blocks, dev_nblocks, inner, outer,
+                                   mb)
+        TELEMETRY.record_launch()
+        digest_rows = np.ascontiguousarray(
+            digests.cpu().numpy().view(np.uint32))
+    TELEMETRY.record_d2h(int(digest_rows.nbytes))
+    TELEMETRY.record_pool_upload()
     pool.memo_set(memo_key, digest_rows)
     return digest_rows
 
@@ -535,6 +565,7 @@ def device_hmac_pool_digests(key: bytes, pool, n_rows: int,
     memo_key = ("hmac_digest_rows", bytes(key))
     rows = pool.memo_get(memo_key)
     if rows is not None:
+        TELEMETRY.record_pool_hit()
         return rows
     if pool.n_values > 2 * max(n_rows, 1):
         return None

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time as _time
 from collections import deque
 from typing import NamedTuple, Optional, Sequence
 
@@ -36,13 +37,14 @@ import numpy as np
 import torch
 
 from transferia_tpu_torch import native
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import bucket_rows
 from transferia_tpu_torch.columnar.hexcol import digests_to_hex
 from transferia_tpu_torch.ops.dispatch import (
     decode_pred_device,
     encode_pred_column,
     encoding_enabled,
-    stage_h2d,
+    stage_h2d_counted,
     unpack_mask_host,
 )
 from transferia_tpu_torch.ops.raggedpack import check_rows_fit, ragged_pack
@@ -53,6 +55,8 @@ from transferia_tpu_torch.ops.sha256 import (
 )
 from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.stats import stagetimer, trace
+from transferia_tpu_torch.stats.trace import TELEMETRY
 from transferia_tpu_torch.weights import as_key_state
 
 _chunk_rows_forced: Optional[int] = None
@@ -153,6 +157,7 @@ class _Staged(NamedTuple):
     n_rows: int
     pack_keep: bool
     h2d_done: Optional[torch.cuda.Event]
+    h2d: int               # bytes staged
 
 
 class _InFlight(NamedTuple):
@@ -234,20 +239,25 @@ class FusedMaskFilterProgram:
         constructor's.
         Returns ([hex (n_rows, 64) per masked column], keep mask or None).
         """
-        states = (self._states if states is None else
-                  [as_key_state(s, self.device) for s in states])
-        if self.device.type == "cuda":
-            # work the caller enqueued before this run (key states,
-            # inputs) is visible to both of the program's streams
-            current = torch.cuda.current_stream(self.device)
-            self._copy_stream.wait_stream(current)
-            self._compute_stream.wait_stream(current)
-        chunk = _chunk_rows(self.device)
-        if chunk and n_rows > chunk and not _pallas_pack_enabled(
-                self.device):
-            return self._run_pipelined(mask_cols, pred_cols, n_rows, chunk,
-                                       states)
-        return self._run_single(mask_cols, pred_cols, n_rows, states)
+        failpoint("device.dispatch")
+        # one parent span per batch run: pack / device_dispatch /
+        # device_wait nest under it, so a chunked pipelined run reads
+        # as one causally-grouped unit in the timeline
+        with trace.span("fused_run", rows=n_rows):
+            states = (self._states if states is None else
+                      [as_key_state(s, self.device) for s in states])
+            if self.device.type == "cuda":
+                # work the caller enqueued before this run (key states,
+                # inputs) is visible to both of the program's streams
+                current = torch.cuda.current_stream(self.device)
+                self._copy_stream.wait_stream(current)
+                self._compute_stream.wait_stream(current)
+            chunk = _chunk_rows(self.device)
+            if chunk and n_rows > chunk and not _pallas_pack_enabled(
+                    self.device):
+                return self._run_pipelined(mask_cols, pred_cols, n_rows,
+                                           chunk, states)
+            return self._run_single(mask_cols, pred_cols, n_rows, states)
 
     def _stage(self, mask_cols, pred_cols, n_rows, bucket) -> _Staged:
         """Pack + encode on the host and enqueue the (async) H2D of one
@@ -255,25 +265,29 @@ class FusedMaskFilterProgram:
         overlap this chunk's transfer with the previous chunk's
         kernels."""
         devpack = _pallas_pack_enabled(self.device)
-        mask_t, mb_t = self._pack_inputs(mask_cols, n_rows, bucket,
-                                         devpack)
-        # what the raw wire ships: padded blocks and counts per masked
-        # column, each predicate column's dtype bytes and a bool map
-        raw = sum((mb * 64 + 4) * bucket for mb in mb_t)
         enc = encoding_enabled()
         specs, arrays = [], []
-        for name, (data, validity) in pred_cols.items():
-            spec, arrs = encode_pred_column(
-                name, data, validity, n_rows, bucket, enc)
-            specs.append(spec)
-            arrays.append(arrs)
-            raw += bucket * data.dtype.itemsize + bucket
-        (mask, pred), event = stage_h2d(
+        pack_t0 = _time.perf_counter()
+        with trace.span("pack"):
+            mask_t, mb_t = self._pack_inputs(mask_cols, n_rows, bucket,
+                                             devpack)
+            # what the raw wire ships: padded blocks and counts per
+            # masked column, each predicate column's dtype bytes and a
+            # bool map
+            raw = sum((mb * 64 + 4) * bucket for mb in mb_t)
+            for name, (data, validity) in pred_cols.items():
+                spec, arrs = encode_pred_column(
+                    name, data, validity, n_rows, bucket, enc)
+                specs.append(spec)
+                arrays.append(arrs)
+                raw += bucket * data.dtype.itemsize + bucket
+        stagetimer.add("pack", _time.perf_counter() - pack_t0)
+        (mask, pred), event, h2d = stage_h2d_counted(
             (tuple(mask_t), tuple(arrays)), self.device, self._copy_stream,
             raw_equiv_bytes=raw)
         pack_keep = self._pred is not None and enc
         return _Staged(mask, devpack, pred, tuple(mb_t), tuple(specs),
-                       bucket, n_rows, pack_keep, event)
+                       bucket, n_rows, pack_keep, event, h2d)
 
     @staticmethod
     def _pack_inputs(mask_cols, n_rows, bucket, devpack):
@@ -311,7 +325,12 @@ class FusedMaskFilterProgram:
         the D2H of its results; does not wait for them."""
         from transferia_tpu_torch.predicate.device import pred3vl_mask
 
-        with self._stream():
+        TELEMETRY.record_launch()
+        # times the enqueue only: nothing here waits on the card
+        with stagetimer.stage("device_dispatch"), \
+                trace.span("device_dispatch", bytes=staged.h2d,
+                           rows=staged.n_rows), \
+                self._stream():
             stream = self._compute_stream
             if stream is not None:
                 stream.wait_event(staged.h2d_done)
@@ -346,20 +365,30 @@ class FusedMaskFilterProgram:
     def _collect(self, inflight: _InFlight
                  ) -> tuple[list[np.ndarray], Optional[np.ndarray]]:
         """Wait for a launch's D2H, trim bucket padding, hex-expand."""
-        if inflight.done is not None:
-            inflight.done.synchronize()
         n_rows = inflight.n_rows
-        # digests_to_hex and unpack_mask_host allocate fresh arrays, so
-        # nothing returned aliases a (reusable) pinned buffer
-        hexes = [digests_to_hex(d.numpy().view(np.uint32)[:n_rows])
-                 for d in inflight.digests]
-        keep = None
-        if inflight.keep is not None:
-            if inflight.pack_keep:
-                keep = unpack_mask_host(
-                    inflight.keep.numpy().view(np.uint32), n_rows)
-            else:
-                keep = inflight.keep.numpy()[:n_rows].copy()
+        t0 = _time.perf_counter()
+        with stagetimer.stage("device_wait"), \
+                trace.span("device_wait") as sp:
+            if inflight.done is not None:
+                inflight.done.synchronize()
+            # digests_to_hex and unpack_mask_host allocate fresh arrays,
+            # so nothing returned aliases a (reusable) pinned buffer
+            hexes = [digests_to_hex(d.numpy().view(np.uint32)[:n_rows])
+                     for d in inflight.digests]
+            keep = None
+            if inflight.keep is not None:
+                if inflight.pack_keep:
+                    keep = unpack_mask_host(
+                        inflight.keep.numpy().view(np.uint32), n_rows)
+                else:
+                    keep = inflight.keep.numpy()[:n_rows].copy()
+            d2h = sum(int(d.nbytes) for d in inflight.digests)
+            if inflight.keep is not None:
+                d2h += int(inflight.keep.nbytes)
+            if sp:  # args must attach before the span ends
+                sp.add(bytes=d2h, rows=n_rows)
+        TELEMETRY.record_d2h(d2h)
+        TELEMETRY.record_kernel(_time.perf_counter() - t0)
         return hexes, keep
 
     def _run_single(self, mask_cols, pred_cols, n_rows, states):

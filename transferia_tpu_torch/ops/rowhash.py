@@ -46,10 +46,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.ops import _build
 from transferia_tpu_torch.ops.decode import gather_pool_accumulators
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.stats import trace
+from transferia_tpu_torch.stats.trace import TELEMETRY
 
 M32 = 0xFFFFFFFF
 # lane polynomial bases (odd => invertible mod 2^32) and null sentinels
@@ -325,6 +328,10 @@ def pool_accumulators(pool, device: DeviceLike = _CPU
             return memo
         accs = (memo[0].to(dev), memo[1].to(dev))
     else:
+        failpoint("rowhash.pool_accs")
+        # once per shared pool: worth a point event (a chaos fire at the
+        # `rowhash.pool_accs` site lands next to it on the active span)
+        trace.instant("rowhash_pool_accs", values=pool.n_values)
         data = _host_array(pool.values_data, np.uint8)
         offs = _host_array(pool.values_offsets, np.int32)
         _check_offsets(offs, len(data), "dict pool")
@@ -378,6 +385,7 @@ def prep_batch(batch: ColumnBatch, device: DeviceLike = _CPU
                         f"out of range for pool of {pool.n_values} "
                         f"values")
             a1, a2 = pool_accumulators(pool, dev)
+            TELEMETRY.record_dict_preserved()
             cols.append(_PreppedColumn(
                 name=name, kind="dict", codes=torch.from_numpy(codes),
                 acc1=a1, acc2=a2, validity=validity))

@@ -29,11 +29,13 @@ tensor.
 
 from __future__ import annotations
 
+import time as _time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import bucket_rows
 from transferia_tpu_torch.columnar.hexcol import digests_to_hex
 from transferia_tpu_torch.ops import _build
@@ -64,6 +66,8 @@ from transferia_tpu_torch.parallel.mesh import (
     wait_for_caller,
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.stats import stagetimer, trace
+from transferia_tpu_torch.stats.trace import TELEMETRY
 from transferia_tpu_torch.weights import as_key_state
 
 
@@ -190,6 +194,8 @@ class ShardedFusedProgram:
         Returns ([hex (n_rows, 64) per masked column], keep or None)."""
         if not mask_cols:
             raise ValueError("the mesh program needs a masked column")
+        failpoint("device.mesh_dispatch")
+        pack_t0 = _time.perf_counter()
         n_dev = self.n_dev
         per = bucket_rows(max(1, -(-n_rows // n_dev)))
         total = per * n_dev
@@ -242,10 +248,11 @@ class ShardedFusedProgram:
         entries.append((encode_validity_sharded(valid) if encoded else valid,
                         "shard"))
         raw_equiv += total  # the flat bool run-validity mask
+        stagetimer.add("pack", _time.perf_counter() - pack_t0)
 
         wait_for_caller(self.mesh, self._compute, self._copy)
-        views, events = stage_sharded(self.mesh, entries, self._copy,
-                                      raw_equiv)
+        views, events, h2d = stage_sharded(self.mesh, entries, self._copy,
+                                           raw_equiv)
         pin = self.device.type == "cuda"
         host_digests = [_host_buffer((total, 8), torch.int32, pin)
                         for _ in plan]
@@ -255,27 +262,44 @@ class ShardedFusedProgram:
                          if encoded else
                          _host_buffer((n_dev, per), torch.bool, pin))
         partials, done = [], []
-        for s, dev in enumerate(self.mesh.flat_devices()):
-            partials.append(self._run_shard(
-                s, dev, views[s], events[s], plan, pred_specs, per,
-                encoded, host_digests, host_keep, done))
-        reduce_stream = self._compute[0]
-        sums = sum_partials(partials, self.device, reduce_stream, done)
-        with on_stream(reduce_stream):
-            # waits for every shard: the reduce stream waited on each
-            # shard's last event before the sum
-            sums = sums.cpu().numpy()
-        self.last_shard_hist = sums[:self.n_shards].copy()
-        self.last_kept = int(sums[self.n_shards])
-        hexes = [digests_to_hex(h.numpy().view(np.uint32)[:n_rows])
-                 for h in host_digests]
-        keep = None
-        if host_keep is not None:
-            if encoded:
-                keep = unpack_mask_host(
-                    host_keep.numpy().view(np.uint32).reshape(-1), n_rows)
-            else:
-                keep = host_keep.numpy().reshape(-1)[:n_rows].copy()
+        TELEMETRY.record_launch()
+        # times the enqueue only: nothing here waits on the card
+        with stagetimer.stage("device_dispatch"), \
+                trace.span("device_dispatch", bytes=h2d, rows=n_rows,
+                           mesh=n_dev):
+            for s, dev in enumerate(self.mesh.flat_devices()):
+                partials.append(self._run_shard(
+                    s, dev, views[s], events[s], plan, pred_specs, per,
+                    encoded, host_digests, host_keep, done))
+            reduce_stream = self._compute[0]
+            sums = sum_partials(partials, self.device, reduce_stream, done)
+        t_wait0 = _time.perf_counter()
+        with stagetimer.stage("device_wait"), \
+                trace.span("device_wait") as sp:
+            with on_stream(reduce_stream):
+                # waits for every shard: the reduce stream waited on
+                # each shard's last event before the sum
+                sums = sums.cpu().numpy()
+            self.last_shard_hist = sums[:self.n_shards].copy()
+            self.last_kept = int(sums[self.n_shards])
+            hexes = [digests_to_hex(h.numpy().view(np.uint32)[:n_rows])
+                     for h in host_digests]
+            keep = None
+            if host_keep is not None:
+                if encoded:
+                    keep = unpack_mask_host(
+                        host_keep.numpy().view(np.uint32).reshape(-1),
+                        n_rows)
+                else:
+                    keep = host_keep.numpy().reshape(-1)[:n_rows].copy()
+            d2h = (sum(int(h.nbytes) for h in host_digests)
+                   + int(sums.nbytes))
+            if host_keep is not None:
+                d2h += int(host_keep.nbytes)
+            if sp:  # args must attach before the span ends
+                sp.add(bytes=d2h, rows=n_rows)
+        TELEMETRY.record_d2h(d2h)
+        TELEMETRY.record_kernel(_time.perf_counter() - t_wait0)
         return hexes, keep
 
     def _run_shard(self, s, dev, local, event, plan, pred_specs, per,

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from transferia_tpu_torch.ops import _build
-from transferia_tpu_torch.ops.dispatch import stage_h2d
+from transferia_tpu_torch.ops.dispatch import stage_h2d_counted
 from transferia_tpu_torch.ops.sha256 import _hmac_key_states, hmac_device_core
 from transferia_tpu_torch.runtime.device import (
     DeviceLike,
@@ -107,8 +107,9 @@ def stage_sharded(mesh: Mesh, entries: Sequence[tuple[object, str]],
     A shard sees its rows of a sharded array with a leading axis of 1,
     as shard_map hands each device its block.  Returns (per shard: its
     arrays in entry order, per shard: the event its staging recorded or
-    None on the CPU).  The bytes count once against `raw_equiv_bytes`
-    (ops/dispatch.py `dispatch_bytes`)."""
+    None on the CPU, the bytes staged).  The bytes count once against
+    `raw_equiv_bytes` (ops/dispatch.py `dispatch_bytes`), one `TELEMETRY`
+    transfer a physical device's staging."""
     n = mesh.size
     model = mesh.shape["model"]
 
@@ -122,19 +123,22 @@ def stage_sharded(mesh: Mesh, entries: Sequence[tuple[object, str]],
     views: list[list] = [[] for _ in range(n)]
     events: list = [None] * n
     raw = raw_equiv_bytes
+    staged_bytes = 0
     for dev, shards in mesh.shards_by_device().items():
         groups = ([shards] if len(shards) == n else [[s] for s in shards])
         for group in groups:
             host = tuple(a if len(group) == n else pick(a, kind, group[0])
                          for a, kind in entries)
-            staged, event = stage_h2d(host, dev, copy_streams.get(dev),
-                                      raw_equiv_bytes=raw)
+            staged, event, nbytes = stage_h2d_counted(
+                host, dev, copy_streams.get(dev), raw_equiv_bytes=raw,
+                what="mesh")
+            staged_bytes += nbytes
             raw = 0
             for s in group:
                 views[s] = [pick(t, kind, s) if len(group) == n else t
                             for t, (_, kind) in zip(staged, entries)]
                 events[s] = event
-    return views, events
+    return views, events, staged_bytes
 
 
 def shard_streams(mesh: Mesh) -> tuple[list, dict]:
@@ -422,9 +426,9 @@ class ShardedTransformStep:
                    (ages.reshape(d_n, n_l), "data"),
                    (np.ascontiguousarray(scores).reshape(d_n, n_l), "data"))
         wait_for_caller(mesh, self._compute, self._copy)
-        views, events = stage_sharded(mesh, entries, self._copy,
-                                      blk.nbytes + nbk.nbytes + ages.nbytes
-                                      + scores.nbytes)
+        views, events, _ = stage_sharded(
+            mesh, entries, self._copy,
+            blk.nbytes + nbk.nbytes + ages.nbytes + scores.nbytes)
         results, done = [], []
         for s, dev in enumerate(mesh.flat_devices()):
             stream = self._compute[s]

@@ -1,6 +1,10 @@
 """Parse -> push -> ack pipeline (the port's copy of
-``transferia_tpu/parsequeue/queue.py``; its trace spans and the
-`parsequeue.parse` failpoint are telemetry and wait: ROADMAP.md A5)."""
+``transferia_tpu/parsequeue/queue.py``, with its `parsequeue.parse`
+failpoint and its `source_decode` and `sink_wait` spans).
+
+A unit's trace context rides with it from `add` onto the parse worker
+and the pusher, so both spans parent to the span that added the unit
+(the replication attempt)."""
 
 from __future__ import annotations
 
@@ -10,6 +14,8 @@ import threading
 from typing import Any, Callable, Generic, Optional, TypeVar
 
 from transferia_tpu_torch.abstract.interfaces import AsyncSink
+from transferia_tpu_torch.chaos.failpoints import failpoint
+from transferia_tpu_torch.stats import trace
 
 logger = logging.getLogger(__name__)
 
@@ -58,9 +64,10 @@ class ParseQueue(Generic[T]):
         if self._closed:
             raise RuntimeError("parsequeue closed")
         self._inflight.acquire()
-        parse_fut = self._pool.submit(self.parse_fn, raw)
+        ctx = trace.current_context()
+        parse_fut = self._pool.submit(self._safe_parse, raw, ctx)
         with self._cv:
-            self._queue.append((raw, parse_fut))
+            self._queue.append((raw, parse_fut, ctx))
             self._outstanding += 1
             self._cv.notify_all()
 
@@ -78,6 +85,13 @@ class ParseQueue(Generic[T]):
         return self._failure
 
     # -- internals ----------------------------------------------------------
+    def _safe_parse(self, raw: T, ctx):
+        # the parser layer runs here (parse workers): decode raw broker
+        # messages into batches — the source_decode stage of the timeline
+        failpoint("parsequeue.parse")
+        with trace.adopted(ctx), trace.span("source_decode"):
+            return self.parse_fn(raw)
+
     def _push_loop(self) -> None:
         while True:
             with self._cv:
@@ -87,7 +101,7 @@ class ParseQueue(Generic[T]):
                     if self._closed:
                         return
                     continue
-                raw, parse_fut = self._queue.pop(0)
+                raw, parse_fut, ctx = self._queue.pop(0)
             err: Optional[BaseException] = self._failure
             if err is None:
                 # once failed, drain without pushing: pushing N+1 after N
@@ -96,12 +110,18 @@ class ParseQueue(Generic[T]):
                     parsed = parse_fut.result()
                     batches = parsed if isinstance(parsed, list) \
                         else [parsed]
-                    futs = []
-                    for b in batches:
-                        if b is not None and _batch_len(b):
-                            futs.append(self.sink.async_push(b))
-                    for f in futs:
-                        f.result()
+                    # "sink_wait", not "sink_push": the actual push
+                    # executes (and is spanned) inside the async sink's
+                    # own worker — this span is the ordered-delivery
+                    # wait, and naming them apart keeps the stage
+                    # summary from double-counting the push
+                    with trace.adopted(ctx), trace.span("sink_wait"):
+                        futs = []
+                        for b in batches:
+                            if b is not None and _batch_len(b):
+                                futs.append(self.sink.async_push(b))
+                        for f in futs:
+                            f.result()
                 except BaseException as e:
                     err = e
             try:

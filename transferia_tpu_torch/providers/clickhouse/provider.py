@@ -34,6 +34,7 @@ from transferia_tpu_torch.abstract.schema import (
     TableID,
     TableSchema,
 )
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.models.endpoint import (
     CleanupPolicy,
@@ -59,6 +60,7 @@ from transferia_tpu_torch.providers.staging import (
     stage_ident_prefix,
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.typesystem.rules import (
     map_target_type,
     register_target_rules,
@@ -314,6 +316,9 @@ class CHSinker(Sinker, StagedSinker):
             prev = self._fence_epoch(stage.slug)
             if prev is not None and epoch < prev:
                 raise StaleEpochPublishError(key, epoch, prev)
+            trace.instant("ch_publish_partition", part=key, epoch=epoch,
+                          rows=stage.state.rows)
+            failpoint("sink.ch.publish")
             if stage.schema is not None:
                 final = ch_table_name(stage.tid)
                 self.client.execute(ddl_for_schema(

@@ -55,7 +55,9 @@ from transferia_tpu_torch.providers.registry import (
     register_provider,
 )
 from transferia_tpu_torch.runtime.limits import effective_cpus
-from transferia_tpu_torch.stats import stagetimer
+from transferia_tpu_torch.chaos.failpoints import failpoint
+from transferia_tpu_torch.stats import stagetimer, trace
+from transferia_tpu_torch.stats.registry import DeviceStats
 
 NOT_PORTED = "not ported to transferia_tpu_torch yet (ROADMAP.md A10)"
 
@@ -110,7 +112,8 @@ def _expand(path: str) -> list[str]:
 
 
 class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
-    def __init__(self, params: FileSourceParams, upload_workers: int = 1):
+    def __init__(self, params: FileSourceParams, metrics=None,
+                 upload_workers: int = 1):
         if params.format != "parquet":
             raise NotImplementedError(
                 f"fs source format {params.format!r}: {NOT_PORTED}")
@@ -122,6 +125,11 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
         self._pruned_lock = threading.Lock()
         self.scan_rows_pruned = 0
         self._upload_workers = max(1, upload_workers)
+        self._readahead_gauges = None
+        if metrics is not None:
+            ds = DeviceStats(metrics)
+            self._readahead_gauges = (ds.readahead_depth,
+                                      ds.readahead_bytes)
 
     # -- decode-pipeline knob resolution ------------------------------------
     def _decode_threads(self) -> int:
@@ -283,7 +291,10 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
                                      decode_threads=self._decode_threads())
 
         def decode(g):
-            with stagetimer.stage("source_decode"):
+            # the reference books this decode in the stage timer only;
+            # the span names the same stage so a trace shows it too
+            with stagetimer.stage("source_decode"), \
+                    trace.span("source_decode", group=g):
                 return reader.read_row_group(g)
 
         def cols_nbytes(cols):
@@ -292,7 +303,7 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
         with RowGroupReadahead(
                 groups, decode, max_groups=self._readahead_groups(),
                 max_bytes=self.params.readahead_bytes or None,
-                nbytes=cols_nbytes) as ra:
+                nbytes=cols_nbytes, gauges=self._readahead_gauges) as ra:
             for g, cols in ra:
                 n = meta.row_groups[g].num_rows
                 for b_lo in range(0, n, self.params.batch_rows):
@@ -308,8 +319,11 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
 
     def _load_row_groups(self, path: str, lo: int, hi: int, tid: TableID,
                          schema: TableSchema, pusher: Pusher) -> None:
+        failpoint("storage.file.open")
         meta = parquet_metadata(path)
         groups = self._prune_row_groups(meta, list(range(lo, hi)), tid)
+        trace.instant("file_part_open", path=path, lo=lo, hi=hi,
+                      groups=len(groups))
         if not groups:
             return
         if self._has_huge_row_groups(meta, groups):
@@ -326,7 +340,7 @@ class FileProvider(Provider):
 
     def storage(self):
         return FileStorage(
-            self.transfer.src,
+            self.transfer.src, metrics=self.metrics,
             upload_workers=self.transfer.runtime.sharding.process_count)
 
     def sinker(self):

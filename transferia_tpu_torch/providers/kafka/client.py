@@ -15,9 +15,9 @@ Transactions: the KIP-98 subset the staged-commit Kafka sink speaks
 (`init_producer`, InitProducerId v3 proposing the part's epoch, and
 `txn_produce`, one Produce v3 carrying the transactional id); a fenced
 producer surfaces as a KafkaError that `is_producer_fenced` names.  TLS
-and SASL wait (ROADMAP.md A10) and raise NotImplementedError.  The
-reference's `kafka_roundtrip` span and `client.kafka.roundtrip`
-failpoint are telemetry and wait too (A5).
+and SASL wait (ROADMAP.md A10) and raise NotImplementedError.  Every
+request is one `kafka_roundtrip` span behind the
+`client.kafka.roundtrip` failpoint, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import threading
 from typing import Optional
 
 from transferia_tpu_torch.abstract.errors import CategorizedError
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.providers.kafka.protocol import (
     Reader,
     Record,
@@ -37,6 +38,7 @@ from transferia_tpu_torch.providers.kafka.protocol import (
     enc_str,
     encode_record_batch,
 )
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.utils.net import recv_exact
 
 logger = logging.getLogger(__name__)
@@ -141,7 +143,8 @@ class KafkaClient:
 
     def _roundtrip(self, api_key: int, api_version: int, body: bytes,
                    node="boot") -> Reader:
-        with self._lock:
+        failpoint("client.kafka.roundtrip")  # before the lock: may sleep
+        with trace.span("kafka_roundtrip", api=api_key), self._lock:
             sock = self._conn_for(node)
             self._corr += 1
             corr = self._corr

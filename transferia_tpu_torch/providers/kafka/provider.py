@@ -8,9 +8,9 @@ coordinator after the push (at-least-once).  The sink serializes batches
 host-library call (`crc32c_batch`), or the column hash under
 `partition_by`; with a staged part open it buffers the part's records
 and publishes them in one transactional produce.  The partitioned (Kafka
--> object storage) strategy waits (ROADMAP.md A9).  The reference's
-`kafka_publish_txn` instant and `sink.kafka.publish` failpoint are
-telemetry and wait too (A5).
+-> object storage) strategy waits (ROADMAP.md A9).  A publish records
+the reference's `kafka_publish_txn` instant behind the
+`sink.kafka.publish` failpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from transferia_tpu_torch.abstract.interfaces import (
     Sinker,
     is_columnar,
 )
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.coordinator.interface import Coordinator
 from transferia_tpu_torch.models.endpoint import (
     EndpointParams,
@@ -59,6 +60,7 @@ from transferia_tpu_torch.providers.staging import (
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
 from transferia_tpu_torch.serializers import make_queue_serializer
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.transform.plugins.sharder import (
     hash_column_to_shards,
 )
@@ -331,6 +333,9 @@ class KafkaSinker(Sinker, StagedSinker):
             raise RuntimeError(f"kafka sink: no open stage for {key!r}")
         with publish_guard(key, epoch):
             txn_id = f"trtpu.{part_slug(key)}"
+            trace.instant("kafka_publish_txn", part=key, epoch=epoch,
+                          rows=stage.rows)
+            failpoint("sink.kafka.publish")
             try:
                 pid, accepted = self.client.init_producer(txn_id, epoch)
                 self.client.txn_produce(txn_id, pid, accepted,
@@ -377,7 +382,8 @@ class KafkaProvider(Provider):
                                        self.coordinator)
             return QueueSource(client, p.parser,
                                parallelism=p.parallelism,
-                               metrics=self.metrics)
+                               metrics=self.metrics,
+                               transfer_id=self.transfer.id)
         return None
 
     def sinker(self):

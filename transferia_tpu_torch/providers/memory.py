@@ -33,7 +33,11 @@ from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
 )
-from transferia_tpu_torch.providers.staging import EpochFence, PartStage
+from transferia_tpu_torch.providers.staging import (
+    EpochFence,
+    PartStage,
+    publish_guard,
+)
 from transferia_tpu_torch.runtime.device import DeviceLike
 
 # sink_id -> captured store; source_id -> seeded batches
@@ -82,7 +86,7 @@ class MemoryStore:
 
     def publish_stage(self, key: str, epoch: int) -> tuple[int, int]:
         """Returns (rows published, dedup-window rows dropped)."""
-        with self.lock:
+        with publish_guard(key, epoch), self.lock:
             stage = self._staged.get((key, epoch))
             if stage is None:
                 raise RuntimeError(

@@ -32,6 +32,7 @@ import numpy as np
 
 from transferia_tpu_torch import native
 from transferia_tpu_torch.abstract.schema import CanonicalType, TableSchema
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import Column, DictEnc, DictPool
 from transferia_tpu_torch.providers.parquet_meta import (
     BOOLEAN,
@@ -46,6 +47,8 @@ from transferia_tpu_torch.providers.parquet_meta import (
     file_key,
     shared_memmap,
 )
+from transferia_tpu_torch.stats import trace
+from transferia_tpu_torch.stats.trace import TELEMETRY
 
 # one decoded dict page -> one DictPool, shared by every reader of it: a
 # part re-decoding the same page reuses the pool, keyed by (path, mtime,
@@ -251,22 +254,29 @@ class NativeParquetReader:
     def _adopt_dict_page(self, cs, n_pool: int, data: np.ndarray,
                          offsets: np.ndarray, dict_off: int) -> DictPool:
         """A decoded dict page as a DictPool (one per page, shared)."""
+        failpoint("decode.dict_adopt")
         page_key = (self._file_key + (cs.name, dict_off)
                     if dict_off >= 0 else None)
         if page_key is not None:
             with _PAGE_POOL_LOCK:
                 hit = _PAGE_POOL_CACHE.get(page_key)
             if hit is not None:
+                TELEMETRY.record_pool_share_hit()
                 return hit
         # a trailing empty slot is the null sentinel (null rows decode
         # to code n_pool)
         pool_off = np.append(offsets[:n_pool + 1],
                              offsets[n_pool]).astype(np.int32)
         pool_bytes = int(offsets[n_pool])
+        trace.instant("dict_adopt", col=cs.name, values=n_pool,
+                      bytes=pool_bytes)
         pool_data = data[:pool_bytes]
-        if pool_bytes * 2 < data.nbytes \
-                or data.nbytes - pool_bytes > _POOL_PIN_MAX_WASTE:
+        waste = int(data.nbytes) - pool_bytes
+        if pool_bytes * 2 < data.nbytes or waste > _POOL_PIN_MAX_WASTE:
+            TELEMETRY.record_pool_buffer(copied=pool_bytes)
             pool_data = pool_data.copy()
+        else:
+            TELEMETRY.record_pool_buffer(pinned=waste)
         pool = DictPool(pool_data, pool_off, null_code=n_pool)
         if page_key is not None:
             with _PAGE_POOL_LOCK:
@@ -382,6 +392,7 @@ class NativeParquetReader:
     # -- public --------------------------------------------------------------
     def read_row_group(self, g: int) -> dict[str, Column]:
         """All schema columns of one row group."""
+        failpoint("decode.native.rowgroup")
         template, specs = self._rg_tasks(g)
         tasks = template.copy()
         holds: list[tuple] = []
@@ -405,7 +416,9 @@ class NativeParquetReader:
             else:
                 val = None
             holds.append((bufs, val))
-        self._decode_tasks(tasks, len(specs))
+        with trace.span("native_rowgroup_decode", group=g,
+                        cols=len(specs)):
+            self._decode_tasks(tasks, len(specs))
         cols: dict[str, Column] = {}
         refused_with_dict: list = []
         for i, (cs, kind, ow, n, max_def, cap, view_dt, dict_off,

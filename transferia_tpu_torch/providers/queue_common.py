@@ -4,8 +4,8 @@
 A broker provider composes:
   reader (broker client) -> Sequencer -> ParseQueue(parser) -> AsyncSink
                                ^ offsets commit only after a confirmed push
-The reference's `replication.pump` failpoint, trace instant and poll
-watermark in `pump_checkpoint` are telemetry and wait (ROADMAP.md A5).
+`pump_checkpoint` carries the reference's `replication.pump`
+failpoint, trace instant and poll watermark.
 """
 
 from __future__ import annotations
@@ -17,9 +17,12 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 from transferia_tpu_torch.abstract.interfaces import AsyncSink, Source
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.parsequeue import ParseQueue
 from transferia_tpu_torch.parsers import Message, Parser, make_parser
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.stats.registry import Metrics, SourceStats
+from transferia_tpu_torch.stats.watermark import POLL_PREFIX, WATERMARKS
 
 logger = logging.getLogger(__name__)
 
@@ -69,10 +72,29 @@ class FetchedBatch:
         return [m.offset for m in self.messages]
 
 
-def pump_checkpoint(fb: FetchedBatch, stats: SourceStats) -> None:
-    """Per-fetched-batch pump bookkeeping: the source counters."""
-    stats.changeitems.inc(len(fb.messages))
-    stats.read_bytes.inc(sum(len(m.value) for m in fb.messages))
+def pump_checkpoint(fb: FetchedBatch,
+                    stats: Optional[SourceStats] = None,
+                    transfer_id: str = "") -> None:
+    """Per-fetched-batch pump bookkeeping: the `replication.pump`
+    failpoint (a kill between fetch and enqueue, which the resuming pump
+    must absorb by restarting from its last committed offset), the trace
+    instant, the source counters and the poll watermark."""
+    failpoint("replication.pump")
+    trace.instant("replication_pump", topic=fb.topic,
+                  partition=fb.partition,
+                  messages=len(fb.messages))
+    if stats is not None:
+        stats.changeitems.inc(len(fb.messages))
+        stats.read_bytes.inc(sum(len(m.value) for m in fb.messages))
+    if transfer_id:
+        # poll watermark: the newest broker write time seen for this
+        # partition — the stand-in event time for batches whose
+        # parser drops it
+        wm = max((m.write_time_ns for m in fb.messages), default=0)
+        if wm:
+            WATERMARKS.advance(
+                transfer_id, f"{POLL_PREFIX}{fb.topic}:{fb.partition}",
+                event_ns=wm, origin="poll")
 
 
 class QueueSource(Source):
@@ -85,7 +107,7 @@ class QueueSource(Source):
     """
 
     def __init__(self, client, parser_config, parallelism: int = 4,
-                 metrics: Optional[Metrics] = None):
+                 metrics: Optional[Metrics] = None, transfer_id: str = ""):
         self.client = client
         self.parser: Parser = make_parser(parser_config) \
             if parser_config else make_parser({"blank": {}})
@@ -93,6 +115,7 @@ class QueueSource(Source):
         self.stats = SourceStats(metrics or Metrics())
         self.sequencer = Sequencer()
         self._stop = threading.Event()
+        self.transfer_id = transfer_id
 
     def run(self, sink: AsyncSink) -> None:
         def parse(fb: FetchedBatch):
@@ -125,7 +148,7 @@ class QueueSource(Source):
                     self._stop.wait(STOP_POLL_SECONDS)
                     continue
                 for fb in fetched:
-                    pump_checkpoint(fb, self.stats)
+                    pump_checkpoint(fb, self.stats, self.transfer_id)
                     self.sequencer.start_processing(
                         fb.topic, fb.partition, fb.offsets()
                     )

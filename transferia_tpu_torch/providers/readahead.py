@@ -24,9 +24,11 @@ processes.
 - `max_groups <= 1` (or a single group) degrades to inline decode on
   the caller's thread — zero new threads, exactly the serial behavior.
 
-Consumer stalls are booked as the `decode_wait` stage.  The reference's
-trace spans, resource-ledger hops, failpoint, gauges and process-wide
-aggregates come with the telemetry slice (ROADMAP.md A5).
+Observability: each prefetch decode runs inside a `decode_readahead`
+trace span on the worker thread, which adopts the submitter's trace
+context and ledger scope; consumer stalls are accounted as a
+`decode_wait` stage and ledger seconds; queue depth and in-flight
+decoded bytes feed optional gauges (stats/registry.py DeviceStats).
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ import threading
 import time
 from collections import deque
 from typing import Callable, Iterable, Optional
-
-from transferia_tpu_torch.stats import stagetimer
 
 
 class RowGroupReadahead:
@@ -47,18 +47,24 @@ class RowGroupReadahead:
             ...push item's batches downstream...
 
     `decode(g)` runs on the worker thread (it must release the GIL to
-    be useful); `nbytes(item)` sizes an item for the byte cap.
+    be useful, as the native parquet decoder does);
+    `nbytes(item)` sizes an item for the byte cap and the gauges.
+    `gauges` is an optional (depth_gauge, bytes_gauge) pair with
+    inc/dec semantics (inc/dec compose across concurrent prefetchers
+    where set() would fight).
     """
 
     def __init__(self, groups: Iterable, decode: Callable,
                  *, max_groups: int = 2,
                  max_bytes: Optional[int] = None,
-                 nbytes: Optional[Callable] = None):
+                 nbytes: Optional[Callable] = None,
+                 gauges: Optional[tuple] = None):
         self._groups = list(groups)
         self._decode = decode
         self._max_groups = max_groups
         self._max_bytes = max_bytes
         self._nbytes = nbytes
+        self._gauges = gauges
         self._cond = threading.Condition()
         self._queue: deque = deque()  # (group, item, nbytes)
         self._inflight_bytes = 0
@@ -68,6 +74,15 @@ class RowGroupReadahead:
         self._done = False
         self._pos = 0  # inline-mode cursor
         self._thread: Optional[threading.Thread] = None
+        # causal hop: the worker thread's decode spans must parent to
+        # the span that SUBMITTED the prefetch (the part span), and its
+        # resource events must bill the same (transfer, tenant, part)
+        # — capture both here, adopt them in _run
+        from transferia_tpu_torch.stats import trace as _trace
+        from transferia_tpu_torch.stats.ledger import LEDGER as _ledger
+
+        self._trace_ctx = _trace.current_context()
+        self._ledger_key = _ledger.current_key()
         # max_groups=1 can never overlap (the cap counts the group the
         # consumer holds, stalling the worker whenever the consumer is
         # busy) — inline serial decode is strictly better there too
@@ -92,6 +107,15 @@ class RowGroupReadahead:
                 and self._inflight_bytes >= self._max_bytes)
 
     def _run(self) -> None:
+        from transferia_tpu_torch.chaos.failpoints import failpoint
+        from transferia_tpu_torch.stats import trace
+        from transferia_tpu_torch.stats.ledger import LEDGER
+
+        with trace.adopted(self._trace_ctx), \
+                LEDGER.adopted(self._ledger_key):
+            self._run_adopted(failpoint, trace)
+
+    def _run_adopted(self, failpoint, trace) -> None:
         try:
             for g in self._groups:
                 with self._cond:
@@ -99,13 +123,19 @@ class RowGroupReadahead:
                         self._cond.wait()
                     if self._closed:
                         return
-                item = self._decode(g)
+                failpoint("decode.readahead.worker")
+                sp = trace.span("decode_readahead")
+                if sp:
+                    sp.add(group=g)
+                with sp:
+                    item = self._decode(g)
                 nb = int(self._nbytes(item)) if self._nbytes else 0
                 with self._cond:
                     if self._closed:
                         return  # consumer bailed mid-decode: drop
                     self._queue.append((g, item, nb))
                     self._inflight_bytes += nb
+                    self._account_enqueue_locked(nb)
                     self._cond.notify_all()
         except BaseException as e:  # re-raised on the consumer thread
             with self._cond:
@@ -116,6 +146,12 @@ class RowGroupReadahead:
                 self._done = True
                 self._cond.notify_all()
 
+    def _account_enqueue_locked(self, nb: int) -> None:
+        if self._gauges is not None:
+            self._gauges[0].inc()
+            if nb:
+                self._gauges[1].inc(nb)
+
     # -- consumer ----------------------------------------------------------
     def _release_handed_locked(self) -> None:
         if self._handed is None:
@@ -123,6 +159,8 @@ class RowGroupReadahead:
         _, nb = self._handed
         self._handed = None
         self._inflight_bytes -= nb
+        if self._gauges is not None and nb:
+            self._gauges[1].dec(nb)
 
     def __iter__(self) -> "RowGroupReadahead":
         return self
@@ -139,6 +177,8 @@ class RowGroupReadahead:
                     if self._queue:
                         g, item, nb = self._queue.popleft()
                         self._handed = (g, nb)
+                        if self._gauges is not None:
+                            self._gauges[0].dec()
                         break
                     if self._error is not None:
                         raise self._error
@@ -149,12 +189,16 @@ class RowGroupReadahead:
                     waited += time.perf_counter() - t0
         finally:
             if waited:
+                from transferia_tpu_torch.stats import stagetimer
+                from transferia_tpu_torch.stats.ledger import LEDGER
+
                 stagetimer.add("decode_wait", waited)
+                LEDGER.add(decode_wait_seconds=waited)
         return g, item
 
     def _next_inline(self) -> tuple:
-        # serial: no worker, no queue — decode on demand.  The error and
-        # cancel semantics hold trivially (decode raises in place;
+        # serial fallback: no worker, no queue — decode on demand.  The
+        # error/cancel semantics hold trivially (decode raises in place;
         # close() just ends iteration).
         if self._closed or self._pos >= len(self._groups):
             raise StopIteration
@@ -178,6 +222,10 @@ class RowGroupReadahead:
             while self._queue:
                 _g, _item, nb = self._queue.popleft()
                 self._inflight_bytes -= nb
+                if self._gauges is not None:
+                    self._gauges[0].dec()
+                    if nb:
+                        self._gauges[1].dec(nb)
 
     def __enter__(self) -> "RowGroupReadahead":
         return self

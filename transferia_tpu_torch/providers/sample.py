@@ -32,6 +32,7 @@ from transferia_tpu_torch.abstract.schema import (
     new_table_schema,
 )
 from transferia_tpu_torch.abstract.table import TableDescription
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import (
     Column,
     ColumnBatch,
@@ -47,6 +48,8 @@ from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
 )
+from transferia_tpu_torch.runtime import lockwatch
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.typesystem.rules import register_source_rules
 
 
@@ -107,7 +110,7 @@ def _utf8_column(name: str, values: np.ndarray) -> Column:
 # references the same DictPool and its memos (the hexed HMAC pool, the
 # fingerprint's per-entry accumulators) amortize across the transfer
 _DICT_POOLS: dict[str, DictPool] = {}
-_DICT_POOL_LOCK = threading.Lock()
+_DICT_POOL_LOCK = lockwatch.named_lock("pool.sample_dict")
 
 
 def _shared_pool(key: str, values: list[str]) -> DictPool:
@@ -242,6 +245,7 @@ class SampleStorage(Storage, ShardingStorage):
         return out
 
     def load_table(self, table: TableDescription, pusher: Pusher) -> None:
+        failpoint("storage.part.open")
         if table.filter.startswith("rows:"):
             _, lo_s, hi_s = table.filter.split(":")
             lo, hi = int(lo_s), int(hi_s)
@@ -250,9 +254,14 @@ class SampleStorage(Storage, ShardingStorage):
         bs = self.params.batch_rows
         for start in range(lo, hi, bs):
             n = min(bs, hi - start)
-            batch = make_batch(self.params.preset, table.id, start, n,
-                               self.params.seed,
-                               dict_encode=self.params.dict_encode)
+            failpoint("storage.part.read")
+            sp = trace.span("source_decode")
+            if sp:
+                sp.add(rows=n)
+            with sp:
+                batch = make_batch(self.params.preset, table.id, start, n,
+                                   self.params.seed,
+                                   dict_encode=self.params.dict_encode)
             # synthetic data's event time is its generation instant,
             # stamped on the read path (make_batch stays deterministic)
             batch.commit_times = np.full(n, time.time_ns(),

@@ -17,9 +17,9 @@ parts of ``transferia_tpu/providers/staging.py`` the memory sink uses).
   `META_COLUMN`, `COMMITS_TABLE`) serve the wire sinks (ClickHouse):
   a part stages into its own table and publish swaps it in.
 
-The reference's `sink.stage`/`sink.publish` failpoints and spans are
-telemetry and are not ported (ROADMAP.md A5); `publish_guard` keeps the
-one call site they hang on.
+`PartStage.stage` owns the `sink.stage` failpoint and the `sink_stage`
+span; `publish_guard` wraps every publish with the `sink.publish`
+failpoint and the `sink_publish` span, as in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ import numpy as np
 
 from transferia_tpu_torch.abstract.errors import StaleEpochPublishError
 from transferia_tpu_torch.abstract.interfaces import Batch, is_columnar
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.stats import trace
+from transferia_tpu_torch.stats.ledger import LEDGER
 
 # cap on the row keys remembered from the last staged push (past it the
 # window stops matching: duplicates land and the at-least-once bound
@@ -134,35 +137,46 @@ class PartStage:
         self._window.arm_replay()
 
     def stage(self, batch: Batch) -> Batch:
-        """Dedup one pushed batch against the window, count it and (when
-        holding) keep it."""
+        """Fire the `sink.stage` failpoint (a fault here must fail the
+        push with nothing newly visible), dedup one pushed batch against
+        the window, count it and (when holding) keep it."""
         if self.poisoned:
             raise ConnectionError(
                 f"stage for {self.key!r} poisoned by an earlier staging "
                 f"failure; the part must restage from scratch")
-        batch, dropped = self._window.filter(batch)
-        self.dedup_dropped += dropped
-        self.rows += batch.n_rows if is_columnar(batch) else sum(
-            1 for it in batch if it.is_row_event())
-        if self.hold:
-            self.batches.append(batch)
+        failpoint("sink.stage")
+        sp = trace.span("sink_stage", part=self.key, epoch=self.epoch)
+        with sp:
+            batch, dropped = self._window.filter(batch)
+            if dropped:
+                self.dedup_dropped += dropped
+                LEDGER.add(dedup_rows_dropped=dropped)
+            n = batch.n_rows if is_columnar(batch) else sum(
+                1 for it in batch if it.is_row_event())
+            self.rows += n
+            if sp:
+                sp.add(rows=n, dedup_dropped=dropped)
+            if self.hold:
+                self.batches.append(batch)
         return batch
 
 
 class publish_guard:
-    """Context manager every wire `publish_part` enters: the one call
-    site of the reference's `sink.publish` failpoint and span, which are
-    telemetry and wait (ROADMAP.md A5)."""
+    """Context manager every `publish_part` implementation enters:
+    fires the `sink.publish` failpoint (a fault here must leave the
+    target either fully unpublished or fully replaced — never torn) and
+    records the publish as a trace span."""
 
     def __init__(self, key: str, epoch: int):
-        self.key = key
-        self.epoch = epoch
+        self._sp = trace.span("sink_publish", part=key, epoch=epoch)
+        failpoint("sink.publish")
 
     def __enter__(self):
-        return self
+        self._sp.__enter__()
+        return self._sp
 
     def __exit__(self, *exc):
-        return False
+        return self._sp.__exit__(*exc)
 
 
 def part_slug(key: str) -> str:

@@ -8,9 +8,11 @@ restart after a fixed backoff) with a heartbeat.
 fused steps): None means CUDA, which must be present; "cpu" runs the
 kernels' plain versions.  The partitioned strategy (Kafka -> object
 storage, one pipeline a partition) and the cron-driven regular snapshot
-raise NotImplementedError (ROADMAP.md A9); the reference's root trace
-span, device-counter and ledger folds and observability export on the
-heartbeat are telemetry and wait too.
+raise NotImplementedError (ROADMAP.md A9).  An attempt is one
+`replication_attempt` root span; the heartbeat folds the device
+counters and the ledger into the pipeline's metrics.  The reference's
+observability-segment export and SLO verdicts on the heartbeat wait for
+the coordinator's segments (ROADMAP.md A5, A9).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from transferia_tpu_torch.coordinator.interface import (
 from transferia_tpu_torch.factories import make_async_sink, new_source
 from transferia_tpu_torch.middlewares.asynchronizer import ErrorTracker
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.stats import trace
+from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import Metrics, ReplicationStats
 
 logger = logging.getLogger(__name__)
@@ -57,10 +61,16 @@ class LocalWorker:
         self.sink = make_async_sink(self.transfer, self.metrics,
                                     snapshot_stage=False,
                                     device=self.device)
+        # root span for the whole attempt: per-batch spans recorded by
+        # parsequeue / middlewares on worker threads share its timeline
+        sp = trace.span("replication_attempt")
+        if sp:
+            sp.add(transfer_id=self.transfer.id)
         try:
             self.source = new_source(self.transfer, self.metrics,
                                      coordinator=self.cp)
-            self.source.run(self.sink)
+            with sp:
+                self.source.run(self.sink)
             # surface sink-side failures latched by the error tracker
             if isinstance(self.sink, ErrorTracker) and self.sink.failure:
                 raise self.sink.failure
@@ -119,7 +129,7 @@ def run_replication(transfer, coordinator: Coordinator,
         stopper.start()
         heartbeat = threading.Thread(
             target=_heartbeat_loop,
-            args=(stop_event, coordinator, transfer.id),
+            args=(stop_event, coordinator, transfer.id, metrics),
             daemon=True,
         )
         heartbeat.start()
@@ -160,6 +170,11 @@ def _stop_on_event(stop_event: threading.Event, worker: LocalWorker) -> None:
 
 
 def _heartbeat_loop(stop_event: threading.Event, cp: Coordinator,
-                    transfer_id: str) -> None:
+                    transfer_id: str, metrics: Metrics) -> None:
     while not stop_event.wait(HEARTBEAT_SECONDS):
         cp.transfer_health(transfer_id, healthy=True)
+        # device counters ride the heartbeat onto this pipeline's
+        # metrics so long replications expose them; the attribution
+        # ledger folds on the same heartbeat
+        trace.TELEMETRY.fold_into(metrics)
+        LEDGER.fold_into(metrics)

@@ -5,8 +5,7 @@ concurrency threshold and ordered parallel chunking.
 Chunked thread concurrency pays off for encoders that leave the GIL
 (zlib, bytes joins) and for the Debezium emitter's per-row packing;
 pure-Python json loops gain little but keep the same ordered-merge
-semantics.  The reference's `trace.span("serialize")` around each call
-is telemetry and waits (ROADMAP.md A5).
+semantics.  Each call is one `serialize` span, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from transferia_tpu_torch.serializers.formats import (
     QueueSerializer,
     _rows_of,
 )
+from transferia_tpu_torch.stats import trace
 
 logger = logging.getLogger(__name__)
 
@@ -76,7 +76,12 @@ class ConcurrentBatchSerializer(BatchSerializer):
         self._buffers = BufferPool(self.concurrency)
 
     def serialize(self, batch: Batch) -> bytes:
-        return self._serialize_rows(_rows_of(batch))
+        rows = _rows_of(batch)
+        sp = trace.span("serialize")
+        if sp:
+            sp.add(rows=len(rows))
+        with sp:
+            return self._serialize_rows(rows)
 
     def _serialize_rows(self, rows) -> bytes:
         if self.concurrency < 2 or len(rows) <= self.threshold:
@@ -125,7 +130,12 @@ class ConcurrentQueueSerializer(QueueSerializer):
         return self._inners[i]
 
     def serialize_messages(self, batch: Batch):
-        return self._serialize_rows(_rows_of(batch))
+        rows = _rows_of(batch)
+        sp = trace.span("serialize")
+        if sp:
+            sp.add(rows=len(rows))
+        with sp:
+            return self._serialize_rows(rows)
 
     def _serialize_rows(self, rows):
         if self.concurrency < 2 or len(rows) <= self.threshold:

@@ -6,8 +6,9 @@ The JAX package registers its metrics with prometheus_client when that
 package is present and falls back to local counters otherwise; the port
 keeps only the local counters, under the same metric names, so a
 bundle's readings (`Metrics.value`) compare one to one with the
-reference's.  The telemetry bundles (device, interchange, fleet, SLO,
-MVCC) come with the telemetry slice.
+reference's.  `DeviceStats` and `ChaosStats` are the telemetry
+plane's bundles; the interchange, fleet, SLO and MVCC bundles come
+with those modules.
 """
 
 from __future__ import annotations
@@ -145,6 +146,98 @@ class TransformStats(_Bundle):
         self.errors = self.m.counter("transform_error_rows")
         self.time = self.m.histogram("transform_time")
         self.compiles = self.m.counter("transform_plan_compiles")
+
+
+class DeviceStats(_Bundle):
+    """Device-link counters (stats/trace.py DeviceTelemetry folds its
+    deltas in here: H2D/D2H bytes and transfer counts, launches, kernel
+    builds, kernel wall time).  The metric names are the reference's,
+    `device_xla_compiles` included, so the two registries read alike;
+    in the port a "compile" is one `nvcc` kernel build."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.h2d_bytes = self.m.counter("device_h2d_bytes")
+        self.h2d_transfers = self.m.counter("device_h2d_transfers")
+        self.d2h_bytes = self.m.counter("device_d2h_bytes")
+        self.d2h_transfers = self.m.counter("device_d2h_transfers")
+        self.launches = self.m.counter("device_launches")
+        self.compiles = self.m.counter("device_xla_compiles")
+        self.compile_seconds = self.m.counter("device_xla_compile_seconds")
+        self.kernel_seconds = self.m.counter("device_kernel_seconds")
+        # decode-pipeline readahead (providers/readahead.py): prefetch
+        # queue depth and in-flight decoded bytes — host-side gauges,
+        # but they live with the link physics because overlapping host
+        # decode with device dispatch is what the prefetcher buys
+        self.readahead_depth = self.m.gauge("decode_readahead_depth")
+        self.readahead_bytes = self.m.gauge(
+            "decode_readahead_inflight_bytes")
+        # compressed dispatch plane (ops/dispatch.py): encoded vs
+        # raw-equivalent H2D bytes — the ratio gauge IS the plane's
+        # honesty metric (a "compressed" wire showing ~1.0 is shipping
+        # flat buffers after all) — plus dict-pool residency counters
+        self.h2d_encoded_bytes = self.m.counter("h2d_encoded_bytes")
+        self.h2d_raw_equiv_bytes = self.m.counter("h2d_raw_equiv_bytes")
+        self.compression_ratio = self.m.gauge(
+            "dispatch_compression_ratio")
+        self.dict_pool_hits = self.m.counter("dict_pool_device_hits")
+        self.dict_pool_uploads = self.m.counter(
+            "dict_pool_device_uploads")
+        # pool interning + decode-buffer economics (columnar/batch
+        # intern_pool, parquet_native._finish_bytearray): content-hit
+        # pool reuse across row groups/parts, and bytes a kept pool
+        # view pins vs bytes copied out to free the decode buffer
+        self.dict_pool_share_hits = self.m.counter("dict_pool_share_hits")
+        self.dict_pool_pinned_bytes = self.m.counter(
+            "dict_pool_pinned_bytes")
+        self.dict_pool_copied_bytes = self.m.counter(
+            "dict_pool_copied_bytes")
+        # dict-native reduction plane (ops/rowhash.py, mask fast paths):
+        # columns that crossed a stage still code-encoded vs columns a
+        # consumer flattened — nonzero flat materializations on a
+        # dict-heavy pipeline mean a code-aware fast path leaked
+        self.lazy_dict_preserved = self.m.counter("lazy_dict_preserved")
+        self.dict_flat_materializations = self.m.counter(
+            "dict_flat_materializations")
+        # concurrency sentinel (runtime/lockwatch.py fold_into): lock
+        # acquisitions observed under the armed watch, plus the three
+        # finding classes — any nonzero inversion count is a potential
+        # deadlock witnessed at runtime
+        self.lockwatch_acquisitions = self.m.counter(
+            "lockwatch_acquisitions")
+        self.lockwatch_inversions = self.m.counter("lockwatch_inversions")
+        self.lockwatch_long_holds = self.m.counter("lockwatch_long_holds")
+        self.lockwatch_blocking_in_lock = self.m.counter(
+            "lockwatch_blocking_in_lock")
+
+
+class ChaosStats(_Bundle):
+    """Fault-injection counters (chaos/).  Per-site fire counts land as
+    `chaos_fires_<site with dots -> underscores>` so a chaos soak's
+    injection activity is visible beside the delivery counters it
+    perturbs."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.fires = self.m.counter("chaos_fires")
+        self.trials = self.m.counter("chaos_trials")
+        self.invariant_failures = self.m.counter(
+            "chaos_invariant_failures")
+        self.duplicates_absorbed = self.m.counter(
+            "chaos_duplicates_absorbed")
+        self.restarts = self.m.counter("chaos_restarts")
+
+    @staticmethod
+    def site_counter_name(site: str) -> str:
+        """chaos/failpoints.fold_into shares this naming — keep single."""
+        return "chaos_fires_" + site.replace(".", "_")
+
+    def record_site(self, site: str, fires: int) -> None:
+        if fires <= 0:
+            return
+        self.m.counter(self.site_counter_name(site),
+                       f"chaos fires at {site}").inc(fires)
+        self.fires.inc(fires)
 
 
 class LeaseStats(_Bundle):

@@ -1,14 +1,17 @@
 """Pipeline stage timing (the port's copy of
-``transferia_tpu/stats/stagetimer.py``, less its histograms).
+``transferia_tpu/stats/stagetimer.py``).
 
 `stage(name)` times a block with near-zero overhead when disabled (one
-module-level bool check); when enabled it sums every stage's seconds
-and calls (`snapshot`), and for the stages named in `collect_samples`
-it keeps each call's duration, which is where the replication path's
-transform p50/p99 are read.  `add` books a duration measured elsewhere.
-The reference also feeds every stage into its mergeable log-bucket
-histograms (`stats/hdr.py`); they come with the telemetry slice
-(ROADMAP.md A5).
+module-level bool check).  When enabled it sums every stage's seconds
+and calls (`snapshot`, `format_breakdown`), feeds every duration into
+the process-global mergeable histograms (`stats/hdr.py` STAGES), and
+for the stages named in `collect_samples` keeps each call's duration,
+which is where the replication path's transform p50/p99 are read.
+`add` books a duration measured elsewhere.
+
+Totals are summed across threads, so with N part-upload threads a stage
+total can exceed wall time; the point is the *ratio* between stages and
+the overlap factor (sum(stages)/wall).
 """
 
 from __future__ import annotations
@@ -17,16 +20,18 @@ import threading
 import time
 from contextlib import contextmanager
 
+from transferia_tpu_torch.stats import hdr
+
 _enabled = False
 _lock = threading.Lock()
-_sample_stages: set[str] = set()
-_samples: dict[str, list[float]] = {}
 _totals: dict[str, float] = {}
 _counts: dict[str, int] = {}
+_sample_stages: set[str] = set()
+_samples: dict[str, list[float]] = {}
 
 
 def collect_samples(*names: str) -> None:
-    """Keep per-call durations for these stages (for percentiles)."""
+    """Also keep per-call durations for these stages (for percentiles)."""
     _sample_stages.update(names)
 
 
@@ -40,11 +45,15 @@ def enable(on: bool = True) -> None:
     _enabled = on
 
 
+def enabled() -> bool:
+    return _enabled
+
+
 def reset() -> None:
     with _lock:
-        _samples.clear()
         _totals.clear()
         _counts.clear()
+        _samples.clear()
 
 
 @contextmanager
@@ -67,10 +76,27 @@ def add(name: str, seconds: float) -> None:
         _counts[name] = _counts.get(name, 0) + 1
         if name in _sample_stages:
             _samples.setdefault(name, []).append(seconds)
+    hdr.observe(name, seconds)
 
 
 def snapshot() -> dict[str, dict]:
     """Every stage's summed seconds and call count since the last reset."""
     with _lock:
-        return {k: {"seconds": v, "calls": _counts.get(k, 0)}
-                for k, v in sorted(_totals.items())}
+        return {
+            k: {"seconds": round(v, 4), "calls": _counts.get(k, 0)}
+            for k, v in sorted(_totals.items())
+        }
+
+
+def format_breakdown(wall_seconds: float) -> str:
+    snap = snapshot()
+    if not snap:
+        return ""
+    parts = []
+    for name, d in sorted(snap.items(), key=lambda kv: -kv[1]["seconds"]):
+        pct = 100.0 * d["seconds"] / wall_seconds if wall_seconds else 0.0
+        parts.append(f"{name}={d['seconds']:.2f}s({pct:.0f}%)")
+    total = sum(d["seconds"] for d in snap.values())
+    overlap = total / wall_seconds if wall_seconds else 0.0
+    parts.append(f"overlap_factor={overlap:.2f}")
+    return " ".join(parts)

@@ -21,8 +21,15 @@ Left out, each raising NotImplementedError when a transfer asks for it
 async part discovery and fleet preemption.  A PositionalStorage's
 position at the start lands in the transfer state as
 `snapshot_position`.
-The reference's trace spans, ledger, stage timers, failpoints, fleet
-observability export and lock watch are telemetry and are not ported.
+
+Telemetry as in the reference: the `snapshot_op` root span and the
+operation's ledger scope, adopted by the upload threads and the
+heartbeat; a `part` span and ledger scope per part with a `batch` span
+per pushed batch (`snapshot.part.batch` failpoint), the retry, steal,
+fence and publish instants with their ledger counts, the
+`part_upload` histogram and the device-counter and ledger folds at
+part completion.  The fleet observability export waits for the
+coordinator's segments (ROADMAP.md A5, A9).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from transferia_tpu_torch.abstract.change_item import (
     init_table_load,
 )
 from transferia_tpu_torch.abstract.commit import find_staged_sink
+from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.abstract.errors import (
     CodedError,
     Codes,
@@ -68,6 +76,8 @@ from transferia_tpu_torch.coordinator.interface import (
 from transferia_tpu_torch.factories import make_async_sink, new_storage
 from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
+from transferia_tpu_torch.stats import hdr, trace
+from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import (
     CommitStats,
     LeaseStats,
@@ -173,10 +183,17 @@ class SnapshotLoader:
         if not self.is_main:
             raise _left_out("the sharded secondary flow (current_job > 0)")
         storage = new_storage(self.transfer, self.metrics)
+        # the operation root: every part/batch/device span of this
+        # snapshot nests (or flows, across worker threads) under it,
+        # and every resource event bills this transfer in the ledger
+        op_sp = trace.span("snapshot_op", transfer_id=self.transfer.id,
+                           operation_id=self.operation_id,
+                           worker=self.worker_index)
         try:
-            if tables is None:
-                tables = self.filtered_table_list(storage)
-            self._main_flow(storage, tables)
+            with op_sp, LEDGER.context(transfer_id=self.transfer.id):
+                if tables is None:
+                    tables = self.filtered_table_list(storage)
+                self._main_flow(storage, tables)
         finally:
             storage.close()
 
@@ -436,8 +453,13 @@ class SnapshotLoader:
         are tolerated (the lease TTL absorbs missed beats)."""
         while not stop.wait(TUNING.heartbeat_interval):
             try:
-                renewed = self.cp.renew_lease(self.operation_id,
-                                              self.worker_index)
+                failpoint("snapshot.lease_renew")
+                sp = trace.span("lease_renew", worker=self.worker_index)
+                with sp:
+                    renewed = self.cp.renew_lease(self.operation_id,
+                                                  self.worker_index)
+                if sp:
+                    sp.add(renewed=renewed)
                 self.lease_stats.renewals.inc(renewed)
                 with self._progress_lock:
                     payload = {
@@ -489,7 +511,17 @@ class SnapshotLoader:
             time.sleep(min(1.0, max(0.05, min(expiries))))
             return True
 
+        # causal hop: upload worker threads (and the heartbeat) adopt the
+        # submitting scope, so part spans parent to the operation span
+        # and their resource events bill the right transfer
+        op_ctx = trace.current_context()
+        op_lkey = LEDGER.current_key()
+
         def worker():
+            with trace.adopted(op_ctx), LEDGER.adopted(op_lkey):
+                worker_loop()
+
+        def worker_loop():
             while True:
                 with err_lock:
                     if errors:
@@ -503,6 +535,10 @@ class SnapshotLoader:
                     return
                 if part.stolen_from is not None:
                     self.lease_stats.steals.inc()
+                    LEDGER.add(lease_steals=1)
+                    trace.instant("lease_steal", part=part.key(),
+                                  stolen_from=part.stolen_from,
+                                  epoch=part.assignment_epoch)
                     logger.warning(
                         "part %s reclaimed from worker %d (lease "
                         "expired; epoch now %d)", part.key(),
@@ -515,7 +551,12 @@ class SnapshotLoader:
                     return
 
         hb_stop = threading.Event()
-        hb = threading.Thread(target=self._heartbeat_loop, args=(hb_stop,),
+
+        def heartbeat():
+            with trace.adopted(op_ctx), LEDGER.adopted(op_lkey):
+                self._heartbeat_loop(hb_stop)
+
+        hb = threading.Thread(target=heartbeat,
                               name=f"heartbeat-{self.worker_index}",
                               daemon=True)
         hb.start()
@@ -538,12 +579,23 @@ class SnapshotLoader:
     def _upload_part_with_retry(self, storage: Storage,
                                 part: OperationTablePart,
                                 schemas: dict) -> None:
+        def attempt():
+            # always-on per-part latency distribution (stats/hdr.py):
+            # per-part granularity, so the cost is one bucket add
+            t0 = time.perf_counter()
+            self._upload_part(storage, part, schemas)
+            hdr.observe("part_upload", time.perf_counter() - t0)
+
         def on_retry(i, e):
+            with LEDGER.context(part=part.key()):
+                LEDGER.add(retries=1)
+            trace.instant("part_retry", part=part.key(), attempt=i,
+                          error=type(e).__name__)
             logger.warning("part %s retry %d/%d: %s", part.key(), i,
                            PART_RETRIES, e)
 
         retry_with_backoff(
-            lambda: self._upload_part(storage, part, schemas),
+            attempt,
             attempts=PART_RETRIES,
             base_delay=PART_RETRY_BASE_DELAY,
             retriable=is_retriable,
@@ -558,6 +610,9 @@ class SnapshotLoader:
         granted = self.cp.commit_part(self.operation_id, part)
         if granted is False:
             self.commit_stats.commit_fenced.inc()
+            LEDGER.add(commit_fences=1)
+            trace.instant("commit_fenced", part=part.key(),
+                          epoch=part.assignment_epoch)
             return False
         if granted is None:
             # the coordinator cannot fence: publishing unfenced degrades
@@ -569,10 +624,14 @@ class SnapshotLoader:
             part.commit_epoch = part.assignment_epoch
             self.commit_stats.commit_granted.inc()
         try:
-            staged.publish_part(part.key(), part.assignment_epoch)
+            published = staged.publish_part(part.key(),
+                                            part.assignment_epoch)
         except StaleEpochPublishError as e:
             # the sink's own fence caught a grant/steal race
             self.commit_stats.publish_stale_rejected.inc()
+            LEDGER.add(commit_fences=1)
+            trace.instant("publish_stale_rejected", part=part.key(),
+                          epoch=part.assignment_epoch)
             logger.warning("publish of %s rejected by sink fence: %s",
                            part.key(), e)
             return False
@@ -580,6 +639,10 @@ class SnapshotLoader:
         dropped = getattr(staged, "last_dedup_dropped", 0)
         if dropped:
             self.commit_stats.dedup_rows_dropped.inc(dropped)
+        LEDGER.add(commits=1)
+        trace.instant("part_published", part=part.key(),
+                      epoch=part.assignment_epoch, rows=published,
+                      dedup_dropped=dropped)
         return True
 
     def _upload_part(self, storage: Storage, part: OperationTablePart,
@@ -616,32 +679,65 @@ class SnapshotLoader:
         publish_fenced = False
         rows_done = 0
         read_bytes = 0
+        batch_seq = 0
+        # root span per part: every stage span a batch triggers on this
+        # thread (source decode, transform, device dispatch, sink) nests
+        # under it in the exported timeline
+        part_sp = trace.span("part")
+        if part_sp:
+            part_sp.add(transfer_id=self.transfer.id, table=str(tid),
+                        part=part.key())
         futures: deque = deque()
         try:
-            if staged is not None:
-                # a retried part restages from scratch: begin replaces
-                staged.begin_part(part.key(), part.assignment_epoch)
-                self.commit_stats.staged_parts.inc()
-            sink.async_push([init_table_load(tid, schema, part_id)]).result()
+            with part_sp, LEDGER.context(part=part.key()):
+                if staged is not None:
+                    # a retried part restages from scratch: begin
+                    # replaces anything a previous attempt staged
+                    staged.begin_part(part.key(), part.assignment_epoch)
+                    self.commit_stats.staged_parts.inc()
+                sink.async_push(
+                    [init_table_load(tid, schema, part_id)]).result()
 
-            def pusher(batch):
-                nonlocal rows_done, read_bytes
-                if hasattr(batch, "n_rows"):
-                    batch.part_id = part_id
-                    rows_done += batch.n_rows
-                    read_bytes += batch.read_bytes or batch.nbytes()
-                else:
-                    rows_done += len(batch)
-                futures.append(sink.async_push(batch))
-                # bounded in-flight window
-                while len(futures) > 32:
-                    futures.popleft().result()
+                def pusher(batch):
+                    nonlocal rows_done, read_bytes, batch_seq
+                    # worker-death injection point: a raise here kills
+                    # the part mid-load, as a crashed worker would
+                    failpoint("snapshot.part.batch")
+                    sp = trace.span("batch")
+                    with sp:
+                        if hasattr(batch, "n_rows"):
+                            batch.part_id = part_id
+                            rows_done += batch.n_rows
+                            read_bytes += (batch.read_bytes
+                                           or batch.nbytes())
+                            LEDGER.add(rows_in=batch.n_rows,
+                                       bytes_in=batch.read_bytes
+                                       or batch.nbytes())
+                            if sp:
+                                sp.add(table=str(tid), part=part.key(),
+                                       batch_seq=batch_seq,
+                                       rows=batch.n_rows,
+                                       bytes=batch.nbytes())
+                        else:
+                            rows_done += len(batch)
+                            LEDGER.add(rows_in=len(batch))
+                            if sp:
+                                sp.add(table=str(tid), part=part.key(),
+                                       batch_seq=batch_seq,
+                                       rows=len(batch))
+                        batch_seq += 1
+                        futures.append(sink.async_push(batch))
+                        # bounded in-flight window
+                        while len(futures) > 32:
+                            futures.popleft().result()
 
-            storage.load_table(part.to_description(), pusher)
-            resolve_all(futures)
-            sink.async_push([done_table_load(tid, schema, part_id)]).result()
-            if staged is not None:
-                publish_fenced = not self._commit_and_publish(staged, part)
+                storage.load_table(part.to_description(), pusher)
+                resolve_all(futures)
+                sink.async_push(
+                    [done_table_load(tid, schema, part_id)]).result()
+                if staged is not None:
+                    publish_fenced = not self._commit_and_publish(
+                        staged, part)
         except BaseException as e:
             if staged is not None:
                 # discard this attempt's staging; a retry re-begins
@@ -715,5 +811,9 @@ class SnapshotLoader:
                 "expired and the part was reclaimed; dropping result",
                 part.key(), part.assignment_epoch)
             return
+        # device counters surface on this pipeline's metrics as parts
+        # complete; the attribution ledger folds alongside
+        trace.TELEMETRY.fold_into(self.metrics)
+        LEDGER.fold_into(self.metrics)
         logger.info("part %s done: %d rows, %d bytes",
                     part.key(), rows_done, read_bytes)

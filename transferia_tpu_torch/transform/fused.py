@@ -46,6 +46,7 @@ from transferia_tpu_torch.columnar.hexcol import hex_to_varwidth
 from transferia_tpu_torch.predicate.ast import And, TrueNode
 from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.device import DeviceLike, mesh_devices
+from transferia_tpu_torch.stats import stagetimer, trace
 from transferia_tpu_torch.transform.base import TransformResult, Transformer
 from transferia_tpu_torch.transform.plugins.filter import FilterRows
 from transferia_tpu_torch.transform.plugins.mask import (
@@ -345,18 +346,20 @@ class DeviceFusedStep(Transformer):
         elif mask_inputs or self.pred_node is not None:
             hexes, keep = self.program.run(mask_inputs, pred_inputs,
                                            batch.n_rows, states=flat_states)
-        cols = dict(batch.columns)
-        for name, hx in zip(out_names, hexes):
-            if name is None:
-                continue  # dict_cols holds the rebound column
-            validity = batch.column(name).validity
-            data, offsets = hex_to_varwidth(hx, validity)
-            cols[name] = Column(name, CanonicalType.UTF8, data, offsets,
-                                validity)
-        cols.update(dict_cols)
-        out = batch.with_columns(cols, self.result_schema(batch.schema))
-        if keep is not None and not keep.all():
-            out = out.filter(keep)
+        with stagetimer.stage("host_post"), trace.span("host_post"):
+            cols = dict(batch.columns)
+            for name, hx in zip(out_names, hexes):
+                if name is None:
+                    continue  # dict_cols holds the rebound column
+                validity = batch.column(name).validity
+                data, offsets = hex_to_varwidth(hx, validity)
+                cols[name] = Column(name, CanonicalType.UTF8, data,
+                                    offsets, validity)
+            cols.update(dict_cols)
+            out = batch.with_columns(cols,
+                                     self.result_schema(batch.schema))
+            if keep is not None and not keep.all():
+                out = out.filter(keep)
         self._observe("device", time.perf_counter() - t0, batch.n_rows)
         return TransformResult(out)
 
@@ -372,19 +375,20 @@ class DeviceFusedStep(Transformer):
             keep = self._host_pred_fn(batch)
             if not keep.all():
                 cur = batch.filter(keep)
-        cols = dict(cur.columns)
-        for name, key in self.mask_entries:
-            col = cur.column(name)
-            if col.is_lazy_dict:
-                # O(unique) hashes: the pool once (or the referenced
-                # subset when the pool dwarfs the batch), codes stay
-                cols[name] = mask_dict_column(key, col)
-                continue
-            data, offsets = _host_hmac_hex(key, col.data, col.offsets,
-                                           col.validity)
-            cols[name] = Column(name, CanonicalType.UTF8, data, offsets,
-                                col.validity)
-        out = cur.with_columns(cols, self.result_schema(batch.schema))
+        with stagetimer.stage("host_mask"), trace.span("host_mask"):
+            cols = dict(cur.columns)
+            for name, key in self.mask_entries:
+                col = cur.column(name)
+                if col.is_lazy_dict:
+                    # O(unique) hashes: the pool once (or the referenced
+                    # subset when the pool dwarfs the batch), codes stay
+                    cols[name] = mask_dict_column(key, col)
+                    continue
+                data, offsets = _host_hmac_hex(key, col.data, col.offsets,
+                                               col.validity)
+                cols[name] = Column(name, CanonicalType.UTF8, data,
+                                    offsets, col.validity)
+            out = cur.with_columns(cols, self.result_schema(batch.schema))
         self._observe("host", time.perf_counter() - t0, batch.n_rows)
         return TransformResult(out)
 

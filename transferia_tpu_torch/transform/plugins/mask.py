@@ -133,7 +133,12 @@ def hexed_pool_from_flat(pool: DictPool, pool_hex: np.ndarray,
 def dict_hex_column(col: Column, hexed: DictPool) -> Column:
     """Rebind a dict column's codes to its hexed pool: the masked output
     column, still dictionary-encoded, codes untouched unless a null
-    sentinel has to be appended for a sentinel-less pool."""
+    sentinel has to be appended for a sentinel-less pool.  Every mask
+    route that keeps the encoding ends here, so this is where the
+    lazy_dict_preserved counter ticks."""
+    from transferia_tpu_torch.stats.trace import TELEMETRY
+
+    TELEMETRY.record_dict_preserved()
     codes = col.dict_enc.indices
     if (hexed.null_code is None and col.validity is not None
             and not col.validity.all()):
