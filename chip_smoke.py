@@ -153,7 +153,41 @@ final line):
      never on the host, K10 as often in both, and each staged push's
      keys from K10 equal the plain version's; it reports rows/s over
      the 200,000 and the transactional request's bytes;
- 15e. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
+ 15e. my2kf_cdc: BASELINE config #4's CDC half through run_replication
+     (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 200,000
+     row changes of seed 17 (recipes/cdc.py: 140,000 inserts, 1 % NULL
+     emails, 40,000 updates of live ids with a before and an after
+     image, 20,000 deletes of distinct live ids) in 2,000 GTID
+     transactions of 100 (GTID, TABLE_MAP of bigint, utf8mb4
+     varchar(255), int, ROWS v2 events of at most 8,192 bytes, XID);
+     the port's MySQLBinlogSource tails it, mask_field email (K-A on the
+     card), Debezium envelopes, the 16-partition topic, no staged
+     commit; device and host placement, timed until Kafka holds the
+     200,000 records.  Both land every change once, checkpoint the fed
+     executed set at the binlog's end, and are identical once ts_ms is
+     set aside; every record, decoded by the port's DebeziumReceiver, is
+     its change (op c/u/d, the after image with the HMAC of the plain
+     email, NULL staying NULL, the before image's key) in crc32c(key) %
+     16; each K-A launch (recorded on the card during the run) equals
+     the plain version on its inputs; it reports rows/s, the transform
+     p50/p99 (the stage timer, as replication (a) reads it), the
+     checkpointed state and, each run traced, its stage tables (so do
+     the next two phases);
+ 15f. pg2ch_cdc: BASELINE config #2's CDC half: 300,000 wal2json v2
+     inserts of the pg2ch rows in transactions of 1,000, fed before the
+     start and tailed by the port's PGReplicationSource through
+     run_replication, the pg2ch filter (host path), the fake ClickHouse
+     with no Bufferer; device and host placement.  The source creates
+     its slot, ClickHouse holds numpy's kept rows in both placements,
+     pg_wal_lsn is the last fed LSN, PostgresProvider.deactivate() drops
+     the slot, and nothing launches on the card;
+ 15g. my2my_cdc: the MySQL target: the first 20,000 changes of
+     my2kf_cdc's binlog through the same mask into MySQLSinker on a
+     second fake MySQL; device and host placement.  Its db.users equals
+     numpy's applied state (masked emails, updated rows, deleted ids
+     gone), the checkpoint the fed set, and each K-A launch equals the
+     plain version;
+ 15h. clickbench: BASELINE config #3, bench.py's run_pipeline.  The
      recipe writer (transferia_tpu_torch/recipes/) writes main_path's
      2,000,000 rows as bench.py's Parquet file (131,072-row groups,
      SNAPPY); the port's reader decodes row groups 0 and 15 equal to the
@@ -169,7 +203,7 @@ final line):
      nothing; it reports rows/s over the source's 2,000,000 rows, the
      stage timer's source_decode and pivot seconds, scan_rows_pruned,
      the snappy route and the CPU's SHA-NI/SSE4.2 flags;
- 15f. telemetry: the telemetry plane on the card, every earlier phase
+ 15i. telemetry: the telemetry plane on the card, every earlier phase
      having run with tracing off.  With the trace, the stage timer and
      the ledger on: (1) clickbench's file again, device then host
      placement: the rows delivered equal the untraced phase's; on the
@@ -353,6 +387,12 @@ from transferia_tpu_torch.providers import staging
 from transferia_tpu_torch.abstract.interfaces import is_columnar
 from transferia_tpu_torch.recipes.fake_mysql import FakeMySQL, FakeMyTable
 from transferia_tpu_torch.recipes.fake_postgres import FakePG, FakeTable
+from transferia_tpu_torch.recipes import cdc
+from transferia_tpu_torch.debezium.receiver import DebeziumReceiver
+from transferia_tpu_torch.ops import sha256 as sha256_mod
+from transferia_tpu_torch.providers.mysql import MySQLTargetParams
+from transferia_tpu_torch.providers.postgres.replication import int_to_lsn
+from transferia_tpu_torch.providers.registry import get_provider
 from transferia_tpu_torch.recipes.fake_sr import FakeSchemaRegistry
 from transferia_tpu_torch.tasks import activate_delivery
 from transferia_tpu_torch import native
@@ -475,6 +515,14 @@ PATH_KERNELS = {
     # the mask's K-A, one launch a fused chunk (no predicate), and K10
     # keying each staged push for the dedup window, in either placement
     "my2kf": ("sha256_hmac", "rowhash_lanes"),
+    # the binlog tail through the mask: K-A, one launch a fused chunk
+    # of each flush (at most 1,024 rows and a ROWS event) and one for
+    # the salt's key states; no staged commit, so no K10
+    "my2kf_cdc": ("sha256_hmac",),
+    # the wal2json tail through the filter alone (not fused): nothing
+    # on the card
+    "pg2ch_cdc": (),
+    "my2my_cdc": ("sha256_hmac",),
     # clickbench, replication (a) and my2kf again, traced
     "telemetry": ("sha256_hmac", "pred_decode", "pred3vl_mask",
                   "rowhash_lanes"),
@@ -570,6 +618,19 @@ MY2KF_COLUMNS = [("id", "bigint", "bigint", True, True),
 MY2KF_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["email"], "salt": MY2KF_SALT.decode()}}]}
 TS_MS = re.compile(rb'"ts_ms":\d+')
+# the CDC tails through run_replication (INCREMENT_ONLY), after my2kf:
+# config #4's CDC half, a binlog of 200,000 row changes (seed 17:
+# 140,000 inserts, 40,000 updates of live ids, 20,000 deletes) in 2,000
+# GTID transactions of 100 (recipes/cdc.py), through the mask into the
+# 16-partition topic with Debezium envelopes; config #2's CDC half,
+# 300,000 wal2json v2 inserts of the pg2ch rows in transactions of
+# 1,000, through the filter into ClickHouse; and the first 20,000
+# changes through the mask into a MySQL target
+CDC_INSERTS, CDC_UPDATES, CDC_DELETES, CDC_TXN, CDC_SEED = (
+    140_000, 40_000, 20_000, 100, 17)
+PG_CDC_ROWS, PG_CDC_TXN = 300_000, 1000
+MY2MY_CHANGES = 20_000
+CDC_SETTLE_S = 300.0
 
 
 def emit(obj) -> None:
@@ -3219,6 +3280,443 @@ def my2kf_path(dev, rows: int = MY2KF_ROWS, traced: bool = False) -> dict:
         emails_equal_to="the host mask route's HMAC-SHA256 hex")
 
 
+# -- the CDC tails -------------------------------------------------------------
+
+class KALaunches:
+    """Records each K-A launch on the card (its inputs and output, cloned
+    on the card) while a path runs, so that every launch can be held
+    against K-A's plain version afterwards."""
+
+    def __enter__(self):
+        self.calls = []
+        self._fn = fn = sha256_mod.sha256_hmac
+        rec = self
+
+        def recorded(blocks, n_blocks, init, outer, max_blocks):
+            out = fn(blocks, n_blocks, init, outer, max_blocks)
+            if blocks.is_cuda and blocks.shape[0]:
+                rec.calls.append((
+                    blocks.clone(), n_blocks.clone(), init.clone(),
+                    None if outer is None else outer.clone(), max_blocks,
+                    out.clone()))
+            return out
+
+        sha256_mod.sha256_hmac = recorded
+        return self
+
+    def __exit__(self, *exc):
+        sha256_mod.sha256_hmac = self._fn
+        return False
+
+    def check(self, what: str, launches: int) -> int:
+        """Every recorded launch exact against the plain version, and as
+        many as the path counted.  Launches that share their states and
+        block count go through one plain call over their rows together
+        (rows are independent), and each launch's rows are compared."""
+        if len(self.calls) != launches:
+            raise AssertionError(f"{what}: {len(self.calls)} K-A launches "
+                                 f"recorded, {launches} counted")
+        groups: dict = {}
+        for i, (_, _, init, outer, mb, _) in enumerate(self.calls):
+            key = (mb, tuple(init.tolist()),
+                   None if outer is None else tuple(outer.tolist()))
+            groups.setdefault(key, []).append(i)
+        for (mb, _, _), idx in groups.items():
+            calls = [self.calls[i] for i in idx]
+            want = sha256_hmac_plain(
+                torch.cat([c[0] for c in calls]),
+                torch.cat([c[1] for c in calls]), calls[0][2], calls[0][3],
+                mb)
+            lo = 0
+            for i, c in zip(idx, calls):
+                n = c[0].shape[0]
+                require_equal(c[5], want[lo:lo + n],
+                              f"{what}: K-A launch {i} ({n} rows)")
+                lo += n
+        self.calls = []
+        return launches
+
+
+def cdc_run(name: str, transfer, cp, placement: str, dev, landed,
+            settled) -> dict:
+    """One INCREMENT_ONLY transfer through run_replication on a thread,
+    the placement pinned, traced with the stage timer on: timed from the
+    start until `landed()`, then run on until `settled()` (the source's
+    last checkpoint), then stopped through its stop event.  Returns the
+    readings with the run's stage tables; each K-A launch on the card
+    is recorded and held against the plain version after the run."""
+    metrics, stop, failure = Metrics(), threading.Event(), []
+    stagetimer.collect_samples("transform")
+    trace_on()
+    set_placement(placement)
+
+    def run():
+        try:
+            run_replication(transfer, cp, metrics=metrics, stop_event=stop,
+                            backoff=0.2, device=dev)
+        except BaseException as e:  # surfaced below
+            failure.append(e)
+
+    def wait(cond, deadline, what):
+        while not cond() and not failure:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name} {placement}: {what}")
+            time.sleep(0.01)
+
+    th = threading.Thread(target=run, daemon=True)
+    try:
+        with KALaunches() as ka:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            th.start()
+            deadline = time.monotonic() + CDC_SETTLE_S
+            wait(landed, deadline, "the rows did not land")
+            t_done = time.perf_counter()
+            wait(settled, deadline, "the checkpoint did not settle")
+            torch.cuda.synchronize(dev)
+            launches = _build.launch_counts()
+    finally:
+        stop.set()
+        th.join(30)
+        wall = time.perf_counter() - t0
+        set_placement(None)
+        trace.enable(False)
+        stagetimer.enable(False)
+    if failure:
+        raise AssertionError(f"{name} {placement} failed: {failure[0]!r}")
+    if th.is_alive():
+        raise AssertionError(f"{name} {placement}: the loop did not stop")
+    tables = trace_off(wall)
+    t_check = time.perf_counter()
+    held = ka.check(f"{name} {placement}", launches["sha256_hmac"])
+    lat = sorted(stagetimer.samples("transform"))
+    steady = lat[:max(1, len(lat) - 1)] if len(lat) > 4 else lat
+    return dict(
+        seconds=t_done - t0, launches=launches,
+        transform_p50_ms=percentile(steady, 0.50) * 1000 if lat else None,
+        transform_p99_ms=percentile(steady, 0.99) * 1000 if lat else None,
+        transform_batches=len(lat), transform_seconds=sum(lat),
+        ka_launches_held_exact=held,
+        ka_check_seconds=time.perf_counter() - t_check,
+        restarts=metrics.value("replication_restarts"),
+        transfer_state=cp.get_transfer_state(transfer.id), wall_seconds=wall,
+        **tables)
+
+
+def cdc_changes() -> list:
+    """The binlog's 200,000 changes of seed 17."""
+    return cdc.users_changes(CDC_INSERTS, CDC_UPDATES, CDC_DELETES,
+                             seed=CDC_SEED)
+
+
+def cdc_source(changes: list) -> tuple:
+    """A fake MySQL whose binlog holds `changes` in GTID transactions of
+    100, and the executed set they make."""
+    if [c[:3] for c in MY2KF_COLUMNS] != [c[:3] for c in cdc.USERS_COLUMNS]:
+        raise AssertionError("the CDC table is not bench.py's")
+    my = FakeMySQL().start()
+    my.add_table(FakeMyTable("db", "users", MY2KF_COLUMNS))
+    last = cdc.feed_users_binlog(my, changes, txn_changes=CDC_TXN)
+    return my, f"{cdc.USERS_SID}:1-{last}"
+
+
+def binlog_state_ok(run: dict, my: FakeMySQL, fed: str) -> bool:
+    state = run["transfer_state"].get("mysql_binlog", {})
+    return state == {"file": "binlog.000001", "pos": my._next_log_pos,
+                     "gtid_set": fed}
+
+
+def masked_hex(email: Optional[str]) -> Optional[str]:
+    if email is None:
+        return None
+    return hmac.new(MY2KF_SALT, email.encode(), hashlib.sha256).hexdigest()
+
+
+def my2kf_cdc_run(my: FakeMySQL, fed: str, n: int, placement: str,
+                  dev) -> dict:
+    kf = FakeKafka(n_partitions=MY2KF_PARTITIONS).start()
+    tid = f"chip-my2kf-cdc-{placement}"
+    transfer = Transfer(
+        id=tid, type=TransferType.INCREMENT_ONLY,
+        src=MySQLSourceParams(host="127.0.0.1", port=my.port,
+                              database="db", user="root"),
+        dst=KafkaTargetParams(brokers=[f"127.0.0.1:{kf.port}"],
+                              topic="cdc", serializer="debezium"),
+        transformation=MY2KF_CONFIG)
+    cp = MemoryCoordinator()
+    try:
+        run = cdc_run(
+            "my2kf_cdc", transfer, cp, placement, dev,
+            landed=lambda: kf.live_size("cdc") >= n,
+            settled=lambda: cp.get_transfer_state(tid).get(
+                "mysql_binlog", {}).get("gtid_set") == fed)
+        run["live_size"] = kf.live_size("cdc")
+        run["offsets"] = sum(len(p) for p in kf.topics.get("cdc", []))
+        run["records"] = [[(r.key, r.value) for r in kf.records("cdc", i)]
+                          for i in range(MY2KF_PARTITIONS)]
+    finally:
+        kf.stop()
+    run["rows_per_s"] = n / run["seconds"]
+    return run
+
+
+def my2kf_cdc_check_content(records: list, changes: list) -> dict:
+    """Every record decoded by the port's Debezium receiver: each key's
+    records, in partition order, are its changes in binlog order (op,
+    the after image with the mask's HMAC of the email, the before image's
+    key), and each record lies in crc32c(key) % 16."""
+    want: dict = {}
+    for change in changes:
+        want.setdefault(change[1], []).append(change)
+    receiver, got, ops = DebeziumReceiver(), {}, {}
+    for p, recs in enumerate(records):
+        for key, value in recs:
+            if protocol.crc32c_py(key) % MY2KF_PARTITIONS != p:
+                raise AssertionError(f"my2kf_cdc: a record of partition {p} "
+                                     f"hashes elsewhere: {key[:80]!r}")
+            it = receiver.receive(value, key)
+            got.setdefault(it.old_keys.as_dict().get("id")
+                           if it.kind.value == "delete"
+                           else it.value("id"), []).append(it)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"my2kf_cdc: {len(got)} keys decoded, "
+                             f"{len(want)} changed")
+    kinds = ("insert", "update", "delete")
+    for i, items in got.items():
+        if len(items) != len(want[i]):
+            raise AssertionError(f"my2kf_cdc: id {i}: {len(items)} records "
+                                 f"for {len(want[i])} changes")
+        for it, (kind, _, region, _, after) in zip(items, want[i]):
+            ops[kinds[kind]] = ops.get(kinds[kind], 0) + 1
+            if it.kind.value != kinds[kind]:
+                raise AssertionError(f"my2kf_cdc: id {i}: {it.kind.value} "
+                                     f"for a {kinds[kind]}")
+            if kind != cdc.DELETE and it.as_dict() != {
+                    "id": i, "email": masked_hex(after), "region": region}:
+                raise AssertionError(f"my2kf_cdc: id {i}: after image "
+                                     f"{it.as_dict()}")
+            if kind != cdc.INSERT and it.old_keys.as_dict() != {"id": i}:
+                raise AssertionError(f"my2kf_cdc: id {i}: before image "
+                                     f"{it.old_keys.as_dict()}")
+    return dict(decoded=sum(ops.values()), ops=ops, keys=len(got))
+
+
+def my2kf_cdc_path(dev) -> dict:
+    """BASELINE config #4's CDC half: the binlog of 200,000 row changes
+    tailed by the port's MySQLBinlogSource through run_replication
+    (INCREMENT_ONLY), mask_field email (K-A on the card), Debezium
+    envelopes, the 16-partition topic; device and host placement.  Each
+    run lands every change once (200,000 records by offsets and
+    live_size), checkpoints the fed executed set at the binlog's end,
+    and the records are identical across the placements once ts_ms is
+    set aside; every record decodes to its change (op, after, before)
+    with the HMAC of the plain email, NULL staying NULL; each K-A launch
+    equals the plain version on its inputs."""
+    t0 = time.perf_counter()
+    changes = cdc_changes()
+    my, fed = cdc_source(changes)
+    gen_s = time.perf_counter() - t0
+    try:
+        runs = {p: my2kf_cdc_run(my, fed, len(changes), p, dev)
+                for p in ("device", "host")}
+        for name, run in runs.items():
+            if run["offsets"] != len(changes) or \
+                    run["live_size"] != len(changes) or run["restarts"] \
+                    or not binlog_state_ok(run, my, fed):
+                raise AssertionError(
+                    f"my2kf_cdc {name}: {run['offsets']} offsets, "
+                    f"{run['live_size']} live of {len(changes)}, "
+                    f"{run['restarts']} restarts, state "
+                    f"{run['transfer_state']}, fed {fed}")
+    finally:
+        my.stop()
+    dev_run, host_run = runs["device"], runs["host"]
+    dev_got = {k: c for k, c in dev_run["launches"].items() if c}
+    host_got = {k: c for k, c in host_run["launches"].items() if c}
+    if set(dev_got) != set(PATH_KERNELS["my2kf_cdc"]) or host_got:
+        raise AssertionError(f"my2kf_cdc: launched {dev_got} on the card, "
+                             f"{host_got} on the host")
+    for p in range(MY2KF_PARTITIONS):
+        a, b = dev_run["records"][p], host_run["records"][p]
+        if len(a) != len(b) or any(
+                ka != kb or TS_MS.sub(b"", va) != TS_MS.sub(b"", vb)
+                for (ka, va), (kb, vb) in zip(a, b)):
+            raise AssertionError(f"my2kf_cdc: partition {p} differs "
+                                 f"between the placements (ts_ms set aside)")
+    t_check = time.perf_counter()
+    content = my2kf_cdc_check_content(dev_run["records"], changes)
+    check_s = time.perf_counter() - t_check
+    launches = dict(dev_run["launches"])
+    require_launched("my2kf_cdc", launches)
+    return dict(
+        changes=len(changes), inserts=CDC_INSERTS, updates=CDC_UPDATES,
+        deletes=CDC_DELETES, transactions=len(changes) // CDC_TXN,
+        binlog_events=len(my.binlog_events), fed_gtid_set=fed,
+        partitions=MY2KF_PARTITIONS, data_gen_seconds=gen_s,
+        content_check_seconds=check_s, launches=launches, **content,
+        runs={placement: {k: v for k, v in run.items() if k != "records"}
+              for placement, run in runs.items()},
+        identical_across_placements="ts_ms set aside",
+        emails_equal_to="hmac.new(salt, email, sha256).hexdigest()")
+
+
+def pg2ch_cdc_run(pg: FakePG, last: int, expected: int, placement: str,
+                  dev) -> dict:
+    ch = FakeCH().start()
+    tid = f"chip-pg2ch-cdc-{placement}"
+    transfer = Transfer(
+        id=tid, type=TransferType.INCREMENT_ONLY,
+        src=PGSourceParams(host="127.0.0.1", port=pg.port, database="db",
+                           user="u"),
+        dst=CHTargetParams(host="127.0.0.1", port=ch.port, bufferer=None),
+        transformation=PG2CH_CONFIG)
+    cp = MemoryCoordinator()
+    slot = f"transferia_{tid}".replace("-", "_")
+    try:
+        run = cdc_run(
+            "pg2ch_cdc", transfer, cp, placement, dev,
+            landed=lambda: ch.total_rows() >= expected,
+            settled=lambda: cp.get_transfer_state(tid).get("pg_wal_lsn")
+            == int_to_lsn(last))
+        run["slot_created"] = slot in pg.slots
+        get_provider("pg", transfer, device=dev).deactivate()
+        run["slot_dropped"] = slot not in pg.slots
+        run["rows_sorted"] = sorted(
+            (r["id"], r["url"], r["region"], r["score"])
+            for r in ch.rows("public__hits"))
+    finally:
+        ch.stop()
+    run["rows_per_s"] = PG_CDC_ROWS / run["seconds"]
+    return run
+
+
+def pg2ch_cdc_path(dev) -> dict:
+    """BASELINE config #2's CDC half: 300,000 wal2json v2 inserts of
+    bench.py measure_pg2ch's rows, in transactions of 1,000, fed to the
+    port's fake Postgres before the start and tailed by its
+    PGReplicationSource through run_replication (INCREMENT_ONLY), the
+    filter "region < 400 AND score >= 10" (on the host: a filter alone
+    is not fused), the fake ClickHouse with no Bufferer; device and
+    host placement.  The source creates its slot; ClickHouse's rows are
+    numpy's kept rows, identical across placements; pg_wal_lsn is the
+    last fed LSN; PostgresProvider.deactivate() drops the slot; nothing
+    launches on the card."""
+    t0 = time.perf_counter()
+    pg = FakePG().start()
+    try:
+        last = cdc.feed_hits_wal(pg, PG_CDC_ROWS, txn_rows=PG_CDC_TXN)
+        gen_s = time.perf_counter() - t0
+        i = np.arange(PG_CDC_ROWS)
+        keep = i[(i % 500 < 400) & ((i % 91) * 1.5 >= 10)]
+        runs = {p: pg2ch_cdc_run(pg, last, len(keep), p, dev)
+                for p in ("device", "host")}
+    finally:
+        pg.stop()
+    # the fake ClickHouse keeps a String column's bytes
+    want = [(i, url.encode(), region, score) for i, url, region, score
+            in map(cdc.hits_row, keep.tolist())]
+    for name, run in runs.items():
+        if run["rows_sorted"] != want or not run["slot_created"] \
+                or not run["slot_dropped"] or run["restarts"] or \
+                run["transfer_state"] != {"pg_wal_lsn": int_to_lsn(last)}:
+            raise AssertionError(
+                f"pg2ch_cdc {name}: {len(run['rows_sorted'])} rows of "
+                f"{len(want)} (equal: {run['rows_sorted'] == want}), slot "
+                f"created {run['slot_created']} dropped "
+                f"{run['slot_dropped']}, state {run['transfer_state']}, "
+                f"last fed {int_to_lsn(last)}")
+        if any(run["launches"].values()):
+            raise AssertionError(f"pg2ch_cdc {name}: launched "
+                                 f"{run['launches']}")
+    launches = dict(runs["device"]["launches"])
+    require_launched("pg2ch_cdc", launches)
+    return dict(
+        messages=PG_CDC_ROWS, transactions=PG_CDC_ROWS // PG_CDC_TXN,
+        last_lsn=int_to_lsn(last), kept=len(want), data_gen_seconds=gen_s,
+        launches=launches,
+        runs={placement: {k: v for k, v in run.items()
+                          if k != "rows_sorted"}
+              for placement, run in runs.items()},
+        identical_across_placements=True,
+        rows_equal_to="numpy's kept ids, recipes.cdc.hits_row's values")
+
+
+def my2my_cdc_run(my: FakeMySQL, fed: str, placement: str, dev) -> dict:
+    dst = FakeMySQL().start()
+    tid = f"chip-my2my-cdc-{placement}"
+    transfer = Transfer(
+        id=tid, type=TransferType.INCREMENT_ONLY,
+        src=MySQLSourceParams(host="127.0.0.1", port=my.port,
+                              database="db", user="root"),
+        dst=MySQLTargetParams(host="127.0.0.1", port=dst.port,
+                              database="db"),
+        transformation=MY2KF_CONFIG)
+    cp = MemoryCoordinator()
+
+    def applied():
+        return cp.get_transfer_state(tid).get(
+            "mysql_binlog", {}).get("gtid_set") == fed
+
+    try:
+        run = cdc_run("my2my_cdc", transfer, cp, placement, dev,
+                      landed=applied, settled=applied)
+        with dst.lock:
+            t = dst.tables.get(("db", "users"))
+            run["table"] = {r["id"]: (r["email"], r["region"])
+                            for r in (t.rows if t else [])}
+            run["table_rows"] = len(t.rows) if t else 0
+            run["statements"] = len(dst.queries)
+    finally:
+        dst.stop()
+    run["rows_per_s"] = MY2MY_CHANGES / run["seconds"]
+    return run
+
+
+def my2my_cdc_path(dev) -> dict:
+    """The MySQL target: the first 20,000 changes of my2kf_cdc's binlog
+    tailed through run_replication, the same mask (K-A on the card), a
+    MySQLSinker into a second fake MySQL (REPLACE, UPDATE and DELETE a
+    row); device and host placement.  The target's db.users after each
+    run is numpy's applied state (masked emails, updated rows, deleted
+    ids gone), the checkpoint the fed executed set, and each K-A launch
+    equals the plain version on its inputs."""
+    t0 = time.perf_counter()
+    changes = cdc_changes()[:MY2MY_CHANGES]
+    my, fed = cdc_source(changes)
+    gen_s = time.perf_counter() - t0
+    try:
+        runs = {p: my2my_cdc_run(my, fed, p, dev)
+                for p in ("device", "host")}
+        want = {str(i): (masked_hex(e), str(r))
+                for i, (e, r) in cdc.users_final_state(changes).items()}
+        for name, run in runs.items():
+            if run["table"] != want or run["table_rows"] != len(want) \
+                    or run["restarts"] or not binlog_state_ok(run, my, fed):
+                raise AssertionError(
+                    f"my2my_cdc {name}: {run['table_rows']} rows, "
+                    f"{len(want)} wanted, equal {run['table'] == want}, "
+                    f"state {run['transfer_state']}, fed {fed}")
+    finally:
+        my.stop()
+    dev_got = {k: c for k, c in runs["device"]["launches"].items() if c}
+    host_got = {k: c for k, c in runs["host"]["launches"].items() if c}
+    if set(dev_got) != set(PATH_KERNELS["my2my_cdc"]) or host_got:
+        raise AssertionError(f"my2my_cdc: launched {dev_got} on the card, "
+                             f"{host_got} on the host")
+    launches = dict(runs["device"]["launches"])
+    require_launched("my2my_cdc", launches)
+    kinds = [c[0] for c in changes]
+    return dict(
+        changes=len(changes), inserts=kinds.count(cdc.INSERT),
+        updates=kinds.count(cdc.UPDATE), deletes=kinds.count(cdc.DELETE),
+        target_rows=len(want), fed_gtid_set=fed, data_gen_seconds=gen_s,
+        launches=launches,
+        runs={placement: {k: v for k, v in run.items() if k != "table"}
+              for placement, run in runs.items()},
+        table_equal_to="the changes applied in numpy order, emails "
+                       "hmac.new(salt, email, sha256).hexdigest()")
+
+
 # -- phase 1b: the host library ----------------------------------------------
 
 HOST_EDGE_LENS = (0, 1, 54, 55, 56, 57, 63, 64, 65, 119, 120, 300)
@@ -4980,6 +5478,9 @@ def main() -> int:
             ("sr2ch", lambda: sr2ch_path(dev)),
             ("pg2ch", lambda: pg2ch_path(dev)),
             ("my2kf", lambda: my2kf_path(dev)),
+            ("my2kf_cdc", lambda: my2kf_cdc_path(dev)),
+            ("pg2ch_cdc", lambda: pg2ch_cdc_path(dev)),
+            ("my2my_cdc", lambda: my2my_cdc_path(dev)),
             ("clickbench",
              lambda: clickbench_path(schema, fixed, var, chunk or 32768,
                                      cb_file, dev)),

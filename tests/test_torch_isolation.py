@@ -16,7 +16,9 @@ activate_delivery, staged commits on), an Avro run through the
 schema-registry parser and a my2kf activation (the port's fake MySQL ->
 the mask -> Debezium envelopes -> its fake Kafka through
 activate_delivery, the transactional staged publish, the envelopes read
-back through the debezium parser) on the CPU; afterwards neither
+back through the debezium parser) on the CPU, and decodes a binlog and a
+wal2json stream of `recipes.cdc` through the CDC tails' decoders (the
+binlog reader, the GTID set, the wal2json decoder); afterwards neither
 jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
 loaded, and the only host library mapped is the port's own build.
 A second fresh interpreter imports every module of the telemetry plane
@@ -262,6 +264,26 @@ dbz = make_parser({"debezium": {}}).do_batch([
 assert sum(b.n_rows for b in dbz.batches) == len(kf.records("cdc", 0)) > 0
 my.stop()
 kf.stop()
+from transferia_tpu_torch.providers.mysql.binlog import BinlogReader
+from transferia_tpu_torch.providers.mysql.gtid import GtidSet
+from transferia_tpu_torch.providers.postgres.replication import (
+    Wal2JsonDecoder, int_to_lsn)
+from transferia_tpu_torch.recipes import cdc
+from transferia_tpu_torch.recipes.fake_postgres import FakePG
+binlog = FakeMySQL()
+last = cdc.feed_users_binlog(binlog, cdc.users_changes(70, 20, 10))
+reader = BinlogReader()
+rows = [ev for body in binlog.binlog_events
+        for ev in reader.parse_event(body) if ev[0] == "row"]
+assert len(rows) == 100 and last == 1, (len(rows), last)
+gtids = GtidSet.parse(f"{cdc.USERS_SID}:1-{last}")
+assert GtidSet.decode(gtids.encode()) == gtids
+wal = FakePG()
+cdc.feed_hits_wal(wal, 10)
+dec = Wal2JsonDecoder()
+items = [dec.decode(p, lsn) for lsn, p in wal.wal]
+assert sum(it is not None for it in items) == 10, items
+assert int_to_lsn(wal.wal[-1][0]) == "0/2058"
 with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
@@ -533,3 +555,38 @@ def test_replication_needs_a_card_or_the_cpu(device, monkeypatch):
     worker.run()
     stopper.join()
     assert store.row_count() >= 64
+
+
+def test_cdc_tails_are_ported_and_left_outs_name_their_items():
+    """The binlog tail, the MySQL target and Postgres logical replication
+    no longer raise; the SNAPSHOT_AND_INCREMENT activation (waiting on
+    the MVCC cutover) and the DBLog snapshot raise naming their items."""
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer, TransferType
+    from transferia_tpu_torch.providers.memory import MemoryTargetParams
+    from transferia_tpu_torch.providers.mysql import (
+        MySQLSourceParams,
+        MySQLTargetParams,
+    )
+    from transferia_tpu_torch.providers.postgres import PGSourceParams
+    from transferia_tpu_torch.providers.registry import get_provider
+    from transferia_tpu_torch.tasks import activate_delivery
+
+    my = get_provider("mysql", Transfer(
+        id="t", src=MySQLSourceParams(), dst=MySQLTargetParams()),
+        device="cpu")
+    assert type(my.source()).__name__ == "MySQLBinlogSource"
+    assert type(my.sinker()).__name__ == "MySQLSinker"
+    pg = Transfer(id="t", src=PGSourceParams(),
+                  dst=MemoryTargetParams(sink_id="t"))
+    assert type(get_provider("pg", pg, device="cpu").source()).__name__ \
+        == "PGReplicationSource"
+    dblog = Transfer(id="t", src=PGSourceParams(dblog_snapshot=True),
+                     dst=MemoryTargetParams(sink_id="t"))
+    with pytest.raises(NotImplementedError, match="DBLog.*ROADMAP.md A10"):
+        get_provider("pg", dblog, device="cpu").source()
+    sni = Transfer(id="t-sni", type=TransferType.SNAPSHOT_AND_INCREMENT,
+                   src=MySQLSourceParams(), dst=MySQLTargetParams())
+    with pytest.raises(NotImplementedError,
+                       match="SNAPSHOT_AND_INCREMENT.*A10.*ROADMAP.md A6"):
+        activate_delivery(sni, MemoryCoordinator(), device="cpu")

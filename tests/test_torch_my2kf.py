@@ -321,9 +321,9 @@ def test_left_out_parts_raise():
     t = Transfer(id="w", src=MySQLSourceParams(),
                  dst=MySQLTargetParams())
     prov = get_provider("mysql", t)
+    # the binlog tail and the MySQL target are ported: no call raises
     for call in (prov.source, prov.sinker, prov.destination_storage):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            call()
+        assert call() is not None
     st = prov.storage()
     with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
         st.get_increment_state([], {})

@@ -419,9 +419,20 @@ def test_activate_left_out_branches_raise(case):
 def test_pg_target_and_replication_wait():
     t = Transfer(id="w", src=PGSourceParams(), dst=PGTargetParams())
     prov = get_provider("pg", t, device="cpu")
-    for call in (prov.sinker, prov.source, prov.deactivate):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the target waits (A6); logical replication is ported
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        prov.sinker()
+    assert type(prov.source()).__name__ == "PGReplicationSource"
+    pg = FakePG().start()
+    try:
+        pg.slots["transferia_w"] = "wal2json"
+        t = Transfer(id="w", src=PGSourceParams(host="127.0.0.1",
+                                                port=pg.port),
+                     dst=PGTargetParams())
+        get_provider("pg", t, device="cpu").deactivate()
+        assert pg.slots == {}
+    finally:
+        pg.stop()
     assert prov.storage() is not None
     assert prov.transfer_ddl_objects(CHTargetParams()) == 0
 

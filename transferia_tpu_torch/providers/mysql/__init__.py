@@ -1,8 +1,9 @@
-"""MySQL provider of the port: the snapshot source over a stdlib
+"""MySQL provider of the port: the snapshot source, the binlog ROW
+replication source (file+position and executed-GTID checkpoints,
+`binlog.py`, `gtid.py`) and the MySQL target, over a stdlib
 implementation of the client/server protocol (handshake v10,
 mysql_native_password and the caching_sha2_password fast path, COM_QUERY
-text resultsets).  The binlog replication source and the MySQL target
-wait (ROADMAP.md A7)."""
+text resultsets, COM_BINLOG_DUMP and COM_BINLOG_DUMP_GTID)."""
 
 from transferia_tpu_torch.providers.mysql.provider import (
     MySQLProvider,

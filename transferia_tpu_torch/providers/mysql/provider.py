@@ -1,14 +1,15 @@
-"""MySQL snapshot source over the wire client (the port's copy of the
-storage half of ``transferia_tpu/providers/mysql/provider.py``): the
-`mysql` source and target type rules, the endpoint params, `MySQLStorage`
-(catalog, counts, the binlog position, keyset and OFFSET paging, the
-checksum samples) and the provider's `storage`/`cleanup`/`test`.
+"""MySQL storage and sink over the wire client (the port's copy of
+``transferia_tpu/providers/mysql/provider.py``): the `mysql` source and
+target type rules, the endpoint params, `MySQLStorage` (catalog, counts,
+the binlog position, keyset and OFFSET paging, the checksum samples),
+`MySQLSinker` (CREATE TABLE through the target type rules, multi-row
+INSERT with an upsert when a key exists, REPLACE/UPDATE/DELETE for a
+batch with kinds) and the provider's `storage`, `destination_storage`,
+`source` (the binlog tail, `binlog.py`), `sinker`, `cleanup` and `test`.
 
-Left out, each raising NotImplementedError naming its ROADMAP.md item:
-the binlog replication source (`source`, A7), the incremental cursors
-(`get_increment_state`/`next_increment_state`, A9, where incremental
-tables already raise in the snapshot) and the MySQL target (`sinker`,
-`destination_storage`, A7).
+Left out, raising NotImplementedError naming its ROADMAP.md item: the
+incremental cursors (`get_increment_state`/`next_increment_state`, A9,
+where incremental tables already raise in the snapshot).
 """
 
 from __future__ import annotations
@@ -18,13 +19,17 @@ from dataclasses import dataclass
 from typing import Optional
 
 from transferia_tpu_torch.abstract.interfaces import (
+    Batch,
     IncrementalStorage,
     PositionalStorage,
     Pusher,
     SampleableStorage,
+    Sinker,
     Storage,
     TableInfo,
+    is_columnar,
 )
+from transferia_tpu_torch.abstract.kinds import Kind
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
     ColSchema,
@@ -49,6 +54,7 @@ from transferia_tpu_torch.providers.registry import (
 )
 from transferia_tpu_torch.typesystem.rules import (
     map_source_type,
+    map_target_type,
     register_source_rules,
     register_target_rules,
 )
@@ -389,6 +395,117 @@ class MySQLStorage(Storage, PositionalStorage, IncrementalStorage,
         raise _waits("MySQL incremental cursors", "A9")
 
 
+class MySQLSinker(Sinker):
+    def __init__(self, params: MySQLTargetParams):
+        self.params = params
+        self._c: Optional[MySQLConnection] = None
+        self._created: set[TableID] = set()
+
+    @property
+    def conn(self) -> MySQLConnection:
+        if self._c is None:
+            self._c = _conn(self.params)
+        return self._c
+
+    def close(self) -> None:
+        if self._c is not None:
+            self._c.close()
+            self._c = None
+
+    _literal = staticmethod(_sql_literal)
+
+    def _table_ref(self, tid: TableID) -> str:
+        ns = tid.namespace or self.params.database
+        return f"`{ns}`.`{tid.name}`"
+
+    def _ensure_table(self, tid: TableID, schema: TableSchema) -> None:
+        if tid in self._created:
+            return
+        cols = []
+        for c in schema:
+            typ = map_target_type("mysql", c.data_type)
+            # TEXT/BLOB key columns need a length-limited index type
+            if c.primary_key and typ in ("longtext", "longblob"):
+                typ = "varchar(255)" if typ == "longtext" \
+                    else "varbinary(255)"
+            nn = " NOT NULL" if (c.required or c.primary_key) else ""
+            cols.append(f"`{c.name}` {typ}{nn}")
+        keys = ", ".join(f"`{c.name}`" for c in schema.key_columns())
+        pk = f", PRIMARY KEY ({keys})" if keys else ""
+        self.conn.query(
+            f"CREATE TABLE IF NOT EXISTS {self._table_ref(tid)} "
+            f"({', '.join(cols)}{pk})"
+        )
+        self._created.add(tid)
+
+    def push(self, batch: Batch) -> None:
+        if not is_columnar(batch):
+            rows = [it for it in batch if it.is_row_event()]
+            if not rows:
+                return
+            batch = ColumnBatch.from_rows(rows)
+        self._ensure_table(batch.table_id, batch.schema)
+        if batch.kinds is None:
+            self._insert(batch, upsert=batch.schema.has_primary_key())
+        else:
+            for it in batch.to_rows():
+                self._apply_row(it)
+
+    def _insert(self, batch: ColumnBatch, upsert: bool) -> None:
+        names = list(batch.columns)
+        cols = ", ".join(f"`{n}`" for n in names)
+        data = batch.to_pydict()
+        # multi-row VALUES in chunks to bound statement size
+        chunk = 500
+        for start in range(0, batch.n_rows, chunk):
+            rows_sql = []
+            for i in range(start, min(batch.n_rows, start + chunk)):
+                rows_sql.append(
+                    "(" + ", ".join(
+                        self._literal(data[n][i]) for n in names
+                    ) + ")"
+                )
+            sql = f"INSERT INTO {self._table_ref(batch.table_id)} " \
+                  f"({cols}) VALUES {', '.join(rows_sql)}"
+            if upsert:
+                keys = {c.name for c in batch.schema.key_columns()}
+                sets = ", ".join(
+                    f"`{n}` = VALUES(`{n}`)" for n in names
+                    if n not in keys
+                )
+                if sets:
+                    sql += f" ON DUPLICATE KEY UPDATE {sets}"
+            self.conn.query(sql)
+
+    def _apply_row(self, it) -> None:
+        ref = self._table_ref(it.table_id)
+        if it.kind == Kind.INSERT:
+            cols = ", ".join(f"`{n}`" for n in it.column_names)
+            vals = ", ".join(self._literal(v) for v in it.column_values)
+            self.conn.query(
+                f"REPLACE INTO {ref} ({cols}) VALUES ({vals})"
+            )
+        elif it.kind == Kind.UPDATE:
+            sets = ", ".join(
+                f"`{n}` = {self._literal(v)}"
+                for n, v in zip(it.column_names, it.column_values)
+            )
+            self.conn.query(
+                f"UPDATE {ref} SET {sets} WHERE {self._key_where(it)}"
+            )
+        elif it.kind == Kind.DELETE:
+            self.conn.query(
+                f"DELETE FROM {ref} WHERE {self._key_where(it)}"
+            )
+
+    def _key_where(self, it) -> str:
+        names = [c.name for c in it.table_schema.key_columns()]
+        return " AND ".join(
+            f"`{n}` = {self._literal(v)}"
+            for n, v in zip(names, it.effective_key())
+        )
+
+
 def _waits(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md "
@@ -405,19 +522,29 @@ class MySQLProvider(Provider):
         return None
 
     def destination_storage(self):
-        if isinstance(self.transfer.dst, MySQLTargetParams):
-            raise _waits("the MySQL target's read-back storage", "A7")
+        dst = self.transfer.dst
+        if isinstance(dst, MySQLTargetParams):
+            return MySQLStorage(MySQLSourceParams(
+                host=dst.host, port=dst.port, database=dst.database,
+                user=dst.user, password=dst.password,
+            ))
         return None
 
     def source(self):
         """Binlog ROW replication."""
         if isinstance(self.transfer.src, MySQLSourceParams):
-            raise _waits("MySQL binlog replication", "A7")
+            from transferia_tpu_torch.providers.mysql.binlog import (
+                MySQLBinlogSource,
+            )
+
+            return MySQLBinlogSource(
+                self.transfer.src, self.transfer.id, self.coordinator
+            )
         return None
 
     def sinker(self):
         if isinstance(self.transfer.dst, MySQLTargetParams):
-            raise _waits("the MySQL sink (MySQLSinker)", "A7")
+            return MySQLSinker(self.transfer.dst)
         return None
 
     def cleanup(self, tables: list) -> None:

@@ -1,14 +1,16 @@
-"""Postgres snapshot source over the wire client (the port's copy of the
-storage half of ``transferia_tpu/providers/postgres/provider.py``): the
+"""Postgres snapshot source over the wire client (the port's copy of
+the storage half of ``transferia_tpu/providers/postgres/provider.py``): the
 `pg` type rules, the endpoint params, `PGStorage` (catalog, counts, the
 WAL position, ctid-range sharding, COPY loads, the checksum samples and
-the incremental cursors) and the provider's `storage`/`test`/`cleanup`.
+the incremental cursors) and the provider's `storage`, `source` (logical
+replication, `replication.py`), `deactivate` (the slot drop), `test` and
+`cleanup`.
 
 Snapshot loads use COPY TO STDOUT (csv) into the port's own decoder
 (`copycsv.py`), which gives the batches the reference's pyarrow reader
 gives.  Left out, each raising NotImplementedError naming its ROADMAP.md
-item: the sink (`PGSinker`, A6), logical replication (`source`, A7),
-`deactivate` (A7) and the PG -> PG `pg_dump` step (A6).
+item: the sink (`PGSinker`, A6), the PG -> PG `pg_dump` step (A6) and the
+DBLog snapshot of the replication source (`dblog_snapshot`, A10).
 """
 
 from __future__ import annotations
@@ -453,8 +455,16 @@ class PostgresProvider(Provider):
         return None
 
     def source(self):
+        """Logical-replication CDC over a wal2json slot."""
         if isinstance(self.transfer.src, PGSourceParams):
-            raise _waits("Postgres logical replication", "A7")
+            from transferia_tpu_torch.providers.postgres.replication import (
+                PGReplicationSource,
+            )
+
+            return PGReplicationSource(
+                self.transfer.src, self.transfer.id,
+                coordinator=self.coordinator,
+            )
         return None
 
     def transfer_ddl_objects(self, dst_params) -> int:
@@ -471,9 +481,26 @@ class PostgresProvider(Provider):
         raise _waits("transfer_ddl PG -> PG (pg_dump)", "A6")
 
     def deactivate(self) -> None:
-        if isinstance(self.transfer.src, PGSourceParams):
-            raise _waits("dropping the replication slot (deactivate)",
-                         "A7")
+        """Drop the replication slot."""
+        from transferia_tpu_torch.providers.postgres.replication import (
+            ReplicationConnection,
+        )
+
+        src = self.transfer.src
+        if not isinstance(src, PGSourceParams):
+            return
+        slot = src.slot_name or \
+            f"transferia_{self.transfer.id}".replace("-", "_")
+        conn = ReplicationConnection(
+            host=src.host, port=src.port, database=src.database,
+            user=src.user, password=src.password, replication=True,
+        ).connect()
+        try:
+            conn.drop_slot(slot)
+        except PGError as e:
+            logger.warning("drop slot %s: %s", slot, e)
+        finally:
+            conn.close()
 
     def cleanup(self, tables: list) -> None:
         params = self.transfer.dst

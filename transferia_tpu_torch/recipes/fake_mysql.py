@@ -1,14 +1,15 @@
 """In-process fake MySQL server (client/server protocol subset): the
-port's copy of the query side of ``tests/recipes/fake_mysql.py``.
+port's copy of ``tests/recipes/fake_mysql.py``.
 
 Handshake v10 with mysql_native_password verification, COM_QUERY with
-text-protocol resultsets (EOF framing), COM_PING.  SQL handling is
-regex-dispatch over the statements the snapshot source issues, and the
-activation cleanup's DROP and TRUNCATE apply to the in-memory tables.
-The JAX fake's binlog feed and stream and its other writes (CREATE,
-INSERT/REPLACE, UPDATE, DELETE, with their `_conds`/`_match` helpers)
-serve the CDC tail and the MySQL target, which the port does not have
-yet (ROADMAP.md A7), and are left out.
+text-protocol resultsets (EOF framing), COM_PING, and the binlog stream:
+COM_BINLOG_DUMP and COM_BINLOG_DUMP_GTID serve the events fed through the
+builders (GTID, XID, TABLE_MAP, ROWS v2), a GTID dump skipping the
+transaction groups its executed set holds.  SQL handling is
+regex-dispatch over the statements the provider issues: the catalog,
+counts, paging and samples of the snapshot source, and the writes of the
+MySQL target and the activation cleanup (CREATE, INSERT/REPLACE, UPDATE,
+DELETE, DROP, TRUNCATE) applied to the in-memory tables.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ class FakeMyTable:
         self.name = name
         self.columns = columns
         self.rows = rows or []
+        # the write path's key index (FakeMySQL._key_index)
+        self.index: dict = {}
+        self.index_sig = None
 
 
 class FakeMySQL:
@@ -41,6 +45,58 @@ class FakeMySQL:
         self.lock = threading.RLock()
         self.port = 0
         self._srv = None
+        self.binlog_events: list[bytes] = []  # pre-framed event bodies
+        self._next_log_pos = 10_000  # past SHOW MASTER STATUS's 4242
+
+    # -- binlog event builders (independent encoder mirroring the client
+    # decoder; TABLE_MAP + ROWS v2 for [bigint, varchar(N)] shapes) --------
+    def _event(self, etype: int, payload: bytes) -> bytes:
+        self._next_log_pos += 19 + len(payload)
+        header = struct.pack("<IBIII", 1_700_000_000, etype, 1,
+                             19 + len(payload), self._next_log_pos)
+        return header[:17] + struct.pack("<H", 0) + payload
+
+    def feed_gtid(self, sid: str, gno: int) -> None:
+        """GTID_LOG_EVENT (type 33) opening a transaction group."""
+        import uuid as _uuid
+
+        body = b"\x00" + _uuid.UUID(sid).bytes + struct.pack("<Q", gno)
+        with self.lock:
+            self.binlog_events.append(self._event(33, body))
+
+    def feed_xid(self, xid: int = 1) -> None:
+        """XID_EVENT (type 16): transaction commit marker."""
+        with self.lock:
+            self.binlog_events.append(
+                self._event(16, struct.pack("<Q", xid)))
+
+    def feed_table_map(self, table_id: int, schema: str, table: str,
+                       col_specs: list[tuple]) -> None:
+        """col_specs: (type_byte, meta_bytes) tuples."""
+        body = table_id.to_bytes(6, "little") + struct.pack("<H", 1)
+        body += bytes([len(schema)]) + schema.encode() + b"\x00"
+        body += bytes([len(table)]) + table.encode() + b"\x00"
+        body += bytes([len(col_specs)])
+        body += bytes(t for t, _ in col_specs)
+        meta = b"".join(m for _, m in col_specs)
+        body += bytes([len(meta)]) + meta
+        body += bytes((len(col_specs) + 7) // 8)  # null-allowed bitmap
+        with self.lock:
+            self.binlog_events.append(self._event(19, body))
+
+    def feed_rows(self, etype: int, table_id: int, n_cols: int,
+                  images: list[bytes]) -> None:
+        """images: pre-encoded row images (null bitmap + values)."""
+        body = table_id.to_bytes(6, "little") + struct.pack("<H", 1)
+        body += struct.pack("<H", 2)  # v2 extra-info length (just itself)
+        body += bytes([n_cols])
+        bitmap = bytes([0xFF] * ((n_cols + 7) // 8))
+        body += bitmap
+        if etype == 31:  # update: before+after bitmaps
+            body += bitmap
+        body += b"".join(images)
+        with self.lock:
+            self.binlog_events.append(self._event(etype, body))
 
     def add_table(self, t: FakeMyTable) -> None:
         with self.lock:
@@ -163,14 +219,66 @@ class _MySession:
             if cmd == 0x0E:  # PING
                 self.send_ok()
                 continue
+            if cmd == 0x12:  # COM_BINLOG_DUMP
+                self.stream_binlog()
+                return
+            if cmd == 0x1E:  # COM_BINLOG_DUMP_GTID
+                # flags(2) server_id(4) name_len(4) name pos(8) dlen(4) set
+                name_len = struct.unpack_from("<I", pkt, 7)[0]
+                off = 11 + name_len + 8
+                dlen = struct.unpack_from("<I", pkt, off)[0]
+                gtid_data = pkt[off + 4:off + 4 + dlen]
+                from transferia_tpu_torch.providers.mysql.gtid import GtidSet
+
+                self.stream_binlog(skip_set=GtidSet.decode(gtid_data))
+                return
             if cmd == 0x03:  # QUERY
                 sql = pkt[1:].decode("utf-8", "replace")
                 with self.fake.lock:
                     self.fake.queries.append(sql)
+                if sql.startswith("SET @master_binlog_checksum"):
+                    self.send_ok()
+                    continue
                 try:
                     self.dispatch(sql)
                 except Exception as e:
                     self.send_err(str(e))
+
+    def stream_binlog(self, skip_set=None):
+        """Serve fed binlog events as OK-prefixed packets, then poll for
+        newly fed events until the client disconnects.  With skip_set
+        (COM_BINLOG_DUMP_GTID), transaction groups whose GTID is already
+        in the executed set are not re-sent — like a real server."""
+        import select
+        import time as _time
+        import uuid as _uuid
+
+        sent = 0
+        skipping = False
+        while True:
+            with self.fake.lock:
+                events = list(self.fake.binlog_events)
+            while sent < len(events):
+                ev = events[sent]
+                sent += 1
+                etype = ev[4]
+                if skip_set is not None and etype == 33:
+                    sid = str(_uuid.UUID(bytes=ev[19 + 1:19 + 17]))
+                    gno = struct.unpack_from("<Q", ev, 19 + 17)[0]
+                    skipping = skip_set.contains(sid, gno)
+                    if skipping:
+                        continue
+                elif skipping and etype != 33:
+                    continue
+                self.seq = 1
+                self.send_packet(b"\x00" + ev)
+            _time.sleep(0.02)
+            # a dump client sends nothing but its COM_QUIT before it
+            # closes: any byte or the close ends the stream (waiting for
+            # the close alone, behind an unread COM_QUIT, never ends)
+            r, _, _ = select.select([self.sock], [], [], 0)
+            if r:
+                raise ConnectionError()
 
     @staticmethod
     def _native_token(password: str, nonce: bytes) -> bytes:
@@ -239,6 +347,8 @@ class _MySession:
         if m:
             t = fake.tables.get((m.group(1), m.group(2)))
             return self.send_rows(["c"], [[len(t.rows) if t else 0]])
+        if "@@global.binlog_checksum" in low and low.startswith("select"):
+            return self.send_rows(["@@global.binlog_checksum"], [["NONE"]])
         if low.startswith("show master status"):
             return self.send_rows(
                 ["File", "Position", "Executed_Gtid_Set"],
@@ -297,15 +407,70 @@ class _MySession:
             return self.send_rows(
                 cols, [[r.get(c) for c in cols] for r in window]
             )
-        if low.startswith(("drop table", "truncate")):
+        if low.startswith(("create table", "drop table", "truncate",
+                           "insert", "replace", "update", "delete")):
             self.apply_write(sql)
             return self.send_ok()
         raise ValueError(f"fake mysql: unhandled query: {sql[:120]}")
 
     def apply_write(self, sql: str):
-        """The activation cleanup's statements (DROP TABLE IF EXISTS,
-        TRUNCATE TABLE)."""
         fake = self.fake
+        m = re.match(r"CREATE TABLE IF NOT EXISTS `(\w+)`\.`(\w+)` "
+                     r"\((.*)\)", sql, re.I | re.S)
+        if m:
+            db, name, body = m.groups()
+            if (db, name) in fake.tables:
+                return
+            pk_cols = set()
+            pkm = re.search(r"PRIMARY KEY \((.*?)\)", body)
+            if pkm:
+                pk_cols = {c.strip().strip("`")
+                           for c in pkm.group(1).split(",")}
+                body = body[:pkm.start()].rstrip(", \n")
+            cols = []
+            for part in body.split(","):
+                toks = part.strip().split(None, 1)
+                if not toks:
+                    continue
+                cname = toks[0].strip("`")
+                full = toks[1] if len(toks) > 1 else "text"
+                cols.append((cname, full.split("(")[0].split()[0],
+                             full.replace(" NOT NULL", ""), cname in pk_cols,
+                             "NOT NULL" in full))
+            fake.add_table(FakeMyTable(db, name, cols))
+            return
+        m = re.match(r"(INSERT|REPLACE) INTO `(\w+)`\.`(\w+)` "
+                     r"\((.*?)\) VALUES (.*)", sql, re.I | re.S)
+        if m:
+            verb, db, name = m.group(1).upper(), m.group(2), m.group(3)
+            t = fake.tables.get((db, name))
+            if t is None:
+                raise ValueError(f"Table {name} doesn't exist")
+            cols = [c.strip().strip("`") for c in m.group(4).split(",")]
+            values_part = m.group(5).split(" ON DUPLICATE")[0].strip()
+            for tup in re.findall(r"\(((?:[^()']|'[^']*')*)\)",
+                                  values_part):
+                vals = [
+                    v.strip().strip("'")
+                    if v.strip() != "NULL" else None
+                    for v in re.split(
+                        r",(?=(?:[^']*'[^']*')*[^']*$)", tup
+                    )
+                ]
+                row = dict(zip(cols, vals))
+                pk = [c[0] for c in t.columns if c[3]]
+                if pk:
+                    # the rows whose key equals the new row's go
+                    key = tuple(row.get(k) for k in pk)
+                    self._drop_rows(t, pk, [
+                        r for r in self._key_index(t, pk).get(
+                            tuple(str(v) for v in key), ())
+                        if tuple(r.get(k) for k in pk) == key])
+                    self._key_index(t, pk).setdefault(
+                        tuple(str(v) for v in key), []).append(row)
+                t.rows.append(row)
+                t.index_sig = (id(t.rows), len(t.rows))
+            return
         m = re.match(r"DROP TABLE IF EXISTS `(\w+)`\.`(\w+)`", sql, re.I)
         if m:
             fake.tables.pop((m.group(1), m.group(2)), None)
@@ -317,4 +482,75 @@ class _MySession:
                 raise ValueError("doesn't exist")
             t.rows = []
             return
+        m = re.match(r"DELETE FROM `(\w+)`\.`(\w+)` WHERE (.*)", sql,
+                     re.I | re.S)
+        if m:
+            t = fake.tables.get((m.group(1), m.group(2)))
+            cond = self._conds(m.group(3))
+            pk = [c[0] for c in t.columns if c[3]]
+            if pk and list(cond) == pk:
+                self._drop_rows(t, pk, list(self._key_index(t, pk).get(
+                    tuple(cond.values()), ())))
+                return
+            t.rows = [r for r in t.rows if not self._match(r, cond)]
+            return
+        m = re.match(r"UPDATE `(\w+)`\.`(\w+)` SET (.*) WHERE (.*)", sql,
+                     re.I | re.S)
+        if m:
+            t = fake.tables.get((m.group(1), m.group(2)))
+            sets = self._conds(m.group(3), sep=",")
+            cond = self._conds(m.group(4))
+            pk = [c[0] for c in t.columns if c[3]]
+            if pk and list(cond) == pk:
+                index = self._key_index(t, pk)
+                for r in list(index.get(tuple(cond.values()), ())):
+                    old = tuple(str(r.get(k)) for k in pk)
+                    r.update(sets)
+                    new = tuple(str(r.get(k)) for k in pk)
+                    if new != old:
+                        index[old].remove(r)
+                        index.setdefault(new, []).append(r)
+                return
+            for r in t.rows:
+                if self._match(r, cond):
+                    r.update(sets)
+            t.index_sig = None
+            return
         raise ValueError(f"fake mysql: unhandled write: {sql[:120]}")
+
+    @staticmethod
+    def _key_index(t: FakeMyTable, pk: list) -> dict:
+        """The table's rows by the text of their key values (what
+        `_match` compares), so a statement on one key finds its rows
+        without a scan; rebuilt when the rows changed elsewhere."""
+        if t.index_sig != (id(t.rows), len(t.rows)):
+            t.index = {}
+            for r in t.rows:
+                t.index.setdefault(tuple(str(r.get(k)) for k in pk),
+                                   []).append(r)
+            t.index_sig = (id(t.rows), len(t.rows))
+        return t.index
+
+    @staticmethod
+    def _drop_rows(t: FakeMyTable, pk: list, victims: list) -> None:
+        """Remove these rows (found through the key index) in one pass."""
+        if not victims:
+            return
+        gone = {id(r) for r in victims}
+        for r in victims:
+            t.index[tuple(str(r.get(k)) for k in pk)].remove(r)
+        t.rows = [r for r in t.rows if id(r) not in gone]
+        t.index_sig = (id(t.rows), len(t.rows))
+
+    @staticmethod
+    def _conds(text: str, sep: str = " AND ") -> dict:
+        out = {}
+        for p in text.split(sep):
+            if "=" in p:
+                k, v = p.split("=", 1)
+                out[k.strip().strip("`")] = v.strip().strip("'")
+        return out
+
+    @staticmethod
+    def _match(row: dict, cond: dict) -> bool:
+        return all(str(row.get(k)) == v for k, v in cond.items())

@@ -145,7 +145,9 @@ def run_replication(transfer, coordinator: Coordinator,
             if stop_event.is_set():
                 logger.info("replication stopped during error: %s", e)
                 return
-            if is_fatal(e):
+            # a part of the port that is left out fails like a fatal
+            # error: a retry would run into it again
+            if is_fatal(e) or isinstance(e, NotImplementedError):
                 stats.fatal_errors.inc()
                 logger.error("fatal replication error: %s", e)
                 coordinator.fail_replication(transfer.id, str(e))

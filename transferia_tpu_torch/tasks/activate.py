@@ -66,7 +66,8 @@ def activate_delivery(transfer, coordinator: Coordinator,
     try:
         if ttype == TransferType.SNAPSHOT_AND_INCREMENT:
             raise _left_out("the SNAPSHOT_AND_INCREMENT activation "
-                            "(replication slot first, the MVCC cutover)")
+                            "(replication slot first, then the MVCC "
+                            "cutover, which waits on A10's mvcc/)")
         if ttype != TransferType.INCREMENT_ONLY and _dbt_steps(transfer):
             raise _left_out("the dbt post-upload step")
         loader = SnapshotLoader(transfer, coordinator,
