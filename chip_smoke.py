@@ -99,7 +99,11 @@ final line):
      columns; each published digest equals TableFingerprinter on the
      card and the plain version over the sink's rows; every part is
      completed and committed; the runs' launches, counted across the
-     threads, hold K-A, K-B, K-C, K10 and trt_var_accumulators;
+     threads, hold K-A, K-B, K-C and K10; the fingerprint tap's auto,
+     the reference's measured choice, times the host lanes on each
+     part's first two batches and sends every later one to K10, and
+     its choices print with the host's measured and the card's
+     predicted ns/row;
  15. replication: INCREMENT_ONLY transfers through the port's
      run_replication on a memory coordinator, from the port's fake Kafka
      broker into its fake ClickHouse, device and host placement: (a)
@@ -108,7 +112,9 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 16,384 messages of the kafka2ch phase's generator (K-A).  Exact
+     x 8,192 messages of the kafka2ch phase's generator (K-A; 16,384 a
+     partition until PR 16, whose depth cut for the call's time it
+     is).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
@@ -136,6 +142,40 @@ final line):
      launched and as often in both runs, and the keys K10 gave each
      staged push on the path equal to its plain version's over the same
      batch, one push a launch; it reports rows/s over the 300,000;
+ 15c'. checksum: the checksum task (tasks/checksum.py) over pg2ch's
+     300,000 rows transferred by activate_delivery without the filter
+     (a checksum compares whole tables): checksum(PGStorage, CHStorage)
+     by fingerprint with fingerprint_backend "device" (K10 in reduce mode
+     on the card), "host" (the host library's lanes) and "auto" (the
+     measured choice, its placements printed), and by compare (the
+     sampled strategy: the table is over 20 MiB); then with one
+     ClickHouse value altered; then a dictionary-encoded copy of the
+     table (url over a fresh 997-value pool) against its flat rows,
+     which launches trt_var_accumulators once for the pool; on the card,
+     and with device="cpu" the "device" backend (K10's plain version;
+     the host lanes and the compare run alike in both).  Every clean run
+     reports ok, every method
+     reports the altered table failed and its row-level pass names the
+     key, the device, host and auto digests are equal (and the card's
+     equal the CPU's), the host lanes launch nothing, and each batch K10
+     fingerprinted is keyed again on the card against the plain version;
+ 15c''. sai: config #2 as SNAPSHOT_AND_INCREMENT through the MVCC staging
+     store (mvcc/): the pg2ch table snapshotted by
+     activate_snapshot_and_increment into the store while an MvccPump
+     over the port's Kafka client feeds 60,000 JSON messages (seed 23,
+     16 partitions: two versions each of 20,000 of the snapshot's keys
+     and of 10,000 new keys, the parser naming the snapshot's table);
+     the cutover seals the watermark, epoch and offsets, only the sealed
+     offsets are committed, and the merged image publishes through the
+     filter with the ClickHouse staged commit; on the card and with
+     device="cpu".  ClickHouse equals numpy's latest-wins image after
+     the filter with no duplicate key, resume_state equals numpy's
+     watermark and offsets, the committed offsets the sealed ones, and
+     every K10 launch (the store's PK and content keys, the staged
+     dedup keys) equals its plain version.  Then the wal2json tail:
+     activate_delivery of the same table as SNAPSHOT_AND_INCREMENT with
+     no pump, and run_replication of 20,000 new inserts; ClickHouse
+     equals numpy's.  Each run is traced and prints its stage table;
  15d. my2kf: BASELINE config #4, bench.py measure_mysql2kafka's shape
      through activate_delivery: 200,000 rows from the port's fake MySQL
      (id bigint key, email varchar(255), region int), mask_field email
@@ -173,8 +213,10 @@ final line):
      p50/p99 (the stage timer, as replication (a) reads it), the
      checkpointed state and, each run traced, its stage tables (so do
      the next two phases);
- 15f. pg2ch_cdc: BASELINE config #2's CDC half: 300,000 wal2json v2
-     inserts of the pg2ch rows in transactions of 1,000, fed before the
+ 15f. pg2ch_cdc: BASELINE config #2's CDC half: 100,000 wal2json v2
+     inserts of the pg2ch rows (the first third of the 300,000, a depth
+     cut from PR 16 for the call's time) in transactions of 1,000, fed
+     before the
      start and tailed by the port's PGReplicationSource through
      run_replication, the pg2ch filter (host path), the fake ClickHouse
      with no Bufferer; device and host placement.  The source creates
@@ -246,6 +288,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import hmac
+import importlib
 import json
 import os
 import re
@@ -371,6 +414,7 @@ from transferia_tpu_torch.providers.sample import (
     SampleSourceParams,
     make_batch,
 )
+from transferia_tpu_torch.middlewares import fingerprint_tap
 from transferia_tpu_torch.middlewares import sync as sync_mw
 from transferia_tpu_torch.models import TransferType
 from transferia_tpu_torch.providers.clickhouse import CHTargetParams
@@ -426,6 +470,25 @@ from transferia_tpu_torch.chaos import failpoints
 from transferia_tpu_torch.stats import stagetimer, trace
 from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import Metrics
+from transferia_tpu_torch.abstract.table import TableDescription
+from transferia_tpu_torch.mvcc import runner as mvcc_runner
+from transferia_tpu_torch.mvcc import store as mvcc_store
+from transferia_tpu_torch.mvcc.pump import MvccPump
+from transferia_tpu_torch.providers.clickhouse import (
+    CHSourceParams,
+    CHStorage,
+)
+from transferia_tpu_torch.providers.kafka.provider import (
+    _KafkaQueueClient as KafkaQueueClient,
+)
+from transferia_tpu_torch.providers.memory import (
+    MemorySourceParams,
+    MemoryStorage,
+    seed_source,
+)
+from transferia_tpu_torch.providers.postgres.provider import PGStorage
+# the module (the tasks package exports a `checksum` function)
+checksum_mod = importlib.import_module("transferia_tpu_torch.tasks.checksum")
 from transferia_tpu_torch.tasks import SnapshotLoader
 from transferia_tpu_torch.testing import force_virtual_mesh
 from transferia_tpu_torch.transform import build_chain
@@ -501,8 +564,13 @@ PATH_KERNELS = {
     "lambda_stream": ("region_sign_flip",),
     "lambda_backlog": ("region_sign_flip",),
     "kafka2ch": ("sha256_hmac",),
+    # K10 keys the staged flushes; the fingerprint tap's auto is the
+    # reference's measured choice: two host samples a part and table
+    # (so the country pool's accumulators come from the host library and
+    # are moved to the card, not computed: no trt_var_accumulators
+    # launch), then K10 for every later batch (checked, TapChoices)
     "snapshot": ("sha256_hmac", "pred_decode", "pred3vl_mask",
-                 "rowhash_lanes", "var_accumulators"),
+                 "rowhash_lanes"),
     "replication": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
     "clickbench": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
     # the lambda's K15, once a chain batch
@@ -512,6 +580,13 @@ PATH_KERNELS = {
     # filter alone is not fused (a run with no device mask stays on the
     # host path, transform/fused.py), so K-B and K-C do not launch
     "pg2ch": ("rowhash_lanes",),
+    # from PR 16: the MVCC store keys each source batch (PK keys in the
+    # merge, content keys a layer) and the staged publish keys its pushes,
+    # all K10 in keys mode
+    "sai": ("rowhash_lanes",),
+    # the checksum's device fingerprint (K10 in reduce mode, one launch a
+    # batch) and, for the dictionary-encoded copy, the pool's accumulators
+    "checksum": ("rowhash_lanes", "var_accumulators"),
     # the mask's K-A, one launch a fused chunk (no predicate), and K10
     # keying each staged push for the dedup window, in either placement
     "my2kf": ("sha256_hmac", "rowhash_lanes"),
@@ -575,8 +650,10 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 16,384 messages of the
-# kafka2ch phase's generator
+# Bufferer) over a backlog of 16 partitions x 8,192 messages of the
+# kafka2ch phase's generator (16,384 until PR 16: (b) moves one fetch
+# batch a Bufferer tick, so its run is seconds a 1,024-message batch and
+# the cut halves the phase, for the checksum and sai phases)
 REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
 REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "url", "type": "utf8"},
@@ -585,7 +662,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 16384
+BACKLOG_MESSAGES = 8192
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -607,6 +684,29 @@ PG2CH_COLUMNS = [("id", "bigint", True, True), ("url", "text", False, False),
                  ("score", "double precision", False, False)]
 PG2CH_CONFIG = {"transformers": [
     {"filter_rows": {"filter": "region < 400 AND score >= 10"}}]}
+# from PR 16, config #2 as SNAPSHOT_AND_INCREMENT through the MVCC staging
+# store: the pg2ch table snapshotted into the store while an MvccPump
+# over the port's Kafka client feeds 60,000 JSON messages (seed 23) on 16
+# partitions: two versions each of 20,000 of the snapshot's keys and of
+# 10,000 keys it lacks, both versions of a key on its partition (key mod
+# 16) so the second is the later write; the parser names the snapshot's
+# table, so deltas override its base rows; the cutover, the staged
+# publish through the filter; then activate_delivery of the same table
+# with no pump and a wal2json tail of 20,000 new inserts
+SAI_PARTITIONS, SAI_SEED = 16, 23
+SAI_UPDATED, SAI_NEW, SAI_TAIL = 20_000, 10_000, 20_000
+SAI_PARSER = {"json": {
+    "table": "hits", "namespace": "public", "add_system_cols": False,
+    "schema": [{"name": "id", "type": "int64", "key": True},
+               {"name": "url", "type": "utf8"},
+               {"name": "region", "type": "int32"},
+               {"name": "score", "type": "double"}]}}
+# the checksum task over pg2ch's table transferred without the filter (a
+# checksum compares whole tables): fingerprint (device, host, auto) and
+# compare, then one ClickHouse value altered; and a dictionary-encoded
+# copy of the table (url over a fresh pool) against its flat rows, which
+# launches trt_var_accumulators for the pool
+CHECKSUM_TAMPERED_ID = 5
 # BASELINE config #4, bench.py measure_mysql2kafka: a 200,000-row MySQL
 # table through mask_field email -> Debezium envelopes -> a 16-partition
 # Kafka topic, through activate_delivery, staged commits on (the
@@ -623,12 +723,14 @@ TS_MS = re.compile(rb'"ts_ms":\d+')
 # 140,000 inserts, 40,000 updates of live ids, 20,000 deletes) in 2,000
 # GTID transactions of 100 (recipes/cdc.py), through the mask into the
 # 16-partition topic with Debezium envelopes; config #2's CDC half,
-# 300,000 wal2json v2 inserts of the pg2ch rows in transactions of
-# 1,000, through the filter into ClickHouse; and the first 20,000
+# wal2json v2 inserts of the pg2ch rows in transactions of 1,000,
+# through the filter into ClickHouse; and the first 20,000
 # changes through the mask into a MySQL target
 CDC_INSERTS, CDC_UPDATES, CDC_DELETES, CDC_TXN, CDC_SEED = (
     140_000, 40_000, 20_000, 100, 17)
-PG_CDC_ROWS, PG_CDC_TXN = 300_000, 1000
+# (pg2ch_cdc at 100,000 of the 300,000 messages from PR 16: the depth cut
+# that makes room for the checksum and sai phases in the call's time)
+PG_CDC_ROWS, PG_CDC_TXN = 100_000, 1000
 MY2MY_CHANGES = 20_000
 CDC_SETTLE_S = 300.0
 
@@ -1025,7 +1127,7 @@ def staged(batch: ColumnBatch, dev) -> tuple[list, int]:
     kernel K10)."""
     cols, n = rowhash.prep_batch(batch, dev)
     on_card = rowhash._stage(cols, dev)
-    torch.cuda.synchronize(dev)
+    _sync(dev)
     return on_card, n
 
 
@@ -2428,6 +2530,44 @@ class StrategyCount:
         return False
 
 
+class TapChoices:
+    """Records each TableFingerprinter the fingerprint tap makes (one a
+    part and table), to read auto's choices after the run."""
+
+    def __enter__(self):
+        self.fps = []
+        self._orig = fingerprint_tap.TableFingerprinter
+        fps, orig = self.fps, self._orig
+
+        def make(*a, **kw):
+            fps.append(orig(*a, **kw))
+            return fps[-1]
+
+        fingerprint_tap.TableFingerprinter = make
+        return self
+
+    def __exit__(self, *exc):
+        fingerprint_tap.TableFingerprinter = self._orig
+        return False
+
+    def checked(self, name: str, dev) -> dict:
+        """Auto is the reference's measured choice: each tap's first two
+        batches time the host lanes, and on the card every batch after
+        them goes to K10 (one launch each), so the tap's K10 launches are
+        its "device" choices."""
+        taps = [dict(choices=fp.choices, ns_per_row=fp.ns_per_row())
+                for fp in self.fps]
+        for t in taps:
+            c = t["choices"]
+            if any(x != "host" for x in c[:2]) or (
+                    dev.type == "cuda" and any(x != "device"
+                                               for x in c[2:])):
+                raise AssertionError(f"snapshot {name}: the tap's auto "
+                                     f"chose {c} ({t['ns_per_row']})")
+        return dict(taps=taps, device_batches=sum(
+            t["choices"].count("device") for t in taps))
+
+
 def snapshot_run(name: str, config, placement: str, dev) -> dict:
     """One Quick-start transfer through SnapshotLoader on a memory
     coordinator, the placement pinned (or auto); its launches, seconds,
@@ -2450,7 +2590,7 @@ def snapshot_run(name: str, config, placement: str, dev) -> dict:
     cp = MemoryCoordinator()
     set_placement(None if placement == "auto" else placement)
     try:
-        with StrategyCount() as strategies:
+        with StrategyCount() as strategies, TapChoices() as taps:
             _build.reset_launch_counts()
             t0 = time.perf_counter()
             SnapshotLoader(transfer, cp, device=dev).upload_tables()
@@ -2459,6 +2599,11 @@ def snapshot_run(name: str, config, placement: str, dev) -> dict:
             launches = _build.launch_counts()
     finally:
         set_placement(None)
+    tap = taps.checked(name, dev)
+    if launches["rowhash_lanes"] < tap["device_batches"]:
+        raise AssertionError(f"snapshot {name}: {tap['device_batches']} "
+                             "tap batches on the card, K10 launched "
+                             f"{launches['rowhash_lanes']} times")
     parts = cp.operation_parts(f"op-{sid}")
     if len(parts) != SNAP_PARTS or not all(
             p.completed and p.commit_epoch == p.assignment_epoch
@@ -2472,7 +2617,7 @@ def snapshot_run(name: str, config, placement: str, dev) -> dict:
     store.clear()
     return dict(launches=launches, seconds=seconds, digests=digests,
                 batches=batches, rows=rows,
-                strategy_batches=strategies.batches,
+                strategy_batches=strategies.batches, tap=tap,
                 completed_rows=sum(p.completed_rows for p in parts))
 
 
@@ -2527,7 +2672,8 @@ def snapshot_path(dev) -> dict:
             kept=len(got), seconds=run["seconds"],
             rows_per_s=SNAP_ROWS / run["seconds"], digest=digest,
             launches={k: c for k, c in run["launches"].items() if c},
-            fused_step_batches=run["strategy_batches"])
+            fused_step_batches=run["strategy_batches"],
+            tap=run["tap"])
         del run
     require_launched("snapshot", launches)
     return dict(rows=SNAP_ROWS, parts=SNAP_PARTS, threads=SNAP_THREADS,
@@ -2706,7 +2852,7 @@ def k2ch_message(p: int, i: int) -> bytes:
 
 def backlog_columns() -> dict:
     """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
-    backlog's 16 x 16,384 ids."""
+    backlog's 16 x BACKLOG_MESSAGES ids."""
     n = REPL_PARTITIONS * BACKLOG_MESSAGES
     rng = np.random.default_rng(7)
     ids = np.arange(n, dtype=np.int64)
@@ -3074,6 +3220,587 @@ def pg2ch_path(dev) -> dict:
         delivered_equal_to="bench.py measure_pg2ch's expected count")
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class KeyLaunches:
+    """Records every batch the port's `batch_row_keys` keys during a run
+    (the MVCC store's PK and content keys, the staged sink's dedup keys)
+    with the keys it got, to hold each K10 launch of the run against the
+    plain version afterwards."""
+
+    def __enter__(self):
+        self.keyed = []
+        self._store, self._staging = mvcc_store.batch_row_keys, \
+            staging._row_keys
+        keyed, keys_fn, stage_fn = self.keyed, self._store, self._staging
+
+        def store_keys(batch, backend="auto", device=None):
+            keys = keys_fn(batch, backend, device)
+            keyed.append((batch, keys))
+            return keys
+
+        def stage_keys(batch, device):
+            keys = stage_fn(batch, device)
+            if keys is not None:
+                keyed.append((batch if is_columnar(batch)
+                              else ColumnBatch.from_rows(batch), keys))
+            return keys
+
+        mvcc_store.batch_row_keys = store_keys
+        staging._row_keys = stage_keys
+        return self
+
+    def __exit__(self, *exc):
+        mvcc_store.batch_row_keys = self._store
+        staging._row_keys = self._staging
+        return False
+
+    def check(self, what: str, dev) -> int:
+        """Each recorded launch's keys against the plain version on the
+        same device; the number held."""
+        for i, (batch, keys) in enumerate(self.keyed):
+            if batch.n_rows and not np.array_equal(
+                    keys, plain_keys(batch, dev)):
+                raise AssertionError(f"{what}: K10's keys of batch {i} "
+                                     f"({batch.n_rows} rows) differ from "
+                                     "the plain version")
+        return sum(1 for b, _ in self.keyed if b.n_rows)
+
+
+def hits_table(rows: Optional[int] = None) -> FakeTable:
+    """bench.py measure_pg2ch's Postgres table (PG2CH_ROWS rows)."""
+    rows = PG2CH_ROWS if rows is None else rows
+    return FakeTable(
+        "public", "hits", PG2CH_COLUMNS,
+        [{"id": str(i), "url": f"https://e.test/{i % 997}",
+          "region": str(i % 500), "score": f"{(i % 91) * 1.5}"}
+         for i in range(rows)])
+
+
+def sai_feed() -> dict:
+    """The pump's feed: {partition: [message dict, ...]} in produce
+    order, and numpy's image of the table after it (id -> row)."""
+    rng = np.random.default_rng(SAI_SEED)
+    old = rng.choice(PG2CH_ROWS, SAI_UPDATED, replace=False)
+    new = PG2CH_ROWS + rng.choice(10 * PG2CH_ROWS, SAI_NEW, replace=False)
+    keys = np.concatenate([old, new])
+    region = rng.integers(0, 500, (2, len(keys)))
+    score = rng.integers(0, 91, (2, len(keys))) * 1.5
+    parts: dict = {p: [] for p in range(SAI_PARTITIONS)}
+    for ver in (0, 1):
+        for j, k in enumerate(keys.tolist()):
+            parts[k % SAI_PARTITIONS].append({
+                "id": k, "url": f"https://e.test/v{ver}/{k % 997}",
+                "region": int(region[ver, j]),
+                "score": float(score[ver, j])})
+    image = {i: (i, f"https://e.test/{i % 997}", i % 500, (i % 91) * 1.5)
+             for i in range(PG2CH_ROWS)}
+    for j, k in enumerate(keys.tolist()):   # the second version wins
+        image[k] = (k, f"https://e.test/v1/{k % 997}", int(region[1, j]),
+                    float(score[1, j]))
+    return {"parts": parts, "image": image}
+
+
+def kept_rows(image: dict) -> list:
+    """numpy's filter over an image, as the fake ClickHouse keeps rows
+    (a String column's bytes), sorted by id."""
+    ids = np.fromiter(image, dtype=np.int64)
+    rows = [image[i] for i in ids.tolist()]
+    region = np.array([r[2] for r in rows])
+    score = np.array([r[3] for r in rows])
+    keep = (region < 400) & (score >= 10)
+    return sorted((r[0], r[1].encode(), r[2], r[3])
+                  for r, k in zip(rows, keep) if k)
+
+
+def ch_hits(ch: FakeCH) -> list:
+    return sorted((r["id"], r["url"], r["region"], r["score"])
+                  for r in ch.rows("public__hits"))
+
+
+def sai_run(pg: FakePG, feed: dict, placement: str, dev) -> dict:
+    """One S&I activation through the MVCC store with a live pump on the
+    port's Kafka client, keys on `dev`; traced."""
+    kf = FakeKafka(n_partitions=SAI_PARTITIONS).start()
+    ch = FakeCH().start()
+    tid = f"chip-sai-{placement}"
+    try:
+        kf.create_topic("hits")
+        client = KafkaClient([f"127.0.0.1:{kf.port}"])
+        try:
+            for p, msgs in feed["parts"].items():
+                for lo in range(0, len(msgs), 4096):
+                    client.produce("hits", p, [
+                        Record(key=b"", value=json.dumps(m).encode(),
+                               timestamp_ms=1_700_000_000_000 + lo + i)
+                        for i, m in enumerate(msgs[lo:lo + 4096])])
+        finally:
+            client.close()
+        transfer = Transfer(
+            id=tid, type=TransferType.SNAPSHOT_AND_INCREMENT,
+            src=PGSourceParams(host="127.0.0.1", port=pg.port,
+                               database="db", user="u"),
+            dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+                               bufferer=None),
+            transformation=PG2CH_CONFIG)
+        cp, metrics = MemoryCoordinator(), Metrics()
+        src = KafkaSourceParams(brokers=[f"127.0.0.1:{kf.port}"],
+                                topic="hits", parser=SAI_PARSER)
+        store = mvcc_store.MvccStore(mvcc_runner.store_scope(tid), cp,
+                                     metrics, device=dev)
+        pump = MvccPump(store, KafkaQueueClient(src, tid, cp),
+                        parser=make_parser(SAI_PARSER), metrics=metrics,
+                        transfer_id=tid)
+        trace_on()
+        with KeyLaunches() as keyed:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            mvcc_runner.activate_snapshot_and_increment(
+                transfer, cp, metrics, store=store, pump=pump)
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = _build.launch_counts()
+        tables = trace_off(seconds)
+        held = keyed.check(f"sai {placement}", dev)
+        state = cp.get_transfer_state(tid)
+        run = dict(
+            seconds=seconds, launches=launches, k10_held_exact=held,
+            rows_per_s=(PG2CH_ROWS + 2 * (SAI_UPDATED + SAI_NEW))
+            / seconds,
+            rows_sorted=ch_hits(ch),
+            fence_rows=len(ch.rows("__trtpu_commits")),
+            resume_state=mvcc_runner.resume_state(cp, tid),
+            kafka_offsets=state.get("kafka_offsets"),
+            layers=store.stats.m.value("mvcc_delta_layers"),
+            pump_rows=store.stats.m.value("mvcc_pump_rows"),
+            merged_rows=store.stats.m.value("mvcc_merged_rows"),
+            cutovers=store.stats.m.value("mvcc_cutovers"),
+            **tables)
+        pump.close()
+    finally:
+        ch.stop()
+        kf.stop()
+    return run
+
+
+def sai_tail_run(placement: str, dev) -> dict:
+    """activate_delivery of the pg2ch table as SNAPSHOT_AND_INCREMENT with
+    no pump (the Postgres source is not queue-shaped), then
+    run_replication tails SAI_TAIL wal2json inserts of new ids fed after
+    the activation.  Neither package's Postgres provider has an activate
+    hook, so the slot is made when replication starts (recorded as
+    slot_at_activation), and deactivate drops it."""
+    pg, ch = FakePG().start(), FakeCH().start()
+    tid = f"chip-sai-tail-{placement}"
+    try:
+        pg.add_table(hits_table())
+        transfer = Transfer(
+            id=tid, type=TransferType.SNAPSHOT_AND_INCREMENT,
+            src=PGSourceParams(host="127.0.0.1", port=pg.port,
+                               database="db", user="u"),
+            dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+                               bufferer=None),
+            transformation=PG2CH_CONFIG)
+        cp = MemoryCoordinator()
+        slot = f"transferia_{tid}".replace("-", "_")
+        with KeyLaunches() as keyed:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            activate_delivery(transfer, cp, device=dev)
+            _sync(dev)
+            act_s = time.perf_counter() - t0
+            launches = _build.launch_counts()
+        held = keyed.check(f"sai tail {placement}", dev)
+        slot_first = slot in pg.slots
+        snap_rows = ch.total_rows()
+        # the inserts that follow: hits rows PG2CH_ROWS .. + SAI_TAIL
+        last = cdc.feed_hits_wal(pg, SAI_TAIL, txn_rows=1000,
+                                 start=PG2CH_ROWS)
+        i = np.arange(PG2CH_ROWS + SAI_TAIL)
+        want_n = int(((i % 500 < 400) & ((i % 91) * 1.5 >= 10)).sum())
+        run = cdc_run(
+            "sai_tail", transfer, cp, placement, dev,
+            landed=lambda: ch.total_rows() >= want_n,
+            settled=lambda: cp.get_transfer_state(tid).get("pg_wal_lsn")
+            == int_to_lsn(last))
+        slot_created = slot in pg.slots
+        get_provider("pg", transfer, device=dev).deactivate()
+        run.update(activation_seconds=act_s, activation_launches=launches,
+                   k10_held_exact=held, slot_at_activation=slot_first,
+                   slot_created=slot_created,
+                   slot_dropped=slot not in pg.slots,
+                   snapshot_rows=snap_rows, rows_sorted=ch_hits(ch),
+                   resume_state=mvcc_runner.resume_state(cp, tid),
+                   tail_rows_per_s=SAI_TAIL / run["seconds"])
+    finally:
+        ch.stop()
+        pg.stop()
+    return run
+
+
+def sai_path(dev) -> dict:
+    """Config #2 as SNAPSHOT_AND_INCREMENT, on the card and with
+    device="cpu": the pg2ch table snapshotted into the MVCC store while an
+    MvccPump feeds sai_feed()'s 60,000 messages; the cutover seals the
+    watermark, epoch and offsets, only the sealed offsets reach the
+    client's commit (the coordinator's kafka_offsets), and the merged
+    image publishes through the filter with the staged commit.
+    ClickHouse equals numpy's latest-wins image after the filter with no
+    duplicate key, resume_state equals numpy's watermark and offsets, and
+    every K10 launch (store keys, content keys, staged dedup keys) equals
+    its plain version.  Then the wal2json tail: activate_delivery S&I
+    with no pump and run_replication of SAI_TAIL new inserts, ClickHouse
+    equal to numpy's."""
+    t0 = time.perf_counter()
+    feed = sai_feed()
+    pg = FakePG().start()
+    try:
+        pg.add_table(hits_table())
+        gen_s = time.perf_counter() - t0
+        runs = {"device": sai_run(pg, feed, "device", dev),
+                "cpu": sai_run(pg, feed, "cpu", torch.device("cpu"))}
+    finally:
+        pg.stop()
+    want = kept_rows(feed["image"])
+    messages = 2 * (SAI_UPDATED + SAI_NEW)
+    offsets = {f"hits:{p}": len(m) - 1 for p, m in feed["parts"].items()}
+    for name, run in runs.items():
+        ids = [r[0] for r in run["rows_sorted"]]
+        rs = run["resume_state"]
+        if run["rows_sorted"] != want or len(set(ids)) != len(ids):
+            raise AssertionError(
+                f"sai {name}: {len(ids)} ClickHouse rows "
+                f"({len(set(ids))} keys), numpy keeps {len(want)}; equal "
+                f"{run['rows_sorted'] == want}")
+        if rs != {"watermark": messages - 1, "epoch": 1,
+                  "offsets": offsets} or run["kafka_offsets"] != offsets:
+            raise AssertionError(f"sai {name}: resume_state {rs}, "
+                                 f"committed {run['kafka_offsets']}, "
+                                 f"numpy {messages - 1} / {offsets}")
+        if run["fence_rows"] != 1 or run["cutovers"] != 1 or \
+                run["pump_rows"] != messages:
+            raise AssertionError(f"sai {name}: {run['fence_rows']} fence "
+                                 f"rows, {run['cutovers']} cutovers, "
+                                 f"{run['pump_rows']} pumped rows")
+    # every K10 launch on the card held; nothing launched with "cpu"
+    card = runs["device"]
+    if dev.type == "cuda" and \
+            card["k10_held_exact"] != card["launches"]["rowhash_lanes"]:
+        raise AssertionError(f"sai device: {card['k10_held_exact']} K10 "
+                             f"launches held of "
+                             f"{card['launches']['rowhash_lanes']}")
+    if any(runs["cpu"]["launches"].values()):
+        raise AssertionError(f"sai cpu: launched {runs['cpu']['launches']}")
+    tail = {"device": sai_tail_run("device", dev),
+            "cpu": sai_tail_run("cpu", torch.device("cpu"))}
+    i = np.arange(PG2CH_ROWS + SAI_TAIL)
+    keep = i[(i % 500 < 400) & ((i % 91) * 1.5 >= 10)]
+    tail_want = [(k, url.encode(), region, score) for k, url, region, score
+                 in map(cdc.hits_row, keep.tolist())]
+    for name, run in tail.items():
+        on_card = (run["k10_held_exact"]
+                   == run["activation_launches"]["rowhash_lanes"]
+                   if name == "device" and dev.type == "cuda"
+                   else not any(run["activation_launches"].values()))
+        if run["rows_sorted"] != tail_want or not run["slot_created"] \
+                or not run["slot_dropped"] \
+                or run["resume_state"] != {"watermark": -1, "epoch": 1} \
+                or not on_card or run["restarts"]:
+            raise AssertionError(
+                f"sai tail {name}: {len(run['rows_sorted'])} rows of "
+                f"{len(tail_want)}, slot {run['slot_created']} / dropped "
+                f"{run['slot_dropped']}, "
+                f"resume {run['resume_state']}, K10 held "
+                f"{run['k10_held_exact']} of {run['activation_launches']}")
+    launches = {k: runs["device"]["launches"][k]
+                + tail["device"]["activation_launches"][k]
+                for k in runs["device"]["launches"]}
+    require_launched("sai", launches)
+    return dict(
+        rows=PG2CH_ROWS, messages=messages, partitions=SAI_PARTITIONS,
+        kept=len(want), tail_inserts=SAI_TAIL, data_gen_seconds=gen_s,
+        launches=launches,
+        runs={name: {k: v for k, v in run.items() if k != "rows_sorted"}
+              for name, run in runs.items()},
+        tail_runs={name: {k: v for k, v in run.items()
+                          if k != "rows_sorted"}
+                   for name, run in tail.items()},
+        identical_across_placements=True,
+        rows_equal_to="numpy's latest-wins image after the filter")
+
+
+# the checksum runs of each placement: on the card every backend and the
+# compare; with device="cpu" what depends on the device (the fingerprint's
+# "device" backend, K10's plain version there), since the host lanes,
+# auto (the host without a card) and the compare run alike in both
+CHECKSUM_RUNS = {
+    "cuda": {"clean": (("fingerprint", "device"), ("fingerprint", "host"),
+                       ("fingerprint", "auto"), ("compare", "auto")),
+             "tampered": (("fingerprint", "device"), ("fingerprint", "host"),
+                          ("compare", "auto")),
+             "dict": (("fingerprint", "device"), ("fingerprint", "host"))},
+    "cpu": {"clean": (("fingerprint", "device"),),
+            "tampered": (("fingerprint", "device"),),
+            "dict": (("fingerprint", "device"), ("fingerprint", "host"))},
+}
+
+
+class TimedLoads:
+    """Times a storage's load_table calls and, inside them, the pusher (the
+    checksum's fingerprint push or row collection): `read` is the load's
+    wall less the pusher's, the storage's own read and decode."""
+
+    def __init__(self, storage):
+        self.storage, self.load, self.push = storage, 0.0, 0.0
+        real = storage.load_table
+
+        def load_table(td, pusher):
+            def timed_push(batch):
+                t = time.perf_counter()
+                try:
+                    return pusher(batch)
+                finally:
+                    self.push += time.perf_counter() - t
+            t0 = time.perf_counter()
+            try:
+                return real(td, timed_push)
+            finally:
+                self.load += time.perf_counter() - t0
+
+        storage.load_table = load_table
+
+    def reset(self) -> dict:
+        out = {"read_s": self.load - self.push, "push_s": self.push}
+        self.load = self.push = 0.0
+        return out
+
+
+def checksum_runs(src, dst, dev, combos, traced: bool = False) -> dict:
+    """The checksum of one storage pair by each (method, backend); each
+    report, its seconds and rows/s (the table's rows over them), the
+    launches, the fingerprinters' placements and the batches the device
+    fingerprint dispatched; `traced`, each run's stage tables."""
+    out = {}
+    timed = {"source": TimedLoads(src), "target": TimedLoads(dst)}
+    for method, backend in combos:
+        name = method if method == "compare" else f"fingerprint_{backend}"
+        fps, dispatched = [], []
+        real_fp, real_dispatch = (checksum_mod.TableFingerprinter,
+                                  rowhash.DeviceFingerprintProgram.dispatch)
+
+        def make_fp(*a, **kw):
+            fps.append(real_fp(*a, **kw))
+            return fps[-1]
+
+        def dispatch(self, cols, n):
+            dispatched.append((cols, n))
+            return real_dispatch(self, cols, n)
+
+        checksum_mod.TableFingerprinter = make_fp
+        rowhash.DeviceFingerprintProgram.dispatch = dispatch
+        if traced:
+            trace_on()
+        try:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = checksum_mod.checksum(
+                src, dst, device=dev, params=checksum_mod.ChecksumParameters(
+                    method=method, fingerprint_backend=backend))
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = _build.launch_counts()
+        finally:
+            checksum_mod.TableFingerprinter = real_fp
+            rowhash.DeviceFingerprintProgram.dispatch = real_dispatch
+            tables = trace_off(seconds) if traced else {}
+        reports = [dict(table=t.table.fqtn(), ok=t.ok, strategy=t.strategy,
+                        source_rows=t.source_rows,
+                        target_rows=t.target_rows,
+                        compared_rows=t.compared_rows,
+                        mismatches=t.mismatches[:4], notes=t.notes[:2],
+                        source_fingerprint=t.source_fingerprint,
+                        target_fingerprint=t.target_fingerprint)
+                   for t in rep.tables]
+        out[name] = dict(ok=rep.ok, seconds=seconds,
+                         rows_per_s=sum(t.source_rows for t in rep.tables)
+                         / seconds,
+                         launches=launches, tables=reports,
+                         dispatched=dispatched,
+                         choices=[fp.choices for fp in fps],
+                         full_loads={side: t.reset()
+                                     for side, t in timed.items()},
+                         **tables)
+    return out
+
+
+def check_dispatched(runs: dict, dev) -> int:
+    """Each batch the device fingerprint launched K10 on, keyed again on
+    the card against the plain version (launches after the counts)."""
+    held = 0
+    for run in runs.values():
+        for cols, n in run.pop("dispatched"):
+            if dev.type != "cuda" or not n:
+                continue
+            r1, r2 = rowhash.rowhash_lanes(rowhash._stage(cols, dev), n)
+            p1, p2 = rowhash.rowhash_lanes_plain(rowhash._stage(cols, dev),
+                                                 n)
+            if not (torch.equal(rowhash._to_u32(r1), p1)
+                    and torch.equal(rowhash._to_u32(r2), p2)):
+                raise AssertionError(f"checksum: K10's lanes of a {n}-row "
+                                     "batch differ from the plain version")
+            held += 1
+    return held
+
+
+def checksum_dict_source(batches: list) -> list:
+    """The table's batches with url dictionary-encoded over one fresh
+    pool (997 values)."""
+    values = [f"https://e.test/{v}".encode() for v in range(997)]
+    pool = DictPool(np.frombuffer(b"".join(values), np.uint8).copy(),
+                    _offsets_from_lengths([len(v) for v in values]))
+    out = []
+    for b in batches:
+        codes = b.column("id").data % 997
+        cols = dict(b.columns)
+        cols["url"] = Column("url", b.column("url").ctype,
+                             dict_enc=DictEnc(codes.astype(np.int32),
+                                              pool=pool))
+        out.append(ColumnBatch(b.table_id, b.schema, cols))
+    return out
+
+
+def checksum_placement(pg: FakePG, ch: FakeCH, dev) -> dict:
+    src = PGStorage(PGSourceParams(host="127.0.0.1", port=pg.port,
+                                   database="db", user="u"))
+    dst = CHStorage(CHSourceParams(host="127.0.0.1", port=ch.port))
+    combos = CHECKSUM_RUNS[dev.type]
+    try:
+        clean = checksum_runs(src, dst, dev, combos["clean"],
+                              traced=dev.type == "cuda")
+        row = next(r for r in ch.tables["public__hits"]["rows"]
+                   if r["id"] == CHECKSUM_TAMPERED_ID)
+        original, row["url"] = row["url"], b"https://e.test/tampered"
+        try:
+            tampered = checksum_runs(src, dst, dev, combos["tampered"])
+        finally:
+            row["url"] = original
+        # a dictionary-encoded copy against its flat rows
+        flat = []
+        src.load_table(TableDescription(id=TableID("public", "hits")),
+                       flat.append)
+        seed_source("chip-checksum-dict", checksum_dict_source(flat))
+        seed_source("chip-checksum-flat", flat)
+        dict_runs = checksum_runs(
+            MemoryStorage(MemorySourceParams(source_id="chip-checksum-dict")),
+            MemoryStorage(MemorySourceParams(source_id="chip-checksum-flat")),
+            dev, combos["dict"])
+    finally:
+        src.close()
+        dst.close()
+    held = sum(check_dispatched(r, dev) for r in (clean, tampered,
+                                                   dict_runs))
+    return dict(clean=clean, tampered=tampered, dict=dict_runs,
+                k10_held_exact=held)
+
+
+def checksum_path(dev) -> dict:
+    """The checksum task over config #2's table: the pg2ch rows
+    transferred by activate_delivery without the filter (a checksum
+    compares whole tables), then checksum(PGStorage, CHStorage) by
+    fingerprint with fingerprint_backend "device" (K10 on the card),
+    "host" (the host library's lanes) and "auto" (the measured choice,
+    printed), and by compare, on the card; with device="cpu" the
+    "device" backend (CHECKSUM_RUNS).  Each run reports ok and the
+    device, host and auto digests are equal; with one
+    ClickHouse value altered (id CHECKSUM_TAMPERED_ID, inside the
+    top/bottom sample) every method reports the table failed and the
+    row-level pass names the key.  A dictionary-encoded copy against its
+    flat rows launches trt_var_accumulators for the pool."""
+    t0 = time.perf_counter()
+    pg, ch = FakePG().start(), FakeCH().start()
+    try:
+        pg.add_table(hits_table())
+        gen_s = time.perf_counter() - t0
+        transfer = Transfer(
+            id="chip-checksum", src=PGSourceParams(
+                host="127.0.0.1", port=pg.port, database="db", user="u"),
+            dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+                               bufferer=None))
+        t1 = time.perf_counter()
+        activate_delivery(transfer, MemoryCoordinator(), device=dev)
+        act_s = time.perf_counter() - t1
+        runs = {"device": checksum_placement(pg, ch, dev),
+                "cpu": checksum_placement(pg, ch, torch.device("cpu"))}
+    finally:
+        pg.stop()
+        ch.stop()
+    key = f"row ({CHECKSUM_TAMPERED_ID},)"
+    for name, run in runs.items():
+        for part in ("clean", "tampered", "dict"):
+            for method, r in run[part].items():
+                (t,) = r["tables"]
+                if r["ok"] != (part != "tampered"):
+                    raise AssertionError(f"checksum {name} {part} {method}: "
+                                         f"ok {r['ok']}: {t}")
+                # a fingerprint decides alone when the digests agree, and
+                # differs (then the row-level pass) when a value does
+                fp = method.startswith("fingerprint")
+                digests = (t["source_fingerprint"], t["target_fingerprint"])
+                if fp and (not all(digests) or (
+                        part == "tampered") == (digests[0] == digests[1])
+                        or t["strategy"].startswith("fingerprint+")
+                        != (part == "tampered")):
+                    raise AssertionError(f"checksum {name} {part} {method}: "
+                                         f"strategy {t['strategy']}, "
+                                         f"digests {digests}")
+                if part == "tampered" and not any(
+                        m.startswith(key) for m in t["mismatches"]):
+                    raise AssertionError(f"checksum {name} {method}: the "
+                                         f"row-level pass names no {key}: "
+                                         f"{t['mismatches']}")
+            fp = [r["tables"][0] for m, r in run[part].items()
+                  if m.startswith("fingerprint")]
+            if len({(t["source_fingerprint"], t["target_fingerprint"])
+                    for t in fp}) != 1:
+                raise AssertionError(f"checksum {name} {part}: device, host "
+                                     f"and auto digests differ: {fp}")
+        for part in ("clean", "tampered", "dict"):
+            host = run[part].get("fingerprint_host", {}).get("launches", {})
+            if any(host.values()):
+                raise AssertionError(f"checksum {name} {part}: the host "
+                                     f"lanes launched {host}")
+    dev_runs = runs["device"]
+    if dev_runs["clean"]["fingerprint_device"]["tables"][0][
+            "source_fingerprint"] != runs["cpu"]["clean"][
+            "fingerprint_device"]["tables"][0]["source_fingerprint"]:
+        raise AssertionError("checksum: the card's digest differs from the "
+                             "plain version's on the CPU")
+    launches = {k: sum(r["launches"][k] for part in ("clean", "tampered",
+                                                       "dict")
+                       for r in dev_runs[part].values())
+                for k in _build.KERNELS}
+    dispatched_held = dev_runs["k10_held_exact"]
+    k10_fp = sum(r["launches"]["rowhash_lanes"]
+                 for part in ("clean", "tampered", "dict")
+                 for m, r in dev_runs[part].items() if m.startswith("fing"))
+    if dispatched_held != k10_fp:
+        raise AssertionError(f"checksum: {dispatched_held} fingerprint "
+                             f"launches held of {k10_fp}")
+    require_launched("checksum", launches)
+    return dict(
+        rows=PG2CH_ROWS, data_gen_seconds=gen_s, activation_seconds=act_s,
+        launches=launches, runs={
+            name: {part: {m: {k: v for k, v in r.items()}
+                          for m, r in run[part].items()}
+                   for part in ("clean", "tampered", "dict")}
+            | {"k10_held_exact": run["k10_held_exact"]}
+            for name, run in runs.items()},
+        fingerprints_equal="device, host and auto; the card and the CPU")
+
+
 def my2kf_run(my: FakeMySQL, rows: int, placement: str, dev,
               traced: bool = False) -> dict:
     """One activation of config #4 into a fresh fake Kafka on a fresh
@@ -3373,7 +4100,7 @@ def cdc_run(name: str, transfer, cp, placement: str, dev, landed,
             wait(landed, deadline, "the rows did not land")
             t_done = time.perf_counter()
             wait(settled, deadline, "the checkpoint did not settle")
-            torch.cuda.synchronize(dev)
+            _sync(dev)
             launches = _build.launch_counts()
     finally:
         stop.set()
@@ -3591,7 +4318,7 @@ def pg2ch_cdc_run(pg: FakePG, last: int, expected: int, placement: str,
 
 
 def pg2ch_cdc_path(dev) -> dict:
-    """BASELINE config #2's CDC half: 300,000 wal2json v2 inserts of
+    """BASELINE config #2's CDC half: PG_CDC_ROWS wal2json v2 inserts of
     bench.py measure_pg2ch's rows, in transactions of 1,000, fed to the
     port's fake Postgres before the start and tailed by its
     PGReplicationSource through run_replication (INCREMENT_ONLY), the
@@ -5477,6 +6204,8 @@ def main() -> int:
             ("replication", lambda: replication_path(dev)),
             ("sr2ch", lambda: sr2ch_path(dev)),
             ("pg2ch", lambda: pg2ch_path(dev)),
+            ("checksum", lambda: checksum_path(dev)),
+            ("sai", lambda: sai_path(dev)),
             ("my2kf", lambda: my2kf_path(dev)),
             ("my2kf_cdc", lambda: my2kf_cdc_path(dev)),
             ("pg2ch_cdc", lambda: pg2ch_cdc_path(dev)),

@@ -16,9 +16,12 @@ activate_delivery, staged commits on), an Avro run through the
 schema-registry parser and a my2kf activation (the port's fake MySQL ->
 the mask -> Debezium envelopes -> its fake Kafka through
 activate_delivery, the transactional staged publish, the envelopes read
-back through the debezium parser) on the CPU, and decodes a binlog and a
+back through the debezium parser) on the CPU, decodes a binlog and a
 wal2json stream of `recipes.cdc` through the CDC tails' decoders (the
-binlog reader, the GTID set, the wal2json decoder); afterwards neither
+binlog reader, the GTID set, the wal2json decoder), imports `mvcc/`,
+runs a SNAPSHOT_AND_INCREMENT activation through the MVCC store and
+checksums its sink against the source with `tasks/checksum.py`
+(compare, and the fingerprint's host lanes and device route); afterwards neither
 jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
 loaded, and the only host library mapped is the port's own build.
 A second fresh interpreter imports every module of the telemetry plane
@@ -284,6 +287,34 @@ dec = Wal2JsonDecoder()
 items = [dec.decode(p, lsn) for lsn, p in wal.wal]
 assert sum(it is not None for it in items) == 10, items
 assert int_to_lsn(wal.wal[-1][0]) == "0/2058"
+from transferia_tpu_torch.abstract.table import TableDescription
+from transferia_tpu_torch.models import TransferType
+from transferia_tpu_torch.mvcc import compact, pump  # noqa: F401
+from transferia_tpu_torch.mvcc.runner import resume_state
+from transferia_tpu_torch.providers.clickhouse import CHStorage  # noqa
+from transferia_tpu_torch.factories import new_storage
+from transferia_tpu_torch.providers.memory import (
+    MemorySourceParams, MemoryStorage, MemoryStoreStorage, seed_source)
+from transferia_tpu_torch.tasks.checksum import ChecksumParameters, checksum
+sai = Transfer(id="iso-sai", type=TransferType.SNAPSHOT_AND_INCREMENT,
+    src=SampleSourceParams(preset="users", table="users", rows=300),
+    dst=MemoryTargetParams(sink_id="iso-sai"))
+sai_cp = MemoryCoordinator()
+activate_delivery(sai, sai_cp, device="cpu")
+assert resume_state(sai_cp, "iso-sai") == {"watermark": -1, "epoch": 1}
+# the source's rows as a memory source: MemoryStoreStorage counts no
+# rows (as the reference's does), so the source side must not either
+src_batches = []
+new_storage(sai).load_table(TableDescription(id=TableID("sample", "users")),
+                            src_batches.append)
+seed_source("iso-chk", src_batches)
+for method, backend in (("compare", "auto"), ("fingerprint", "host"),
+                        ("fingerprint", "device")):
+    rep = checksum(MemoryStorage(MemorySourceParams(source_id="iso-chk")),
+                   MemoryStoreStorage("iso-sai"), device="cpu",
+                   params=ChecksumParameters(method=method,
+                                             fingerprint_backend=backend))
+    assert rep.ok, rep.summary()
 with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
@@ -559,8 +590,9 @@ def test_replication_needs_a_card_or_the_cpu(device, monkeypatch):
 
 def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     """The binlog tail, the MySQL target and Postgres logical replication
-    no longer raise; the SNAPSHOT_AND_INCREMENT activation (waiting on
-    the MVCC cutover) and the DBLog snapshot raise naming their items."""
+    no longer raise, nor does the SNAPSHOT_AND_INCREMENT activation (the
+    MVCC cutover); its one left-out part, a configured dbt step, and the
+    DBLog snapshot raise naming their items."""
     from transferia_tpu_torch.coordinator import MemoryCoordinator
     from transferia_tpu_torch.models import Transfer, TransferType
     from transferia_tpu_torch.providers.memory import MemoryTargetParams
@@ -586,7 +618,7 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     with pytest.raises(NotImplementedError, match="DBLog.*ROADMAP.md A10"):
         get_provider("pg", dblog, device="cpu").source()
     sni = Transfer(id="t-sni", type=TransferType.SNAPSHOT_AND_INCREMENT,
-                   src=MySQLSourceParams(), dst=MySQLTargetParams())
-    with pytest.raises(NotImplementedError,
-                       match="SNAPSHOT_AND_INCREMENT.*A10.*ROADMAP.md A6"):
+                   src=MySQLSourceParams(), dst=MySQLTargetParams(),
+                   transformation={"transformers": [{"dbt": {}}]})
+    with pytest.raises(NotImplementedError, match="dbt.*ROADMAP.md A7"):
         activate_delivery(sni, MemoryCoordinator(), device="cpu")

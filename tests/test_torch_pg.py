@@ -396,6 +396,10 @@ def test_activate_pg2ch_equals_jax(monkeypatch, staged, mode):
 
 @pytest.mark.parametrize("case", ["snapshot_and_increment", "dbt"])
 def test_activate_left_out_branches_raise(case):
+    """A configured dbt step, the activation's one left-out part, raises
+    naming its ROADMAP item and fails the transfer, in a snapshot and in
+    a SNAPSHOT_AND_INCREMENT transfer (whose MVCC cutover is ported:
+    tests/test_torch_mvcc.py)."""
     pg = FakePG().start()
     try:
         pg.add_table(FakeTable("public", "hits", HITS, hits_rows(10)))
@@ -406,8 +410,7 @@ def test_activate_left_out_branches_raise(case):
             type=TransferType.SNAPSHOT_AND_INCREMENT
             if case == "snapshot_and_increment" else
             TransferType.SNAPSHOT_ONLY,
-            transformation={"transformers": [{"dbt": {}}]}
-            if case == "dbt" else None)
+            transformation={"transformers": [{"dbt": {}}]})
         cp = MemoryCoordinator()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             activate_delivery(t, cp, device="cpu")

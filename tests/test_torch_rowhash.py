@@ -3,8 +3,8 @@ against the JAX package.
 
 The same numpy columns, made from a seed, go into a batch of each
 package.  The port's `fingerprint_host`, `TableFingerprinter(backend=
-"device", device="cpu")` and `batch_row_keys(..., device="cpu")` must
-equal the JAX package's `fingerprint_host`, `DeviceFingerprintProgram`
+"device", device="cpu")` (and "auto", the measured choice) and
+`batch_row_keys(..., device="cpu")` must equal the JAX package's `fingerprint_host`, `DeviceFingerprintProgram`
 (JAX on the CPU) and `batch_row_keys`, digest for digest and key for key.
 Exact: digests and keys are integers.
 """
@@ -318,14 +318,28 @@ def test_auto_row_keys_take_the_device_route(monkeypatch):
         port.TableFingerprinter(backend="gpu", device=CPU)
 
 
-def test_auto_backend_takes_the_device_program():
+def test_auto_backend_takes_the_device_program(monkeypatch):
+    """Auto is the reference's measured choice: the host lanes for the
+    first two batches, then the device program once the link model
+    predicts it faster per row (an accelerator stand-in and a pinned
+    fast link here; the host's ns/row pinned slow).  The digest over
+    both placements equals the reference's."""
+    from transferia_tpu_torch.ops import linkprobe
+
     n = 500
     pb, rb = build(*reference_schema_case(n, seed=13), n)
+    monkeypatch.setenv("TRANSFERIA_TPU_LINK", "0.001,1000000,1000000")
+    monkeypatch.setattr(linkprobe, "_cached", {})
     fp = port.TableFingerprinter(device=CPU)
-    assert isinstance(fp._device, port.DeviceFingerprintProgram)
+    monkeypatch.setattr(fp, "_accel_available", lambda: True)
+    assert fp._device is None
     for lo in range(0, n, 100):
         fp.push(pb.slice(lo, lo + 100))
-    assert fp._device._count == n
+        if fp._host_samples == 2:
+            fp._host_ns_row = 1e6  # the host measured slow
+    assert fp.choices == ["host", "host", "device", "device", "device"]
+    assert isinstance(fp._device, port.DeviceFingerprintProgram)
+    assert fp._device._count == 300
     assert fp.result().digest() == ref.fingerprint_host(
         *ref.prep_batch(rb)).digest()
     assert port.TableFingerprinter(backend="host")._device is None

@@ -1,8 +1,9 @@
 """Coordinator interface (the port's copy of the transfer, operation,
-part-queue, lease, staged-commit and replication (failure, status
-message, heartbeat) groups of ``transferia_tpu/coordinator/interface.py``).
-The fleet ticket queue, observability segments and the MVCC control plane
-wait for their slices (ROADMAP.md A9, A10).
+part-queue, lease, staged-commit, replication (failure, status
+message, heartbeat) and MVCC control-plane groups of
+``transferia_tpu/coordinator/interface.py``).  The fleet ticket queue
+and the observability segments wait for their slices (ROADMAP.md A5,
+A7).
 """
 
 from __future__ import annotations
@@ -164,6 +165,56 @@ class Coordinator(abc.ABC):
             total_eta_rows=sum(p.eta_rows for p in parts),
             completed_rows=sum(p.completed_rows for p in parts),
         )
+
+    # -- MVCC staging-store control plane (abstract/mvccfence.py) ---------
+    #
+    # SNAPSHOT_AND_INCREMENT lands snapshot parts as immutable base
+    # versions while CDC deltas accumulate as LSN-ordered layers; the
+    # cutover (delta LSN high-watermark + staged-commit epoch + source
+    # offsets) is ONE atomic decision recorded here.  Columnar layer data
+    # never crosses the coordinator: each scope stores a small JSON
+    # control doc.  Backends without support keep the defaults (raise);
+    # the store then runs unfenced in process (tests only).
+
+    def supports_mvcc(self) -> bool:
+        return type(self).mvcc_admit_layer is not \
+            Coordinator.mvcc_admit_layer
+
+    def mvcc_admit_layer(self, scope: str, layer: dict) -> dict:
+        """Atomically admit one delta-layer metadata record; the decision
+        dict {"status": "admitted"|"replaced"|"duplicate"|"fenced", ...}.
+        A NEW (worker, seq) after the cutover is "fenced" and must be
+        discarded by the caller."""
+        raise NotImplementedError
+
+    def mvcc_cutover(self, scope: str, watermark: int, epoch: int,
+                     offsets: Optional[dict] = None) -> dict:
+        """The single fenced cutover decision: the first caller seals
+        (watermark, epoch, offsets); an identical retry is granted; any
+        other decision is fenced and handed the sealed values."""
+        raise NotImplementedError
+
+    def mvcc_record_base(self, scope: str, base: dict) -> dict:
+        """Record one spilled base version in the scope's manifest; an
+        older epoch than the recorded one is "fenced"."""
+        raise NotImplementedError
+
+    def mvcc_state(self, scope: str) -> dict:
+        """Read-only control snapshot: {"layers", "bases", "cutover",
+        "watermark"} (abstract/mvccfence.state_view)."""
+        raise NotImplementedError
+
+    def mvcc_prune_layers(self, scope: str, keys: list) -> int:
+        """Compaction GC: drop layer records by (worker, seq) key;
+        idempotent.  Returns records pruned."""
+        return 0
+
+    def supports_mvcc_blobs(self) -> bool:
+        """Whether the backend can store the MVCC spill's blobs: the
+        reference's answer.  The spill needs pyarrow, which the port does
+        not import, so the port's store keeps its layers in memory and
+        has no blob store to call (ROADMAP.md A7, blocked)."""
+        return False
 
     def operation_health(self, operation_id: str, worker_index: int,
                          payload: Optional[dict] = None) -> None:

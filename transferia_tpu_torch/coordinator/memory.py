@@ -1,20 +1,24 @@
-"""In-process coordinator (the port's copy of the operation, lease and
-staged-commit parts of ``transferia_tpu/coordinator/memory.py``, with
-the replication loop's status messages and heartbeats).
+"""In-process coordinator (the port's copy of the operation, lease,
+staged-commit and MVCC control-plane parts of
+``transferia_tpu/coordinator/memory.py``, with the replication loop's
+status messages and heartbeats).
 
 Thread-safe; used for single-process runs and tests.  One lock per
 operation guards its part queue and state, one the transfer-scoped maps,
-one the health stream; each is a `lockwatch.named_lock`.  The state
+one the health stream, one the MVCC control docs and blobs; each is a
+`lockwatch.named_lock`.  The state
 writes and the part commit carry the reference's `coordinator.*`
 failpoints and `coord_*` spans.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from collections import deque
 from typing import Any, Optional
 
+from transferia_tpu_torch.abstract import mvccfence
 from transferia_tpu_torch.abstract.table import OperationTablePart
 from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.coordinator.interface import (
@@ -61,6 +65,8 @@ class MemoryCoordinator(Coordinator):
             "coordinator.health")
         self.health_reports: deque = deque(maxlen=HEALTH_HISTORY_LIMIT)
         self._health_latest: dict[tuple[str, int], dict] = {}
+        self._mvcc_lock = lockwatch.named_lock("coordinator.mvcc")
+        self._mvcc: dict[str, dict] = {}
 
     def _op(self, operation_id: str) -> _OpState:
         """Get-or-create the operation's slot (never replaced)."""
@@ -235,6 +241,42 @@ class MemoryCoordinator(Coordinator):
             return []
         with op.lock:
             return [_copy(p) for p in op.parts]
+
+    # -- MVCC staging-store control plane -------------------------------------
+    def mvcc_admit_layer(self, scope: str, layer: dict) -> dict:
+        # json round trip: validates serializability and deep-copies
+        # (callers keep mutating their dicts)
+        lay = json.loads(json.dumps(layer))
+        with self._mvcc_lock:
+            doc = self._mvcc.setdefault(scope, mvccfence.new_mvcc_doc())
+            return mvccfence.admit_layer_in_place(doc, lay)
+
+    def mvcc_cutover(self, scope: str, watermark: int, epoch: int,
+                     offsets=None) -> dict:
+        with self._mvcc_lock:
+            doc = self._mvcc.setdefault(scope, mvccfence.new_mvcc_doc())
+            return mvccfence.cutover_in_place(doc, watermark, epoch,
+                                              offsets=offsets)
+
+    def mvcc_record_base(self, scope: str, base: dict) -> dict:
+        rec = json.loads(json.dumps(base))
+        with self._mvcc_lock:
+            doc = self._mvcc.setdefault(scope, mvccfence.new_mvcc_doc())
+            return mvccfence.record_base_in_place(doc, rec)
+
+    def mvcc_state(self, scope: str) -> dict:
+        with self._mvcc_lock:
+            return mvccfence.state_view(self._mvcc.get(scope))
+
+    def mvcc_prune_layers(self, scope: str, keys: list) -> int:
+        with self._mvcc_lock:
+            doc = self._mvcc.get(scope)
+            if doc is None:
+                return 0
+            return mvccfence.prune_layers_in_place(doc, keys)
+
+    def supports_mvcc_blobs(self) -> bool:
+        return True  # the reference's MemoryCoordinator stores blobs
 
     # -- worker health ------------------------------------------------------
     def operation_health(self, operation_id: str, worker_index: int,

@@ -26,19 +26,33 @@ CPU tensor they run their plain PyTorch versions, `rowhash_lanes_plain`
 and `_var_accs_host`, which compute in int64 masked to 32 bits (the CPU
 build of torch has no uint32 add, shift or `~`).
 
+The host backend (`row_lanes_host`, `fingerprint_native`) runs the
+reference's lane chains in the port's C++ host library (`native/`,
+host code: `polyhash_varcol`, `rowhash_mix_fixed`, `rowhash_mix_var`,
+`rowhash_dict_lanes`, `rowhash_accum`), as the reference's host backend
+does.  It is a placement of the fingerprint, not a version of K10: the
+plain versions above stay K10's CPU spec, and the tests hold all three
+equal.
+
 Entry points: `TableFingerprinter(backend, device).push/result`,
 `DeviceFingerprintProgram(device).dispatch/collect` and
-`batch_row_keys(batch, backend, device)`.  They run on the card unless the
-caller passes `device="cpu"`, and raise without a card otherwise.
-`backend="host"` is the plain version on the CPU; "auto" (the default)
-is the device route, since the port has no copy of the reference's C++
-host library to weigh it against.
+`batch_row_keys(batch, backend, device)`.  Unless `backend="host"`, they
+run on the card unless the caller passes `device="cpu"`, and raise
+without a card otherwise.  `backend="host"` is the native host lanes;
+"device" is K10 on `device` (its plain version on the CPU);
+`TableFingerprinter`'s "auto" (the default) is the reference's measured
+choice (`TableFingerprinter._choose`): the host lanes until two host
+batches were timed, then the device when the link model predicts it
+faster per row, re-decided every REPROBE_EVERY batches; without a card
+(`device="cpu"`) always the host.  `batch_row_keys`' "auto" is the
+device route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 import zlib
 from dataclasses import dataclass, replace
 from typing import Optional, Sequence
@@ -46,6 +60,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from transferia_tpu_torch import native
 from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.ops import _build
@@ -359,11 +374,12 @@ def _host_array(a, dtype=None) -> np.ndarray:
     return a if a.flags.writeable else a.copy()
 
 
-def prep_batch(batch: ColumnBatch, device: DeviceLike = _CPU
-               ) -> tuple[list[_PreppedColumn], int]:
+def prep_batch(batch: ColumnBatch, device: DeviceLike = _CPU,
+               native: bool = False) -> tuple[list[_PreppedColumn], int]:
     """Canonicalize a batch.  Column buffers become CPU tensors (staged
     onto a card by `_stage`); dict pool accumulators are computed, or
-    taken from the pool's memo, on `device`."""
+    taken from the pool's memo, on `device`, or on the host backend
+    (`pool_accumulators_native`, CPU tensors) when `native`."""
     dev = torch.device(device)
     cols: list[_PreppedColumn] = []
     for name in batch.schema.names():
@@ -384,7 +400,8 @@ def prep_batch(batch: ColumnBatch, device: DeviceLike = _CPU
                         f"column {name}: dict codes [{cmin}, {cmax}] "
                         f"out of range for pool of {pool.n_values} "
                         f"values")
-            a1, a2 = pool_accumulators(pool, dev)
+            a1, a2 = (pool_accumulators_native(pool) if native
+                      else pool_accumulators(pool, dev))
             TELEMETRY.record_dict_preserved()
             cols.append(_PreppedColumn(
                 name=name, kind="dict", codes=torch.from_numpy(codes),
@@ -616,6 +633,133 @@ def fingerprint_host(cols: Sequence[_PreppedColumn],
     return FingerprintAggregate.from_acc(acc, n_rows)
 
 
+# -- the host backend: lane chains in the C++ host library -----------------------
+
+def _pow2_width(max_len: int) -> int:
+    """Padded row width of a var-width column (>= len + 9, a power of two
+    of 64-byte blocks): the reference's power-table width."""
+    nb = (max_len + 9 + 63) // 64
+    nb = 1 << (nb - 1).bit_length() if nb > 1 else 1
+    return nb * 64
+
+
+@functools.lru_cache(maxsize=64)
+def _powers_np(width: int, base: int) -> np.ndarray:
+    """`_powers` as a numpy uint32 table (do not mutate)."""
+    return _powers(width, base).numpy().astype(np.uint32)
+
+
+def _mix32_np(x: np.ndarray) -> np.ndarray:
+    """lowbias32 on uint32 (numpy's uint32 product wraps mod 2^32)."""
+    x = x.astype(np.uint32, copy=True)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x7FEB352D)
+    x ^= x >> np.uint32(15)
+    x *= np.uint32(0x846CA68B)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    """A CPU int32 tensor holding uint32 bits as a contiguous uint32 array."""
+    return np.ascontiguousarray(t.numpy().view(np.uint32))
+
+
+def _var_accs_native(data: np.ndarray, offsets: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Both lanes' accumulators of a var-width column through the host
+    library's `polyhash_varcol`: one pass over the real bytes."""
+    n = len(offsets) - 1
+    a1 = np.empty(n, dtype=np.uint32)
+    a2 = np.empty(n, dtype=np.uint32)
+    if n == 0:
+        return a1, a2
+    lens = offsets[1:] - offsets[:-1]
+    width = _pow2_width(int(lens.max()))
+    native.lib().polyhash_varcol(np.ascontiguousarray(data, dtype=np.uint8),
+                                 np.ascontiguousarray(offsets,
+                                                      dtype=np.int32),
+                                 n, _powers_np(width, _P1),
+                                 _powers_np(width, _P2), a1, a2)
+    return a1, a2
+
+
+def pool_accumulators_native(pool) -> tuple[torch.Tensor, torch.Tensor]:
+    """`pool_accumulators` on the host backend: the pool's per-entry
+    accumulators through `polyhash_varcol`, as (k,) int32 CPU tensors in
+    the same memo (the values are identical, so a memo made by either
+    route serves both)."""
+    memo = pool.memo_get(_ACC_MEMO_KEY)
+    if memo is not None:
+        return (memo[0].cpu(), memo[1].cpu())
+    failpoint("rowhash.pool_accs")
+    trace.instant("rowhash_pool_accs", values=pool.n_values)
+    data = _host_array(pool.values_data, np.uint8)
+    offs = _host_array(pool.values_offsets, np.int32)
+    _check_offsets(offs, len(data), "dict pool")
+    a1, a2 = _var_accs_native(data, offs)
+    accs = (torch.from_numpy(a1.view(np.int32)),
+            torch.from_numpy(a2.view(np.int32)))
+    pool.memo_set(_ACC_MEMO_KEY, accs)
+    return accs
+
+
+def _col_lanes_native(col: _PreppedColumn, n: int
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    cdll = native.lib()
+    s1, s2 = _col_seed(col.name, 0), _col_seed(col.name, 1)
+    h1 = np.empty(n, dtype=np.uint32)
+    h2 = np.empty(n, dtype=np.uint32)
+    if col.kind == "fixed":
+        bits = col.bits.numpy().view(np.uint64)
+        cdll.rowhash_mix_fixed(
+            (bits & np.uint64(M32)).astype(np.uint32),
+            (bits >> np.uint64(32)).astype(np.uint32), n, s1, s2, h1, h2)
+    elif col.kind == "dict":
+        cdll.rowhash_dict_lanes(_u32(col.acc1), _u32(col.acc2),
+                                np.ascontiguousarray(col.codes.numpy()),
+                                n, s1, s2, h1, h2)
+    else:
+        a1, a2 = _var_accs_native(col.data.numpy(), col.offsets.numpy())
+        cdll.rowhash_mix_var(a1, a2, n, s1, s2, h1, h2)
+    if col.validity is not None:
+        valid = col.validity.numpy()
+        h1 = np.where(valid, h1, np.uint32(_NULL1 ^ s1))
+        h2 = np.where(valid, h2, np.uint32(_NULL2 ^ s2))
+    return h1, h2
+
+
+def row_lanes_host(cols: Sequence[_PreppedColumn], n_rows: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The finalized per-row lanes (r1, r2) as numpy uint32 on the host
+    backend: each column's lane chain in the host library, summed by
+    `rowhash_accum`.  Columns must be CPU tensors (`prep_batch` on the
+    CPU)."""
+    r1 = np.zeros(n_rows, dtype=np.uint32)
+    r2 = np.zeros(n_rows, dtype=np.uint32)
+    if n_rows == 0:
+        return r1, r2
+    for col in cols:
+        h1, h2 = _col_lanes_native(col, n_rows)
+        native.lib().rowhash_accum(np.ascontiguousarray(h1),
+                                   np.ascontiguousarray(h2), n_rows,
+                                   r1, r2)
+    return _mix32_np(r1), _mix32_np(r2)
+
+
+def fingerprint_native(cols: Sequence[_PreppedColumn],
+                       n_rows: int) -> FingerprintAggregate:
+    """The host backend's fingerprint (the reference's `fingerprint_host`
+    over its native lanes)."""
+    r1, r2 = row_lanes_host(cols, n_rows)
+    return FingerprintAggregate(
+        sum1=int(r1.sum(dtype=np.uint64) & M32),
+        sum2=int(r2.sum(dtype=np.uint64) & M32),
+        xor1=int(np.bitwise_xor.reduce(r1)) if n_rows else 0,
+        xor2=int(np.bitwise_xor.reduce(r2)) if n_rows else 0,
+        count=n_rows)
+
+
 # -- device entry points -------------------------------------------------------
 
 def _keys(r1: np.ndarray, r2: np.ndarray) -> np.ndarray:
@@ -631,15 +775,16 @@ def batch_row_keys(batch: ColumnBatch, backend: str = "auto",
                    device: DeviceLike = None) -> np.ndarray:
     """64-bit content key per row, `(r1 << 32) | r2`, as numpy uint64.
 
-    backend "host" is the plain version on the CPU; "device" and "auto"
-    run kernel K10 on `device` (CUDA unless the caller passes "cpu";
-    without a card it raises).  Dict columns key code-natively."""
+    backend "host" is the host library's lanes; "device" and "auto" run
+    kernel K10 on `device` (CUDA unless the caller passes "cpu", where
+    its plain version runs; without a card it raises).  Dict columns key
+    code-natively."""
     _check_backend(backend)
     if backend != "host":
         return batch_row_keys_device(batch, device)
     if batch.n_rows == 0:
         return np.empty(0, dtype=np.uint64)
-    return _keys(*row_lanes(*prep_batch(batch, _CPU)))
+    return _keys(*row_lanes_host(*prep_batch(batch, _CPU, native=True)))
 
 
 def batch_row_keys_device(batch: ColumnBatch,
@@ -684,31 +829,110 @@ class DeviceFingerprintProgram:
         return agg
 
 
-class TableFingerprinter:
-    """Streaming fingerprint over batches.
+def _row_bytes(batch: ColumnBatch) -> int:
+    """The reference's bytes a row for the chooser's link model: a var
+    column's padded width, 8 for every other column."""
+    total = 0
+    for name in batch.schema.names():
+        col = batch.column(name)
+        if not col.is_lazy_dict and col.offsets is not None:
+            offs = _host_array(col.offsets, np.int64)
+            lens = offs[1:] - offs[:-1]
+            total += _pow2_width(int(lens.max()) if len(lens) else 0)
+        else:
+            total += 8
+    return total
 
-    backend "host" runs the plain version on the CPU; "device" and
-    "auto" run DeviceFingerprintProgram on `device`.  The reference's
-    "auto" weighs its C++ host library against the device by measurement;
-    the port has no such library, so its auto is the device route.
-    Unless backend is "host", `device` is resolved at construction: CUDA
-    by default, and without a card that raises unless the caller passes
-    device="cpu".
+
+class TableFingerprinter:
+    """Streaming fingerprint over batches, backend chosen by measurement.
+
+    backend "host" runs the host library's lanes; "device" runs
+    DeviceFingerprintProgram on `device` (K10 on a card, its plain
+    version with device="cpu"); "auto" (the reference's `_choose`) times
+    the host lanes on the first batches and predicts the device from the
+    link profile: the reduction's output is 16 bytes, so the device pays
+    whenever H2D keeps up and batches amortize the launch.  Unless
+    backend is "host", `device` is resolved at construction: CUDA by
+    default, and without a card that raises unless the caller passes
+    device="cpu" (where "auto" is always the host, as the reference's is
+    with JAX on the CPU).
     """
+
+    # re-evaluate the decision periodically: links drift, and a decision
+    # pinned off one skewed sample would fix a bad backend for a whole
+    # table scan
+    REPROBE_EVERY = 256
 
     def __init__(self, backend: str = "auto", device: DeviceLike = None):
         _check_backend(backend)
+        self.backend = backend
         self._agg = FingerprintAggregate()
-        self._device = (None if backend == "host"
-                        else DeviceFingerprintProgram(device))
+        self.device = None if backend == "host" else resolve_device(device)
+        self._device: Optional[DeviceFingerprintProgram] = (
+            DeviceFingerprintProgram(self.device) if backend == "device"
+            else None)
+        self._host_ns_row = -1.0
+        # the link model's ns/row for the card at the last decision
+        self._device_ns_row = -1.0
+        self._host_samples = 0
+        self._batch_no = 0
+        self._decided: Optional[str] = None
+        # every batch's placement, in push order (read by tests and the
+        # chip's checksum phase)
+        self.choices: list[str] = []
+
+    def _accel_available(self) -> bool:
+        """The device pays only on a real accelerator."""
+        return self.device is not None and self.device.type == "cuda"
+
+    def _choose(self, n_rows: int, row_bytes: int) -> str:
+        if self.backend in ("host", "device"):
+            return self.backend
+        if (self._decided is not None
+                and self._batch_no % self.REPROBE_EVERY != 0):
+            return self._decided
+        # two host samples first: the first carries one-off warm-up (the
+        # host library's build, cold caches) and is never recorded
+        if self._host_samples < 2 or not self._accel_available():
+            return "host"
+        from transferia_tpu_torch.ops.linkprobe import probe_link
+
+        link = probe_link(self.device)
+        pred_s = (2 * link.launch_overhead_s
+                  + n_rows * row_bytes / link.h2d_bytes_per_s
+                  + n_rows / 20e6)
+        pred_ns = pred_s * 1e9 / max(n_rows, 1)
+        self._device_ns_row = pred_ns
+        self._decided = ("device" if pred_ns < self._host_ns_row
+                         else "host")
+        return self._decided
 
     def push(self, batch: ColumnBatch) -> None:
         if batch.n_rows == 0:
             return
-        if self._device is not None:
+        self._batch_no += 1
+        choice = self._choose(batch.n_rows, _row_bytes(batch))
+        self.choices.append(choice)
+        if choice == "device":
+            if self._device is None:
+                self._device = DeviceFingerprintProgram(self.device)
             self._device.dispatch(*prep_batch(batch, self._device.device))
             return
-        self._agg.merge(fingerprint_host(*prep_batch(batch, _CPU)))
+        cols, n = prep_batch(batch, _CPU, native=True)
+        t0 = time.perf_counter()
+        self._agg.merge(fingerprint_native(cols, n))
+        ns = (time.perf_counter() - t0) * 1e9 / batch.n_rows
+        self._host_samples += 1
+        if self._host_samples == 1:
+            return  # warm-up: measured, not recorded
+        self._host_ns_row = (ns if self._host_ns_row < 0
+                             else 0.7 * self._host_ns_row + 0.3 * ns)
+
+    def ns_per_row(self) -> dict:
+        """The ns/row behind auto's last decision: the host lanes' as
+        measured, the card's as the link model predicts (-1 before)."""
+        return {"host": self._host_ns_row, "device": self._device_ns_row}
 
     def result(self) -> FingerprintAggregate:
         if self._device is not None:

@@ -3,8 +3,8 @@
 
 Pure stdlib http.client: POST queries, INSERT bodies, basic auth,
 per-query settings, the JSON query helpers the staged commit reads the
-system tables and the fence with.  The streamed SELECT of the snapshot
-source waits with that source (ROADMAP.md A10).
+system tables and the fence with, and the streamed SELECT the
+ClickHouse storage reads tables with.
 """
 
 from __future__ import annotations
@@ -171,6 +171,36 @@ class CHClient:
                 conn._last_use = time.monotonic()
             return data
         raise CHError("clickhouse connection failed")  # unreachable
+
+    def execute_stream(self, query: str):
+        """Run a query on a connection of its own and return (read_fn,
+        close_fn) streaming the response body in chunks: a table read
+        must not buffer whole tables."""
+        conn = self._connect()
+        headers = {"Content-Type": "application/octet-stream"}
+        if self.user:
+            import base64
+
+            cred = base64.b64encode(
+                f"{self.user}:{self.password}".encode()
+            ).decode()
+            headers["Authorization"] = f"Basic {cred}"
+        try:
+            conn.request("POST", "/?" + self._params(query),
+                         body=b"", headers=headers)
+            resp = conn.getresponse()
+            if resp.status != 200:
+                data = resp.read()
+                conn.close()
+                raise CHError(
+                    f"clickhouse HTTP {resp.status}: "
+                    f"{data[:500].decode('utf-8', 'replace')}",
+                    code=resp.status,
+                )
+        except (ConnectionError, OSError, http.client.HTTPException) as e:
+            conn.close()
+            raise CHError(f"clickhouse connection failed: {e}") from e
+        return resp.read, conn.close
 
     def insert_rowbinary(self, table: str, columns: list[str],
                          payload: bytes) -> None:

@@ -1,16 +1,17 @@
-"""ClickHouse sink on one shard (the port's copy of the sink half of
+"""ClickHouse on one shard (the port's copy of the sink and storage of
 ``transferia_tpu/providers/clickhouse/provider.py``): the target params
 with their default Bufferer, the DDL generator, the insert-only sink
 with its staged commit (a part stages into its own table and publishes
-with one `REPLACE PARTITION`, fenced by `__trtpu_commits`), and the
-activation cleanup.
+with one `REPLACE PARTITION`, fenced by `__trtpu_commits`), the
+activation cleanup, and the storage over SELECT (`CHStorage`: the
+table list, schema, counts, streamed reads and the checksum's samples),
+which the checksum task reads a target through.
 
-Left out, each raising NotImplementedError naming ROADMAP.md A10: more
-than one shard (several `shards`, `cluster` discovery), the snapshot
-source (`CHStorage`) and the `a2` event target.  `shard_by` picks a
-shard among several; on the one shard the port writes, the reference
-routes every row there whatever it names, so the port accepts it and
-has nothing to read it for.
+Left out, each raising NotImplementedError naming ROADMAP.md A7: more
+than one shard (several `shards`, `cluster` discovery) and the `a2`
+event target.  `shard_by` picks a shard among several; on the one shard
+the port writes, the reference routes every row there whatever it
+names, so the port accepts it and has nothing to read it for.
 """
 
 from __future__ import annotations
@@ -25,15 +26,21 @@ from transferia_tpu_torch.abstract.commit import StagedSinker
 from transferia_tpu_torch.abstract.errors import StaleEpochPublishError
 from transferia_tpu_torch.abstract.interfaces import (
     Batch,
+    Pusher,
+    SampleableStorage,
     Sinker,
+    Storage,
+    TableInfo,
     is_columnar,
 )
 from transferia_tpu_torch.abstract.kinds import Kind
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
+    ColSchema,
     TableID,
     TableSchema,
 )
+from transferia_tpu_torch.abstract.table import TableDescription
 from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.models.endpoint import (
@@ -46,6 +53,7 @@ from transferia_tpu_torch.providers.clickhouse.client import (
     CHError,
 )
 from transferia_tpu_torch.providers.clickhouse.rowbinary import (
+    decode_rowbinary_stream,
     encode_rowbinary,
 )
 from transferia_tpu_torch.providers.registry import (
@@ -56,20 +64,23 @@ from transferia_tpu_torch.providers.staging import (
     COMMITS_TABLE,
     META_COLUMN,
     WireStage,
+    is_meta_name,
     publish_guard,
     stage_ident_prefix,
 )
 from transferia_tpu_torch.runtime.device import DeviceLike
 from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.typesystem.rules import (
+    map_source_type,
     map_target_type,
+    register_source_rules,
     register_target_rules,
 )
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = "not ported yet (ROADMAP.md A10: the ClickHouse provider's " \
-             "multi-shard, snapshot-source and a2 parts)"
+NOT_PORTED = "not ported yet (ROADMAP.md A7: the ClickHouse provider's " \
+             "multi-shard and a2 parts)"
 
 register_target_rules("ch", {
     CanonicalType.INT8: "Int8", CanonicalType.INT16: "Int16",
@@ -83,6 +94,19 @@ register_target_rules("ch", {
     CanonicalType.TIMESTAMP: "DateTime64(6)",
     CanonicalType.INTERVAL: "Int64", CanonicalType.DECIMAL: "String",
     CanonicalType.ANY: "String",
+})
+
+register_source_rules("ch", {
+    "int8": CanonicalType.INT8, "int16": CanonicalType.INT16,
+    "int32": CanonicalType.INT32, "int64": CanonicalType.INT64,
+    "uint8": CanonicalType.UINT8, "uint16": CanonicalType.UINT16,
+    "uint32": CanonicalType.UINT32, "uint64": CanonicalType.UINT64,
+    "float32": CanonicalType.FLOAT, "float64": CanonicalType.DOUBLE,
+    "bool": CanonicalType.BOOLEAN, "string": CanonicalType.STRING,
+    "date": CanonicalType.DATE, "date32": CanonicalType.DATE,
+    "datetime": CanonicalType.DATETIME,
+    "datetime64": CanonicalType.TIMESTAMP,
+    "*": CanonicalType.ANY,
 })
 
 
@@ -122,6 +146,21 @@ class CHTargetParams(EndpointParams):
         (hosts,) = self.shards.values()
         h, _, p = hosts[0].partition(":")
         return h, int(p or 8123)
+
+
+@register_endpoint
+@dataclass
+class CHSourceParams(EndpointParams):
+    PROVIDER = "ch"
+    IS_SOURCE = True
+
+    host: str = "localhost"
+    port: int = 8123
+    database: str = "default"
+    user: str = "default"
+    password: str = ""
+    secure: bool = False
+    batch_rows: int = 131_072
 
 
 def ddl_for_schema(table: TableID, schema: TableSchema,
@@ -356,9 +395,190 @@ class CHSinker(Sinker, StagedSinker):
             self._stage.state.note_push_retry()
 
 
+class CHStorage(Storage, SampleableStorage):
+    """Storage over SELECT: the table list, schema, exact counts,
+    streamed reads and the checksum's samples."""
+
+    # checksum sampling limits (clickhouse/storage_sampleable.go)
+    RANDOM_SAMPLE_LIMIT = 2000
+    TOP_BOTTOM_LIMIT = 1000
+
+    def __init__(self, params: CHSourceParams):
+        self.params = params
+        self.client = CHClient(
+            host=params.host, port=params.port, database=params.database,
+            user=params.user, password=params.password,
+            secure=params.secure)
+        self._name_cache: dict[TableID, str] = {}
+
+    def close(self) -> None:
+        self.client.close()
+
+    def table_list(self, include=None):
+        rows = self.client.query_json(
+            f"SELECT name, total_rows FROM system.tables "
+            f"WHERE database = '{self.params.database}'")
+        out = {}
+        for r in rows:
+            if is_meta_name(r["name"]):
+                continue  # staging/fence tables are not user data
+            tid = TableID(self.params.database, r["name"])
+            if include and not any(tid.include_matches(p) for p in include):
+                continue
+            out[tid] = TableInfo(eta_rows=int(r.get("total_rows") or 0))
+        return out
+
+    def _resolve_name(self, table: TableID) -> str:
+        """A foreign TableID's name in this database: the sink flattens
+        "ns"."t" into `ns__t` (`ch_table_name`), so a checksum against a
+        ClickHouse target finds rows under that name when the bare name
+        is absent."""
+        name = table.name
+        if not table.namespace or table.namespace == self.params.database:
+            return name
+        cached = self._name_cache.get(table)
+        if cached is not None:
+            return cached
+        flat = f"{table.namespace}__{table.name}"
+        n = self.client.scalar(
+            "SELECT count() FROM system.tables "
+            f"WHERE database = '{self.params.database}' "
+            f"AND name = '{flat}'")
+        resolved = flat if int(n or 0) else name
+        self._name_cache[table] = resolved
+        return resolved
+
+    def table_schema(self, table: TableID) -> TableSchema:
+        rows = self.client.query_json(
+            f"SELECT name, type, is_in_primary_key FROM system.columns "
+            f"WHERE database = '{self.params.database}' "
+            f"AND table = '{self._resolve_name(table)}'")
+        cols = []
+        for r in rows:
+            if is_meta_name(r["name"]):
+                continue  # the hidden staged-commit part column
+            ch_type = r["type"]
+            nullable = ch_type.startswith("Nullable(")
+            base = ch_type[9:-1] if nullable else ch_type
+            cols.append(ColSchema(
+                name=r["name"],
+                data_type=map_source_type("ch", base.lower()),
+                primary_key=bool(int(r.get("is_in_primary_key") or 0)),
+                required=not nullable,
+                original_type=f"ch:{ch_type}"))
+        return TableSchema(cols)
+
+    def exact_table_rows_count(self, table: TableID) -> int:
+        return int(self.client.scalar(
+            f"SELECT count() FROM `{self._resolve_name(table)}`") or 0)
+
+    def estimate_table_rows_count(self, table: TableID) -> int:
+        return self.exact_table_rows_count(table)
+
+    @staticmethod
+    def _select_expr(c: ColSchema) -> str:
+        """Types the decoder cannot take off the wire (anything mapped to
+        ANY or DECIMAL) are cast to String on the server."""
+        if c.data_type in (CanonicalType.ANY, CanonicalType.DECIMAL):
+            return f"toString(`{c.name}`) AS `{c.name}`"
+        return f"`{c.name}`"
+
+    def load_table(self, table: TableDescription, pusher: Pusher) -> None:
+        where = f" WHERE {table.filter}" if table.filter else ""
+        self._load_select(table.id, where_order_limit=where, pusher=pusher)
+
+    def _load_select(self, tid: TableID, where_order_limit: str,
+                     pusher: Pusher) -> None:
+        schema = self.table_schema(tid)
+        nullable = {c.name: not c.required for c in schema}
+        cols = ", ".join(self._select_expr(c) for c in schema)
+        read_fn, close_fn = self.client.execute_stream(
+            f"SELECT {cols} FROM `{self._resolve_name(tid)}`"
+            f"{where_order_limit} FORMAT RowBinary")
+        try:
+            for batch in decode_rowbinary_stream(
+                    read_fn, schema, nullable,
+                    batch_rows=self.params.batch_rows):
+                out = ColumnBatch(tid, schema, batch.columns)
+                out.read_bytes = out.nbytes()
+                pusher(out)
+        finally:
+            close_fn()
+
+    # -- checksum sampling (clickhouse/storage_sampleable.go) ---------------
+    def table_size_in_bytes(self, table: TableID) -> int:
+        v = self.client.scalar(
+            "SELECT sum(bytes_on_disk) FROM system.parts "
+            f"WHERE database = '{self.params.database}' "
+            f"AND table = '{self._resolve_name(table)}' AND active")
+        try:
+            return int(v or 0)
+        except (TypeError, ValueError):
+            return 0
+
+    def _order_cols(self, tid: TableID) -> list[str]:
+        return [c.name for c in self.table_schema(tid).key_columns()]
+
+    def load_random_sample(self, table: TableDescription,
+                           pusher: Pusher) -> None:
+        order = self._order_cols(table.id)
+        by = " ORDER BY " + ", ".join(f"`{c}`" for c in order) if order \
+            else ""
+        # rand() is uniform over UInt32; 0.05 of the range
+        cutoff = int(0.05 * 0xFFFFFFFF)
+        self._load_select(
+            table.id,
+            f" WHERE rand() <= {cutoff}{by} LIMIT {self.RANDOM_SAMPLE_LIMIT}",
+            pusher)
+
+    def load_top_bottom_sample(self, table: TableDescription,
+                               pusher: Pusher) -> None:
+        order = self._order_cols(table.id)
+        if not order:
+            raise CHError(f"no sorting key on {table.id.name}; "
+                          "cannot take top/bottom sample")
+        asc = ", ".join(f"`{c}`" for c in order)
+        desc = ", ".join(f"`{c}` DESC" for c in order)
+        n = self.TOP_BOTTOM_LIMIT
+        self._load_select(table.id, f" ORDER BY {asc} LIMIT {n}", pusher)
+        self._load_select(table.id, f" ORDER BY {desc} LIMIT {n}", pusher)
+
+    @staticmethod
+    def _ch_literal(v) -> str:
+        if v is None:
+            return "NULL"
+        if isinstance(v, bool):
+            return "1" if v else "0"
+        if isinstance(v, (int, float)):
+            return str(v)
+        if isinstance(v, bytes):
+            v = v.decode("utf-8", "replace")
+        s = str(v).replace("\\", "\\\\").replace("'", "\\'")
+        return f"'{s}'"
+
+    def load_sample_by_set(self, table: TableDescription, key_set,
+                           pusher: Pusher) -> None:
+        conds = [
+            "(" + " AND ".join(
+                f"`{name}` = {self._ch_literal(val)}"
+                for name, val in key.items()) + ")"
+            for key in key_set
+        ]
+        where = " OR ".join(conds) if conds else "0"
+        self._load_select(table.id, f" WHERE {where}", pusher)
+
+    def ping(self) -> None:
+        self.client.ping()
+
+
 @register_provider
 class ClickHouseProvider(Provider):
     NAME = "ch"
+
+    def storage(self):
+        if isinstance(self.transfer.src, CHSourceParams):
+            return CHStorage(self.transfer.src)
+        return None
 
     def sinker(self):
         if isinstance(self.transfer.dst, CHTargetParams):

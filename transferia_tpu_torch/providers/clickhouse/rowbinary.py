@@ -9,8 +9,8 @@ output with flat numpy gathers.  As in the JAX package, the varints and
 the final scatter run in the host library (`leb128_encode`,
 `scatter_bytes`); the numpy routes (`_encode_varints_plain`,
 `_scatter_plain`) give the same bytes and are what tests hold them
-against.  The decoder serves the ClickHouse snapshot source, which
-waits (ROADMAP.md A10).
+against.  The decoder (the reference's per-row parser) serves the
+ClickHouse storage, which the checksum task reads a target through.
 
 Type wire formats (ClickHouse RowBinary):
   ints/floats: little-endian fixed width
@@ -250,3 +250,117 @@ def _scatter_plain(src: np.ndarray, src_off: np.ndarray,
     inner = np.arange(total) - np.repeat(src_off, lens)
     out[np.repeat(dst_off, lens) + inner] = src[np.repeat(src_off, lens)
                                                  + inner]
+
+
+# -- decoder (the ClickHouse storage) -----------------------------------------
+
+class _NeedMore(Exception):
+    """A row parse ran off the end of the buffer (a partial chunk)."""
+
+
+def _wire_fixed(cs) -> Optional[tuple[np.dtype, int]]:
+    """Per-column wire format, honoring the ClickHouse-native type: a
+    `Date` column is uint16 days on the wire, the canonical DATE Date32."""
+    if cs.original_type == "ch:Date":
+        return np.dtype("<u2"), 2
+    return _fixed_width(cs.data_type)
+
+
+def _parse_row(buf: memoryview, pos: int, schema, nullable: dict,
+               fixed: dict, out: dict) -> int:
+    """Parse one row into `out`'s column lists; returns the position after
+    it.  The row's values are appended only once the whole row parsed:
+    a row cut at a chunk boundary raises _NeedMore leaving `out` as it
+    was, and is parsed again from its start with the next chunk.  (The
+    reference appends column by column, so such a row leaves its first
+    columns one value long and the batch fails as ragged.)"""
+    n = len(buf)
+    row = []
+    for c in schema:
+        if nullable.get(c.name, False):
+            if pos >= n:
+                raise _NeedMore()
+            flag = buf[pos]
+            pos += 1
+            if flag == 1:
+                row.append(None)
+                continue
+        fx = fixed[c.name]
+        if fx is not None:
+            dt, width = fx
+            if pos + width > n:
+                raise _NeedMore()
+            v = np.frombuffer(buf[pos:pos + width], dtype=dt)[0]
+            if c.data_type == CanonicalType.BOOLEAN:
+                row.append(bool(v))
+            elif c.data_type.is_float:
+                row.append(float(v))
+            else:
+                row.append(int(v))
+            pos += width
+        else:
+            ln = 0
+            shift = 0
+            while True:
+                if pos >= n:
+                    raise _NeedMore()
+                b = buf[pos]
+                pos += 1
+                ln |= (b & 0x7F) << shift
+                if not b & 0x80:
+                    break
+                shift += 7
+            if pos + ln > n:
+                raise _NeedMore()
+            raw = bytes(buf[pos:pos + ln])
+            pos += ln
+            if c.data_type == CanonicalType.STRING:
+                row.append(raw)
+            else:
+                row.append(raw.decode("utf-8", "replace"))
+    for c, v in zip(schema, row):
+        out[c.name].append(v)
+    return pos
+
+
+def decode_rowbinary_stream(read_fn, schema,
+                            nullable: Optional[dict[str, bool]] = None,
+                            batch_rows: int = 131_072,
+                            chunk_bytes: int = 8 << 20):
+    """Incremental decode: read_fn(n) -> bytes (b"" = EOF).  Yields
+    ColumnBatches of up to batch_rows rows in constant memory; a partial
+    row at a chunk boundary carries over to the next chunk."""
+    from transferia_tpu_torch.abstract.schema import TableID
+
+    nullable = nullable or {}
+    fixed = {c.name: _wire_fixed(c) for c in schema}
+    leftover = b""
+    cols: dict[str, list] = {c.name: [] for c in schema}
+    rows = 0
+    eof = False
+    while not eof:
+        chunk = read_fn(chunk_bytes)
+        if not chunk:
+            eof = True
+        data = leftover + chunk if leftover else chunk
+        buf = memoryview(data)
+        pos = 0
+        while pos < len(buf):
+            row_start = pos
+            try:
+                pos = _parse_row(buf, pos, schema, nullable, fixed, cols)
+            except _NeedMore:
+                if eof:
+                    raise ValueError(
+                        "rowbinary stream truncated mid-row") from None
+                pos = row_start
+                break
+            rows += 1
+            if rows >= batch_rows:
+                yield ColumnBatch.from_pydict(
+                    TableID("", "decoded"), schema, cols)
+                cols = {c.name: [] for c in schema}
+                rows = 0
+        leftover = bytes(buf[pos:])
+    if rows:
+        yield ColumnBatch.from_pydict(TableID("", "decoded"), schema, cols)

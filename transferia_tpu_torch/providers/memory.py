@@ -1,9 +1,9 @@
 """In-memory provider (the port's copy of the snapshot half of
 ``transferia_tpu/providers/memory.py``): a sink that captures every
-push for assertions, staged-commit capable, and a storage made of
-pre-loaded batches.  The storage's incremental cursors and the sink's
-read-back storage (for the checksum task) wait for their slices
-(ROADMAP.md A8, A9).
+push for assertions, staged-commit capable, a storage made of
+pre-loaded batches, and the sink's read-back storage
+(`MemoryStoreStorage`, what the checksum task reads as the target).
+The storage's incremental cursors wait for their slice (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -287,6 +287,48 @@ class MemoryStorage(Storage):
                 if b.n_rows == 0:
                     continue
             pusher(b)
+
+
+class MemoryStoreStorage(Storage):
+    """Storage view over a sink's captured pushes (the TARGET side).  The
+    seed space (`seed_source`) and the capture space (`get_store`) are
+    distinct: a checksum against the target must read the latter."""
+
+    def __init__(self, sink_id: str):
+        self._store = get_store(sink_id)
+
+    def _by_table(self) -> dict[TableID, list]:
+        out: dict[TableID, list] = {}
+        for it in self._store.rows():
+            out.setdefault(it.table_id, []).append(it)
+        return out
+
+    def table_list(self, include=None):
+        out = {}
+        for tid, items in self._by_table().items():
+            if include and not any(tid.include_matches(p)
+                                   for p in include):
+                continue
+            out[tid] = TableInfo(eta_rows=len(items),
+                                 schema=items[0].table_schema)
+        return out
+
+    def table_schema(self, table: TableID) -> TableSchema:
+        return self._by_table()[table][0].table_schema
+
+    def load_table(self, table: TableDescription, pusher: Pusher) -> None:
+        items = self._by_table().get(table.id, [])
+        mask_fn = None
+        if table.filter:
+            from transferia_tpu_torch.predicate import compile_mask, parse
+
+            mask_fn = compile_mask(parse(table.filter))
+        for lo in range(0, len(items), 4096):
+            b = ColumnBatch.from_rows(items[lo:lo + 4096])
+            if mask_fn is not None:
+                b = b.filter(mask_fn(b))
+            if b.n_rows:
+                pusher(b)
 
 
 @register_provider

@@ -164,14 +164,15 @@ def hits_row(i: int) -> tuple:
 
 
 def feed_hits_wal(fake, rows: int, txn_rows: int = 1000,
-                  schema: str = "public", table: str = "hits") -> int:
-    """Feed wal2json v2 inserts of hits rows 0..rows-1, `txn_rows` to a
-    transaction between its `B` and `C` messages.  Returns the last
-    message's LSN."""
+                  schema: str = "public", table: str = "hits",
+                  start: int = 0) -> int:
+    """Feed wal2json v2 inserts of hits rows start..start+rows-1,
+    `txn_rows` to a transaction between its `B` and `C` messages.
+    Returns the last message's LSN."""
     pk = [{"name": "id", "type": "bigint"}]
-    for lo in range(0, rows, txn_rows):
+    for lo in range(start, start + rows, txn_rows):
         fake.feed_wal(json.dumps({"action": "B"}).encode())
-        for i in range(lo, min(rows, lo + txn_rows)):
+        for i in range(lo, min(start + rows, lo + txn_rows)):
             values = hits_row(i)
             fake.feed_wal(json.dumps({
                 "action": "I", "schema": schema, "table": table,

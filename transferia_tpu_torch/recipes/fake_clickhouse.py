@@ -1,14 +1,18 @@
 """In-process fake ClickHouse HTTP endpoint: the port's copy of the parts
 of ``tests/recipes/fake_clickhouse.py`` that the port's sink speaks to.
 
-Query param parsing, CREATE/DROP/TRUNCATE TABLE, INSERT ... FORMAT
-RowBinary (the payload walked and counted at insert time and decoded on
-read with an independent minimal decoder), and what the staged commit
-speaks: the `system.tables` listing, `REPLACE`/`DROP PARTITION ID` over
-the rows' `__trtpu_part` membership, the fence's `SELECT max(...)` and
-`SELECT count()`.  Runs the real CHClient against real sockets; only the
-server side is fake.  The JAX fake's cluster discovery and row SELECTs
-serve parts the port does not have yet.
+Query param parsing, CREATE/DROP/TRUNCATE TABLE (the ORDER BY kept as
+the table's key), INSERT ... FORMAT RowBinary (the payload walked and
+counted at insert time and decoded on read with an independent minimal
+decoder), what the staged commit speaks (the `system.tables` listing,
+`REPLACE`/`DROP PARTITION ID` over the rows' `__trtpu_part` membership,
+the fence's `SELECT max(...)` and `SELECT count()`), and what the
+ClickHouse storage reads a table with for the checksum task:
+`system.columns`, `system.parts`, and `SELECT ... FORMAT RowBinary`
+with the WHERE (the `rand()` cut, ORed key equalities), ORDER BY and
+LIMIT shapes it emits.  Every query is kept in `queries`.  Runs the
+real CHClient against real sockets; only the server side is fake.  The
+JAX fake's cluster discovery serves a part the port does not have yet.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ class _LazyTable(dict):
 class FakeCH:
     def __init__(self):
         self.tables: dict[str, dict] = {}   # name -> {ddl, columns, rows}
+        self.queries: list[str] = []
         self.lock = threading.Lock()
         self._srv: ThreadingHTTPServer | None = None
         self.port = 0
@@ -122,6 +127,8 @@ class FakeCH:
 
     # -- protocol -----------------------------------------------------------
     def handle(self, query: str, body: bytes) -> bytes:
+        with self.lock:
+            self.queries.append(query)
         q = query.strip()
         low = q.lower()
         if low == "select 1":
@@ -133,11 +140,15 @@ class FakeCH:
                 r"CREATE TABLE IF NOT EXISTS `?(\w+)`?", q, re.I
             ).group(1)
             cols = self._parse_ddl_cols(q)
+            mo = re.search(r"ORDER BY \(([^)]*)\)", q, re.I)
+            order_by = [c.strip().strip("`")
+                        for c in mo.group(1).split(",")] if mo else []
             with self.lock:
                 if name not in self.tables:
                     self.tables[name] = _LazyTable({
                         "ddl": q, "columns": cols, "rows": [],
                         "pending": [],
+                        "order_by": [c for c in order_by if c],
                     })
             return b""
         m = re.match(r"(drop|truncate) table if exists `?(\w+)`?", low)
@@ -218,6 +229,40 @@ class FakeCH:
                             vals.append(int(r[col_name]))
             best = max(vals) if vals else None
             return json.dumps({"data": [[best]]}).encode()
+        m = re.match(r"select (.*) from `?(\w+)`?\s*(.*?)\s*"
+                     r"format rowbinary", low, re.S)
+        if m:
+            name = re.search(r"FROM `?(\w+)`?", q, re.I).group(1)
+            with self.lock:
+                t = self.tables.get(name)
+                if t is None:
+                    raise ValueError(f"Table {name} does not exist")
+                sel = re.match(r"SELECT (.*?) FROM", q, re.S | re.I).group(1)
+                cols = []
+                for expr in sel.split(","):
+                    expr = expr.strip()
+                    mm = re.match(r"toString\(`(\w+)`\) AS", expr)
+                    cols.append(mm.group(1) if mm else expr.strip("`"))
+                rows = self._filter_rows(t["rows"], q)
+                return _encode_rowbinary_rows(
+                    rows, cols, [t["columns"][c] for c in cols])
+        if "from system.parts" in low:
+            m = re.search(r"table = '(\w+)'", q)
+            with self.lock:
+                t = self.tables.get(m.group(1)) if m else None
+                size = t.row_count() * 100 if t else 0
+            return json.dumps({"data": [[size]]}).encode()
+        if "from system.columns" in low:
+            m = re.search(r"table = '(\w+)'", q)
+            with self.lock:
+                t = self.tables.get(m.group(1)) if m else None
+                keys = t.get("order_by", []) if t else []
+                data = [
+                    {"name": c, "type": typ,
+                     "is_in_primary_key": 1 if c in keys else 0}
+                    for c, typ in (t["columns"].items() if t else [])
+                ]
+            return json.dumps({"data": data}).encode()
         if "from system.tables" in low:
             mn = re.search(r"name = '(\w+)'", q)
             with self.lock:
@@ -236,6 +281,49 @@ class FakeCH:
                 n = t.row_count() if t is not None else 0
             return json.dumps({"data": [[n]]}).encode()
         raise ValueError(f"fake CH: unhandled query: {q[:120]}")
+
+    @staticmethod
+    def _filter_rows(rows: list[dict], sql: str) -> list[dict]:
+        """The WHERE/ORDER BY/LIMIT shapes the storage emits: the rand()
+        cut (a deterministic every-7th subsample), ORed key equalities
+        (matched by literal text, as the JAX fake does, through a set)
+        and the top/bottom ordering."""
+        rows = list(rows)
+        mw = re.search(r"WHERE (.*?)(?: ORDER BY | LIMIT | FORMAT )",
+                       sql, re.S | re.I)
+        if mw:
+            cond = mw.group(1).strip()
+            if "rand()" in cond:
+                rows = rows[::7]
+            elif "` = " in cond:
+                wanted: dict[tuple, set] = {}
+                for group in re.findall(r"\(([^()]*)\)", cond):
+                    want = {}
+                    for eq in group.split(" AND "):
+                        mk = re.match(r"\s*`(\w+)`\s*=\s*(.+)\s*", eq)
+                        if mk:
+                            want[mk.group(1)] = mk.group(2).strip()
+                    if want:
+                        names = tuple(sorted(want))
+                        wanted.setdefault(names, set()).add(
+                            tuple(want[k] for k in names))
+                rows = [r for r in rows
+                        if any(tuple(_literal(r.get(k)) for k in names)
+                               in vals for names, vals in wanted.items())]
+        mo = re.search(r"ORDER BY (.+?)(?: LIMIT | FORMAT )", sql,
+                       re.S | re.I)
+        if mo:
+            for part in reversed(mo.group(1).split(",")):
+                part = part.strip()
+                desc = part.upper().endswith(" DESC")
+                name = part.split()[0].strip("`")
+                rows = sorted(
+                    rows, key=lambda r: (r.get(name) is None, r.get(name)),
+                    reverse=desc)
+        ml = re.search(r"LIMIT (\d+)", sql, re.I)
+        if ml:
+            rows = rows[: int(ml.group(1))]
+        return rows
 
     @staticmethod
     def _parse_ddl_cols(ddl: str) -> dict[str, str]:
@@ -271,6 +359,58 @@ _FIXED = {
     "Float64": ("<d", 8), "Bool": ("<B", 1), "Date32": ("<i", 4),
     "DateTime": ("<I", 4), "DateTime64(6)": ("<q", 8),
 }
+
+
+def _literal(v) -> str:
+    """A stored value as the storage writes its literal in a WHERE."""
+    if v is None:
+        return "NULL"
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, (int, float)):
+        return str(v)
+    s = str(v).replace("\\", "\\\\").replace("'", "\\'")
+    return f"'{s}'"
+
+
+def _encode_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _encode_rowbinary_rows(rows: list[dict], cols: list[str],
+                           types: list[str]) -> bytes:
+    out = []
+    for row in rows:
+        for c, t in zip(cols, types):
+            v = row.get(c)
+            nullable = t.startswith("Nullable(")
+            base = t[9:-1] if nullable else t
+            if nullable:
+                if v is None:
+                    out.append(b"\x01")
+                    continue
+                out.append(b"\x00")
+            if base in _FIXED:
+                fmt, _ = _FIXED[base]
+                if base in ("Float32", "Float64"):
+                    v = float(v or 0)
+                elif base == "Bool":
+                    v = 1 if v in (True, "True", "true", 1) else 0
+                else:
+                    v = int(v or 0)
+                out.append(struct.pack(fmt, v))
+            else:
+                raw = v if isinstance(v, bytes) else str(v or "").encode()
+                out.append(_encode_varint(len(raw)) + raw)
+    return b"".join(out)
 
 
 def _count_rowbinary_rows(data: bytes, types: list[str]) -> int:

@@ -7,8 +7,8 @@ package is present and falls back to local counters otherwise; the port
 keeps only the local counters, under the same metric names, so a
 bundle's readings (`Metrics.value`) compare one to one with the
 reference's.  `DeviceStats` and `ChaosStats` are the telemetry
-plane's bundles; the interchange, fleet, SLO and MVCC bundles come
-with those modules.
+plane's bundles, `MvccStats` the MVCC staging store's; the
+interchange, fleet and SLO bundles come with those modules.
 """
 
 from __future__ import annotations
@@ -268,6 +268,38 @@ class CommitStats(_Bundle):
             "publish_stale_rejected")
         self.dedup_rows_dropped = self.m.counter(
             "commit_dedup_rows_dropped")
+
+
+class MvccStats(_Bundle):
+    """MVCC staging-store counters (mvcc/).  The pair to watch is
+    `layers_fenced` vs `cutovers`: nonzero fences mean zombie
+    snapshot/delta workers published after the cutover sealed and were
+    stopped at the coordinator.  `watermark_lag` is the distance between
+    the newest delta LSN seen and the sealed cutover watermark."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.base_versions = self.m.counter("mvcc_base_versions")
+        self.base_rows = self.m.counter("mvcc_base_rows")
+        self.delta_layers = self.m.counter("mvcc_delta_layers")
+        self.delta_rows = self.m.counter("mvcc_delta_rows")
+        self.layers_replaced = self.m.counter("mvcc_layers_replaced")
+        self.layers_fenced = self.m.counter("mvcc_layers_fenced")
+        self.merged_reads = self.m.counter("mvcc_merged_reads")
+        self.merged_rows = self.m.counter("mvcc_merged_rows")
+        self.cutovers = self.m.counter("mvcc_cutovers")
+        self.cutover_fenced = self.m.counter("mvcc_cutover_fenced")
+        self.compactions = self.m.counter("mvcc_compactions")
+        self.compacted_rows = self.m.counter("mvcc_compacted_rows")
+        self.spill_blobs = self.m.counter("mvcc_spill_blobs")
+        self.spill_bytes = self.m.counter("mvcc_spill_bytes")
+        self.rebuilds = self.m.counter("mvcc_rebuilds")
+        self.rebuilt_layers = self.m.counter("mvcc_rebuilt_layers")
+        self.pump_rows = self.m.counter("mvcc_pump_rows")
+        self.pump_layers = self.m.counter("mvcc_pump_layers")
+        self.offset_commits = self.m.counter("mvcc_offset_commits")
+        self.live_layers = self.m.gauge("mvcc_live_layers")
+        self.watermark_lag = self.m.gauge("mvcc_watermark_lag")
 
 
 class TableStats(_Bundle):

@@ -6,14 +6,20 @@ Flow: list tables -> primary-key checks -> destination cleanup per policy
 marks the transfer FAILED, opens a status message and runs the
 rollbacks a provider hook registered.
 
+SNAPSHOT_AND_INCREMENT runs the source's activate hook first (slot
+creation only: changes committed during the snapshot are replayable
+only if the slot already pins the pre-snapshot position), then the
+cleanup, then the consistent cutover through the MVCC staging store
+(`mvcc/runner.py`) when the coordinator supports it, else the plain
+upload.  The reference also takes the plain upload when the source has
+an event-model snapshot capability (`snapshot_provider`); no port
+provider has one, so the port has no `snapshot_v2` branch.
+
 `device` is where the snapshot's device work runs (None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions).
 
-Left out, each raising NotImplementedError naming itself (ROADMAP.md
-A6): the SNAPSHOT_AND_INCREMENT activation (the slot-first order and the
-MVCC cutover) and a configured `dbt` step.  No port provider has an
-event-model snapshot capability, so the reference's `snapshot_v2`
-upload has no branch here.
+Left out, raising NotImplementedError naming itself: a configured `dbt`
+step (ROADMAP.md A7, the dbt transformer).
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ logger = logging.getLogger(__name__)
 
 def _left_out(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md A6, "
-        f"activate_delivery's left-out branches)")
+        f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md A7, "
+        f"the dbt transformer)")
 
 
 def _dbt_steps(transfer) -> list:
@@ -64,10 +70,6 @@ def activate_delivery(transfer, coordinator: Coordinator,
     coordinator.set_status(transfer.id, TransferStatus.ACTIVATING)
     rollbacks = Rollbacks()
     try:
-        if ttype == TransferType.SNAPSHOT_AND_INCREMENT:
-            raise _left_out("the SNAPSHOT_AND_INCREMENT activation "
-                            "(replication slot first, then the MVCC "
-                            "cutover, which waits on A10's mvcc/)")
         if ttype != TransferType.INCREMENT_ONLY and _dbt_steps(transfer):
             raise _left_out("the dbt post-upload step")
         loader = SnapshotLoader(transfer, coordinator,
@@ -97,7 +99,26 @@ def activate_delivery(transfer, coordinator: Coordinator,
                             len(tbls or []))
                 dst_provider.cleanup(tbls or [])
 
-        if ttype.has_snapshot:
+        if ttype == TransferType.SNAPSHOT_AND_INCREMENT:
+            # the slot first (the hook gets no-op callbacks: cleanup and
+            # the load follow explicitly)
+            if src_provider.supports_activate():
+                src_provider.activate(ActivateCallbacks(
+                    lambda _t: None, lambda _t: None, rollbacks))
+            cleanup_cb(tables)
+            if coordinator.supports_mvcc():
+                # snapshot parts land as base versions, deltas captured
+                # during the load stack as layers, and the sealed
+                # watermark is where replication resumes
+                from transferia_tpu_torch.mvcc.runner import (
+                    activate_snapshot_and_increment,
+                )
+
+                activate_snapshot_and_increment(
+                    transfer, coordinator, metrics, tables, device=device)
+            else:
+                loader.upload_tables(tables)
+        elif ttype.has_snapshot:
             if src_provider.supports_activate():
                 src_provider.activate(ActivateCallbacks(
                     cleanup_cb, loader.upload_tables, rollbacks))
