@@ -112,9 +112,8 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 8,192 messages of the kafka2ch phase's generator (K-A; 16,384 a
-     partition until PR 16, whose depth cut for the call's time it
-     is).  Exact
+     x 4,096 messages of the kafka2ch phase's generator (K-A; cut from
+     16,384 a partition for the call's time).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
@@ -266,6 +265,24 @@ final line):
      sink_wait and sink, and the transform spans' p50/p99 agree with
      the stage timer's window within 5 %; (4) my2kf in both placements
      with every my2kf check; each run prints its stage table;
+ 15j. cli: the port's CLI on transfer.yaml files, as a user
+     runs it, in this process and thread (TRANSFERIA_TPU_PLACEMENT's
+     device placement): validate on the examples (OK; the s3 one exits 1
+     naming ROADMAP.md A7) and describe; replicate of a PG -> PG
+     SNAPSHOT_AND_INCREMENT transfer (pg2ch's 300,000 rows and a
+     50,000-row events table, mask_field on url, filter_rows region <
+     400, transfer_ddl with an index, a view and a sequence): the MVCC
+     activation publishes through the fused chain into the target's
+     staged parts, then a wal2json tail of 20,000 changes (inserts,
+     updates, deletes, seed 29), fed once the slot exists, ends on
+     SIGTERM once its last LSN is confirmed; the target equals numpy's
+     image, one fence row a part, no staging table, the DDL applied;
+     checksum by K10 against a fake holding numpy's image (exit 0), and
+     with one value altered (exit 1); upload of the events table from a
+     cursor moves exactly the new rows' kept ones; `python3 -m
+     transferia_tpu_torch.cli.main activate` in a subprocess.  Every
+     K-A, K-B, K-C and K10 launch of the in-process commands is held
+     against its plain version;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -292,6 +309,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import statistics
 import struct
 import subprocess
@@ -601,6 +619,11 @@ PATH_KERNELS = {
     # clickbench, replication (a) and my2kf again, traced
     "telemetry": ("sha256_hmac", "pred_decode", "pred3vl_mask",
                   "rowhash_lanes"),
+    # the CLI on transfer.yaml, PG -> PG: the fused mask and
+    # filter on the snapshot's publish, the tail and the incremental
+    # upload; K10 keying the MVCC store and the staged parts, and the
+    # checksum command's fingerprint
+    "cli": ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -650,10 +673,10 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 8,192 messages of the
-# kafka2ch phase's generator (16,384 until PR 16: (b) moves one fetch
-# batch a Bufferer tick, so its run is seconds a 1,024-message batch and
-# the cut halves the phase, for the checksum and sai phases)
+# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
+# kafka2ch phase's generator (cut from 16,384 for the later phases'
+# time: (b) moves one fetch batch a Bufferer tick, so its run is about
+# a second a 1,024-message batch, whatever the depth)
 REPL_PARTITIONS, REPL_MESSAGES, REPL_SALT = 16, 1500, b"bench"
 REPL_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "url", "type": "utf8"},
@@ -662,7 +685,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 8192
+BACKLOG_MESSAGES = 4096
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -6094,6 +6117,591 @@ def dict_timing(dev) -> dict:
                                for k in DICT_POOLS}}
 
 
+# -- cli: the port's CLI on transfer.yaml, PG -> PG ----------------------------
+
+CLI_ROWS = PG2CH_ROWS           # pg2ch's table in the source fake
+CLI_EVENTS = 50_000             # the incremental table at the activation
+CLI_EVENTS_NEW = 5_000          # its rows inserted after the activation
+CLI_SEED = 29
+CLI_INSERTS, CLI_UPDATES, CLI_DELETES = 12_000, 5_000, 3_000
+CLI_SALT = "cli-salt"
+# K-C reads int32 and narrower columns bit-exactly: the filter on region
+# fuses with the mask (a double column's comparison stays on the host)
+CLI_FILTER = "region < 400"
+CLI_SETTLE_S = 600.0
+# the source's DDL objects (the fake's pg_indexes / pg_views / pg_sequences)
+CLI_INDEXES = [
+    ("public", "hits", "hits_pkey",
+     "CREATE UNIQUE INDEX hits_pkey ON public.hits USING btree (id)"),
+    ("public", "hits", "hits_region_idx",
+     "CREATE INDEX hits_region_idx ON public.hits USING btree (region)")]
+CLI_VIEWS = [("public", "hits_kept",
+              " SELECT id, url FROM public.hits WHERE region < 400;")]
+CLI_SEQUENCES = [("public", "hits_id_seq", 1, 1, CLI_ROWS)]
+# what transfer_ddl must apply on the target, in pg_dump.py's order (the
+# primary key's index comes with the table)
+CLI_DDL_APPLIED = [
+    'CREATE SEQUENCE IF NOT EXISTS "public"."hits_id_seq" START WITH 1 '
+    'INCREMENT BY 1',
+    f"SELECT setval('\"public\".\"hits_id_seq\"', {CLI_ROWS})",
+    "CREATE INDEX IF NOT EXISTS hits_region_idx ON public.hits USING btree "
+    "(region)",
+    'CREATE OR REPLACE VIEW "public"."hits_kept" AS  SELECT id, url FROM '
+    'public.hits WHERE region < 400']
+CLI_EXAMPLE_ENV = {"PG_PASSWORD": "x", "MASK_SALT": "s",
+                   "MYSQL_PASSWORD": "x", "PII_SALT": "s"}
+CLI_YAML = """\
+# PG -> PG with the fused mask and filter: {what}
+id: {tid}
+type: {ttype}
+src:
+  type: pg
+  params:
+    host: 127.0.0.1
+    port: {src}
+    database: shop
+    user: postgres
+    password: "${{CLI_PG_PASSWORD:}}"
+    schemas: [public]
+    transfer_ddl: {ddl}
+dst:
+  type: pg
+  params:
+    host: 127.0.0.1
+    port: {dst}
+    database: shop
+transformation:
+  transformers:
+    - mask_field: {{columns: [url], salt: "${{CLI_MASK_SALT:{salt}}}"}}
+    - filter_rows: {{filter: "{filt}"}}
+{extra}"""
+
+
+def cli_yaml(path: str, what: str, tid: str, ttype: str, src: int,
+             dst: int, ddl: bool = False, extra: str = "") -> str:
+    with open(path, "w") as fh:
+        fh.write(CLI_YAML.format(
+            what=what, tid=tid, ttype=ttype, src=src, dst=dst,
+            ddl="true" if ddl else "false", salt=CLI_SALT, filt=CLI_FILTER,
+            extra=extra))
+    return path
+
+
+def cli_masked(url: str) -> str:
+    return hmac.new(CLI_SALT.encode(), url.encode(),
+                    hashlib.sha256).hexdigest()
+
+
+def cli_events_row(i: int) -> tuple:
+    return i, f"https://e.test/ev/{i % 613}", i % 450, (i % 77) * 1.5
+
+
+def cli_kept_image(rows) -> dict:
+    """numpy's mask and filter over (id, url, region, score) rows: id ->
+    the row the target must hold."""
+    rows = list(rows)
+    keep = np.array([r[2] for r in rows]) < 400
+    return {r[0]: (r[0], cli_masked(r[1]), r[2], r[3])
+            for r, k in zip(rows, keep.tolist()) if k}
+
+
+def cli_changes() -> list:
+    """The tail: (kind, id, row or None), each key changed once: inserts
+    of new ids, updates of snapshot ids (new url, region and score) and
+    deletes of other snapshot ids, the kinds mixed as CDC traffic mixes
+    them.  The source cuts a push at every change of a row's columns (a
+    delete carries the key only), so the tail pushes a small batch or
+    two a delete."""
+    rng = np.random.default_rng(CLI_SEED)
+    old = rng.choice(CLI_ROWS, CLI_UPDATES + CLI_DELETES, replace=False)
+    new = CLI_ROWS + rng.choice(10 * CLI_ROWS, CLI_INSERTS, replace=False)
+    out = []
+    for k in new.tolist():
+        out.append(("I", k, (k, f"https://e.test/new/{k % 997}",
+                             int(rng.integers(0, 500)),
+                             float(rng.integers(0, 91)) * 1.5)))
+    for k in old[:CLI_UPDATES].tolist():
+        out.append(("U", k, (k, f"https://e.test/upd/{k % 997}",
+                             int(rng.integers(0, 500)),
+                             float(rng.integers(0, 91)) * 1.5)))
+    for k in old[CLI_UPDATES:].tolist():
+        out.append(("D", k, None))
+    return [out[i] for i in rng.permutation(len(out)).tolist()]
+
+
+def cli_feed(pg: FakePG, changes: list, txn_rows: int = 1000) -> int:
+    """The changes as wal2json v2 messages in transactions, appended to
+    the fake's WAL in one go; the last LSN."""
+    pk = [{"name": "id", "type": "bigint"}]
+    msgs = []
+    for lo in range(0, len(changes), txn_rows):
+        msgs.append(json.dumps({"action": "B"}).encode())
+        for kind, k, row in changes[lo:lo + txn_rows]:
+            msg = {"action": kind, "schema": "public", "table": "hits",
+                   "pk": pk}
+            if row is not None:
+                msg["columns"] = [{"name": c[0], "type": c[1], "value": v}
+                                  for c, v in zip(PG2CH_COLUMNS, row)]
+            if kind != "I":
+                msg["identity"] = [{"name": "id", "type": "bigint",
+                                    "value": k}]
+            msgs.append(json.dumps(msg).encode())
+        msgs.append(json.dumps({"action": "C"}).encode())
+    pg.feed_wal_many(msgs)
+    return pg.wal[-1][0]
+
+
+def cli_expected_hits(changes: list) -> dict:
+    """numpy's image of the target's hits after the tail: the snapshot's
+    kept rows; an insert lands when the filter keeps it, an update only
+    when the filter keeps it and the target holds the key (a statement
+    UPDATE), a delete always."""
+    image = cli_kept_image(cdc.hits_row(i) for i in range(CLI_ROWS))
+    rows = [r for _, _, r in changes if r is not None]
+    kept = cli_kept_image(rows)
+    for kind, k, _ in changes:
+        if kind == "D":
+            image.pop(k, None)
+        elif k in kept and (kind == "I" or k in image):
+            image[k] = kept[k]
+    return image
+
+
+def cli_table(pg: FakePG, name: str) -> dict:
+    """A fake's public.<name> as id -> (id, url, region, score)."""
+    with pg.lock:
+        t = pg.tables.get(("public", name))
+        rows = list(t.rows) if t else []
+    return {int(r["id"]): (int(r["id"]), r["url"], int(r["region"]),
+                           float(r["score"])) for r in rows}
+
+
+def cli_fake_rows(rows) -> list:
+    return [{"id": str(r[0]), "url": r[1], "region": str(r[2]),
+             "score": f"{r[3]}"} for r in rows]
+
+
+class PredLaunches:
+    """Records each K-B and K-C launch on the card (inputs and output,
+    cloned) while a path runs, to hold every launch against the plain
+    versions afterwards."""
+
+    def __enter__(self):
+        from transferia_tpu_torch.ops import decode as decode_mod
+        from transferia_tpu_torch.predicate import device as pred_mod
+
+        self.decodes, self.masks = [], []
+        self._mods = (decode_mod, pred_mod)
+        self._fns = (decode_mod.pred_decode, pred_mod.pred3vl_mask)
+        dec_fn, mask_fn = self._fns
+        rec = self
+
+        def clone(t):
+            return None if t is None else t.clone()
+
+        def pred_decode(mode, words, n, bit_width, base=0, mins=None,
+                        frame=0):
+            out = dec_fn(mode, words, n, bit_width, base, mins, frame)
+            if words.is_cuda:
+                rec.decodes.append((mode, words.clone(), n, bit_width,
+                                    base, clone(mins), frame, out.clone()))
+            return out
+
+        def pred3vl_mask(program, cols, n, pack_keep, device=None):
+            out = mask_fn(program, cols, n, pack_keep, device)
+            if out.is_cuda:
+                rec.masks.append((program, [(d.clone(), clone(v))
+                                            for d, v in cols],
+                                  n, pack_keep, out.clone()))
+            return out
+
+        decode_mod.pred_decode = pred_decode
+        pred_mod.pred3vl_mask = pred3vl_mask
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0].pred_decode, self._mods[1].pred3vl_mask = self._fns
+        return False
+
+    def check(self, what: str, counts: dict) -> dict:
+        """Every recorded launch exact against the plain version on the
+        CPU, and as many as the path counted."""
+        from transferia_tpu_torch.ops.decode import pred_decode_plain
+
+        if len(self.decodes) != counts["pred_decode"] or \
+                len(self.masks) != counts["pred3vl_mask"]:
+            raise AssertionError(
+                f"{what}: {len(self.decodes)} K-B / {len(self.masks)} K-C "
+                f"launches recorded, {counts['pred_decode']} / "
+                f"{counts['pred3vl_mask']} counted")
+        for i, (mode, words, n, bw, base, mins, frame, out) in \
+                enumerate(self.decodes):
+            want = pred_decode_plain(
+                mode, words.cpu(), n, bw, base,
+                None if mins is None else mins.cpu(), frame)
+            require_equal(out.cpu(), want, f"{what}: K-B launch {i}")
+        for i, (program, cols, n, pack_keep, out) in enumerate(self.masks):
+            want = self._fns[1](
+                program, [(d.cpu(), None if v is None else v.cpu())
+                          for d, v in cols], n, pack_keep)
+            require_equal(out.cpu(), want, f"{what}: K-C launch {i}")
+        held = {"pred_decode": len(self.decodes),
+                "pred3vl_mask": len(self.masks)}
+        self.decodes, self.masks = [], []
+        return held
+
+
+class FingerprintDispatches:
+    """Records each batch the device fingerprint launches K10 on (the
+    checksum command's), to key it again against the plain version."""
+
+    def __enter__(self):
+        self.dispatched = []
+        self._real = real = rowhash.DeviceFingerprintProgram.dispatch
+        rec = self
+
+        def dispatch(program, cols, n):
+            rec.dispatched.append((cols, n))
+            return real(program, cols, n)
+
+        rowhash.DeviceFingerprintProgram.dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        rowhash.DeviceFingerprintProgram.dispatch = self._real
+        return False
+
+
+def cli_main(argv: list, dev) -> tuple[int, str, str, float]:
+    """The port's CLI in this process and thread: (exit code, stdout,
+    stderr, seconds); each command's seconds also go to stderr as it
+    ends."""
+    import contextlib
+    import io
+
+    from transferia_tpu_torch.cli.main import main as cli_entry
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_entry(["--device", str(dev.type), "--log-level", "warning"]
+                       + argv)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    print(f"cli: {argv[0]} rc {rc} in {seconds:.3f} s", file=sys.stderr,
+          flush=True)
+    return rc, out.getvalue(), err.getvalue(), seconds
+
+
+def cli_validate(dev) -> dict:
+    """validate on the examples and describe, as a user runs them."""
+    saved = {k: os.environ.get(k) for k in CLI_EXAMPLE_ENV}
+    os.environ.update(CLI_EXAMPLE_ENV)
+    out = {}
+    try:
+        here = Path(__file__).resolve().parent / "examples"
+        for name in ("pg2ch", "kafka2ch", "mysql2kafka", "kafka_sr2ch",
+                     "clickbench_s3_parquet2ch"):
+            rc, so, se, s = cli_main(
+                ["validate", "--transfer", str(here / f"{name}.yaml")], dev)
+            out[name] = {"rc": rc, "stdout": so.strip(),
+                         "stderr": se.strip()[-300:], "seconds": s}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for name in ("pg2ch", "kafka2ch", "mysql2kafka", "kafka_sr2ch"):
+        # kafka_sr2ch's lambda names a user module the chain resolves
+        # only when a batch comes: 0 in both packages (the CPU tests)
+        if out[name]["rc"] != 0 or not out[name]["stdout"].startswith("OK"):
+            raise AssertionError(f"cli validate {name}: {out[name]}")
+    s3 = out["clickbench_s3_parquet2ch"]
+    if s3["rc"] == 0 or "ROADMAP.md A7" not in s3["stderr"] \
+            or "'s3'" not in s3["stderr"]:
+        raise AssertionError(f"cli validate s3: {s3}")
+    rc, so, _, s = cli_main(["describe", "--provider", "pg"], dev)
+    described = json.loads(so)
+    if rc != 0 or sorted(described) != ["pg/source", "pg/target"] or \
+            "transfer_ddl" not in described["pg/source"]:
+        raise AssertionError(f"cli describe: rc {rc}, {sorted(described)}")
+    out["describe"] = {"rc": rc, "endpoints": sorted(described),
+                       "seconds": s}
+    return out
+
+
+class SourcePushes:
+    """Counts the batches the Postgres source pushes through the chain
+    and the sink (one a run of changes of one table and columns) while
+    a path runs."""
+
+    def __enter__(self):
+        from transferia_tpu_torch.providers.postgres import replication
+
+        self.pushes = 0
+        self._mod, self._fn = replication, replication._split_homogeneous
+        split_fn, rec = self._fn, self
+
+        def split_homogeneous(items):
+            runs = split_fn(items)
+            rec.pushes += len(runs)
+            return runs
+
+        replication._split_homogeneous = split_homogeneous
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._split_homogeneous = self._fn
+        return False
+
+
+def cli_replicate(src: FakePG, dst: FakePG, path: str, changes: list,
+                  dev) -> dict:
+    """`replicate --transfer` in the main thread: the S&I activation (the
+    snapshot through the fused chain into the target's staged parts, the
+    DDL objects), then the wal2json tail, fed once the slot exists; a
+    watcher sends SIGTERM once the source has the tail's last LSN
+    confirmed."""
+    import signal as signal_mod
+
+    fed, failure, returned = {}, [], threading.Event()
+
+    def watch():
+        try:
+            deadline = time.perf_counter() + CLI_SETTLE_S
+            while not src.slots and not returned.is_set() and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.05)
+            if not src.slots:
+                raise AssertionError("no replication slot appeared")
+            fed["activated_s"] = time.perf_counter() - t0
+            fed["target_rows_at_slot"] = len(cli_table(dst, "hits"))
+            print(f"cli: activated in {fed['activated_s']:.3f} s",
+                  file=sys.stderr, flush=True)
+            fed["last"] = cli_feed(src, changes)
+            fed["fed_s"] = time.perf_counter()
+            while src.flushed_lsn < fed["last"] and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.05)
+            fed["tail_s"] = time.perf_counter() - fed["fed_s"]
+            if src.flushed_lsn < fed["last"]:
+                raise AssertionError("the tail's last LSN was never "
+                                     "confirmed")
+        except BaseException as e:   # reported after the command
+            failure.append(e)
+        finally:
+            # the slot exists only inside the command's replication loop,
+            # whose handler turns SIGTERM into its stop
+            if src.slots and not returned.is_set():
+                os.kill(os.getpid(), signal_mod.SIGTERM)
+
+    t0 = time.perf_counter()
+    watcher = threading.Thread(target=watch, name="cli-watch", daemon=True)
+    watcher.start()
+    try:
+        # the snapshot's parts do not go through the source's runs: every
+        # push counted is the tail's
+        with SourcePushes() as pushes:
+            rc, so, se, seconds = cli_main(["replicate", "--transfer",
+                                            path], dev)
+    finally:
+        returned.set()
+    watcher.join(60)
+    if failure:
+        raise failure[0]
+    if rc != 0:
+        raise AssertionError(f"cli replicate: rc {rc}: {se[-2000:]}")
+    return {"rc": rc, "seconds": seconds,
+            "activation_seconds": fed["activated_s"],
+            "target_rows_at_slot": fed["target_rows_at_slot"],
+            "tail_seconds": fed["tail_s"], "tail_pushes": pushes.pushes,
+            "last_lsn": int_to_lsn(fed["last"])}
+
+
+def cli_subprocess(src: FakePG, tmp: str, events: dict, dev) -> dict:
+    """`python3 -m transferia_tpu_torch.cli.main activate` in a process of
+    its own: the events table into a fresh target."""
+    dst = FakePG().start()
+    try:
+        path = cli_yaml(
+            os.path.join(tmp, "cli_sub.yaml"), "the module entry point",
+            "cli-sub", "SNAPSHOT_ONLY", src.port, dst.port,
+            extra='data_objects: ["public.events"]\n')
+        env = dict(os.environ, TRANSFERIA_TPU_PLACEMENT="device",
+                   PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "transferia_tpu_torch.cli.main",
+             "--device", str(dev.type), "--log-level", "warning",
+             "activate", "--transfer", path],
+            capture_output=True, text=True, timeout=600, env=env)
+        seconds = time.perf_counter() - t0
+        got = cli_table(dst, "events")
+        if proc.returncode != 0 or got != events or \
+                "cli-sub: activated" not in proc.stdout:
+            raise AssertionError(
+                f"cli subprocess: rc {proc.returncode}, {len(got)} rows of "
+                f"{len(events)} (equal {got == events}): "
+                f"{proc.stderr[-2000:]}")
+        return {"rc": proc.returncode, "seconds": seconds,
+                "rows": len(got), "stdout": proc.stdout.strip()}
+    finally:
+        dst.stop()
+
+
+def cli_path(dev) -> dict:
+    """The port's CLI on transfer.yaml files, as a user runs it: a PG ->
+    PG transfer with the fused mask and filter (K-A, K-B, K-C) and
+    transfer_ddl, checked against numpy at every step; every launch of
+    the in-process commands recorded and held against the plain
+    versions."""
+    import logging
+
+    # the CLI's logging.basicConfig must not bind its handler to a
+    # captured stderr
+    logging.basicConfig(level=logging.WARNING)
+    t0 = time.perf_counter()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=str(_build.BUILD_DIR))
+    src, dst, img = FakePG().start(), FakePG().start(), FakePG().start()
+    set_placement("device")
+    result: dict = {}
+    try:
+        src.add_table(hits_table(CLI_ROWS))
+        events0 = [cli_events_row(i) for i in range(CLI_EVENTS)]
+        src.add_table(FakeTable("public", "events", PG2CH_COLUMNS,
+                                cli_fake_rows(events0)))
+        src.indexes.extend(CLI_INDEXES)
+        src.views.extend(CLI_VIEWS)
+        src.sequences.extend(CLI_SEQUENCES)
+        changes = cli_changes()
+        want_hits = cli_expected_hits(changes)
+        gen_s = time.perf_counter() - t0
+        main_yaml = cli_yaml(os.path.join(tmp, "cli.yaml"),
+                             "SNAPSHOT_AND_INCREMENT with transfer_ddl",
+                             "cli-pg2pg", "SNAPSHOT_AND_INCREMENT",
+                             src.port, dst.port, ddl=True)
+        result["validate"] = cli_validate(dev)
+        held = {}
+        with KALaunches() as ka, PredLaunches() as preds, \
+                KeyLaunches() as keyed, FingerprintDispatches() as fpd:
+            _build.reset_launch_counts()
+            # 1. replicate: the activation, then the tail
+            rep = result["replicate"] = cli_replicate(
+                src, dst, main_yaml, changes, dev)
+            counts = {"replicate": _build.launch_counts()}
+            got = cli_table(dst, "hits")
+            fences = [r["part_key"] for r in
+                      dst.tables[("public", "__trtpu_commits")].rows]
+            staging_left = [n for _, n in dst.tables
+                            if n.startswith("__trtpu_stg_")]
+            want_events0 = cli_kept_image(events0)
+            if got != want_hits or cli_table(dst, "events") \
+                    != want_events0 or sorted(fences) != sorted(set(fences)) \
+                    or len(fences) != 2 or staging_left \
+                    or dst.executed_ddl != CLI_DDL_APPLIED:
+                raise AssertionError(
+                    f"cli replicate: hits {len(got)} rows of "
+                    f"{len(want_hits)} (equal {got == want_hits}), fences "
+                    f"{fences}, staging left {staging_left}, ddl "
+                    f"{dst.executed_ddl}")
+            rep.update(target_rows=len(got), fence_parts=sorted(fences),
+                       ddl_applied=len(dst.executed_ddl),
+                       snapshot_rows_per_s=(CLI_ROWS + CLI_EVENTS)
+                       / rep["activation_seconds"],
+                       tail_rows_per_s=len(changes) / rep["tail_seconds"])
+            # 2. checksum: the target against numpy's image, by K10
+            img.add_table(FakeTable("public", "hits", PG2CH_COLUMNS,
+                                    cli_fake_rows(want_hits.values())))
+            chk_yaml = cli_yaml(os.path.join(tmp, "cli_checksum.yaml"),
+                                "the target against numpy's image",
+                                "cli-checksum", "SNAPSHOT_ONLY", img.port,
+                                dst.port)
+            # the fingerprint decides; on a mismatch the sampled row
+            # compare diagnoses (a full one is quadratic in the fake)
+            argv = ["checksum", "--transfer", chk_yaml, "--table",
+                    "public.hits", "--method", "fingerprint",
+                    "--fingerprint-backend", "device", "--size-threshold",
+                    "0"]
+            rc_ok, so_ok, _, s_ok = cli_main(argv, dev)
+            with dst.lock:
+                t = dst.tables[("public", "hits")]
+                r0 = min(t.rows, key=lambda r: int(r["id"]))
+                r0["score"] = f"{float(r0['score']) + 0.5}"
+            rc_bad, so_bad, _, s_bad = cli_main(argv, dev)
+            if rc_ok != 0 or rc_bad != 1:
+                raise AssertionError(f"cli checksum: clean rc {rc_ok} "
+                                     f"({so_ok[-500:]}), altered rc "
+                                     f"{rc_bad} ({so_bad[-500:]})")
+            counts["checksum"] = _build.launch_counts()
+            result["checksum"] = {"clean_rc": rc_ok, "altered_rc": rc_bad,
+                                  "clean_seconds": s_ok,
+                                  "altered_seconds": s_bad,
+                                  "clean_report": so_ok.strip()[-400:],
+                                  "altered_report": so_bad.strip()[-400:]}
+            # 3. the incremental table's second snapshot: the rows past
+            # the cursor only
+            events_new = [cli_events_row(i) for i in
+                          range(CLI_EVENTS, CLI_EVENTS + CLI_EVENTS_NEW)]
+            with src.lock:
+                src.tables[("public", "events")].rows.extend(
+                    cli_fake_rows(events_new))
+            inc_yaml = cli_yaml(
+                os.path.join(tmp, "cli_inc.yaml"),
+                "the incremental table's second snapshot", "cli-pg2pg",
+                "SNAPSHOT_ONLY", src.port, dst.port,
+                extra=("regular_snapshot:\n  enabled: true\n"
+                       "  cron: \"* * * * *\"\n  incremental:\n"
+                       "    - {namespace: public, name: events, "
+                       f"cursor_field: id, initial_state: \"{CLI_EVENTS - 1}\""
+                       "}\n"))
+            before = cli_table(dst, "events")
+            rc, so, se, s_up = cli_main(["upload", "--transfer", inc_yaml,
+                                         "--table", "public.events"], dev)
+            after = cli_table(dst, "events")
+            want_new = cli_kept_image(events_new)
+            moved = {k: v for k, v in after.items() if k not in before}
+            if rc != 0 or moved != want_new or len(after) != \
+                    len(before) + len(want_new):
+                raise AssertionError(
+                    f"cli upload: rc {rc}, {len(moved)} new rows of "
+                    f"{len(want_new)} (equal {moved == want_new}), "
+                    f"{len(after)} rows: {se[-2000:]}")
+            counts["upload"] = _build.launch_counts()
+            launches = counts["upload"]
+            require_launched("cli", launches)
+            result["upload"] = {"rc": rc, "seconds": s_up,
+                                "source_new_rows": len(events_new),
+                                "moved_rows": len(moved)}
+            held["sha256_hmac"] = ka.check("cli", launches["sha256_hmac"])
+            held.update(preds.check("cli", launches))
+            held["rowhash_lanes_keys"] = keyed.check("cli", dev)
+            held["rowhash_lanes_fingerprint"] = check_dispatched(
+                {"cli": {"dispatched": fpd.dispatched}}, dev)
+        # 4. the module entry point in a process of its own
+        result["subprocess"] = cli_subprocess(
+            src, tmp, cli_kept_image(events0 + events_new), dev)
+        result.update(
+            rows=CLI_ROWS, events=CLI_EVENTS, events_new=CLI_EVENTS_NEW,
+            changes={"inserts": CLI_INSERTS, "updates": CLI_UPDATES,
+                     "deletes": CLI_DELETES},
+            data_gen_seconds=gen_s, launches=launches,
+            launches_by_command={
+                "replicate": counts["replicate"],
+                "checksum": {k: counts["checksum"][k]
+                             - counts["replicate"][k] for k in launches},
+                "upload": {k: counts["upload"][k] - counts["checksum"][k]
+                           for k in launches}},
+            held_exact=held)
+        return result
+    finally:
+        set_placement(None)
+        for pg in (src, dst, img):
+            pg.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -6216,7 +6824,8 @@ def main() -> int:
             ("telemetry", lambda: telemetry_path(
                 cb_file,
                 results["clickbench"]["runs"]["device"]["completed_rows"],
-                dev))):
+                dev)),
+            ("cli", lambda: cli_path(dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

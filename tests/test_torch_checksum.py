@@ -15,7 +15,8 @@ past 12 digits, a real fingerprint mismatch); the digests and row keys of
 the host library's lanes, K10's plain version and the JAX package's
 host route over a numpy-seeded batch of every column kind; and
 `TableFingerprinter._choose`'s decisions on a fixed ns/row sequence.
-The CLI's `checksum` command waits on the port's CLI (ROADMAP.md A5).
+The CLI's `checksum` command is held in tests/test_torch_cli.py and
+chip_smoke.py's `cli` phase.
 """
 
 import datetime as dt

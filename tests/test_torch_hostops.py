@@ -45,13 +45,14 @@ from transferia_tpu_torch.ops.fused import (
 from transferia_tpu_torch.providers.clickhouse import rowbinary
 from transferia_tpu_torch.providers.kafka import protocol
 from transferia_tpu_torch.transform.plugins import mask
+from tests.torch_reflib import build_reference_library
 
 EDGE_LENS = (0, 1, 54, 55, 56, 57, 63, 64, 65, 119, 120, 200)
 
 
 @pytest.fixture(scope="module")
-def libs():
-    ref = ref_native.lib()
+def libs(tmp_path_factory):
+    ref = build_reference_library(tmp_path_factory.mktemp("reflib"))
     assert ref is not None, "the JAX package's host library must load"
     return native.lib(), ref
 

@@ -21,16 +21,17 @@ wal2json stream of `recipes.cdc` through the CDC tails' decoders (the
 binlog reader, the GTID set, the wal2json decoder), imports `mvcc/`,
 runs a SNAPSHOT_AND_INCREMENT activation through the MVCC store and
 checksums its sink against the source with `tasks/checksum.py`
-(compare, and the fingerprint's host lanes and device route); afterwards neither
-jax, pyarrow, transferia_tpu nor any transferia_tpu.* module may be
-loaded, and the only host library mapped is the port's own build.
+(compare, and the fingerprint's host lanes and device route) and runs
+the CLI's `validate` on every example; afterwards neither jax, pyarrow,
+yaml, transferia_tpu nor any transferia_tpu.* module may be loaded, and
+the only host library mapped is the port's own build.
 A second fresh interpreter imports every module of the telemetry plane
 and turns tracing, the stage timer, the lock watch, a failpoint and the
-profiler on over a fused chain: neither jax, jax.monitoring,
+profiler on over a fused chain: neither jax, jax.monitoring, yaml,
 prometheus_client nor the JAX package may be loaded, and a disabled
 span is the shared no-op singleton.
 And without CUDA, an entry point that was not asked for the CPU raises
-instead of running there.
+instead of running there (the CLI too, unless given `--device cpu`).
 """
 
 import json
@@ -319,8 +320,20 @@ with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
 set_placement(None)
+# the CLI on every example, reading the YAML with the port's own reader
+import contextlib, glob, io, os
+from transferia_tpu_torch.cli.main import main as cli_main
+os.environ.update(PG_PASSWORD="x", MASK_SALT="s", MYSQL_PASSWORD="x",
+                  PII_SALT="s")
+for path in sorted(glob.glob("examples/*.yaml")):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = cli_main(["--device", "cpu", "--log-level", "error",
+                       "validate", "--transfer", path])
+    assert rc == (1 if "s3" in path else 0), (path, rc)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
                                     "transferia_tpu"))
 print("LOADED", bad)
 """ % (CONFIG, CONFIG, CONFIG, CONFIG)
@@ -378,7 +391,7 @@ print(stagetimer.format_breakdown(1.0))
 print(p.report.format(3))
 lockwatch.disarm()
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow",
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
                                     "prometheus_client", "transferia_tpu"))
 print("LOADED", bad)
 """ % (CONFIG,)
@@ -592,7 +605,8 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     """The binlog tail, the MySQL target and Postgres logical replication
     no longer raise, nor does the SNAPSHOT_AND_INCREMENT activation (the
     MVCC cutover); its one left-out part, a configured dbt step, and the
-    DBLog snapshot raise naming their items."""
+    DBLog snapshot raise naming their items.  Every ROADMAP.md item the
+    port's code names is an open item of ROADMAP.md's queue A."""
     from transferia_tpu_torch.coordinator import MemoryCoordinator
     from transferia_tpu_torch.models import Transfer, TransferType
     from transferia_tpu_torch.providers.memory import MemoryTargetParams
@@ -615,10 +629,42 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
         == "PGReplicationSource"
     dblog = Transfer(id="t", src=PGSourceParams(dblog_snapshot=True),
                      dst=MemoryTargetParams(sink_id="t"))
-    with pytest.raises(NotImplementedError, match="DBLog.*ROADMAP.md A10"):
+    with pytest.raises(NotImplementedError, match="DBLog.*ROADMAP.md A7"):
         get_provider("pg", dblog, device="cpu").source()
     sni = Transfer(id="t-sni", type=TransferType.SNAPSHOT_AND_INCREMENT,
                    src=MySQLSourceParams(), dst=MySQLTargetParams(),
                    transformation={"transformers": [{"dbt": {}}]})
     with pytest.raises(NotImplementedError, match="dbt.*ROADMAP.md A7"):
         activate_delivery(sni, MemoryCoordinator(), device="cpu")
+    import re
+
+    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+    queue_a = roadmap.split("### A.", 1)[1].split("### B.", 1)[0]
+    open_items = set(re.findall(r"^(\d+)\. \*\*", queue_a, re.M))
+    named = {}
+    for root, _, files in os.walk(os.path.join(REPO,
+                                               "transferia_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                for m in re.finditer(r"ROADMAP\.md\s+A(\d+)",
+                                     open(path).read()):
+                    named.setdefault(m.group(1), []).append(
+                        os.path.relpath(path, REPO))
+    assert named and set(named) <= open_items, \
+        {k: v for k, v in named.items() if k not in open_items}
+
+
+def test_cli_needs_a_card_or_the_cpu(monkeypatch):
+    """Without a card the CLI raises unless `--device cpu`."""
+    from transferia_tpu_torch.cli.main import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PG_PASSWORD", "x")
+    path = os.path.join(REPO, "examples", "pg2ch.yaml")
+    for argv in (["validate", "--transfer", path], ["describe"],
+                 ["--device", "cuda", "activate", "--transfer", path]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli_main(argv)
+    assert cli_main(["--device", "cpu", "--log-level", "error", "validate",
+                     "--transfer", path]) == 0

@@ -594,7 +594,7 @@ def test_shards_and_row_counts_equal_jax(tmp_path):
 
 
 def test_unported_routes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A7"):
         port_file.FileStorage(port_file.FileSourceParams(format="csv"))
     t = Transfer(id="fs-sink", src=port_file.FileSourceParams(),
                  dst=port_file.FileTargetParams(path=str(tmp_path)))

@@ -422,9 +422,9 @@ def test_activate_left_out_branches_raise(case):
 def test_pg_target_and_replication_wait():
     t = Transfer(id="w", src=PGSourceParams(), dst=PGTargetParams())
     prov = get_provider("pg", t, device="cpu")
-    # the target waits (A6); logical replication is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        prov.sinker()
+    # the target and logical replication are ported (the sink is held
+    # against the JAX package's in tests/test_torch_pg_sink.py)
+    assert type(prov.sinker()).__name__ == "PGSinker"
     assert type(prov.source()).__name__ == "PGReplicationSource"
     pg = FakePG().start()
     try:

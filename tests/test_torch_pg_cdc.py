@@ -195,15 +195,15 @@ def test_wal2json_decoder_equals_jax(seed):
 
 def test_dblog_snapshot_names_its_item():
     params = PGSourceParams(dblog_snapshot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         port_repl.PGReplicationSource(params, "t")
     t = Transfer(id="dblog", type="INCREMENT_ONLY", src=params,
                  dst=port_memory.MemoryTargetParams(sink_id="dblog"))
-    with pytest.raises(NotImplementedError, match="DBLog.*A10"):
+    with pytest.raises(NotImplementedError, match="DBLog.*A7"):
         get_provider("pg", t, device="cpu").source()
     # a left-out part fails the replication at once: no retry loop
     cp = MemoryCoordinator()
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A7"):
         run_replication(t, cp, backoff=30, device="cpu")
     assert cp.get_status("dblog").value == "failed"
 

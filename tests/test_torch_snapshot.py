@@ -671,6 +671,13 @@ def test_left_out_branches_raise(what):
             IncrementalTableCfg("src", "people", "user_id"))
     else:
         kw["preempted"] = lambda: False
+    if what == "incremental":
+        # the incremental branch is ported (tests/test_torch_pg_sink.py
+        # holds it against the JAX package): the run persists the cursors
+        cp = MemoryCoordinator()
+        SnapshotLoader(t, cp, device="cpu", **kw).upload_tables()
+        assert cp.get_transfer_state(t.id)["incremental_state"] == {}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SnapshotLoader(t, MemoryCoordinator(), device="cpu",
                        **kw).upload_tables()

@@ -5,7 +5,7 @@
 sources and sinks; bulk data lives in `columnar.batch.ColumnBatch` and
 pivots to rows only at the row-oriented edges (`ColumnBatch.to_rows`).
 Both views share TableSchema.  `to_json` serves the native queue
-serializer; the JSON read side (`from_json`) is not ported.
+serializer, `from_json` reads it back.
 """
 
 from __future__ import annotations
@@ -122,6 +122,26 @@ class ChangeItem:
         if self.table_schema is not None:
             out["table_schema"] = self.table_schema.to_json()
         return out
+
+    @staticmethod
+    def from_json(d: dict[str, Any]) -> "ChangeItem":
+        ok = d.get("oldkeys") or {}
+        ts = d.get("table_schema")
+        return ChangeItem(
+            kind=Kind(d["kind"]),
+            schema=d.get("schema", ""),
+            table=d.get("table", ""),
+            column_names=tuple(d.get("columnnames", ())),
+            column_values=tuple(d.get("columnvalues", ())),
+            table_schema=TableSchema.from_json(ts) if ts else None,
+            old_keys=OldKeys(
+                tuple(ok.get("keynames", ())), tuple(ok.get("keyvalues", ()))
+            ),
+            lsn=d.get("lsn", 0),
+            commit_time_ns=d.get("commit_time", 0),
+            txn_id=d.get("txn_id", ""),
+            counter=d.get("id", 0),
+        )
 
 
 # -- control-event constructors ----------------------------------------------

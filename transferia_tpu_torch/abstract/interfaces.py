@@ -183,16 +183,37 @@ class SnapshotableStorage(abc.ABC):
 
 
 class IncrementalStorage(abc.ABC):
-    """Cursor-based incremental snapshots."""
+    """Cursor-based incremental snapshots.
+
+    Before a snapshot the loader reads the persisted cursor state, asks
+    for filtered TableDescriptions (rows past each cursor), snapshots the
+    slices, and on success persists `next_increment_state`, captured
+    BEFORE loading so rows written during the snapshot are read again
+    next time rather than skipped."""
 
     @abc.abstractmethod
-    def get_increment_state(self, tables: list, state: dict[str, Any]
+    def get_increment_state(self, tables: list["IncrementalTable"],
+                            state: dict[str, Any]
                             ) -> list[TableDescription]:
         """Table descriptions filtered to rows past each stored cursor."""
 
     @abc.abstractmethod
-    def next_increment_state(self, tables: list) -> dict[str, Any]:
+    def next_increment_state(self, tables: list["IncrementalTable"]
+                             ) -> dict[str, Any]:
         """Cursor values (str(table_id) -> value) to persist on success."""
+
+
+class IncrementalTable:
+    """A regular snapshot's incremental table: its id, cursor column and
+    the cursor's start."""
+
+    __slots__ = ("table", "cursor_field", "initial_state")
+
+    def __init__(self, table: TableID, cursor_field: str,
+                 initial_state: str = ""):
+        self.table = table
+        self.cursor_field = cursor_field
+        self.initial_state = initial_state
 
 
 class SampleableStorage(abc.ABC):

@@ -254,6 +254,21 @@ class TableSchema:
             for c in self.columns
         ]
 
+    @staticmethod
+    def from_json(items: list[dict]) -> "TableSchema":
+        return TableSchema(
+            ColSchema(
+                name=i["name"],
+                data_type=CanonicalType(i["type"]),
+                primary_key=i.get("key", False),
+                required=i.get("required", False),
+                original_type=i.get("original_type", ""),
+                expression=i.get("expression", ""),
+                path=i.get("path", ""),
+            )
+            for i in items
+        )
+
 
 def new_table_schema(cols: list[tuple], **kw) -> TableSchema:
     """Convenience constructor: list of (name, type[, primary_key]) tuples."""

@@ -1,0 +1,679 @@
+"""trtpu on PyTorch: the port's command-line interface (the port's copy of
+``transferia_tpu/cli/main.py``).
+
+    python -m transferia_tpu_torch.cli.main [--device cuda|cpu] \\
+        activate --transfer transfer.yaml
+
+Subcommands activate / upload / reupload / add-tables / remove-tables /
+replicate / checksum / deactivate / sniff / regular-snapshot / validate /
+describe / typesystem-docs / trace, global flags for the coordinator, the
+worker's sharding indices, the log level and a health port (`/health`,
+`/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`).
+The memory coordinator refuses `--job-count > 1`, since parts cannot be
+shared across processes in memory.  transfer.yaml is read without PyYAML
+(`cli/yamlread.py`).
+
+`--device` (default `cuda`) is where every task the command runs does
+its device work; without a card the CLI raises unless it is `cpu`, which
+runs the kernels' plain versions.
+
+Left out, each exiting 2 with a message naming its ROADMAP.md item
+(`LEFT_OUT`): the commands check, chaos, flight, fleet, worker, top, slo
+and explain, `trace --fleet`, `--coordinator filestore|s3`,
+`checksum --against-operation`, `--metrics-port`, and the health port's `/debug/slo`, `/debug/fleet` and
+`/debug/fleet/obs`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import signal
+import sys
+import threading
+
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.coordinator.interface import TransferStatus
+from transferia_tpu_torch.runtime.device import resolve_device
+
+# what the port leaves out -> the ROADMAP.md item that owns its modules
+LEFT_OUT = {
+    "check": "A6, the port's lint (analysis/)",
+    "chaos": "A6, the chaos runner (chaos/runner.py)",
+    "flight": "A7, interchange/ (blocked: it needs pyarrow)",
+    "fleet": "A7, fleet/",
+    "worker": "A7, fleet/ (the fleet worker)",
+    "top": "A5, the telemetry that waits (stats/fleetobs.py)",
+    "slo": "A5, the telemetry that waits (stats/slo.py)",
+    "explain": "A5, the telemetry that waits (stats/critpath.py)",
+    "trace --fleet": "A5, the telemetry that waits (stats/fleetobs.py)",
+    "--coordinator filestore": "A5, coordinator/filestore.py",
+    "checksum --against-operation": "A5, coordinator/filestore.py (the "
+                                    "memory coordinator keeps no "
+                                    "fingerprints across processes)",
+    "--coordinator s3": "A7, the s3 coordinator (coordinator/s3store.py)",
+    "--metrics-port": "A5, the telemetry that waits (the Prometheus "
+                      "exposition)",
+    "/debug/slo": "A5, the telemetry that waits (stats/slo.py)",
+    "/debug/fleet": "A7, fleet/",
+    "/debug/fleet/obs": "A5, the telemetry that waits (stats/fleetobs.py)",
+}
+
+
+def left_out_message(what: str) -> str:
+    return (f"trtpu: {what} is not ported to transferia_tpu_torch yet "
+            f"(ROADMAP.md {LEFT_OUT[what]})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="trtpu",
+        description="Data transfer on PyTorch and CUDA: snapshot + CDC "
+                    "replication",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="where the tasks' device work runs: cuda (the "
+                        "default; a card must be present) or cpu (the "
+                        "kernels' plain versions)")
+    p.add_argument("--log-level", default="info",
+                   choices=["debug", "info", "warning", "error"])
+    p.add_argument("--coordinator", default="memory",
+                   choices=["memory", "filestore", "s3"],
+                   help="control-plane backend (the port has memory)")
+    p.add_argument("--job-index", type=int, default=0,
+                   help="this worker's index (0 = main)")
+    p.add_argument("--job-count", type=int, default=0,
+                   help="override runtime.job_count")
+    p.add_argument("--process-count", type=int, default=0,
+                   help="override runtime.process_count")
+    p.add_argument("--metrics-port", type=int, default=0,
+                   help="serve Prometheus metrics on this port (0 = off; "
+                        "not ported)")
+    p.add_argument("--health-port", type=int, default=0,
+                   help="serve /health on this port (0 = off)")
+    p.add_argument("--operation-id", default="",
+                   help="shared operation id for sharded snapshot workers "
+                        "(default: op-<transfer id>)")
+
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def add_transfer_cmd(name, help_):
+        c = sub.add_parser(name, help=help_)
+        c.add_argument("--transfer", required=True,
+                       help="path to transfer.yaml")
+        return c
+
+    add_transfer_cmd("activate", "snapshot + prepare replication")
+    rep = add_transfer_cmd("replicate",
+                           "activate if needed, then run replication")
+    rep.add_argument("--max-attempts", type=int, default=0,
+                     help="stop after N failed attempts (0 = retry forever)")
+    up = add_transfer_cmd("upload", "ad-hoc copy of explicit tables")
+    up.add_argument("--table", action="append", default=[],
+                    help="table to upload (repeatable), e.g. ns.name")
+    add_transfer_cmd("reupload",
+                     "cleanup and re-snapshot every table")
+    at = add_transfer_cmd("add-tables",
+                          "snapshot new tables into a live transfer and "
+                          "widen its include list")
+    at.add_argument("--table", action="append", default=[], required=True,
+                    help="table to add (repeatable), e.g. ns.name")
+    rt = add_transfer_cmd("remove-tables",
+                          "narrow the include list (target data stays)")
+    rt.add_argument("--table", action="append", default=[], required=True,
+                    help="table to remove (repeatable), e.g. ns.name")
+    chk = add_transfer_cmd(
+        "checksum", "full data-validation task (sampling, type-aware "
+        "comparators)")
+    chk.add_argument("--table", action="append", default=[],
+                     help="restrict to a table (repeatable), e.g. ns.name")
+    chk.add_argument("--size-threshold", type=int, default=None,
+                     help="bytes above which tables are compared by "
+                          "sampling instead of a full scan "
+                          "(default 20 MiB; 0 = always sample)")
+    chk.add_argument("--strict-types", action="store_true",
+                     help="require exact canonical type equality instead "
+                          "of family-level equivalence")
+    chk.add_argument("--method", choices=["compare", "fingerprint"],
+                     default="compare",
+                     help="fingerprint: order-independent digest per "
+                          "table (K10 on the card when profitable, O(1) "
+                          "memory); row-level compare runs only on "
+                          "digest mismatch")
+    chk.add_argument("--fingerprint-backend",
+                     choices=["auto", "host", "device"], default="auto",
+                     help="where the fingerprint reduction runs "
+                          "(auto measures, see ops/linkprobe.py)")
+    chk.add_argument("--against-operation", default="",
+                     help="compare the target against a snapshot's "
+                          "recorded fingerprints (not ported: it needs a "
+                          "coordinator that outlives the process)")
+    add_transfer_cmd("validate", "parse and validate the transfer config")
+    add_transfer_cmd("deactivate",
+                     "release source resources (replication slots etc.)")
+    sniff = add_transfer_cmd("sniff",
+                             "preview sample rows from the source")
+    sniff.add_argument("--rows", type=int, default=5,
+                       help="rows per table")
+    reg = add_transfer_cmd("regular-snapshot",
+                           "run the cron-driven re-snapshot loop")
+    reg.add_argument("--max-runs", type=int, default=0,
+                     help="stop after N runs (0 = forever)")
+    desc = sub.add_parser("describe",
+                          help="dump provider endpoint param schemas")
+    desc.add_argument("--provider", default="",
+                      help="limit to one provider")
+    tsd = sub.add_parser("typesystem-docs",
+                         help="generate per-provider typesystem.md files")
+    tsd.add_argument("--out", default="docs/typesystem",
+                     help="output directory")
+    trc = sub.add_parser(
+        "trace",
+        help="run a transfer with pipeline tracing on; write a "
+             "Perfetto-loadable timeline + per-stage summary")
+    trc.add_argument("--transfer", default="",
+                     help="path to transfer.yaml (default: built-in "
+                          "sample->stdout demo with a fused mask+filter "
+                          "chain)")
+    trc.add_argument("--out", default="trace.json",
+                     help="Chrome trace-event JSON output path "
+                          "(open in Perfetto / chrome://tracing)")
+    trc.add_argument("--seconds", type=float, default=10.0,
+                     help="capture window for replication transfers "
+                          "(snapshot transfers run to completion)")
+    trc.add_argument("--rows", type=int, default=50_000,
+                     help="demo source rows (only without --transfer)")
+    trc.add_argument("--fleet", default="", metavar="TRANSFER_ID",
+                     help="fleet mode (not ported)")
+    for name in ("check", "chaos", "flight", "fleet", "worker", "top",
+                 "slo", "explain"):
+        # any arguments: main() refuses the command itself
+        sub.add_parser(name, help=f"not ported: {LEFT_OUT[name]}")
+    return p
+
+
+def _setup(args) -> None:
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper()),
+        format="%(asctime)s %(levelname).1s %(name)s: %(message)s",
+    )
+    from transferia_tpu_torch.runtime import knobs
+
+    if knobs.env_str("TRANSFERIA_TPU_TRACE", "") not in (
+            "", "0", "false", "no"):
+        # headless span capture: the health port's /debug/trace and a
+        # final write_chrome_trace see every span of the run
+        from transferia_tpu_torch.stats import trace as _trace
+
+        _trace.enable(True)
+    # secret redaction + value truncation on every handler
+    from transferia_tpu_torch.utils.logsanitize import install as _install
+
+    _install()
+    if args.health_port:
+        _start_health_server(args.health_port)
+    # cgroup-derived RAM budget
+    from transferia_tpu_torch.runtime.limits import apply_resource_limits
+
+    apply_resource_limits()
+
+
+def _query_seconds(path: str, default: float = 5.0) -> float:
+    """?seconds=N off a debug-endpoint path (callers cap at 60)."""
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+    try:
+        return float(q.get("seconds", [default])[0])
+    except ValueError:
+        return default
+
+
+def _start_health_server(port: int):
+    """Minimal /health endpoint plus the debug panes the port has.
+
+    Returns the server (port=0 binds an ephemeral one: tests read
+    `server_address`; `shutdown()` stops it)."""
+    import http.server
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        # chunked transfer encoding (the streamed /debug/trace) needs 1.1
+        protocol_version = "HTTP/1.1"
+
+        def _send(self, status: int, ctype: str, body: bytes) -> None:
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path.startswith("/debug/trace"):
+                # span timeline capture (stats/trace.py): tracing on for
+                # ?seconds=N (cap 60), Chrome trace-event JSON streamed
+                # in chunks; 503 when the capture blows its deadline
+                from transferia_tpu_torch.stats import trace
+
+                try:
+                    doc = trace.capture_seconds(_query_seconds(self.path))
+                except TimeoutError as e:
+                    self._send(503, "application/json",
+                               json.dumps({"error": str(e)}).encode())
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                for chunk in trace.iter_chrome_trace_chunks(doc):
+                    data = chunk.encode()
+                    self.wfile.write(
+                        f"{len(data):X}\r\n".encode() + data + b"\r\n")
+                self.wfile.write(b"0\r\n\r\n")
+                return
+            for pane in ("/debug/fleet/obs", "/debug/slo", "/debug/fleet"):
+                if self.path.startswith(pane):
+                    self._send(501, "application/json", json.dumps(
+                        {"error": left_out_message(pane)}).encode())
+                    return
+            if self.path.startswith("/debug/ledger"):
+                # per-transfer/per-tenant resource attribution + the
+                # conservation reconciliation (stats/ledger.py)
+                from transferia_tpu_torch.stats.ledger import LEDGER
+
+                self._send(200, "application/json",
+                           json.dumps(LEDGER.snapshot()).encode())
+            elif self.path.startswith("/debug/profile"):
+                # sampling CPU profile; ?seconds=N caps at 60
+                from transferia_tpu_torch.stats.profiler import (
+                    sample_seconds,
+                )
+
+                secs = _query_seconds(self.path)
+                self._send(200, "text/plain",
+                           sample_seconds(secs).format(30).encode())
+            elif self.path == "/debug/threads":
+                # stack dump of every thread
+                import traceback
+
+                frames = sys._current_frames()
+                names = {t.ident: t.name for t in threading.enumerate()}
+                parts = [
+                    f"Thread {names.get(ident, '?')} ({ident}):\n"
+                    + "".join(traceback.format_stack(frame))
+                    for ident, frame in frames.items()
+                ]
+                self._send(200, "text/plain", "\n".join(parts).encode())
+            else:
+                status = 200 if self.path in ("/", "/health") else 404
+                self._send(status, "application/json", b'{"status":"ok"}')
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("0.0.0.0", port), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def _coordinator(args):
+    if args.coordinator in ("filestore", "s3"):
+        raise SystemExit(left_out_message(f"--coordinator {args.coordinator}"))
+    # memory coordinator cannot share parts across processes
+    if args.job_count > 1:
+        raise SystemExit(
+            "--coordinator memory does not support --job-count > 1; "
+            "use --coordinator filestore or s3 (main.go:118-121 parity)"
+        )
+    return MemoryCoordinator()
+
+
+def _load_transfer(args):
+    from transferia_tpu_torch.cli.config import load_transfer
+
+    transfer = load_transfer(args.transfer)
+    transfer.runtime.current_job = args.job_index
+    if args.job_count:
+        transfer.runtime.sharding.job_count = args.job_count
+    if args.process_count:
+        transfer.runtime.sharding.process_count = args.process_count
+    return transfer
+
+
+def cli() -> int:
+    """Console entry.  Process-wide signal tweaks live HERE, not in
+    main(): tests call main() in-process and a leaked SIGPIPE=SIG_DFL
+    would turn any broken-pipe write later in the run into silent
+    process death."""
+    try:
+        # die quietly when piped into head & co.
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    except (AttributeError, ValueError):
+        pass  # non-POSIX
+    return main()
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    left = args.command if args.command in LEFT_OUT else ""
+    if extra and not left:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.command == "trace" and args.fleet:
+        left = "trace --fleet"
+    elif args.command == "checksum" and args.against_operation:
+        left = "checksum --against-operation"
+    elif args.metrics_port:
+        left = "--metrics-port"
+    if left:
+        print(left_out_message(left), file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    _setup(args)
+
+    if args.command == "describe":
+        return cmd_describe(args)
+    if args.command == "validate":
+        return cmd_validate(args, device)
+    if args.command == "typesystem-docs":
+        return cmd_typesystem_docs(args)
+    if args.command == "trace":
+        return cmd_trace(args, device)
+
+    transfer = _load_transfer(args)
+    cp = _coordinator(args)
+    # an include list widened/narrowed by add-/remove-tables overrides the
+    # spec on restart (persisted through the coordinator)
+    from transferia_tpu_torch.tasks import apply_persisted_include_list
+
+    apply_persisted_include_list(transfer, cp)
+    op_id = args.operation_id or None
+
+    if args.command == "activate":
+        from transferia_tpu_torch.tasks import activate_delivery
+
+        activate_delivery(transfer, cp, operation_id=op_id, device=device)
+        print(f"transfer {transfer.id}: activated")
+        return 0
+
+    if args.command == "upload":
+        from transferia_tpu_torch.tasks import upload
+
+        upload(transfer, cp, args.table, operation_id=op_id, device=device)
+        print(f"transfer {transfer.id}: uploaded {len(args.table)} table(s)")
+        return 0
+
+    if args.command == "reupload":
+        from transferia_tpu_torch.tasks import reupload
+
+        reupload(transfer, cp, operation_id=op_id, device=device)
+        print(f"transfer {transfer.id}: reuploaded")
+        return 0
+
+    if args.command == "add-tables":
+        from transferia_tpu_torch.tasks import add_tables
+
+        add_tables(transfer, cp, args.table, operation_id=op_id,
+                   device=device)
+        print(f"transfer {transfer.id}: added {len(args.table)} table(s)")
+        return 0
+
+    if args.command == "remove-tables":
+        from transferia_tpu_torch.tasks import remove_tables
+
+        remove_tables(transfer, cp, args.table)
+        print(f"transfer {transfer.id}: removed {len(args.table)} table(s)")
+        return 0
+
+    if args.command == "replicate":
+        return cmd_replicate(args, transfer, cp, device)
+
+    if args.command == "checksum":
+        return cmd_checksum(args, transfer, device)
+
+    if args.command == "deactivate":
+        from transferia_tpu_torch.providers.registry import get_provider
+
+        get_provider(transfer.src_provider(), transfer,
+                     device=device).deactivate()
+        cp.set_status(transfer.id, TransferStatus.DEACTIVATED)
+        print(f"transfer {transfer.id}: deactivated")
+        return 0
+
+    if args.command == "sniff":
+        from transferia_tpu_torch.providers.registry import get_provider
+
+        sample = get_provider(transfer.src_provider(), transfer,
+                              device=device).sniff(max_rows=args.rows)
+        print(json.dumps(sample, indent=2, default=str))
+        return 0
+
+    if args.command == "regular-snapshot":
+        from transferia_tpu_torch.runtime.local import run_regular_snapshot
+
+        run_regular_snapshot(transfer, cp, max_runs=args.max_runs,
+                             device=device)
+        return 0
+
+    raise SystemExit(f"unknown command {args.command}")
+
+
+def cmd_replicate(args, transfer, cp, device) -> int:
+    """Activate when there is no prior state, then loop the replication
+    worker until SIGINT or SIGTERM."""
+    from transferia_tpu_torch.runtime.local import run_replication
+    from transferia_tpu_torch.tasks import activate_delivery
+
+    state = cp.get_transfer_state(transfer.id)
+    if state.get("status") != "activated":
+        activate_delivery(transfer, cp, device=device)
+    if not transfer.type.has_replication:
+        print("transfer is snapshot-only; nothing to replicate")
+        return 0
+    stop = threading.Event()
+
+    def handle_sig(signum, frame):
+        logging.info("signal %d: stopping replication", signum)
+        stop.set()
+
+    # main() may run in-process (tests, chip_smoke.py): put the
+    # previous handlers back once replication stops
+    previous = {s: signal.signal(s, handle_sig)
+                for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        run_replication(transfer, cp, stop_event=stop,
+                        max_attempts=args.max_attempts, device=device)
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+    return 0
+
+
+def cmd_checksum(args, transfer, device) -> int:
+    """The full validation task: sampling storages, type-aware
+    comparators, streaming compare; the fingerprint on `device`."""
+    from transferia_tpu_torch.abstract.schema import TableID
+    from transferia_tpu_torch.factories import new_storage
+    from transferia_tpu_torch.providers.registry import get_provider
+    from transferia_tpu_torch.tasks.checksum import (
+        ChecksumParameters,
+        compare_checksum,
+        heterogeneous_data_types,
+    )
+
+    dst_provider = get_provider(transfer.dst_provider(), transfer,
+                                device=device)
+    # never fall back to .storage(): that reads transfer.src and would
+    # vacuously compare the source against itself
+    dst_storage = getattr(dst_provider, "destination_storage",
+                          lambda: None)()
+    if dst_storage is None:
+        print("destination provider has no storage view of the target; "
+              "cannot checksum", file=sys.stderr)
+        return 2
+    src_storage = new_storage(transfer)
+    params = ChecksumParameters()
+    if args.size_threshold is not None:
+        params.table_size_threshold = args.size_threshold
+    params.method = args.method
+    params.fingerprint_backend = args.fingerprint_backend
+    tables = None
+    if args.table:
+        tables = []
+        for spec in args.table:
+            ns, _, name = spec.rpartition(".")
+            tables.append(TableID(ns, name))
+    same = transfer.src_provider() == transfer.dst_provider()
+    eq = ((lambda a, b: a == b) if (args.strict_types or same)
+          else heterogeneous_data_types)
+    report = compare_checksum(src_storage, dst_storage, tables,
+                              params, equal_data_types=eq, device=device)
+    print(report.summary())
+    return 0 if report.ok else 1
+
+
+def _demo_trace_transfer(rows: int):
+    """sample->stdout snapshot with a fusable mask+filter chain: a
+    self-contained timeline demo that exercises source decode, the
+    fused device transform (mask+filter), the row pivot (verbose stdout
+    sink unpivots a slice), and the sink — no external services."""
+    from transferia_tpu_torch.models import Transfer, TransferType
+    from transferia_tpu_torch.providers.sample import SampleSourceParams
+    from transferia_tpu_torch.providers.stdout import StdoutTargetParams
+
+    return Transfer(
+        id="trace-demo",
+        type=TransferType.SNAPSHOT_ONLY,
+        src=SampleSourceParams(preset="iot", rows=rows),
+        dst=StdoutTargetParams(verbose=True, max_rows_printed=2),
+        transformation={"transformers": [
+            {"mask_field": {"columns": ["device_id"], "salt": "trace"}},
+            {"filter_rows": {"filter": "event_id >= 0"}},
+        ]},
+    )
+
+
+def cmd_trace(args, device) -> int:
+    """Run one transfer with tracing enabled; write trace.json (Chrome
+    trace-event format, open in Perfetto) and print the stage summary
+    (p50/p99 per stage, overlap factor, bytes moved) plus the device
+    telemetry counters."""
+    import time as _time
+
+    from transferia_tpu_torch.stats import trace
+    from transferia_tpu_torch.stats.ledger import LEDGER
+    from transferia_tpu_torch.stats.registry import Metrics
+
+    if args.transfer:
+        transfer = _load_transfer(args)
+    else:
+        transfer = _demo_trace_transfer(args.rows)
+    cp = _coordinator(args)
+    metrics = Metrics()
+    trace.reset()
+    trace.TELEMETRY.reset()  # fresh counters for this one-shot run
+    trace.enable(True)
+    t0 = _time.perf_counter()
+    try:
+        if transfer.type.has_replication:
+            from transferia_tpu_torch.runtime.local import run_replication
+
+            stop = threading.Event()
+            timer = threading.Timer(max(0.5, args.seconds), stop.set)
+            timer.daemon = True
+            timer.start()
+            try:
+                run_replication(transfer, cp, metrics=metrics,
+                                stop_event=stop, device=device)
+            finally:
+                timer.cancel()
+        else:
+            from transferia_tpu_torch.tasks import SnapshotLoader
+
+            SnapshotLoader(transfer, cp, metrics=metrics,
+                           device=device).upload_tables()
+    finally:
+        # export in the finally: a failed transfer is exactly when the
+        # timeline matters most — the spans up to the failure survive
+        wall = _time.perf_counter() - t0
+        trace.enable(False)
+        trace.TELEMETRY.fold_into(metrics)
+        LEDGER.fold_into(metrics)
+        n_events = trace.write_chrome_trace(args.out)
+        print(f"trace: {n_events} events -> {args.out} "
+              f"(open in https://ui.perfetto.dev or chrome://tracing)")
+        print(trace.format_summary(wall))
+        print("device telemetry: "
+              + json.dumps(trace.TELEMETRY.snapshot()))
+    return 0
+
+
+def cmd_validate(args, device) -> int:
+    from transferia_tpu_torch.cli.config import load_transfer
+
+    try:
+        transfer = load_transfer(args.transfer)
+    except Exception as e:
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    # also validate the transformer chain compiles
+    from transferia_tpu_torch.transform import build_chain
+
+    try:
+        build_chain(transfer.transformation, device=device)
+    except Exception as e:
+        print(f"INVALID transformation: {e}", file=sys.stderr)
+        return 1
+    print(f"OK: {transfer.id} ({transfer.type.value}) "
+          f"{transfer.src_provider()} -> {transfer.dst_provider()}")
+    return 0
+
+
+def cmd_typesystem_docs(args) -> int:
+    """Generate per-provider typesystem.md files."""
+    import os
+
+    from transferia_tpu_torch.providers import load_builtin_providers
+    from transferia_tpu_torch.typesystem.rules import (
+        doc_markdown,
+        supported_providers,
+    )
+
+    load_builtin_providers()
+    os.makedirs(args.out, exist_ok=True)
+    for provider in supported_providers():
+        path = os.path.join(args.out, f"{provider}.md")
+        with open(path, "w") as fh:
+            fh.write(doc_markdown(provider))
+        print(path)
+    return 0
+
+
+def cmd_describe(args) -> int:
+    """Dump endpoint params JSON schemas."""
+    import dataclasses
+
+    from transferia_tpu_torch.models.endpoint import _ENDPOINT_REGISTRY
+    from transferia_tpu_torch.providers import load_builtin_providers
+
+    load_builtin_providers()
+    out = {}
+    for (provider, role), cls in sorted(_ENDPOINT_REGISTRY.items()):
+        if args.provider and provider != args.provider:
+            continue
+        fields = {}
+        for f in dataclasses.fields(cls):
+            default = f.default if f.default is not dataclasses.MISSING \
+                else None
+            fields[f.name] = {
+                "type": str(f.type),
+                "default": default.value
+                if hasattr(default, "value") else default,
+            }
+        out[f"{provider}/{role}"] = fields
+    print(json.dumps(out, indent=2, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(cli())

@@ -4,10 +4,13 @@ from transferia_tpu_torch.models.endpoint import (
     CleanupPolicy,
     EndpointParams,
     capability,
+    endpoint_from_dict,
     register_endpoint,
 )
 from transferia_tpu_torch.models.transfer import (
     DataObjects,
+    IncrementalTableCfg,
+    RegularSnapshot,
     Runtime,
     ShardingUploadParams,
     Transfer,
@@ -15,7 +18,8 @@ from transferia_tpu_torch.models.transfer import (
 )
 
 __all__ = [
-    "CleanupPolicy", "EndpointParams", "capability", "register_endpoint",
-    "DataObjects",
+    "CleanupPolicy", "EndpointParams", "capability", "endpoint_from_dict",
+    "register_endpoint", "DataObjects", "IncrementalTableCfg",
+    "RegularSnapshot",
     "Runtime", "ShardingUploadParams", "Transfer", "TransferType",
 ]

@@ -12,7 +12,10 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from transferia_tpu_torch.abstract.schema import TableID
-from transferia_tpu_torch.models.endpoint import EndpointParams
+from transferia_tpu_torch.models.endpoint import (
+    EndpointParams,
+    endpoint_from_dict,
+)
 from transferia_tpu_torch.typesystem.fallbacks import LATEST_VERSION
 
 
@@ -73,8 +76,9 @@ class IncrementalTableCfg:
 
 @dataclass
 class RegularSnapshot:
-    """Cron-driven incremental re-snapshot (the port's snapshot loader
-    refuses incremental tables: ROADMAP.md A9)."""
+    """Cron-driven incremental re-snapshot (`runtime/local.py::
+    run_regular_snapshot`; the incremental tables' cursors persist in the
+    transfer state)."""
 
     enabled: bool = False
     cron: str = ""
@@ -109,3 +113,61 @@ class Transfer:
 
     def include_ids(self) -> list[TableID]:
         return self.data_objects.include_ids()
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "id": self.id,
+            "type": self.type.value,
+            "src": self.src.to_dict() if self.src else None,
+            "dst": self.dst.to_dict() if self.dst else None,
+            "transformation": self.transformation,
+            "data_objects": self.data_objects.include_object_ids,
+            "regular_snapshot": {
+                "enabled": self.regular_snapshot.enabled,
+                "cron": self.regular_snapshot.cron,
+                "incremental": [vars(i) for i in
+                                self.regular_snapshot.incremental],
+            },
+            "runtime": {
+                "current_job": self.runtime.current_job,
+                "job_count": self.runtime.sharding.job_count,
+                "process_count": self.runtime.sharding.process_count,
+                "replication_workers": self.runtime.replication_workers,
+            },
+            "type_system_version": self.type_system_version,
+            "labels": self.labels,
+        }
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "Transfer":
+        """The inverse of `to_dict` (which, as the reference's, carries
+        no `validation`)."""
+        rt = d.get("runtime") or {}
+        rs = d.get("regular_snapshot") or {}
+        return Transfer(
+            id=d.get("id", "transfer"),
+            type=TransferType(d.get("type", "SNAPSHOT_ONLY")),
+            src=endpoint_from_dict(d["src"], role="source")
+            if d.get("src") else None,
+            dst=endpoint_from_dict(d["dst"], role="target")
+            if d.get("dst") else None,
+            transformation=d.get("transformation"),
+            data_objects=DataObjects(d.get("data_objects") or []),
+            regular_snapshot=RegularSnapshot(
+                enabled=rs.get("enabled", False),
+                cron=rs.get("cron", ""),
+                incremental=[IncrementalTableCfg(**i)
+                             for i in rs.get("incremental", [])],
+            ),
+            runtime=Runtime(
+                current_job=rt.get("current_job", 0),
+                sharding=ShardingUploadParams(
+                    job_count=rt.get("job_count", 1),
+                    process_count=rt.get("process_count", 4),
+                ),
+                replication_workers=rt.get("replication_workers", 1),
+            ),
+            type_system_version=d.get("type_system_version",
+                                      LATEST_VERSION),
+            labels=d.get("labels") or {},
+        )

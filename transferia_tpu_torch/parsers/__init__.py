@@ -6,7 +6,7 @@ batch decodes at once.  Rows that fail to parse are routed to the
 `_unparsed` system table, never dropped.  The port ships the generic
 JSON/TSKV parser, the blank (raw) parser, the Debezium parser and the
 Confluent schema-registry parser (JSON schema and Avro); CloudEvents,
-protobuf and native parsers wait (ROADMAP.md A10).
+protobuf and native parsers wait (ROADMAP.md A7).
 """
 
 from transferia_tpu_torch.parsers.base import (

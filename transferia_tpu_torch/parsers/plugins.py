@@ -1,7 +1,7 @@
 """Parser plugins beyond the generic JSON/TSKV pair (the port's copy of
 the blank, Debezium and Confluent schema-registry parsers of
 ``transferia_tpu/parsers/plugins.py``; the CloudEvents, native,
-audit-trail, cloud-logging and protobuf parsers wait: ROADMAP.md A10)."""
+audit-trail, cloud-logging and protobuf parsers wait: ROADMAP.md A7)."""
 
 from __future__ import annotations
 

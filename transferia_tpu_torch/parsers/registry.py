@@ -43,7 +43,7 @@ def make_parser(config: Any) -> Parser:
     if factory is None:
         raise KeyError(
             f"unknown parser {type_name!r}; ported: {sorted(_REGISTRY)} "
-            f"(the others wait: ROADMAP.md A10)"
+            f"(the others wait: ROADMAP.md A7)"
         )
     p = factory(cfg or {})
     p.TYPE = type_name

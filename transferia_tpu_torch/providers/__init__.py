@@ -4,9 +4,10 @@ Providers register under a name and expose optional capability
 constructors (snapshot storage, sinker, ...); factories resolve them at
 transfer build time.  The port ships the `sample` source (snapshot and
 replication), the `memory` source and sink, the `kafka` replication
-source and sink, the `ch` (ClickHouse) sink on one shard, the `fs`
-Parquet source, the `pg` (Postgres) and `mysql` snapshot sources and the
-`stdout` and `devnull` sinks; the other providers wait (ROADMAP.md A).
+source and sink, the `ch` (ClickHouse) sink on one shard and its
+storage, the `fs` Parquet source, the `pg` (Postgres) and `mysql`
+sources (snapshot and CDC) and sinks, and the `stdout` and `devnull`
+sinks; the other providers wait (ROADMAP.md A7).
 """
 
 from transferia_tpu_torch.providers.registry import (

@@ -7,7 +7,7 @@ row groups are shardable parts, zone maps prune whole groups before
 decode (predicate/stats.py) and the chain's pushed-down filter drops
 rows right after it (`_batch_filter`).
 
-Not ported (they raise NotImplementedError naming ROADMAP.md A10): the
+Not ported (they raise NotImplementedError naming ROADMAP.md A7): the
 CSV and JSONL formats, the JAX package's arrow routes (its arrow-side
 scan filter, the arrow decode of columns outside the native decoder's
 envelope, and the `iter_batches` stream of row groups too large to
@@ -59,7 +59,7 @@ from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.stats import stagetimer, trace
 from transferia_tpu_torch.stats.registry import DeviceStats
 
-NOT_PORTED = "not ported to transferia_tpu_torch yet (ROADMAP.md A10)"
+NOT_PORTED = "not ported to transferia_tpu_torch yet (ROADMAP.md A7)"
 
 
 @register_endpoint

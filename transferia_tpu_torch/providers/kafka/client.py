@@ -15,7 +15,7 @@ Transactions: the KIP-98 subset the staged-commit Kafka sink speaks
 (`init_producer`, InitProducerId v3 proposing the part's epoch, and
 `txn_produce`, one Produce v3 carrying the transactional id); a fenced
 producer surfaces as a KafkaError that `is_producer_fenced` names.  TLS
-and SASL wait (ROADMAP.md A10) and raise NotImplementedError.  Every
+and SASL wait (ROADMAP.md A7) and raise NotImplementedError.  Every
 request is one `kafka_roundtrip` span behind the
 `client.kafka.roundtrip` failpoint, as in the reference.
 """
@@ -60,7 +60,7 @@ ERR_PRODUCER_FENCED = 90
 _RETRIABLE = {ERR_LEADER_NOT_AVAILABLE, ERR_NOT_LEADER}
 _FENCED = {ERR_INVALID_PRODUCER_EPOCH, ERR_PRODUCER_FENCED}
 
-NOT_PORTED = "not ported yet (ROADMAP.md A10: TLS and SASL for Kafka)"
+NOT_PORTED = "not ported yet (ROADMAP.md A7: TLS and SASL for Kafka)"
 
 
 class KafkaError(CategorizedError):

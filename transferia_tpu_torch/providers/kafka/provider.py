@@ -8,7 +8,7 @@ coordinator after the push (at-least-once).  The sink serializes batches
 host-library call (`crc32c_batch`), or the column hash under
 `partition_by`; with a staged part open it buffers the part's records
 and publishes them in one transactional produce.  The partitioned (Kafka
--> object storage) strategy waits (ROADMAP.md A9).  A publish records
+-> object storage) strategy waits (ROADMAP.md A5).  A publish records
 the reference's `kafka_publish_txn` instant behind the
 `sink.kafka.publish` failpoint.
 """
@@ -82,9 +82,14 @@ class KafkaSourceParams(EndpointParams):
     parallelism: int = 4
     max_bytes_per_fetch: int = 8 << 20
     start_from: str = "earliest"   # earliest | latest
-    # security: the port's client refuses either (NotImplementedError)
+    # security: the port's client refuses TLS and SASL
+    # (NotImplementedError, ROADMAP.md A7)
     tls: bool = False
+    tls_ca: str = ""              # CA bundle path (custom/self-signed)
+    tls_verify: bool = True
     sasl_mechanism: str = ""      # PLAIN | SCRAM-SHA-256 | SCRAM-SHA-512
+    sasl_username: str = ""
+    sasl_password: str = ""
 
     def __post_init__(self):
         if self.start_from not in ("earliest", "latest"):
@@ -108,7 +113,7 @@ class KafkaTargetParams(EndpointParams):
     partition_by: str = ""
     compression: str = ""         # "" | gzip
     # security: the port's client refuses TLS and SASL
-    # (NotImplementedError, ROADMAP.md A10)
+    # (NotImplementedError, ROADMAP.md A7)
     tls: bool = False
     tls_ca: str = ""              # CA bundle path (custom/self-signed)
     tls_verify: bool = True

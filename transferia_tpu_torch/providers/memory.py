@@ -3,7 +3,8 @@
 push for assertions, staged-commit capable, a storage made of
 pre-loaded batches, and the sink's read-back storage
 (`MemoryStoreStorage`, what the checksum task reads as the target).
-The storage's incremental cursors wait for their slice (ROADMAP.md A5).
+The storage also keeps incremental cursors, so cursor-based snapshots run
+without a database.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from transferia_tpu_torch.abstract.change_item import ChangeItem
 from transferia_tpu_torch.abstract.commit import StagedSinker
 from transferia_tpu_torch.abstract.interfaces import (
     Batch,
+    IncrementalStorage,
     Pusher,
     Sinker,
     Storage,
@@ -248,7 +250,7 @@ class MemorySinker(Sinker, StagedSinker):
             self.store.arm_replay(self._stage_key, self._stage_epoch)
 
 
-class MemoryStorage(Storage):
+class MemoryStorage(Storage, IncrementalStorage):
     """Storage over seeded batches; a table description's filter is a
     predicate the scan applies."""
 
@@ -287,6 +289,34 @@ class MemoryStorage(Storage):
                 if b.n_rows == 0:
                     continue
             pusher(b)
+
+    # -- IncrementalStorage -------------------------------------------------
+    def get_increment_state(self, tables, state):
+        out = []
+        for t in tables:
+            cursor = state.get(str(t.table), t.initial_state or None)
+            if cursor is None or cursor == "":
+                out.append(TableDescription(id=t.table))
+            else:
+                lit = cursor if isinstance(cursor, (int, float)) \
+                    else f"'{cursor}'"
+                out.append(TableDescription(
+                    id=t.table, filter=f"{t.cursor_field} > {lit}"
+                ))
+        return out
+
+    def next_increment_state(self, tables):
+        out = {}
+        for t in tables:
+            best = None
+            for b in self._by_table().get(t.table, []):
+                if t.cursor_field in b.columns:
+                    for v in b.columns[t.cursor_field].to_pylist():
+                        if v is not None and (best is None or v > best):
+                            best = v
+            if best is not None:
+                out[str(t.table)] = best
+        return out
 
 
 class MemoryStoreStorage(Storage):

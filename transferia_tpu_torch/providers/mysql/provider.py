@@ -1,15 +1,12 @@
 """MySQL storage and sink over the wire client (the port's copy of
 ``transferia_tpu/providers/mysql/provider.py``): the `mysql` source and
 target type rules, the endpoint params, `MySQLStorage` (catalog, counts,
-the binlog position, keyset and OFFSET paging, the checksum samples),
+the binlog position, keyset and OFFSET paging, the checksum samples,
+the incremental cursors),
 `MySQLSinker` (CREATE TABLE through the target type rules, multi-row
 INSERT with an upsert when a key exists, REPLACE/UPDATE/DELETE for a
 batch with kinds) and the provider's `storage`, `destination_storage`,
 `source` (the binlog tail, `binlog.py`), `sinker`, `cleanup` and `test`.
-
-Left out, raising NotImplementedError naming its ROADMAP.md item: the
-incremental cursors (`get_increment_state`/`next_increment_state`, A9,
-where incremental tables already raise in the snapshot).
 """
 
 from __future__ import annotations
@@ -389,10 +386,28 @@ class MySQLStorage(Storage, PositionalStorage, IncrementalStorage,
 
     # -- IncrementalStorage -------------------------------------------------
     def get_increment_state(self, tables, state):
-        raise _waits("MySQL incremental cursors", "A9")
+        out = []
+        for t in tables:
+            cursor = state.get(str(t.table), t.initial_state or None)
+            if cursor in (None, ""):
+                out.append(TableDescription(id=t.table))
+            else:
+                out.append(TableDescription(
+                    id=t.table,
+                    filter=f"`{t.cursor_field}` > {_sql_literal(cursor)}",
+                ))
+        return out
 
     def next_increment_state(self, tables):
-        raise _waits("MySQL incremental cursors", "A9")
+        out = {}
+        for t in tables:
+            v = self.conn.scalar(
+                f"SELECT MAX(`{t.cursor_field}`) FROM "
+                f"`{t.table.namespace}`.`{t.table.name}`"
+            )
+            if v is not None:
+                out[str(t.table)] = v
+        return out
 
 
 class MySQLSinker(Sinker):
@@ -504,12 +519,6 @@ class MySQLSinker(Sinker):
             f"`{n}` = {self._literal(v)}"
             for n, v in zip(names, it.effective_key())
         )
-
-
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md "
-        f"{item})")
 
 
 @register_provider

@@ -103,7 +103,7 @@ _TO_MICROS = {"s": 1_000_000, "ms": 1_000}
 def _unsupported(name: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"parquet column {name!r}: {why}; the port's reader has no arrow "
-        f"route for it (ROADMAP.md A10)")
+        f"route for it (ROADMAP.md A7)")
 
 
 class NativeParquetReader:

@@ -1,16 +1,18 @@
-"""Postgres snapshot source over the wire client (the port's copy of
-the storage half of ``transferia_tpu/providers/postgres/provider.py``): the
-`pg` type rules, the endpoint params, `PGStorage` (catalog, counts, the
-WAL position, ctid-range sharding, COPY loads, the checksum samples and
-the incremental cursors) and the provider's `storage`, `source` (logical
-replication, `replication.py`), `deactivate` (the slot drop), `test` and
-`cleanup`.
+"""Postgres storage and sink over the wire client (the port's copy of
+``transferia_tpu/providers/postgres/provider.py``): the `pg` type rules,
+the endpoint params, `PGStorage` (catalog, counts, the WAL position,
+ctid-range sharding, COPY loads, the checksum samples and the
+incremental cursors), `PGSinker` (table DDL, COPY inserts, the staged
+commit, the CDC statements) and the provider's `storage`, `sinker`,
+`source` (logical replication, `replication.py`), `transfer_ddl_objects`
+(the PG -> PG `pg_dump.py` step), `deactivate` (the slot drop), `test`
+and `cleanup`.
 
 Snapshot loads use COPY TO STDOUT (csv) into the port's own decoder
 (`copycsv.py`), which gives the batches the reference's pyarrow reader
-gives.  Left out, each raising NotImplementedError naming its ROADMAP.md
-item: the sink (`PGSinker`, A6), the PG -> PG `pg_dump` step (A6) and the
-DBLog snapshot of the replication source (`dblog_snapshot`, A10).
+gives.  Left out, raising NotImplementedError naming its ROADMAP.md
+item: the DBLog snapshot of the replication source (`dblog_snapshot`,
+A7).
 """
 
 from __future__ import annotations
@@ -20,15 +22,21 @@ import logging
 from dataclasses import dataclass, field
 from typing import Optional
 
+from transferia_tpu_torch.abstract.commit import StagedSinker
+from transferia_tpu_torch.abstract.errors import StaleEpochPublishError
 from transferia_tpu_torch.abstract.interfaces import (
+    Batch,
     IncrementalStorage,
     PositionalStorage,
     Pusher,
     SampleableStorage,
     ShardingStorage,
+    Sinker,
     Storage,
     TableInfo,
+    is_columnar,
 )
+from transferia_tpu_torch.abstract.kinds import Kind
 from transferia_tpu_torch.abstract.schema import (
     CanonicalType,
     ColSchema,
@@ -36,6 +44,8 @@ from transferia_tpu_torch.abstract.schema import (
     TableSchema,
 )
 from transferia_tpu_torch.abstract.table import TableDescription
+from transferia_tpu_torch.chaos.failpoints import failpoint
+from transferia_tpu_torch.columnar.batch import ColumnBatch
 from transferia_tpu_torch.models.endpoint import (
     CleanupPolicy,
     EndpointParams,
@@ -51,9 +61,19 @@ from transferia_tpu_torch.providers.registry import (
     TestResult,
     register_provider,
 )
-from transferia_tpu_torch.providers.staging import is_meta_name
+from transferia_tpu_torch.providers.staging import (
+    COMMITS_TABLE,
+    META_COLUMN,
+    WireStage,
+    is_meta_name,
+    publish_guard,
+    stage_ident_prefix,
+)
+from transferia_tpu_torch.runtime.device import DeviceLike
+from transferia_tpu_torch.stats import trace
 from transferia_tpu_torch.typesystem.rules import (
     map_source_type,
+    map_target_type,
     register_source_rules,
     register_target_rules,
 )
@@ -425,10 +445,291 @@ class PGStorage(Storage, ShardingStorage, PositionalStorage,
             pusher(batch)
 
 
-def _waits(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md "
-        f"{item})")
+class PGSinker(Sinker, StagedSinker):
+    """COPY-based insert sink with DDL creation; updates/deletes via
+    simple-query statements (CDC slow path).
+
+    Staged-commit capable (abstract/commit.py): with an open part, stage
+    batches COPY into a per-(part, epoch) staging table
+    (`public.__trtpu_stg_<hash>`), and publish is postgres's own atomic
+    primitive — ONE transaction doing DELETE-part-rows + `INSERT ...
+    SELECT` from staging + an append-only epoch row into the
+    `__trtpu_commits` fence table (PK (part_key, epoch): the fence
+    value is max(epoch), monotone by construction — a zombie's row can
+    never regress it), so the target flips from "nothing of this part"
+    to "exactly this part" with no torn middle state.  The final table
+    carries a hidden `__trtpu_part` column (filtered out of every
+    PGStorage read) so a republish can address its own rows.  The
+    staged rows' keys (the dedup window) are computed on `device`.
+
+    Fence bound: the epoch check reads before the publish transaction,
+    so two publishers racing the SAME instant can interleave their
+    data flips (last txn wins) — the coordinator's fenced commit_part
+    is the primary gate that keeps two live owners from publishing one
+    part concurrently; this sink fence is the zombie-PROCESS backstop
+    (a stale publisher arriving after the survivor always raises)."""
+
+    def __init__(self, params: PGTargetParams, device: DeviceLike = None):
+        self.params = params
+        self.device = device
+        self._c: Optional[PGConnection] = None
+        self._created: set[TableID] = set()
+        self._stage: Optional[WireStage] = None
+        self._fence_ready = False
+
+    @property
+    def conn(self) -> PGConnection:
+        if self._c is None:
+            self._c = _conn(self.params)
+        return self._c
+
+    def close(self) -> None:
+        if self._c is not None:
+            self._c.close()
+            self._c = None
+
+    def _ensure_table(self, tid: TableID, schema: TableSchema,
+                      with_part_column: bool = False) -> None:
+        if tid in self._created:
+            return
+        cols = []
+        for c in schema:
+            pg_type = map_target_type("pg", c.data_type)
+            nn = " NOT NULL" if (c.required or c.primary_key) else ""
+            cols.append(f'"{c.name}" {pg_type}{nn}')
+        if with_part_column:
+            cols.append(f'"{META_COLUMN}" text')
+        keys = ", ".join(f'"{c.name}"' for c in schema.key_columns())
+        pk = f", PRIMARY KEY ({keys})" if keys else ""
+        if tid.namespace:
+            self.conn.query(
+                f'CREATE SCHEMA IF NOT EXISTS "{tid.namespace}"'
+            )
+        self.conn.query(
+            f"CREATE TABLE IF NOT EXISTS {tid.fqtn()} "
+            f"({', '.join(cols)}{pk})"
+        )
+        self._created.add(tid)
+
+    @staticmethod
+    def _csv_cell(v) -> str:
+        if v is None:
+            return ""
+        if isinstance(v, bytes):
+            return "\\x" + v.hex()
+        if isinstance(v, bool):
+            return "t" if v else "f"
+        s = str(v)
+        if any(ch in s for ch in ',"\n\r'):
+            s = '"' + s.replace('"', '""') + '"'
+        return s
+
+    def push(self, batch: Batch) -> None:
+        if not is_columnar(batch):
+            rows = [it for it in batch if it.is_row_event()]
+            if not rows:
+                return
+            batch = ColumnBatch.from_rows(rows)
+        if self._stage is not None:
+            self._stage_push(batch)
+            return
+        self._ensure_table(batch.table_id, batch.schema)
+        if batch.kinds is None:
+            self._copy_insert(batch)
+        else:
+            for it in batch.to_rows():
+                self._apply_row(it)
+
+    def _copy_insert(self, batch: ColumnBatch,
+                     target: Optional[str] = None) -> None:
+        cols = ", ".join(f'"{n}"' for n in batch.columns)
+        data = batch.to_pydict()
+        names = list(batch.columns)
+        lines = []
+        for i in range(batch.n_rows):
+            lines.append(",".join(
+                self._csv_cell(data[n][i]) for n in names
+            ))
+        payload = ("\n".join(lines) + "\n").encode()
+        self.conn.copy_in(
+            f"COPY {target or batch.table_id.fqtn()} ({cols}) "
+            f"FROM STDIN WITH (FORMAT csv)",
+            [payload],
+        )
+
+    # -- StagedSinker (exactly-once publish via one SQL transaction) --------
+    @staticmethod
+    def _stage_fqtn(stage: WireStage) -> str:
+        return f'"public"."{stage.table}"'
+
+    @staticmethod
+    def _commits_fqtn() -> str:
+        return f'"public"."{COMMITS_TABLE}"'
+
+    def _ensure_fence_table(self) -> None:
+        if self._fence_ready:
+            return
+        # APPEND-ONLY fence: one row per accepted (part, epoch), fence
+        # value = max(epoch) per part.  A zombie's publish can add its
+        # own (older) row but can never REGRESS the fence the way a
+        # keyed-by-part upsert could — monotone by construction
+        self.conn.query(
+            f"CREATE TABLE IF NOT EXISTS {self._commits_fqtn()} "
+            f"(\"part_key\" text, \"epoch\" bigint, "
+            f"PRIMARY KEY (\"part_key\", \"epoch\"))"
+        )
+        self._fence_ready = True
+
+    def begin_part(self, key: str, epoch: int) -> None:
+        stage = WireStage(key, epoch, device=self.device)
+        # begin replaces — for EVERY epoch of this key: a crashed
+        # earlier owner's staging table (different epoch, so a
+        # different name) would otherwise leak in the target forever
+        pfx = stage_ident_prefix(key)
+        rows = self.conn.query(
+            "SELECT n.nspname AS ns, c.relname AS name, "
+            "c.reltuples::bigint AS eta "
+            "FROM pg_class c JOIN pg_namespace n ON n.oid = "
+            "c.relnamespace "
+            "WHERE c.relkind IN ('r', 'p') AND n.nspname IN ('public')")
+        for r in rows:
+            if r["name"].startswith(pfx):
+                self.conn.query(
+                    f"DROP TABLE IF EXISTS \"public\".\"{r['name']}\"")
+        self._ensure_fence_table()
+        self._stage = stage
+
+    def _stage_push(self, batch: ColumnBatch) -> None:
+        stage = self._stage
+        staged = stage.state.stage(batch)
+        if stage.schema is None:
+            stage.tid = batch.table_id
+            stage.schema = batch.schema
+            cols = ", ".join(
+                f'"{c.name}" {map_target_type("pg", c.data_type)}'
+                for c in batch.schema)
+            self.conn.query(
+                f"CREATE TABLE IF NOT EXISTS "
+                f"{self._stage_fqtn(stage)} ({cols})")
+        if staged.n_rows == 0:
+            return
+        try:
+            self._copy_insert(staged, target=self._stage_fqtn(stage))
+        except BaseException:
+            # the staging write died after the dedup window recorded
+            # this batch: only a full part restage is safe
+            stage.state.mark_failed()
+            raise
+
+    def _fence_epoch(self, slug: str):
+        rows = self.conn.query(
+            f"SELECT \"epoch\" FROM {self._commits_fqtn()} "
+            f"WHERE (\"part_key\" = '{slug}')")
+        epochs = [int(r["epoch"]) for r in rows
+                  if r.get("epoch") is not None]
+        return max(epochs) if epochs else None
+
+    def publish_part(self, key: str, epoch: int) -> int:
+        stage = self._stage
+        if stage is None or stage.key != key:
+            raise RuntimeError(f"pg sink: no open stage for {key!r}")
+        with publish_guard(key, epoch):
+            prev = self._fence_epoch(stage.slug)
+            if prev is not None and epoch < prev:
+                raise StaleEpochPublishError(key, epoch, prev)
+            trace.instant("pg_publish_txn", part=key, epoch=epoch,
+                          rows=stage.state.rows)
+            failpoint("sink.pg.publish")
+            stmts = ["BEGIN"]
+            if stage.schema is not None:
+                self._ensure_table(stage.tid, stage.schema,
+                                   with_part_column=True)
+                # a final table created by the at-least-once path (or
+                # a pre-staged-commit run) lacks the part column; the
+                # retrofit is idempotent and outside the publish txn
+                self.conn.query(
+                    f"ALTER TABLE {stage.tid.fqtn()} ADD COLUMN IF "
+                    f"NOT EXISTS \"{META_COLUMN}\" text")
+                cols = ", ".join(f'"{c.name}"' for c in stage.schema)
+                stmts.append(
+                    f"DELETE FROM {stage.tid.fqtn()} "
+                    f"WHERE \"{META_COLUMN}\" = '{stage.slug}'")
+                stmts.append(
+                    f"INSERT INTO {stage.tid.fqtn()} "
+                    f"({cols}, \"{META_COLUMN}\") "
+                    f"SELECT {cols}, '{stage.slug}' "
+                    f"FROM {self._stage_fqtn(stage)}")
+            stmts.append(
+                f"INSERT INTO {self._commits_fqtn()} "
+                f"(\"part_key\", \"epoch\") "
+                f"VALUES ('{stage.slug}', {epoch}) "
+                f"ON CONFLICT (\"part_key\", \"epoch\") DO NOTHING")
+            stmts.append("COMMIT")
+            # one Q message = one implicit transaction block: postgres
+            # applies all statements atomically or rolls back together
+            self.conn.query("; ".join(stmts))
+            self.conn.query(
+                f"DROP TABLE IF EXISTS {self._stage_fqtn(stage)}")
+            self.last_dedup_dropped = stage.state.dedup_dropped
+            rows = stage.state.rows
+        self._stage = None
+        return rows
+
+    def abort_part(self, key: str) -> None:
+        stage = self._stage
+        if stage is None or stage.key != key:
+            return
+        self._stage = None
+        try:
+            self.conn.query(
+                f"DROP TABLE IF EXISTS {self._stage_fqtn(stage)}")
+        except PGError as e:
+            logger.warning("pg staged abort of %s: %s", key, e)
+
+    def note_push_retry(self) -> None:
+        if self._stage is not None:
+            self._stage.state.note_push_retry()
+
+    # -- CDC slow path: a statement a row ------------------------------------
+    def _apply_row(self, it) -> None:
+        tid = it.table_id
+        if it.kind == Kind.INSERT:
+            cols = ", ".join(f'"{n}"' for n in it.column_names)
+            vals = ", ".join(_pg_literal(v) for v in it.column_values)
+            keys = [c.name for c in it.table_schema.key_columns()] \
+                if it.table_schema else []
+            conflict = ""
+            if keys:
+                sets = ", ".join(
+                    f'"{n}" = EXCLUDED."{n}"' for n in it.column_names
+                    if n not in keys
+                )
+                kcols = ", ".join(f'"{k}"' for k in keys)
+                conflict = f" ON CONFLICT ({kcols}) DO UPDATE SET {sets}" \
+                    if sets else f" ON CONFLICT ({kcols}) DO NOTHING"
+            self.conn.query(
+                f"INSERT INTO {tid.fqtn()} ({cols}) VALUES ({vals})"
+                f"{conflict}"
+            )
+        elif it.kind == Kind.UPDATE:
+            sets = ", ".join(
+                f'"{n}" = {_pg_literal(v)}'
+                for n, v in zip(it.column_names, it.column_values)
+            )
+            where = self._key_where(it)
+            self.conn.query(f"UPDATE {tid.fqtn()} SET {sets} WHERE {where}")
+        elif it.kind == Kind.DELETE:
+            self.conn.query(
+                f"DELETE FROM {tid.fqtn()} WHERE {self._key_where(it)}"
+            )
+
+    @staticmethod
+    def _key_where(it) -> str:
+        key = it.effective_key()
+        names = [c.name for c in it.table_schema.key_columns()]
+        return " AND ".join(
+            f'"{n}" = {_pg_literal(v)}' for n, v in zip(names, key)
+        )
 
 
 @register_provider
@@ -451,7 +752,7 @@ class PostgresProvider(Provider):
 
     def sinker(self):
         if isinstance(self.transfer.dst, PGTargetParams):
-            raise _waits("the Postgres sink (PGSinker)", "A6")
+            return PGSinker(self.transfer.dst, self.device)
         return None
 
     def source(self):
@@ -478,7 +779,26 @@ class PostgresProvider(Provider):
                 "transfer_ddl is PG->PG only; destination is %s",
                 getattr(dst_params, "PROVIDER", "?"))
             return 0
-        raise _waits("transfer_ddl PG -> PG (pg_dump)", "A6")
+        from transferia_tpu_torch.providers.postgres.pg_dump import (
+            apply_ddl_objects,
+            dump_ddl_objects,
+        )
+
+        src_conn = _conn(src)
+        try:
+            statements = dump_ddl_objects(src_conn, src.schemas)
+        finally:
+            src_conn.close()
+        if not statements:
+            return 0
+        dst_conn = _conn(dst_params)
+        try:
+            applied = apply_ddl_objects(dst_conn, statements)
+        finally:
+            dst_conn.close()
+        logger.info("transferred %d/%d ddl objects to the target",
+                    applied, len(statements))
+        return applied
 
     def deactivate(self) -> None:
         """Drop the replication slot."""

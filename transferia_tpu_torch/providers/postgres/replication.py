@@ -14,7 +14,7 @@ action I/U/D/B/C/T with columns/identity arrays).
 
 Left out, raising NotImplementedError naming its ROADMAP.md item: the
 DBLog incremental snapshot interleaved with the stream
-(`dblog_snapshot`, A10).
+(`dblog_snapshot`, A7).
 """
 
 from __future__ import annotations
@@ -245,7 +245,7 @@ class PGReplicationSource(Source):
         if getattr(params, "dblog_snapshot", False):
             raise NotImplementedError(
                 "the DBLog incremental snapshot (dblog_snapshot) is not "
-                "ported to transferia_tpu_torch yet (ROADMAP.md A10)")
+                "ported to transferia_tpu_torch yet (ROADMAP.md A7)")
 
     def _connect(self) -> ReplicationConnection:
         return ReplicationConnection(

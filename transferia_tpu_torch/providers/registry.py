@@ -38,6 +38,10 @@ class TestResult:
             self.ok = False
 
 
+class _SniffDone(Exception):
+    """Ends a sniff's table load once it has its rows."""
+
+
 class ActivateCallbacks:
     """Hooks handed to Provider.activate: the activation's cleanup and
     upload, and the `rollbacks` (utils.rollbacks.Rollbacks) a hook that
@@ -101,6 +105,49 @@ class Provider(abc.ABC):
 
     def deactivate(self) -> None:
         """Release source resources."""
+
+    SNIFF_TABLE_CAP = 20
+
+    def sniff(self, max_rows: int = 10) -> dict:
+        """Preview a sample of rows from up to SNIFF_TABLE_CAP tables (a
+        "_truncated" entry reports how many tables were skipped), through
+        the storage capability."""
+        storage = self.storage()
+        if storage is None:
+            raise NotImplementedError(
+                f"provider {self.NAME!r} has no snapshot capability to "
+                f"sniff"
+            )
+        from transferia_tpu_torch.abstract.table import TableDescription
+
+        out: dict[str, list] = {}
+        try:
+            all_tables = list(storage.table_list())
+            if len(all_tables) > self.SNIFF_TABLE_CAP:
+                out["_truncated"] = [
+                    f"{len(all_tables) - self.SNIFF_TABLE_CAP} more "
+                    f"tables not sampled"
+                ]
+            for tid in all_tables[:self.SNIFF_TABLE_CAP]:
+                rows: list = []
+
+                def pusher(batch, _rows=rows):
+                    items = batch.to_rows() \
+                        if hasattr(batch, "to_rows") else batch
+                    for it in items:
+                        if it.is_row_event():
+                            _rows.append(it.as_dict())
+                            if len(_rows) >= max_rows:
+                                raise _SniffDone()
+
+                try:
+                    storage.load_table(TableDescription(id=tid), pusher)
+                except _SniffDone:
+                    pass
+                out[str(tid)] = rows
+        finally:
+            storage.close()
+        return out
 
 
 _PROVIDERS: dict[str, Type[Provider]] = {}

@@ -5,6 +5,18 @@ Speaks real sockets against the provider's PGConnection: startup, optional
 SCRAM-SHA-256 auth, simple queries (matched against the exact catalog/DML
 statements the provider issues — a protocol fake, not a SQL engine), and
 COPY OUT/IN streaming.
+
+Unlike the JAX fake, a statement's replies go out in one write, on a
+socket with TCP_NODELAY (several small writes would wait out the
+client's delayed ACK: 40 ms a statement), a transaction's rollback image copies
+each row dict (not `copy.deepcopy`), a key-set SELECT matches through a
+set, and a statement on one primary key (an INSERT ... ON
+CONFLICT on the key, an UPDATE or DELETE whose WHERE is the key) finds
+its row through the table's key index instead of a scan, so a CDC tail
+into a table of a few hundred thousand rows keeps pace; a DELETE by key
+moves the table's last row into the deleted row's place.  The rows
+these statements leave are the JAX fake's, as a set
+(`tests/test_torch_pg_sink.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +48,41 @@ class FakeTable:
         self.name = name
         self.columns = columns
         self.rows = rows or []
+        self._index = None   # ((rows id, len, pk), {key text: position})
+
+    def pk(self) -> list[str]:
+        return [c[0] for c in self.columns if c[2]]
+
+    def key_of(self, row: dict) -> tuple:
+        return tuple(str(row.get(k)) for k in self.pk())
+
+    def key_index(self) -> dict:
+        """Primary-key text tuple -> position in `rows`.  Rows appended
+        behind it (a COPY, a plain INSERT) are added to it; it is rebuilt
+        whenever the rows list was replaced or shrank behind it, or the
+        key changed.  (A rebuild a COPY made a CDC tail's mixed pushes
+        into a table of 300,000 rows take half a second each.)"""
+        pk = tuple(self.pk())
+        n = len(self.rows)
+        if self._index is not None:
+            (rows_id, indexed, index_pk), idx = self._index
+            if rows_id == id(self.rows) and index_pk == pk \
+                    and indexed <= n:
+                for i in range(indexed, n):
+                    idx[self.key_of(self.rows[i])] = i
+                self._index = ((rows_id, n, pk), idx)
+                return idx
+        self._index = ((id(self.rows), n, pk),
+                       {self.key_of(r): i for i, r in enumerate(self.rows)})
+        return self._index[1]
+
+    def index_synced(self) -> None:
+        """The index was kept up to date by the caller's change."""
+        self._index = ((id(self.rows), len(self.rows), tuple(self.pk())),
+                       self._index[1])
+
+    def drop_index(self) -> None:
+        self._index = None
 
 
 class FakePG:
@@ -75,6 +122,16 @@ class FakePG:
             self.wal.append((lsn, payload))
         self.wal_event.set()
 
+    def feed_wal_many(self, payloads: list[bytes]) -> None:
+        """Append wal2json messages in one go: a streaming client sees
+        them together (one burst), not in the increments a feeder
+        thread racing the stream would make."""
+        with self.lock:
+            for payload in payloads:
+                lsn = (self.wal[-1][0] + 8) if self.wal else 0x2000
+                self.wal.append((lsn, payload))
+        self.wal_event.set()
+
     def add_table(self, table: FakeTable) -> None:
         with self.lock:
             self.tables[(table.namespace, table.name)] = table
@@ -85,6 +142,10 @@ class FakePG:
 
         class Handler(socketserver.BaseRequestHandler):
             def handle(self):
+                # a reply is several small writes: without NODELAY each
+                # statement waits out the client's delayed ACK
+                self.request.setsockopt(socket.IPPROTO_TCP,
+                                        socket.TCP_NODELAY, 1)
                 try:
                     _Session(self.request, fake).run()
                 except (ConnectionError, OSError):
@@ -109,12 +170,29 @@ class _Session:
     def __init__(self, sock: socket.socket, fake: FakePG):
         self.sock = sock
         self.fake = fake
+        # a query's replies, held until it ends (or the session waits for
+        # the client): one write a statement, not one a message
+        self._out: list | None = None
 
     # -- framing ------------------------------------------------------------
     def send(self, t: bytes, payload: bytes = b"") -> None:
-        self.sock.sendall(t + struct.pack("!I", len(payload) + 4) + payload)
+        msg = t + struct.pack("!I", len(payload) + 4) + payload
+        if self._out is not None:
+            self._out.append(msg)
+        else:
+            self.sock.sendall(msg)
+
+    def send_raw(self, data: bytes) -> None:
+        self.flush()
+        self.sock.sendall(data)
+
+    def flush(self) -> None:
+        if self._out:
+            self.sock.sendall(b"".join(self._out))
+            self._out.clear()
 
     def recv_exact(self, n: int) -> bytes:
+        self.flush()
         out = b""
         while len(out) < n:
             chunk = self.sock.recv(n - len(out))
@@ -234,15 +312,21 @@ class _Session:
     def handle_query(self, sql: str):
         with self.fake.lock:
             self.fake.queries.append(sql)
+        self._out = []
         try:
-            self.dispatch(sql)
-        except _PGStateError as e:
-            self.error(str(e), e.code)
-        except ConnectionError:
-            raise
-        except Exception as e:
-            self.error(str(e))
-        self.ready()
+            try:
+                self.dispatch(sql)
+            except _PGStateError as e:
+                self.error(str(e), e.code)
+            except ConnectionError:
+                raise
+            except Exception as e:
+                self.error(str(e))
+            self.ready()
+        finally:
+            if self._out is not None:
+                self.flush()
+                self._out = None
 
     def dispatch(self, sql: str):
         low = " ".join(sql.lower().split())
@@ -364,13 +448,13 @@ class _Session:
         statements atomically — all table mutations roll back when any
         statement fails, like the implicit transaction a real server
         wraps a multi-statement Q message in."""
-        import copy
-
         stmts = [s.strip() for s in sql.split(";") if s.strip()]
         fake = self.fake
         with fake.lock:
+            # the rollback image: a row's values are str or None, so a
+            # copy of each row dict is a deep copy
             snapshot = {
-                k: copy.deepcopy(t.rows) for k, t in fake.tables.items()
+                k: [dict(r) for r in t.rows] for k, t in fake.tables.items()
             }
             try:
                 for stmt in stmts:
@@ -397,6 +481,9 @@ class _Session:
         import select
         import time as _time
 
+        # the stream writes as it goes
+        self.flush()
+        self._out = None
         self.send(b"W", struct.pack("!bh", 0, 0))
         sent = 0
         fake = self.fake
@@ -404,11 +491,19 @@ class _Session:
             with fake.lock:
                 wal = list(fake.wal)
             progressed = sent < len(wal)
+            # the pending messages in writes of up to 64 KiB, as a
+            # walsender batches them: a write a message floods a slow
+            # reader's window with small segments
+            frames, size = [], 0
             while sent < len(wal):
                 lsn, payload = wal[sent]
                 msg = b"w" + struct.pack("!QQQ", lsn, lsn, 0) + payload
-                self.send(b"d", msg)
+                frames.append(b"d" + struct.pack("!I", len(msg) + 4) + msg)
+                size += len(frames[-1])
                 sent += 1
+                if size >= 1 << 16 or sent == len(wal):
+                    self.sock.sendall(b"".join(frames))
+                    frames, size = [], 0
             # keepalive so the client flushes its status
             last = wal[-1][0] if wal else 0
             self.send(b"d", b"k" + struct.pack("!QQB", last, 0, 0))
@@ -472,10 +567,18 @@ class _Session:
                         return str(v)
                     return "'" + str(v).replace("'", "''") + "'"
 
+                # a row matches a key set when every named column's
+                # literal equals it: one set of value tuples per set of
+                # names, so the lookup is linear in the rows
+                wanted: dict = {}
+                for ks in keysets:
+                    names = tuple(sorted(ks))
+                    wanted.setdefault(names, set()).add(
+                        tuple(ks[k] for k in names))
                 rows = [
                     r for r in rows
-                    if any(all(lit(r.get(k)) == v for k, v in ks.items())
-                           for ks in keysets)
+                    if any(tuple(lit(r.get(k)) for k in names) in vals
+                           for names, vals in wanted.items())
                 ]
             elif re.match(r'"\w+" > ', cond):
                 mk = re.match(r'"(\w+)" > (.+)', cond)
@@ -530,7 +633,7 @@ class _Session:
                   for c in cols]
                  for row in rows[lo:lo + chunk_rows]])
             payload = out.getvalue().encode()
-            self.sock.sendall(
+            self.send_raw(
                 b"d" + struct.pack("!I", len(payload) + 4) + payload)
         self.send(b"c")
         self.send(b"C", b"COPY\x00")
@@ -542,14 +645,14 @@ class _Session:
             raise ValueError("relation does not exist")
         cols = [c.strip().strip('"') for c in m.group(3).split(",")]
         self.send(b"G", struct.pack("!bh", 0, 0))
-        data = b""
+        chunks = []
         while True:
             mt, payload = self.recv_msg()
             if mt == b"d":
-                data += payload
+                chunks.append(payload)
             elif mt in (b"c", b"f"):
                 break
-        reader = csv.reader(io.StringIO(data.decode()))
+        reader = csv.reader(io.StringIO(b"".join(chunks).decode()))
         with self.fake.lock:
             for row in reader:
                 t.rows.append({
@@ -646,6 +749,21 @@ class _Session:
                                       m.group(4))]
             mc = re.search(r'ON CONFLICT \(([^)]*)\) DO '
                            r'(NOTHING|UPDATE SET)', sql, re.I)
+            if mc and not fake.echo_dml_to_wal and t.pk() and sorted(
+                    k.strip().strip('"') for k in mc.group(1).split(",")
+            ) == sorted(t.pk()):
+                # upsert on the primary key: through the key index
+                new = dict(zip(cols, vals))
+                idx = t.key_index()
+                pos = idx.get(t.key_of(new))
+                if pos is not None:
+                    if mc.group(2).upper() == "UPDATE SET":
+                        t.rows[pos].update(new)
+                    return
+                t.rows.append(new)
+                idx[t.key_of(new)] = len(t.rows) - 1
+                t.index_synced()
+                return
             if mc:
                 # minimal upsert: conflict keys matched by value;
                 # DO NOTHING skips, DO UPDATE replaces (fence-table
@@ -681,6 +799,19 @@ class _Session:
         if m:
             t = fake.tables.get((m.group(1), m.group(2)))
             cond = self._parse_where(m.group(3))
+            if not fake.echo_dml_to_wal and t.pk() \
+                    and sorted(cond) == sorted(t.pk()):
+                # delete by the primary key: the last row moves into the
+                # deleted row's place
+                idx = t.key_index()
+                pos = idx.pop(tuple(cond[k] for k in t.pk()), None)
+                if pos is not None:
+                    last = t.rows.pop()
+                    if pos < len(t.rows):
+                        t.rows[pos] = last
+                        idx[t.key_of(last)] = pos
+                    t.index_synced()
+                return
             gone = [r for r in t.rows
                     if all(str(r.get(k)) == v for k, v in cond.items())]
             t.rows = [r for r in t.rows if r not in gone]
@@ -704,6 +835,21 @@ class _Session:
             t = fake.tables.get((m.group(1), m.group(2)))
             sets = self._parse_where(m.group(3), sep=",")
             cond = self._parse_where(m.group(4))
+            if not fake.echo_dml_to_wal and t.pk() \
+                    and sorted(cond) == sorted(t.pk()):
+                # update by the primary key, through the key index
+                idx = t.key_index()
+                key = tuple(cond[k] for k in t.pk())
+                pos = idx.get(key)
+                if pos is not None:
+                    r = t.rows[pos]
+                    r.update(sets)
+                    if t.key_of(r) != key:
+                        del idx[key]
+                        idx[t.key_of(r)] = pos
+                    t.index_synced()
+                return
+            t.drop_index()   # the scan below may change keys in place
             for r in t.rows:
                 if all(str(r.get(k)) == v for k, v in cond.items()):
                     r.update(sets)

@@ -2,23 +2,25 @@
 ``transferia_tpu/runtime/local.py``): one replication attempt
 (`LocalWorker`: source -> async sink pump) inside the retry loop
 (`run_replication`: fatal errors fail the transfer, retriable ones
-restart after a fixed backoff) with a heartbeat.
+restart after a fixed backoff) with a heartbeat, and the cron-driven
+regular snapshot (`run_regular_snapshot`).
 
 `device` is where the sink pipeline's device work runs (the chain's
 fused steps): None means CUDA, which must be present; "cpu" runs the
 kernels' plain versions.  The partitioned strategy (Kafka -> object
-storage, one pipeline a partition) and the cron-driven regular snapshot
-raise NotImplementedError (ROADMAP.md A9).  An attempt is one
+storage, one pipeline a partition) raises NotImplementedError
+(ROADMAP.md A5).  An attempt is one
 `replication_attempt` root span; the heartbeat folds the device
 counters and the ledger into the pipeline's metrics.  The reference's
 observability-segment export and SLO verdicts on the heartbeat wait for
-the coordinator's segments (ROADMAP.md A5, A9).
+the coordinator's segments (ROADMAP.md A5).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Optional
 
 from transferia_tpu_torch.abstract.errors import is_fatal
@@ -38,8 +40,8 @@ logger = logging.getLogger(__name__)
 RETRY_BACKOFF_SECONDS = 10.0   # sleep between attempts
 HEARTBEAT_SECONDS = 60.0
 
-NOT_PORTED = "not ported yet (ROADMAP.md A9: the partitioned " \
-             "replication strategy and the regular snapshot)"
+NOT_PORTED = "not ported yet (ROADMAP.md A5: the partitioned " \
+             "replication strategy)"
 
 
 class LocalWorker:
@@ -161,9 +163,39 @@ def run_replication(transfer, coordinator: Coordinator,
             stop_event.wait(backoff)
 
 
-def run_regular_snapshot(*args, **kwargs) -> None:
-    """The reference's cron-driven re-snapshot loop: not ported."""
-    raise NotImplementedError(f"run_regular_snapshot: {NOT_PORTED}")
+def run_regular_snapshot(transfer, coordinator: Coordinator,
+                         metrics: Optional[Metrics] = None,
+                         stop_event: Optional[threading.Event] = None,
+                         max_runs: int = 0,
+                         device: DeviceLike = None) -> None:
+    """The cron-driven re-snapshot loop.  Each tick runs an
+    incremental-aware upload of every table on `device`; the cursors
+    persist through the coordinator.  max_runs=0 runs until stop_event."""
+    from transferia_tpu_torch.tasks.snapshot import SnapshotLoader
+    from transferia_tpu_torch.utils.cron import parse_cron
+
+    rs = transfer.regular_snapshot
+    if not rs.enabled or not rs.cron:
+        raise ValueError("transfer has no regular_snapshot cron configured")
+    device = resolve_device(device)
+    spec = parse_cron(rs.cron)
+    stop_event = stop_event or threading.Event()
+    runs = 0
+    while not stop_event.is_set():
+        next_t = spec.next_after()
+        wait = max(0.0, next_t - time.time())
+        logger.info("regular snapshot: next run in %.0fs", wait)
+        if stop_event.wait(wait):
+            return
+        loader = SnapshotLoader(
+            transfer, coordinator,
+            operation_id=f"op-{transfer.id}-{int(next_t)}",
+            metrics=metrics, device=device,
+        )
+        loader.upload_tables()
+        runs += 1
+        if max_runs and runs >= max_runs:
+            return
 
 
 def _stop_on_event(stop_event: threading.Event, worker: LocalWorker) -> None:

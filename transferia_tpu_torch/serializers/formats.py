@@ -3,7 +3,7 @@
 serializers and the json, native, debezium and mirror queue serializers.
 
 The parquet serializer writes through pyarrow in the reference; the port
-may not import pyarrow, so it raises NotImplementedError (ROADMAP.md A10,
+may not import pyarrow, so it raises NotImplementedError (ROADMAP.md A7,
 the blocked list).
 """
 
@@ -89,7 +89,7 @@ class ParquetSerializer(BatchSerializer):
     def __init__(self, compression: str = "snappy"):
         raise NotImplementedError(
             "the parquet serializer writes through pyarrow, which "
-            "transferia_tpu_torch may not import (ROADMAP.md A10, blocked)")
+            "transferia_tpu_torch may not import (ROADMAP.md A7, blocked)")
 
     def serialize(self, batch: Batch) -> bytes:
         raise NotImplementedError

@@ -577,6 +577,34 @@ def capture_seconds(seconds: float,
     return out["doc"]
 
 
+def iter_chrome_trace_chunks(doc: Optional[dict] = None,
+                             chunk_bytes: int = 64 * 1024):
+    """Yield the Chrome trace JSON as a sequence of ~chunk_bytes string
+    chunks — the `/debug/trace` endpoint streams these with chunked
+    transfer encoding instead of materializing one multi-MB `bytes`.
+    Events are accumulated up to the chunk size before yielding: the
+    handler's wfile is unbuffered, so one yield per event would mean
+    one syscall/TCP segment per ~100-byte event."""
+    if doc is None:
+        doc = export_chrome_trace()
+    buf: list[str] = ['{"traceEvents":[']
+    size = len(buf[0])
+    first = True
+    for ev in doc["traceEvents"]:
+        piece = ("" if first else ",") + json.dumps(ev)
+        first = False
+        buf.append(piece)
+        size += len(piece)
+        if size >= chunk_bytes:
+            yield "".join(buf)
+            buf, size = [], 0
+    other = {k: v for k, v in doc.items() if k != "traceEvents"}
+    tail = json.dumps(other)
+    # splice the remaining top-level keys after the events array
+    buf.append("]" + ("," + tail[1:-1] if tail != "{}" else "") + "}")
+    yield "".join(buf)
+
+
 # -- device telemetry --------------------------------------------------------
 
 def _ledger():

@@ -24,8 +24,8 @@ storage view of the destination:
 
 The `device` argument of `checksum` and `compare_checksum` is where a
 non-host fingerprint runs (CUDA unless "cpu"; without a card it raises,
-and the table fails).  The CLI's `checksum` command
-waits on the port's CLI (ROADMAP.md A5).
+and the table fails).  The CLI's `checksum` command runs it
+(`cli/main.py::cmd_checksum`, with `--device`).
 """
 
 from __future__ import annotations

@@ -17,10 +17,11 @@ chain's fused steps, the tap, the staged-row keys): None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions.
 
 Left out, each raising NotImplementedError when a transfer asks for it
-(ROADMAP.md A9): the sharded secondary flow, resume, incremental tables,
-async part discovery and fleet preemption.  A PositionalStorage's
-position at the start lands in the transfer state as
-`snapshot_position`.
+(ROADMAP.md A5): the sharded secondary flow, resume, async part
+discovery and fleet preemption.  A PositionalStorage's position at the
+start lands in the transfer state as `snapshot_position`; the
+regular snapshot's incremental tables read only the rows past their
+persisted cursors (`incremental_state`, stored after a whole run).
 
 Telemetry as in the reference: the `snapshot_op` root span and the
 operation's ledger scope, adopted by the upload threads and the
@@ -29,7 +30,7 @@ per pushed batch (`snapshot.part.batch` failpoint), the retry, steal,
 fence and publish instants with their ledger counts, the
 `part_upload` histogram and the device-counter and ledger folds at
 part completion.  The fleet observability export waits for the
-coordinator's segments (ROADMAP.md A5, A9).
+coordinator's segments (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -59,12 +60,15 @@ from transferia_tpu_torch.abstract.errors import (
 )
 from transferia_tpu_torch.abstract.interfaces import (
     AsyncPartDiscovery,
+    IncrementalStorage,
+    IncrementalTable,
     PositionalStorage,
     ShardedStateStorage,
     SnapshotableStorage,
     Storage,
     resolve_all,
 )
+from transferia_tpu_torch.abstract.schema import TableID
 from transferia_tpu_torch.abstract.table import (
     OperationTablePart,
     TableDescription,
@@ -136,7 +140,7 @@ TUNING = SnapshotTuning.from_env()
 def _left_out(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to transferia_tpu_torch yet "
-        f"(ROADMAP.md A9, the snapshot loader's left-out branches)")
+        f"(ROADMAP.md A5, the snapshot loader's left-out branches)")
 
 
 class SnapshotLoader:
@@ -209,11 +213,34 @@ class SnapshotLoader:
         out.sort(key=lambda t: -t.eta_rows)
         return out
 
+    # -- incremental cursors -------------------------------------------------
+    def _incremental_tables(self) -> list[IncrementalTable]:
+        return [
+            IncrementalTable(TableID(c.namespace, c.name), c.cursor_field,
+                             c.initial_state)
+            for c in self.transfer.regular_snapshot.incremental
+        ]
+
+    def _apply_incremental(self, storage: Storage,
+                           tables: list[TableDescription]
+                           ) -> tuple[list[TableDescription], Optional[dict]]:
+        inc = self._incremental_tables()
+        if not inc or not isinstance(storage, IncrementalStorage):
+            return tables, None
+        # capture the next cursor BEFORE loading: rows arriving during the
+        # snapshot are read again next time instead of being skipped
+        next_state = storage.next_increment_state(inc)
+        state = self.cp.get_transfer_state(self.transfer.id).get(
+            "incremental_state", {}
+        )
+        filtered = {td.id: td for td in
+                    storage.get_increment_state(inc, state)}
+        merged = [filtered.get(td.id, td) for td in tables]
+        return merged, next_state
+
     # -- main worker ----------------------------------------------------------
     def _main_flow(self, storage: Storage,
                    tables: list[TableDescription]) -> None:
-        if self.transfer.regular_snapshot.incremental:
-            raise _left_out("incremental tables")
         if isinstance(storage, AsyncPartDiscovery):
             raise _left_out("async part discovery")
         if isinstance(storage, SnapshotableStorage):
@@ -224,6 +251,7 @@ class SnapshotLoader:
                 if pos:
                     self.cp.set_transfer_state(
                         self.transfer.id, {"snapshot_position": pos})
+            tables, next_inc_state = self._apply_incremental(storage, tables)
             # main-worker restart detection: an incomplete queue means a
             # previous main crashed mid-operation with secondaries
             # possibly still attached; a completed one is the previous
@@ -252,14 +280,16 @@ class SnapshotLoader:
             self.table_stats.total_parts.set(len(parts))
             self.table_stats.eta_rows.set(sum(p.eta_rows for p in parts))
             multi_part = {p.table_id for p in parts if p.parts_count > 1}
-            self._upload_publish_tail(storage, tables, multi_part)
+            self._upload_publish_tail(storage, tables, multi_part,
+                                      next_inc_state)
         finally:
             if isinstance(storage, SnapshotableStorage):
                 storage.end_snapshot()
 
     def _upload_publish_tail(self, storage: Storage, tables,
-                             multi_part: set) -> None:
-        """Upload, sharded join, done-brackets, fingerprints."""
+                             multi_part: set, next_inc_state) -> None:
+        """Upload, sharded join, done-brackets, incremental cursors,
+        fingerprints."""
         schemas = {td.id: storage.table_schema(td.id) for td in tables}
         sink = make_async_sink(self.transfer, self.metrics,
                                snapshot_stage=True, device=self.device)
@@ -281,6 +311,12 @@ class SnapshotLoader:
             resolve_all(futs)
         finally:
             sink.close()
+        if next_inc_state is not None:
+            # persist cursors only after the whole snapshot succeeded
+            self.cp.set_transfer_state(
+                self.transfer.id,
+                {"incremental_state": next_inc_state},
+            )
         self._publish_fingerprints()
 
     def _publish_fingerprints(self) -> None:

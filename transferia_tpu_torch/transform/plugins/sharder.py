@@ -1,7 +1,7 @@
 """Row -> shard mapping (the port's copy of `hash_column_to_shards` from
 ``transferia_tpu/transform/plugins/sharder.py``), which the Kafka sink's
 `partition_by` uses.  The `sharder` and `table_splitter` transformers
-wait (ROADMAP.md A10).
+wait (ROADMAP.md A7).
 
 FNV-1a wraps uint64 on purpose, so the hash stays numpy: torch on the
 CPU has no uint64 multiply.

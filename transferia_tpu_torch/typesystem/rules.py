@@ -51,3 +51,28 @@ def map_target_type(provider: str, ctype: CanonicalType,
                     default: str = "") -> str:
     """Canonical type -> target DDL type string."""
     return _TARGET_RULES.get(provider, {}).get(ctype, default or ctype.value)
+
+
+def supported_providers() -> list[str]:
+    return sorted(set(_SOURCE_RULES) | set(_TARGET_RULES))
+
+
+def doc_markdown(provider: str) -> str:
+    """The provider's typesystem.md: its source and target rules."""
+    lines = [f"# Typesystem: {provider}", ""]
+    src = _SOURCE_RULES.get(provider)
+    if src:
+        lines += ["## Source (native -> canonical)", "",
+                  "| native | canonical |", "|---|---|"]
+        lines += [f"| `{k}` | {v.value} |" for k, v in sorted(src.items())]
+        lines.append("")
+    dst = _TARGET_RULES.get(provider)
+    if dst:
+        lines += ["## Target (canonical -> native)", "",
+                  "| canonical | native |", "|---|---|"]
+        lines += [
+            f"| {getattr(k, 'value', k)} | `{v}` |"
+            for k, v in sorted(dst.items(), key=lambda kv: str(kv[0]))
+        ]
+        lines.append("")
+    return "\n".join(lines)
