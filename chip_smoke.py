@@ -112,7 +112,7 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 4,096 messages of the kafka2ch phase's generator (K-A; cut from
+     x 2,048 messages of the kafka2ch phase's generator (K-A; cut from
      16,384 a partition for the call's time).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
@@ -283,6 +283,26 @@ final line):
      transferia_tpu_torch.cli.main activate` in a subprocess.  Every
      K-A, K-B, K-C and K10 launch of the in-process commands is held
      against its plain version;
+ 15k. sharded: BASELINE config #2 across processes on the filestore
+     coordinator, through the CLI on one transfer.yaml (pg2ch's 300,000
+     hits rows and cli's 50,000-row events table in the port's fake
+     Postgres, on heap pages, split by ctid into 15 + 3 parts; the
+     fused mask + region < 400 into the fake ClickHouse, staged commits
+     on; validation: {fingerprint: true}): (a) job 0 here, jobs 1 and 2
+     as `python3 -m transferia_tpu_torch.cli.main --device cuda`
+     processes started together: every rc 0, every part completed, each
+     job at least one part, the target equal to numpy's image once, a
+     fence row a part, no staging table, the recorded fingerprints equal
+     to K10's plain version over the image, checksum
+     --against-operation 0 clean and 1 with a value altered; the same
+     YAML with --job-count 1 beside it; (b) (a) again with 3-s leases,
+     1-s heartbeats and job 2 slowed by a failpoint delay, SIGKILLed
+     while it holds a lease: the survivors steal its parts and the
+     target is still exact; (c) Kafka -> fs (jsonl), 16 partitions x
+     4,096 messages through replication (a)'s mask + filter, one
+     PartitionedWorker pipeline a partition: the files equal hashlib's
+     image, each row once.  Every K-A, K-B, K-C and K10 launch of this
+     process is held against its plain version;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -624,6 +644,12 @@ PATH_KERNELS = {
     # upload; K10 keying the MVCC store and the staged parts, and the
     # checksum command's fingerprint
     "cli": ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes"),
+    # from PR 18, config #2 sharded over three processes on the filestore
+    # coordinator (this process is job 0): the fused mask and filter, K10
+    # keying the staged pushes, the fingerprint tap and the checksum
+    # against the operation; Kafka -> fs through the mask and filter
+    "sharded": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+                "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -673,7 +699,7 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 4,096 messages of the
+# Bufferer) over a backlog of 16 partitions x 2,048 messages of the
 # kafka2ch phase's generator (cut from 16,384 for the later phases'
 # time: (b) moves one fetch batch a Bufferer tick, so its run is about
 # a second a 1,024-message batch, whatever the depth)
@@ -685,7 +711,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 4096
+BACKLOG_MESSAGES = 2048
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -6702,6 +6728,508 @@ def cli_path(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase sharded: config #2 across processes on the filestore coordinator --
+#
+# (a) one transfer.yaml (pg2ch's 300,000 hits rows and cli's 50,000-row
+# events table in the port's fake Postgres, now on heap pages, through the
+# fused mask + filter into the fake ClickHouse, staged commits on, the
+# fingerprint tap on) activated by three workers: job 0 in this process
+# through the CLI, jobs 1 and 2 as `python3 -m transferia_tpu_torch.cli.main`
+# processes started together, all on one filestore coordinator; then
+# `checksum --against-operation`, clean and with one value altered; and
+# the same YAML with --job-count 1 for comparison.  (b) (a) again into a
+# fresh target with 3-s leases and 1-s heartbeats, job 2 slowed by a
+# failpoint delay on every batch and SIGKILLed once it holds a lease on an
+# unfinished part: the survivors steal its parts.  (c) Kafka -> fs (jsonl),
+# 16 partitions x 4,096 messages of replication (a)'s schema through
+# REPL_CONFIG, one pipeline a partition (PartitionedWorker).
+SHARD_JOBS = 3
+# the fake's pg_relation_size is 100 bytes a row: hits (30,000,000 bytes)
+# splits into 15 ctid ranges, events (5,000,000) into 3
+SHARD_PART_BYTES = 2_000_000
+SHARD_ROWS, SHARD_EVENTS = PG2CH_ROWS, CLI_EVENTS
+SHARD_SALT = CLI_SALT
+SHARD_LEASE_S, SHARD_HEARTBEAT_S, SHARD_DELAY_MS = 3, 1, 2000
+SHARD_SETTLE_S = 600.0
+SHARD_YAML = """\
+# config #2 sharded over processes: {what}
+id: {tid}
+type: SNAPSHOT_ONLY
+src:
+  type: pg
+  params:
+    host: 127.0.0.1
+    port: {src}
+    database: shop
+    user: postgres
+    schemas: [public]
+    desired_part_size_bytes: {part_bytes}
+dst:
+  type: ch
+  params:
+    host: 127.0.0.1
+    port: {dst}
+    database: default
+    bufferer: null
+    # every worker runs the activation's cleanup: a secondary starting
+    # after the main's first publish must not drop it
+    cleanup_policy: disabled
+transformation:
+  transformers:
+    - mask_field: {{columns: [url], salt: "{salt}"}}
+    - filter_rows: {{filter: "{filt}"}}
+validation: {{fingerprint: true}}
+"""
+K2FS_PARTITIONS, K2FS_MESSAGES = 16, 4096
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_yaml(path: str, what: str, tid: str, src: int, dst: int) -> str:
+    with open(path, "w") as fh:
+        fh.write(SHARD_YAML.format(
+            what=what, tid=tid, src=src, dst=dst,
+            part_bytes=SHARD_PART_BYTES, salt=SHARD_SALT, filt=CLI_FILTER))
+    return path
+
+
+def shard_images() -> dict:
+    """numpy's mask and filter over both tables: table -> id -> row."""
+    return {"hits": cli_kept_image(cdc.hits_row(i)
+                                   for i in range(SHARD_ROWS)),
+            "events": cli_kept_image(cli_events_row(i)
+                                     for i in range(SHARD_EVENTS))}
+
+
+def shard_target(ch: FakeCH, table: str) -> list:
+    """The target's rows of a table as (id, url, region, score)."""
+    return [(int(r["id"]), r["url"].decode() if isinstance(r["url"], bytes)
+             else r["url"], int(r["region"]), float(r["score"]))
+            for r in ch.rows(f"public__{table}")]
+
+
+def shard_worker(job: int, argv: list, path: str, port: int, dev,
+                 extra: dict, log: str) -> subprocess.Popen:
+    """One secondary: the module entry point in a process of its own,
+    its health port on `port`, its output into the file `log` (a pipe
+    nobody reads until it exits would stop it once full)."""
+    env = dict(os.environ, TRANSFERIA_TPU_PLACEMENT="device",
+               PYTHONPATH=str(Path(__file__).resolve().parent), **extra)
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, "-m", "transferia_tpu_torch.cli.main",
+             "--device", str(dev.type), "--log-level", "warning"] + argv
+            + ["--job-index", str(job), "--health-port", str(port),
+               "activate", "--transfer", path],
+            stdout=fh, stderr=subprocess.STDOUT, env=env)
+
+
+def log_tail(log: str, n: int = 2000) -> str:
+    with open(log) as fh:
+        return fh.read()[-n:]
+
+
+def wait_up(port: int, proc: subprocess.Popen, log: str,
+            deadline: float) -> None:
+    """Until the worker's health port answers (the process is up, the
+    card resolved), or fail."""
+    import urllib.request
+
+    while time.perf_counter() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"sharded worker exited early: rc "
+                                 f"{proc.returncode}: {log_tail(log)}")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/health", timeout=1):
+                return
+        except OSError:
+            time.sleep(0.1)
+    raise AssertionError("a sharded worker never came up")
+
+
+def shard_run(pg: FakePG, root: str, tmp: str, tid: str, dev,
+              jobs: int = SHARD_JOBS, kill: bool = False) -> dict:
+    """One activation of the YAML by `jobs` workers into a fresh fake
+    ClickHouse: the secondaries started together and up before job 0
+    runs here; with `kill`, job 2 is slowed and SIGKILLed once it holds a
+    lease on an unfinished part.  What the target and the coordinator
+    hold afterwards."""
+    import signal as signal_mod
+
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+    from transferia_tpu_torch.tasks import snapshot as snapshot_mod
+
+    ch = FakeCH().start()
+    lease_env = {"TRANSFERIA_TPU_LEASE_SECONDS": str(SHARD_LEASE_S),
+                 "TRANSFERIA_TPU_HEARTBEAT_INTERVAL": str(SHARD_HEARTBEAT_S)
+                 } if kill else {}
+    saved_env = {k: os.environ.get(k) for k in lease_env}
+    saved_tuning = snapshot_mod.TUNING
+    procs, logs, out = {}, {}, {"jobs": jobs}
+    try:
+        path = shard_yaml(os.path.join(tmp, f"{tid}.yaml"),
+                          f"{jobs} workers", tid, pg.port, ch.port)
+        argv = ["--coordinator", "filestore", "--coordinator-dir", root,
+                "--job-count", str(jobs)]
+        t0 = time.perf_counter()
+        ports = {}
+        for job in range(1, jobs):
+            extra = dict(lease_env)
+            if kill and job == 2:
+                extra["TRANSFERIA_TPU_FAILPOINTS"] = \
+                    f"snapshot.part.batch=delay:{SHARD_DELAY_MS}"
+            ports[job] = free_port()
+            logs[job] = os.path.join(tmp, f"{tid}.job{job}.log")
+            procs[job] = (shard_worker(job, argv, path, ports[job], dev,
+                                       extra, logs[job]),
+                          time.perf_counter())
+        deadline = time.perf_counter() + SHARD_SETTLE_S
+        for job, (proc, _) in procs.items():
+            wait_up(ports[job], proc, logs[job], deadline)
+        out["workers_up_seconds"] = time.perf_counter() - t0
+        os.environ.update(lease_env)
+        snapshot_mod.TUNING = snapshot_mod.SnapshotTuning.from_env()
+        killer = None
+        if kill:
+            killer = threading.Thread(target=shard_kill, args=(
+                root, f"op-{tid}", procs[2][0], deadline, out),
+                daemon=True)
+            killer.start()
+        t_main = time.perf_counter()
+        rc, _, se, main_s = cli_main(argv + ["--job-index", "0", "activate",
+                                             "--transfer", path], dev)
+        if rc != 0:
+            raise AssertionError(f"sharded job 0: rc {rc}: {se[-2000:]}")
+        seconds = {0: main_s}
+        for job, (proc, started) in procs.items():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            seconds[job] = time.perf_counter() - started
+            want_rc = -signal_mod.SIGKILL if kill and job == 2 else 0
+            if proc.returncode != want_rc:
+                raise AssertionError(f"sharded job {job}: rc "
+                                     f"{proc.returncode}: "
+                                     f"{log_tail(logs[job])}")
+        # what each secondary logged (warnings and up), for the record
+        out["worker_logs"] = {j: log_tail(f, 600) for j, f in logs.items()}
+        wall = time.perf_counter() - t0
+        if killer is not None:
+            killer.join(10)
+            if "killed_at" not in out:
+                raise AssertionError("job 2 was never seen holding a lease")
+            out["recovery_seconds"] = time.perf_counter() - out.pop(
+                "killed_at")
+        cp = FileStoreCoordinator(root=root)
+        parts = cp.operation_parts(f"op-{tid}")
+        out.update(
+            wall_seconds=wall, main_seconds=main_s,
+            main_started_after=t_main - t0,
+            rows_per_s=(SHARD_ROWS + SHARD_EVENTS) / wall,
+            # from job 0's start, once every worker is up
+            rows_per_s_after_up=(SHARD_ROWS + SHARD_EVENTS)
+            / (wall - out["workers_up_seconds"]),
+            parts=len(parts),
+            parts_by_table={t: sum(1 for p in parts if p.table_id.name == t)
+                            for t in ("hits", "events")},
+            workers={j: {"parts": sum(1 for p in parts
+                                      if p.worker_index == j),
+                         "rows": sum(p.completed_rows for p in parts
+                                     if p.worker_index == j),
+                         "seconds": seconds[j]} for j in range(jobs)},
+            steals=sum(1 for p in parts if p.stolen_from is not None),
+            fingerprints=cp.get_operation_state(f"op-{tid}").get(
+                "table_fingerprints", {}))
+        if not parts or not all(p.completed for p in parts):
+            raise AssertionError(f"sharded {tid}: parts not all completed: "
+                                 f"{[p.key() for p in parts]}")
+        out["target"] = {t: shard_target(ch, t) for t in ("hits", "events")}
+        out["fences"] = [r["part_key"] for r in ch.rows("__trtpu_commits")]
+        out["staging_left"] = sorted(n for n in ch.tables
+                                     if n.startswith("__trtpu_stg_"))
+        out["ch"] = ch
+        return out
+    except BaseException:
+        ch.stop()
+        raise
+    finally:
+        snapshot_mod.TUNING = saved_tuning
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+
+
+def shard_kill(root: str, op: str, proc: subprocess.Popen,
+               deadline: float, out: dict) -> None:
+    """SIGKILL job 2 once the parts doc shows it holding a lease on a
+    part it has not completed."""
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+
+    cp = FileStoreCoordinator(root=root)
+    while time.perf_counter() < deadline and proc.poll() is None:
+        held = [p.key() for p in cp.operation_parts(op)
+                if p.worker_index == 2 and not p.completed
+                and p.lease_expires_at > time.time()]
+        if held:
+            proc.kill()
+            out["killed_at"] = time.perf_counter()
+            out["killed_unix"] = time.time()
+            out["killed_holding"] = held
+            return
+        time.sleep(0.05)
+
+
+def shard_check(run: dict, images: dict, want_fp: dict, what: str) -> None:
+    """The target equal to numpy's image, each row once; a fence row a
+    part; no staging table; the recorded fingerprints the plain K10
+    digests of the image."""
+    for t, image in images.items():
+        got = run["target"][t]
+        if len(got) != len(image) or dict((r[0], r) for r in got) != image:
+            raise AssertionError(
+                f"sharded {what}: {t} holds {len(got)} rows, numpy's image "
+                f"{len(image)} (equal as a map "
+                f"{dict((r[0], r) for r in got) == image})")
+    fences = run["fences"]
+    if len(fences) != run["parts"] or len(set(fences)) != len(fences) or \
+            run["staging_left"]:
+        raise AssertionError(f"sharded {what}: {len(fences)} fence rows "
+                             f"for {run['parts']} parts, staging left "
+                             f"{run['staging_left']}")
+    if run["fingerprints"] != want_fp:
+        raise AssertionError(f"sharded {what}: recorded fingerprints "
+                             f"{run['fingerprints']}, plain K10 {want_fp}")
+
+
+def shard_plain_fingerprints(pg: FakePG, images: dict, dev) -> dict:
+    """K10's plain version on the card over numpy's image of each table,
+    in the source's schema."""
+    from transferia_tpu_torch.providers.postgres.provider import PGStorage
+
+    st = PGStorage(PGSourceParams(host="127.0.0.1", port=pg.port,
+                                  database="shop"))
+    try:
+        out = {}
+        for t, image in images.items():
+            tid = TableID("public", t)
+            rows = [image[k] for k in sorted(image)]
+            batch = ColumnBatch.from_pydict(
+                tid, st.table_schema(tid),
+                {c: [r[j] for r in rows] for j, c in
+                 enumerate(("id", "url", "region", "score"))})
+            out[tid.fqtn()] = plain_digest([batch], dev)
+        return out
+    finally:
+        st.close()
+
+
+def k2fs_message(p: int, i: int) -> bytes:
+    k = p * K2FS_MESSAGES + i
+    return json.dumps({"id": k, "url": f"https://bench.example/{i}",
+                       "region": k % 500}).encode()
+
+
+def k2fs_run(tmp: str, dev) -> dict:
+    """Kafka -> fs (jsonl) through run_replication: PartitionedWorker,
+    one pipeline a partition; stopped once every partition's last offset
+    is committed; the files read back."""
+    from transferia_tpu_torch.providers.file import FileTargetParams
+    from transferia_tpu_torch.runtime import local as local_mod
+
+    broker = FakeKafka(n_partitions=K2FS_PARTITIONS).start()
+    workers = []
+    real = local_mod.PartitionedWorker
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            workers.append(self)
+
+    try:
+        broker.create_topic("events")
+        produce(broker.port, K2FS_PARTITIONS, K2FS_MESSAGES, FETCH_MAX,
+                k2fs_message)
+        out_dir = os.path.join(tmp, "k2fs")
+        t = Transfer(
+            id="k2fs", type=TransferType.INCREMENT_ONLY,
+            src=KafkaSourceParams(
+                brokers=[f"127.0.0.1:{broker.port}"], topic="events",
+                parser={"json": {"table": "events",
+                                 "schema": REPL_SCHEMA}}),
+            dst=FileTargetParams(path=out_dir, format="jsonl"),
+            transformation=REPL_CONFIG)
+        cp, stop = MemoryCoordinator(), threading.Event()
+        want = {f"events:{p}": K2FS_MESSAGES - 1
+                for p in range(K2FS_PARTITIONS)}
+        failure = []
+
+        def run():
+            try:
+                local_mod.run_replication(t, cp, stop_event=stop,
+                                          device=dev)
+            except BaseException as e:  # reported below
+                failure.append(e)
+
+        local_mod.PartitionedWorker = Recorded
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, name="k2fs", daemon=True)
+        th.start()
+        deadline = t0 + SHARD_SETTLE_S
+        while cp.get_transfer_state("k2fs").get("kafka_offsets") != want \
+                and not failure and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        seconds = time.perf_counter() - t0
+        stop.set()
+        th.join(60)
+        if failure or th.is_alive():
+            raise AssertionError(f"k2fs: {failure or 'did not stop'}")
+        if cp.get_transfer_state("k2fs").get("kafka_offsets") != want:
+            raise AssertionError("k2fs: offsets never all committed")
+    finally:
+        local_mod.PartitionedWorker = real
+        broker.stop()
+    files = sorted(f for f in os.listdir(out_dir) if f.endswith(".jsonl"))
+    rows = []
+    for f in files:
+        with open(os.path.join(out_dir, f)) as fh:
+            rows.extend(json.loads(ln) for ln in fh)
+    image = {}
+    for p in range(K2FS_PARTITIONS):
+        for i in range(K2FS_MESSAGES):
+            k = p * K2FS_MESSAGES + i
+            if k % 500 < 400:
+                image[k] = {"id": k, "region": k % 500, "url": hmac.new(
+                    REPL_SALT, f"https://bench.example/{i}".encode(),
+                    hashlib.sha256).hexdigest(),
+                    "_partition": f"events:{p}", "_offset": i}
+    # each row with the parser's partition and offset columns
+    got = {r["id"]: {c: r.get(c) for c in ("id", "region", "url",
+                                           "_partition", "_offset")}
+           for r in rows}
+    if len(workers) != 1 or len(workers[0]._pipelines) != K2FS_PARTITIONS \
+            or len(rows) != len(got) or got != image:
+        raise AssertionError(
+            f"k2fs: {len(workers)} partitioned workers, "
+            f"{len(workers[0]._pipelines) if workers else 0} pipelines, "
+            f"{len(rows)} rows ({len(got)} ids) of {len(image)} (equal "
+            f"{got == image})")
+    return {"messages": K2FS_PARTITIONS * K2FS_MESSAGES,
+            "partitions": K2FS_PARTITIONS,
+            "pipelines": len(workers[0]._pipelines), "files": len(files),
+            "rows": len(rows), "seconds": seconds,
+            "messages_per_s": K2FS_PARTITIONS * K2FS_MESSAGES / seconds}
+
+
+def sharded_path(dev) -> dict:
+    """Config #2 across processes on the filestore coordinator, a killed
+    secondary, and Kafka -> fs partitioned replication; every launch of
+    this process recorded and held against the plain versions."""
+    import logging
+
+    logging.basicConfig(level=logging.WARNING,
+                        format="%(asctime)s %(levelname).1s %(name)s: "
+                               "%(message)s")
+    t0 = time.perf_counter()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sharded-", dir=str(_build.BUILD_DIR))
+    pg = FakePG().start()
+    set_placement("device")
+    result: dict = {}
+    runs = []
+    try:
+        pg.add_table(hits_table(SHARD_ROWS))
+        pg.add_table(FakeTable("public", "events", PG2CH_COLUMNS,
+                               cli_fake_rows(cli_events_row(i)
+                                             for i in range(SHARD_EVENTS))))
+        images = shard_images()
+        want_fp = shard_plain_fingerprints(pg, images, dev)
+        result["data_gen_seconds"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                KeyLaunches() as keyed, FingerprintDispatches() as fpd:
+            _build.reset_launch_counts()
+            # (a) three workers
+            a = shard_run(pg, os.path.join(tmp, "cp-a"), tmp, "shard-a",
+                          dev)
+            runs.append(a)
+            shard_check(a, images, want_fp, "(a)")
+            idle = [j for j, w in a["workers"].items() if not w["parts"]]
+            if idle:
+                raise AssertionError(f"sharded (a): workers {idle} "
+                                     f"committed no part: {a['workers']}")
+            chk_yaml = os.path.join(tmp, "shard-a.yaml")
+            argv = ["--coordinator", "filestore", "--coordinator-dir",
+                    os.path.join(tmp, "cp-a"), "checksum", "--transfer",
+                    chk_yaml, "--fingerprint-backend", "device",
+                    "--against-operation", "op-shard-a"]
+            rc_ok, so_ok, _, s_ok = cli_main(argv, dev)
+            ch = a["ch"]
+            with ch.lock:
+                r0 = min(ch.tables["public__hits"]["rows"],
+                         key=lambda r: r["id"])
+                r0["score"] = r0["score"] + 0.5
+            rc_bad, so_bad, _, s_bad = cli_main(argv, dev)
+            if rc_ok != 0 or rc_bad != 1 or "MISMATCH" not in so_bad:
+                raise AssertionError(
+                    f"sharded checksum: clean rc {rc_ok} ({so_ok[-500:]}), "
+                    f"altered rc {rc_bad} ({so_bad[-500:]})")
+            a["checksum"] = {"clean_rc": rc_ok, "altered_rc": rc_bad,
+                             "clean_seconds": s_ok,
+                             "altered_seconds": s_bad,
+                             "clean_report": so_ok.strip(),
+                             "altered_report": so_bad.strip()}
+            # the same YAML with one worker, for comparison
+            one = shard_run(pg, os.path.join(tmp, "cp-1"), tmp, "shard-1",
+                            dev, jobs=1)
+            runs.append(one)
+            shard_check(one, images, want_fp, "(a), one worker")
+            # (b) job 2 killed holding a lease
+            b = shard_run(pg, os.path.join(tmp, "cp-b"), tmp, "shard-b",
+                          dev, kill=True)
+            runs.append(b)
+            shard_check(b, images, want_fp, "(b)")
+            if not b["steals"]:
+                raise AssertionError(f"sharded (b): no part stolen from "
+                                     f"the killed worker: {b['workers']}")
+            # (c) Kafka -> fs, one pipeline a partition
+            result["k2fs"] = k2fs_run(tmp, dev)
+            launches = _build.launch_counts()
+            require_launched("sharded", launches)
+            held = {"sha256_hmac": ka.check("sharded",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("sharded", launches))
+            held["rowhash_lanes_keys"] = keyed.check("sharded", dev)
+            held["rowhash_lanes_fingerprint"] = check_dispatched(
+                {"sharded": {"dispatched": fpd.dispatched}}, dev)
+        for name, run in (("a", a), ("one_worker", one), ("b", b)):
+            run.pop("ch").stop()
+            run.pop("target")
+            run["fences"] = len(run["fences"])
+            result[name] = run
+        result.update(rows=SHARD_ROWS, events=SHARD_EVENTS,
+                      part_bytes=SHARD_PART_BYTES, launches=launches,
+                      held_exact=held,
+                      speedup_3_over_1=a["rows_per_s"] / one["rows_per_s"])
+        return result
+    finally:
+        set_placement(None)
+        for run in runs:
+            if "ch" in run:
+                run.pop("ch").stop()
+        pg.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -6825,7 +7353,8 @@ def main() -> int:
                 cb_file,
                 results["clickbench"]["runs"]["device"]["completed_rows"],
                 dev)),
-            ("cli", lambda: cli_path(dev))):
+            ("cli", lambda: cli_path(dev)),
+            ("sharded", lambda: sharded_path(dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

@@ -13,8 +13,10 @@ on the CPU (`--device cpu`: the kernels' plain versions).
   `activate`/`upload`/`sniff` on a sample -> memory transfer (equal
   target rows), `replicate` PG -> PG through each package's own fakes
   (stopped by SIGTERM; equal target rows, DDL objects and fences), the
-  memory coordinator's refusal of `--job-count 2`, each left-out command
-  and flag exiting 2 naming its item, `trace` on the demo transfer, the
+  memory coordinator's refusal of `--job-count 2`, the filestore
+  coordinator (`activate` and `checksum --against-operation`; the
+  sharded runs are in tests/test_torch_sharded.py), each left-out
+  command and flag exiting 2 naming its item, `trace` on the demo transfer, the
   health port's panes, the log sanitizer, and the device rule: without a
   card the CLI raises unless `--device cpu`.
 """
@@ -356,8 +358,6 @@ def test_memory_coordinator_refuses_sharding_as_jax(tmp_path):
     (["worker"], "A7"), (["top", "--once"], "A5"), (["slo", "--demo"], "A5"),
     (["explain", "demo"], "A5"), (["trace", "--fleet", "all"], "A5"),
     (["--metrics-port", "9100", "describe"], "A5"),
-    (["checksum", "--transfer", "t.yaml", "--against-operation", "op-1"],
-     "A5"),
 ])
 def test_left_out_commands_exit_2_naming_their_item(argv, item):
     rc, out, err = run("port", argv)
@@ -365,7 +365,7 @@ def test_left_out_commands_exit_2_naming_their_item(argv, item):
     assert f"ROADMAP.md {item}" in err and "not ported" in err
 
 
-@pytest.mark.parametrize("kind,item", [("filestore", "A5"), ("s3", "A7")])
+@pytest.mark.parametrize("kind,item", [("s3", "A7")])
 def test_left_out_coordinators_name_their_item(kind, item, tmp_path):
     path = tmp_path / "t.yaml"
     path.write_text(YAML.format(sink="cli_coord"))
@@ -374,10 +374,64 @@ def test_left_out_coordinators_name_their_item(kind, item, tmp_path):
                      str(path)])
 
 
+def test_filestore_coordinator_needs_its_dir_as_jax(tmp_path):
+    path = tmp_path / "t.yaml"
+    path.write_text(YAML.format(sink="cli_fs_nodir"))
+    msgs = []
+    for pkg in ("port", "jax"):
+        with pytest.raises(SystemExit, match="coordinator-dir") as e:
+            run(pkg, ["--coordinator", "filestore", "activate",
+                      "--transfer", str(path)])
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+def test_filestore_activation_equals_jax(tmp_path):
+    """`activate` on the filestore coordinator: equal target rows, and
+    the operation's parts and fingerprints on disk, where a later
+    process (the checksum) reads them."""
+    from transferia_tpu.coordinator import FileStoreCoordinator as RefFS
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+
+    path = tmp_path / "t.yaml"
+    path.write_text(YAML.format(sink="cli_fs") +
+                    "validation: {fingerprint: true}\n")
+    got = {}
+    for pkg, mem, fs in (("port", port_memory, FileStoreCoordinator),
+                         ("jax", ref_memory, RefFS)):
+        mem.get_store("cli_fs").clear()
+        root = str(tmp_path / pkg)
+        rc, out, _ = run(pkg, ["--coordinator", "filestore",
+                               "--coordinator-dir", root, "activate",
+                               "--transfer", str(path)])
+        assert rc == 0 and "activated" in out
+        cp = fs(root=root)
+        got[pkg] = (sorted(tuple(r.column_values)
+                           for r in mem.get_store("cli_fs").rows()),
+                    cp.get_operation_state("op-yaml-test"),
+                    cp.operation_progress("op-yaml-test").done)
+    assert got["port"] == got["jax"]
+    assert len(got["port"][0]) == 50 and got["port"][2]
+
+
+def test_checksum_against_operation_without_fingerprints_as_jax(tmp_path):
+    path = tmp_path / "t.yaml"
+    path.write_text(YAML.format(sink="cli_against"))
+    outs = []
+    for pkg in ("port", "jax"):
+        outs.append(run(pkg, ["--coordinator", "filestore",
+                              "--coordinator-dir", str(tmp_path / pkg),
+                              "checksum", "--transfer", str(path),
+                              "--against-operation", "op-1"]))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 2 and "op-1: no recorded fingerprints" in \
+        outs[0][2]
+
+
 @pytest.mark.parametrize("argv", [
     ["describe", "--bogus"],
-    # the filestore/s3 coordinators' options go with them
-    ["--coordinator-dir", "/srv/fleet", "describe"],
+    # the s3 coordinator's options go with it
+    ["--coordinator-endpoint", "http://s3", "describe"],
     ["--coordinator-bucket", "b", "describe"],
 ])
 def test_unknown_argument_is_refused(argv):

@@ -21,8 +21,10 @@ wal2json stream of `recipes.cdc` through the CDC tails' decoders (the
 binlog reader, the GTID set, the wal2json decoder), imports `mvcc/`,
 runs a SNAPSHOT_AND_INCREMENT activation through the MVCC store and
 checksums its sink against the source with `tasks/checksum.py`
-(compare, and the fingerprint's host lanes and device route) and runs
-the CLI's `validate` on every example; afterwards neither jax, pyarrow,
+(compare, and the fingerprint's host lanes and device route), runs a
+two-worker sharded snapshot on the filestore coordinator (the workers as
+threads) and a Kafka -> `fs` partitioned replication into staged JSONL
+files, and runs the CLI's `validate` on every example; afterwards neither jax, pyarrow,
 yaml, transferia_tpu nor any transferia_tpu.* module may be loaded, and
 the only host library mapped is the port's own build.
 A second fresh interpreter imports every module of the telemetry plane
@@ -320,6 +322,63 @@ with open("/proc/self/maps") as fh:
     maps = {line.split()[-1] for line in fh if "libhostops" in line}
 print("MAPS", json.dumps(sorted(maps)))
 set_placement(None)
+# a sharded snapshot on the filestore coordinator, two workers as threads
+import tempfile
+from transferia_tpu_torch.coordinator import FileStoreCoordinator
+shard_root = tempfile.mkdtemp()
+def shard_job(i):
+    t = Transfer(id="iso-shard", src=SampleSourceParams(
+        preset="users", table="users", rows=600, shard_parts=3),
+        dst=MemoryTargetParams(sink_id="iso-shard"),
+        transformation={"transformers": [
+            {"mask_field": {"columns": ["email"], "salt": "s"}}]},
+        runtime=Runtime(current_job=i, sharding=ShardingUploadParams(
+            job_count=2)), validation={"fingerprint": True})
+    SnapshotLoader(t, FileStoreCoordinator(root=shard_root),
+                   device="cpu").upload_tables()
+shard_threads = [threading.Thread(target=shard_job, args=(i,))
+                 for i in range(2)]
+for th in shard_threads:
+    th.start()
+for th in shard_threads:
+    th.join()
+shard_cp = FileStoreCoordinator(root=shard_root)
+assert shard_cp.operation_progress("op-iso-shard").done
+assert get_store("iso-shard").row_count() == 600
+assert shard_cp.get_operation_state("op-iso-shard")["table_fingerprints"]
+# Kafka -> fs: one pipeline a partition into staged JSONL files
+import os
+from transferia_tpu_torch.providers.file import FileTargetParams
+k2fs_kf = FakeKafka(n_partitions=2).start()
+k2fs_client = KafkaClient([f"127.0.0.1:{k2fs_kf.port}"])
+for part in range(2):
+    k2fs_client.produce("hits", part, [Record(b"", json.dumps(
+        {"id": part * 100 + i, "url": f"u{i}", "region": i}).encode())
+        for i in range(50)])
+k2fs = Transfer(id="iso-k2fs", type=TransferType.INCREMENT_ONLY,
+    src=KafkaSourceParams(brokers=[f"127.0.0.1:{k2fs_kf.port}"],
+        topic="hits", parser={"json": {"table": "hits", "schema": [
+            {"name": "id", "type": "int64", "key": True},
+            {"name": "url", "type": "utf8"},
+            {"name": "region", "type": "int32"}]}}),
+    dst=FileTargetParams(path=os.path.join(shard_root, "fs"),
+                         format="jsonl"),
+    transformation=%r)
+k2fs_cp, k2fs_stop = MemoryCoordinator(), threading.Event()
+k2fs_th = threading.Thread(target=run_replication, args=(k2fs, k2fs_cp),
+    kwargs={"stop_event": k2fs_stop, "device": "cpu"}, daemon=True)
+k2fs_th.start()
+deadline = time.monotonic() + 60
+while k2fs_cp.get_transfer_state("iso-k2fs").get("kafka_offsets") != \
+        {"hits:0": 49, "hits:1": 49} and time.monotonic() < deadline:
+    time.sleep(0.02)
+k2fs_stop.set()
+k2fs_th.join(30)
+k2fs_lines = sum(len(open(os.path.join(shard_root, "fs", f)).readlines())
+                 for f in os.listdir(os.path.join(shard_root, "fs"))
+                 if f.endswith(".jsonl"))
+assert k2fs_lines == 100, k2fs_lines
+k2fs_kf.stop()
 # the CLI on every example, reading the YAML with the port's own reader
 import contextlib, glob, io, os
 from transferia_tpu_torch.cli.main import main as cli_main
@@ -336,7 +395,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
                                     "transferia_tpu"))
 print("LOADED", bad)
-""" % (CONFIG, CONFIG, CONFIG, CONFIG)
+""" % (CONFIG, CONFIG, CONFIG, CONFIG, CONFIG)
 
 
 def test_port_runs_without_jax_or_the_jax_package():
@@ -599,6 +658,40 @@ def test_replication_needs_a_card_or_the_cpu(device, monkeypatch):
     worker.run()
     stopper.join()
     assert store.row_count() >= 64
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_partitioned_worker_and_secondary_need_a_card_or_the_cpu(
+        device, monkeypatch, tmp_path):
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+    from transferia_tpu_torch.models import (
+        Runtime,
+        ShardingUploadParams,
+        Transfer,
+        TransferType,
+    )
+    from transferia_tpu_torch.providers.file import FileTargetParams
+    from transferia_tpu_torch.providers.kafka import KafkaSourceParams
+    from transferia_tpu_torch.providers.sample import SampleSourceParams
+    from transferia_tpu_torch.runtime.local import PartitionedWorker
+    from transferia_tpu_torch.tasks import SnapshotLoader
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cp = FileStoreCoordinator(root=str(tmp_path / "cp"))
+    t = Transfer(id="nocard-k2fs", type=TransferType.INCREMENT_ONLY,
+                 src=KafkaSourceParams(topic="hits"),
+                 dst=FileTargetParams(path=str(tmp_path / "fs"),
+                                      format="jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PartitionedWorker(t, cp, device=device)
+    sec = Transfer(id="nocard-sec", src=SampleSourceParams(rows=10),
+                   dst=FileTargetParams(path=str(tmp_path / "fs"),
+                                        format="jsonl"),
+                   runtime=Runtime(current_job=1, sharding=(
+                       ShardingUploadParams(job_count=2))))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SnapshotLoader(sec, cp, device=device)
+    assert PartitionedWorker(t, cp, device="cpu").device.type == "cpu"
 
 
 def test_cdc_tails_are_ported_and_left_outs_name_their_items():

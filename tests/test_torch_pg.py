@@ -332,14 +332,40 @@ def storage_calls(pkg: str):
         pg.stop()
 
 
+def shards_over_port_fake(pkg: str) -> list:
+    """`shard_table` of `pkg`'s storage over the port's fake, whose table
+    lies on heap pages."""
+    p = PKGS[pkg]
+    pg = FakePG().start()
+    try:
+        pg.add_table(FakeTable("public", "hits", HITS, hits_rows(3000)))
+        st = p["storage"](p["params"](host="127.0.0.1", port=pg.port,
+                                      database="db", user="u",
+                                      desired_part_size_bytes=1000))
+        try:
+            return [(str(s.id), s.filter, s.eta_rows) for s in
+                    st.shard_table(p["td"](id=p["tid"]("public", "hits"),
+                                           eta_rows=3000))]
+        finally:
+            st.close()
+    finally:
+        pg.stop()
+
+
 def test_storage_equals_jax():
     got = storage_calls("port")
-    assert got == storage_calls("jax")
+    want = storage_calls("jax")
+    # the JAX fake reports one page, so its table is one part; the
+    # port's fake lies on pages, and both storages split it alike
+    assert want.pop("shards") == [("public.hits", "", 3000)]
+    shards = got.pop("shards")
+    assert shards == shards_over_port_fake("jax")
+    assert len(shards) == 64 and shards[0][1] == \
+        "ctid >= '(0,0)'::tid AND ctid < '(1,0)'::tid"
+    assert got == want
     assert got["tables"] == [("public.hits", 3000)]
     assert got["position"] == {"wal_lsn": "0/ABCDEF0"}
     assert got["exact"] == 3000
-    # the fake reports one page, so the table is one part
-    assert got["shards"] == [("public.hits", "", 3000)]
 
 
 # -- activate_delivery: pg2ch --------------------------------------------------

@@ -10,8 +10,11 @@ describe / typesystem-docs / trace, global flags for the coordinator, the
 worker's sharding indices, the log level and a health port (`/health`,
 `/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`).
 The memory coordinator refuses `--job-count > 1`, since parts cannot be
-shared across processes in memory.  transfer.yaml is read without PyYAML
-(`cli/yamlread.py`).
+shared across processes in memory; a sharded snapshot runs one process a
+job on `--coordinator filestore --coordinator-dir D --job-count N
+--job-index i`, and `checksum --against-operation op-<id>` later proves
+the target against the fingerprints that snapshot recorded.
+transfer.yaml is read without PyYAML (`cli/yamlread.py`).
 
 `--device` (default `cuda`) is where every task the command runs does
 its device work; without a card the CLI raises unless it is `cpu`, which
@@ -19,9 +22,8 @@ runs the kernels' plain versions.
 
 Left out, each exiting 2 with a message naming its ROADMAP.md item
 (`LEFT_OUT`): the commands check, chaos, flight, fleet, worker, top, slo
-and explain, `trace --fleet`, `--coordinator filestore|s3`,
-`checksum --against-operation`, `--metrics-port`, and the health port's `/debug/slo`, `/debug/fleet` and
-`/debug/fleet/obs`.
+and explain, `trace --fleet`, `--coordinator s3`, `--metrics-port`, and
+the health port's `/debug/slo`, `/debug/fleet` and `/debug/fleet/obs`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import signal
 import sys
 import threading
 
-from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.coordinator import new_coordinator
 from transferia_tpu_torch.coordinator.interface import TransferStatus
 from transferia_tpu_torch.runtime.device import resolve_device
 
@@ -48,10 +50,6 @@ LEFT_OUT = {
     "slo": "A5, the telemetry that waits (stats/slo.py)",
     "explain": "A5, the telemetry that waits (stats/critpath.py)",
     "trace --fleet": "A5, the telemetry that waits (stats/fleetobs.py)",
-    "--coordinator filestore": "A5, coordinator/filestore.py",
-    "checksum --against-operation": "A5, coordinator/filestore.py (the "
-                                    "memory coordinator keeps no "
-                                    "fingerprints across processes)",
     "--coordinator s3": "A7, the s3 coordinator (coordinator/s3store.py)",
     "--metrics-port": "A5, the telemetry that waits (the Prometheus "
                       "exposition)",
@@ -80,7 +78,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--coordinator", default="memory",
                    choices=["memory", "filestore", "s3"],
-                   help="control-plane backend (the port has memory)")
+                   help="control-plane backend: memory (one process) or "
+                        "filestore (a shared directory; sharded workers); "
+                        "s3 is not ported")
+    p.add_argument("--coordinator-dir", default="",
+                   help="filestore coordinator root directory")
     p.add_argument("--job-index", type=int, default=0,
                    help="this worker's index (0 = main)")
     p.add_argument("--job-count", type=int, default=0,
@@ -146,9 +148,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="where the fingerprint reduction runs "
                           "(auto measures, see ops/linkprobe.py)")
     chk.add_argument("--against-operation", default="",
-                     help="compare the target against a snapshot's "
-                          "recorded fingerprints (not ported: it needs a "
-                          "coordinator that outlives the process)")
+                     help="compare the TARGET against the table "
+                          "fingerprints a snapshot operation recorded "
+                          "(validation: {fingerprint: true}) without "
+                          "re-reading the source; needs the coordinator "
+                          "that operation ran on")
     add_transfer_cmd("validate", "parse and validate the transfer config")
     add_transfer_cmd("deactivate",
                      "release source resources (replication slots etc.)")
@@ -317,15 +321,21 @@ def _start_health_server(port: int):
 
 
 def _coordinator(args):
-    if args.coordinator in ("filestore", "s3"):
-        raise SystemExit(left_out_message(f"--coordinator {args.coordinator}"))
+    if args.coordinator == "filestore":
+        if not args.coordinator_dir:
+            raise SystemExit(
+                "--coordinator filestore requires --coordinator-dir"
+            )
+        return new_coordinator("filestore", root=args.coordinator_dir)
+    if args.coordinator == "s3":
+        raise SystemExit(left_out_message("--coordinator s3"))
     # memory coordinator cannot share parts across processes
     if args.job_count > 1:
         raise SystemExit(
             "--coordinator memory does not support --job-count > 1; "
             "use --coordinator filestore or s3 (main.go:118-121 parity)"
         )
-    return MemoryCoordinator()
+    return new_coordinator("memory")
 
 
 def _load_transfer(args):
@@ -361,8 +371,6 @@ def main(argv=None) -> int:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
     if args.command == "trace" and args.fleet:
         left = "trace --fleet"
-    elif args.command == "checksum" and args.against_operation:
-        left = "checksum --against-operation"
     elif args.metrics_port:
         left = "--metrics-port"
     if left:
@@ -429,7 +437,7 @@ def main(argv=None) -> int:
         return cmd_replicate(args, transfer, cp, device)
 
     if args.command == "checksum":
-        return cmd_checksum(args, transfer, device)
+        return cmd_checksum(args, transfer, cp, device)
 
     if args.command == "deactivate":
         from transferia_tpu_torch.providers.registry import get_provider
@@ -489,9 +497,72 @@ def cmd_replicate(args, transfer, cp, device) -> int:
     return 0
 
 
-def cmd_checksum(args, transfer, device) -> int:
+def _recorded_table(fqtn: str):
+    """The table a recorded fingerprint's key names: the snapshot keys
+    its digests by `TableID.fqtn()` (`"ns"."name"`).  The reference
+    splits the key at its first dot and keeps the quotes, so its lookup
+    fails on every table; the port reads the key back into its parts
+    (ROADMAP.md C, a deliberate difference)."""
+    import re
+
+    from transferia_tpu_torch.abstract.schema import TableID
+
+    m = re.fullmatch(r'"([^"]*)"\."([^"]*)"', fqtn) or \
+        re.fullmatch(r'()"([^"]*)"', fqtn)
+    return TableID(*m.groups()) if m else TableID.parse(fqtn)
+
+
+def _checksum_against_operation(args, cp, dst_storage, device) -> int:
+    """Target-only validation: fingerprint every table the snapshot
+    recorded (the digests in the operation state) on `device` and
+    compare; the source is never read again."""
+    from transferia_tpu_torch.abstract.interfaces import is_columnar
+    from transferia_tpu_torch.abstract.table import TableDescription
+    from transferia_tpu_torch.columnar.batch import ColumnBatch
+    from transferia_tpu_torch.ops.rowhash import TableFingerprinter
+
+    state = cp.get_operation_state(args.against_operation)
+    recorded = state.get("table_fingerprints") or {}
+    if not recorded:
+        print(f"operation {args.against_operation}: no recorded "
+              f"fingerprints (was the snapshot run with validation: "
+              f"{{fingerprint: true}}?)", file=sys.stderr)
+        return 2
+    rc = 0
+    for fqtn, want in sorted(recorded.items()):
+        tid = _recorded_table(fqtn)
+        fp = TableFingerprinter(backend=args.fingerprint_backend,
+                                device=device)
+
+        def pusher(batch):
+            if is_columnar(batch):
+                fp.push(batch)
+                return
+            rows = [it for it in batch if it.is_row_event()]
+            if rows:
+                fp.push(ColumnBatch.from_rows(rows))
+
+        try:
+            dst_storage.load_table(TableDescription(id=tid), pusher)
+        except Exception as e:
+            print(f"{fqtn}: ERROR reading target: {e}")
+            rc = 1
+            continue
+        got = fp.result().digest()
+        if got == want:
+            print(f"{fqtn}: OK [fingerprint] {got}")
+        else:
+            print(f"{fqtn}: MISMATCH [fingerprint] uploaded={want} "
+                  f"target={got}")
+            rc = 1
+    return rc
+
+
+def cmd_checksum(args, transfer, cp, device) -> int:
     """The full validation task: sampling storages, type-aware
-    comparators, streaming compare; the fingerprint on `device`."""
+    comparators, streaming compare; the fingerprint on `device`.  With
+    `--against-operation`, the target against a snapshot's recorded
+    fingerprints."""
     from transferia_tpu_torch.abstract.schema import TableID
     from transferia_tpu_torch.factories import new_storage
     from transferia_tpu_torch.providers.registry import get_provider
@@ -511,6 +582,8 @@ def cmd_checksum(args, transfer, device) -> int:
         print("destination provider has no storage view of the target; "
               "cannot checksum", file=sys.stderr)
         return 2
+    if args.against_operation:
+        return _checksum_against_operation(args, cp, dst_storage, device)
     src_storage = new_storage(transfer)
     params = ChecksumParameters()
     if args.size_threshold is not None:

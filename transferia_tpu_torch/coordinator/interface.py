@@ -1,9 +1,11 @@
-"""Coordinator interface (the port's copy of the transfer, operation,
-part-queue, lease, staged-commit, replication (failure, status
-message, heartbeat) and MVCC control-plane groups of
-``transferia_tpu/coordinator/interface.py``).  The fleet ticket queue
-and the observability segments wait for their slices (ROADMAP.md A5,
-A7).
+"""Coordinator interface (the port's copy of
+``transferia_tpu/coordinator/interface.py``): transfer status and state,
+operation state, the part queue with its leases, the staged-commit
+decision, the fleet ticket queue, the observability segments, the MVCC
+control plane and its blobs, and worker health.  A backend offers an
+optional group by overriding its methods; `supports_ticket_queue`,
+`supports_obs_segments`, `supports_mvcc` and `supports_mvcc_blobs`
+probe for the override, as in the reference.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 from transferia_tpu_torch.abstract.table import OperationTablePart
+from transferia_tpu_torch.abstract.ticket import FleetTicket
 from transferia_tpu_torch.runtime import knobs
 
 # Part-claim lease TTL (seconds).  A claim is a lease: the holding worker
@@ -26,6 +29,32 @@ ENV_LEASE_SECONDS = "TRANSFERIA_TPU_LEASE_SECONDS"
 
 def default_lease_seconds() -> float:
     return knobs.env_float(ENV_LEASE_SECONDS, DEFAULT_LEASE_SECONDS)
+
+
+# terminal fleet tickets older than this are pruned by gc_tickets
+DEFAULT_TICKET_RETENTION = 86_400.0
+ENV_TICKET_RETENTION = "TRANSFERIA_TPU_TICKET_RETENTION"
+
+
+def ticket_retention_seconds() -> float:
+    return knobs.env_float(ENV_TICKET_RETENTION, DEFAULT_TICKET_RETENTION)
+
+
+# observability segments: an age bound plus a per-worker count bound, so
+# the store stays O(workers)
+DEFAULT_OBS_RETENTION = 3_600.0
+ENV_OBS_RETENTION = "TRANSFERIA_TPU_OBS_RETENTION"
+DEFAULT_OBS_SEGMENTS_PER_WORKER = 8
+ENV_OBS_SEGMENTS_PER_WORKER = "TRANSFERIA_TPU_OBS_SEGMENTS_PER_WORKER"
+
+
+def obs_retention_seconds() -> float:
+    return knobs.env_float(ENV_OBS_RETENTION, DEFAULT_OBS_RETENTION)
+
+
+def obs_segments_per_worker() -> int:
+    return max(1, int(knobs.env_float(ENV_OBS_SEGMENTS_PER_WORKER,
+                                      DEFAULT_OBS_SEGMENTS_PER_WORKER)))
 
 
 def deadline_expired(expires_at: float,
@@ -110,6 +139,12 @@ class Coordinator(abc.ABC):
     def create_operation_parts(self, operation_id: str,
                                parts: list[OperationTablePart]) -> None:
         """The main worker publishes the part work queue."""
+
+    def add_operation_parts(self, operation_id: str,
+                            parts: list[OperationTablePart]) -> None:
+        """Append parts to an existing queue (async part discovery
+        streams parts while the upload runs)."""
+        raise NotImplementedError
 
     @abc.abstractmethod
     def assign_operation_part(self, operation_id: str,
@@ -209,12 +244,111 @@ class Coordinator(abc.ABC):
         idempotent.  Returns records pruned."""
         return 0
 
+    # -- MVCC layer blobs ----------------------------------------------------
+    #
+    # The reference spills encoded base versions and delta layers as
+    # opaque blobs; `put` returns a locator the same backend's `get`
+    # resolves, and re-putting (scope, name) replaces.  The spill itself
+    # needs pyarrow (ROADMAP.md A7, blocked): the port's store keeps its
+    # layers in memory, and the blob stores wait for it.
+
     def supports_mvcc_blobs(self) -> bool:
-        """Whether the backend can store the MVCC spill's blobs: the
-        reference's answer.  The spill needs pyarrow, which the port does
-        not import, so the port's store keeps its layers in memory and
-        has no blob store to call (ROADMAP.md A7, blocked)."""
-        return False
+        return type(self).put_mvcc_blob is not Coordinator.put_mvcc_blob
+
+    def put_mvcc_blob(self, scope: str, name: str, data: bytes) -> str:
+        """Durably store one blob under (scope, name); its locator."""
+        raise NotImplementedError
+
+    def get_mvcc_blob(self, scope: str, locator: str) -> Optional[bytes]:
+        """A stored blob by its locator (None when it is gone)."""
+        return None
+
+    def delete_mvcc_blobs(self, scope: str, locators: list) -> int:
+        """Blob GC; idempotent.  Returns blobs deleted."""
+        return 0
+
+    # -- the fleet's durable admission queue ---------------------------------
+    #
+    # Tickets share the part queue's lease and epoch-fencing rules
+    # (abstract/ticket.py holds the state machine).  Backends without
+    # the queue keep the defaults (raise).
+
+    def supports_ticket_queue(self) -> bool:
+        return type(self).claim_ticket is not Coordinator.claim_ticket
+
+    def enqueue_ticket(self, queue: str,
+                       ticket: FleetTicket) -> FleetTicket:
+        """Durably append a ticket with the next queue seq; idempotent by
+        ticket_id (an existing id returns the stored ticket)."""
+        raise NotImplementedError
+
+    def list_tickets(self, queue: str) -> list[FleetTicket]:
+        """Every ticket in the queue (any state), seq-ordered."""
+        raise NotImplementedError
+
+    def claim_ticket(self, queue: str, ticket_id: str,
+                     worker_id: str) -> Optional[FleetTicket]:
+        """Atomically claim one ticket: queued, or claimed with an
+        expired lease (recorded as `stolen_from`).  Every claim bumps
+        `claim_epoch` and stamps a fresh lease.  None = not claimable."""
+        raise NotImplementedError
+
+    def renew_ticket_leases(self, queue: str, worker_id: str,
+                            ticket_id: Optional[str] = None,
+                            claim_epoch: Optional[int] = None) -> int:
+        """Heartbeat: extend the leases of the tickets this worker holds
+        (scoped to `ticket_id` and fenced to `claim_epoch` when given);
+        the number renewed."""
+        return 0
+
+    def complete_ticket(self, queue: str, ticket: FleetTicket,
+                        error: str = "") -> bool:
+        """Epoch-fenced terminal transition (done, or failed with
+        `error`).  False = fenced."""
+        raise NotImplementedError
+
+    def release_ticket(self, queue: str, ticket: FleetTicket,
+                       failed: bool = False) -> bool:
+        """Epoch-fenced return to the queue; `failed=True` counts against
+        the retry budget.  False = fenced."""
+        raise NotImplementedError
+
+    def revoke_ticket(self, queue: str,
+                      ticket_id: str) -> Optional[FleetTicket]:
+        """Preemption: a claimed ticket back to the queue with its epoch
+        bumped; None when it was not claimed."""
+        raise NotImplementedError
+
+    def gc_tickets(self, queue: str,
+                   retention_seconds: Optional[float] = None) -> int:
+        """Prune terminal tickets older than the retention; the number
+        pruned."""
+        return 0
+
+    # -- durable observability segments ---------------------------------------
+    #
+    # Plain JSON dicts keyed by (worker, seq): re-putting the same key
+    # replaces.  Readers skip torn segments.  Backends without support
+    # keep the defaults, and the export turns itself off.
+
+    def supports_obs_segments(self) -> bool:
+        return type(self).put_obs_segment is not \
+            Coordinator.put_obs_segment
+
+    def put_obs_segment(self, scope: str, segment: dict) -> None:
+        """Store one segment (it carries `worker` and `seq`) under
+        `scope`."""
+        raise NotImplementedError
+
+    def list_obs_segments(self, scope: str) -> list[dict]:
+        """Every readable segment in the scope, (worker, seq)-ordered."""
+        return []
+
+    def gc_obs_segments(self, scope: str,
+                        retention_seconds: Optional[float] = None) -> int:
+        """Prune segments over the age bound and past each worker's count
+        bound; the number pruned."""
+        return 0
 
     def operation_health(self, operation_id: str, worker_index: int,
                          payload: Optional[dict] = None) -> None:

@@ -1,5 +1,5 @@
 """In-process coordinator (the port's copy of the operation, lease,
-staged-commit and MVCC control-plane parts of
+staged-commit and MVCC control-plane and blob parts of
 ``transferia_tpu/coordinator/memory.py``, with the replication loop's
 status messages and heartbeats).
 
@@ -67,6 +67,8 @@ class MemoryCoordinator(Coordinator):
         self._health_latest: dict[tuple[str, int], dict] = {}
         self._mvcc_lock = lockwatch.named_lock("coordinator.mvcc")
         self._mvcc: dict[str, dict] = {}
+        # MVCC blobs: heap bytes keyed by locator, for the process's life
+        self._mvcc_blobs: dict[str, dict[str, bytes]] = {}
 
     def _op(self, operation_id: str) -> _OpState:
         """Get-or-create the operation's slot (never replaced)."""
@@ -275,8 +277,25 @@ class MemoryCoordinator(Coordinator):
                 return 0
             return mvccfence.prune_layers_in_place(doc, keys)
 
-    def supports_mvcc_blobs(self) -> bool:
-        return True  # the reference's MemoryCoordinator stores blobs
+    # -- MVCC blobs -----------------------------------------------------------
+    def put_mvcc_blob(self, scope: str, name: str, data: bytes) -> str:
+        locator = f"heap://{scope}/{name}"
+        with self._mvcc_lock:
+            self._mvcc_blobs.setdefault(scope, {})[locator] = bytes(data)
+        return locator
+
+    def get_mvcc_blob(self, scope: str, locator: str):
+        with self._mvcc_lock:
+            return self._mvcc_blobs.get(scope, {}).get(locator)
+
+    def delete_mvcc_blobs(self, scope: str, locators: list) -> int:
+        deleted = 0
+        with self._mvcc_lock:
+            blobs = self._mvcc_blobs.get(scope, {})
+            for loc in locators:
+                if blobs.pop(loc, None) is not None:
+                    deleted += 1
+        return deleted
 
     # -- worker health ------------------------------------------------------
     def operation_health(self, operation_id: str, worker_index: int,

@@ -585,6 +585,15 @@ class ClickHouseProvider(Provider):
             return CHSinker(self.transfer.dst, self.device)
         return None
 
+    def destination_storage(self):
+        """A storage view of the target (the checksum reads it)."""
+        dst = self.transfer.dst
+        if isinstance(dst, CHTargetParams):
+            return CHStorage(CHSourceParams(
+                host=dst.host, port=dst.port, database=dst.database,
+                user=dst.user, password=dst.password, secure=dst.secure))
+        return None
+
     def cleanup(self, tables: list) -> None:
         """Activation cleanup of the target tables by the endpoint's
         CleanupPolicy (DROP, else TRUNCATE)."""

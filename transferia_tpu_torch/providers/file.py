@@ -1,5 +1,6 @@
-"""Local-filesystem object provider: Parquet files as a table (the port's
-copy of the Parquet route of ``transferia_tpu/providers/file.py``).
+"""Local-filesystem object provider: Parquet files as a table, and JSONL
+files as a target (the port's copy of the Parquet source and the `jsonl`
+sink of ``transferia_tpu/providers/file.py``).
 
 Parquet is the columnar fast path: row groups decode straight to
 ColumnBatch in the host library (providers/parquet_native.py), runs of
@@ -7,27 +8,41 @@ row groups are shardable parts, zone maps prune whole groups before
 decode (predicate/stats.py) and the chain's pushed-down filter drops
 rows right after it (`_batch_filter`).
 
+The sink (`FileSinker`) writes one `<table>.<token>.jsonl` file a table
+and sink instance (a token a sinker, so parallel part sinks never share
+a path) and is staged-commit capable: with an open part stage the
+batches go to `<path>/.staging/<part>.e<epoch>/` and only the fenced
+publish renames them in (`providers/staging.py::DirectoryPartStage`).
+
 Not ported (they raise NotImplementedError naming ROADMAP.md A7): the
-CSV and JSONL formats, the JAX package's arrow routes (its arrow-side
-scan filter, the arrow decode of columns outside the native decoder's
-envelope, and the `iter_batches` stream of row groups too large to
-decode whole) and the `fs` sink, whose Parquet writer is pyarrow's.
+CSV and JSONL source formats, the JAX package's arrow routes (its
+arrow-side scan filter, the arrow decode of columns outside the native
+decoder's envelope, and the `iter_batches` stream of row groups too
+large to decode whole) and the sink's `parquet` format, whose writer is
+pyarrow's (blocked).
 """
 
 from __future__ import annotations
 
 import glob as globmod
+import json
 import os
+import re
 import threading
+import uuid
 from dataclasses import dataclass
 from typing import Optional
 
+from transferia_tpu_torch.abstract.commit import StagedSinker
 from transferia_tpu_torch.abstract.interfaces import (
+    Batch,
     Pusher,
     ScanPredicateStorage,
     ShardingStorage,
+    Sinker,
     Storage,
     TableInfo,
+    is_columnar,
 )
 from transferia_tpu_torch.abstract.schema import TableID, TableSchema
 from transferia_tpu_torch.abstract.table import TableDescription
@@ -54,6 +69,7 @@ from transferia_tpu_torch.providers.registry import (
     Provider,
     register_provider,
 )
+from transferia_tpu_torch.runtime.device import DeviceLike
 from transferia_tpu_torch.runtime.limits import effective_cpus
 from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.stats import stagetimer, trace
@@ -334,6 +350,99 @@ class FileStorage(Storage, ShardingStorage, ScanPredicateStorage):
         self._load_groups_native(meta, path, groups, tid, schema, pusher)
 
 
+class FileSinker(Sinker, StagedSinker):
+    """Writes one JSONL file a table and sinker instance.
+
+    File names carry a per-sinker token: the snapshot loader builds one
+    sink pipeline a part, in parallel, so two instances never share an
+    output path.  Staged-commit capable: with an open part stage the
+    batches go to `<path>/.staging/<part>.e<epoch>/` and only an
+    epoch-fenced `publish_part` renames them into the output directory
+    (replacing any files an earlier publish of the same part landed);
+    the stage's dedup window keys each push on `device`.  The `parquet`
+    format needs pyarrow's writer and raises (ROADMAP.md A7, blocked)."""
+
+    def __init__(self, params: FileTargetParams, device: DeviceLike = None):
+        if params.format == "parquet":
+            raise NotImplementedError(
+                "fs sink: the parquet format needs pyarrow's Parquet "
+                "writer, which the port does not import (ROADMAP.md A7, "
+                "blocked); use format: jsonl")
+        self.params = params
+        self.device = device
+        os.makedirs(params.path, exist_ok=True)
+        self._token = uuid.uuid4().hex[:8]
+        self._stage = None  # staging.DirectoryPartStage when open
+
+    # -- StagedSinker -------------------------------------------------------
+    def begin_part(self, key: str, epoch: int) -> None:
+        from transferia_tpu_torch.providers.staging import (
+            DirectoryPartStage,
+        )
+
+        self._stage = DirectoryPartStage(
+            self.params.path, key, epoch,
+            lambda d: FileSinker(FileTargetParams(
+                path=d, format=self.params.format)),
+            device=self.device)
+
+    def publish_part(self, key: str, epoch: int) -> int:
+        if self._stage is None:
+            raise RuntimeError(f"fs sink: no open stage for {key!r}")
+        rows = self._stage.publish()
+        self.last_dedup_dropped = self._stage.state.dedup_dropped
+        self._stage = None
+        return rows
+
+    def abort_part(self, key: str) -> None:
+        if self._stage is not None:
+            self._stage.abort()
+            self._stage = None
+
+    def note_push_retry(self) -> None:
+        if self._stage is not None:
+            self._stage.note_push_retry()
+
+    def _base_name(self, tid: TableID) -> str:
+        # empty namespaces must not produce hidden ".name..." dotfiles
+        return f"{tid.namespace}.{tid.name}" if tid.namespace \
+            else tid.name
+
+    def push(self, batch: Batch) -> None:
+        if self._stage is not None:
+            self._stage.push(batch)
+            return
+        if is_columnar(batch):
+            self._write_columnar(batch)
+            return
+        from transferia_tpu_torch.middlewares.helpers import (
+            split_rows_controls,
+        )
+
+        for part in split_rows_controls(batch):
+            items = list(part)
+            if items and items[0].is_row_event():
+                self._write_columnar(ColumnBatch.from_rows(items))
+
+    def _write_columnar(self, batch: ColumnBatch) -> None:
+        if self.params.format != "jsonl":
+            raise ValueError(
+                f"fs sink: unknown format {self.params.format!r}")
+        path = os.path.join(
+            self.params.path,
+            f"{self._base_name(batch.table_id)}.{self._token}.jsonl")
+        with open(path, "a") as fh:
+            for row in batch.to_rows():
+                fh.write(json.dumps(row.as_dict(), default=str) + "\n")
+
+    def close(self) -> None:
+        if self._stage is not None:
+            # an unpublished stage at close is an abandoned attempt (the
+            # error path or a fenced part): discard, never publish
+            self._stage.abort()
+            self._stage = None
+
+
 @register_provider
 class FileProvider(Provider):
     NAME = "fs"
@@ -344,4 +453,24 @@ class FileProvider(Provider):
             upload_workers=self.transfer.runtime.sharding.process_count)
 
     def sinker(self):
-        raise NotImplementedError(f"fs sink: {NOT_PORTED}")
+        return FileSinker(self.transfer.dst, device=self.device)
+
+    def cleanup(self, tables: list) -> None:
+        """Drop the named tables' output files (each sinker writes files
+        of its own token, so a reupload without cleanup would put the
+        data twice side by side).  Matches the exact
+        `<base>.<8-hex-token>[.<6-digit-counter>][.part-<slug>].<ext>`
+        layout, so table "A"."B" never deletes "A"."B.X"'s files."""
+        path = getattr(self.transfer.dst, "path", "")
+        if not path or not os.path.isdir(path):
+            return
+        for t in tables or []:
+            tid = getattr(t, "id", t)
+            base = f"{tid.namespace}.{tid.name}" if tid.namespace \
+                else tid.name
+            pat = re.compile(
+                re.escape(base)
+                + r"\.[0-9a-f]{8}(\.\d{6})?(\.part-[\w.-]+)?\.\w+$")
+            for fname in os.listdir(path):
+                if pat.fullmatch(fname):
+                    os.unlink(os.path.join(path, fname))

@@ -133,21 +133,29 @@ class _KafkaQueueClient:
 
     STATE_KEY = "kafka_offsets"
 
-    # one lock for all clients of a process: clients that share a
-    # transfer's state blob must not lose each other's offsets in
-    # concurrent read-modify-writes
+    # one lock for all clients of a process: the partitioned strategy
+    # runs one client a partition against the same transfer-state blob,
+    # and a lock an instance would let concurrent read-modify-writes lose
+    # another partition's committed offset
     _commit_lock = threading.Lock()
 
     def __init__(self, params: KafkaSourceParams, transfer_id: str,
-                 coordinator: Optional[Coordinator]):
+                 coordinator: Optional[Coordinator],
+                 partitions: Optional[list[int]] = None):
+        """partitions: restrict to a subset (the partitioned replication
+        strategy runs one client a partition)."""
         self.params = params
         self.transfer_id = transfer_id
         self.cp = coordinator
         self.client = _make_client(params)
         meta = self.client.metadata([params.topic])
-        partitions = meta.get(params.topic)
-        if not partitions:
+        all_partitions = meta.get(params.topic)
+        if not all_partitions:
             raise KafkaError(f"topic {params.topic!r} not found")
+        if partitions is not None:
+            all_partitions = [p for p in all_partitions
+                              if p in set(partitions)]
+        partitions = all_partitions
         saved = {}
         if self.cp is not None:
             saved = self.cp.get_transfer_state(transfer_id).get(

@@ -370,6 +370,12 @@ class MemoryProvider(Provider):
             return MemoryStorage(self.transfer.src)
         return None
 
+    def destination_storage(self):
+        """What the sink captured (the checksum reads the target)."""
+        if isinstance(self.transfer.dst, MemoryTargetParams):
+            return MemoryStoreStorage(self.transfer.dst.sink_id)
+        return None
+
     def sinker(self):
         if isinstance(self.transfer.dst, MemoryTargetParams):
             return MemorySinker(self.transfer.dst, self.device)

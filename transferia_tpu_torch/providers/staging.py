@@ -1,5 +1,6 @@
 """Staging machinery for staged-commit sinks (the port's copy of the
-parts of ``transferia_tpu/providers/staging.py`` the memory sink uses).
+parts of ``transferia_tpu/providers/staging.py`` the memory, ClickHouse,
+Postgres, Kafka and `fs` sinks use).
 
 - `PartStage` is one part's staging state: the `(key, epoch)` identity,
   the in-memory batch buffer and the torn-write dedup window;
@@ -15,7 +16,10 @@ parts of ``transferia_tpu/providers/staging.py`` the memory sink uses).
   last accepted publish of a key raises `StaleEpochPublishError`;
 - `WireStage` and the `__trtpu_` naming (`part_slug`, `stage_ident`,
   `META_COLUMN`, `COMMITS_TABLE`) serve the wire sinks (ClickHouse):
-  a part stages into its own table and publish swaps it in.
+  a part stages into its own table and publish swaps it in;
+- `DirectoryPartStage` is the directory sinks' (`fs`) staging: an inner
+  sink writes the part into `<root>/.staging/<slug>.e<epoch>/` and the
+  publish renames the files in behind a marker-file epoch fence.
 
 `PartStage.stage` owns the `sink.stage` failpoint and the `sink_stage`
 span; `publish_guard` wraps every publish with the `sink.publish`
@@ -25,7 +29,10 @@ failpoint and the `sink_publish` span, as in the reference.
 from __future__ import annotations
 
 import hashlib
+import json
+import os
 import re
+import shutil
 import threading
 from typing import Optional
 
@@ -230,6 +237,111 @@ class WireStage:
         self.state = PartStage(key, epoch, hold=False, device=device)
         self.tid = None
         self.schema = None
+
+
+class DirectoryPartStage:
+    """File-backed staging for directory sinks (`fs`).
+
+    An inner sink instance writes the part's batches into
+    `<root>/.staging/<slug>.e<epoch>/` (a dot directory: invisible to the
+    storage readers' globs); `publish` renames the staged files into
+    `<root>` under part-keyed names (`<staged name>.part-<slug>.<ext>`),
+    replacing the files an earlier publish of the same part landed,
+    behind a marker-file epoch fence
+    (`<root>/.staging/.published.<slug>.json`).  The dedup window keys
+    each push on `device` (K10 on a card)."""
+
+    def __init__(self, root: str, key: str, epoch: int, make_inner,
+                 dedup_rows: int = DEDUP_WINDOW_ROWS,
+                 device: DeviceLike = None):
+        self.root = root
+        self.key = key
+        self.epoch = epoch
+        self.slug = part_slug(key)
+        # the directory carries the epoch: a zombie and the survivor that
+        # reclaimed its part stage side by side, and only the fenced
+        # publish decides whose files land
+        self.dir = os.path.join(root, ".staging", f"{self.slug}.e{epoch}")
+        # begin replaces, for every epoch of this key: a crashed earlier
+        # owner's directory would otherwise stay forever.  The epoch
+        # suffix matches exactly, so a dotted sibling slug is never swept
+        staging_root = os.path.join(root, ".staging")
+        pat = re.compile(rf"^{re.escape(self.slug)}\.e\d+$")
+        try:
+            leftovers = os.listdir(staging_root)
+        except OSError:
+            leftovers = []
+        for name in leftovers:
+            if pat.match(name):
+                shutil.rmtree(os.path.join(staging_root, name),
+                              ignore_errors=True)
+        os.makedirs(self.dir, exist_ok=True)
+        self.inner = make_inner(self.dir)
+        self.state = PartStage(key, epoch, hold=False,
+                               dedup_rows=dedup_rows, device=device)
+        self._closed = False
+
+    def push(self, batch: Batch) -> None:
+        staged = self.state.stage(batch)
+        try:
+            self.inner.push(staged)
+        except BaseException:
+            # the staging write died after the dedup window recorded this
+            # batch: the staged files hold an unknown prefix, so only a
+            # full part restage (begin replaces) is safe
+            self.state.mark_failed()
+            raise
+
+    def note_push_retry(self) -> None:
+        self.state.note_push_retry()
+
+    def _marker(self) -> str:
+        return os.path.join(self.root, ".staging",
+                            f".published.{self.slug}.json")
+
+    def publish(self) -> int:
+        with publish_guard(self.key, self.epoch):
+            if not self._closed:
+                self.inner.close()
+                self._closed = True
+            # the sink-side epoch fence, persisted beside the staging area
+            marker = self._marker()
+            try:
+                with open(marker) as fh:
+                    prev = int(json.load(fh).get("epoch", -1))
+            except (FileNotFoundError, ValueError, OSError):
+                prev = None
+            if prev is not None and self.epoch < prev:
+                raise StaleEpochPublishError(self.key, self.epoch, prev)
+            # replace: drop what an older publish of this part landed
+            infix = f".part-{self.slug}."
+            for fname in os.listdir(self.root):
+                if infix in fname:
+                    os.remove(os.path.join(self.root, fname))
+            # then move the staged files in (same-filesystem renames; a
+            # crash mid-loop is recovered by the retried part's
+            # republish, which replaces everything again)
+            for fname in sorted(os.listdir(self.dir)):
+                stem, dot, ext = fname.rpartition(".")
+                out = f"{stem}{infix}{ext}" if dot else \
+                    f"{fname}{infix}dat"
+                os.replace(os.path.join(self.dir, fname),
+                           os.path.join(self.root, out))
+            tmp = f"{marker}.tmp.{os.getpid()}"
+            with open(tmp, "w") as fh:
+                json.dump({"epoch": self.epoch, "key": self.key}, fh)
+            os.replace(tmp, marker)
+            os.rmdir(self.dir)
+            return self.state.rows
+
+    def abort(self) -> None:
+        if not self._closed:
+            try:
+                self.inner.close()
+            except Exception:  # best-effort abort
+                pass
+            self._closed = True
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 class EpochFence:

@@ -17,6 +17,13 @@ into a table of a few hundred thousand rows keeps pace; a DELETE by key
 moves the table's last row into the deleted row's place.  The rows
 these statements leave are the JAX fake's, as a set
 (`tests/test_torch_pg_sink.py`).
+
+A table's rows lie on heap pages of `ROWS_PER_PAGE` rows each (the JAX
+fake has one page a table): row i is on page i // ROWS_PER_PAGE,
+`relpages` counts the pages, `pg_relation_size` stays 100 bytes a row,
+and a `ctid >= '(lo,0)'::tid AND ctid < '(hi,0)'::tid` condition selects
+the rows of pages lo..hi-1, so the provider's ctid split reads each row
+once.
 """
 
 from __future__ import annotations
@@ -32,6 +39,19 @@ import socketserver
 import struct
 import threading
 from base64 import b64decode, b64encode
+
+# rows on one heap page: an 8 KiB page of the 100-byte rows that
+# pg_relation_size reports
+ROWS_PER_PAGE = 8192 // 100
+
+
+def _ctid_slice(cond: str) -> slice:
+    """The rows of a ctid block range `ctid >= '(lo,0)'::tid AND ctid <
+    '(hi,0)'::tid`: pages lo..hi-1."""
+    lo = re.search(r"ctid >= '\((\d+),0\)'", cond)
+    hi = re.search(r"ctid < '\((\d+),0\)'", cond)
+    return slice(int(lo.group(1)) * ROWS_PER_PAGE if lo else None,
+                 int(hi.group(1)) * ROWS_PER_PAGE if hi else None)
 
 
 class _PGStateError(Exception):
@@ -394,7 +414,10 @@ class _Session:
             size = len(t.rows) * 100 if t else 0
             return self.send_rows(["size"], [[size]])
         if "relpages" in low:
-            return self.send_rows(["relpages"], [[1]])
+            m = re.search(r"'\"?(\w+)\"?\.\"?(\w+)\"?'", sql)
+            t = fake.tables.get((m.group(1), m.group(2))) if m else None
+            pages = -(-len(t.rows) // ROWS_PER_PAGE) if t else 0
+            return self.send_rows(["relpages"], [[pages]])
         if low.startswith("copy (") and "to stdout" in low:
             return self.copy_out(sql)
         if low.startswith("copy ") and "from stdin" in low:
@@ -546,7 +569,7 @@ class _Session:
             if "random()" in cond:
                 rows = rows[::7]  # deterministic "random" subsample
             elif "ctid" in cond:
-                pass  # single-page tables: every part sees all rows
+                rows = rows[_ctid_slice(cond)]
             elif '" = ' in cond or '"=' in cond:
                 keysets = []
                 for group in re.findall(r"\(([^()]*)\)", cond):

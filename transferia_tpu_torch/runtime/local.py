@@ -7,13 +7,14 @@ regular snapshot (`run_regular_snapshot`).
 
 `device` is where the sink pipeline's device work runs (the chain's
 fused steps): None means CUDA, which must be present; "cpu" runs the
-kernels' plain versions.  The partitioned strategy (Kafka -> object
-storage, one pipeline a partition) raises NotImplementedError
-(ROADMAP.md A5).  An attempt is one
+kernels' plain versions.  Kafka -> object storage (`fs`) runs the
+partitioned strategy (`PartitionedWorker`): one source and sink pipeline
+a topic partition, each on its own pump thread, where a failure in one
+stops them all and fails the attempt.  An attempt is one
 `replication_attempt` root span; the heartbeat folds the device
 counters and the ledger into the pipeline's metrics.  The reference's
 observability-segment export and SLO verdicts on the heartbeat wait for
-the coordinator's segments (ROADMAP.md A5).
+`stats/fleetobs.py` and `stats/slo.py` (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -39,10 +40,6 @@ logger = logging.getLogger(__name__)
 
 RETRY_BACKOFF_SECONDS = 10.0   # sleep between attempts
 HEARTBEAT_SECONDS = 60.0
-
-NOT_PORTED = "not ported yet (ROADMAP.md A5: the partitioned " \
-             "replication strategy)"
-
 
 class LocalWorker:
     """One replication attempt: build source + sink, pump until stop or
@@ -93,10 +90,100 @@ def is_partitioned_replication(transfer) -> bool:
 
 
 class PartitionedWorker:
-    """The reference's one-pipeline-per-partition strategy: not ported."""
+    """One independent source and sink pipeline a topic partition: a slow
+    object flush on one partition never holds back the others, and each
+    partition's files get clean offset ranges."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"PartitionedWorker: {NOT_PORTED}")
+    def __init__(self, transfer, coordinator: Coordinator,
+                 metrics: Optional[Metrics] = None,
+                 device: DeviceLike = None):
+        self.transfer = transfer
+        self.cp = coordinator
+        self.metrics = metrics or Metrics()
+        self.device = resolve_device(device)
+        self._pipelines: list = []  # (source, sink)
+        self._stopped = threading.Event()
+        self._plock = threading.Lock()  # guards pipelines vs stop()
+        # every pump-thread failure (run, latched sink, close) lands
+        # here; run() re-raises the first one.  Readable after stop()
+        self.failures: list[BaseException] = []
+        self._err_lock = threading.Lock()
+
+    def run(self) -> None:
+        from transferia_tpu_torch.providers.kafka.provider import (
+            _KafkaQueueClient,
+            topic_partitions,
+        )
+        from transferia_tpu_torch.providers.queue_common import QueueSource
+
+        params = self.transfer.src
+        partitions = topic_partitions(params)
+        if not partitions:
+            raise RuntimeError(f"topic {params.topic!r} has no partitions")
+        logger.info("partitioned replication: %d pipelines (%s)",
+                    len(partitions), partitions)
+        threads = []
+        for p in partitions:
+            if self._stopped.is_set():
+                break  # stop() fired while pipelines were being built
+            client = _KafkaQueueClient(params, self.transfer.id,
+                                       self.cp, partitions=[p])
+            source = QueueSource(
+                client, params.parser,
+                parallelism=max(1, params.parallelism // len(partitions)),
+                metrics=self.metrics, transfer_id=self.transfer.id)
+            sink = make_async_sink(self.transfer, self.metrics,
+                                   snapshot_stage=False,
+                                   device=self.device)
+            with self._plock:
+                self._pipelines.append((source, sink))
+                if self._stopped.is_set():
+                    # stop() already swept: this source would be missed
+                    source.stop()
+
+            def pump(src=source, snk=sink, part=p):
+                try:
+                    src.run(snk)
+                    if isinstance(snk, ErrorTracker) and snk.failure:
+                        raise snk.failure
+                except BaseException as e:
+                    self._record_failure(part, e)
+                    self.stop()  # one failure restarts the attempt
+                finally:
+                    # a close() error (a flush of buffered rows, a broken
+                    # connection) must surface on run() like any pump
+                    # error
+                    try:
+                        snk.close()
+                    except BaseException as e:
+                        self._record_failure(part, e)
+                        self.stop()
+
+            t = threading.Thread(target=pump, daemon=True,
+                                 name=f"partition-{p}")
+            threads.append(t)
+            t.start()
+        for t in threads:
+            t.join()
+        if self.failures:
+            raise self.failures[0]
+
+    def _record_failure(self, partition: int, err: BaseException) -> None:
+        with self._err_lock:
+            self.failures.append(err)
+        logger.warning("partition %d pipeline failed: %s", partition, err)
+
+    @property
+    def failure(self) -> Optional[BaseException]:
+        """The first pump failure, if any (readable after stop())."""
+        with self._err_lock:
+            return self.failures[0] if self.failures else None
+
+    def stop(self) -> None:
+        self._stopped.set()
+        with self._plock:
+            for source, _sink in self._pipelines:
+                source.stop()
 
 
 def run_replication(transfer, coordinator: Coordinator,
@@ -118,7 +205,8 @@ def run_replication(transfer, coordinator: Coordinator,
     attempt = 0
     while not stop_event.is_set():
         attempt += 1
-        worker = (PartitionedWorker(transfer, coordinator, metrics)
+        worker = (PartitionedWorker(transfer, coordinator, metrics,
+                                    device=device)
                   if is_partitioned_replication(transfer)
                   else LocalWorker(transfer, coordinator, metrics,
                                    device=device))

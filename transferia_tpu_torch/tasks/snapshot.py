@@ -16,9 +16,16 @@ operation state.
 chain's fused steps, the tap, the staged-row keys): None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions.
 
-Left out, each raising NotImplementedError when a transfer asks for it
-(ROADMAP.md A5): the sharded secondary flow, resume, async part
-discovery and fleet preemption.  A PositionalStorage's position at the
+Sharded across processes (`runtime.sharding.job_count` > 1 on a
+coordinator every worker reaches, the filestore one): job 0, the main,
+splits the tables and publishes the part queue, uploads with the others
+and waits for the queue to drain; jobs 1..N-1, the secondaries, wait for
+the queue, apply the main's sharded source state, release their own
+stale claims and upload.  `resume=True` reuses an incomplete queue as
+the checkpoint and uploads only what is not committed.  Left out, each
+raising NotImplementedError (ROADMAP.md A7): async part discovery (no
+ported storage discovers parts asynchronously) and fleet preemption
+(`fleet/`).  A PositionalStorage's position at the
 start lands in the transfer state as `snapshot_position`; the
 regular snapshot's incremental tables read only the rows past their
 persisted cursors (`incremental_state`, stored after a whole run).
@@ -30,7 +37,8 @@ per pushed batch (`snapshot.part.batch` failpoint), the retry, steal,
 fence and publish instants with their ledger counts, the
 `part_upload` histogram and the device-counter and ledger folds at
 part completion.  The fleet observability export waits for the
-coordinator's segments (ROADMAP.md A5).
+coordinator's segments are ported, but the exporter waits
+(`stats/fleetobs.py`, ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -111,6 +119,8 @@ def staged_commits_enabled() -> bool:
 class SnapshotTuning:
     """Deadline/poll knobs, overridable through the environment."""
 
+    # secondary waiting for the main to publish the part queue
+    secondary_bootstrap_timeout: float = 600.0
     # main's join loop over secondaries draining the queue
     wait_poll: float = 0.5
     wait_timeout: float = 24 * 3600.0
@@ -123,6 +133,8 @@ class SnapshotTuning:
     @classmethod
     def from_env(cls) -> "SnapshotTuning":
         return cls(
+            secondary_bootstrap_timeout=knobs.env_float(
+                "TRANSFERIA_TPU_SNAPSHOT_BOOTSTRAP_TIMEOUT", 600.0),
             wait_poll=knobs.env_float(
                 "TRANSFERIA_TPU_SNAPSHOT_WAIT_POLL", 0.5),
             wait_timeout=knobs.env_float(
@@ -140,7 +152,8 @@ TUNING = SnapshotTuning.from_env()
 def _left_out(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to transferia_tpu_torch yet "
-        f"(ROADMAP.md A5, the snapshot loader's left-out branches)")
+        f"(ROADMAP.md A7, the snapshot loader's left-out branches: "
+        f"s3 and fleet/)")
 
 
 class SnapshotLoader:
@@ -152,8 +165,10 @@ class SnapshotLoader:
                  device: DeviceLike = None):
         if preempted is not None:
             raise _left_out("fleet preemption (preempted=)")
-        if resume:
-            raise _left_out("resume")
+        # resume a previous attempt's operation: reuse an existing part
+        # queue instead of recreating it (recreating would reset the
+        # completed flags and replay the whole snapshot)
+        self.resume = resume
         self.transfer = transfer
         self.cp = coordinator
         self.device = resolve_device(device)
@@ -184,8 +199,6 @@ class SnapshotLoader:
                       ) -> None:
         """Snapshot the given tables (None = all tables passing the
         transfer's include filter)."""
-        if not self.is_main:
-            raise _left_out("the sharded secondary flow (current_job > 0)")
         storage = new_storage(self.transfer, self.metrics)
         # the operation root: every part/batch/device span of this
         # snapshot nests (or flows, across worker threads) under it,
@@ -197,7 +210,10 @@ class SnapshotLoader:
             with op_sp, LEDGER.context(transfer_id=self.transfer.id):
                 if tables is None:
                     tables = self.filtered_table_list(storage)
-                self._main_flow(storage, tables)
+                if self.is_main:
+                    self._main_flow(storage, tables)
+                else:
+                    self._secondary_flow(storage)
         finally:
             storage.close()
 
@@ -255,10 +271,13 @@ class SnapshotLoader:
             # main-worker restart detection: an incomplete queue means a
             # previous main crashed mid-operation with secondaries
             # possibly still attached; a completed one is the previous
-            # activation, recreated
+            # activation, recreated.  Under `resume` an existing queue is
+            # reused instead: its committed parts are the checkpoint
             existing = self.cp.operation_parts(self.operation_id) \
-                if self.job_count() > 1 else []
-            if existing and not all(p.completed for p in existing):
+                if (self.job_count() > 1 or self.resume) else []
+            resume_queue = bool(self.resume and existing)
+            if existing and not resume_queue \
+                    and not all(p.completed for p in existing):
                 raise CodedError(
                     Codes.MAIN_WORKER_RESTART,
                     f"operation {self.operation_id} has incomplete parts: "
@@ -270,6 +289,30 @@ class SnapshotLoader:
                 self.cp.set_operation_state(self.operation_id, {
                     "sharded_state": storage.sharded_state(),
                 })
+            if resume_queue:
+                # release the claims a previous attempt of this worker
+                # index left leased (its later updates are epoch-fenced),
+                # then upload whatever is incomplete
+                released = self.cp.clear_assigned_parts(
+                    self.operation_id, self.worker_index)
+                done = sum(1 for p in existing if p.completed)
+                trace.instant("snapshot_resume",
+                              operation_id=self.operation_id,
+                              parts=len(existing), completed=done,
+                              released=released)
+                logger.info(
+                    "resuming operation %s: %d/%d part(s) already "
+                    "committed (%d stale claim(s) released)",
+                    self.operation_id, done, len(existing), released)
+                self.cp.set_operation_state(
+                    self.operation_id, {"parts_discovery_done": True})
+                multi_part = {
+                    p.table_id for p in existing if p.parts_count > 1
+                }
+                # the first attempt sent the init brackets
+                self._upload_publish_tail(storage, tables, multi_part,
+                                          next_inc_state, send_init=False)
+                return
             self.cp.set_operation_state(self.operation_id,
                                         {"parts_discovery_done": False})
             parts = split_tables(storage, tables, self.transfer,
@@ -281,25 +324,29 @@ class SnapshotLoader:
             self.table_stats.eta_rows.set(sum(p.eta_rows for p in parts))
             multi_part = {p.table_id for p in parts if p.parts_count > 1}
             self._upload_publish_tail(storage, tables, multi_part,
-                                      next_inc_state)
+                                      next_inc_state, send_init=True)
         finally:
             if isinstance(storage, SnapshotableStorage):
                 storage.end_snapshot()
 
     def _upload_publish_tail(self, storage: Storage, tables,
-                             multi_part: set, next_inc_state) -> None:
+                             multi_part: set, next_inc_state,
+                             send_init: bool) -> None:
         """Upload, sharded join, done-brackets, incremental cursors,
-        fingerprints."""
+        fingerprints: the back half of both the fresh and the resumed
+        run.  `send_init=False` on resume: re-sending the init brackets
+        could reset sink-side sharded-table state."""
         schemas = {td.id: storage.table_schema(td.id) for td in tables}
         sink = make_async_sink(self.transfer, self.metrics,
                                snapshot_stage=True, device=self.device)
         try:
-            futs = [
-                sink.async_push([init_sharded_table_load(
-                    tid, schemas.get(tid))])
-                for tid in multi_part
-            ]
-            resolve_all(futs)
+            if send_init:
+                futs = [
+                    sink.async_push([init_sharded_table_load(
+                        tid, schemas.get(tid))])
+                    for tid in multi_part
+                ]
+                resolve_all(futs)
             self._do_upload_tables(storage, schemas)
             if self.job_count() > 1:
                 self._wait_all_parts_done()
@@ -448,6 +495,39 @@ class SnapshotLoader:
             f"{stalled:.1f}s, and no surviving worker reclaimed them: "
             + "; ".join(lines)
         )
+
+    # -- secondary worker -----------------------------------------------------
+    def _secondary_flow(self, storage: Storage) -> None:
+        """A sharded secondary: wait for the part queue, apply the main's
+        sharded source state, release this worker's stale claims
+        (restart recovery), pull and upload."""
+        self._phase = "bootstrap"
+        deadline = time.monotonic() + TUNING.secondary_bootstrap_timeout
+        while not self.cp.operation_parts(self.operation_id):
+            if self.cp.get_operation_state(self.operation_id).get(
+                    "parts_discovery_done"):
+                # discovery found zero parts: nothing to upload
+                logger.info("secondary %d: discovery done with empty "
+                            "part queue", self.worker_index)
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"operation {self.operation_id}: main worker never "
+                    f"published parts"
+                )
+            time.sleep(0.2)
+        if isinstance(storage, ShardedStateStorage):
+            state = self.cp.get_operation_state(self.operation_id).get(
+                "sharded_state")
+            if state is not None:
+                # read from the main's consistent point
+                storage.set_sharded_state(state)
+        released = self.cp.clear_assigned_parts(self.operation_id,
+                                                self.worker_index)
+        if released:
+            logger.info("secondary %d: released %d stale parts after "
+                        "restart", self.worker_index, released)
+        self._do_upload_tables(storage, {})
 
     # -- the hot loop ---------------------------------------------------------
     def _setup_scan_pushdown(self, storage: Storage,
