@@ -267,8 +267,8 @@ final line):
      with every my2kf check; each run prints its stage table;
  15j. cli: the port's CLI on transfer.yaml files, as a user
      runs it, in this process and thread (TRANSFERIA_TPU_PLACEMENT's
-     device placement): validate on the examples (OK; the s3 one exits 1
-     naming ROADMAP.md A7) and describe; replicate of a PG -> PG
+     device placement): validate on the examples (OK, the s3 one too)
+     and describe; replicate of a PG -> PG
      SNAPSHOT_AND_INCREMENT transfer (pg2ch's 300,000 rows and a
      50,000-row events table, mask_field on url, filter_rows region <
      400, transfer_ddl with an index, a view and a sequence): the MVCC
@@ -303,6 +303,32 @@ final line):
      PartitionedWorker pipeline a partition: the files equal hashlib's
      image, each row once.  Every K-A, K-B, K-C and K10 launch of this
      process is held against its plain version;
+ 15l. s3: BASELINE config #3 from object storage.  bench.py's 2,000,000
+     rows as 8 Parquet objects of 250,000 rows (131,072-row groups,
+     SNAPPY) under hits/ on the port's fake S3, readable anonymously:
+     (a) examples/clickbench_s3_parquet2ch.yaml with only endpoint_url
+     added, validate then activate in a `python3 -m
+     transferia_tpu_torch.cli.main` process (HITS_URL the objects'
+     glob, CH_HOST a fake ClickHouse on port 8123): ClickHouse holds
+     their 2,000,000 rows; the YAML activated again over the first 2
+     objects, checksum by K10 exits 0, and 1 over a 25,000-row object
+     with a value altered; (b) bench.py's mask +
+     filter over the objects (ranged GETs, parts discovered while the
+     upload runs, 8 upload threads, staged commits) into a fake
+     ClickHouse, on the card and with device="cpu": the kept rows equal
+     write_clickbench's count and the two tables landed byte-identical
+     inserts part for part; rows/s,
+     the parts and the traced stages (the GETs, source_decode, pack,
+     device_wait, sink) printed; (c) (b) as 3 jobs on --coordinator s3
+     over the same fake (job 0 here, jobs 1 and 2 as CLI processes): the
+     8 parts split, each committed once, the inserts equal (b)'s; (d)
+     16 jsonl objects of 4,096 rows landing while run_replication polls,
+     then while it takes their SQS events, through replication's mask +
+     filter into ClickHouse, each row once; and the poll objects
+     snapshotted into s3://clickbench/out through the staged jsonl sink
+     with one push torn and retried: one copy published.  Every launch
+     of this process (K-A, K-B, K-C, K10 and trt_var_accumulators) is
+     held against its plain version, as many held as counted;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -496,8 +522,12 @@ from transferia_tpu_torch.providers.stdout import NullTargetParams
 from transferia_tpu_torch.recipes.clickbench import (
     clickbench_rows,
     flat_strings,
+    slice_rows,
     write_clickbench,
 )
+from transferia_tpu_torch.coordinator import S3Coordinator
+from transferia_tpu_torch.providers.s3 import S3SourceParams, S3TargetParams
+from transferia_tpu_torch.recipes.fake_s3 import FakeS3
 from transferia_tpu_torch.runtime.limits import effective_cpus
 from transferia_tpu_torch.transform.plugins import mask as mask_plugin
 from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
@@ -650,6 +680,13 @@ PATH_KERNELS = {
     # against the operation; Kafka -> fs through the mask and filter
     "sharded": ("sha256_hmac", "pred_decode", "pred3vl_mask",
                 "rowhash_lanes"),
+    # config #3 from object storage: the fused mask and filter
+    # of the headline and of the replication runs, K10 keying the
+    # staged pushes (ClickHouse's and the bucket's) and fingerprinting
+    # the checksum's batches, and the accumulators of the dictionary
+    # pools the checksum meets in the objects' Parquet pages
+    "s3": ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
+           "var_accumulators"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -6438,15 +6475,12 @@ def cli_validate(dev) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    for name in ("pg2ch", "kafka2ch", "mysql2kafka", "kafka_sr2ch"):
+    for name in ("pg2ch", "kafka2ch", "mysql2kafka", "kafka_sr2ch",
+                 "clickbench_s3_parquet2ch"):
         # kafka_sr2ch's lambda names a user module the chain resolves
         # only when a batch comes: 0 in both packages (the CPU tests)
         if out[name]["rc"] != 0 or not out[name]["stdout"].startswith("OK"):
             raise AssertionError(f"cli validate {name}: {out[name]}")
-    s3 = out["clickbench_s3_parquet2ch"]
-    if s3["rc"] == 0 or "ROADMAP.md A7" not in s3["stderr"] \
-            or "'s3'" not in s3["stderr"]:
-        raise AssertionError(f"cli validate s3: {s3}")
     rc, so, _, s = cli_main(["describe", "--provider", "pg"], dev)
     described = json.loads(so)
     if rc != 0 or sorted(described) != ["pg/source", "pg/target"] or \
@@ -7230,6 +7264,624 @@ def sharded_path(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- phase 15l: s3 --------------------------------------------------------------
+
+# ClickBench's partitioned release is 100 objects of about 1,000,000 rows;
+# the 2,000,000 rows here are cut into 8 objects of 250,000 (131,072-row
+# groups, SNAPPY), which gives (c)'s 3 jobs parts to share
+S3_OBJECTS = 8
+S3_BUCKET = "clickbench"
+S3_URL = f"s3://{S3_BUCKET}/hits/*.parquet"
+# (a) activates all 8 objects through the example, and checksums a
+# transfer of the same YAML over the first 2 (500,000 rows): the
+# checksum reads the fake ClickHouse's rows in Python, a minute and a
+# half over all 2,000,000 on the H100 machine (PERF.md section 4)
+S3_CHECKSUM_URL = f"s3://{S3_BUCKET}/hits/hits_0[01]*.parquet"
+S3_CHECKSUM_OBJECTS = 2
+S3_EXAMPLE = "clickbench_s3_parquet2ch.yaml"
+S3_WORKERS = 8               # the example's runtime.process_count
+S3_JOBS, S3_JOB_WORKERS = 3, 2
+S3_AK, S3_SK = "chip-ak", "chip-sk"
+S3_SETTLE_S = 300.0
+S3_REPL_OBJECTS, S3_REPL_ROWS = 16, 4096
+# (a)'s altered checksum runs over one object of the first 25,000 rows:
+# on a keyless table the diagnostic after a digest mismatch loads both
+# tables whole (ROADMAP.md C), about 40 s over 250,000 rows on the H100
+# machine
+S3_ALTERED_ROWS = 25_000
+S3_SHARD_YAML = """\
+# the headline sharded over processes through the bucket's coordinator
+id: {tid}
+type: SNAPSHOT_ONLY
+src:
+  type: s3
+  params:
+    url: "{url}"
+    endpoint_url: "{endpoint}"
+    format: parquet
+    table: hits
+    batch_rows: {batch_rows}
+dst:
+  type: ch
+  params:
+    host: 127.0.0.1
+    port: {dst}
+    database: default
+    bufferer: null
+    # every worker runs the activation's cleanup: a secondary starting
+    # after the main's first publish must not drop it
+    cleanup_policy: disabled
+transformation:
+  transformers:
+    - mask_field: {{columns: [URL], salt: "{salt}"}}
+    - filter_rows: {{filter: "{filt}"}}
+runtime:
+  job_count: {jobs}
+  process_count: {workers}
+"""
+
+
+def s3_objects(rows, fake, tmp: str) -> dict:
+    """bench.py's rows as S3_OBJECTS Parquet objects under hits/ (laid
+    out as write_clickbench lays out its file)."""
+    t0 = time.perf_counter()
+    per = ROWS // S3_OBJECTS
+    sizes, kept = [], 0
+    path = os.path.join(tmp, "object.parquet")
+    for i in range(S3_OBJECTS):
+        size, k = write_clickbench(path, per, rows=slice_rows(
+            rows, i * per, (i + 1) * per))
+        with open(path, "rb") as fh:
+            fake.put_object(f"hits/hits_{i:02d}.parquet", fh.read())
+        sizes.append(size)
+        kept += k
+    write_clickbench(path, S3_ALTERED_ROWS,
+                     rows=slice_rows(rows, 0, S3_ALTERED_ROWS))
+    with open(path, "rb") as fh:
+        fake.put_object("cut/hits.parquet", fh.read())
+    os.unlink(path)
+    return {"objects": S3_OBJECTS, "rows_per_object": per,
+            "bytes": sum(sizes), "kept": kept,
+            "write_seconds": time.perf_counter() - t0}
+
+
+def ch_on_8123() -> FakeCH:
+    """A fake ClickHouse on port 8123, which the example YAML names, on
+    the first loopback address where that port is free."""
+    for last in range(2, 255):
+        try:
+            return FakeCH().start(host=f"127.0.0.{last}", port=8123)
+        except OSError:
+            continue
+    raise AssertionError("no loopback address has port 8123 free")
+
+
+def cli_process(argv: list, env: dict, log: str, dev,
+                timeout: float) -> tuple[int, float]:
+    """The port's CLI as a user runs it, in a process of its own: (exit
+    code, seconds); its output goes to the file `log`."""
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.run(
+            [sys.executable, "-m", "transferia_tpu_torch.cli.main",
+             "--device", str(dev.type), "--log-level", "warning"] + argv,
+            stdout=fh, stderr=subprocess.STDOUT, timeout=timeout,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent), **env))
+    return proc.returncode, time.perf_counter() - t0
+
+
+def s3_yaml(tmp: str, name: str, endpoint: str) -> str:
+    """A copy of examples/clickbench_s3_parquet2ch.yaml with one line
+    added: the fake's endpoint_url."""
+    text = (Path(__file__).resolve().parent / "examples"
+            / S3_EXAMPLE).read_text()
+    anchor = "    batch_rows: 131072\n"
+    if text.count(anchor) != 1:
+        raise AssertionError(f"{S3_EXAMPLE}: no single {anchor!r} line")
+    path = os.path.join(tmp, name)
+    with open(path, "w") as fh:
+        fh.write(text.replace(anchor, anchor + f'    endpoint_url: '
+                                               f'"{endpoint}"\n'))
+    return path
+
+
+def s3_example(fake, objects: dict, tmp: str, dev) -> dict:
+    """(a) examples/clickbench_s3_parquet2ch.yaml as shipped, with only
+    `endpoint_url` added: validate and activate of all the objects in
+    processes of the CLI, reading the bucket anonymously, into a fake
+    ClickHouse on CH_HOST:8123, which must hold every row.  Then, in this
+    process, the same YAML over the first S3_CHECKSUM_OBJECTS objects
+    into a second fake and checksum by K10 (exit 0: every row of the
+    objects is in ClickHouse once, by the order-independent digest over
+    every column), and over an object of S3_ALTERED_ROWS rows in a third
+    with a value altered (exit 1)."""
+    path = s3_yaml(tmp, S3_EXAMPLE, fake.endpoint)
+    chs = [ch_on_8123()]
+    env = {"HITS_URL": S3_URL, "CH_HOST": chs[0]._srv.server_address[0]}
+    saved = {k: os.environ.get(k) for k in env}
+    out = {"ch_host": env["CH_HOST"]}
+    try:
+        for cmd in ("validate", "activate"):
+            log = os.path.join(tmp, f"a-{cmd}.log")
+            rc, s = cli_process([cmd, "--transfer", path], env, log, dev,
+                                S3_SETTLE_S)
+            out[cmd] = {"rc": rc, "seconds": s, "log": log_tail(log, 600)}
+            if rc != 0:
+                raise AssertionError(f"s3 (a) {cmd}: rc {rc}: "
+                                     f"{log_tail(log)}")
+        rows = objects["objects"] * objects["rows_per_object"]
+        out.update(url=S3_URL, rows=rows,
+                   activate_rows_per_s=rows / out["activate"]["seconds"],
+                   ch_rows=chs[0].total_rows(),
+                   fences=len(chs[0].rows("__trtpu_commits")))
+        if out["ch_rows"] != rows or out["fences"] != objects["objects"]:
+            raise AssertionError(f"s3 (a): ClickHouse holds "
+                                 f"{out['ch_rows']} rows in "
+                                 f"{out['fences']} parts, the objects "
+                                 f"{rows} in {objects['objects']}")
+        chs.pop().stop()
+        checks = {}
+        for name, url, rows in (
+                ("clean", S3_CHECKSUM_URL,
+                 S3_CHECKSUM_OBJECTS * objects["rows_per_object"]),
+                ("altered", f"s3://{S3_BUCKET}/cut/hits.parquet",
+                 S3_ALTERED_ROWS)):
+            chs.append(ch_on_8123())
+            os.environ.update({"HITS_URL": url,
+                               "CH_HOST": chs[-1]._srv.server_address[0]})
+            rc, _, se, s_act = cli_main(["activate", "--transfer", path],
+                                        dev)
+            if rc != 0 or chs[-1].total_rows() != rows:
+                raise AssertionError(f"s3 (a) {name} activation: rc {rc}, "
+                                     f"{chs[-1].total_rows()} rows of "
+                                     f"{rows}: {se[-500:]}")
+            if name == "altered":
+                ch = chs[-1]
+                with ch.lock:
+                    r0 = min(ch.tables["s3__hits"]["rows"],
+                             key=lambda r: r["WatchID"])
+                    r0["RegionID"] = r0["RegionID"] + 1
+            rc, so, _, s_sum = cli_main(
+                ["checksum", "--transfer", path, "--method", "fingerprint",
+                 "--fingerprint-backend", "device"], dev)
+            checks[name] = {"url": url, "rows": rows, "rc": rc,
+                            "activate_seconds": s_act, "seconds": s_sum,
+                            "report": so.strip()[-300:]}
+        if checks["clean"]["rc"] != 0 or checks["altered"]["rc"] != 1 or \
+                "MISMATCH" not in checks["altered"]["report"]:
+            raise AssertionError(f"s3 (a) checksum: {checks}")
+        out["checksum"] = checks
+        return out
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for ch in chs:
+            ch.stop()
+
+
+class RowhashLaunches:
+    """Records each launch of K10 (`rowhash.rowhash_lanes` on the card,
+    in keys or reduce mode) and of `trt_var_accumulators` during a run,
+    from any call site and thread, with its inputs and what it wrote, to
+    hold every one against its plain version afterwards.  A launch in
+    reduce mode is held by the accumulator it leaves against the one it
+    found plus the plain version's sums and xors."""
+
+    def __enter__(self):
+        self.lanes, self.accs = [], []
+        self._real = real_lanes, real_accs = (rowhash.rowhash_lanes,
+                                              rowhash.var_accumulators)
+        lanes, accs = self.lanes, self.accs
+
+        def record_lanes(cols, n, acc=None):
+            before = None if acc is None else acc.clone()
+            out = real_lanes(cols, n, acc)
+            if n and (out[0] if acc is None else acc).is_cuda:
+                lanes.append((list(cols), n, before,
+                              out if acc is None else acc.clone()))
+            return out
+
+        def record_accs(data, offsets):
+            out = real_accs(data, offsets)
+            if data.is_cuda and offsets.numel() > 1:
+                accs.append((data, offsets, out))
+            return out
+
+        rowhash.rowhash_lanes = record_lanes
+        rowhash.var_accumulators = record_accs
+        return self
+
+    def __exit__(self, *exc):
+        rowhash.rowhash_lanes, rowhash.var_accumulators = self._real
+        return False
+
+    def check(self, what: str, launches: dict) -> dict:
+        """Every recorded launch against its plain version on the card;
+        fails unless as many launches were held as the run counted."""
+        for i, (cols, n, before, got) in enumerate(self.lanes):
+            p1, p2 = rowhash.rowhash_lanes_plain(cols, n)
+            if before is None:
+                same = torch.equal(rowhash._to_u32(got[0]), p1) and \
+                    torch.equal(rowhash._to_u32(got[1]), p2)
+            else:
+                want = before.clone()
+                rowhash._reduce_into(want, p1, p2)
+                same = torch.equal(want, got)
+            if not same:
+                raise AssertionError(f"{what}: K10's launch {i} ({n} rows, "
+                                     f"{'keys' if before is None else 'reduce'}"
+                                     " mode) differs from the plain version")
+        for i, (data, offsets, got) in enumerate(self.accs):
+            want = rowhash._var_accs_host(data, offsets)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{what}: trt_var_accumulators' launch "
+                                     f"{i} ({offsets.numel() - 1} values) "
+                                     "differs from the plain version")
+        held = {"rowhash_lanes": len(self.lanes),
+                "var_accumulators": len(self.accs)}
+        for k, n in held.items():
+            if n != launches[k]:
+                raise AssertionError(f"{what}: {n} launches of {k} held, "
+                                     f"{launches[k]} counted")
+        return held
+
+
+S3_STAGES = ("s3_request", "s3_range_get", "source_decode", "pivot",
+             "pack", "device_dispatch", "device_wait", "sink", "sink_stage",
+             "sink_publish")
+
+
+def s3_headline_run(fake, placement: str, dev) -> dict:
+    """(b) one run of the headline: the bucket's objects through bench.py's
+    chain into a fresh fake ClickHouse, staged commits on, traced."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    ch = FakeCH().start()
+    # one id for both placements and (c): equal part keys, so equal
+    # tables land byte-identical inserts (FakeCH.insert_digests)
+    tid = "s3-b"
+    t = Transfer(id=tid, src=S3SourceParams(
+        url=S3_URL, endpoint_url=fake.endpoint, table="hits",
+        batch_rows=BATCH_ROWS),
+        dst=CHTargetParams(host="127.0.0.1", port=ch.port, bufferer=None),
+        transformation=CONFIG,
+        runtime=Runtime(sharding=ShardingUploadParams(
+            process_count=S3_WORKERS)))
+    cp = MemoryCoordinator()
+    gets0 = (fake.range_gets, fake.range_bytes)
+    set_placement("device" if on_card else "host")
+    trace_on()
+    t0 = time.perf_counter()
+    try:
+        SnapshotLoader(t, cp, device=run_dev).upload_tables()
+        _sync(dev)
+    finally:
+        seconds = time.perf_counter() - t0
+        tables = trace_off(seconds)
+        set_placement(None)
+    parts = cp.operation_parts(f"op-{tid}")
+    if len(parts) != S3_OBJECTS or not all(
+            p.completed and p.commit_epoch == p.assignment_epoch
+            for p in parts):
+        ch.stop()
+        raise AssertionError(f"s3 (b) {placement}: parts {parts}")
+    summary = tables["stage_summary"]
+    return {"ch": ch, "seconds": seconds, "rows_per_s": ROWS / seconds,
+            "parts_discovered": len(parts),
+            "range_gets": fake.range_gets - gets0[0],
+            "range_bytes": fake.range_bytes - gets0[1],
+            "fences": len(ch.rows("__trtpu_commits")),
+            "stages": {k: {m: summary["stages"][k][m] for m in
+                           ("calls", "total_s", "self_s", "bytes")}
+                       for k in S3_STAGES if k in summary["stages"]},
+            "overlap": summary.get("overlap"),
+            "stage_breakdown": tables["stage_breakdown"]}
+
+
+def s3_sharded(fake, tmp: str, inserts: list, dev) -> dict:
+    """(c) (b)'s transfer with job_count 3 over --coordinator s3 on the
+    same fake: job 0 here through cli.main, jobs 1 and 2 as CLI
+    processes started first and polled on their health ports."""
+    ch = FakeCH().start()
+    tid, prefix = "s3-b", "s3-shard"
+    path = os.path.join(tmp, f"{prefix}.yaml")
+    with open(path, "w") as fh:
+        fh.write(S3_SHARD_YAML.format(
+            tid=tid, url=S3_URL, endpoint=fake.endpoint,
+            batch_rows=BATCH_ROWS, dst=ch.port, salt=CONFIG["transformers"][
+                0]["mask_field"]["salt"],
+            filt=CONFIG["transformers"][1]["filter_rows"]["filter"],
+            jobs=S3_JOBS, workers=S3_JOB_WORKERS))
+    argv = ["--coordinator", "s3", "--coordinator-bucket", "coord",
+            "--coordinator-endpoint", fake.endpoint,
+            "--coordinator-prefix", prefix]
+    env = {"AWS_ACCESS_KEY_ID": S3_AK, "AWS_SECRET_ACCESS_KEY": S3_SK}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    procs, logs, ports = {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        for job in range(1, S3_JOBS):
+            ports[job] = free_port()
+            logs[job] = os.path.join(tmp, f"{prefix}.job{job}.log")
+            procs[job] = shard_worker(job, argv, path, ports[job], dev, env,
+                                      logs[job])
+        deadline = time.perf_counter() + S3_SETTLE_S
+        for job, proc in procs.items():
+            wait_up(ports[job], proc, logs[job], deadline)
+        up = time.perf_counter() - t0
+        rc, _, se, main_s = cli_main(argv + ["--job-index", "0", "activate",
+                                             "--transfer", path], dev)
+        if rc != 0:
+            raise AssertionError(f"s3 (c) job 0: rc {rc}: {se[-2000:]}")
+        for job, proc in procs.items():
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            if proc.returncode != 0:
+                raise AssertionError(f"s3 (c) job {job}: rc "
+                                     f"{proc.returncode}: "
+                                     f"{log_tail(logs[job])}")
+        wall = time.perf_counter() - t0
+        cp = S3Coordinator(bucket="coord", endpoint=fake.endpoint,
+                           prefix=prefix)
+        parts = cp.operation_parts(f"op-{tid}")
+        fences = [r["part_key"] for r in ch.rows("__trtpu_commits")]
+        workers = {j: sum(1 for p in parts if p.worker_index == j)
+                   for j in range(S3_JOBS)}
+        if len(parts) != S3_OBJECTS or not all(
+                p.completed and p.commit_epoch == p.assignment_epoch
+                for p in parts) or len(set(fences)) != len(fences) or \
+                len(fences) != len(parts):
+            raise AssertionError(f"s3 (c): parts {parts}, fences {fences}")
+        if sum(1 for n in workers.values() if n) < 2:
+            raise AssertionError(f"s3 (c): parts not split: {workers}")
+        got = ch.insert_digests("s3__hits")
+        if got != inserts:
+            raise AssertionError(f"s3 (c): {len(got)} inserts of "
+                                 f"{sum(g[1] for g in got)} rows, (b) "
+                                 f"{len(inserts)} of "
+                                 f"{sum(g[1] for g in inserts)}")
+        return {"jobs": S3_JOBS, "workers_a_job": S3_JOB_WORKERS,
+                "workers_up_seconds": up, "main_seconds": main_s,
+                "wall_seconds": wall, "rows_per_s": ROWS / wall,
+                "rows_per_s_after_up": ROWS / (wall - up),
+                "parts_by_worker": workers, "fences": len(fences),
+                "rows": sum(g[1] for g in got), "inserts": len(got),
+                "worker_logs": {j: log_tail(f, 400)
+                                for j, f in logs.items()}}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        ch.stop()
+
+
+def s3_repl_object(o: int) -> bytes:
+    """Object o of (d): S3_REPL_ROWS JSON lines."""
+    return b"".join(json.dumps({
+        "id": o * S3_REPL_ROWS + i, "url": f"https://bench.example/{i}",
+        "region": (o * S3_REPL_ROWS + i) % 500}).encode() + b"\n"
+        for i in range(S3_REPL_ROWS))
+
+
+def s3_repl_image() -> dict:
+    """REPL_CONFIG's mask and filter over the objects' rows, by id."""
+    image = {}
+    for o in range(S3_REPL_OBJECTS):
+        for i in range(S3_REPL_ROWS):
+            k = o * S3_REPL_ROWS + i
+            if k % 500 < 400:
+                image[k] = (k, hmac.new(
+                    REPL_SALT, f"https://bench.example/{i}".encode(),
+                    hashlib.sha256).hexdigest(), k % 500)
+    return image
+
+
+def s3_repl_run(fake, kind: str, dev) -> dict:
+    """(d) one replication run: S3_REPL_OBJECTS jsonl objects land under
+    in-<kind>/ while the source runs (poll: its listing; sqs: their
+    creation events through the fake SQS) and go through REPL_CONFIG into
+    a fresh fake ClickHouse; stopped once every object is committed."""
+    from transferia_tpu_torch.recipes.fake_sqs import FakeSQS
+    from transferia_tpu_torch.runtime import local as local_mod
+
+    ch = FakeCH().start()
+    sqs = FakeSQS(access_key=S3_AK).start() if kind == "sqs" else None
+    prefix = f"in-{kind}"
+    extra = dict(event_source="poll", poll_interval=0.05) if sqs is None \
+        else dict(event_source="sqs", sqs_queue_url=sqs.queue_url,
+                  sqs_access_key=S3_AK, sqs_secret_key=S3_SK,
+                  sqs_wait_seconds=0)
+    t = Transfer(id=f"s3-repl-{kind}", type=TransferType.INCREMENT_ONLY,
+                 src=S3SourceParams(
+                     url=f"s3://{S3_BUCKET}/{prefix}/*.jsonl",
+                     endpoint_url=fake.endpoint, format="jsonl",
+                     table="events", batch_rows=S3_REPL_ROWS, **extra),
+                 dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+                                    bufferer=None),
+                 transformation=REPL_CONFIG)
+    cp, stop, failure = MemoryCoordinator(), threading.Event(), []
+
+    def run():
+        try:
+            local_mod.run_replication(t, cp, stop_event=stop, device=dev)
+        except BaseException as e:  # reported below
+            failure.append(e)
+
+    th = threading.Thread(target=run, name=f"s3-repl-{kind}", daemon=True)
+    try:
+        t0 = time.perf_counter()
+        th.start()
+        for o in range(S3_REPL_OBJECTS):
+            key = f"{prefix}/o{o:02d}.jsonl"
+            fake.put_object(key, s3_repl_object(o))
+            if sqs is not None:
+                sqs.send_s3_event(key, bucket=S3_BUCKET)
+        last = f"{S3_BUCKET}/{prefix}/o{S3_REPL_OBJECTS - 1:02d}.jsonl"
+        deadline = t0 + S3_SETTLE_S
+
+        def settled() -> bool:
+            if sqs is not None:
+                return len(sqs.deleted) == S3_REPL_OBJECTS
+            return last in cp.get_transfer_state(t.id).get(
+                "s3_poll_watermark", {}).get("names", [])
+
+        while not settled() and not failure and \
+                time.perf_counter() < deadline:
+            time.sleep(0.02)
+        seconds = time.perf_counter() - t0
+        stop.set()
+        th.join(60)
+        if failure or th.is_alive() or not settled():
+            raise AssertionError(f"s3 (d) {kind}: "
+                                 f"{failure or 'did not settle or stop'}")
+        got = [(int(r["id"]), r["url"].decode() if isinstance(
+            r["url"], bytes) else r["url"], int(r["region"]))
+            for r in ch.rows("s3__events")]
+        image = s3_repl_image()
+        if len(got) != len(image) or {r[0]: r for r in got} != image:
+            raise AssertionError(f"s3 (d) {kind}: {len(got)} rows, the "
+                                 f"image {len(image)}")
+        rows = S3_REPL_OBJECTS * S3_REPL_ROWS
+        return {"objects": S3_REPL_OBJECTS, "rows": rows,
+                "delivered": len(got), "seconds": seconds,
+                "rows_per_s": rows / seconds,
+                "sqs_left": len(sqs.queue) if sqs is not None else None}
+    finally:
+        stop.set()
+        ch.stop()
+        if sqs is not None:
+            sqs.stop()
+
+
+def s3_staged_snapshot(fake, dev) -> dict:
+    """(d) the poll run's objects snapshotted through the staged jsonl sink
+    into s3://clickbench/out, one sink push torn (half its rows land, then
+    it fails and the Retrier pushes it again): the stage's dedup window
+    (K10 keys) drops the landed half, so exactly one copy is published."""
+    t = Transfer(id="s3-staged", src=S3SourceParams(
+        url=f"s3://{S3_BUCKET}/in-poll/*.jsonl", endpoint_url=fake.endpoint,
+        format="jsonl", table="events", batch_rows=S3_REPL_ROWS),
+        dst=S3TargetParams(url=f"s3://{S3_BUCKET}/out", format="jsonl",
+                           endpoint_url=fake.endpoint, access_key=S3_AK,
+                           secret_key=S3_SK),
+        transformation=REPL_CONFIG)
+    cp = MemoryCoordinator()
+    # fires on the first push of two rows or more: a data batch
+    failpoints.configure("sink.push.torn=times:1,truncate:0.5")
+    try:
+        t0 = time.perf_counter()
+        SnapshotLoader(t, cp, device=dev).upload_tables()
+        seconds = time.perf_counter() - t0
+        fired = failpoints.fire_log().get("sink.push.torn", [])
+    finally:
+        failpoints.reset()
+    rows, staged = [], []
+    for key, (body, _) in list(fake.objects.items()):
+        if key.startswith("out/.staging/") and not key.startswith(
+                "out/.staging/.published."):
+            staged.append(key)
+        elif key.startswith("out/") and not key.startswith("out/.staging/"):
+            rows.extend(json.loads(ln) for ln in body.decode().splitlines())
+    image = s3_repl_image()
+    got = {r["id"]: (r["id"], r["url"], r["region"]) for r in rows}
+    if len(fired) != 1 or staged or len(rows) != len(image) or \
+            got != image:
+        raise AssertionError(f"s3 (d) staged: fired {fired}, staged left "
+                             f"{staged}, {len(rows)} rows ({len(got)} ids) "
+                             f"of {len(image)}")
+    parts = cp.operation_parts("op-s3-staged")
+    return {"parts": len(parts), "rows": len(rows), "seconds": seconds,
+            "torn_fired_at": fired,
+            "markers": sum(1 for k in fake.objects
+                           if k.startswith("out/.staging/.published."))}
+
+
+def s3_path(rows, dev) -> dict:
+    """BASELINE config #3 from object storage: (a) its YAML through the
+    CLI, (b) bench.py's chain on the card and on the CPU, (c) sharded
+    through the S3 coordinator, (d) object replication by poll and SQS
+    and a staged jsonl snapshot into a bucket; every launch of this
+    process held against the plain versions."""
+    import logging
+
+    logging.basicConfig(level=logging.WARNING,
+                        format="%(asctime)s %(levelname).1s %(name)s: "
+                               "%(message)s")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="s3-", dir=str(_build.BUILD_DIR))
+    fake = FakeS3(access_key=S3_AK, public_read=True).start()
+    result: dict = {}
+    timings: dict = {}
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        result["data"] = s3_objects(rows, fake, tmp)
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result["a"] = s3_example(fake, result["data"], tmp, dev)
+            timings["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b = {}
+            for placement in ("device", "cpu"):
+                run = s3_headline_run(fake, placement, dev)
+                runs.append(run)
+                b[placement] = run
+            inserts = {p: r["ch"].insert_digests("s3__hits")
+                       for p, r in b.items()}
+            kept = result["data"]["kept"]
+            rows_in = {p: sum(g[1] for g in d) for p, d in inserts.items()}
+            if rows_in["device"] != kept or \
+                    inserts["device"] != inserts["cpu"]:
+                raise AssertionError(
+                    f"s3 (b): card {rows_in['device']} rows, cpu "
+                    f"{rows_in['cpu']}, write_clickbench keeps {kept} "
+                    f"(inserts equal {inserts['device'] == inserts['cpu']})")
+            timings["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["c"] = s3_sharded(fake, tmp, inserts["device"], dev)
+            timings["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["d"] = {"poll": s3_repl_run(fake, "poll", dev),
+                           "sqs": s3_repl_run(fake, "sqs", dev),
+                           "staged": s3_staged_snapshot(fake, dev)}
+            timings["d"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("s3", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("s3", launches["sha256_hmac"])}
+            held.update(preds.check("s3", launches))
+            held.update(k10.check("s3", launches))
+            timings["held"] = time.perf_counter() - t0
+        result["b"] = {}
+        for placement, run in b.items():
+            run.pop("ch").stop()
+            run["kept"] = kept
+            result["b"][placement] = run
+        result.update(launches=launches, held_exact=held,
+                      part_seconds=timings, rows=ROWS)
+        return result
+    finally:
+        for run in runs:
+            if "ch" in run:
+                run.pop("ch").stop()
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -7354,7 +8006,8 @@ def main() -> int:
                 results["clickbench"]["runs"]["device"]["completed_rows"],
                 dev)),
             ("cli", lambda: cli_path(dev)),
-            ("sharded", lambda: sharded_path(dev))):
+            ("sharded", lambda: sharded_path(dev)),
+            ("s3", lambda: s3_path((schema, fixed, var), dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

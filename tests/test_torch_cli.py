@@ -2,8 +2,7 @@
 on the CPU (`--device cpu`: the kernels' plain versions).
 
 - `parse_transfer_yaml`: `Transfer.to_dict()` equal across the packages
-  on every `examples/*.yaml` (the `s3` one the port refuses naming its
-  ROADMAP item: a deliberate difference, pinned) and on the cases of
+  on every `examples/*.yaml` and on the cases of
   `tests/e2e/test_cli.py` (environment substitution and defaults, a
   missing variable, unknown keys, an unknown provider).
 - The round trips of `Transfer`, `EndpointParams`, `ChangeItem` and
@@ -15,7 +14,8 @@ on the CPU (`--device cpu`: the kernels' plain versions).
   (stopped by SIGTERM; equal target rows, DDL objects and fences), the
   memory coordinator's refusal of `--job-count 2`, the filestore
   coordinator (`activate` and `checksum --against-operation`; the
-  sharded runs are in tests/test_torch_sharded.py), each left-out
+  sharded runs are in tests/test_torch_sharded.py), the s3 coordinator
+  (`activate` over each package's fake S3), each left-out
   command and flag exiting 2 naming its item, `trace` on the demo transfer, the
   health port's panes, the log sanitizer, and the device rule: without a
   card the CLI raises unless `--device cpu`.
@@ -106,12 +106,6 @@ def example_env(monkeypatch):
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
 def test_examples_parse_equal_to_jax(path, example_env):
     want = ref_config.load_transfer(str(path)).to_dict()
-    if want["src"]["__provider__"] == "s3":
-        # deliberate difference: the port has no s3 provider yet
-        with pytest.raises(port_config.ConfigError,
-                           match=r"'s3'.*ROADMAP\.md A7"):
-            port_config.load_transfer(str(path))
-        return
     got = port_config.load_transfer(str(path))
     assert got.to_dict() == want
     assert got.validation == ref_config.load_transfer(str(path)).validation
@@ -187,8 +181,7 @@ def test_endpoint_from_dict_unknown_raises_keyerror():
         port_endpoint.endpoint_from_dict({"__provider__": "nope"})
 
 
-@pytest.mark.parametrize("path", [p for p in EXAMPLES if "s3" not in p.name],
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
 def test_transfer_round_trip_equals_jax(path, example_env):
     t = port_config.load_transfer(str(path))
     t.regular_snapshot.incremental.append(
@@ -244,12 +237,6 @@ def test_change_item_and_schema_round_trips_equal_jax():
 def test_validate_equals_jax(path, example_env):
     got = run("port", ["validate", "--transfer", str(path)])
     want = run("jax", ["validate", "--transfer", str(path)])
-    if "s3" in path.name:
-        # deliberate difference: refused, naming ROADMAP.md A7
-        assert want[0] == 0
-        assert got[0] == 1 and "'s3'" in got[2] and \
-            "ROADMAP.md A7" in got[2]
-        return
     assert got[:2] == want[:2]
     assert got[0] == 0 and got[1].startswith("OK: ")
 
@@ -366,12 +353,50 @@ def test_left_out_commands_exit_2_naming_their_item(argv, item):
 
 
 @pytest.mark.parametrize("kind,item", [("s3", "A7")])
-def test_left_out_coordinators_name_their_item(kind, item, tmp_path):
+def test_left_out_coordinators_name_their_item(kind, item, tmp_path,
+                                               monkeypatch):
+    """The s3 coordinator, once left out under ROADMAP.md A7, is ported:
+    `activate` on it over each package's fake S3 equals the JAX CLI's
+    (target rows, the operation's state and parts in the bucket), and
+    without a bucket both exit naming the flag."""
+    from tests.recipes.fake_s3 import FakeS3 as RefFakeS3
+    from transferia_tpu.coordinator import S3Coordinator as RefS3
+    from transferia_tpu_torch.coordinator import S3Coordinator
+    from transferia_tpu_torch.recipes.fake_s3 import FakeS3
+
+    monkeypatch.setenv("AWS_ACCESS_KEY_ID", "test-ak")
+    monkeypatch.setenv("AWS_SECRET_ACCESS_KEY", "test-sk")
     path = tmp_path / "t.yaml"
     path.write_text(YAML.format(sink="cli_coord"))
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        run("port", ["--coordinator", kind, "activate", "--transfer",
-                     str(path)])
+    got = {}
+    for pkg, mem, fake_cls, cp_cls in (
+            ("port", port_memory, FakeS3, S3Coordinator),
+            ("jax", ref_memory, RefFakeS3, RefS3)):
+        with pytest.raises(SystemExit, match="--coordinator-bucket"):
+            run(pkg, ["--coordinator", kind, "activate", "--transfer",
+                      str(path)])
+        fake = fake_cls().start()
+        try:
+            mem.get_store("cli_coord").clear()
+            rc, out, _ = run(pkg, [
+                "--coordinator", kind, "--coordinator-bucket", "cp",
+                "--coordinator-endpoint", fake.endpoint,
+                "--coordinator-prefix", "pods", "activate", "--transfer",
+                str(path)])
+            cp = cp_cls(bucket="cp", endpoint=fake.endpoint, prefix="pods")
+            got[pkg] = (rc, out, memory_rows(mem.get_store("cli_coord")),
+                        cp.get_operation_state("op-yaml-test"),
+                        sorted((p.key(), p.completed, p.completed_rows)
+                               for p in cp.operation_parts("op-yaml-test")),
+                        # the JAX package also exports its fleet
+                        # observability segments (obs/), whose exporter
+                        # the port leaves out (ROADMAP.md A5)
+                        sorted(k.split("/")[1] for k in fake.objects
+                               if k.split("/")[1] != "obs"))
+        finally:
+            fake.stop()
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == 0 and len(got["port"][2]) == 50
 
 
 def test_filestore_coordinator_needs_its_dir_as_jax(tmp_path):
@@ -430,11 +455,17 @@ def test_checksum_against_operation_without_fingerprints_as_jax(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["describe", "--bogus"],
-    # the s3 coordinator's options go with it
+    # the s3 coordinator's options, known now that it is ported
     ["--coordinator-endpoint", "http://s3", "describe"],
     ["--coordinator-bucket", "b", "describe"],
 ])
 def test_unknown_argument_is_refused(argv):
+    if argv[0].startswith("--coordinator-"):
+        # accepted as the JAX CLI accepts them (describe ignores them)
+        got, want = run("port", argv), run("jax", argv)
+        assert got[0] == want[0] == 0
+        assert json.loads(got[1]).keys() <= json.loads(want[1]).keys()
+        return
     with pytest.raises(SystemExit) as e:
         run("port", argv)
     assert e.value.code == 2

@@ -260,8 +260,9 @@ def test_new_coordinator_kinds(tmp_path):
     assert isinstance(new_coordinator("memory"), MemoryCoordinator)
     fs = new_coordinator("filestore", root=str(tmp_path))
     assert isinstance(fs, FileStoreCoordinator) and fs.root == str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        new_coordinator("s3", bucket="b")
+    # the s3 coordinator is ported (tests/test_torch_s3_coordinator.py)
+    s3 = new_coordinator("s3", bucket="b", endpoint="http://127.0.0.1:1")
+    assert type(s3).__name__ == "S3Coordinator" and s3.client.bucket == "b"
     with pytest.raises(ValueError, match="unknown coordinator"):
         new_coordinator("etcd")
     m = MemoryCoordinator()

@@ -62,10 +62,11 @@ class Codes:
 
 
 class CategorizedError(TransferError):
-    """Error attributed to the source or the target."""
+    """Error attributed to the source, the target or the engine."""
 
     SOURCE = "source"
     TARGET = "target"
+    INTERNAL = "internal"
 
     def __init__(self, category: str, message: str):
         super().__init__(f"({category}) {message}")

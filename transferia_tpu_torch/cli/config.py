@@ -59,7 +59,7 @@ _KNOWN_KEYS = {
 WAITING_PROVIDERS = frozenset({
     "airbyte", "arrow_ipc", "bigquery", "coralogix", "datadog", "delta",
     "elastic", "eventhub", "flight", "greenplum", "kinesis", "logbroker",
-    "mongo", "mq", "opensearch", "oracle", "s3", "ydb", "yds", "yt",
+    "mongo", "mq", "opensearch", "oracle", "ydb", "yds", "yt",
     "yt_dyn",
 })
 

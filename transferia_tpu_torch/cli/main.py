@@ -12,7 +12,8 @@ worker's sharding indices, the log level and a health port (`/health`,
 The memory coordinator refuses `--job-count > 1`, since parts cannot be
 shared across processes in memory; a sharded snapshot runs one process a
 job on `--coordinator filestore --coordinator-dir D --job-count N
---job-index i`, and `checksum --against-operation op-<id>` later proves
+--job-index i` (or, with no shared directory, `--coordinator s3
+--coordinator-bucket B [--coordinator-endpoint URL]`), and `checksum --against-operation op-<id>` later proves
 the target against the fingerprints that snapshot recorded.
 transfer.yaml is read without PyYAML (`cli/yamlread.py`).
 
@@ -22,7 +23,7 @@ runs the kernels' plain versions.
 
 Left out, each exiting 2 with a message naming its ROADMAP.md item
 (`LEFT_OUT`): the commands check, chaos, flight, fleet, worker, top, slo
-and explain, `trace --fleet`, `--coordinator s3`, `--metrics-port`, and
+and explain, `trace --fleet`, `--metrics-port`, and
 the health port's `/debug/slo`, `/debug/fleet` and `/debug/fleet/obs`.
 """
 
@@ -50,7 +51,6 @@ LEFT_OUT = {
     "slo": "A5, the telemetry that waits (stats/slo.py)",
     "explain": "A5, the telemetry that waits (stats/critpath.py)",
     "trace --fleet": "A5, the telemetry that waits (stats/fleetobs.py)",
-    "--coordinator s3": "A7, the s3 coordinator (coordinator/s3store.py)",
     "--metrics-port": "A5, the telemetry that waits (the Prometheus "
                       "exposition)",
     "/debug/slo": "A5, the telemetry that waits (stats/slo.py)",
@@ -78,11 +78,19 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--coordinator", default="memory",
                    choices=["memory", "filestore", "s3"],
-                   help="control-plane backend: memory (one process) or "
-                        "filestore (a shared directory; sharded workers); "
-                        "s3 is not ported")
+                   help="control-plane backend: memory (one process), "
+                        "filestore (a shared directory) or s3 (a bucket); "
+                        "sharded workers need filestore or s3")
     p.add_argument("--coordinator-dir", default="",
                    help="filestore coordinator root directory")
+    p.add_argument("--coordinator-bucket", default="",
+                   help="bucket for --coordinator s3")
+    p.add_argument("--coordinator-endpoint", default="",
+                   help="S3-compatible endpoint URL (default: AWS)")
+    p.add_argument("--coordinator-region", default="us-east-1",
+                   help="region for --coordinator s3 signing")
+    p.add_argument("--coordinator-prefix", default="",
+                   help="key prefix inside the coordinator bucket")
     p.add_argument("--job-index", type=int, default=0,
                    help="this worker's index (0 = main)")
     p.add_argument("--job-count", type=int, default=0,
@@ -328,7 +336,18 @@ def _coordinator(args):
             )
         return new_coordinator("filestore", root=args.coordinator_dir)
     if args.coordinator == "s3":
-        raise SystemExit(left_out_message("--coordinator s3"))
+        if not args.coordinator_bucket:
+            raise SystemExit(
+                "--coordinator s3 requires --coordinator-bucket "
+                "(credentials via AWS_ACCESS_KEY_ID/AWS_SECRET_ACCESS_KEY)"
+            )
+        return new_coordinator(
+            "s3",
+            bucket=args.coordinator_bucket,
+            endpoint=args.coordinator_endpoint,
+            region=args.coordinator_region,
+            prefix=args.coordinator_prefix,
+        )
     # memory coordinator cannot share parts across processes
     if args.job_count > 1:
         raise SystemExit(

@@ -138,6 +138,13 @@ class MemoryCoordinator(Coordinator):
         with op.lock:
             op.parts[:] = copies
 
+    def add_operation_parts(self, operation_id: str,
+                            parts: list[OperationTablePart]) -> None:
+        op = self._op(operation_id)
+        copies = [_copy(p) for p in parts]
+        with op.lock:
+            op.parts.extend(copies)
+
     def assign_operation_part(self, operation_id: str, worker_index: int
                               ) -> Optional[OperationTablePart]:
         now = time.time()

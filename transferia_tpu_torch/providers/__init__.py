@@ -6,7 +6,8 @@ transfer build time.  The port ships the `sample` source (snapshot and
 replication), the `memory` source and sink, the `kafka` replication
 source and sink, the `ch` (ClickHouse) sink on one shard and its
 storage, the `fs` Parquet source, the `pg` (Postgres) and `mysql`
-sources (snapshot and CDC) and sinks, and the `stdout` and `devnull`
+sources (snapshot and CDC) and sinks, the `s3` object-storage source
+(snapshot and replication) and sink, and the `stdout` and `devnull`
 sinks; the other providers wait (ROADMAP.md A7).
 """
 
@@ -28,6 +29,7 @@ def load_builtin_providers() -> None:
         memory,
         mysql,
         postgres,
+        s3,
         sample,
         stdout,
     )

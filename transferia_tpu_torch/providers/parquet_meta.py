@@ -572,18 +572,34 @@ def read_footer(path: str) -> FileMetaData:
     with open(path, "rb") as fh:
         fh.seek(0, os.SEEK_END)
         size = fh.tell()
-        if size < 12:
-            raise ValueError(f"{path}: too small to be a Parquet file")
-        fh.seek(size - 8)
-        tail = fh.read(8)
-        if tail[4:] != MAGIC:
-            raise ValueError(f"{path}: not a Parquet file (no PAR1 "
-                             f"footer magic)")
-        n = struct.unpack("<I", tail[:4])[0]
-        if n + 12 > size:
-            raise ValueError(f"{path}: footer length {n} exceeds the file")
-        fh.seek(size - 8 - n)
-        return parse_file_metadata(fh.read(n))
+
+        def read(lo: int, hi: int) -> bytes:
+            fh.seek(lo)
+            return fh.read(hi - lo)
+
+        return read_footer_ranged(read, size, path, guess=8)
+
+
+def read_footer_ranged(read, size: int, name: str,
+                       guess: int = 1 << 16) -> FileMetaData:
+    """Parse the footer of a `size`-byte Parquet file whose bytes
+    `read(lo, hi)` returns: one read of the last `guess` bytes, and a
+    second only when the footer is longer (an object store's ranged
+    GETs, or a local file's seeks)."""
+    if size < 12:
+        raise ValueError(f"{name}: too small to be a Parquet file")
+    lo = max(0, size - max(guess, 8))
+    tail = read(lo, size)
+    if tail[-4:] != MAGIC:
+        raise ValueError(f"{name}: not a Parquet file (no PAR1 footer "
+                         f"magic)")
+    n = struct.unpack("<I", tail[-8:-4])[0]
+    if n + 12 > size:
+        raise ValueError(f"{name}: footer length {n} exceeds the file")
+    start = size - 8 - n
+    if start >= lo:
+        return parse_file_metadata(bytes(tail[start - lo:len(tail) - 8]))
+    return parse_file_metadata(read(start, size - 8))
 
 
 # -- per-file memoization ----------------------------------------------------

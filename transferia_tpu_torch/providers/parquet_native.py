@@ -17,7 +17,11 @@ falls outside through arrow, column by column; the port has no arrow, so
 such a column raises NotImplementedError naming it and the reason.
 
 All columns of a row group decode in one ctypes call, or column-parallel
-over `decode_threads` threads (byte-identical either way).  ctypes
+over `decode_threads` threads (byte-identical either way).  The bytes
+come from a source: a local file's shared memory map (`MappedFile`,
+handed whole), or an object store's ranged reads of one row group's
+byte span at a time (`providers/s3readers.py`), so a reader of a 14 GB
+object holds only the row groups in flight.  ctypes
 releases the GIL for the call, so upload threads overlap decode with
 sink pushes.
 """
@@ -106,17 +110,37 @@ def _unsupported(name: str, why: str) -> NotImplementedError:
         f"route for it (ROADMAP.md A7)")
 
 
+class MappedFile:
+    """A local Parquet file's bytes: its shared read-only memory map,
+    handed whole, so chunk offsets stay absolute."""
+
+    def __init__(self, path: str):
+        self.mm = shared_memmap(path)
+        self.key = file_key(path)
+        self.size = len(self.mm)
+
+    def span(self, lo: int, hi: int) -> tuple[np.ndarray, int]:
+        """A buffer holding bytes [lo, hi) and the file offset of its
+        first byte."""
+        return self.mm, 0
+
+
 class NativeParquetReader:
-    """One file's row-group reader over the host library's decoder."""
+    """One file's row-group reader over the host library's decoder.
+
+    `source` gives the file's bytes (`span(lo, hi)` -> (buffer, offset of
+    its first byte), `size`, and `key`, which names the file's version
+    for the shared dictionary pools); None maps the local `path`."""
 
     def __init__(self, path: str, meta: FileMetaData, schema: TableSchema,
-                 decode_threads: int = 1):
+                 decode_threads: int = 1, source=None):
         self._meta = meta
         self._schema = schema
         self._cdll = native.lib()
         self._decode_threads = max(1, int(decode_threads))
-        self._mm = shared_memmap(path)
-        self._file_key = file_key(path)
+        self._src = source if source is not None else MappedFile(path)
+        self._size = self._src.size
+        self._file_key = self._src.key
         self._fields = {f.name: f for f in meta.fields}
         self._col_idx = {c.path_in_schema: i for i, c in
                          enumerate(meta.row_groups[0].columns)} \
@@ -193,10 +217,10 @@ class NativeParquetReader:
                 raise _unsupported(cs.name, f"physical type {name} as "
                                             f"{cs.data_type.name}")
             start, length = self._chunk_range(col)
-            if start < 0 or start + length > len(self._mm):
+            if start < 0 or start + length > self._size:
                 raise ValueError(f"parquet column {cs.name!r}: chunk "
                                  f"[{start}, {start + length}) lies outside "
-                                 f"the {len(self._mm)}-byte file")
+                                 f"the {self._size}-byte file")
             n = col.num_values
             max_def = leaf.max_def
             # field 8: data cap for byte arrays, output width for fixed
@@ -293,7 +317,7 @@ class NativeParquetReader:
         max_def = self._leaves[col.path_in_schema].max_def
         n = col.num_values
         start, length = self._chunk_range(col)
-        chunk = np.ascontiguousarray(self._mm[start:start + length])
+        chunk = self._chunk(start, length)
         # the single-column entry point seeds validity all-defined itself
         validity = np.empty(n, dtype=np.uint8) if max_def else None
         offsets = np.empty(n + 1, dtype=np.int32)
@@ -331,7 +355,7 @@ class NativeParquetReader:
         _, col = self._column(g, cs)
         n = col.num_values
         start, length = self._chunk_range(col)
-        chunk = np.ascontiguousarray(self._mm[start:start + length])
+        chunk = self._chunk(start, length)
         validity = np.ones(n, dtype=np.uint8)
         codes = np.empty(n, dtype=np.int32)
         rc = self._cdll.pq_decode_bytearray(
@@ -348,7 +372,21 @@ class NativeParquetReader:
                       np.zeros(n, dtype=cs.data_type.np_dtype), None,
                       np.zeros(n, dtype=np.bool_))
 
-    def _decode_tasks(self, tasks: np.ndarray, n: int) -> None:
+    def _chunk(self, start: int, length: int) -> np.ndarray:
+        buf, base = self._src.span(start, start + length)
+        return np.ascontiguousarray(buf[start - base:start - base + length])
+
+    def row_group_span(self, g: int) -> tuple[int, int]:
+        """The byte range [lo, hi) of the file that holds every chunk the
+        schema reads from row group g."""
+        tasks, _ = self._rg_tasks(g)
+        if not len(tasks):
+            return 0, 0
+        return (int(tasks[:, _T_OFF].min()),
+                int((tasks[:, _T_OFF] + tasks[:, _T_LEN]).max()))
+
+    def _decode_tasks(self, buf: np.ndarray, tasks: np.ndarray,
+                      n: int) -> None:
         """Run the native decoder over the task rows, column-parallel
         when decode_threads > 1.  Task rows are independent (each
         decodes one column chunk into buffers only it points at) and
@@ -361,8 +399,7 @@ class NativeParquetReader:
         k = min(self._decode_threads, n)
         if k <= 1:
             if n:
-                self._cdll.pq_decode_rowgroup(self._mm, len(self._mm),
-                                              tasks, n)
+                self._cdll.pq_decode_rowgroup(buf, len(buf), tasks, n)
             return
         order = iter(np.argsort(-tasks[:, _T_LEN], kind="stable"))
         errors: list[BaseException] = []
@@ -375,7 +412,7 @@ class NativeParquetReader:
                     if i is None:
                         return
                     self._cdll.pq_decode_rowgroup(
-                        self._mm, len(self._mm), tasks[i:i + 1], 1)
+                        buf, len(buf), tasks[i:i + 1], 1)
             except BaseException as e:  # ctypes arg errors: re-raise below
                 errors.append(e)
 
@@ -395,6 +432,9 @@ class NativeParquetReader:
         failpoint("decode.native.rowgroup")
         template, specs = self._rg_tasks(g)
         tasks = template.copy()
+        buf, base = self._src.span(*self.row_group_span(g))
+        if base:
+            tasks[:, _T_OFF] -= base
         holds: list[tuple] = []
         for i, (cs, kind, ow, n, max_def, cap, view_dt, _dict_off,
                 _unit) in enumerate(specs):
@@ -418,7 +458,7 @@ class NativeParquetReader:
             holds.append((bufs, val))
         with trace.span("native_rowgroup_decode", group=g,
                         cols=len(specs)):
-            self._decode_tasks(tasks, len(specs))
+            self._decode_tasks(buf, tasks, len(specs))
         cols: dict[str, Column] = {}
         refused_with_dict: list = []
         for i, (cs, kind, ow, n, max_def, cap, view_dt, dict_off,

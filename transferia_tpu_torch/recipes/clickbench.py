@@ -64,11 +64,24 @@ def clickbench_rows(n: int) -> tuple[TableSchema, dict, dict]:
     return schema, fixed, var
 
 
-def write_clickbench(path: str, n: int, rows=None) -> tuple[int, int]:
+def slice_rows(rows, lo: int, hi: int) -> tuple[TableSchema, dict, dict]:
+    """Rows [lo, hi) of a clickbench_rows output (var-width offsets
+    rebased): one object of a dataset cut into several."""
+    schema, fixed, var = rows
+    out = {}
+    for name, (data, offsets) in var.items():
+        a, b = int(offsets[lo]), int(offsets[hi])
+        out[name] = (data[a:b], (offsets[lo:hi + 1] - a).astype(np.int32))
+    return schema, {k: v[lo:hi] for k, v in fixed.items()}, out
+
+
+def write_clickbench(path: str, n: int, rows=None,
+                     row_group_rows: int = ROW_GROUP_ROWS
+                     ) -> tuple[int, int]:
     """Write n rows (or the given clickbench_rows output) as bench.py's
     file; returns (file size in bytes, rows the transfer keeps)."""
     schema, fixed, var = rows if rows is not None else clickbench_rows(n)
     size = write_parquet(path, schema, {**fixed, **var}, n,
-                         row_group_rows=ROW_GROUP_ROWS)
+                         row_group_rows=row_group_rows)
     kept = (fixed["RegionID"] < 400) & (fixed["ResolutionWidth"] >= 390)
     return size, int(kept.sum())

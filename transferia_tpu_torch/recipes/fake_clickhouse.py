@@ -38,11 +38,32 @@ class _LazyTable(dict):
             pend = dict.__getitem__(self, "pending")
             if pend:
                 rows = dict.__getitem__(self, "rows")
-                for body, col_names, types, _count in pend:
-                    decoded = _decode_rowbinary_rows(body, types)
-                    rows.extend(dict(zip(col_names, r)) for r in decoded)
+                for body, col_names, types, _count, part in pend:
+                    for r in _decode_rowbinary_rows(body, types):
+                        row = dict(zip(col_names, r))
+                        if part is not None:
+                            row["__trtpu_part"] = part
+                        rows.append(row)
                 pend.clear()
         return dict.__getitem__(self, key)
+
+    def replace_partition(self, part: str, src: "_LazyTable") -> None:
+        """Partition `part` becomes the rows of `src`, each tagged with
+        it.  Inserts not decoded yet move undecoded (a publish costs what
+        the staged part holds, not what the table holds)."""
+        self.drop_partition(part)
+        dict.__getitem__(self, "rows").extend(
+            dict(r, __trtpu_part=part) for r in dict.__getitem__(src, "rows"))
+        dict.__getitem__(self, "pending").extend(
+            (body, cols, types, n, part)
+            for body, cols, types, n, _ in dict.__getitem__(src, "pending"))
+
+    def drop_partition(self, part: str) -> None:
+        rows = dict.__getitem__(self, "rows")
+        if any(r.get("__trtpu_part") == part for r in rows):
+            rows[:] = [r for r in rows if r.get("__trtpu_part") != part]
+        pend = dict.__getitem__(self, "pending")
+        pend[:] = [e for e in pend if e[4] != part]
 
     def __setitem__(self, key, value):
         if key == "rows":  # truncate: discard pending blobs too
@@ -53,8 +74,7 @@ class _LazyTable(dict):
         # materialized rows (tests may mutate that list directly) plus
         # not-yet-decoded inserts
         return (len(dict.__getitem__(self, "rows"))
-                + sum(c for _, _, _, c in
-                      dict.__getitem__(self, "pending")))
+                + sum(e[3] for e in dict.__getitem__(self, "pending")))
 
 
 class FakeCH:
@@ -82,8 +102,24 @@ class FakeCH:
             # miss pending (undecoded) inserts
             return list(t["rows"])
 
+    def insert_digests(self, table: str) -> list:
+        """(partition, rows, SHA-256 of the RowBinary body) of each insert
+        the table holds undecoded, sorted: two tables that landed the
+        same bytes part for part give equal lists."""
+        import hashlib
+
+        with self.lock:
+            t = self.tables[table]
+            if dict.__getitem__(t, "rows"):
+                raise ValueError(f"{table}: rows were decoded")
+            return sorted((e[4] or "", e[3], hashlib.sha256(e[0]).hexdigest())
+                          for e in dict.__getitem__(t, "pending"))
+
     # -- lifecycle ----------------------------------------------------------
-    def start(self) -> "FakeCH":
+    def start(self, host: str = "127.0.0.1", port: int = 0) -> "FakeCH":
+        """Serve on (host, port); port 0 picks a free one.  A fixed port
+        on another loopback address (127.0.0.2, ...) serves a transfer
+        YAML that names ClickHouse's own port, 8123."""
         fake = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -114,7 +150,7 @@ class FakeCH:
             def log_message(self, *a):
                 pass
 
-        self._srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._srv = ThreadingHTTPServer((host, port), Handler)
         self.port = self._srv.server_port
         threading.Thread(target=self._srv.serve_forever,
                          daemon=True).start()
@@ -174,7 +210,7 @@ class FakeCH:
                 types = [table["columns"][c] for c in col_names]
                 # validate structure + count rows now; decode lazily
                 n = _count_rowbinary_rows(body, types)
-                table["pending"].append((body, col_names, types, n))
+                table["pending"].append((body, col_names, types, n, None))
             return b""
         m = re.match(r"alter table `?(\w+)`? replace partition id "
                      r"'([^']*)' from `?(\w+)`?", low)
@@ -190,14 +226,7 @@ class FakeCH:
                 src = self.tables.get(src_name)
                 if dst is None or src is None:
                     raise ValueError("no such table for REPLACE PARTITION")
-                moved = []
-                for row in src["rows"]:
-                    row = dict(row)
-                    row["__trtpu_part"] = slug
-                    moved.append(row)
-                kept = [r for r in dst["rows"]
-                        if r.get("__trtpu_part") != slug]
-                dst["rows"] = kept + moved
+                dst.replace_partition(slug, src)
             return b""
         m = re.match(r"alter table `?(\w+)`? drop partition id '([^']*)'",
                      low)
@@ -207,8 +236,7 @@ class FakeCH:
             with self.lock:
                 dst = self.tables.get(final)
                 if dst is not None:
-                    dst["rows"] = [r for r in dst["rows"]
-                                   if r.get("__trtpu_part") != slug]
+                    dst.drop_partition(slug)
             return b""
         m = re.match(r"select max\(`?(\w+)`?\) from `?(\w+)`? "
                      r"where `?(\w+)`? = '([^']*)'", low)
@@ -270,7 +298,7 @@ class FakeCH:
                     n = 1 if mn.group(1) in self.tables else 0
                     return json.dumps({"data": [[n]]}).encode()
                 data = [
-                    {"name": n, "total_rows": len(t["rows"])}
+                    {"name": n, "total_rows": t.row_count()}
                     for n, t in self.tables.items()
                 ]
             return json.dumps({"data": data}).encode()

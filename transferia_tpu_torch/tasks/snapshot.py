@@ -22,10 +22,13 @@ splits the tables and publishes the part queue, uploads with the others
 and waits for the queue to drain; jobs 1..N-1, the secondaries, wait for
 the queue, apply the main's sharded source state, release their own
 stale claims and upload.  `resume=True` reuses an incomplete queue as
-the checkpoint and uploads only what is not committed.  Left out, each
-raising NotImplementedError (ROADMAP.md A7): async part discovery (no
-ported storage discovers parts asynchronously) and fleet preemption
-(`fleet/`).  A PositionalStorage's position at the
+the checkpoint and uploads only what is not committed.  A storage that
+discovers its parts asynchronously (AsyncPartDiscovery: the s3 source,
+one part an object) publishes them from a thread of its own while the
+upload runs, in flushes of 64 parts or 0.1 s; the workers wait on the
+queue until `parts_discovery_done` flips.  Left out, raising
+NotImplementedError (ROADMAP.md A7): fleet preemption (`fleet/`).  A
+PositionalStorage's position at the
 start lands in the transfer state as `snapshot_position`; the
 regular snapshot's incremental tables read only the rows past their
 persisted cursors (`incremental_state`, stored after a whole run).
@@ -152,8 +155,8 @@ TUNING = SnapshotTuning.from_env()
 def _left_out(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to transferia_tpu_torch yet "
-        f"(ROADMAP.md A7, the snapshot loader's left-out branches: "
-        f"s3 and fleet/)")
+        f"(ROADMAP.md A7, the snapshot loader's left-out branch: "
+        f"fleet/)")
 
 
 class SnapshotLoader:
@@ -257,8 +260,6 @@ class SnapshotLoader:
     # -- main worker ----------------------------------------------------------
     def _main_flow(self, storage: Storage,
                    tables: list[TableDescription]) -> None:
-        if isinstance(storage, AsyncPartDiscovery):
-            raise _left_out("async part discovery")
         if isinstance(storage, SnapshotableStorage):
             storage.begin_snapshot()
         try:
@@ -311,26 +312,40 @@ class SnapshotLoader:
                 }
                 # the first attempt sent the init brackets
                 self._upload_publish_tail(storage, tables, multi_part,
-                                          next_inc_state, send_init=False)
+                                          None, next_inc_state,
+                                          send_init=False)
                 return
+            # a fresh run must reset the discovery flag (a re-activation
+            # would otherwise see the previous run's True and drain early)
             self.cp.set_operation_state(self.operation_id,
                                         {"parts_discovery_done": False})
-            parts = split_tables(storage, tables, self.transfer,
-                                 self.operation_id)
-            self.cp.create_operation_parts(self.operation_id, parts)
-            self.cp.set_operation_state(self.operation_id,
-                                        {"parts_discovery_done": True})
-            self.table_stats.total_parts.set(len(parts))
-            self.table_stats.eta_rows.set(sum(p.eta_rows for p in parts))
-            multi_part = {p.table_id for p in parts if p.parts_count > 1}
+            discovery = None
+            if isinstance(storage, AsyncPartDiscovery):
+                # reset the queue (re-activation leftovers) before parts
+                # stream in via add_operation_parts
+                self.cp.create_operation_parts(self.operation_id, [])
+                discovery = self._start_async_discovery(storage, tables)
+                multi_part = {td.id for td in tables}
+            else:
+                parts = split_tables(storage, tables, self.transfer,
+                                     self.operation_id)
+                self.cp.create_operation_parts(self.operation_id, parts)
+                self.cp.set_operation_state(self.operation_id,
+                                            {"parts_discovery_done": True})
+                self.table_stats.total_parts.set(len(parts))
+                self.table_stats.eta_rows.set(
+                    sum(p.eta_rows for p in parts))
+                multi_part = {p.table_id for p in parts
+                              if p.parts_count > 1}
             self._upload_publish_tail(storage, tables, multi_part,
-                                      next_inc_state, send_init=True)
+                                      discovery, next_inc_state,
+                                      send_init=True)
         finally:
             if isinstance(storage, SnapshotableStorage):
                 storage.end_snapshot()
 
     def _upload_publish_tail(self, storage: Storage, tables,
-                             multi_part: set, next_inc_state,
+                             multi_part: set, discovery, next_inc_state,
                              send_init: bool) -> None:
         """Upload, sharded join, done-brackets, incremental cursors,
         fingerprints: the back half of both the fresh and the resumed
@@ -348,6 +363,10 @@ class SnapshotLoader:
                 ]
                 resolve_all(futs)
             self._do_upload_tables(storage, schemas)
+            if discovery is not None:
+                discovery.join()
+                if self._discovery_error:
+                    raise self._discovery_error
             if self.job_count() > 1:
                 self._wait_all_parts_done()
             futs = [
@@ -407,6 +426,62 @@ class SnapshotLoader:
 
     def job_count(self) -> int:
         return max(1, self.transfer.runtime.sharding.job_count)
+
+    # -- async part discovery (tpp_setter_async.go) -------------------------
+    def _start_async_discovery(self, storage: AsyncPartDiscovery,
+                               tables: list[TableDescription]
+                               ) -> threading.Thread:
+        """Publish parts concurrently with the upload: huge table or
+        object lists must not serialize activation.  Upload workers wait
+        on the part queue until parts_discovery_done flips."""
+        self._discovery_error: Optional[BaseException] = None
+        op_ctx = trace.current_context()
+
+        def discover():
+            total = 0
+            eta = 0
+            try:
+                with trace.adopted(op_ctx):
+                    for td in tables:
+                        batch: list[OperationTablePart] = []
+                        last_flush = time.monotonic()
+                        for part_td in storage.iter_table_parts(td):
+                            batch.append(OperationTablePart(
+                                operation_id=self.operation_id,
+                                table_id=td.id,
+                                part_index=total,
+                                parts_count=0,  # unknown until drained
+                                eta_rows=part_td.eta_rows,
+                                filter=part_td.filter,
+                            ))
+                            total += 1
+                            eta += part_td.eta_rows
+                            # flush by count OR age: workers must see
+                            # parts promptly even when discovery trickles
+                            if len(batch) >= 64 or \
+                                    time.monotonic() - last_flush > 0.1:
+                                self.cp.add_operation_parts(
+                                    self.operation_id, batch)
+                                batch = []
+                                last_flush = time.monotonic()
+                        if batch:
+                            self.cp.add_operation_parts(self.operation_id,
+                                                        batch)
+                self.table_stats.total_parts.set(total)
+                self.table_stats.eta_rows.set(eta)
+                trace.instant("parts_discovered",
+                              operation_id=self.operation_id, parts=total)
+                logger.info("async discovery: %d parts published", total)
+            except BaseException as e:  # re-raised in the main flow
+                self._discovery_error = e
+            finally:
+                self.cp.set_operation_state(
+                    self.operation_id, {"parts_discovery_done": True})
+
+        t = threading.Thread(target=discover, name="part-discovery",
+                             daemon=True)
+        t.start()
+        return t
 
     def _discovery_open(self) -> bool:
         return not self.cp.get_operation_state(self.operation_id).get(
@@ -637,7 +712,10 @@ class SnapshotLoader:
             with trace.adopted(op_ctx), LEDGER.adopted(op_lkey):
                 worker_loop()
 
+        discovery_done = [False]  # latched: the flag never reverts
+
         def worker_loop():
+            idle_sleep = 0.05
             while True:
                 with err_lock:
                     if errors:
@@ -646,9 +724,20 @@ class SnapshotLoader:
                     self.operation_id, self.worker_index
                 )
                 if part is None:
+                    if not discovery_done[0]:
+                        if not self._discovery_open():
+                            discovery_done[0] = True
+                            continue  # drain race: one last assign pass
+                        # async discovery still streaming parts in; back
+                        # off so a slow listing doesn't turn N drained
+                        # workers into a coordinator hot loop
+                        time.sleep(idle_sleep)
+                        idle_sleep = min(1.0, idle_sleep * 2)
+                        continue
                     if linger_wait():
                         continue
                     return
+                idle_sleep = 0.05
                 if part.stolen_from is not None:
                     self.lease_stats.steals.inc()
                     LEDGER.add(lease_steals=1)
