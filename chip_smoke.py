@@ -112,7 +112,7 @@ final line):
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
      the CH target's default Bufferer) over a backlog of 16 partitions
-     x 2,048 messages of the kafka2ch phase's generator (K-A; cut from
+     x 1,024 messages of the kafka2ch phase's generator (K-A; cut from
      16,384 a partition for the call's time).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
@@ -193,16 +193,17 @@ final line):
      keys from K10 equal the plain version's; it reports rows/s over
      the 200,000 and the transactional request's bytes;
  15e. my2kf_cdc: BASELINE config #4's CDC half through run_replication
-     (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 200,000
-     row changes of seed 17 (recipes/cdc.py: 140,000 inserts, 1 % NULL
-     emails, 40,000 updates of live ids with a before and an after
-     image, 20,000 deletes of distinct live ids) in 2,000 GTID
+     (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 100,000
+     row changes of seed 17 (recipes/cdc.py: 70,000 inserts, 1 % NULL
+     emails, 20,000 updates of live ids with a before and an after
+     image, 10,000 deletes of distinct live ids; cut from 200,000 for
+     the fleet phase's room) in 1,000 GTID
      transactions of 100 (GTID, TABLE_MAP of bigint, utf8mb4
      varchar(255), int, ROWS v2 events of at most 8,192 bytes, XID);
      the port's MySQLBinlogSource tails it, mask_field email (K-A on the
      card), Debezium envelopes, the 16-partition topic, no staged
      commit; device and host placement, timed until Kafka holds the
-     200,000 records.  Both land every change once, checkpoint the fed
+     100,000 records.  Both land every change once, checkpoint the fed
      executed set at the binlog's end, and are identical once ts_ms is
      set aside; every record, decoded by the port's DebeziumReceiver, is
      its change (op c/u/d, the after image with the HMAC of the plain
@@ -329,6 +330,28 @@ final line):
      with one push torn and retried: one copy published.  Every launch
      of this process (K-A, K-B, K-C, K10 and trt_var_accumulators) is
      held against its plain version, as many held as counted;
+ 15m. fleet: the fleet control plane on the card.  (a) `trtpu fleet
+     bench` at its defaults (120 sample -> memory transfers over 8
+     workers x 2 lanes, seed 7, the 10:1 tenant skew): every transfer
+     delivered once, nothing lost or double-admitted, Jain >= 0.9,
+     dispatch p50/p99; (b) the s3 phase's 8 objects as 8 transfer_yaml
+     tickets of 4 tenants (BATCH and SCAVENGER) through bench.py's
+     chain into a fake ClickHouse each, on a filestore queue drained by
+     worker 0 (a FleetWorker thread here) and workers 1-2 (`python3 -m
+     transferia_tpu_torch.cli.main worker` processes): an INTERACTIVE
+     ticket revokes worker 0's first BATCH ticket at the part boundary
+     after its part committed (it resumes from that part), and worker 2
+     is SIGKILLed holding a ticket (reclaimed after its 3-s lease);
+     every ticket done once, each ClickHouse holding numpy's count of
+     the object's kept rows in one fenced part (the preempted and the
+     reclaimed ones row for row: numpy's WatchIDs, each URL the hmac of
+     the source's); (c) the MVCC compaction ticket on a store of a base
+     and 6 delta layers, enqueued twice (one admission) and run by a
+     fleet worker: `read_at` equal before and after; (d) `top --fleet`,
+     `trace --fleet`, `slo --fleet` and `explain` over (b)'s segments:
+     every worker's segment present, each ticket's merged ledger rows
+     equal to the rows ClickHouse holds.  Every K-A, K-B, K-C and K10
+     launch of this process is held against its plain version;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -687,6 +710,14 @@ PATH_KERNELS = {
     # pools the checksum meets in the objects' Parquet pages
     "s3": ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes",
            "var_accumulators"),
+    # the fleet: worker 0's tickets (this process) through the fused mask
+    # and filter, K10 keying their staged pushes into ClickHouse and the
+    # MVCC compaction ticket's keys and merged read.  The accumulators of
+    # the objects' Parquet dictionary pools launch only where no earlier
+    # phase memoized them (12 with the phase alone, 0 after `s3`); each
+    # launch is held all the same
+    "fleet": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+              "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -736,7 +767,7 @@ SNAP_FUSED = {"transformers": [
 # bench.py measure_kafka2ch's shape (16 partitions x 1,500 messages,
 # parallelism 4, no Bufferer, mask + filter) and BASELINE config #1
 # (examples/kafka2ch.yaml: rename + mask, the CH target's default
-# Bufferer) over a backlog of 16 partitions x 2,048 messages of the
+# Bufferer) over a backlog of 16 partitions x 1,024 messages of the
 # kafka2ch phase's generator (cut from 16,384 for the later phases'
 # time: (b) moves one fetch batch a Bufferer tick, so its run is about
 # a second a 1,024-message batch, whatever the depth)
@@ -748,7 +779,7 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 2048
+BACKLOG_MESSAGES = 1024
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -805,15 +836,16 @@ MY2KF_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["email"], "salt": MY2KF_SALT.decode()}}]}
 TS_MS = re.compile(rb'"ts_ms":\d+')
 # the CDC tails through run_replication (INCREMENT_ONLY), after my2kf:
-# config #4's CDC half, a binlog of 200,000 row changes (seed 17:
-# 140,000 inserts, 40,000 updates of live ids, 20,000 deletes) in 2,000
-# GTID transactions of 100 (recipes/cdc.py), through the mask into the
+# config #4's CDC half, a binlog of 100,000 row changes (seed 17:
+# 70,000 inserts, 20,000 updates of live ids, 10,000 deletes; cut from
+# 200,000 for the fleet phase's room) in 1,000 GTID transactions of 100
+# (recipes/cdc.py), through the mask into the
 # 16-partition topic with Debezium envelopes; config #2's CDC half,
 # wal2json v2 inserts of the pg2ch rows in transactions of 1,000,
 # through the filter into ClickHouse; and the first 20,000
 # changes through the mask into a MySQL target
 CDC_INSERTS, CDC_UPDATES, CDC_DELETES, CDC_TXN, CDC_SEED = (
-    140_000, 40_000, 20_000, 100, 17)
+    70_000, 20_000, 10_000, 100, 17)
 # (pg2ch_cdc at 100,000 of the 300,000 messages from PR 16: the depth cut
 # that makes room for the checksum and sai phases in the call's time)
 PG_CDC_ROWS, PG_CDC_TXN = 100_000, 1000
@@ -4217,7 +4249,7 @@ def cdc_run(name: str, transfer, cp, placement: str, dev, landed,
 
 
 def cdc_changes() -> list:
-    """The binlog's 200,000 changes of seed 17."""
+    """The binlog's 100,000 changes of seed 17."""
     return cdc.users_changes(CDC_INSERTS, CDC_UPDATES, CDC_DELETES,
                              seed=CDC_SEED)
 
@@ -4315,11 +4347,11 @@ def my2kf_cdc_check_content(records: list, changes: list) -> dict:
 
 
 def my2kf_cdc_path(dev) -> dict:
-    """BASELINE config #4's CDC half: the binlog of 200,000 row changes
+    """BASELINE config #4's CDC half: the binlog of 100,000 row changes
     tailed by the port's MySQLBinlogSource through run_replication
     (INCREMENT_ONLY), mask_field email (K-A on the card), Debezium
     envelopes, the 16-partition topic; device and host placement.  Each
-    run lands every change once (200,000 records by offsets and
+    run lands every change once (100,000 records by offsets and
     live_size), checkpoints the fed executed set at the binlog's end,
     and the records are identical across the placements once ts_ms is
     set aside; every record decodes to its change (op, after, before)
@@ -7807,12 +7839,14 @@ def s3_staged_snapshot(fake, dev) -> dict:
                            if k.startswith("out/.staging/.published."))}
 
 
-def s3_path(rows, dev) -> dict:
+def s3_path(rows, dev, keep: Optional[dict] = None) -> dict:
     """BASELINE config #3 from object storage: (a) its YAML through the
     CLI, (b) bench.py's chain on the card and on the CPU, (c) sharded
     through the S3 coordinator, (d) object replication by poll and SQS
     and a staged jsonl snapshot into a bucket; every launch of this
-    process held against the plain versions."""
+    process held against the plain versions.  With `keep`, the fake S3
+    and its objects outlive the phase in keep["fake"] and
+    keep["objects"] (the fleet phase reads them; it stops the fake)."""
     import logging
 
     logging.basicConfig(level=logging.WARNING,
@@ -7878,6 +7912,516 @@ def s3_path(rows, dev) -> dict:
         for run in runs:
             if "ch" in run:
                 run.pop("ch").stop()
+        if keep is not None and "data" in result:
+            keep.update(fake=fake, objects=result["data"])
+        else:
+            fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+FLEET_QUEUE = "fleet"
+FLEET_TENANTS = 4
+FLEET_SUBPROCS = 2           # workers 1 and 2; worker 0 runs here
+FLEET_LEASE_S = 3.0          # ticket and part leases (the kill's reclaim)
+FLEET_HEARTBEAT_S = 0.5
+FLEET_IDLE_EXIT_S = 6.0
+FLEET_SETTLE_S = 300.0
+FLEET_SALT = "bench-salt"    # bench.py's chain (CONFIG)
+FLEET_YAML = """\
+# one ClickBench object through bench.py's chain: a fleet ticket's transfer
+id: {tid}
+type: SNAPSHOT_ONLY
+src:
+  type: s3
+  params:
+    url: "{url}"
+    endpoint_url: "{endpoint}"
+    format: parquet
+    table: hits
+    batch_rows: {batch_rows}
+dst:
+  type: ch
+  params:
+    host: 127.0.0.1
+    port: {dst}
+    database: default
+    bufferer: null
+transformation:
+  transformers:
+    - mask_field: {{columns: [URL], salt: "{salt}"}}
+    - filter_rows: {{filter: "RegionID < 400 AND ResolutionWidth >= 390"}}
+runtime:
+  process_count: 1
+"""
+# the compaction ticket's store: a base and FLEET_MVCC_LAYERS deltas of
+# inserts, updates and deletes over it
+FLEET_MVCC_BASE, FLEET_MVCC_LAYERS, FLEET_MVCC_DELTA = 200_000, 6, 20_000
+
+
+def fleet_bench_part(dev) -> dict:
+    """(a) `trtpu fleet bench` at its defaults (fleet/bench.py: 120
+    transfers of 256 sample rows over 8 workers x 2 lanes, seed 7, the
+    10:1 tenant skew) with the transfers on the card."""
+    from transferia_tpu_torch.fleet.bench import run_fleet_bench
+
+    report = run_fleet_bench(device=dev)
+    if not report["ok"] or report["lost"] or report["row_mismatches"] \
+            or report["double_admissions"] or report["jain_fairness"] < 0.9 \
+            or report["completed"] != report["transfers"]:
+        raise AssertionError(f"fleet (a): {report}")
+    return {k: report[k] for k in (
+        "transfers", "workers", "lanes_per_worker", "rows_per_transfer",
+        "seed", "completed", "failed", "shed", "lost", "double_admissions",
+        "jain_fairness", "dispatch_p50_ms", "dispatch_p99_ms",
+        "dispatch_hdr_p99_ms", "pick_p99_us", "wall_seconds", "value",
+        "desired_workers_final")}
+
+
+def fleet_expected(rows, i: int, per: int) -> tuple[np.ndarray, dict]:
+    """numpy's image of object i after the chain: the kept WatchIDs,
+    sorted, and each kept row's URL by WatchID."""
+    _, fixed, var = slice_rows(rows, i * per, (i + 1) * per)
+    keep = (fixed["RegionID"] < 400) & (fixed["ResolutionWidth"] >= 390)
+    data, offsets = var["URL"]
+    urls = {int(w): bytes(data[offsets[j]:offsets[j + 1]])
+            for j, w in zip(np.flatnonzero(keep), fixed["WatchID"][keep])}
+    return np.sort(fixed["WatchID"][keep]), urls
+
+
+def fleet_target_check(ch: FakeCH, rows, i: int, per: int,
+                       full: bool) -> dict:
+    """ClickHouse after a ticket: one fence row, no staging table left,
+    numpy's count of rows; with `full`, numpy's WatchIDs each once and
+    every URL the HMAC of the source's (hmac)."""
+    want_ids, urls = fleet_expected(rows, i, per)
+    fences = ch.rows("__trtpu_commits")
+    staging = sorted(n for n in ch.tables
+                     if n.startswith("__trtpu") and n != "__trtpu_commits")
+    out = {"rows": ch.total_rows(), "kept": len(want_ids),
+           "fences": len(fences), "staging_left": staging}
+    if out["rows"] != len(want_ids) or len(fences) != 1 or staging:
+        raise AssertionError(f"fleet (b) object {i}: {out}")
+    if full:
+        got = ch.rows("s3__hits")
+        ids = np.sort(np.array([int(r["WatchID"]) for r in got],
+                               dtype=np.int64))
+        if not np.array_equal(ids, want_ids):
+            raise AssertionError(f"fleet (b) object {i}: ClickHouse's "
+                                 f"WatchIDs differ from numpy's")
+        key = FLEET_SALT.encode()
+        for r in got:
+            url = r["URL"].decode() if isinstance(r["URL"], bytes) \
+                else r["URL"]
+            want = hmac.new(key, urls[int(r["WatchID"])],
+                            hashlib.sha256).hexdigest()
+            if url != want:
+                raise AssertionError(f"fleet (b) object {i}: WatchID "
+                                     f"{r['WatchID']} masked {url!r}, "
+                                     f"hmac {want!r}")
+        out["checked_rows"] = len(got)
+    return out
+
+
+def fleet_worker_proc(index: int, root: str, log: str, dev,
+                      env: dict) -> subprocess.Popen:
+    """`trtpu worker` as a user runs it, in a process of its own."""
+    with open(log, "w") as fh:
+        return subprocess.Popen(
+            [sys.executable, "-m", "transferia_tpu_torch.cli.main",
+             "--device", str(dev.type), "--log-level", "warning",
+             "--coordinator", "filestore", "--coordinator-dir", root,
+             "worker", "--queue", FLEET_QUEUE, "--worker-index", str(index),
+             "--heartbeat", str(FLEET_HEARTBEAT_S),
+             "--idle-exit", str(FLEET_IDLE_EXIT_S)],
+            stdout=fh, stderr=subprocess.STDOUT, env=env)
+
+
+def fleet_distributed(rows, fake, objects: dict, tmp: str, dev) -> dict:
+    """(b) 8 transfer_yaml tickets (one ClickBench object each, 4 tenants,
+    BATCH and SCAVENGER) on a filestore queue, drained by worker 0 here
+    and workers 1-2 as `worker` processes; an INTERACTIVE ticket revokes
+    worker 0's first BATCH ticket once its part is committed, and worker
+    2 is SIGKILLed holding a ticket."""
+    from transferia_tpu_torch.abstract.ticket import FleetTicket
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+    from transferia_tpu_torch.fleet.distributed import (
+        DistributedFleetScheduler,
+    )
+    from transferia_tpu_torch.fleet.worker import FleetWorker
+    from transferia_tpu_torch.stats import fleetobs
+
+    per = objects["rows_per_object"]
+    root = os.path.join(tmp, "queue")
+    cp = FileStoreCoordinator(root=root)
+    sched = DistributedFleetScheduler(cp, queue=FLEET_QUEUE)
+    chs, procs, out = {}, {}, {}
+    env = dict(os.environ, TRANSFERIA_TPU_PLACEMENT="device",
+               TRANSFERIA_TPU_TRACE="1",
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+
+    def ticket(i: int, obj: int, tenant: str, qos: str) -> FleetTicket:
+        ch = chs[i] = FakeCH().start()
+        path = os.path.join(tmp, f"fleet-{i}.yaml")
+        with open(path, "w") as fh:
+            fh.write(FLEET_YAML.format(
+                tid=f"fleet-{i}", url=f"s3://{S3_BUCKET}/hits/"
+                f"hits_{obj:02d}.parquet", endpoint=fake.endpoint,
+                batch_rows=BATCH_ROWS, dst=ch.port, salt=FLEET_SALT))
+        return FleetTicket(ticket_id=f"fleet-{i}", transfer_id=f"fleet-{i}",
+                           tenant=tenant, qos=qos,
+                           payload={"kind": "transfer_yaml", "path": path})
+
+    worker = None
+    try:
+        t0 = time.perf_counter()
+        for index in range(1, 1 + FLEET_SUBPROCS):
+            log = os.path.join(tmp, f"worker-{index}.log")
+            procs[index] = (fleet_worker_proc(index, root, log, dev, env),
+                            log)
+        # both processes up (their idle heartbeats in the queue's health
+        # scope) before a ticket exists, so all three workers race for
+        # the tickets
+        deadline = time.perf_counter() + FLEET_SETTLE_S
+        while set(cp.get_operation_health(f"fleet:{FLEET_QUEUE}")) < \
+                set(procs):
+            for index, (proc, log) in procs.items():
+                if proc.poll() is not None:
+                    raise AssertionError(f"fleet worker {index} exited: "
+                                         f"rc {proc.returncode}: "
+                                         f"{log_tail(log)}")
+            if time.perf_counter() > deadline:
+                raise AssertionError("fleet workers never came up")
+            time.sleep(0.1)
+        out["workers_up_seconds"] = time.perf_counter() - t0
+        for i in range(S3_OBJECTS):
+            decision = sched.submit(ticket(
+                i, i, f"tenant-{i % FLEET_TENANTS}",
+                "batch" if i % 2 == 0 else "scavenger"))
+            if decision != "admitted":
+                raise AssertionError(f"fleet (b) ticket {i}: {decision}")
+        inter = S3_OBJECTS
+        preempt: dict = {}
+
+        def hook(t: FleetTicket, boundary: int) -> None:
+            """Worker 0's first BATCH ticket, at the first part boundary
+            after its part committed: an INTERACTIVE arrival revokes
+            it, and the boundary waits until the worker has seen the
+            revoke (its heartbeat's renewal), so it yields there."""
+            if preempt or t.qos != "batch":
+                return
+            parts = cp.operation_parts(f"op-{t.transfer_id}")
+            if not parts or not all(p.completed for p in parts):
+                return
+            preempt.update(victim=t.ticket_id, boundary=boundary,
+                           parts_committed=len(parts))
+            arrival = ticket(inter, 0, "tenant-0", "interactive")
+            if sched.submit(arrival) != "admitted":
+                raise AssertionError("fleet (b): the INTERACTIVE ticket "
+                                     "was not admitted")
+            # the decision over the victim and the arrival as queued (a
+            # peer may claim the arrival before this list is read)
+            (held,) = [x for x in cp.list_tickets(FLEET_QUEUE)
+                       if x.ticket_id == t.ticket_id]
+            arrival.state, arrival.seq = "queued", S3_OBJECTS
+            preempt["revoked"] = sched.preempt_if_needed([held, arrival])
+            limit = time.perf_counter() + 30.0
+            while not worker._revoked:
+                if time.perf_counter() > limit:
+                    raise AssertionError("fleet (b): the revoke never "
+                                         "reached worker 0")
+                time.sleep(0.01)
+
+        set_placement("device")
+        worker = FleetWorker(cp, queue=FLEET_QUEUE, worker_index=0,
+                             heartbeat_interval=FLEET_HEARTBEAT_S,
+                             part_boundary_hook=hook, device=dev)
+        stop = threading.Event()
+        th = threading.Thread(target=worker.run, args=(stop,),
+                              name="fleet-w0", daemon=True)
+        th.start()
+        # worker 2 dies holding a ticket, after its first segment
+        victim_proc, _ = procs[2]
+        killed = None
+        while killed is None and time.perf_counter() < deadline:
+            held = [x for x in cp.list_tickets(FLEET_QUEUE)
+                    if x.state == "claimed" and x.claimed_by == "w2"]
+            segs = {sg["worker"].split(".")[1]
+                    for sg in cp.list_obs_segments(fleetobs.default_scope())
+                    if sg.get("worker", "").startswith("fleet.")}
+            if held and "w2" in segs:
+                victim_proc.kill()
+                victim_proc.wait(timeout=60)
+                killed = {"ticket": held[0].ticket_id,
+                          "epoch": held[0].claim_epoch,
+                          "at_seconds": time.perf_counter() - t0}
+            elif victim_proc.poll() is not None:
+                raise AssertionError("fleet worker 2 exited before it "
+                                     "held a ticket")
+            else:
+                time.sleep(0.05)
+        if killed is None:
+            raise AssertionError("fleet worker 2 never held a ticket")
+        out["killed"] = killed
+        n = S3_OBJECTS + 1
+        while time.perf_counter() < deadline:
+            ts = cp.list_tickets(FLEET_QUEUE)
+            if len(ts) == n and all(x.terminal for x in ts):
+                break
+            if not th.is_alive():
+                raise AssertionError("fleet worker 0 stopped early")
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"fleet (b): tickets not drained: "
+                                 f"{[(x.ticket_id, x.state) for x in ts]}")
+        out["drain_seconds"] = time.perf_counter() - t0
+        worker.request_drain()
+        stop.set()
+        th.join(timeout=60)
+        set_placement(None)
+        rcs = {}
+        for index, (proc, log) in procs.items():
+            rcs[index] = proc.wait(timeout=FLEET_SETTLE_S)
+            if index != 2 and rcs[index] != 0:
+                raise AssertionError(f"fleet worker {index}: rc "
+                                     f"{rcs[index]}: {log_tail(log)}")
+        out["worker_rcs"] = rcs
+        tickets = {x.ticket_id: x for x in cp.list_tickets(FLEET_QUEUE)}
+        bad = [x.ticket_id for x in tickets.values()
+               if x.state != "done" or x.error]
+        if bad or not preempt.get("revoked"):
+            raise AssertionError(f"fleet (b): tickets {bad} not done, "
+                                 f"preemption {preempt}")
+        victim = tickets[preempt["victim"]]
+        reclaimed = tickets[killed["ticket"]]
+        if victim.preemptions != 1 or reclaimed.stolen_from != "w2" \
+                or reclaimed.attempts < 2:
+            raise AssertionError(
+                f"fleet (b): the preempted ticket {victim.to_json()}, the "
+                f"killed worker's {reclaimed.to_json()}")
+        targets = {}
+        for i, ch in chs.items():
+            targets[i] = fleet_target_check(
+                ch, rows, 0 if i == inter else i, per,
+                full=f"fleet-{i}" in (preempt["victim"], killed["ticket"]))
+        out.update(
+            tickets={tid: {k: getattr(x, k) for k in (
+                "tenant", "qos", "claimed_by", "claim_epoch", "attempts",
+                "preemptions", "stolen_from")}
+                for tid, x in sorted(tickets.items())},
+            preempt=preempt, preempt_log=sched.preempt_log,
+            worker0_claims=[list(c) for c in worker.claim_log],
+            worker0_tickets_run=worker.tickets_run, targets=targets,
+            rows=sum(t["rows"] for t in targets.values()),
+            queue_root=root)
+        out["delivered"] = {f"fleet-{i}": t["rows"]
+                            for i, t in targets.items()}
+        return out
+    finally:
+        set_placement(None)
+        if worker is not None:
+            worker.request_drain()
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for ch in chs.values():
+            ch.stop()
+
+
+def fleet_compaction(dev) -> dict:
+    """(c) the MVCC compaction ticket: a store with a base and
+    FLEET_MVCC_LAYERS deltas, its keys on the card; the ticket enqueued
+    twice (one admission), run by a fleet worker; `read_at` the same
+    before and after, the layers folded."""
+    from transferia_tpu_torch.abstract.kinds import KIND_CODES, Kind
+    from transferia_tpu_torch.fleet.worker import FleetWorker
+    from transferia_tpu_torch.mvcc import compact as mvcc_compact
+
+    schema = new_table_schema([("id", "int64", True), ("val", "utf8")])
+    tid = TableID("s", "t")
+    table = "s.t"
+    cp = MemoryCoordinator()
+    store = mvcc_store.register_store(mvcc_store.MvccStore(
+        "fleet/mvcc", cp, device=dev))
+    rng = np.random.default_rng(31)
+    t0 = time.perf_counter()
+    n = FLEET_MVCC_BASE
+    store.put_base(table, "p0", 1, [ColumnBatch.from_pydict(
+        tid, schema, {"id": list(range(n)),
+                      "val": [f"v{i}" for i in range(n)]})])
+    codes = [KIND_CODES[Kind.INSERT], KIND_CODES[Kind.UPDATE],
+             KIND_CODES[Kind.DELETE]]
+    lsn = 100
+    for layer in range(FLEET_MVCC_LAYERS):
+        ids = rng.choice(n + FLEET_MVCC_DELTA * FLEET_MVCC_LAYERS,
+                         FLEET_MVCC_DELTA, replace=False)
+        kinds = np.asarray([codes[k] for k in rng.integers(0, 3,
+                                                           len(ids))],
+                           dtype=np.int8)
+        store.append_delta(table, "w0", layer, [ColumnBatch.from_pydict(
+            tid, schema, {"id": [int(x) for x in ids],
+                          "val": [f"l{layer}-{x}" for x in ids]},
+            kinds=kinds, lsns=np.arange(lsn, lsn + len(ids),
+                                        dtype=np.int64))])
+        lsn += len(ids)
+    build_s = time.perf_counter() - t0
+
+    def image() -> list:
+        """The merged read, source by source: columns, kinds, LSNs."""
+        return [(b.to_pydict(),
+                 None if b.kinds is None else b.kinds.tolist(),
+                 None if b.lsns is None else b.lsns.tolist())
+                for b in store.read_at(table)]
+
+    before = image()
+    layers = store.layer_count(table)
+    t1 = mvcc_compact.enqueue_compaction(cp, "mvcc", store, table, "fleet")
+    t2 = mvcc_compact.enqueue_compaction(cp, "mvcc", store, table, "fleet")
+    if t1 is None or t2 is None or t1.ticket_id != t2.ticket_id or \
+            len(cp.list_tickets("mvcc")) != 1:
+        raise AssertionError(f"fleet (c): enqueued {t1}, {t2}")
+    worker = FleetWorker(cp, queue="mvcc", worker_index=0, max_tickets=1,
+                         heartbeat_interval=FLEET_HEARTBEAT_S,
+                         idle_exit_seconds=60.0, device=dev)
+    t0 = time.perf_counter()
+    worker.run()
+    run_s = time.perf_counter() - t0
+    (done,) = cp.list_tickets("mvcc")
+    after = image()
+    mvcc_store.unregister_store(store.scope)
+    if done.state != "done" or after != before or \
+            store.layer_count(table) != 0:
+        raise AssertionError(f"fleet (c): ticket {done.to_json()}, reads "
+                             f"equal {after == before}, layers left "
+                             f"{store.layer_count(table)}")
+    return {"ticket": t1.ticket_id, "layers_folded": layers,
+            "rows": sum(len(b[0]["id"]) for b in after),
+            "build_seconds": build_s, "ticket_seconds": run_s,
+            "read_at_equal": True}
+
+
+def fleet_observability(b: dict, dev) -> dict:
+    """(d) the panes over (b)'s segments, as a user runs them: every
+    worker's segment present, and each ticket's merged ledger rows equal
+    to the rows ClickHouse holds (the killed worker's ticket at least
+    those: its dead attempt's rows stay billed)."""
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+    from transferia_tpu_torch.stats import fleetobs
+
+    coord = ["--coordinator", "filestore", "--coordinator-dir",
+             b["queue_root"]]
+    segs = FileStoreCoordinator(root=b["queue_root"]).list_obs_segments(
+        fleetobs.default_scope())
+    workers = sorted({sg["worker"].split(".")[1] for sg in segs
+                      if sg.get("worker", "").startswith("fleet.")})
+    if workers != ["w0", "w1", "w2"]:
+        raise AssertionError(f"fleet (d): segments of workers {workers}")
+    out = {"segments": len(segs), "workers": workers}
+    rc, so, se, s = cli_main(coord + ["top", "--fleet", "--json"], dev)
+    view = json.loads(so)
+    billed = {tid: view["transfers"].get(tid, {}).get("rows_out", 0)
+              for tid in b["delivered"]}
+    killed = b["killed"]["ticket"]
+    wrong = {tid: (billed[tid], rows) for tid, rows in b["delivered"].items()
+             if billed[tid] < rows or (tid != killed and billed[tid] != rows)}
+    if rc != 0 or wrong or not view["conservation"]["ok"]:
+        raise AssertionError(f"fleet (d) top --fleet: rc {rc}, billed != "
+                             f"delivered {wrong}, conservation "
+                             f"{view['conservation']}")
+    out["top"] = {"rc": rc, "seconds": s, "billed_rows_out": billed,
+                  "processes": view["processes"]}
+    rc, so, se, s = cli_main(coord + ["top", "--fleet", "--once"], dev)
+    if rc != 0 or "fleet obs:" not in so:
+        raise AssertionError(f"fleet (d) top --fleet --once: rc {rc}: "
+                             f"{so[-500:]}{se[-500:]}")
+    tid = b["preempt"]["victim"]
+    trace_out = os.path.join(_build.BUILD_DIR, "fleet_trace.json")
+    rc, so, se, s = cli_main(coord + ["trace", "--fleet", tid, "--out",
+                                      trace_out], dev)
+    doc = json.loads(Path(trace_out).read_text())
+    names = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+    if rc != 0 or not {"fleet_ticket_run", "part"} <= names:
+        raise AssertionError(f"fleet (d) trace --fleet: rc {rc}, spans "
+                             f"{sorted(names)}: {se[-500:]}")
+    out["trace"] = {"rc": rc, "seconds": s, "events": len(doc["traceEvents"]),
+                    "processes": doc["otherData"]["processes"]}
+    os.unlink(trace_out)
+    rc, so, se, s = cli_main(coord + ["slo", "--fleet", "--json"], dev)
+    verdicts = json.loads(so)
+    if "objectives" not in verdicts or rc not in (0, 1):
+        raise AssertionError(f"fleet (d) slo --fleet: rc {rc}: {se[-500:]}")
+    out["slo"] = {"rc": rc, "ok": verdicts["ok"],
+                  "burning": verdicts["burning"], "seconds": s}
+    rc, so, se, s = cli_main(coord + ["explain", tid, "--json"], dev)
+    report = json.loads(so)
+    if rc != 0 or not report.get("levers"):
+        raise AssertionError(f"fleet (d) explain {tid}: rc {rc}: "
+                             f"{se[-500:]}")
+    out["explain"] = {"rc": rc, "seconds": s,
+                      "attributed_pct": report["attributed_pct"],
+                      "levers": [lv.get("stage") for lv in report["levers"]],
+                      "processes": report["processes"]}
+    return out
+
+
+def fleet_path(rows, keep: dict, dev) -> dict:
+    """The fleet on the card: (a) the scheduler at `fleet bench`'s shape,
+    (b) a distributed fleet over the s3 phase's objects with a
+    preemption and a killed worker, (c) the MVCC compaction ticket, (d)
+    the observability panes over (b)'s segments.  Every K-A, K-B, K-C
+    and K10 launch of this process is held against its plain version."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet-", dir=str(_build.BUILD_DIR))
+    fake = keep["fake"]
+    # short leases for the kill's reclaim, and room for every segment of
+    # the run (the default keeps a worker's last 8: the panes of (d)
+    # read spans of the phase's first tickets)
+    env = {"TRANSFERIA_TPU_LEASE_SECONDS": str(FLEET_LEASE_S),
+           "TRANSFERIA_TPU_HEARTBEAT_INTERVAL": str(FLEET_HEARTBEAT_S),
+           "TRANSFERIA_TPU_OBS_SEGMENTS_PER_WORKER": "256"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    result: dict = {}
+    timings: dict = {}
+    try:
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result["a"] = fleet_bench_part(dev)
+            timings["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            trace_on()
+            try:
+                result["b"] = fleet_distributed(rows, fake, keep["objects"],
+                                                tmp, dev)
+            finally:
+                trace_off(time.perf_counter() - t0)
+            timings["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["c"] = fleet_compaction(dev)
+            timings["c"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("fleet", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("fleet",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("fleet", launches))
+            held.update(k10.check("fleet", launches))
+            timings["held"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["d"] = fleet_observability(result["b"], dev)
+        timings["d"] = time.perf_counter() - t0
+        result["b"].pop("queue_root")
+        result.update(launches=launches, held_exact=held,
+                      part_seconds=timings)
+        return result
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         fake.stop()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7968,6 +8512,8 @@ def main() -> int:
     cb_dir = tempfile.TemporaryDirectory()
     cb_file = os.path.join(cb_dir.name, f"hits_{ROWS}.parquet")
     results = {}
+    # the s3 phase's fake S3 and objects, which the fleet phase reads
+    s3_keep: dict = {}
 
     for path, run in (
             ("main_path_devpack",
@@ -8007,7 +8553,9 @@ def main() -> int:
                 dev)),
             ("cli", lambda: cli_path(dev)),
             ("sharded", lambda: sharded_path(dev)),
-            ("s3", lambda: s3_path((schema, fixed, var), dev))):
+            ("s3", lambda: s3_path((schema, fixed, var), dev, keep=s3_keep)),
+            ("fleet", lambda: fleet_path((schema, fixed, var), s3_keep,
+                                         dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

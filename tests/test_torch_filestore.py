@@ -34,6 +34,8 @@ from transferia_tpu.abstract.table import \
 from transferia_tpu.abstract.ticket import FleetTicket as RefFleetTicket
 from transferia_tpu.coordinator import \
     FileStoreCoordinator as RefFileStoreCoordinator
+from transferia_tpu.coordinator import \
+    MemoryCoordinator as RefMemoryCoordinator
 from transferia_tpu.coordinator.interface import \
     TransferStatus as RefTransferStatus
 from transferia_tpu_torch.abstract.schema import TableID
@@ -266,10 +268,14 @@ def test_new_coordinator_kinds(tmp_path):
     with pytest.raises(ValueError, match="unknown coordinator"):
         new_coordinator("etcd")
     m = MemoryCoordinator()
-    # the capability probes answer by override, as the reference's
+    ref = RefMemoryCoordinator()
+    # the capability probes answer by override, as the reference's: the
+    # memory coordinators of both packages hold tickets and segments
     assert [m.supports_mvcc(), m.supports_mvcc_blobs(),
             m.supports_ticket_queue(), m.supports_obs_segments()] == \
-        [True, True, False, False]
+        [ref.supports_mvcc(), ref.supports_mvcc_blobs(),
+         ref.supports_ticket_queue(), ref.supports_obs_segments()] == \
+        [True, True, True, True]
 
 
 # -- the JAX package's conformance cases, on the port -------------------------
@@ -293,9 +299,19 @@ class TestPortTicketQueue(ref_queue_tests.TestTicketQueue):
 
 class TestPortObsSegments(ref_obs_tests.TestObsSegmentConformance):
     def test_memory_put_bounds_per_worker_without_gc(self):
-        """The JAX case is of its memory backend; the port's memory
-        coordinator keeps no segments (the probe answers False)."""
-        assert not MemoryCoordinator().supports_obs_segments()
+        """The JAX case is of its memory backend: the port's memory
+        coordinator trims each worker's segments at put time too."""
+        from transferia_tpu_torch.coordinator.interface import (
+            obs_segments_per_worker,
+        )
+
+        cp = MemoryCoordinator()
+        for seq in range(1, 40):
+            cp.put_obs_segment("s", ref_obs_tests.make_segment(
+                worker="w0", seq=seq))
+        got = cp.list_obs_segments("s")
+        assert [g["seq"] for g in got] == list(
+            range(40 - obs_segments_per_worker(), 40))
 
     def test_torn_stored_segment_skipped(self, cp, tmp_path):
         cp.put_obs_segment("s", ref_obs_tests.make_segment(worker="w0",

@@ -34,6 +34,12 @@ and turns tracing, the stage timer, the lock watch, a failpoint and the
 profiler on over a fused chain: neither jax, jax.monitoring, yaml,
 prometheus_client nor the JAX package may be loaded, and a disabled
 span is the shared no-op singleton.
+A third imports the fleet (`fleet/`, `stats/fleetobs.py`, `stats/slo.py`,
+`stats/critpath.py`, `mvcc/compact.py`), runs a fleet worker over two
+`sample_snapshot` tickets with the mask and the filter (one preempted at
+a part boundary and resumed) and reads the segments back through the
+merge, the SLO evaluation and the critical path: again nothing of jax,
+prometheus_client or the JAX package is loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there (the CLI too, unless given `--device cpu`).
 """
@@ -513,6 +519,112 @@ def test_telemetry_plane_imports_nothing_of_jax():
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
     assert "device: launches=1" in proc.stdout, proc.stdout
+
+
+_FLEET_CHILD = """
+import sys
+import time
+from transferia_tpu_torch import fleet
+from transferia_tpu_torch.abstract.ticket import FleetTicket
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.fleet import autoscaler, bench, leader
+from transferia_tpu_torch.fleet.distributed import DistributedFleetScheduler
+from transferia_tpu_torch.fleet.worker import FleetWorker
+from transferia_tpu_torch.mvcc import compact
+from transferia_tpu_torch.providers.memory import get_store
+from transferia_tpu_torch.stats import critpath, fleetobs, slo, trace
+
+chain = {"transformers": [
+    {"mask_field": {"columns": ["email"], "salt": "s"}},
+    {"filter_rows": {"filter": "age >= 21"}}]}
+cp = MemoryCoordinator(lease_seconds=30)
+s = DistributedFleetScheduler(cp, queue="q", capacity=lambda: 1)
+
+
+def ticket(i, qos, rows):
+    return FleetTicket(ticket_id=f"t{i}", transfer_id=f"tr{i}", qos=qos,
+                       payload={"kind": "sample_snapshot", "rows": rows,
+                                "preset": "users", "table": "users",
+                                "shard_parts": 4, "sink_id": f"iso{i}",
+                                "operation_id": f"op-iso{i}",
+                                "transformation": chain})
+
+
+s.submit(ticket(0, "batch", 2000))
+holder = {}
+
+
+def hook(t, boundary):
+    if t.ticket_id == "t0" and boundary == 2 and "fired" not in holder:
+        holder["fired"] = 1
+        s.submit(ticket(1, "interactive", 500))
+        s.preempt_if_needed()
+        while not holder["w"]._revoked:
+            time.sleep(0.005)
+
+
+trace.enable(True)
+w = holder["w"] = FleetWorker(cp, queue="q", max_tickets=2,
+                              heartbeat_interval=0.02, device="cpu",
+                              part_boundary_hook=hook,
+                              idle_exit_seconds=20.0)
+w.run()
+trace.enable(False)
+assert [c[0] for c in w.claim_log] == ["t0", "t1", "t0"], w.claim_log
+assert all(t.state == "done" for t in cp.list_tickets("q"))
+segs = cp.list_obs_segments(fleetobs.default_scope())
+view = fleetobs.merge_segments(segs)
+assert view["transfers"]["tr0"]["rows_out"] == get_store("iso0").row_count()
+assert "objectives" in slo.evaluate(segs)
+assert critpath.explain(critpath.records_from_segments(segs), "tr0")["spans"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
+                                    "fsspec", "s3fs", "prometheus_client",
+                                    "transferia_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_fleet_plane_imports_nothing_of_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("TRANSFERIA_TPU_FAILPOINTS", None)
+    proc = subprocess.run([sys.executable, "-c", _FLEET_CHILD],
+                          cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_fleet_needs_a_card_or_the_cpu(device, monkeypatch):
+    """The fleet worker, a ticket's run context, the fleet bench and
+    the `worker` command raise without a card unless asked for the
+    CPU."""
+    from transferia_tpu_torch.cli import main as cli_main
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.fleet.bench import run_fleet_bench
+    from transferia_tpu_torch.fleet.worker import (
+        FleetWorker,
+        TicketRunContext,
+    )
+    from transferia_tpu_torch.stats.registry import Metrics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cp = MemoryCoordinator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetWorker(cp, device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TicketRunContext(cp, Metrics(), lambda: False, False, "w0", "q",
+                         device=device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fleet_bench(transfers=4, workers=1, device=device)
+    argv = ["worker", "--idle-exit", "0.1"]
+    if device is not None:
+        argv = ["--device", device] + argv
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main.main(argv)
+    assert FleetWorker(cp, device="cpu").device.type == "cpu"
 
 
 def small_batch():

@@ -218,6 +218,10 @@ def wait_for(cond, seconds: float = 30.0) -> None:
         time.sleep(0.02)
 
 
+# how long a replication run may take to stop once asked
+STOP_LIMIT_S = 30.0
+
+
 class Replication:
     def __init__(self, pkg: str, srv, tid: str, dst=None,
                  transformation=None, **src):
@@ -248,9 +252,14 @@ class Replication:
         if self.p is PKGS["jax"]:
             # the JAX package's source looks at its stop only after a
             # WAL message (ROADMAP.md C4): a logical message, which
-            # decodes to nothing, lets it see the stop
-            self.srv.feed_wal(json.dumps({"action": "M"}).encode())
-        self.thread.join(5)
+            # decodes to nothing, lets it see the stop.  One message can
+            # reach the source before it next reads, so keep feeding one
+            # until the thread ends, up to an explicit limit
+            deadline = time.monotonic() + STOP_LIMIT_S
+            while self.thread.is_alive() and time.monotonic() < deadline:
+                self.srv.feed_wal(json.dumps({"action": "M"}).encode())
+                self.thread.join(0.5)
+        self.thread.join(STOP_LIMIT_S)
         assert not self.thread.is_alive()
         return False
 

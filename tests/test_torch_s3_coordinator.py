@@ -322,11 +322,18 @@ class TestPortTicketQueue(ref_queue_tests.TestTicketQueue):
 class TestPortObsSegments(ref_obs_tests.TestObsSegmentConformance):
     def test_memory_put_bounds_per_worker_without_gc(self, cp):
         """The JAX case is of its memory backend: the port's memory
-        coordinator keeps no segments, and the S3 one's bound is its gc
+        coordinator trims at put time, and the S3 one's bound is its gc
         (below)."""
         from transferia_tpu_torch.coordinator import MemoryCoordinator
+        from transferia_tpu_torch.coordinator.interface import (
+            obs_segments_per_worker,
+        )
 
-        assert not MemoryCoordinator().supports_obs_segments()
+        m = MemoryCoordinator()
+        for seq in range(1, 40):
+            m.put_obs_segment("s", ref_obs_tests.make_segment(
+                worker="w0", seq=seq))
+        assert len(m.list_obs_segments("s")) == obs_segments_per_worker()
         assert cp.supports_obs_segments()
 
     def test_torn_stored_segment_skipped(self, cp, tmp_path):

@@ -678,15 +678,12 @@ def test_left_out_branches_raise(what):
         SnapshotLoader(t, cp, device="cpu", **kw).upload_tables()
         assert cp.get_transfer_state(t.id)["incremental_state"] == {}
         return
-    if what in ("secondary", "resume"):
-        # ported (tests/test_torch_sharded.py holds both against the JAX
-        # package): a secondary whose main found no parts exits at once,
-        # and a resume with no queue to reuse runs afresh
-        cp = MemoryCoordinator()
-        cp.set_operation_state(f"op-{t.id}", {"parts_discovery_done": True})
-        SnapshotLoader(t, cp, device="cpu", **kw).upload_tables()
-        assert cp.operation_parts(f"op-{t.id}") == []
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        SnapshotLoader(t, MemoryCoordinator(), device="cpu",
-                       **kw).upload_tables()
+    # ported (tests/test_torch_sharded.py holds the secondary and the
+    # resume against the JAX package, tests/test_torch_fleet_distributed.py
+    # the preemption): a secondary whose main found no parts exits at
+    # once, a resume with no queue to reuse runs afresh, and a probe that
+    # never fires leaves the run as it was
+    cp = MemoryCoordinator()
+    cp.set_operation_state(f"op-{t.id}", {"parts_discovery_done": True})
+    SnapshotLoader(t, cp, device="cpu", **kw).upload_tables()
+    assert cp.operation_parts(f"op-{t.id}") == []

@@ -27,6 +27,14 @@ class WorkerKilledError(TransferError):
     with its lease intact so a surviving worker reclaims it."""
 
 
+class TransferPreemptedError(TransferError):
+    """The fleet revoked this worker's ticket lease (a higher-priority
+    arrival needed the lane) and the snapshot loader yielded at a part
+    boundary.  Not retriable locally: the completed parts are committed,
+    the ticket is already requeued, and the transfer resumes from those
+    parts when it is next claimed."""
+
+
 class StaleEpochPublishError(TransferError):
     """A staged-commit publish carried an assignment epoch older than the
     sink's last accepted publish for the part (a zombie woke after its
@@ -106,11 +114,18 @@ def is_worker_kill(err: BaseException) -> bool:
                for cur in cause_chain(err))
 
 
+def is_preemption(err: BaseException) -> bool:
+    """True when a TransferPreemptedError sits anywhere in the cause
+    chain (the same walk as is_worker_kill)."""
+    return any(isinstance(cur, TransferPreemptedError)
+               for cur in cause_chain(err))
+
+
 # Programming/schema errors: a retry re-runs the same code on the same
 # input, so they fail fast, walked through the cause chain like is_fatal.
 _NON_RETRIABLE_TYPES = (TypeError, AttributeError, NameError, KeyError,
                         IndexError, AssertionError, WorkerKilledError,
-                        StaleEpochPublishError)
+                        StaleEpochPublishError, TransferPreemptedError)
 
 
 def is_retriable(err: BaseException) -> bool:

@@ -4,9 +4,9 @@ port's copy of ``transferia_tpu/abstract/ticket.py``).
 The reference's distributed fleet keeps its queue in the coordinator:
 tickets are JSON documents the backends store durably, so N scheduler
 replicas share one queue and worker processes claim work without
-talking to the scheduler.  The port has no fleet yet (ROADMAP.md A7);
-the type and its dict-form helpers come first, for the MVCC compaction
-ticket (mvcc/compact.py), so both packages mint identical tickets.
+talking to the scheduler.  The consumers are the port's distributed
+fleet (fleet/distributed.py, fleet/worker.py) and the MVCC compaction
+ticket (mvcc/compact.py); both packages mint identical tickets.
 
 Claims reuse the part-lease design (coordinator/interface.py) verbatim:
 a claim is a lease the holding worker renews from its heartbeat;

@@ -6,15 +6,21 @@
 
 Subcommands activate / upload / reupload / add-tables / remove-tables /
 replicate / checksum / deactivate / sniff / regular-snapshot / validate /
-describe / typesystem-docs / trace, global flags for the coordinator, the
+describe / typesystem-docs / trace [--fleet] / fleet bench / worker /
+top [--fleet] / slo / explain, global flags for the coordinator, the
 worker's sharding indices, the log level and a health port (`/health`,
-`/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`).
+`/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`,
+`/debug/fleet`, `/debug/fleet/obs`, `/debug/slo`).
 The memory coordinator refuses `--job-count > 1`, since parts cannot be
 shared across processes in memory; a sharded snapshot runs one process a
 job on `--coordinator filestore --coordinator-dir D --job-count N
 --job-index i` (or, with no shared directory, `--coordinator s3
 --coordinator-bucket B [--coordinator-endpoint URL]`), and `checksum --against-operation op-<id>` later proves
-the target against the fingerprints that snapshot recorded.
+the target against the fingerprints that snapshot recorded.  `worker`
+claims tickets from the fleet's durable queue (`fleet/worker.py`) on a
+filestore or s3 coordinator shared by N worker processes; `top --fleet`,
+`slo --fleet`, `trace --fleet` and `explain <transfer-id>` read the obs
+segments those processes export through the same coordinator.
 transfer.yaml is read without PyYAML (`cli/yamlread.py`).
 
 `--device` (default `cuda`) is where every task the command runs does
@@ -22,9 +28,7 @@ its device work; without a card the CLI raises unless it is `cpu`, which
 runs the kernels' plain versions.
 
 Left out, each exiting 2 with a message naming its ROADMAP.md item
-(`LEFT_OUT`): the commands check, chaos, flight, fleet, worker, top, slo
-and explain, `trace --fleet`, `--metrics-port`, and
-the health port's `/debug/slo`, `/debug/fleet` and `/debug/fleet/obs`.
+(`LEFT_OUT`): the commands check, chaos and flight, and `--metrics-port`.
 """
 
 from __future__ import annotations
@@ -45,17 +49,8 @@ LEFT_OUT = {
     "check": "A6, the port's lint (analysis/)",
     "chaos": "A6, the chaos runner (chaos/runner.py)",
     "flight": "A7, interchange/ (blocked: it needs pyarrow)",
-    "fleet": "A7, fleet/",
-    "worker": "A7, fleet/ (the fleet worker)",
-    "top": "A5, the telemetry that waits (stats/fleetobs.py)",
-    "slo": "A5, the telemetry that waits (stats/slo.py)",
-    "explain": "A5, the telemetry that waits (stats/critpath.py)",
-    "trace --fleet": "A5, the telemetry that waits (stats/fleetobs.py)",
     "--metrics-port": "A5, the telemetry that waits (the Prometheus "
                       "exposition)",
-    "/debug/slo": "A5, the telemetry that waits (stats/slo.py)",
-    "/debug/fleet": "A7, fleet/",
-    "/debug/fleet/obs": "A5, the telemetry that waits (stats/fleetobs.py)",
 }
 
 
@@ -197,9 +192,112 @@ def build_parser() -> argparse.ArgumentParser:
     trc.add_argument("--rows", type=int, default=50_000,
                      help="demo source rows (only without --transfer)")
     trc.add_argument("--fleet", default="", metavar="TRANSFER_ID",
-                     help="fleet mode (not ported)")
-    for name in ("check", "chaos", "flight", "fleet", "worker", "top",
-                 "slo", "explain"):
+                     help="fleet mode: instead of running anything, "
+                          "merge the obs segments of every worker "
+                          "process from the coordinator "
+                          "(stats/fleetobs.py) into one Perfetto "
+                          "timeline for this transfer id ('all' = "
+                          "every transfer)")
+    flt = sub.add_parser(
+        "fleet",
+        help="fleet control plane (fleet/): `bench` drives 100+ "
+             "concurrent sample->memory transfers through the "
+             "admission/fair-share scheduler and reports p50/p99 "
+             "dispatch latency, Jain fairness under a 10:1 tenant "
+             "skew, and the delivery audit")
+    flt.add_argument("action", choices=["bench"])
+    flt.add_argument("--transfers", type=int, default=120,
+                     help="bench: concurrent transfers to schedule")
+    flt.add_argument("--workers", type=int, default=8,
+                     help="bench: worker slots")
+    flt.add_argument("--lanes", type=int, default=2,
+                     help="bench: max in-flight transfers per worker")
+    flt.add_argument("--rows", type=int, default=256,
+                     help="bench: rows per transfer")
+    flt.add_argument("--seed", type=int, default=7,
+                     help="bench: tenant-mix shuffle seed")
+    flt.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable report")
+    wk = sub.add_parser(
+        "worker",
+        help="run a supervised fleet worker process: claim tickets "
+             "from the coordinator's durable admission queue (WDRR "
+             "fair share), run them through the snapshot engine on "
+             "--device, heartbeat the ticket lease, drain gracefully on "
+             "SIGTERM (fleet/worker.py; pair with --coordinator "
+             "filestore|s3 so N processes share one queue)")
+    wk.add_argument("--queue", default="fleet",
+                    help="durable admission queue name")
+    wk.add_argument("--worker-index", type=int, default=-1,
+                    help="this worker's index (-1 = random)")
+    wk.add_argument("--heartbeat", type=float, default=1.0,
+                    help="ticket lease renewal interval (seconds)")
+    wk.add_argument("--idle-exit", type=float, default=0.0,
+                    help="exit after this many seconds with nothing "
+                         "claimable (0 = run until SIGTERM)")
+    wk.add_argument("--max-tickets", type=int, default=0,
+                    help="exit after running N tickets (0 = unbounded)")
+    top = sub.add_parser(
+        "top",
+        help="live per-transfer / per-tenant resource console: polls "
+             "GET /debug/ledger on a running worker's health port "
+             "(stats/ledger.py), or with --fleet merges the "
+             "coordinator's obs segments")
+    top.add_argument("--url", default="http://127.0.0.1:8080",
+                     help="health server base URL of the worker "
+                          "(--health-port)")
+    top.add_argument("--interval", type=float, default=2.0,
+                     help="seconds between frames")
+    top.add_argument("--frames", type=int, default=0,
+                     help="stop after N frames (0 = until Ctrl-C)")
+    top.add_argument("--limit", type=int, default=20,
+                     help="transfer rows per frame")
+    top.add_argument("--json", action="store_true", dest="as_json",
+                     help="print one raw snapshot (ledger, or the "
+                          "merged fleet view under --fleet) and exit")
+    top.add_argument("--once", action="store_true",
+                     help="render one formatted frame and exit")
+    top.add_argument("--fleet", action="store_true",
+                     help="cluster pane: merge the obs segments of every "
+                          "worker process from the coordinator (global "
+                          "--coordinator* flags): fleet ledger, "
+                          "per-worker liveness ages, merged latency "
+                          "histograms, cross-process conservation")
+    sl = sub.add_parser(
+        "slo",
+        help="SLO verdicts: burn-rate objectives (fast 5m / slow 1h "
+             "windows) over the merged obs-segment stream plus the "
+             "per-transfer freshness watermarks (stats/slo.py); "
+             "default polls GET /debug/slo on a worker's health "
+             "port, --fleet evaluates the coordinator's segments, "
+             "--demo runs a sample transfer and judges it")
+    sl.add_argument("--url", default="http://127.0.0.1:8080",
+                    help="health server base URL of the worker")
+    sl.add_argument("--fleet", action="store_true",
+                    help="evaluate the obs segments from the coordinator "
+                         "(global --coordinator* flags)")
+    sl.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable verdicts")
+    sl.add_argument("--demo", action="store_true",
+                    help="run the sample->stdout demo transfer on "
+                         "--device, then evaluate this process's state")
+    sl.add_argument("--rows", type=int, default=50_000,
+                    help="demo rows")
+    ex = sub.add_parser(
+        "explain",
+        help="critical-path attribution: walk the causal trace and "
+             "attribute end-to-end wall time to pipeline stages with a "
+             "top-3-levers summary (stats/critpath.py); `explain demo` "
+             "runs the sample->stdout demo transfer traced on --device, "
+             "`explain <transfer-id>` merges the fleet obs segments")
+    ex.add_argument("target",
+                    help="'demo' or a transfer id to explain from the "
+                         "coordinator's obs segments")
+    ex.add_argument("--rows", type=int, default=50_000,
+                    help="demo rows")
+    ex.add_argument("--json", action="store_true", dest="as_json",
+                    help="machine-readable report")
+    for name in ("check", "chaos", "flight"):
         # any arguments: main() refuses the command itself
         sub.add_parser(name, help=f"not ported: {LEFT_OUT[name]}")
     return p
@@ -283,12 +381,37 @@ def _start_health_server(port: int):
                         f"{len(data):X}\r\n".encode() + data + b"\r\n")
                 self.wfile.write(b"0\r\n\r\n")
                 return
-            for pane in ("/debug/fleet/obs", "/debug/slo", "/debug/fleet"):
-                if self.path.startswith(pane):
-                    self._send(501, "application/json", json.dumps(
-                        {"error": left_out_message(pane)}).encode())
-                    return
-            if self.path.startswith("/debug/ledger"):
+            if self.path.startswith("/debug/fleet/obs"):
+                # fleet-wide observability pane: obs segments of N
+                # worker processes merged through the registered
+                # coordinator (stats/fleetobs.py)
+                from transferia_tpu_torch.stats import fleetobs
+
+                view = fleetobs.debug_fleet_obs()
+                if view is None:
+                    self._send(503, "application/json", json.dumps({
+                        "error": "no obs runtime registered (run under "
+                                 "`trtpu worker` with an obs-capable "
+                                 "coordinator)"}).encode())
+                else:
+                    self._send(200, "application/json",
+                               fleetobs.dumps_view(view).encode())
+            elif self.path.startswith("/debug/slo"):
+                # burn-rate verdicts + freshness watermarks: fleet-wide
+                # through the registered obs runtime, this process's
+                # own state otherwise (stats/slo.py)
+                from transferia_tpu_torch.stats import slo
+
+                self._send(200, "application/json", json.dumps(
+                    slo.debug_slo(), default=str).encode())
+            elif self.path.startswith("/debug/fleet"):
+                # fleet control plane state: admission queues, tenant
+                # debt, dispatch percentiles, desired_workers
+                from transferia_tpu_torch import fleet
+
+                self._send(200, "application/json",
+                           json.dumps(fleet.debug_snapshot()).encode())
+            elif self.path.startswith("/debug/ledger"):
                 # per-transfer/per-tenant resource attribution + the
                 # conservation reconciliation (stats/ledger.py)
                 from transferia_tpu_torch.stats.ledger import LEDGER
@@ -388,9 +511,7 @@ def main(argv=None) -> int:
     left = args.command if args.command in LEFT_OUT else ""
     if extra and not left:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    if args.command == "trace" and args.fleet:
-        left = "trace --fleet"
-    elif args.metrics_port:
+    if args.metrics_port:
         left = "--metrics-port"
     if left:
         print(left_out_message(left), file=sys.stderr)
@@ -406,6 +527,16 @@ def main(argv=None) -> int:
         return cmd_typesystem_docs(args)
     if args.command == "trace":
         return cmd_trace(args, device)
+    if args.command == "fleet":
+        return cmd_fleet(args, device)
+    if args.command == "worker":
+        return cmd_worker(args, device)
+    if args.command == "top":
+        return cmd_top(args)
+    if args.command == "slo":
+        return cmd_slo(args, device)
+    if args.command == "explain":
+        return cmd_explain(args, device)
 
     transfer = _load_transfer(args)
     cp = _coordinator(args)
@@ -656,6 +787,8 @@ def cmd_trace(args, device) -> int:
     from transferia_tpu_torch.stats.ledger import LEDGER
     from transferia_tpu_torch.stats.registry import Metrics
 
+    if args.fleet:
+        return cmd_trace_fleet(args)
     if args.transfer:
         transfer = _load_transfer(args)
     else:
@@ -697,6 +830,317 @@ def cmd_trace(args, device) -> int:
         print(trace.format_summary(wall))
         print("device telemetry: "
               + json.dumps(trace.TELEMETRY.snapshot()))
+    return 0
+
+
+def cmd_trace_fleet(args) -> int:
+    """`trtpu trace --fleet <transfer>`: stitch the obs segments of every
+    process that touched the transfer into one Perfetto timeline
+    (stats/fleetobs.py): each worker process is a pid lane, and
+    cross-process parent links render as flow arrows."""
+    from transferia_tpu_torch.stats import fleetobs
+
+    cp = _coordinator(args)
+    if not cp.supports_obs_segments():
+        print("coordinator has no obs-segment support; nothing to "
+              "merge", file=sys.stderr)
+        return 2
+    scope = fleetobs.default_scope()
+    segments = cp.list_obs_segments(scope)
+    if not segments:
+        print(f"no obs segments under scope {scope!r} — are workers "
+              f"running with observability export on?", file=sys.stderr)
+        return 2
+    transfer_filter = "" if args.fleet == "all" else args.fleet
+    doc = fleetobs.export_fleet_chrome_trace(
+        segments, transfer_id=transfer_filter)
+    with open(args.out, "w") as fh:
+        json.dump(doc, fh)
+    other = doc["otherData"]
+    view = fleetobs.merge_segments(segments)
+    cons = view["conservation"]
+    print(f"fleet trace: {len(doc['traceEvents'])} events from "
+          f"{other['processes']} process(es) "
+          f"({other['segments']} segments, "
+          f"{other['corrupt_segments']} torn) -> {args.out} "
+          f"(open in https://ui.perfetto.dev)")
+    print(f"fleet conservation: "
+          f"{'OK' if cons['ok'] else 'DRIFT ' + json.dumps(cons['drift'])}")
+    if transfer_filter and other["processes"] == 0:
+        print(f"no spans matched transfer {transfer_filter!r} "
+              f"(check the id, or pass 'all')", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_fleet(args, device) -> int:
+    """Fleet scheduler bench (fleet/bench.py) with every transfer on
+    `device`.  Exit 0 only when every transfer delivered, nothing was
+    lost or double-admitted, and the Jain fairness index held >= 0.9
+    under the skewed tenant mix."""
+    from transferia_tpu_torch.fleet.bench import (
+        format_report,
+        run_fleet_bench,
+    )
+
+    report = run_fleet_bench(
+        transfers=args.transfers, workers=args.workers,
+        lanes=args.lanes, rows=args.rows, seed=args.seed, device=device)
+    if args.as_json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(format_report(report))
+    return 0 if report["ok"] else 1
+
+
+def cmd_worker(args, device) -> int:
+    """Run one fleet worker process against the durable admission queue
+    (`trtpu worker`, fleet/worker.py), its tickets on `device`.
+    SIGTERM/SIGINT request a graceful drain: the running transfer yields
+    at its next part boundary, the claim is released back to the queue,
+    and the process exits 0; a peer resumes the transfer from its
+    committed parts."""
+    import os
+
+    from transferia_tpu_torch.fleet.worker import FleetWorker
+
+    cp = _coordinator(args)
+    if args.coordinator == "memory":
+        logging.warning(
+            "worker on a memory coordinator: the queue is invisible to "
+            "other processes (use --coordinator filestore or s3 for a "
+            "real fleet)")
+    if args.worker_index >= 0:
+        index = args.worker_index
+    else:
+        # random, not pid-derived: every containerized worker is pid 1,
+        # and two workers sharing an id could renew each other's claims
+        index = int.from_bytes(os.urandom(3), "big") % 1_000_000
+    worker = FleetWorker(
+        cp, queue=args.queue, worker_index=index,
+        heartbeat_interval=args.heartbeat,
+        idle_exit_seconds=args.idle_exit,
+        max_tickets=args.max_tickets, device=device)
+    if cp.supports_obs_segments():
+        # give this process's health port the fleet panes
+        from transferia_tpu_torch.stats import fleetobs
+
+        fleetobs.register_runtime(cp, health_scope=f"fleet:{args.queue}")
+    stop = threading.Event()
+
+    def handle_sig(signum, frame):
+        logging.info("signal %d: draining worker %s", signum,
+                     worker.worker_id)
+        worker.request_drain()
+        stop.set()
+
+    # main() may run in-process (tests, chip_smoke.py): put the previous
+    # handlers back once the worker exits
+    previous = {s: signal.signal(s, handle_sig)
+                for s in (signal.SIGINT, signal.SIGTERM)}
+    logging.info("fleet worker %s serving queue %r", worker.worker_id,
+                 args.queue)
+    try:
+        worker.run(stop)
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+    print(f"worker {worker.worker_id}: {worker.tickets_run} ticket(s) "
+          f"run")
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Resource console: one process over GET /debug/ledger
+    (stats/ledger.py format_top), or with --fleet the merged cluster
+    pane from the coordinator's obs segments (stats/fleetobs.py).  One
+    frame per --interval; --once renders one frame, --json dumps one
+    raw snapshot."""
+    import time as _time
+    import urllib.request
+
+    from transferia_tpu_torch.stats.ledger import format_top
+
+    if args.fleet:
+        return cmd_top_fleet(args)
+    url = args.url.rstrip("/") + "/debug/ledger"
+    frames = 0
+    try:
+        while True:
+            try:
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    snap = json.loads(resp.read())
+            except (OSError, ValueError) as e:
+                print(f"trtpu top: {url}: {e}", file=sys.stderr)
+                return 2
+            if not isinstance(snap, dict) or "totals" not in snap:
+                print(f"trtpu top: {url}: response is not a "
+                      f"/debug/ledger snapshot (wrong service?)",
+                      file=sys.stderr)
+                return 2
+            # lag/SLO columns ride the same poll, best-effort
+            slo_url = args.url.rstrip("/") + "/debug/slo"
+            try:
+                with urllib.request.urlopen(slo_url, timeout=10) as r:
+                    verdicts = json.loads(r.read())
+                if isinstance(verdicts, dict) and "objectives" in verdicts:
+                    snap["slo"] = verdicts
+            except (OSError, ValueError):
+                pass
+            if args.as_json:
+                print(json.dumps(snap, indent=1))
+                return 0
+            if frames and sys.stdout.isatty():
+                print("\x1b[2J\x1b[H", end="")
+            print(format_top(snap, limit=args.limit), flush=True)
+            frames += 1
+            if args.once or (args.frames and frames >= args.frames):
+                return 0
+            _time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_top_fleet(args) -> int:
+    """`trtpu top --fleet`: every worker process's obs segments read
+    through the coordinator and merged (latest cumulative state per
+    process, summed across processes): the fleet ledger with per-worker
+    liveness ages and merged latency tails."""
+    import time as _time
+
+    from transferia_tpu_torch.stats import fleetobs
+
+    cp = _coordinator(args)
+    if not cp.supports_obs_segments():
+        print("trtpu top --fleet: coordinator has no obs-segment "
+              "support", file=sys.stderr)
+        return 2
+    frames = 0
+    try:
+        while True:
+            try:
+                view = fleetobs.read_view(cp)
+            except Exception as e:
+                print(f"trtpu top --fleet: segment read failed: {e}",
+                      file=sys.stderr)
+                return 2
+            if args.as_json:
+                print(fleetobs.dumps_view(view))
+                return 0
+            if frames and sys.stdout.isatty():
+                print("\x1b[2J\x1b[H", end="")
+            print(fleetobs.format_fleet_top(view, limit=args.limit),
+                  flush=True)
+            frames += 1
+            if args.once or (args.frames and frames >= args.frames):
+                return 0
+            _time.sleep(max(0.2, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _run_demo_snapshot(rows: int, device) -> None:
+    """One traced sample->stdout snapshot in this process on `device`
+    (what `slo --demo` and `explain demo` judge)."""
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.stats import trace
+    from transferia_tpu_torch.stats.registry import Metrics
+    from transferia_tpu_torch.tasks import SnapshotLoader
+
+    trace.reset()
+    trace.enable(True)
+    try:
+        SnapshotLoader(_demo_trace_transfer(rows), MemoryCoordinator(),
+                       metrics=Metrics(), device=device).upload_tables()
+    finally:
+        trace.enable(False)
+
+
+def cmd_slo(args, device) -> int:
+    """`trtpu slo`: burn-rate verdicts + freshness watermarks.  URL mode
+    polls GET /debug/slo (non-JSON or wrong-shape bodies exit 2);
+    --fleet evaluates the coordinator's obs segments; --demo runs the
+    sample snapshot on `device` first so the verdicts have data."""
+    import urllib.request
+
+    from transferia_tpu_torch.stats import slo
+
+    if args.demo:
+        _run_demo_snapshot(args.rows, device)
+        view = slo.evaluate(slo.local_segments())
+        view["scope"] = "demo"
+    elif args.fleet:
+        from transferia_tpu_torch.stats import fleetobs
+
+        cp = _coordinator(args)
+        if not cp.supports_obs_segments():
+            print("trtpu slo --fleet: coordinator has no obs-segment "
+                  "support", file=sys.stderr)
+            return 2
+        scope = fleetobs.default_scope()
+        segments = cp.list_obs_segments(scope)
+        if not segments:
+            print(f"trtpu slo --fleet: no obs segments under scope "
+                  f"{scope!r}", file=sys.stderr)
+            return 2
+        view = slo.evaluate(segments)
+        view["scope"] = scope
+    else:
+        url = args.url.rstrip("/") + "/debug/slo"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                view = json.loads(resp.read())
+        except (OSError, ValueError) as e:
+            print(f"trtpu slo: {url}: {e}", file=sys.stderr)
+            return 2
+        if not isinstance(view, dict) or "objectives" not in view:
+            detail = view.get("error") if isinstance(view, dict) \
+                else "response is not a /debug/slo payload"
+            print(f"trtpu slo: {url}: {detail}", file=sys.stderr)
+            return 2
+    if args.as_json:
+        print(json.dumps(view, indent=1, default=str))
+    else:
+        print(slo.format_verdicts(view))
+    return 0 if view.get("ok") else 1
+
+
+def cmd_explain(args, device) -> int:
+    """`trtpu explain`: critical-path attribution.  `demo` runs the
+    traced sample snapshot on `device` and explains its own spans; a
+    transfer id merges the coordinator's obs segments (a multi-worker
+    critical path through cross-process flow links)."""
+    from transferia_tpu_torch.stats import critpath
+
+    if args.target == "demo":
+        _run_demo_snapshot(args.rows, device)
+        records = critpath.records_from_local()
+        report = critpath.explain(records, transfer_id="trace-demo")
+    else:
+        from transferia_tpu_torch.stats import fleetobs
+
+        cp = _coordinator(args)
+        if not cp.supports_obs_segments():
+            print("trtpu explain: coordinator has no obs-segment "
+                  "support", file=sys.stderr)
+            return 2
+        scope = fleetobs.default_scope()
+        segments = cp.list_obs_segments(scope)
+        if not segments:
+            print(f"trtpu explain: no obs segments under scope "
+                  f"{scope!r} — are workers running with observability "
+                  f"export on?", file=sys.stderr)
+            return 2
+        records = critpath.records_from_segments(segments)
+        report = critpath.explain(records, transfer_id=args.target)
+    if not report.get("spans"):
+        print("trtpu explain: no spans found (tracing off, or the "
+              "transfer id matched nothing)", file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps(report, indent=1, default=str))
+    else:
+        print(critpath.format_report(report))
     return 0
 
 

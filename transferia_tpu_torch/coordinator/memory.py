@@ -1,11 +1,13 @@
-"""In-process coordinator (the port's copy of the operation, lease,
-staged-commit and MVCC control-plane and blob parts of
-``transferia_tpu/coordinator/memory.py``, with the replication loop's
-status messages and heartbeats).
+"""In-process coordinator (the port's copy of
+``transferia_tpu/coordinator/memory.py``: operations, leases, the
+staged-commit decision, the fleet ticket queue, the observability
+segments, the MVCC control plane and its blobs, and the replication
+loop's status messages and heartbeats).
 
 Thread-safe; used for single-process runs and tests.  One lock per
-operation guards its part queue and state, one the transfer-scoped maps,
-one the health stream, one the MVCC control docs and blobs; each is a
+operation guards its part queue and state, one per fleet queue its
+tickets, one the transfer-scoped maps, one the health stream, one the
+obs segments, one the MVCC control docs and blobs; each is a
 `lockwatch.named_lock`.  The state
 writes and the part commit carry the reference's `coordinator.*`
 failpoints and `coord_*` spans.
@@ -20,12 +22,26 @@ from typing import Any, Optional
 
 from transferia_tpu_torch.abstract import mvccfence
 from transferia_tpu_torch.abstract.table import OperationTablePart
+from transferia_tpu_torch.abstract.ticket import (
+    FleetTicket,
+    claim_in_place,
+    complete_in_place,
+    complete_is_duplicate,
+    fence_matches,
+    release_in_place,
+    revoke_in_place,
+    ticket_claimable,
+    ticket_expired,
+)
 from transferia_tpu_torch.chaos.failpoints import failpoint
 from transferia_tpu_torch.coordinator.interface import (
     Coordinator,
     TransferStatus,
     default_lease_seconds,
     lease_expired,
+    obs_retention_seconds,
+    obs_segments_per_worker,
+    ticket_retention_seconds,
 )
 from transferia_tpu_torch.runtime import lockwatch
 from transferia_tpu_torch.stats import trace
@@ -46,6 +62,20 @@ class _OpState:
         self.state: dict[str, Any] = {}
 
 
+class _QueueState:
+    """One fleet admission queue's slice: its lock, the ticket list (dict
+    form, mutated in place by the abstract/ticket.py helpers) and the
+    durable seq counter."""
+
+    __slots__ = ("lock", "tickets", "next_seq")
+
+    def __init__(self):
+        self.lock = lockwatch.named_lock("coordinator.queue",
+                                         kind="rlock")
+        self.tickets: list[dict] = []
+        self.next_seq = 0
+
+
 def _copy(p: OperationTablePart) -> OperationTablePart:
     return OperationTablePart.from_json(p.to_json())
 
@@ -59,12 +89,19 @@ class MemoryCoordinator(Coordinator):
         self._messages: dict[str, list[tuple[str, str]]] = {}
         self._ops_lock = lockwatch.named_lock("coordinator.ops_map")
         self._ops: dict[str, _OpState] = {}
+        # fleet admission queues: per-queue locks, same pattern
+        self._queues_lock = lockwatch.named_lock("coordinator.queues_map")
+        self._queues: dict[str, _QueueState] = {}
         self.lease_seconds = (default_lease_seconds()
                               if lease_seconds is None else lease_seconds)
         self._health_lock = lockwatch.named_lock(
             "coordinator.health")
         self.health_reports: deque = deque(maxlen=HEALTH_HISTORY_LIMIT)
         self._health_latest: dict[tuple[str, int], dict] = {}
+        # observability segments: scope -> {(worker, seq): segment},
+        # trimmed per worker at put time
+        self._obs_lock = lockwatch.named_lock("coordinator.obs")
+        self._obs: dict[str, dict[tuple[str, int], dict]] = {}
         self._mvcc_lock = lockwatch.named_lock("coordinator.mvcc")
         self._mvcc: dict[str, dict] = {}
         # MVCC blobs: heap bytes keyed by locator, for the process's life
@@ -250,6 +287,161 @@ class MemoryCoordinator(Coordinator):
             return []
         with op.lock:
             return [_copy(p) for p in op.parts]
+
+    # -- durable fleet admission queue --------------------------------------
+    def _queue(self, queue: str) -> _QueueState:
+        with self._queues_lock:
+            st = self._queues.get(queue)
+            if st is None:
+                st = self._queues[queue] = _QueueState()
+            return st
+
+    def enqueue_ticket(self, queue: str,
+                       ticket: FleetTicket) -> FleetTicket:
+        q = self._queue(queue)
+        with q.lock:
+            for d in q.tickets:
+                if d["ticket_id"] == ticket.ticket_id:
+                    # idempotent: the no-double-admission guarantee
+                    return FleetTicket.from_json(d)
+            d = ticket.to_json()
+            d["seq"] = q.next_seq
+            q.next_seq += 1
+            d["state"] = "queued"
+            d["enqueued_at"] = time.time()
+            q.tickets.append(d)
+            return FleetTicket.from_json(d)
+
+    def list_tickets(self, queue: str) -> list[FleetTicket]:
+        q = self._queue(queue)
+        with q.lock:
+            return [FleetTicket.from_json(d)
+                    for d in sorted(q.tickets, key=lambda t: t["seq"])]
+
+    def claim_ticket(self, queue: str, ticket_id: str,
+                     worker_id: str) -> Optional[FleetTicket]:
+        q = self._queue(queue)
+        now = time.time()
+        with q.lock:
+            for d in q.tickets:
+                if d["ticket_id"] != ticket_id:
+                    continue
+                if not ticket_claimable(d, now):
+                    return None
+                claim_in_place(d, worker_id, self.lease_seconds, now)
+                return FleetTicket.from_json(d)
+            return None
+
+    def renew_ticket_leases(self, queue: str, worker_id: str,
+                            ticket_id: Optional[str] = None,
+                            claim_epoch: Optional[int] = None) -> int:
+        if self.lease_seconds <= 0:
+            return 0
+        q = self._queue(queue)
+        renewed = 0
+        now = time.time()
+        with q.lock:
+            for d in q.tickets:
+                if ticket_id is not None and d["ticket_id"] != ticket_id:
+                    continue
+                if claim_epoch is not None \
+                        and d["claim_epoch"] != claim_epoch:
+                    continue
+                if d["state"] == "claimed" and d["claimed_by"] == worker_id:
+                    d["lease_expires_at"] = now + self.lease_seconds
+                    renewed += 1
+        return renewed
+
+    def complete_ticket(self, queue: str, ticket: FleetTicket,
+                        error: str = "") -> bool:
+        q = self._queue(queue)
+        with q.lock:
+            for d in q.tickets:
+                if d["ticket_id"] != ticket.ticket_id:
+                    continue
+                if complete_is_duplicate(d, ticket):
+                    return True  # idempotent retry of a lost response
+                if not fence_matches(d, ticket):
+                    return False  # zombie: reclaimed or revoked since
+                complete_in_place(d, error)
+                return True
+            return False
+
+    def release_ticket(self, queue: str, ticket: FleetTicket,
+                       failed: bool = False) -> bool:
+        q = self._queue(queue)
+        with q.lock:
+            for d in q.tickets:
+                if d["ticket_id"] != ticket.ticket_id:
+                    continue
+                if not fence_matches(d, ticket):
+                    return False
+                release_in_place(d, failed=failed)
+                return True
+            return False
+
+    def revoke_ticket(self, queue: str,
+                      ticket_id: str) -> Optional[FleetTicket]:
+        q = self._queue(queue)
+        with q.lock:
+            for d in q.tickets:
+                if d["ticket_id"] != ticket_id:
+                    continue
+                if d["state"] != "claimed":
+                    return None  # nothing to preempt
+                revoke_in_place(d)
+                return FleetTicket.from_json(d)
+            return None
+
+    def gc_tickets(self, queue: str,
+                   retention_seconds: Optional[float] = None) -> int:
+        retention = ticket_retention_seconds() \
+            if retention_seconds is None else retention_seconds
+        q = self._queue(queue)
+        now = time.time()
+        with q.lock:
+            keep = [d for d in q.tickets
+                    if not ticket_expired(d, retention, now)]
+            pruned = len(q.tickets) - len(keep)
+            q.tickets = keep
+        return pruned
+
+    # -- durable observability segments --------------------------------------
+    def put_obs_segment(self, scope: str, segment: dict) -> None:
+        # json round trip: deep-copies (the exporter keeps mutating its
+        # buffers) and fails here on what the file backends could not
+        # serialize
+        seg = json.loads(json.dumps(segment))
+        worker = str(seg.get("worker", ""))
+        seq = int(seg.get("seq", 0))
+        bound = obs_segments_per_worker()
+        with self._obs_lock:
+            store = self._obs.setdefault(scope, {})
+            store[(worker, seq)] = seg
+            mine = sorted(k for k in store if k[0] == worker)
+            for key in mine[:-bound]:
+                del store[key]
+
+    def list_obs_segments(self, scope: str) -> list[dict]:
+        with self._obs_lock:
+            store = self._obs.get(scope, {})
+            items = [store[k] for k in sorted(store)]
+        return [json.loads(json.dumps(s)) for s in items]
+
+    def gc_obs_segments(self, scope: str,
+                        retention_seconds: Optional[float] = None) -> int:
+        retention = obs_retention_seconds() \
+            if retention_seconds is None else retention_seconds
+        now = time.time()
+        pruned = 0
+        with self._obs_lock:
+            store = self._obs.get(scope, {})
+            for key in list(store):
+                ts = store[key].get("ts", 0.0)
+                if isinstance(ts, (int, float)) and now - ts > retention:
+                    del store[key]
+                    pruned += 1
+        return pruned
 
     # -- MVCC staging-store control plane -------------------------------------
     def mvcc_admit_layer(self, scope: str, layer: dict) -> dict:

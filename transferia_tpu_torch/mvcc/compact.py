@@ -7,26 +7,32 @@ pruned from the coordinator control doc.  Correctness never depends on
 it: `MvccStore.read_at` answers identically before and after, so it can
 lag, crash or rerun freely.
 
-The reference runs it as SCAVENGER fleet tickets (abstract/ticket.py's
-`FleetTicket`) with a deterministic id per (scope, table, watermark).
-The port has no fleet to queue or run them on (ROADMAP.md A7):
-`compaction_ticket`, `enqueue_compaction` and `make_compact_runner`
-raise and name that item.  `compact_table` runs in process.
+It runs as SCAVENGER fleet tickets (abstract/ticket.py's QOS_RANK: it
+never preempts transfer work) with a deterministic ticket id per
+(scope, table, watermark): `enqueue_ticket` is idempotent by id, so
+noticing the same opportunity twice never double-admits.  A fleet
+worker (fleet/worker.py RUNNERS) runs the ticket on the store it finds
+in its process's registry; the reference rebuilds a miss from the
+spill manifest (mvcc/spill.py, which needs pyarrow and is not in the
+port), so in the port a miss raises, naming that, and the ticket's
+lease hands it to the worker that holds the layers.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
+from transferia_tpu_torch.abstract.ticket import FleetTicket
 from transferia_tpu_torch.chaos.failpoints import failpoint
-from transferia_tpu_torch.mvcc.store import MvccStore, compact_min_layers
+from transferia_tpu_torch.mvcc.store import (
+    SPILL_LEFT_OUT,
+    MvccStore,
+    compact_min_layers,
+)
 from transferia_tpu_torch.stats import trace
 
-FLEET_LEFT_OUT = ("the compaction ticket, its queue and its runner wait "
-                  "on the fleet (fleet/worker.py RUNNERS, the "
-                  "coordinator's ticket queue), not ported to "
-                  "transferia_tpu_torch yet (ROADMAP.md A7)")
+PAYLOAD_KIND = "mvcc_compact"
 
 
 def should_compact(store: MvccStore, table: str,
@@ -62,20 +68,46 @@ def compact_table(store: MvccStore, table: str,
 
 
 def compaction_ticket(scope: str, table: str, watermark: int,
-                      transfer_id: str = ""):
-    """The reference's SCAVENGER fleet ticket for one compaction
-    opportunity; the port has no fleet to run it."""
-    raise NotImplementedError(f"compaction_ticket: {FLEET_LEFT_OUT}")
+                      transfer_id: str = "") -> FleetTicket:
+    """SCAVENGER ticket for one compaction opportunity.  The id is
+    deterministic over (scope, table, watermark): the key
+    `enqueue_ticket` dedups on."""
+    return FleetTicket(
+        ticket_id=f"mvcc-compact/{scope}/{table}@{int(watermark)}",
+        transfer_id=transfer_id,
+        qos="scavenger",
+        payload={"kind": PAYLOAD_KIND, "scope": scope, "table": table,
+                 "watermark": int(watermark)},
+    )
 
 
 def enqueue_compaction(coordinator, queue: str, store: MvccStore,
-                       table: str, transfer_id: str = ""):
-    """The reference enqueues `compaction_ticket` on the coordinator's
-    ticket queue; the port has no ticket queue."""
-    raise NotImplementedError(f"enqueue_compaction: {FLEET_LEFT_OUT}")
+                       table: str,
+                       transfer_id: str = "") -> Optional[FleetTicket]:
+    """Enqueue a compaction ticket once the table has enough layers.
+    Safe after every append: the deterministic id makes repeats free."""
+    if not should_compact(store, table):
+        return None
+    sealed = store.sealed()
+    w = sealed[0] if sealed is not None else store.watermark()
+    t = compaction_ticket(store.scope, table, w, transfer_id)
+    return coordinator.enqueue_ticket(queue, t)
 
 
-def make_compact_runner(resolve_store):
-    """The reference's `RUNNERS[PAYLOAD_KIND]` entry for fleet workers;
-    the port has no fleet worker."""
-    raise NotImplementedError(f"make_compact_runner: {FLEET_LEFT_OUT}")
+def make_compact_runner(
+        resolve_store: Callable[[str], Optional[MvccStore]]):
+    """Build the `RUNNERS[PAYLOAD_KIND]` entry for fleet workers.
+    Columnar layer data lives in process, so the worker supplies
+    `resolve_store(scope)`; a miss raises (the reference would rebuild
+    the scope from its spill manifest) and the lease hands the ticket
+    on."""
+    def _run(ticket: FleetTicket, ctx) -> None:
+        p = ticket.payload
+        store = resolve_store(p["scope"])
+        if store is None:
+            raise RuntimeError(
+                f"ticket {ticket.ticket_id}: no MVCC store for scope "
+                f"{p['scope']!r} in this worker, and the rebuild from "
+                f"spilled layers is out: {SPILL_LEFT_OUT}")
+        compact_table(store, p["table"], watermark=int(p["watermark"]))
+    return _run

@@ -12,9 +12,9 @@ partitioned strategy (`PartitionedWorker`): one source and sink pipeline
 a topic partition, each on its own pump thread, where a failure in one
 stops them all and fails the attempt.  An attempt is one
 `replication_attempt` root span; the heartbeat folds the device
-counters and the ledger into the pipeline's metrics.  The reference's
-observability-segment export and SLO verdicts on the heartbeat wait for
-`stats/fleetobs.py` and `stats/slo.py` (ROADMAP.md A5).
+counters and the ledger into the pipeline's metrics and, on a
+coordinator that keeps obs segments, exports this process's segment
+(stats/fleetobs.py) and folds the SLO verdicts (stats/slo.py) into them.
 """
 
 from __future__ import annotations
@@ -293,6 +293,11 @@ def _stop_on_event(stop_event: threading.Event, worker: LocalWorker) -> None:
 
 def _heartbeat_loop(stop_event: threading.Event, cp: Coordinator,
                     transfer_id: str, metrics: Metrics) -> None:
+    from transferia_tpu_torch.stats import fleetobs, slo
+
+    exporter = None
+    if cp.supports_obs_segments():
+        exporter = fleetobs.exporter_for(cp, f"repl-{transfer_id}")
     while not stop_event.wait(HEARTBEAT_SECONDS):
         cp.transfer_health(transfer_id, healthy=True)
         # device counters ride the heartbeat onto this pipeline's
@@ -300,3 +305,10 @@ def _heartbeat_loop(stop_event: threading.Event, cp: Coordinator,
         # ledger folds on the same heartbeat
         trace.TELEMETRY.fold_into(metrics)
         LEDGER.fold_into(metrics)
+        if exporter is not None:
+            # obs segments (spans, histograms, watermarks) ride the same
+            # beat, and the SLO burn rates get their window edges
+            exporter.export("periodic")
+            slo.fold_verdicts(metrics, slo.debug_slo())
+    if exporter is not None:
+        exporter.export("final")

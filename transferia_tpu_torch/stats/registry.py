@@ -7,8 +7,9 @@ package is present and falls back to local counters otherwise; the port
 keeps only the local counters, under the same metric names, so a
 bundle's readings (`Metrics.value`) compare one to one with the
 reference's.  `DeviceStats` and `ChaosStats` are the telemetry
-plane's bundles, `MvccStats` the MVCC staging store's; the
-interchange, fleet and SLO bundles come with those modules.
+plane's bundles, `MvccStats` the MVCC staging store's, `FleetStats`
+and `DistributedFleetStats` the fleet's and `SloStats` the SLO plane's;
+the interchange bundle comes with that module.
 """
 
 from __future__ import annotations
@@ -116,6 +117,20 @@ class SinkerStats(_Bundle):
     def record_table(self, table: str, rows: int) -> None:
         with self._table_lock:
             self.table_rows[table] = self.table_rows.get(table, 0) + rows
+
+
+class SloStats(_Bundle):
+    """SLO plane gauges (stats/slo.py fold_verdicts): the latest
+    burn-rate evaluation."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.objectives = self.m.gauge("slo_objectives")
+        self.burning = self.m.gauge("slo_burning")
+        self.worst_burn_fast = self.m.gauge("slo_worst_burn_fast")
+        self.worst_burn_slow = self.m.gauge("slo_worst_burn_slow")
+        self.worst_lag_ms = self.m.gauge("slo_worst_replication_lag_ms")
+        self.evaluations = self.m.counter("slo_evaluations")
 
 
 class BuffererStats(_Bundle):
@@ -268,6 +283,56 @@ class CommitStats(_Bundle):
             "publish_stale_rejected")
         self.dedup_rows_dropped = self.m.counter(
             "commit_dedup_rows_dropped")
+
+
+class FleetStats(_Bundle):
+    """Fleet control plane counters (fleet/scheduler.py).  A fleet that
+    sheds while `desired_workers` exceeds the live workers asks for
+    capacity; one that sheds with idle workers is backpressured by the
+    data plane (fleet/backpressure.py)."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.admitted = self.m.counter("fleet_admitted")
+        self.shed = self.m.counter("fleet_shed")
+        self.completed = self.m.counter("fleet_completed")
+        self.failed = self.m.counter("fleet_failed")
+        self.rebalanced = self.m.counter("fleet_rebalanced")
+        self.worker_deaths = self.m.counter("fleet_worker_deaths")
+        self.queue_depth = self.m.gauge("fleet_queue_depth")
+        self.inflight = self.m.gauge("fleet_inflight")
+        self.desired_workers = self.m.gauge("fleet_desired_workers")
+        self.tenant_debt_max = self.m.gauge("fleet_tenant_debt_max")
+        self.dispatch_time = self.m.histogram("fleet_time_dispatch")
+
+
+class DistributedFleetStats(_Bundle):
+    """Distributed fleet counters (fleet/distributed.py, fleet/worker.py,
+    fleet/autoscaler.py).  `ticket_fences` are zombies whose completions
+    were rejected after a reclaim or a revoke; fences with no steals or
+    preemptions mean a lease TTL shorter than the part cadence."""
+
+    def __init__(self, metrics: Optional[Metrics] = None):
+        super().__init__(metrics)
+        self.enqueued = self.m.counter("fleet_tickets_enqueued")
+        self.claimed = self.m.counter("fleet_tickets_claimed")
+        self.completed = self.m.counter("fleet_tickets_completed")
+        self.failed = self.m.counter("fleet_tickets_failed")
+        self.released = self.m.counter("fleet_tickets_released")
+        self.fenced = self.m.counter("fleet_ticket_fences")
+        self.steals = self.m.counter("fleet_ticket_steals")
+        self.shed = self.m.counter("fleet_tickets_shed")
+        self.preemptions = self.m.counter("fleet_preemptions")
+        self.preempt_yields = self.m.counter("fleet_preempt_yields")
+        self.worker_spawns = self.m.counter("fleet_worker_spawns")
+        self.worker_exits = self.m.counter("fleet_worker_exits")
+        self.autoscale_ups = self.m.counter("fleet_autoscale_ups")
+        self.autoscale_downs = self.m.counter("fleet_autoscale_downs")
+        self.gc_pruned = self.m.counter("fleet_tickets_gc_pruned")
+        self.queued = self.m.gauge("fleet_dist_queued")
+        self.inflight = self.m.gauge("fleet_dist_inflight")
+        self.desired_workers = self.m.gauge("fleet_dist_desired_workers")
+        self.live_workers = self.m.gauge("fleet_dist_live_workers")
 
 
 class MvccStats(_Bundle):

@@ -73,6 +73,10 @@ _enabled = False
 _epoch = 0.0
 _lock = threading.Lock()
 _ring: deque = deque(maxlen=DEFAULT_CAPACITY)
+# lifetime count of ring appends (not ring length: the deque evicts);
+# the obs-segment exporter (stats/fleetobs.py) reads it as its delta
+# mark
+_recorded = 0
 _tls = threading.local()
 
 
@@ -176,7 +180,9 @@ class Span:
         if depth:
             stack[-1]._child += dur
         t = threading.current_thread()
+        global _recorded
         with _lock:
+            _recorded += 1
             _ring.append((
                 self.name, t.ident, t.name,
                 self._t0 - _epoch, dur, max(0.0, dur - self._child),
@@ -231,7 +237,9 @@ def instant(name: str, ctx: Optional[SpanContext] = None,
     trace_id = at.trace_id if at else 0
     parent_id = at.span_id if at else 0
     t = threading.current_thread()
+    global _recorded
     with _lock:
+        _recorded += 1
         _ring.append((name, t.ident, t.name,
                       time.perf_counter() - _epoch, 0.0, 0.0, -1,
                       args or None, trace_id, 0, parent_id))
@@ -251,7 +259,9 @@ def complete(name: str, t0: float, dur: float,
     trace_id = at.trace_id if at else span_id
     parent_id = at.span_id if at else 0
     t = threading.current_thread()
+    global _recorded
     with _lock:
+        _recorded += 1
         _ring.append((name, t.ident, t.name, t0 - _epoch, dur,
                       dur, 0, args or None, trace_id, span_id,
                       parent_id))
@@ -330,6 +340,30 @@ def spans() -> list[tuple]:
     instants (span_id 0, parent_id = the span they fired on)."""
     with _lock:
         return list(_ring)
+
+
+def record_count() -> int:
+    """Lifetime number of records appended (monotonic; survives ring
+    eviction).  `spans()[-(record_count() - mark):]` is the exporter's
+    delta since `mark`; records evicted past the ring's capacity are
+    lost, which the obs plane reports as `spans_dropped`."""
+    with _lock:
+        return _recorded
+
+
+def spans_with_count() -> tuple[int, list]:
+    """(record_count, ring snapshot) under one lock hold: the obs
+    exporter's delta window (read apart, concurrent appends could push
+    the window's oldest records out of the tail slice unseen)."""
+    with _lock:
+        return _recorded, list(_ring)
+
+
+def epoch_unix() -> float:
+    """Wall-clock time of this process's capture epoch (the zero point
+    of every recorded t0).  The cross-process merge (stats/fleetobs.py)
+    aligns processes' timelines by their exported epochs."""
+    return time.time() - (time.perf_counter() - _epoch)
 
 
 # -- export -----------------------------------------------------------------

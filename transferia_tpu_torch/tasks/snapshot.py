@@ -26,8 +26,11 @@ the checkpoint and uploads only what is not committed.  A storage that
 discovers its parts asynchronously (AsyncPartDiscovery: the s3 source,
 one part an object) publishes them from a thread of its own while the
 upload runs, in flushes of 64 parts or 0.1 s; the workers wait on the
-queue until `parts_discovery_done` flips.  Left out, raising
-NotImplementedError (ROADMAP.md A7): fleet preemption (`fleet/`).  A
+queue until `parts_discovery_done` flips.  Under a fleet worker
+(fleet/worker.py) `preempted` is polled before every part claim: when
+it answers True the upload threads stop at the part boundary and the
+loader raises TransferPreemptedError, leaving the committed parts as
+the point a later `resume=True` claim continues from.  A
 PositionalStorage's position at the
 start lands in the transfer state as `snapshot_position`; the
 regular snapshot's incremental tables read only the rows past their
@@ -39,15 +42,16 @@ heartbeat; a `part` span and ledger scope per part with a `batch` span
 per pushed batch (`snapshot.part.batch` failpoint), the retry, steal,
 fence and publish instants with their ledger counts, the
 `part_upload` histogram and the device-counter and ledger folds at
-part completion.  The fleet observability export waits for the
-coordinator's segments are ported, but the exporter waits
-(`stats/fleetobs.py`, ROADMAP.md A5).
+part completion, and the fleet observability export (stats/fleetobs.py)
+at each part, each heartbeat and the end of the run, on coordinators
+that keep obs segments.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -67,6 +71,9 @@ from transferia_tpu_torch.abstract.errors import (
     Codes,
     StaleEpochPublishError,
     TableUploadError,
+    TransferPreemptedError,
+    WorkerKilledError,
+    is_preemption,
     is_retriable,
 )
 from transferia_tpu_torch.abstract.interfaces import (
@@ -91,7 +98,7 @@ from transferia_tpu_torch.coordinator.interface import (
 from transferia_tpu_torch.factories import make_async_sink, new_storage
 from transferia_tpu_torch.runtime import knobs
 from transferia_tpu_torch.runtime.device import DeviceLike, resolve_device
-from transferia_tpu_torch.stats import hdr, trace
+from transferia_tpu_torch.stats import fleetobs, hdr, trace
 from transferia_tpu_torch.stats.ledger import LEDGER
 from transferia_tpu_torch.stats.registry import (
     CommitStats,
@@ -152,13 +159,6 @@ class SnapshotTuning:
 TUNING = SnapshotTuning.from_env()
 
 
-def _left_out(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to transferia_tpu_torch yet "
-        f"(ROADMAP.md A7, the snapshot loader's left-out branch: "
-        f"fleet/)")
-
-
 class SnapshotLoader:
     def __init__(self, transfer, coordinator: Coordinator,
                  operation_id: Optional[str] = None,
@@ -166,8 +166,10 @@ class SnapshotLoader:
                  preempted: "Optional[Callable[[], bool]]" = None,
                  resume: bool = False,
                  device: DeviceLike = None):
-        if preempted is not None:
-            raise _left_out("fleet preemption (preempted=)")
+        # fleet preemption probe (fleet/worker.py): polled between
+        # parts; True = stop claiming and raise TransferPreemptedError
+        # (the committed parts stay, the transfer resumes elsewhere)
+        self._preempted = preempted
         # resume a previous attempt's operation: reuse an existing part
         # queue instead of recreating it (recreating would reset the
         # completed flags and replay the whole snapshot)
@@ -196,6 +198,13 @@ class SnapshotLoader:
         self._local_rows_done = 0
         # tables whose scan predicate has been computed
         self._pushdown_done: set = set()
+        # fleet observability export stream (stats/fleetobs.py): under a
+        # fleet worker this joins the worker's ambient stream; a bare
+        # loader exports under its own label; a no-op on coordinators
+        # without obs segments
+        self._obs = fleetobs.exporter_for(
+            coordinator, worker=f"snap.w{self.worker_index}."
+                                f"{os.getpid()}")
 
     # -- entry points ---------------------------------------------------------
     def upload_tables(self, tables: Optional[list[TableDescription]] = None
@@ -219,6 +228,9 @@ class SnapshotLoader:
                     self._secondary_flow(storage)
         finally:
             storage.close()
+            # final observability flush: what this operation spent
+            # survives the process even if it exits right after
+            self._obs.export("final")
 
     def filtered_table_list(self, storage: Storage
                             ) -> list[TableDescription]:
@@ -661,6 +673,15 @@ class SnapshotLoader:
                     }
                 self.cp.operation_health(self.operation_id,
                                          self.worker_index, payload)
+                # observability export at heartbeat cadence: a SIGKILL
+                # between beats loses at most one export interval
+                self._obs.export("periodic")
+            except WorkerKilledError:
+                logger.error(
+                    "worker %d heartbeat killed: lease renewals stop, "
+                    "parts will be reclaimed after expiry",
+                    self.worker_index)
+                return
             except Exception as e:
                 self.lease_stats.heartbeat_failures.inc()
                 logger.warning("worker %d heartbeat failed "
@@ -720,6 +741,21 @@ class SnapshotLoader:
                 with err_lock:
                     if errors:
                         return
+                # part-boundary preemption (fleet lease revocation or a
+                # graceful drain): stop claiming before the next part; a
+                # sibling thread mid-part finishes its part first
+                if self._preempted is not None and self._preempted():
+                    with self._progress_lock:
+                        done = self._local_parts_done
+                    trace.instant("snapshot_preempt_yield",
+                                  operation_id=self.operation_id,
+                                  parts_done=done)
+                    with err_lock:
+                        errors.append(TransferPreemptedError(
+                            f"transfer {self.transfer.id} yielded at a "
+                            f"part boundary ({done} part(s) committed "
+                            f"by this worker)"))
+                    return
                 part = self.cp.assign_operation_part(
                     self.operation_id, self.worker_index
                 )
@@ -779,6 +815,11 @@ class SnapshotLoader:
             hb_stop.set()
             hb.join(timeout=5.0)
         if errors:
+            if is_preemption(errors[0]):
+                # yield cleanly: release any claim a sibling left, so the
+                # resuming claimer never waits out this worker's leases
+                self.cp.clear_assigned_parts(self.operation_id,
+                                             self.worker_index)
             raise errors[0]
 
     def _upload_part_with_retry(self, storage: Storage,
@@ -1020,5 +1061,8 @@ class SnapshotLoader:
         # complete; the attribution ledger folds alongside
         trace.TELEMETRY.fold_into(self.metrics)
         LEDGER.fold_into(self.metrics)
+        # part completion is an export trigger (coalesced inside the
+        # exporter): the committed part's spend is durable at once
+        self._obs.export("part")
         logger.info("part %s done: %d rows, %d bytes",
                     part.key(), rows_done, read_bytes)
