@@ -352,6 +352,30 @@ final line):
      every worker's segment present, each ticket's merged ledger rows
      equal to the rows ClickHouse holds.  Every K-A, K-B, K-C and K10
      launch of this process is held against its plain version;
+ 15n. delta: a Delta Lake table -> ClickHouse through the event model
+     (events/, tasks/snapshot_v2.py).  The s3 phase's objects copied
+     under delta/ as Delta tables on the same fake S3: (a)
+     examples/delta2ch.yaml with only endpoint_url added, `activate`
+     through cli.main here over a table whose log adds objects 0-2 and
+     7, then adds 3 and removes 7 (1,000,000 live rows), bench.py's mask
+     and filter behind the bridge, on the card (traced) and with
+     --device cpu: ClickHouse holds numpy's kept count of the live
+     objects, the two tables landed byte-identical inserts, the CPU run
+     launched nothing; then the same YAML over a one-object table in a
+     `python3 -m transferia_tpu_torch.cli.main --metrics-port P
+     activate` process, its /metrics scraped once while it runs (the
+     Prometheus text format, prometheus_client's default families),
+     its ClickHouse numpy's kept count; (b) the one-object table with no
+     transformation: ClickHouse's native a2 target, CREATE before the
+     first INSERT, every row equal to numpy's, nothing launched; (c)
+     `checksum --method fingerprint --fingerprint-backend device` of the
+     25,000-row object's table: against its ClickHouse copy the
+     reference's verdict (the Delta source counts no rows: "row counts
+     differ: src=0", exit 1, no fingerprint), against a memory copy exit
+     0 by K10; (d) the one-object table through replace_primary_key,
+     bench.py's chain and number_to_float on the card and on the CPU:
+     byte-identical inserts.  Every K-A, K-B, K-C and K10 launch of this
+     process is held against its plain version;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -549,6 +573,7 @@ from transferia_tpu_torch.recipes.clickbench import (
     write_clickbench,
 )
 from transferia_tpu_torch.coordinator import S3Coordinator
+from transferia_tpu_torch.providers.misc_providers import DeltaSourceParams
 from transferia_tpu_torch.providers.s3 import S3SourceParams, S3TargetParams
 from transferia_tpu_torch.recipes.fake_s3 import FakeS3
 from transferia_tpu_torch.runtime.limits import effective_cpus
@@ -717,6 +742,14 @@ PATH_KERNELS = {
     # phase memoized them (12 with the phase alone, 0 after `s3`); each
     # launch is held all the same
     "fleet": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+              "rowhash_lanes"),
+    # from PR 21, a Delta Lake table -> ClickHouse through the event
+    # model: the fused mask and filter behind the bridge (the CLI's
+    # activation and the new host transformers around them), and K10 in
+    # the checksum's device fingerprint (against a memory target: against
+    # ClickHouse the Delta source's uncounted rows decide before any
+    # fingerprint, as in the reference)
+    "delta": ("sha256_hmac", "pred_decode", "pred3vl_mask",
               "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
@@ -8369,7 +8402,8 @@ def fleet_path(rows, keep: dict, dev) -> dict:
     (b) a distributed fleet over the s3 phase's objects with a
     preemption and a killed worker, (c) the MVCC compaction ticket, (d)
     the observability panes over (b)'s segments.  Every K-A, K-B, K-C
-    and K10 launch of this process is held against its plain version."""
+    and K10 launch of this process is held against its plain version.
+    The fake S3 stays up for the delta phase, which stops it."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="fleet-", dir=str(_build.BUILD_DIR))
     fake = keep["fake"]
@@ -8422,6 +8456,475 @@ def fleet_path(rows, keep: dict, dev) -> dict:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+DELTA_PREFIX = "delta"
+DELTA_LIVE = (0, 1, 2, 3)    # (a)'s table after log version 1
+DELTA_STALE = 7              # added in version 0, removed in version 1
+DELTA_EXAMPLE = "delta2ch.yaml"
+DELTA_SETTLE_S = 300.0
+DELTA_FAMILIES = (
+    "process_cpu_seconds_total", "process_max_fds", "process_open_fds",
+    "process_resident_memory_bytes", "process_start_time_seconds",
+    "process_virtual_memory_bytes", "python_gc_collections_total",
+    "python_gc_objects_collected_total",
+    "python_gc_objects_uncollectable_total", "python_info")
+# (d): the new host transformers around bench.py's mask and filter
+DELTA_D_CHAIN = {"transformers": [
+    {"replace_primary_key": {"keys": ["WatchID"]}}] + CONFIG["transformers"]
+    + [{"number_to_float": {}}]}
+DELTA_STAGES = ("s3_range_get", "source_decode", "pivot", "pack",
+                "device_dispatch", "device_wait", "sink", "sink_wait")
+
+
+def delta_tables(fake, per: int) -> dict:
+    """The s3 phase's objects copied under delta/ as three Delta tables:
+    `hits` (version 0 adds objects 0, 1, 2 and 7; version 1 adds 3 and
+    removes 7), `one` (object 0) and `cut` (the 25,000-row object);
+    name -> its s3:// path."""
+    def obj(i: int) -> bytes:
+        return fake.objects[f"hits/hits_{i:02d}.parquet"][0]
+
+    def log(table: str, version: int, actions: list) -> None:
+        fake.put_object(f"{DELTA_PREFIX}/{table}/_delta_log/"
+                        f"{version:020d}.json",
+                        "\n".join(json.dumps(a) for a in actions).encode())
+
+    def add(name):
+        return {"add": {"path": name, "dataChange": True}}
+
+    first = [i for i in DELTA_LIVE if i != DELTA_LIVE[-1]] + [DELTA_STALE]
+    for i in first + [DELTA_LIVE[-1]]:
+        fake.put_object(f"{DELTA_PREFIX}/hits/hits_{i:02d}.parquet", obj(i))
+    log("hits", 0, [{"metaData": {"id": "hits"}}]
+        + [add(f"hits_{i:02d}.parquet") for i in first])
+    log("hits", 1, [add(f"hits_{DELTA_LIVE[-1]:02d}.parquet"),
+                    {"remove": {"path": f"hits_{DELTA_STALE:02d}.parquet"}},
+                    {"commitInfo": {"operation": "WRITE"}}])
+    fake.put_object(f"{DELTA_PREFIX}/one/part-0.parquet", obj(0))
+    log("one", 0, [add("part-0.parquet")])
+    fake.put_object(f"{DELTA_PREFIX}/cut/part-0.parquet",
+                    fake.objects["cut/hits.parquet"][0])
+    log("cut", 0, [add("part-0.parquet")])
+    return {t: f"s3://{S3_BUCKET}/{DELTA_PREFIX}/{t}"
+            for t in ("hits", "one", "cut")}
+
+
+def delta_yaml(tmp: str, name: str, endpoint: str,
+               chain: bool = True) -> str:
+    """examples/delta2ch.yaml with the fake's endpoint_url added (and,
+    without `chain`, its transformation dropped)."""
+    text = (Path(__file__).resolve().parent / "examples"
+            / DELTA_EXAMPLE).read_text()
+    anchor = "    batch_rows: 65536\n"
+    if text.count(anchor) != 1 or text.count("transformation:") != 1:
+        raise AssertionError(f"{DELTA_EXAMPLE}: no single {anchor!r} line "
+                             "or transformation")
+    text = text.replace(anchor, anchor + f'    endpoint_url: "{endpoint}"\n')
+    if not chain:
+        text = text.split("transformation:")[0]
+    path = os.path.join(tmp, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def delta_kept(rows, objs, per: int) -> np.ndarray:
+    """numpy's kept WatchIDs of the objects after bench.py's filter,
+    sorted."""
+    ids = []
+    for i in objs:
+        _, fixed, _ = slice_rows(rows, i * per, (i + 1) * per)
+        keep = (fixed["RegionID"] < 400) & (fixed["ResolutionWidth"] >= 390)
+        ids.append(fixed["WatchID"][keep])
+    return np.sort(np.concatenate(ids))
+
+
+class DeltaEnv:
+    """The example's variables for a run, restored afterwards."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def delta_activate(yaml: str, table: str, placement: str, dev,
+                   traced: bool = False) -> dict:
+    """`activate` of the YAML through cli.main in this process, into a
+    fresh fake ClickHouse on port 8123, on the card (device placement)
+    or with --device cpu (host placement): the fake, rc, seconds and, on
+    a CPU run, the launches it made (none may be)."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    ch = ch_on_8123()
+    before = _build.launch_counts()
+    set_placement("device" if on_card else "host")
+    if traced:
+        trace_on()
+    seconds = 0.0
+    try:
+        with DeltaEnv(DELTA_PATH=table, MASK_SALT=FLEET_SALT,
+                      CH_HOST=ch._srv.server_address[0]):
+            rc, _, se, seconds = cli_main(["activate", "--transfer", yaml],
+                                          run_dev)
+    finally:
+        tables = trace_off(seconds) if traced else None
+        set_placement(None)
+    after = _build.launch_counts()
+    out = {"ch": ch, "rc": rc, "seconds": seconds, "stderr": se[-500:],
+           "launched": {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}}
+    if tables is not None:
+        summary = tables["stage_summary"]
+        out["stages"] = {k: {m: summary["stages"][k][m] for m in
+                             ("calls", "total_s", "self_s")}
+                         for k in DELTA_STAGES if k in summary["stages"]}
+        out["stage_breakdown"] = tables["stage_breakdown"]
+    if rc != 0:
+        ch.stop()
+        raise AssertionError(f"delta: activate of {table} ({placement}): "
+                             f"rc {rc}: {se[-1500:]}")
+    if not on_card and out["launched"]:
+        ch.stop()
+        raise AssertionError(f"delta: the --device cpu run of {table} "
+                             f"launched {out['launched']}")
+    return out
+
+
+def delta_cli(yaml: str, tables: dict, rows, per: int, dev) -> dict:
+    """(a) the example on (a)'s table with bench.py's chain, on the card
+    (traced) and with --device cpu: numpy's kept count, object 7's rows
+    absent, both tables landed byte-identical inserts."""
+    runs = {}
+    try:
+        for placement in ("device", "cpu"):
+            runs[placement] = delta_activate(yaml, tables["hits"],
+                                             placement, dev,
+                                             traced=placement == "device")
+        want = delta_kept(rows, DELTA_LIVE, per)
+        with_stale = delta_kept(rows, [i for i in DELTA_LIVE
+                                       if i != DELTA_LIVE[-1]]
+                                + [DELTA_STALE], per)
+        if len(want) == len(with_stale):
+            raise AssertionError("delta (a): the stale object's kept "
+                                 "count does not tell it apart")
+        live = len(DELTA_LIVE) * per
+        out = {"objects": list(DELTA_LIVE), "removed": DELTA_STALE,
+               "rows": live, "kept": int(len(want))}
+        digests = {}
+        for placement, run in runs.items():
+            ch = run["ch"]
+            digests[placement] = ch.insert_digests("hits")
+            out[placement] = {
+                "seconds": run["seconds"],
+                "rows_per_s": live / run["seconds"],
+                "ch_rows": ch.total_rows(), "inserts": len(digests[
+                    placement]),
+                "ddl_first": ch.queries[0].split("(")[0][:60],
+                **({"stages": run["stages"],
+                    "stage_breakdown": run["stage_breakdown"]}
+                   if "stages" in run else {})}
+            if out[placement]["ch_rows"] != len(want):
+                raise AssertionError(
+                    f"delta (a) {placement}: ClickHouse holds "
+                    f"{out[placement]['ch_rows']} rows, numpy keeps "
+                    f"{len(want)} of objects {DELTA_LIVE}")
+        if digests["device"] != digests["cpu"]:
+            raise AssertionError("delta (a): the card's and the CPU's "
+                                 "tables differ")
+        out["identical_across_placements"] = True
+        return out
+    finally:
+        for run in runs.values():
+            run["ch"].stop()
+
+
+def parse_metrics(text: str) -> dict:
+    """family -> (HELP, TYPE, samples) of a text-format scrape; raises on
+    a line the format does not allow."""
+    fams: dict = {}
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$")
+    for line in text.splitlines():
+        if line.startswith(("# HELP ", "# TYPE ")):
+            name, _, rest = line[7:].partition(" ")
+            fams.setdefault(name, {"samples": 0})[line[2:6]] = rest
+            continue
+        m = sample.match(line)
+        if not m:
+            raise AssertionError(f"delta (a): not a metrics line {line!r}")
+        float(m.group(3))
+        fams[m.group(1)]["samples"] += 1
+    return fams
+
+
+def delta_metrics_run(yaml: str, tables: dict, rows, per: int, tmp: str,
+                      dev) -> dict:
+    """(a) again in a `python3 -m transferia_tpu_torch.cli.main
+    --metrics-port P activate` process over the one-object table: /metrics
+    scraped once while the run lasts, its ClickHouse numpy's kept count."""
+    import urllib.request
+
+    ch = ch_on_8123()
+    port = free_port()
+    log = os.path.join(tmp, "metrics-activate.log")
+    env = dict(os.environ, TRANSFERIA_TPU_PLACEMENT="device",
+               PYTHONPATH=str(Path(__file__).resolve().parent),
+               DELTA_PATH=tables["one"], MASK_SALT=FLEET_SALT,
+               CH_HOST=ch._srv.server_address[0])
+    t0 = time.perf_counter()
+    try:
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "transferia_tpu_torch.cli.main",
+                 "--device", str(dev.type), "--log-level", "warning",
+                 "--metrics-port", str(port), "activate", "--transfer",
+                 yaml], stdout=fh, stderr=subprocess.STDOUT, env=env)
+        try:
+            text = None
+            while text is None:
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"delta (a): the --metrics-port run exited (rc "
+                        f"{proc.returncode}) before its scrape: "
+                        f"{log_tail(log)}")
+                if time.perf_counter() - t0 > DELTA_SETTLE_S:
+                    raise AssertionError("delta (a): /metrics never "
+                                         "answered")
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/metrics",
+                            timeout=2) as r:
+                        text = r.read().decode()
+                        ctype = r.headers["Content-Type"]
+                except OSError:
+                    time.sleep(0.02)
+            scraped_at = time.perf_counter() - t0
+            rc = proc.wait(timeout=DELTA_SETTLE_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        fams = parse_metrics(text)
+        want = len(delta_kept(rows, [0], per))
+        out = {"rc": rc, "seconds": seconds,
+               "scraped_after_seconds": scraped_at, "content_type": ctype,
+               "families": sorted(fams), "ch_rows": ch.total_rows(),
+               "kept": want, "log": log_tail(log, 400)}
+        if rc != 0 or set(fams) != set(DELTA_FAMILIES) or \
+                out["ch_rows"] != want or not all(
+                    "HELP" in f and "TYPE" in f and f["samples"]
+                    for f in fams.values()):
+            raise AssertionError(f"delta (a) --metrics-port: {out}")
+        return out
+    finally:
+        ch.stop()
+
+
+def delta_native(yaml_plain: str, tables: dict, rows, per: int,
+                 dev) -> dict:
+    """(b) the one-object table with no transformation: ClickHouse's
+    native target creates the table before the first insert, the rows
+    equal the object's row for row against numpy, nothing launches."""
+    run = delta_activate(yaml_plain, tables["one"], "device", dev)
+    ch = run["ch"]
+    try:
+        verbs = [q.split()[0].upper() for q in ch.queries
+                 if q.split()[0].upper() in ("CREATE", "INSERT")]
+        if not verbs or verbs[0] != "CREATE" or "CREATE" in verbs[1:]:
+            raise AssertionError(f"delta (b): statements {verbs[:5]}")
+        if run["launched"]:
+            raise AssertionError(f"delta (b): launched {run['launched']}")
+        t0 = time.perf_counter()
+        got = ch.rows("hits")
+        _, fixed, var = slice_rows(rows, 0, per)
+        if len(got) != per:
+            raise AssertionError(f"delta (b): {len(got)} rows of {per}")
+        for name, want in fixed.items():
+            col = np.array([int(r[name].timestamp())
+                            if hasattr(r[name], "timestamp")
+                            else r[name] for r in got])
+            if not np.array_equal(col, want.astype(np.int64)):
+                raise AssertionError(f"delta (b): column {name} differs "
+                                     "from numpy's")
+        for name, (data, offsets) in var.items():
+            for j, r in enumerate(got):
+                v = r[name].encode() if isinstance(r[name], str) \
+                    else r[name]
+                if v != bytes(data[offsets[j]:offsets[j + 1]]):
+                    raise AssertionError(f"delta (b): row {j} {name} "
+                                         "differs from numpy's")
+        return {"rows": per, "seconds": run["seconds"],
+                "rows_per_s": per / run["seconds"],
+                "statements": {"create": verbs.count("CREATE"),
+                               "insert": verbs.count("INSERT")},
+                "create_before_insert": True,
+                "checked_seconds": time.perf_counter() - t0,
+                "launched": run["launched"]}
+    finally:
+        ch.stop()
+
+
+def delta_checksum(yaml_plain: str, tables: dict, endpoint: str, tmp: str,
+                   dev) -> dict:
+    """(c) checksum by K10 on the card of the 25,000-row table: against
+    the ClickHouse table its native activation made, the reference's
+    verdict (the Delta source counts no rows, so "row counts differ:
+    src=0" decides and no fingerprint runs; exit 1), and against a
+    memory target of the same rows, where the fingerprints decide: exit
+    0 with every K10 launch held."""
+    out = {}
+    run = delta_activate(yaml_plain, tables["cut"], "device", dev)
+    ch = run["ch"]
+    before = _build.launch_counts()["rowhash_lanes"]
+    try:
+        with DeltaEnv(DELTA_PATH=tables["cut"],
+                      CH_HOST=ch._srv.server_address[0]):
+            rc, so, _, s = cli_main(
+                ["checksum", "--transfer", yaml_plain, "--method",
+                 "fingerprint", "--fingerprint-backend", "device"], dev)
+    finally:
+        ch.stop()
+    out["clickhouse"] = {"rc": rc, "seconds": s, "report": so.strip()[-300:],
+                         "k10_launches": _build.launch_counts()[
+                             "rowhash_lanes"] - before}
+    if rc != 1 or f"row counts differ: src=0 dst={S3_ALTERED_ROWS}" \
+            not in so or "diffs=1)" not in so:
+        raise AssertionError(f"delta (c) against ClickHouse: {out}")
+    mem = os.path.join(tmp, "delta-mem.yaml")
+    with open(mem, "w") as fh:
+        fh.write(f"id: delta-mem\nsrc:\n  type: delta\n  params:\n"
+                 f'    path: "{tables["cut"]}"\n    table: hits\n'
+                 f'    endpoint_url: "{endpoint}"\n'
+                 "dst:\n  type: memory\n  params:\n    sink_id: delta_mem\n")
+    before = _build.launch_counts()["rowhash_lanes"]
+    rc_a, _, se, _ = cli_main(["activate", "--transfer", mem], dev)
+    rc, so, _, s = cli_main(["checksum", "--transfer", mem, "--method",
+                             "fingerprint", "--fingerprint-backend",
+                             "device"], dev)
+    get_store("delta_mem").clear()
+    out["memory"] = {"rc": rc, "activate_rc": rc_a, "seconds": s,
+                     "report": so.strip()[-300:],
+                     "k10_launches": _build.launch_counts()[
+                         "rowhash_lanes"] - before}
+    if rc_a != 0 or rc != 0 or "OK" not in so or \
+            not out["memory"]["k10_launches"]:
+        raise AssertionError(f"delta (c) against memory: {out} {se[-500:]}")
+    return out
+
+
+def delta_transformers(tables: dict, endpoint: str, dev) -> dict:
+    """(d) the one-object table through replace_primary_key, bench.py's
+    mask and filter, and number_to_float, on the card and on the CPU:
+    the two ClickHouse tables landed byte-identical inserts."""
+    runs, out = {}, {}
+    try:
+        for placement in ("device", "cpu"):
+            on_card = placement == "device"
+            ch = FakeCH().start()
+            runs[placement] = ch
+            t = Transfer(id="delta-d", src=DeltaSourceParams(
+                path=tables["one"], table="hits",
+                endpoint_url=endpoint),
+                dst=CHTargetParams(host="127.0.0.1", port=ch.port,
+                                   bufferer=None),
+                transformation=DELTA_D_CHAIN)
+            before = _build.launch_counts()
+            set_placement("device" if on_card else "host")
+            t0 = time.perf_counter()
+            try:
+                activate_delivery(t, MemoryCoordinator(),
+                                  device=dev if on_card else "cpu")
+                _sync(dev)
+            finally:
+                set_placement(None)
+            after = _build.launch_counts()
+            launched = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            if not on_card and launched:
+                raise AssertionError(f"delta (d) cpu: launched {launched}")
+            out[placement] = {"seconds": time.perf_counter() - t0,
+                              "ch_rows": ch.total_rows(),
+                              "launched": launched}
+        ddl = [q for q in runs["device"].queries if q.startswith("CREATE")]
+        if runs["device"].insert_digests("hits") != \
+                runs["cpu"].insert_digests("hits") or \
+                "Float64" not in ddl[0]:
+            raise AssertionError(f"delta (d): the placements' tables "
+                                 f"differ ({out}) or no Float64 in {ddl}")
+        out["identical_across_placements"] = True
+        out["ddl"] = ddl[0][:300]
+        return out
+    finally:
+        for ch in runs.values():
+            ch.stop()
+
+
+def delta_path(rows, keep: dict, dev) -> dict:
+    """The event model on the card: a Delta Lake table on the s3 phase's
+    fake S3 -> ClickHouse.  (a) examples/delta2ch.yaml through cli.main
+    on the card and on the CPU, and in a --metrics-port process; (b) the
+    native a2 target; (c) checksum; (d) the new host transformers around
+    the fused run.  Every K-A, K-B, K-C and K10 launch of this process is
+    held against its plain version; the CPU runs launch nothing."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="delta-", dir=str(_build.BUILD_DIR))
+    fake = keep["fake"]
+    per = keep["objects"]["rows_per_object"]
+    result: dict = {}
+    timings: dict = {}
+    try:
+        t0 = time.perf_counter()
+        tables = delta_tables(fake, per)
+        yaml = delta_yaml(tmp, "delta2ch.yaml", fake.endpoint)
+        yaml_plain = delta_yaml(tmp, "delta2ch-plain.yaml", fake.endpoint,
+                                chain=False)
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            result["a"] = delta_cli(yaml, tables, rows, per, dev)
+            timings["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["a"]["metrics_port"] = delta_metrics_run(
+                yaml, tables, rows, per, tmp, dev)
+            timings["a_metrics"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["b"] = delta_native(yaml_plain, tables, rows, per, dev)
+            timings["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["c"] = delta_checksum(yaml_plain, tables, fake.endpoint,
+                                         tmp, dev)
+            timings["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result["d"] = delta_transformers(tables, fake.endpoint, dev)
+            timings["d"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("delta", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("delta",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("delta", launches))
+            held.update(k10.check("delta", launches))
+            timings["held"] = time.perf_counter() - t0
+        result.update(launches=launches, held_exact=held,
+                      part_seconds=timings)
+        return result
+    finally:
         fake.stop()
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -8512,7 +9015,8 @@ def main() -> int:
     cb_dir = tempfile.TemporaryDirectory()
     cb_file = os.path.join(cb_dir.name, f"hits_{ROWS}.parquet")
     results = {}
-    # the s3 phase's fake S3 and objects, which the fleet phase reads
+    # the s3 phase's fake S3 and objects, which the fleet and delta phases
+    # read (delta stops the fake)
     s3_keep: dict = {}
 
     for path, run in (
@@ -8555,6 +9059,8 @@ def main() -> int:
             ("sharded", lambda: sharded_path(dev)),
             ("s3", lambda: s3_path((schema, fixed, var), dev, keep=s3_keep)),
             ("fleet", lambda: fleet_path((schema, fixed, var), s3_keep,
+                                         dev)),
+            ("delta", lambda: delta_path((schema, fixed, var), s3_keep,
                                          dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()

@@ -348,15 +348,31 @@ def test_memory_coordinator_refuses_sharding_as_jax(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["check"], "A6"), (["chaos", "--trials", "5"], "A6"),
     (["flight", "bench"], "A7"),
-    (["--metrics-port", "9100", "describe"], "A5"),
+    (["check", "--strict"], "A6"),
 ])
 def test_left_out_commands_exit_2_naming_their_item(argv, item):
     rc, out, err = run("port", argv)
     assert rc == 2 and not out
     assert f"ROADMAP.md {item}" in err and "not ported" in err
     # what stays out, and nothing else
-    assert sorted(port_main.LEFT_OUT) == ["--metrics-port", "chaos",
-                                          "check", "flight"]
+    assert sorted(port_main.LEFT_OUT) == ["chaos", "check", "flight"]
+
+
+def obs_segments(fake) -> list:
+    """The fleet observability segments in a fake bucket that the run's
+    timing does not decide: each final segment's key, its sequence
+    number cut off, with its kind and worker.  The heartbeat's periodic
+    segments fire on its 5-s timer, and a part's export is skipped while
+    another export holds the exporter's lock, so those (and the
+    sequence numbers they take) are left out; every segment present is
+    one of the three kinds."""
+    out = []
+    for key in sorted(k for k in fake.objects if "/obs/" in k):
+        seg = json.loads(fake.objects[key][0])
+        assert seg["kind"] in ("part", "periodic", "final"), seg["kind"]
+        if seg["kind"] == "final":
+            out.append((key.rsplit("-", 1)[0], seg["kind"], seg["worker"]))
+    return out
 
 
 @pytest.mark.parametrize("kind,item", [("s3", "A7")])
@@ -373,6 +389,8 @@ def test_left_out_coordinators_name_their_item(kind, item, tmp_path,
 
     monkeypatch.setenv("AWS_ACCESS_KEY_ID", "test-ak")
     monkeypatch.setenv("AWS_SECRET_ACCESS_KEY", "test-sk")
+    # no export coalesced by the clock: each part's is made
+    monkeypatch.setenv("TRANSFERIA_TPU_OBS_INTERVAL", "0")
     path = tmp_path / "t.yaml"
     path.write_text(YAML.format(sink="cli_coord"))
     got = {}
@@ -395,15 +413,13 @@ def test_left_out_coordinators_name_their_item(kind, item, tmp_path,
                         cp.get_operation_state("op-yaml-test"),
                         sorted((p.key(), p.completed, p.completed_rows)
                                for p in cp.operation_parts("op-yaml-test")),
-                        # the JAX package also exports its fleet
-                        # observability segments (obs/), whose exporter
-                        # the port leaves out (ROADMAP.md A5)
-                        sorted(k.split("/")[1] for k in fake.objects
-                               if k.split("/")[1] != "obs"))
+                        sorted(k.split("/")[1] for k in fake.objects),
+                        obs_segments(fake))
         finally:
             fake.stop()
     assert got["port"] == got["jax"]
     assert got["port"][0] == 0 and len(got["port"][2]) == 50
+    assert len(got["port"][6]) == 1   # the one final export
 
 
 def test_filestore_coordinator_needs_its_dir_as_jax(tmp_path):

@@ -916,3 +916,122 @@ def test_cli_needs_a_card_or_the_cpu(monkeypatch):
             cli_main(argv)
     assert cli_main(["--device", "cpu", "--log-level", "error", "validate",
                      "--transfer", path]) == 0
+
+
+_A2_CHILD = """
+import json, os, sys, tempfile, urllib.request
+import transferia_tpu_torch.events  # noqa
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.models import Transfer
+from transferia_tpu_torch.providers import misc_providers
+from transferia_tpu_torch.providers.clickhouse import CHTargetParams, a2
+from transferia_tpu_torch.recipes.clickbench import write_clickbench
+from transferia_tpu_torch.recipes.fake_clickhouse import FakeCH
+from transferia_tpu_torch.stats import exposition
+from transferia_tpu_torch.tasks.snapshot_v2 import upload_v2
+from transferia_tpu_torch.transform.plugins import (convert, logger_tf, misc,
+                                                    pk)
+
+root = os.path.join(tempfile.mkdtemp(), "hits")
+os.makedirs(os.path.join(root, "_delta_log"))
+_, kept = write_clickbench(os.path.join(root, "a.parquet"), 3000,
+                           row_group_rows=1000)
+with open(os.path.join(root, "_delta_log", "0.json"), "w") as fh:
+    fh.write(json.dumps({"add": {"path": "a.parquet"}}))
+ch = FakeCH().start()
+chain = {"transformers": [
+    {"replace_primary_key": {"keys": ["WatchID"]}},
+    {"mask_field": {"columns": ["URL"], "salt": "s"}},
+    {"filter_rows": {"filter": "RegionID < 400 AND ResolutionWidth >= 390"}},
+    {"number_to_float": {}}, {"logger": {}}]}
+for tid, tf in (("a", None), ("b", chain)):
+    t = Transfer(id=tid, src=misc_providers.DeltaSourceParams(
+        path=root, table=tid, batch_rows=1024),
+        dst=CHTargetParams(host="127.0.0.1", port=ch.port, bufferer=None),
+        transformation=tf)
+    upload_v2(t, MemoryCoordinator(),
+              misc_providers.DeltaSnapshotProvider(t.src), device="cpu")
+assert len(ch.rows("a")) == 3000 and len(ch.rows("b")) == kept, kept
+ch.stop()
+srv = exposition.start_http_server(0, "127.0.0.1")
+body = urllib.request.urlopen(
+    f"http://127.0.0.1:{srv.server_address[1]}/metrics").read()
+assert b"python_info" in body
+srv.shutdown()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
+                                    "fsspec", "s3fs", "prometheus_client",
+                                    "transferia_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_event_model_delta_logsinks_and_metrics_import_nothing_of_jax():
+    """The event model, the Delta source, the ClickHouse a2 target, the
+    log sinks, the four host transformers and the metrics exposition,
+    run on a Delta table the port's recipe writer made: no jax, pyarrow,
+    prometheus_client or JAX package module is loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _A2_CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("side,text", [
+    ("src", "{type: delta, params: {path: /tmp/t, table: hits}}"),
+    ("dst", "{type: coralogix, params: {private_key: k}}"),
+    ("dst", "{type: datadog, params: {api_key: k}}"),
+])
+def test_delta_and_the_log_sinks_are_accepted(side, text):
+    from transferia_tpu_torch.cli.config import parse_transfer_yaml
+
+    other = "dst: {type: memory, params: {sink_id: x}}" if side == "src" \
+        else "src: {type: memory, params: {}}"
+    t = parse_transfer_yaml(f"id: x\n{side}: {text}\n{other}\n")
+    assert getattr(t, side).PROVIDER == text.split(",")[0].split()[-1]
+
+
+def test_metrics_port_no_longer_exits_2():
+    import socket
+
+    from transferia_tpu_torch.cli.main import LEFT_OUT
+    from transferia_tpu_torch.cli.main import main as cli_main
+
+    assert "--metrics-port" not in LEFT_OUT
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert cli_main(["--device", "cpu", "--log-level", "error",
+                     "--metrics-port", str(port), "describe"]) == 0
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_delta_activation_needs_a_card_or_the_cpu(device, monkeypatch,
+                                                  tmp_path):
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer
+    from transferia_tpu_torch.providers.memory import MemoryTargetParams
+    from transferia_tpu_torch.providers.misc_providers import (
+        DeltaSnapshotProvider,
+        DeltaSourceParams,
+    )
+    from transferia_tpu_torch.tasks import activate_delivery
+    from transferia_tpu_torch.tasks.snapshot_v2 import (
+        make_event_target,
+        upload_v2,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    t = Transfer(id="nocard-delta", src=DeltaSourceParams(
+        path=str(tmp_path)), dst=MemoryTargetParams(sink_id="nocard"))
+    for call in (lambda: activate_delivery(t, MemoryCoordinator(),
+                                           device=device),
+                 lambda: make_event_target(t, device=device),
+                 lambda: upload_v2(t, MemoryCoordinator(),
+                                   DeltaSnapshotProvider(t.src),
+                                   device=device)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -44,8 +44,19 @@ class Kind(str, enum.Enum):
     def is_row(self) -> bool:
         return self in _ROW_KINDS
 
+    @property
+    def is_control(self) -> bool:
+        return self in _CONTROL_KINDS
+
 
 _ROW_KINDS = frozenset({Kind.INSERT, Kind.UPDATE, Kind.DELETE})
+_CONTROL_KINDS = frozenset({
+    Kind.INIT_TABLE_LOAD,
+    Kind.DONE_TABLE_LOAD,
+    Kind.INIT_SHARDED_TABLE_LOAD,
+    Kind.DONE_SHARDED_TABLE_LOAD,
+    Kind.SYNCHRONIZE,
+})
 
 # Stable int8 codes for the columnar representation (ColumnBatch.kinds).
 # Only row kinds appear inside columnar blocks; control events are standalone.

@@ -232,6 +232,10 @@ class TableSchema:
     def append(self, *cols: ColSchema) -> "TableSchema":
         return TableSchema(self.columns + tuple(cols))
 
+    def drop(self, names: Iterable[str]) -> "TableSchema":
+        dropset = set(names)
+        return TableSchema(c for c in self.columns if c.name not in dropset)
+
     def with_types(self, mapping: dict[str, CanonicalType]) -> "TableSchema":
         return TableSchema(
             c.with_type(mapping[c.name]) if c.name in mapping else c

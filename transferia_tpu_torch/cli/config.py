@@ -57,10 +57,9 @@ _KNOWN_KEYS = {
 # the reference's endpoints the port has no params class for yet: all
 # wait under ROADMAP.md A7 ("every other provider"; the `fs` sink with it)
 WAITING_PROVIDERS = frozenset({
-    "airbyte", "arrow_ipc", "bigquery", "coralogix", "datadog", "delta",
-    "elastic", "eventhub", "flight", "greenplum", "kinesis", "logbroker",
-    "mongo", "mq", "opensearch", "oracle", "ydb", "yds", "yt",
-    "yt_dyn",
+    "airbyte", "arrow_ipc", "elastic", "eventhub", "flight", "greenplum",
+    "kinesis", "logbroker", "mongo", "mq", "opensearch", "oracle", "ydb",
+    "yds", "yt", "yt_dyn",
 })
 
 
@@ -114,6 +113,13 @@ def parse_transfer_yaml(text: str) -> Transfer:
         try:
             return endpoint_from_dict(params, provider=ep["type"], role=role)
         except KeyError as e:
+            if ep["type"] == "bigquery":
+                from transferia_tpu_torch.providers.misc_providers import (
+                    BIGQUERY_BLOCKED,
+                )
+
+                raise ConfigError(f"provider 'bigquery' ({role}): "
+                                  f"{BIGQUERY_BLOCKED}") from e
             if ep["type"] in WAITING_PROVIDERS:
                 raise ConfigError(
                     f"provider {ep['type']!r} ({role}) is not ported to "

@@ -10,7 +10,9 @@ describe / typesystem-docs / trace [--fleet] / fleet bench / worker /
 top [--fleet] / slo / explain, global flags for the coordinator, the
 worker's sharding indices, the log level and a health port (`/health`,
 `/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`,
-`/debug/fleet`, `/debug/fleet/obs`, `/debug/slo`).
+`/debug/fleet`, `/debug/fleet/obs`, `/debug/slo`) and a metrics port
+(`--metrics-port`: the Prometheus text format of what the reference's
+prometheus_client default registry serves, `stats/exposition.py`).
 The memory coordinator refuses `--job-count > 1`, since parts cannot be
 shared across processes in memory; a sharded snapshot runs one process a
 job on `--coordinator filestore --coordinator-dir D --job-count N
@@ -28,7 +30,7 @@ its device work; without a card the CLI raises unless it is `cpu`, which
 runs the kernels' plain versions.
 
 Left out, each exiting 2 with a message naming its ROADMAP.md item
-(`LEFT_OUT`): the commands check, chaos and flight, and `--metrics-port`.
+(`LEFT_OUT`): the commands check, chaos and flight.
 """
 
 from __future__ import annotations
@@ -49,8 +51,6 @@ LEFT_OUT = {
     "check": "A6, the port's lint (analysis/)",
     "chaos": "A6, the chaos runner (chaos/runner.py)",
     "flight": "A7, interchange/ (blocked: it needs pyarrow)",
-    "--metrics-port": "A5, the telemetry that waits (the Prometheus "
-                      "exposition)",
 }
 
 
@@ -93,8 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process-count", type=int, default=0,
                    help="override runtime.process_count")
     p.add_argument("--metrics-port", type=int, default=0,
-                   help="serve Prometheus metrics on this port (0 = off; "
-                        "not ported)")
+                   help="serve Prometheus metrics on this port (0 = off)")
     p.add_argument("--health-port", type=int, default=0,
                    help="serve /health on this port (0 = off)")
     p.add_argument("--operation-id", default="",
@@ -321,6 +320,11 @@ def _setup(args) -> None:
     from transferia_tpu_torch.utils.logsanitize import install as _install
 
     _install()
+    if args.metrics_port:
+        from transferia_tpu_torch.stats.exposition import start_http_server
+
+        start_http_server(args.metrics_port)
+        logging.info("metrics on :%d", args.metrics_port)
     if args.health_port:
         _start_health_server(args.health_port)
     # cgroup-derived RAM budget
@@ -511,8 +515,6 @@ def main(argv=None) -> int:
     left = args.command if args.command in LEFT_OUT else ""
     if extra and not left:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    if args.metrics_port:
-        left = "--metrics-port"
     if left:
         print(left_out_message(left), file=sys.stderr)
         return 2

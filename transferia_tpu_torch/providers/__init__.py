@@ -5,10 +5,12 @@ constructors (snapshot storage, sinker, ...); factories resolve them at
 transfer build time.  The port ships the `sample` source (snapshot and
 replication), the `memory` source and sink, the `kafka` replication
 source and sink, the `ch` (ClickHouse) sink on one shard and its
-storage, the `fs` Parquet source, the `pg` (Postgres) and `mysql`
-sources (snapshot and CDC) and sinks, the `s3` object-storage source
-(snapshot and replication) and sink, and the `stdout` and `devnull`
-sinks; the other providers wait (ROADMAP.md A7).
+storage and native event target, the `fs` Parquet source, the `pg`
+(Postgres) and `mysql` sources (snapshot and CDC) and sinks, the `s3`
+object-storage source (snapshot and replication) and sink, the `delta`
+(Delta Lake) event-model source, the `coralogix` and `datadog` log
+sinks, and the `stdout` and `devnull` sinks; the other providers wait
+(ROADMAP.md A7).
 """
 
 from transferia_tpu_torch.providers.registry import (
@@ -27,6 +29,7 @@ def load_builtin_providers() -> None:
         file,
         kafka,
         memory,
+        misc_providers,
         mysql,
         postgres,
         s3,

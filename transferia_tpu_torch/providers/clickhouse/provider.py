@@ -5,11 +5,11 @@ with its staged commit (a part stages into its own table and publishes
 with one `REPLACE PARTITION`, fenced by `__trtpu_commits`), the
 activation cleanup, and the storage over SELECT (`CHStorage`: the
 table list, schema, counts, streamed reads and the checksum's samples),
-which the checksum task reads a target through.
+which the checksum task reads a target through, and the native
+event-model target (`a2.py`, through `event_target`).
 
-Left out, each raising NotImplementedError naming ROADMAP.md A7: more
-than one shard (several `shards`, `cluster` discovery) and the `a2`
-event target.  `shard_by` picks a shard among several; on the one shard
+Left out, raising NotImplementedError naming ROADMAP.md A7: more than
+one shard (several `shards`, `cluster` discovery).  `shard_by` picks a shard among several; on the one shard
 the port writes, the reference routes every row there whatever it
 names, so the port accepts it and has nothing to read it for.
 """
@@ -80,7 +80,7 @@ from transferia_tpu_torch.typesystem.rules import (
 logger = logging.getLogger(__name__)
 
 NOT_PORTED = "not ported yet (ROADMAP.md A7: the ClickHouse provider's " \
-             "multi-shard and a2 parts)"
+             "multi-shard part)"
 
 register_target_rules("ch", {
     CanonicalType.INT8: "Int8", CanonicalType.INT16: "Int16",
@@ -583,6 +583,16 @@ class ClickHouseProvider(Provider):
     def sinker(self):
         if isinstance(self.transfer.dst, CHTargetParams):
             return CHSinker(self.transfer.dst, self.device)
+        return None
+
+    def event_target(self):
+        """The native event-model target (`a2.py`)."""
+        if isinstance(self.transfer.dst, CHTargetParams):
+            from transferia_tpu_torch.providers.clickhouse.a2 import (
+                CHEventTarget,
+            )
+
+            return CHEventTarget(self.transfer.dst, self.device)
         return None
 
     def destination_storage(self):

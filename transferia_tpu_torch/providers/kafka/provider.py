@@ -8,7 +8,8 @@ coordinator after the push (at-least-once).  The sink serializes batches
 host-library call (`crc32c_batch`), or the column hash under
 `partition_by`; with a staged part open it buffers the part's records
 and publishes them in one transactional produce.  The partitioned (Kafka
--> object storage) strategy waits (ROADMAP.md A5).  A publish records
+-> object storage) strategy is `runtime/local.py::PartitionedWorker`, a
+source of this module a partition.  A publish records
 the reference's `kafka_publish_txn` instant behind the
 `sink.kafka.publish` failpoint.
 """

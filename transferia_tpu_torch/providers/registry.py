@@ -76,6 +76,16 @@ class Provider(abc.ABC):
         """Snapshot capability."""
         return None
 
+    def snapshot_provider(self):
+        """Event-model-v2 snapshot capability (events.SnapshotProvider);
+        None = the v1 Storage path only."""
+        return None
+
+    def event_target(self):
+        """Native event-model-v2 target (events.EventTarget); None = the
+        v1 sink behind events.EventTargetOverAsyncSink."""
+        return None
+
     def sinker(self) -> Optional[Sinker]:
         """Sync sink capability."""
         return None

@@ -10,10 +10,11 @@ SNAPSHOT_AND_INCREMENT runs the source's activate hook first (slot
 creation only: changes committed during the snapshot are replayable
 only if the slot already pins the pre-snapshot position), then the
 cleanup, then the consistent cutover through the MVCC staging store
-(`mvcc/runner.py`) when the coordinator supports it, else the plain
-upload.  The reference also takes the plain upload when the source has
-an event-model snapshot capability (`snapshot_provider`); no port
-provider has one, so the port has no `snapshot_v2` branch.
+(`mvcc/runner.py`) when the coordinator supports it and the source has
+no event-model snapshot capability, else the plain upload.  The upload
+of a source with that capability (`snapshot_provider`, the Delta Lake
+source) runs through the event pipeline (`tasks/snapshot_v2.py`), in
+either transfer type.
 
 `device` is where the snapshot's device work runs (None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions).
@@ -99,6 +100,16 @@ def activate_delivery(transfer, coordinator: Coordinator,
                             len(tbls or []))
                 dst_provider.cleanup(tbls or [])
 
+        def upload_cb(tbls):
+            # event-model sources snapshot through the event pipeline
+            sp = src_provider.snapshot_provider()
+            if sp is not None:
+                from transferia_tpu_torch.tasks.snapshot_v2 import upload_v2
+
+                upload_v2(transfer, coordinator, sp, metrics, device=device)
+                return
+            loader.upload_tables(tbls)
+
         if ttype == TransferType.SNAPSHOT_AND_INCREMENT:
             # the slot first (the hook gets no-op callbacks: cleanup and
             # the load follow explicitly)
@@ -106,7 +117,8 @@ def activate_delivery(transfer, coordinator: Coordinator,
                 src_provider.activate(ActivateCallbacks(
                     lambda _t: None, lambda _t: None, rollbacks))
             cleanup_cb(tables)
-            if coordinator.supports_mvcc():
+            if coordinator.supports_mvcc() and \
+                    src_provider.snapshot_provider() is None:
                 # snapshot parts land as base versions, deltas captured
                 # during the load stack as layers, and the sealed
                 # watermark is where replication resumes
@@ -117,14 +129,14 @@ def activate_delivery(transfer, coordinator: Coordinator,
                 activate_snapshot_and_increment(
                     transfer, coordinator, metrics, tables, device=device)
             else:
-                loader.upload_tables(tables)
+                upload_cb(tables)
         elif ttype.has_snapshot:
             if src_provider.supports_activate():
                 src_provider.activate(ActivateCallbacks(
-                    cleanup_cb, loader.upload_tables, rollbacks))
+                    cleanup_cb, upload_cb, rollbacks))
             else:
                 cleanup_cb(tables)
-                loader.upload_tables(tables)
+                upload_cb(tables)
         elif src_provider.supports_activate():
             # replication-only: the provider hook creates its slot or
             # changefeed

@@ -7,8 +7,9 @@ columnar blocks and `ChangeItem` row batches (pivoted per homogeneous
 run), emits, drops or fails on transformer error blocks, counts
 `TransformStats`, plans its fused steps onto the chain's device and hands
 that device to every planned step (`Transformer.bind_device`; the lambda
-transformer's device strategy runs there).  The sharder's multi-table
-fan-out is not ported.
+transformer's device strategy runs there).  A step that fans one block
+out into several (`MultiBatch`, batch_splitter's) has each part run
+through the steps after it.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ from transferia_tpu_torch.transform.registry import parse_transformers_config
 logger = logging.getLogger(__name__)
 
 _ERROR_BEHAVIORS = ("emit", "drop", "fail")
+
+
+class MultiBatch:
+    """Marker wrapper: a transformer produced several batches.  The
+    chain unwraps it; sinks never see this type."""
+
+    def __init__(self, parts: list[ColumnBatch]):
+        self.parts = parts
+        self.n_rows = sum(p.n_rows for p in parts)
 
 
 class _Plan:
@@ -179,10 +189,10 @@ class Transformation:
 
     def _run_steps(self, batch: ColumnBatch, steps: Sequence[Transformer],
                    outputs: list[ColumnBatch]) -> Optional[ColumnBatch]:
-        """Apply steps in turn; error blocks are appended to outputs;
-        returns the surviving block."""
+        """Apply steps in turn; error blocks and a fan-out's parts are
+        appended to outputs; returns the surviving block."""
         current: Optional[ColumnBatch] = batch
-        for step in steps:
+        for i, step in enumerate(steps):
             if current is None or current.n_rows == 0:
                 break
             res = step.apply(current)
@@ -196,6 +206,13 @@ class Transformation:
                     )
                 if self.error_behavior == "emit":
                     outputs.append(res.errors)
+            if isinstance(res.transformed, MultiBatch):
+                rest = steps[i + 1:]
+                for part in res.transformed.parts:
+                    done = self._run_steps(part, rest, outputs)
+                    if done is not None and done.n_rows:
+                        outputs.append(done)
+                return None
             current = res.transformed
         return current
 

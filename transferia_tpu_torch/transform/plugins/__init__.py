@@ -1,8 +1,12 @@
-"""Built-in transformers of the ported slice (self-registering)."""
+"""Built-in transformers of the port (self-registering)."""
 
 from transferia_tpu_torch.transform.plugins import (  # noqa: F401
+    convert,
     filter,
     lambda_tf,
+    logger_tf,
     mask,
+    misc,
+    pk,
     rename,
 )

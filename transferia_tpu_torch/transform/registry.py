@@ -21,12 +21,16 @@ _REGISTRY: dict[str, Callable[[dict], Transformer]] = {}
 
 
 def register_transformer(type_name: str):
-    """Decorator: register a Transformer class under type_name."""
+    """Decorator: register a Transformer class or factory under
+    type_name."""
 
-    def deco(cls):
-        cls.TYPE = type_name
-        _REGISTRY[type_name] = lambda cfg: cls(**(cfg or {}))
-        return cls
+    def deco(cls_or_factory):
+        if isinstance(cls_or_factory, type):
+            cls_or_factory.TYPE = type_name
+            _REGISTRY[type_name] = lambda cfg: cls_or_factory(**(cfg or {}))
+        else:
+            _REGISTRY[type_name] = cls_or_factory
+        return cls_or_factory
 
     return deco
 
