@@ -176,14 +176,15 @@ final line):
      no pump, and run_replication of 20,000 new inserts; ClickHouse
      equals numpy's.  Each run is traced and prints its stage table;
  15d. my2kf: BASELINE config #4, bench.py measure_mysql2kafka's shape
-     through activate_delivery: 200,000 rows from the port's fake MySQL
+     through activate_delivery: 100,000 rows from the port's fake MySQL
+     (cut from bench.py's 200,000 for the chaos phase's room)
      (id bigint key, email varchar(255), region int), mask_field email
      with salt "bench" (K-A on the card, one launch a fused chunk and
      one for the salt's key states), Debezium envelopes, the port's fake
      Kafka with 16 partitions, topic cdc, staged commits on (one
      InitProducerId and one transactional produce a part; the dedup
      window keys each staged push with K10); device and host placement.
-     Each run lands 200,000 records by offsets and by live_size, no
+     Each run lands 100,000 records by offsets and by live_size, no
      superseded segment, every part committed; the records are
      identical across placements once ts_ms is set aside; every record
      decodes through the debezium parser to the generator's id and
@@ -191,7 +192,7 @@ final line):
      crc32c(key) % 16 by the pure CRC32C; K-A launches on the card and
      never on the host, K10 as often in both, and each staged push's
      keys from K10 equal the plain version's; it reports rows/s over
-     the 200,000 and the transactional request's bytes;
+     the 100,000 and the transactional request's bytes;
  15e. my2kf_cdc: BASELINE config #4's CDC half through run_replication
      (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 100,000
      row changes of seed 17 (recipes/cdc.py: 70,000 inserts, 1 % NULL
@@ -264,8 +265,9 @@ final line):
      fires, one part retry in the ledger and the same rows delivered; (3) replication (a) on the card: the spans hold
      replication_attempt, kafka_roundtrip, source_decode, transform,
      sink_wait and sink, and the transform spans' p50/p99 agree with
-     the stage timer's window within 5 %; (4) my2kf in both placements
-     with every my2kf check; each run prints its stage table;
+     the stage timer's window within 5 %; (4) my2kf at 25,000 rows (cut
+     from 200,000 for the chaos phase's room) in both placements with
+     every my2kf check; each run prints its stage table;
  15j. cli: the port's CLI on transfer.yaml files, as a user
      runs it, in this process and thread (TRANSFERIA_TPU_PLACEMENT's
      device placement): validate on the examples (OK, the s3 one too)
@@ -376,6 +378,28 @@ final line):
      bench.py's chain and number_to_float on the card and on the CPU:
      byte-identical inserts.  Every K-A, K-B, K-C and K10 launch of this
      process is held against its plain version;
+ 15o. chaos: the chaos runner (chaos/) on the card through cli.main
+     here: (a) `--device cuda chaos --mode all --trials 1 --seed 7
+     --json`: snapshot, replication, worker_crash, scheduler_kill,
+     fleet_distributed, lock_order, exactly_once over the memory,
+     postgres, clickhouse, kafka and s3 backends (the port's fakes) and
+     snapshot_and_increment's layered scenario, each passing its
+     delivery audit, with the fused mask forced to the card (the
+     device.dispatch site fires; the trials' float64 filter stays on
+     the host in both packages, so K-B and K-C do not launch) and the
+     auditor's row keys on K10;
+     the arrow_ipc mode, the arrow_ipc and ydb backends and the S&I
+     pump scenario reported skipped (ROADMAP.md A7); per mode its
+     trials, restarts, kills, fenced publishes, duplicates absorbed and
+     seconds, and the sites fired; (b) `--mode snapshot --trials 2`
+     twice: the two reports' specs and fire logs byte-identical (seed
+     replay on the card); (c) a negative control: a clean snapshot's
+     delivery passes its audit and fails it on at-least-once with one
+     batch dropped.  Every K-A, K-B, K-C and K10 launch of this process
+     is held against its plain version;
+ 15p. check: `check --strict` (analysis/, the port's lint) over
+     transferia_tpu_torch on this host: exit 0, no finding, its seconds
+     and rule count, nothing launched;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -751,6 +775,17 @@ PATH_KERNELS = {
     # fingerprint, as in the reference)
     "delta": ("sha256_hmac", "pred_decode", "pred3vl_mask",
               "rowhash_lanes"),
+    # the chaos runner's gauntlet on the card: every trial's
+    # fused mask (the runner forces the device placement, so the
+    # device.dispatch site is on the path) and K10 keying the auditor's
+    # rows, the fingerprint tap and the staged pushes.  The trials'
+    # filter (temperature > -1000) reads a float64 column, which neither
+    # package evaluates on the device (predicate/device.py
+    # _DEVICE_SAFE), so it stays on the host and K-B and K-C do not
+    # launch; any launch of theirs would be held all the same
+    "chaos": ("sha256_hmac", "rowhash_lanes"),
+    # the port's lint: a static pass, nothing on the card
+    "check": (),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -862,6 +897,11 @@ CHECKSUM_TAMPERED_ID = 5
 # Kafka topic, through activate_delivery, staged commits on (the
 # default): one transactional produce a part
 MY2KF_ROWS, MY2KF_PARTITIONS, MY2KF_SALT = 200_000, 16, b"bench"
+# depth cuts for the chaos and check phases' room (with them added, the
+# whole script took 1,008.46 s on an NVIDIA H100 80GB HBM3 at 700 W on
+# a slow host; PERF.md section 4): the my2kf phase at 100,000 of
+# bench.py's 200,000 rows, and telemetry's traced rerun of it at 25,000
+MY2KF_CUT_ROWS, TELEMETRY_MY2KF_ROWS = 100_000, 25_000
 MY2KF_COLUMNS = [("id", "bigint", "bigint", True, True),
                  ("email", "varchar", "varchar(255)", False, False),
                  ("region", "int", "int", False, False)]
@@ -884,6 +924,18 @@ CDC_INSERTS, CDC_UPDATES, CDC_DELETES, CDC_TXN, CDC_SEED = (
 PG_CDC_ROWS, PG_CDC_TXN = 100_000, 1000
 MY2MY_CHANGES = 20_000
 CDC_SETTLE_S = 300.0
+# the chaos runner as the CLI drives it (every mode, one
+# trial, seed 7) and what the port reports skipped (ROADMAP.md A7)
+CHAOS_ARGV = ["--mode", "all", "--trials", "1", "--seed", "7", "--json"]
+CHAOS_REPLAY_ARGV = ["--mode", "snapshot", "--trials", "2", "--seed", "7",
+                     "--json"]
+CHAOS_SKIPPED = {"arrow_ipc mode", "exactly_once backend arrow_ipc",
+                 "exactly_once backend ydb",
+                 "snapshot_and_increment pump scenario"}
+CHAOS_MODES = {"snapshot", "replication", "worker_crash", "scheduler_kill",
+               "fleet_distributed", "lock_order", "exactly_once",
+               "snapshot_and_increment"}
+CHAOS_BACKENDS = {"memory", "postgres", "clickhouse", "kafka", "s3"}
 
 
 def emit(obj) -> None:
@@ -5272,7 +5324,7 @@ def telemetry_path(path: str, kept: int, dev) -> dict:
             f"(untraced-equal run {device['completed_rows']})")
     replication = replication_traced(dev)
     add(replication["launches"])
-    my2kf = my2kf_path(dev, traced=True)
+    my2kf = my2kf_path(dev, rows=TELEMETRY_MY2KF_ROWS, traced=True)
     add(my2kf["launches"])
     require_launched("telemetry", launches)
     return dict(kept=kept, upload_threads=workers, launches=launches,
@@ -8929,6 +8981,172 @@ def delta_path(rows, keep: dict, dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def chaos_cli(argv: list, dev) -> tuple[dict, float]:
+    """`chaos` through the port's CLI in this process on `dev`: its JSON
+    report and seconds.  The runner's warnings (every injected fault
+    and retry) stay out of the log while it runs."""
+    import contextlib
+    import io
+    import logging
+
+    from transferia_tpu_torch.cli.main import main as cli_entry
+
+    root = logging.getLogger()
+    level = root.level
+    root.setLevel(logging.ERROR)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli_entry(["--device", dev.type, "--log-level", "error",
+                            "chaos"] + argv)
+    finally:
+        root.setLevel(level)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    if rc != 0 or not report["passed"]:
+        raise AssertionError(f"chaos {' '.join(argv)}: exit {rc}, failed "
+                             f"trials {report['failed_trials']}: "
+                             f"{[r['violations'] for r in report['results']]}")
+    return report, seconds
+
+
+def chaos_modes(report: dict) -> dict:
+    """Per mode (exactly_once per backend): trials, restarts, kills,
+    fenced publishes or updates, duplicates absorbed, seconds."""
+    out: dict = {}
+    for r in report["results"]:
+        key = r["mode"] + (f"[{r['backend']}]" if r["backend"] else "")
+        m = out.setdefault(key, {"trials": 0, "passed": 0, "restarts": 0,
+                                 "kills": 0, "fenced": 0,
+                                 "duplicates_absorbed": 0, "seconds": 0.0})
+        m["trials"] += 1
+        m["passed"] += int(r["passed"])
+        m["restarts"] += r["restarts"]
+        m["kills"] += r["kills"]
+        m["fenced"] += r["fence_rejected"]
+        m["duplicates_absorbed"] += r["duplicate_rows"]
+        m["seconds"] += r["seconds"]
+    return out
+
+
+def chaos_negative_control(dev) -> dict:
+    """The auditor on the card must fail a delivery that lost a batch: a
+    clean snapshot (the chaos runner's transfer, no fault armed) into a
+    memory store passes its audit, and the same delivery with its first
+    batch dropped fails on at-least-once."""
+    from transferia_tpu_torch.chaos import runner as chaos_runner
+    from transferia_tpu_torch.chaos.invariants import audit_delivery
+
+    rows, sink = chaos_runner.SNAPSHOT_ROWS, "chip-chaos-negative"
+    store = get_store(sink)
+    store.clear()
+    with chaos_runner._fast_retries(), \
+            chaos_runner._forced_device_placement():
+        ref = chaos_runner._snapshot_reference(rows, dev)
+        chaos_runner._run_snapshot_once(
+            chaos_runner._snapshot_transfer(rows, sink),
+            MemoryCoordinator(), dev)
+    delivered = list(store.batches)
+    store.clear()
+    # the first batch that holds rows (a staged part may publish control
+    # items or an empty batch ahead of its rows)
+    drop = next(i for i, b in enumerate(delivered)
+                if getattr(b, "n_rows", 0))
+    clean = audit_delivery(ref, delivered, 1, device=dev)
+    lost = audit_delivery(ref, delivered[:drop] + delivered[drop + 1:], 1,
+                          device=dev)
+    lost_rows = [v for v in lost.violations
+                 if v.invariant == "at-least-once"]
+    if not clean.passed or lost.passed or not lost_rows:
+        raise AssertionError(f"negative control: clean {clean.summary()}; "
+                             f"a batch dropped {lost.summary()}")
+    return {"reference_rows": ref.rows, "batches": len(delivered),
+            "dropped_batch": drop, "dropped_rows": delivered[drop].n_rows,
+            "clean": clean.summary(),
+            "dropped": [str(v) for v in lost.violations]}
+
+
+def chaos_path(dev) -> dict:
+    """The chaos runner on the card: (a) `chaos --mode all --trials 1
+    --seed 7 --json` through cli.main here, every mode passing and the
+    port's skips (ROADMAP.md A7) exactly CHAOS_SKIPPED; (b) `--mode
+    snapshot --trials 2` twice, the two reports' fire logs
+    byte-identical; (c) the negative control.  Every K-A and K10 launch
+    of this process (and any of K-B and K-C) is held against its plain
+    version."""
+    result: dict = {}
+    timings: dict = {}
+    with KALaunches() as ka, PredLaunches() as preds, \
+            RowhashLaunches() as k10:
+        _build.reset_launch_counts()
+        report, timings["all"] = chaos_cli(CHAOS_ARGV, dev)
+        skipped = {s["what"]: s["reason"] for s in report["skipped"]}
+        modes = {r["mode"] for r in report["results"]}
+        backends = {r["backend"] for r in report["results"]
+                    if r["backend"]}
+        if set(skipped) != CHAOS_SKIPPED or \
+                not all("ROADMAP.md A7" in v for v in skipped.values()):
+            raise AssertionError(f"chaos skipped {skipped}")
+        if modes != CHAOS_MODES or backends != CHAOS_BACKENDS:
+            raise AssertionError(f"chaos ran {modes} over {backends}")
+        fired = report["sites_fired"]
+        if not fired.get("device.dispatch"):
+            raise AssertionError(f"device.dispatch never fired: {fired}")
+        result["a"] = {"trials": report["trials"],
+                       "modes": chaos_modes(report),
+                       "sites_fired": fired, "skipped": skipped}
+        replays = []
+        for i in range(2):
+            rep, timings[f"replay_{i}"] = chaos_cli(CHAOS_REPLAY_ARGV, dev)
+            replays.append(json.dumps(
+                [(r["spec"], r["fire_log"]) for r in rep["results"]],
+                sort_keys=True))
+        if replays[0] != replays[1]:
+            raise AssertionError(f"seed 7's fire logs differ between two "
+                                 f"runs: {replays}")
+        result["b"] = {"fire_logs_identical": True,
+                       "fire_logs": json.loads(replays[0])}
+        t0 = time.perf_counter()
+        result["c"] = chaos_negative_control(dev)
+        timings["negative_control"] = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        require_launched("chaos", launches)
+        t0 = time.perf_counter()
+        held = {"sha256_hmac": ka.check("chaos", launches["sha256_hmac"])}
+        held.update(preds.check("chaos", launches))
+        held.update(k10.check("chaos", launches))
+        timings["held"] = time.perf_counter() - t0
+    result.update(launches=launches, held_exact=held, part_seconds=timings)
+    return result
+
+
+def check_path(dev) -> dict:
+    """`check --strict` over transferia_tpu_torch on this host, through
+    cli.main here: exit 0 with no finding, and nothing launched."""
+    import contextlib
+    import io
+
+    from transferia_tpu_torch.analysis.rules import default_rules
+    from transferia_tpu_torch.cli.main import main as cli_entry
+
+    _build.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_entry(["--log-level", "error", "check", "--strict"])
+    seconds = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    summary = out.getvalue().strip().splitlines()[-1]
+    if rc != 0 or "0 new finding(s)" not in summary:
+        raise AssertionError(f"check --strict: exit {rc}\n{out.getvalue()}")
+    if any(launches.values()):
+        raise AssertionError(f"the lint launched kernels: {launches}")
+    return {"rc": rc, "seconds": seconds, "rules": len(default_rules()),
+            "summary": summary, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -9044,7 +9262,7 @@ def main() -> int:
             ("pg2ch", lambda: pg2ch_path(dev)),
             ("checksum", lambda: checksum_path(dev)),
             ("sai", lambda: sai_path(dev)),
-            ("my2kf", lambda: my2kf_path(dev)),
+            ("my2kf", lambda: my2kf_path(dev, rows=MY2KF_CUT_ROWS)),
             ("my2kf_cdc", lambda: my2kf_cdc_path(dev)),
             ("pg2ch_cdc", lambda: pg2ch_cdc_path(dev)),
             ("my2my_cdc", lambda: my2my_cdc_path(dev)),
@@ -9061,7 +9279,9 @@ def main() -> int:
             ("fleet", lambda: fleet_path((schema, fixed, var), s3_keep,
                                          dev)),
             ("delta", lambda: delta_path((schema, fixed, var), s3_keep,
-                                         dev))):
+                                         dev)),
+            ("chaos", lambda: chaos_path(dev)),
+            ("check", lambda: check_path(dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

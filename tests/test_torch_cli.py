@@ -15,8 +15,10 @@ on the CPU (`--device cpu`: the kernels' plain versions).
   memory coordinator's refusal of `--job-count 2`, the filestore
   coordinator (`activate` and `checksum --against-operation`; the
   sharded runs are in tests/test_torch_sharded.py), the s3 coordinator
-  (`activate` over each package's fake S3), each left-out
-  command and flag exiting 2 naming its item, `trace` on the demo transfer, the
+  (`activate` over each package's fake S3), the left-out `flight`
+  exiting 2 naming its item, `chaos` (a seeded snapshot trial with the
+  JAX report, a bad `--spec` exiting 2) and `check` (the JAX exit codes
+  on a fixture tree), `trace` on the demo transfer, the
   health port's panes, the log sanitizer, and the device rule: without a
   card the CLI raises unless `--device cpu`.
 - The fleet commands: `worker --max-tickets` and `--idle-exit` on a
@@ -346,16 +348,77 @@ def test_memory_coordinator_refuses_sharding_as_jax(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["check"], "A6"), (["chaos", "--trials", "5"], "A6"),
+    (["flight"], "A7"), (["flight", "serve", "--port", "0"], "A7"),
     (["flight", "bench"], "A7"),
-    (["check", "--strict"], "A6"),
+    (["flight", "bench", "--rows", "100"], "A7"),
 ])
 def test_left_out_commands_exit_2_naming_their_item(argv, item):
     rc, out, err = run("port", argv)
     assert rc == 2 and not out
     assert f"ROADMAP.md {item}" in err and "not ported" in err
-    # what stays out, and nothing else
-    assert sorted(port_main.LEFT_OUT) == ["chaos", "check", "flight"]
+    # what stays out, and nothing else: flight alone
+    assert sorted(port_main.LEFT_OUT) == ["flight"]
+
+
+def test_chaos_runs_on_the_cpu_as_jax():
+    """`chaos --device cpu` runs its trials and exits 0 with the JAX
+    package's report for the same seed (the port's skips aside)."""
+    argv = ["chaos", "--mode", "snapshot", "--trials", "1", "--seed", "7",
+            "--rows", "512", "--json"]
+    got, want = run("port", argv), run("jax", argv)
+    assert got[0] == want[0] == 0
+    port, ref = json.loads(got[1]), json.loads(want[1])
+    for d in (port, ref):
+        for r in d["results"]:
+            r.pop("seconds")
+    assert port.pop("skipped") == []
+    for r in port["results"]:
+        assert r.pop("skipped") == []
+    assert port == ref and port["passed"]
+
+
+@pytest.mark.parametrize("spec", ["bogus.site=times:1",
+                                  "sink.push=after:x",
+                                  "sink.push=raise:NoSuchError"])
+def test_chaos_bad_spec_exits_2_as_jax(spec):
+    got = run("port", ["chaos", "--spec", spec])
+    want = run("jax", ["chaos", "--spec", spec])
+    assert got[0] == want[0] == 2
+    assert got[1] == want[1] == ""
+    assert got[2] == want[2] and got[2].startswith("bad --spec:")
+
+
+def test_check_strict_exits_as_jax_on_a_fixture_tree(tmp_path,
+                                                     monkeypatch):
+    """`check` through each package's CLI on the same tree: a silent
+    swallow reports and exits 0, fails --strict with 1, and a bad rule
+    id exits 2; a clean tree passes --strict."""
+    from transferia_tpu.analysis import cli as ref_check
+    from transferia_tpu_torch.analysis import cli as port_check
+
+    bad = "def f():\n    try:\n        g()\n    except Exception:\n" \
+          "        pass\n"
+    for pkg, mod, root in (("port", port_check, "transferia_tpu_torch"),
+                           ("jax", ref_check, "transferia_tpu")):
+        (tmp_path / pkg / root).mkdir(parents=True)
+        (tmp_path / pkg / root / "bad.py").write_text(bad)
+        monkeypatch.setattr(mod, "repo_root",
+                            lambda p=pkg: str(tmp_path / p))
+    results = {}
+    for argv in (["check", "--baseline", "none"],
+                 ["check", "--strict", "--baseline", "none"],
+                 ["check", "--rules", "NOPE42"]):
+        got, want = run("port", argv), run("jax", argv)
+        assert got[0] == want[0]
+        assert got[1].replace("transferia_tpu_torch", "transferia_tpu") \
+            == want[1]
+        results[argv[1]] = got[0]
+    assert results == {"--baseline": 0, "--strict": 1, "--rules": 2}
+    for pkg, root in (("port", "transferia_tpu_torch"),
+                      ("jax", "transferia_tpu")):
+        (tmp_path / pkg / root / "bad.py").write_text("x = 1\n")
+    assert run("port", ["check", "--strict", "--baseline", "none"])[0] \
+        == run("jax", ["check", "--strict", "--baseline", "none"])[0] == 0
 
 
 def obs_segments(fake) -> list:

@@ -40,6 +40,10 @@ A third imports the fleet (`fleet/`, `stats/fleetobs.py`, `stats/slo.py`,
 a part boundary and resumed) and reads the segments back through the
 merge, the SLO evaluation and the critical path: again nothing of jax,
 prometheus_client or the JAX package is loaded.
+A fourth imports the chaos runner, the lint and the in-memory broker
+(`chaos/`, `analysis/`, `providers/mq.py`), runs a seeded snapshot trial
+and `check --strict` on the CPU: again nothing of jax, pyarrow or the
+JAX package is loaded.
 And without CUDA, an entry point that was not asked for the CPU raises
 instead of running there (the CLI too, unless given `--device cpu`).
 """
@@ -1035,3 +1039,65 @@ def test_delta_activation_needs_a_card_or_the_cpu(device, monkeypatch,
                                    device=device)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+_CHAOS_CHILD = """
+import io, sys
+from contextlib import redirect_stdout
+import transferia_tpu_torch.analysis, transferia_tpu_torch.analysis.rules  # noqa
+from transferia_tpu_torch.chaos import invariants, runner, wire_backends
+from transferia_tpu_torch.cli.main import main as cli_main
+from transferia_tpu_torch.providers import mq
+
+report = runner.run_trials(trials=1, seed=7, mode="snapshot", rows=512,
+                           device="cpu")
+assert report.passed, report.format_summary()
+assert report.results[0].fire_counts.get("device.dispatch"), report.results
+broker = mq.get_broker("iso-mq", 2)
+broker.produce("t", b"k", b"v")
+assert broker.size("t") == 1
+assert not wire_backends.backend_available("ydb")[0]
+out = io.StringIO()
+with redirect_stdout(out):
+    rc = cli_main(["--log-level", "error", "check", "--strict"])
+assert rc == 0 and "0 new finding(s)" in out.getvalue(), out.getvalue()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
+                                    "fsspec", "s3fs", "prometheus_client",
+                                    "transferia_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_chaos_lint_and_mq_import_nothing_of_jax():
+    """`chaos/`, `analysis/` and `providers/mq.py` in a fresh
+    interpreter: a seeded snapshot trial on the CPU (the fused step's
+    device.dispatch site on its path) and `check --strict` over the
+    port's tree, with no jax, pyarrow or JAX package module loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("TRANSFERIA_TPU_FAILPOINTS", None)
+    proc = subprocess.run([sys.executable, "-c", _CHAOS_CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_chaos_needs_a_card_or_the_cpu(device, monkeypatch):
+    """`run_trials` and the `chaos` command raise without a card unless
+    asked for the CPU, before any trial runs; `check` runs no device
+    work and needs none."""
+    from transferia_tpu_torch.chaos import runner
+    from transferia_tpu_torch.cli.main import main as cli_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner.run_trials(trials=1, mode="snapshot", device=device)
+    argv = ["chaos", "--mode", "snapshot", "--trials", "1"]
+    if device is not None:
+        argv = ["--device", device] + argv
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(argv)
+    assert cli_main(["--log-level", "error", "check", "--list-rules"]) == 0

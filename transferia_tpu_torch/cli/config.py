@@ -58,7 +58,7 @@ _KNOWN_KEYS = {
 # wait under ROADMAP.md A7 ("every other provider"; the `fs` sink with it)
 WAITING_PROVIDERS = frozenset({
     "airbyte", "arrow_ipc", "elastic", "eventhub", "flight", "greenplum",
-    "kinesis", "logbroker", "mongo", "mq", "opensearch", "oracle", "ydb",
+    "kinesis", "logbroker", "mongo", "opensearch", "oracle", "ydb",
     "yds", "yt", "yt_dyn",
 })
 

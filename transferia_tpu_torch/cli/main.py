@@ -7,8 +7,9 @@
 Subcommands activate / upload / reupload / add-tables / remove-tables /
 replicate / checksum / deactivate / sniff / regular-snapshot / validate /
 describe / typesystem-docs / trace [--fleet] / fleet bench / worker /
-top [--fleet] / slo / explain, global flags for the coordinator, the
-worker's sharding indices, the log level and a health port (`/health`,
+top [--fleet] / slo / explain / chaos / check, global flags for the
+coordinator, the worker's sharding indices, the log level and a health
+port (`/health`,
 `/debug/trace`, `/debug/ledger`, `/debug/profile`, `/debug/threads`,
 `/debug/fleet`, `/debug/fleet/obs`, `/debug/slo`) and a metrics port
 (`--metrics-port`: the Prometheus text format of what the reference's
@@ -27,10 +28,12 @@ transfer.yaml is read without PyYAML (`cli/yamlread.py`).
 
 `--device` (default `cuda`) is where every task the command runs does
 its device work; without a card the CLI raises unless it is `cpu`, which
-runs the kernels' plain versions.
+runs the kernels' plain versions.  `chaos` runs its seeded trials there
+(`chaos/runner.py`); `check`, the port's static analysis over its own
+tree (`analysis/`), runs nothing on a device and resolves none.
 
-Left out, each exiting 2 with a message naming its ROADMAP.md item
-(`LEFT_OUT`): the commands check, chaos and flight.
+Left out, exiting 2 with a message naming its ROADMAP.md item
+(`LEFT_OUT`): the command flight.
 """
 
 from __future__ import annotations
@@ -48,8 +51,6 @@ from transferia_tpu_torch.runtime.device import resolve_device
 
 # what the port leaves out -> the ROADMAP.md item that owns its modules
 LEFT_OUT = {
-    "check": "A6, the port's lint (analysis/)",
-    "chaos": "A6, the chaos runner (chaos/runner.py)",
     "flight": "A7, interchange/ (blocked: it needs pyarrow)",
 }
 
@@ -127,6 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "narrow the include list (target data stays)")
     rt.add_argument("--table", action="append", default=[], required=True,
                     help="table to remove (repeatable), e.g. ns.name")
+    chk_static = sub.add_parser(
+        "check",
+        help="static analysis of the port's tree: launch-code host syncs, "
+             "lock discipline, exception/resource hygiene, registry "
+             "contracts (see --list-rules; data validation is `checksum`)")
+    from transferia_tpu_torch.analysis.cli import add_check_args
+
+    add_check_args(chk_static)
     chk = add_transfer_cmd(
         "checksum", "full data-validation task (sampling, type-aware "
         "comparators)")
@@ -296,7 +305,49 @@ def build_parser() -> argparse.ArgumentParser:
                     help="demo rows")
     ex.add_argument("--json", action="store_true", dest="as_json",
                     help="machine-readable report")
-    for name in ("check", "chaos", "flight"):
+    cha = sub.add_parser(
+        "chaos",
+        help="seeded fault-injection trials over the built-in sample "
+             "transfers on --device; audits at-least-once delivery, "
+             "bounded duplication, checkpoint monotonicity and post-retry "
+             "fingerprint equality (chaos/)")
+    cha.add_argument("--trials", type=int, default=5,
+                     help="trials per mode")
+    cha.add_argument("--seed", type=int, default=7,
+                     help="master seed: derives every trial's fault "
+                          "schedule and PRNG draws (replayable)")
+    cha.add_argument("--mode", default="both",
+                     choices=["snapshot", "replication", "worker_crash",
+                              "scheduler_kill", "fleet_distributed",
+                              "lock_order", "arrow_ipc", "exactly_once",
+                              "snapshot_and_increment", "both", "all"],
+                     help="worker_crash kills a sharded worker mid-part "
+                          "and audits lease reclamation + epoch "
+                          "fencing; scheduler_kill kills a fleet "
+                          "worker slot at a dispatch decision; "
+                          "fleet_distributed runs the durable-queue "
+                          "fleet gauntlet (failover, reclaim, "
+                          "preemption, byte-identical log replay); "
+                          "lock_order re-runs it with the runtime "
+                          "lock-order sentinel armed; exactly_once "
+                          "audits the staged two-phase commit per "
+                          "capable sink backend; snapshot_and_increment "
+                          "audits the MVCC consistent cutover; both = "
+                          "snapshot+replication; all = every mode.  "
+                          "arrow_ipc, the arrow_ipc and ydb backends "
+                          "and the S&I pump scenario are reported "
+                          "skipped (ROADMAP.md A7)")
+    cha.add_argument("--rows", type=int, default=0,
+                     help="snapshot source rows (default 4096)")
+    cha.add_argument("--messages", type=int, default=0,
+                     help="replication broker messages (default 300)")
+    cha.add_argument("--spec", default=None,
+                     help="explicit failpoint spec for every trial "
+                          "(overrides the seed-derived schedule; "
+                          "grammar: chaos/failpoints.py)")
+    cha.add_argument("--json", action="store_true", dest="as_json",
+                     help="machine-readable report")
+    for name in LEFT_OUT:
         # any arguments: main() refuses the command itself
         sub.add_parser(name, help=f"not ported: {LEFT_OUT[name]}")
     return p
@@ -518,6 +569,13 @@ def main(argv=None) -> int:
     if left:
         print(left_out_message(left), file=sys.stderr)
         return 2
+    if args.command == "check":
+        # static analysis: it reads source files and runs nothing on a
+        # device, so it resolves none
+        from transferia_tpu_torch.analysis.cli import run_check
+
+        _setup(args)
+        return run_check(args)
     device = resolve_device(args.device)
     _setup(args)
 
@@ -539,6 +597,8 @@ def main(argv=None) -> int:
         return cmd_slo(args, device)
     if args.command == "explain":
         return cmd_explain(args, device)
+    if args.command == "chaos":
+        return cmd_chaos(args, device)
 
     transfer = _load_transfer(args)
     cp = _coordinator(args)
@@ -616,6 +676,39 @@ def main(argv=None) -> int:
         return 0
 
     raise SystemExit(f"unknown command {args.command}")
+
+
+def cmd_chaos(args, device) -> int:
+    """Seeded chaos trials + delivery-invariant audit (chaos/runner.py),
+    every trial on `device`.
+
+    Exit 0 when every trial upholds every invariant, 1 otherwise, 2 on a
+    bad --spec.  What the port leaves out is reported skipped, never
+    passed."""
+    from transferia_tpu_torch.chaos import runner as chaos_runner
+    from transferia_tpu_torch.chaos.failpoints import (
+        FailpointSpecError,
+        parse_spec,
+    )
+
+    if args.spec:
+        try:
+            parse_spec(args.spec)
+        except FailpointSpecError as e:
+            print(f"bad --spec: {e}", file=sys.stderr)
+            return 2
+    kwargs = dict(trials=args.trials, seed=args.seed, mode=args.mode,
+                  spec=args.spec, device=device)
+    if args.rows:
+        kwargs["rows"] = args.rows
+    if args.messages:
+        kwargs["messages"] = args.messages
+    report = chaos_runner.run_trials(**kwargs)
+    if args.as_json:
+        print(json.dumps(report.to_dict(), indent=1))
+    else:
+        print(report.format_summary())
+    return 0 if report.passed else 1
 
 
 def cmd_replicate(args, transfer, cp, device) -> int:

@@ -330,6 +330,16 @@ def var_accumulators(data: torch.Tensor, offsets: torch.Tensor
 _ACC_MEMO_KEY = ("rowhash_accs",)
 
 
+def _pool_accs_site(pool) -> None:
+    """The `rowhash.pool_accs` failpoint site, shared by both routes that
+    compute a pool's accumulators (one site, one hit counter, as in the
+    reference's single function).  Once per shared pool: worth a point
+    event (a chaos fire at the site lands next to it on the active
+    span)."""
+    failpoint("rowhash.pool_accs")
+    trace.instant("rowhash_pool_accs", values=pool.n_values)
+
+
 def pool_accumulators(pool, device: DeviceLike = _CPU
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Both lanes' accumulators, one per pool ENTRY, as (k,) int32
@@ -343,10 +353,7 @@ def pool_accumulators(pool, device: DeviceLike = _CPU
             return memo
         accs = (memo[0].to(dev), memo[1].to(dev))
     else:
-        failpoint("rowhash.pool_accs")
-        # once per shared pool: worth a point event (a chaos fire at the
-        # `rowhash.pool_accs` site lands next to it on the active span)
-        trace.instant("rowhash_pool_accs", values=pool.n_values)
+        _pool_accs_site(pool)
         data = _host_array(pool.values_data, np.uint8)
         offs = _host_array(pool.values_offsets, np.int32)
         _check_offsets(offs, len(data), "dict pool")
@@ -692,8 +699,7 @@ def pool_accumulators_native(pool) -> tuple[torch.Tensor, torch.Tensor]:
     memo = pool.memo_get(_ACC_MEMO_KEY)
     if memo is not None:
         return (memo[0].cpu(), memo[1].cpu())
-    failpoint("rowhash.pool_accs")
-    trace.instant("rowhash_pool_accs", values=pool.n_values)
+    _pool_accs_site(pool)
     data = _host_array(pool.values_data, np.uint8)
     offs = _host_array(pool.values_offsets, np.int32)
     _check_offsets(offs, len(data), "dict pool")

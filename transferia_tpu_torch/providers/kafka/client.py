@@ -151,12 +151,14 @@ class KafkaClient:
             header = struct.pack("!hhi", api_key, api_version, corr) \
                 + enc_str(CLIENT_ID)
             msg = header + body
-            # the lock serializes request/response framing on the one
-            # socket of a node
+            # I/O under the lock is the design: the lock serializes
+            # request/response framing on the one socket of a node
             try:
-                sock.sendall(struct.pack("!i", len(msg)) + msg)
-                size = struct.unpack("!i", recv_exact(sock, 4))[0]
-                payload = recv_exact(sock, size)
+                sock.sendall(  # trtpu: ignore[LCK001]
+                    struct.pack("!i", len(msg)) + msg)
+                size = struct.unpack(
+                    "!i", recv_exact(sock, 4))[0]  # trtpu: ignore[LCK001]
+                payload = recv_exact(sock, size)  # trtpu: ignore[LCK001]
             except (OSError, ConnectionError) as e:
                 self._drop_conn(node)
                 raise KafkaError(f"kafka io error (node {node}): {e}") from e

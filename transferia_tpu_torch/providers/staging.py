@@ -338,7 +338,7 @@ class DirectoryPartStage:
         if not self._closed:
             try:
                 self.inner.close()
-            except Exception:  # best-effort abort
+            except Exception:  # trtpu: ignore[EXC001] — best-effort abort
                 pass
             self._closed = True
         shutil.rmtree(self.dir, ignore_errors=True)

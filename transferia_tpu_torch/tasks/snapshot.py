@@ -1004,9 +1004,11 @@ class SnapshotLoader:
                 if not f.cancel():
                     try:
                         f.result(timeout=60.0)
-                    # the error path's drain: the first failure is
-                    # already propagating as TableUploadError
-                    except Exception:
+                    # deliberate swallow: the error path's drain, the
+                    # first failure is already propagating as
+                    # TableUploadError and a later push error would
+                    # only mask it
+                    except Exception:  # trtpu: ignore[EXC001]
                         pass
             sink.close()
         if publish_fenced:
