@@ -87,7 +87,7 @@ final line):
      a batch), device and host placement byte-identical, sampled rows
      equal to hashlib's HMAC;
  14. snapshot: the README's Quick-start transfer through the port's
-     SnapshotLoader on a memory coordinator: 2,000,000 `sample` users
+     SnapshotLoader on a memory coordinator: 1,000,000 `sample` users
      rows (dictionary-encoded country), 4 parts on 4 upload threads,
      16,384-row source batches merged by the memory sink's Bufferer into
      131,072-row flushes, staged commits, fingerprint validation; the
@@ -111,9 +111,9 @@ final line):
      messages, parallelism 4, no Bufferer, mask_field url + filter_rows
      "region < 400": K-A, K-B and K-C on the card) and (b) BASELINE
      config #1 (examples/kafka2ch.yaml: rename + mask of user_email,
-     the CH target's default Bufferer) over a backlog of 16 partitions
+     the CH target's default Bufferer) over a backlog of 8 partitions
      x 1,024 messages of the kafka2ch phase's generator (K-A; cut from
-     16,384 a partition for the call's time).  Exact
+     16 x 16,384 for the call's time).  Exact
      row counts in the fake, rows sorted by id identical across
      placements, sampled masks equal to hashlib's HMAC, kept ids equal
      to numpy's, no unparsed rows, every partition's last offset
@@ -142,7 +142,8 @@ final line):
      staged push on the path equal to its plain version's over the same
      batch, one push a launch; it reports rows/s over the 300,000;
  15c'. checksum: the checksum task (tasks/checksum.py) over pg2ch's
-     300,000 rows transferred by activate_delivery without the filter
+     first 220,000 rows transferred by activate_delivery without the
+     filter
      (a checksum compares whole tables): checksum(PGStorage, CHStorage)
      by fingerprint with fingerprint_backend "device" (K10 in reduce mode
      on the card), "host" (the host library's lanes) and "auto" (the
@@ -176,8 +177,8 @@ final line):
      no pump, and run_replication of 20,000 new inserts; ClickHouse
      equals numpy's.  Each run is traced and prints its stage table;
  15d. my2kf: BASELINE config #4, bench.py measure_mysql2kafka's shape
-     through activate_delivery: 100,000 rows from the port's fake MySQL
-     (cut from bench.py's 200,000 for the chaos phase's room)
+     through activate_delivery: 50,000 rows from the port's fake MySQL
+     (cut from bench.py's 200,000 for the later phases' room)
      (id bigint key, email varchar(255), region int), mask_field email
      with salt "bench" (K-A on the card, one launch a fused chunk and
      one for the salt's key states), Debezium envelopes, the port's fake
@@ -194,11 +195,11 @@ final line):
      keys from K10 equal the plain version's; it reports rows/s over
      the 100,000 and the transactional request's bytes;
  15e. my2kf_cdc: BASELINE config #4's CDC half through run_replication
-     (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 100,000
-     row changes of seed 17 (recipes/cdc.py: 70,000 inserts, 1 % NULL
-     emails, 20,000 updates of live ids with a before and an after
-     image, 10,000 deletes of distinct live ids; cut from 200,000 for
-     the fleet phase's room) in 1,000 GTID
+     (INCREMENT_ONLY): the port's fake MySQL holds a binlog of 50,000
+     row changes of seed 17 (recipes/cdc.py: 35,000 inserts, 1 % NULL
+     emails, 10,000 updates of live ids with a before and an after
+     image, 5,000 deletes of distinct live ids; cut from 200,000 and
+     then 100,000 for the later phases' room) in 500 GTID
      transactions of 100 (GTID, TABLE_MAP of bigint, utf8mb4
      varchar(255), int, ROWS v2 events of at most 8,192 bytes, XID);
      the port's MySQLBinlogSource tails it, mask_field email (K-A on the
@@ -224,7 +225,7 @@ final line):
      its slot, ClickHouse holds numpy's kept rows in both placements,
      pg_wal_lsn is the last fed LSN, PostgresProvider.deactivate() drops
      the slot, and nothing launches on the card;
- 15g. my2my_cdc: the MySQL target: the first 20,000 changes of
+ 15g. my2my_cdc: the MySQL target: the first 10,000 changes of
      my2kf_cdc's binlog through the same mask into MySQLSinker on a
      second fake MySQL; device and host placement.  Its db.users equals
      numpy's applied state (masked emails, updated rows, deleted ids
@@ -276,7 +277,7 @@ final line):
      50,000-row events table, mask_field on url, filter_rows region <
      400, transfer_ddl with an index, a view and a sequence): the MVCC
      activation publishes through the fused chain into the target's
-     staged parts, then a wal2json tail of 20,000 changes (inserts,
+     staged parts, then a wal2json tail of 10,000 changes (inserts,
      updates, deletes, seed 29), fed once the slot exists, ends on
      SIGTERM once its last LSN is confirmed; the target equals numpy's
      image, one fence row a part, no staging table, the DDL applied;
@@ -306,15 +307,18 @@ final line):
      PartitionedWorker pipeline a partition: the files equal hashlib's
      image, each row once.  Every K-A, K-B, K-C and K10 launch of this
      process is held against its plain version;
- 15l. s3: BASELINE config #3 from object storage.  bench.py's 2,000,000
-     rows as 8 Parquet objects of 250,000 rows (131,072-row groups,
+ 15l. s3: BASELINE config #3 from object storage.  The first 1,000,000
+     of bench.py's rows (2,000,000 until cut for the later phases' room)
+     as 8 Parquet objects of 125,000 rows (131,072-row groups,
      SNAPPY) under hits/ on the port's fake S3, readable anonymously:
      (a) examples/clickbench_s3_parquet2ch.yaml with only endpoint_url
-     added, validate then activate in a `python3 -m
-     transferia_tpu_torch.cli.main` process (HITS_URL the objects'
-     glob, CH_HOST a fake ClickHouse on port 8123): ClickHouse holds
-     their 2,000,000 rows; the YAML activated again over the first 2
-     objects, checksum by K10 exits 0, and 1 over a 25,000-row object
+     added, validate through cli.main here, then activate in a
+     `python3 -m transferia_tpu_torch.cli.main` process (HITS_URL the
+     first 4 objects' glob, cut from all 8 for the later phases' room;
+     CH_HOST a fake ClickHouse on port 8123): ClickHouse holds their
+     500,000 rows; the YAML activated again over the first object
+     (2 until the same cut), checksum by K10 exits 0, and 1 over a
+     25,000-row object
      with a value altered; (b) bench.py's mask +
      filter over the objects (ranged GETs, parts discovered while the
      upload runs, 8 upload threads, staged commits) into a fake
@@ -359,7 +363,7 @@ final line):
      under delta/ as Delta tables on the same fake S3: (a)
      examples/delta2ch.yaml with only endpoint_url added, `activate`
      through cli.main here over a table whose log adds objects 0-2 and
-     7, then adds 3 and removes 7 (1,000,000 live rows), bench.py's mask
+     7, then adds 3 and removes 7 (500,000 live rows), bench.py's mask
      and filter behind the bridge, on the card (traced) and with
      --device cpu: ClickHouse holds numpy's kept count of the live
      objects, the two tables landed byte-identical inserts, the CPU run
@@ -400,6 +404,42 @@ final line):
  15p. check: `check --strict` (analysis/, the port's lint) over
      transferia_tpu_torch on this host: exit 0, no finding, its seconds
      and rule count, nothing launched;
+ 15q. dblog: the Postgres DBLog incremental snapshot.
+     Config #2's table shape, 500,000 rows, in the port's fake Postgres
+     echoing its DML to the WAL: (a) examples/pg_dblog2ch.yaml with only
+     its port changed, `replicate` through cli.main here on a filestore
+     coordinator into a fake ClickHouse on port 8123, on the card and
+     with --device cpu: 10 chunks of 50,000 rows between watermarks,
+     each through the fused mask and filter, ClickHouse the 400,000
+     kept rows once (ids and masked urls against numpy and hmac), no
+     signal row, the completion in the transfer state, byte-identical
+     inserts, and `replicate` again writes no watermark and no row; (b)
+     the same YAML into a memory target through the mask alone (the
+     ClickHouse sink takes inserts only; a filter drops deletes) while a
+     writer commits 10,000 UPDATEs, 5,000 INSERTs and 1,000 DELETEs, a
+     group as each window opens: the latest-wins image equals the
+     source's final state, every untouched key arrives once, at least a
+     tenth of the changes land in a window on its chunk's keys and
+     supersede chunk rows.  Every K-A, K-B, K-C launch is held;
+ 15r. airbyte: examples/airbyte2ch.yaml as it is, the fake
+     connector (recipes/airbyte_connector.py) through the container
+     runner's exec runtime: two typed streams, 200,000 records, through
+     the mask and the boolean filter into a fake ClickHouse, on the
+     card and with --device cpu (byte-identical inserts); the fake dbt
+     (recipes/fake_dbt.py) runs once after the upload, its argv and
+     profiles.yml the reference's; then `upload` of both streams after
+     the source grew by 10,000 reads only those, from the STATE kept in
+     the filestore coordinator.  Every K-A, K-B, K-C and K10 launch is
+     held;
+ 15s. mongo: 200,000 user documents (an email _id, ten
+     fields, a sub-document, an array, an ObjectId, a date) in the
+     port's fake Mongo, examples/mongo2ch.yaml with only its port
+     changed: 4 _id-range shards through the mask on _id into a fake
+     ClickHouse, on the card and with --device cpu (byte-identical
+     inserts, every id the hmac of numpy's); then 20,000 change events
+     through run_replication, stopped half way and restarted: it
+     resumes from the recorded token and every event arrives once, in
+     order.  Every K-A and K10 launch is held;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -786,6 +826,19 @@ PATH_KERNELS = {
     "chaos": ("sha256_hmac", "rowhash_lanes"),
     # the port's lint: a static pass, nothing on the card
     "check": (),
+    # the DBLog snapshot of config #2's table into ClickHouse:
+    # the fused mask and filter (region is int32) on every chunk and
+    # live change, on the card
+    "dblog": ("sha256_hmac", "pred_decode", "pred3vl_mask"),
+    # an Airbyte connector's two typed streams: the mask and the filter
+    # on the boolean (a JSON integer is int64, which the device
+    # predicate does not take: predicate/device.py _DEVICE_SAFE); K10
+    # keys the snapshot's staged pushes into ClickHouse
+    "airbyte": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+                "rowhash_lanes"),
+    # MongoDB: the mask on _id (utf8), the document (ANY) on the host;
+    # K10 keys the snapshot's staged pushes
+    "mongo": ("sha256_hmac", "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -819,8 +872,9 @@ KAFKA2CH_CONFIG = {"transformers": [
 # the README's Quick-start transfer: sample users -> memory, 4 parts on
 # 4 upload threads, Bufferer flushes of 131,072 rows, fingerprint
 # validation; its chain (the utf8 IN keeps the filter on the host) and
-# one whose filter fuses onto the card
-SNAP_ROWS, SNAP_PARTS, SNAP_THREADS = 2_000_000, 4, 4
+# one whose filter fuses onto the card; 1,000,000 rows (2,000,000 until
+# cut for the dblog, airbyte and mongo phases' room: PERF.md section 4)
+SNAP_ROWS, SNAP_PARTS, SNAP_THREADS = 1_000_000, 4, 4
 SNAP_BATCH, SNAP_TRIGGER, SNAP_SEED = 16_384, 131_072, 7
 SNAP_TABLE, SNAP_SALT = TableID("sample", "users"), "s3cr3t"
 SNAP_README = {"transformers": [
@@ -847,7 +901,10 @@ REPL_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["url"], "salt": REPL_SALT.decode()}},
     {"filter_rows": {"filter": "region < 400"}},
 ]}
-BACKLOG_MESSAGES = 1024
+# (b)'s backlog on 8 partitions (16 until cut for the dblog, airbyte and
+# mongo phases' room: PERF.md section 4; one fetch batch a partition a
+# Bufferer tick)
+BACKLOG_PARTITIONS, BACKLOG_MESSAGES = 8, 1024
 K2CH_SCHEMA = [{"name": "id", "type": "int64", "key": True},
                {"name": "user_email", "type": "utf8"},
                {"name": "amount", "type": "double"},
@@ -890,7 +947,10 @@ SAI_PARSER = {"json": {
 # checksum compares whole tables): fingerprint (device, host, auto) and
 # compare, then one ClickHouse value altered; and a dictionary-encoded
 # copy of the table (url over a fresh pool) against its flat rows, which
-# launches trt_var_accumulators for the pool
+# launches trt_var_accumulators for the pool.  Its first 220,000 rows
+# (all 300,000 until cut for the later phases' room: PERF.md section 4),
+# still over the sampled strategy's 20 MiB at the fake's 100 bytes a row
+CHECKSUM_ROWS = 220_000
 CHECKSUM_TAMPERED_ID = 5
 # BASELINE config #4, bench.py measure_mysql2kafka: a 200,000-row MySQL
 # table through mask_field email -> Debezium envelopes -> a 16-partition
@@ -900,8 +960,9 @@ MY2KF_ROWS, MY2KF_PARTITIONS, MY2KF_SALT = 200_000, 16, b"bench"
 # depth cuts for the chaos and check phases' room (with them added, the
 # whole script took 1,008.46 s on an NVIDIA H100 80GB HBM3 at 700 W on
 # a slow host; PERF.md section 4): the my2kf phase at 100,000 of
-# bench.py's 200,000 rows, and telemetry's traced rerun of it at 25,000
-MY2KF_CUT_ROWS, TELEMETRY_MY2KF_ROWS = 100_000, 25_000
+# bench.py's 200,000 rows (then 50,000, for the dblog, airbyte and mongo
+# phases' room), and telemetry's traced rerun of it at 25,000
+MY2KF_CUT_ROWS, TELEMETRY_MY2KF_ROWS = 50_000, 25_000
 MY2KF_COLUMNS = [("id", "bigint", "bigint", True, True),
                  ("email", "varchar", "varchar(255)", False, False),
                  ("region", "int", "int", False, False)]
@@ -909,20 +970,21 @@ MY2KF_CONFIG = {"transformers": [
     {"mask_field": {"columns": ["email"], "salt": MY2KF_SALT.decode()}}]}
 TS_MS = re.compile(rb'"ts_ms":\d+')
 # the CDC tails through run_replication (INCREMENT_ONLY), after my2kf:
-# config #4's CDC half, a binlog of 100,000 row changes (seed 17:
-# 70,000 inserts, 20,000 updates of live ids, 10,000 deletes; cut from
-# 200,000 for the fleet phase's room) in 1,000 GTID transactions of 100
+# config #4's CDC half, a binlog of 50,000 row changes (seed 17:
+# 35,000 inserts, 10,000 updates of live ids, 5,000 deletes; cut from
+# 200,000 for the fleet phase's room, then from 100,000 for the dblog,
+# airbyte and mongo phases') in 500 GTID transactions of 100
 # (recipes/cdc.py), through the mask into the
 # 16-partition topic with Debezium envelopes; config #2's CDC half,
 # wal2json v2 inserts of the pg2ch rows in transactions of 1,000,
-# through the filter into ClickHouse; and the first 20,000
+# through the filter into ClickHouse; and the first 10,000
 # changes through the mask into a MySQL target
 CDC_INSERTS, CDC_UPDATES, CDC_DELETES, CDC_TXN, CDC_SEED = (
-    70_000, 20_000, 10_000, 100, 17)
+    35_000, 10_000, 5_000, 100, 17)
 # (pg2ch_cdc at 100,000 of the 300,000 messages from PR 16: the depth cut
 # that makes room for the checksum and sai phases in the call's time)
 PG_CDC_ROWS, PG_CDC_TXN = 100_000, 1000
-MY2MY_CHANGES = 20_000
+MY2MY_CHANGES = 10_000   # 20,000 until cut for the later phases' room
 CDC_SETTLE_S = 300.0
 # the chaos runner as the CLI drives it (every mode, one
 # trial, seed 7) and what the port reports skipped (ROADMAP.md A7)
@@ -3055,8 +3117,8 @@ def k2ch_message(p: int, i: int) -> bytes:
 
 def backlog_columns() -> dict:
     """Config #1's rows, the kafka2ch phase's generator (seed 7) over the
-    backlog's 16 x BACKLOG_MESSAGES ids."""
-    n = REPL_PARTITIONS * BACKLOG_MESSAGES
+    backlog's BACKLOG_PARTITIONS x BACKLOG_MESSAGES ids."""
+    n = BACKLOG_PARTITIONS * BACKLOG_MESSAGES
     rng = np.random.default_rng(7)
     ids = np.arange(n, dtype=np.int64)
     return {"id": ids, "amount": rng.random(n) * 1000.0,
@@ -3075,7 +3137,7 @@ def replication_path(dev) -> dict:
     device runs' launches."""
     t0 = time.perf_counter()
     bench_broker = FakeKafka(n_partitions=REPL_PARTITIONS).start()
-    backlog_broker = FakeKafka(n_partitions=REPL_PARTITIONS).start()
+    backlog_broker = FakeKafka(n_partitions=BACKLOG_PARTITIONS).start()
     try:
         bench_broker.create_topic("events")
         backlog_broker.create_topic("events")
@@ -3092,7 +3154,7 @@ def replication_path(dev) -> dict:
                 "amount": float(cols["amount"][k]),
                 "ts": int(cols["ts"][k])}).encode()
 
-        produce(backlog_broker.port, REPL_PARTITIONS, BACKLOG_MESSAGES,
+        produce(backlog_broker.port, BACKLOG_PARTITIONS, BACKLOG_MESSAGES,
                 FETCH_MAX, backlog_message)
         gen_s = time.perf_counter() - t0
         bench_keep = np.array([p * REPL_MESSAGES + i
@@ -3100,15 +3162,16 @@ def replication_path(dev) -> dict:
                                for i in range(REPL_MESSAGES)
                                if i % 500 < 400])
         runs = {}
-        for shape, broker, schema, config, buf, expected in (
+        for shape, broker, schema, config, buf, expected, parts in (
                 ("bench", bench_broker, REPL_SCHEMA, REPL_CONFIG, False,
-                 len(bench_keep)),
+                 len(bench_keep), REPL_PARTITIONS),
                 ("backlog", backlog_broker, K2CH_SCHEMA, KAFKA2CH_CONFIG,
-                 True, REPL_PARTITIONS * BACKLOG_MESSAGES)):
+                 True, BACKLOG_PARTITIONS * BACKLOG_MESSAGES,
+                 BACKLOG_PARTITIONS)):
             for placement in ("device", "host"):
                 runs[(shape, placement)] = replication_run(
                     shape, broker, schema, config, buf, expected,
-                    placement, dev)
+                    placement, dev, partitions=parts)
     finally:
         bench_broker.stop()
         backlog_broker.stop()
@@ -3171,6 +3234,7 @@ def replication_path(dev) -> dict:
     require_launched("replication", launches)
     return dict(partitions=REPL_PARTITIONS,
                 bench_messages=REPL_MESSAGES,
+                backlog_partitions=BACKLOG_PARTITIONS,
                 backlog_messages=BACKLOG_MESSAGES, data_gen_seconds=gen_s,
                 launches=launches, runs=result,
                 identical_across_placements=True,
@@ -3925,7 +3989,7 @@ def checksum_path(dev) -> dict:
     t0 = time.perf_counter()
     pg, ch = FakePG().start(), FakeCH().start()
     try:
-        pg.add_table(hits_table())
+        pg.add_table(hits_table(CHECKSUM_ROWS))
         gen_s = time.perf_counter() - t0
         transfer = Transfer(
             id="chip-checksum", src=PGSourceParams(
@@ -3994,7 +4058,7 @@ def checksum_path(dev) -> dict:
                              f"launches held of {k10_fp}")
     require_launched("checksum", launches)
     return dict(
-        rows=PG2CH_ROWS, data_gen_seconds=gen_s, activation_seconds=act_s,
+        rows=CHECKSUM_ROWS, data_gen_seconds=gen_s, activation_seconds=act_s,
         launches=launches, runs={
             name: {part: {m: {k: v for k, v in r.items()}
                           for m, r in run[part].items()}
@@ -4603,7 +4667,7 @@ def my2my_cdc_run(my: FakeMySQL, fed: str, placement: str, dev) -> dict:
 
 
 def my2my_cdc_path(dev) -> dict:
-    """The MySQL target: the first 20,000 changes of my2kf_cdc's binlog
+    """The MySQL target: the first 10,000 changes of my2kf_cdc's binlog
     tailed through run_replication, the same mask (K-A on the card), a
     MySQLSinker into a second fake MySQL (REPLACE, UPDATE and DELETE a
     row); device and host placement.  The target's db.users after each
@@ -6303,7 +6367,8 @@ CLI_ROWS = PG2CH_ROWS           # pg2ch's table in the source fake
 CLI_EVENTS = 50_000             # the incremental table at the activation
 CLI_EVENTS_NEW = 5_000          # its rows inserted after the activation
 CLI_SEED = 29
-CLI_INSERTS, CLI_UPDATES, CLI_DELETES = 12_000, 5_000, 3_000
+# the tail, 10,000 changes (20,000 until cut for the later phases' room)
+CLI_INSERTS, CLI_UPDATES, CLI_DELETES = 6_000, 2_500, 1_500
 CLI_SALT = "cli-salt"
 # K-C reads int32 and narrower columns bit-exactly: the filter on region
 # fuses with the mask (a double column's comparison stays on the host)
@@ -7384,17 +7449,22 @@ def sharded_path(dev) -> dict:
 # -- phase 15l: s3 --------------------------------------------------------------
 
 # ClickBench's partitioned release is 100 objects of about 1,000,000 rows;
-# the 2,000,000 rows here are cut into 8 objects of 250,000 (131,072-row
-# groups, SNAPPY), which gives (c)'s 3 jobs parts to share
-S3_OBJECTS = 8
+# the first 1,000,000 of the 2,000,000 rows here (all 2,000,000 until cut
+# for the dblog, airbyte and mongo phases' room: PERF.md section 4) are
+# cut into 8 objects of 125,000 (131,072-row groups, SNAPPY), which gives
+# (c)'s 3 jobs parts to share; the fleet and delta phases read them
+S3_ROWS, S3_OBJECTS = 1_000_000, 8
 S3_BUCKET = "clickbench"
 S3_URL = f"s3://{S3_BUCKET}/hits/*.parquet"
-# (a) activates all 8 objects through the example, and checksums a
-# transfer of the same YAML over the first 2 (500,000 rows): the
-# checksum reads the fake ClickHouse's rows in Python, a minute and a
-# half over all 2,000,000 on the H100 machine (PERF.md section 4)
-S3_CHECKSUM_URL = f"s3://{S3_BUCKET}/hits/hits_0[01]*.parquet"
-S3_CHECKSUM_OBJECTS = 2
+# (a) activates the first 4 objects through the example (cut from all 8
+# for the dblog, airbyte and mongo phases' room: PERF.md section 4),
+# and checksums a transfer of the same YAML over the first (2 until the
+# same cut): the checksum reads the fake ClickHouse's rows in Python, a
+# minute and a half over 2,000,000 on the H100 machine
+S3_EXAMPLE_URL = f"s3://{S3_BUCKET}/hits/hits_0[0-3]*.parquet"
+S3_EXAMPLE_OBJECTS = 4
+S3_CHECKSUM_URL = f"s3://{S3_BUCKET}/hits/hits_00*.parquet"
+S3_CHECKSUM_OBJECTS = 1
 S3_EXAMPLE = "clickbench_s3_parquet2ch.yaml"
 S3_WORKERS = 8               # the example's runtime.process_count
 S3_JOBS, S3_JOB_WORKERS = 3, 2
@@ -7439,10 +7509,10 @@ runtime:
 
 
 def s3_objects(rows, fake, tmp: str) -> dict:
-    """bench.py's rows as S3_OBJECTS Parquet objects under hits/ (laid
-    out as write_clickbench lays out its file)."""
+    """The first S3_ROWS of bench.py's rows as S3_OBJECTS Parquet objects
+    under hits/ (laid out as write_clickbench lays out its file)."""
     t0 = time.perf_counter()
-    per = ROWS // S3_OBJECTS
+    per = S3_ROWS // S3_OBJECTS
     sizes, kept = [], 0
     path = os.path.join(tmp, "object.parquet")
     for i in range(S3_OBJECTS):
@@ -7505,9 +7575,10 @@ def s3_yaml(tmp: str, name: str, endpoint: str) -> str:
 
 def s3_example(fake, objects: dict, tmp: str, dev) -> dict:
     """(a) examples/clickbench_s3_parquet2ch.yaml as shipped, with only
-    `endpoint_url` added: validate and activate of all the objects in
-    processes of the CLI, reading the bucket anonymously, into a fake
-    ClickHouse on CH_HOST:8123, which must hold every row.  Then, in this
+    `endpoint_url` added: validate through cli.main here, then activate
+    of the first S3_EXAMPLE_OBJECTS objects in a process of the CLI,
+    reading the bucket anonymously, into a fake ClickHouse on
+    CH_HOST:8123, which must hold every row of them.  Then, in this
     process, the same YAML over the first S3_CHECKSUM_OBJECTS objects
     into a second fake and checksum by K10 (exit 0: every row of the
     objects is in ClickHouse once, by the order-independent digest over
@@ -7515,28 +7586,35 @@ def s3_example(fake, objects: dict, tmp: str, dev) -> dict:
     with a value altered (exit 1)."""
     path = s3_yaml(tmp, S3_EXAMPLE, fake.endpoint)
     chs = [ch_on_8123()]
-    env = {"HITS_URL": S3_URL, "CH_HOST": chs[0]._srv.server_address[0]}
+    env = {"HITS_URL": S3_EXAMPLE_URL,
+           "CH_HOST": chs[0]._srv.server_address[0]}
     saved = {k: os.environ.get(k) for k in env}
     out = {"ch_host": env["CH_HOST"]}
     try:
-        for cmd in ("validate", "activate"):
-            log = os.path.join(tmp, f"a-{cmd}.log")
-            rc, s = cli_process([cmd, "--transfer", path], env, log, dev,
-                                S3_SETTLE_S)
-            out[cmd] = {"rc": rc, "seconds": s, "log": log_tail(log, 600)}
-            if rc != 0:
-                raise AssertionError(f"s3 (a) {cmd}: rc {rc}: "
-                                     f"{log_tail(log)}")
-        rows = objects["objects"] * objects["rows_per_object"]
-        out.update(url=S3_URL, rows=rows,
+        # validate through cli.main here (a process of its own only for
+        # the activation: the later phases' room, PERF.md section 4)
+        os.environ.update(env)
+        rc, so, se, s = cli_main(["validate", "--transfer", path], dev)
+        out["validate"] = {"rc": rc, "seconds": s, "log": so + se[-600:]}
+        if rc != 0 or not so.startswith("OK"):
+            raise AssertionError(f"s3 (a) validate: rc {rc}: {so}{se}")
+        log = os.path.join(tmp, "a-activate.log")
+        rc, s = cli_process(["activate", "--transfer", path], env, log, dev,
+                            S3_SETTLE_S)
+        out["activate"] = {"rc": rc, "seconds": s, "log": log_tail(log, 600)}
+        if rc != 0:
+            raise AssertionError(f"s3 (a) activate: rc {rc}: "
+                                 f"{log_tail(log)}")
+        rows = S3_EXAMPLE_OBJECTS * objects["rows_per_object"]
+        out.update(url=S3_EXAMPLE_URL, rows=rows,
                    activate_rows_per_s=rows / out["activate"]["seconds"],
                    ch_rows=chs[0].total_rows(),
                    fences=len(chs[0].rows("__trtpu_commits")))
-        if out["ch_rows"] != rows or out["fences"] != objects["objects"]:
+        if out["ch_rows"] != rows or out["fences"] != S3_EXAMPLE_OBJECTS:
             raise AssertionError(f"s3 (a): ClickHouse holds "
                                  f"{out['ch_rows']} rows in "
                                  f"{out['fences']} parts, the objects "
-                                 f"{rows} in {objects['objects']}")
+                                 f"{rows} in {S3_EXAMPLE_OBJECTS}")
         chs.pop().stop()
         checks = {}
         for name, url, rows in (
@@ -9147,6 +9225,929 @@ def check_path(dev) -> dict:
             "summary": summary, "launches": launches}
 
 
+# -- phases 15q-15s: the DBLog snapshot, Airbyte with dbt, MongoDB ----------
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+RECIPES = Path(__file__).resolve().parent / "transferia_tpu_torch" / "recipes"
+# config #2's table shape in the port's fake Postgres, snapshotted through
+# examples/pg_dblog2ch.yaml in 50,000-row chunks (the example's own);
+# then a live writer's 10,000 UPDATEs, 5,000 INSERTs and 1,000 DELETEs
+# (seed 41) while the chunks run, a group of them as each window opens,
+# DBLOG_IN_WINDOW of each group on the keys of the chunk being read
+DBLOG_ROWS, DBLOG_CHUNK = 500_000, 50_000
+DBLOG_UPDATES, DBLOG_INSERTS, DBLOG_DELETES = 10_000, 5_000, 1_000
+DBLOG_SEED, DBLOG_SALT, DBLOG_IN_WINDOW = 41, "dblog-salt", 0.4
+DBLOG_SETTLE_S = 300.0
+# the fake connector's two typed streams (examples/airbyte2ch.yaml's
+# defaults), then 10,000 records more for the incremental run
+AIRBYTE_STREAMS = {"orders": 120_000, "events": 80_000}
+AIRBYTE_MORE = {"orders": 6_000, "events": 4_000}
+AIRBYTE_SALT = "airbyte-salt"
+# a users collection of 200,000 documents (seed 43), snapshotted in
+# _id-range shards through examples/mongo2ch.yaml; then 20,000
+# change-stream events (seed 47) with a restart mid-stream
+MONGO_DOCS, MONGO_EVENTS, MONGO_SEED, MONGO_EVENT_SEED = (
+    200_000, 20_000, 43, 47)
+MONGO_SALT, MONGO_BATCH = "mongo-salt", 1000
+
+
+def ch_text(v) -> str:
+    """A String value as the fake ClickHouse hands it back."""
+    return v.decode() if isinstance(v, bytes) else v
+
+
+def example_copy(name: str, tmp: str, subs: list) -> str:
+    """examples/<name> with each (old, new) replaced once, into tmp."""
+    text = (EXAMPLES / name).read_text()
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise AssertionError(f"{name}: {old!r} is not in it once")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def cli_until(argv: list, dev, done, settle_s: float,
+              what: str) -> tuple[int, str, float]:
+    """A replicate command through cli.main in this thread, stopped by
+    SIGTERM from a watcher once `done()` holds (the watcher waits for the
+    command's own signal handler first: before it, SIGTERM would end
+    this process).  Returns (rc, stderr, seconds)."""
+    import signal as signal_mod
+
+    initial = signal_mod.getsignal(signal_mod.SIGTERM)
+    failure, returned = [], threading.Event()
+
+    def watch():
+        try:
+            deadline = time.perf_counter() + settle_s
+            while signal_mod.getsignal(signal_mod.SIGTERM) is initial and \
+                    not returned.is_set() and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.02)
+            while not returned.is_set() and not done() and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.05)
+            if not returned.is_set() and not done():
+                raise AssertionError(f"{what}: not settled in {settle_s} s")
+        except BaseException as e:   # reported after the command
+            failure.append(e)
+        finally:
+            if not returned.is_set() and \
+                    signal_mod.getsignal(signal_mod.SIGTERM) is not initial:
+                os.kill(os.getpid(), signal_mod.SIGTERM)
+
+    watcher = threading.Thread(target=watch, name="cli-until", daemon=True)
+    watcher.start()
+    try:
+        rc, _, se, seconds = cli_main(argv, dev)
+    finally:
+        returned.set()
+    watcher.join(60)
+    if failure:
+        raise failure[0]
+    if rc != 0:
+        raise AssertionError(f"{what}: rc {rc}: {se[-2000:]}")
+    return rc, se, seconds
+
+
+def dblog_table(pg: FakePG) -> None:
+    pg.add_table(FakeTable(
+        "public", "hits", PG2CH_COLUMNS,
+        [{"id": str(i), "url": f"https://e.test/{i % 997}",
+          "region": str(i % 500), "score": f"{(i % 91) * 1.5}"}
+         for i in range(DBLOG_ROWS)]))
+
+
+def dblog_marks(pg: FakePG) -> list:
+    t = pg.tables.get(("public", "__transferia_signal"))
+    return [] if t is None else [r["kind"] for r in list(t.rows)]
+
+
+def dblog_masked(url: str) -> str:
+    return hmac.new(DBLOG_SALT.encode(), url.encode(),
+                    hashlib.sha256).hexdigest()
+
+
+def dblog_changes() -> list:
+    """The live writer's changes, a group a chunk window: ("U", id, url,
+    score), ("I", id, url, region, score) or ("D", id); updates keep
+    the region.  A group's kinds come from one seeded shuffle; it
+    writes DBLOG_IN_WINDOW of its updates and deletes first, on the keys
+    of the chunk its window reads, then the rest by kind (updates,
+    inserts, deletes), as a batch job's statements come: the source
+    pushes each run of changes with the same columns apart, and a
+    delete carries only its key (ROADMAP.md B), so deletes interleaved
+    with the rest would cost a push every change or two."""
+    rng = np.random.default_rng(DBLOG_SEED)
+    n_chunks = DBLOG_ROWS // DBLOG_CHUNK
+    live = np.ones(DBLOG_ROWS + DBLOG_INSERTS, dtype=bool)
+    live[DBLOG_ROWS:] = False
+    kinds = np.array(["U"] * DBLOG_UPDATES + ["I"] * DBLOG_INSERTS
+                     + ["D"] * DBLOG_DELETES)
+    rng.shuffle(kinds)
+    nxt, out = DBLOG_ROWS, []
+    for j, group in enumerate(np.array_split(kinds, n_chunks)):
+        lo, hi = j * DBLOG_CHUNK, (j + 1) * DBLOG_CHUNK
+        n = {k: int((group == k).sum()) for k in "UID"}
+        uw, dw = (round(n[k] * DBLOG_IN_WINDOW) for k in "UD")
+        plan = ([("U", True)] * uw + [("D", True)] * dw
+                + [("U", False)] * (n["U"] - uw) + [("I", False)] * n["I"]
+                + [("D", False)] * (n["D"] - dw))
+        changes = []
+        for k, in_chunk in plan:
+            if k == "I":
+                i, nxt = nxt, nxt + 1
+                live[i] = True
+                changes.append(("I", i, f"https://live.test/{i}",
+                                i % 500, f"{(i % 37) * 2.5}"))
+                continue
+            while True:
+                i = int(rng.integers(lo, hi) if in_chunk
+                        else rng.integers(0, nxt))
+                if live[i]:
+                    break
+            if k == "U":
+                changes.append(("U", i, f"https://upd.test/{i}/{j}",
+                                f"{(i % 53) * 0.5}"))
+            else:
+                live[i] = False
+                changes.append(("D", i))
+        out.append(changes)
+    return out
+
+
+def dblog_image(changes: list) -> dict:
+    """The source's final state, masked: id -> (url, region, score)."""
+    image = {i: (dblog_masked(f"https://e.test/{i % 997}"), i % 500,
+                 (i % 91) * 1.5) for i in range(DBLOG_ROWS)}
+    for group in changes:
+        for c in group:
+            if c[0] == "U":
+                image[c[1]] = (dblog_masked(c[2]), image[c[1]][1],
+                               float(c[3]))
+            elif c[0] == "I":
+                image[c[1]] = (dblog_masked(c[2]), c[3], float(c[4]))
+            else:
+                del image[c[1]]
+    return image
+
+
+def dblog_write(pg: FakePG, change) -> None:
+    """One change as a committed statement would make it: the row in the
+    table changed and its wal2json event fed, under the fake's lock."""
+    t = pg.tables[("public", "hits")]
+    pk = [{"name": "id", "type": "bigint"}]
+    idx = t.key_index()
+    if change[0] == "I":
+        _, i, url, region, score = change
+        row = {"id": str(i), "url": url, "region": str(region),
+               "score": score}
+        t.rows.append(row)
+        idx[t.key_of(row)] = len(t.rows) - 1
+        t.index_synced()
+        pg.feed_wal(json.dumps({
+            "action": "I", "schema": "public", "table": "hits",
+            "columns": [{"name": "id", "type": "bigint", "value": i},
+                        {"name": "url", "type": "text", "value": url},
+                        {"name": "region", "type": "integer",
+                         "value": region},
+                        {"name": "score", "type": "double precision",
+                         "value": float(score)}],
+            "pk": pk}).encode())
+        return
+    i = change[1]
+    key = t.key_of({"id": str(i)})
+    ident = [{"name": "id", "type": "bigint", "value": i}]
+    if change[0] == "U":
+        row = t.rows[idx[key]]
+        row["url"], row["score"] = change[2], change[3]
+        pg.feed_wal(json.dumps({
+            "action": "U", "schema": "public", "table": "hits",
+            "columns": [{"name": "id", "type": "bigint", "value": i},
+                        {"name": "url", "type": "text", "value": change[2]},
+                        {"name": "region", "type": "integer",
+                         "value": int(row["region"])},
+                        {"name": "score", "type": "double precision",
+                         "value": float(change[3])}],
+            "identity": ident, "pk": pk}).encode())
+        return
+    pos = idx.pop(key)
+    last = t.rows.pop()
+    if pos < len(t.rows):
+        t.rows[pos] = last
+        idx[t.key_of(last)] = pos
+    t.index_synced()
+    pg.feed_wal(json.dumps({"action": "D", "schema": "public",
+                            "table": "hits", "identity": ident,
+                            "pk": pk}).encode())
+
+
+class DBLogWindows:
+    """Counts, on the port's DBLog engine while a path runs, the live
+    changes consumed inside an open window on a key of that window's
+    chunk, and the chunk rows that such changes superseded."""
+
+    def __enter__(self):
+        from transferia_tpu_torch.dblog import core as dblog_core
+
+        cls = dblog_core.DBLogSnapshot
+        self._cls, self._real = cls, (cls.filter_cdc, cls._on_watermark)
+        real_filter, real_mark = self._real
+        rec = self
+        self.windows, self.in_window, self.superseded = 0, 0, 0
+        self.touched_keys: list = []
+
+        def filter_cdc(snap, batch):
+            if snap._window_open:
+                rows = batch.to_rows() if is_columnar(batch) else batch
+                rec.touched_keys.extend(
+                    it.effective_key()[0] for it in rows
+                    if it.is_row_event() and it.table == "hits")
+            return real_filter(snap, batch)
+
+        def on_watermark(snap, wm):
+            chunk = snap._pending_chunk
+            kind = wm.kind.value
+            out = real_mark(snap, wm)
+            if kind == "low":
+                rec.touched_keys = []
+            elif kind == "high" and chunk is not None and chunk.n_rows:
+                ids = chunk.column("id")
+                lo, hi = ids.value(0), ids.value(chunk.n_rows - 1)
+                rec.windows += 1
+                rec.in_window += sum(1 for k in rec.touched_keys
+                                     if lo <= k <= hi)
+                rec.superseded += chunk.n_rows - snap._emitted_rows
+            return out
+
+        cls.filter_cdc, cls._on_watermark = filter_cdc, on_watermark
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.filter_cdc, self._cls._on_watermark = self._real
+        return False
+
+
+def dblog_ch_run(tmp: str, placement: str, kept_ids: np.ndarray,
+                 dev) -> dict:
+    """(a) examples/pg_dblog2ch.yaml with only its Postgres port changed,
+    `replicate` through cli.main here on a filestore coordinator into a
+    fake ClickHouse on port 8123, stopped once the completion is recorded
+    and ClickHouse holds the kept rows; then `replicate` again (the
+    restart), which must snapshot nothing.  The card's run also decodes
+    the rows and checks each (the CPU run is held to its inserts)."""
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    pg = FakePG(echo_dml_to_wal=True).start()
+    ch = ch_on_8123()
+    root = os.path.join(tmp, f"coord-{placement}")
+    before = _build.launch_counts()
+    set_placement("device" if on_card else "host")
+    try:
+        dblog_table(pg)
+        yaml = example_copy("pg_dblog2ch.yaml", tmp, [
+            ("    port: 5432\n", f"    port: {pg.port}\n"),
+            ("dblog_chunk_rows: 50000", f"dblog_chunk_rows: {DBLOG_CHUNK}")])
+        argv = ["--coordinator", "filestore", "--coordinator-dir", root,
+                "replicate", "--transfer", yaml]
+        cp = FileStoreCoordinator(root=root)
+
+        def done():
+            return bool(cp.get_transfer_state("pg_dblog2ch").get(
+                "pg_dblog_done")) and \
+                ch.total_rows() >= len(kept_ids)
+
+        with DeltaEnv(PG_HOST="127.0.0.1", PG_PASSWORD="x",
+                      MASK_SALT=DBLOG_SALT,
+                      CH_HOST=ch._srv.server_address[0]):
+            _, _, seconds = cli_until(argv, run_dev, done, DBLOG_SETTLE_S,
+                                      f"dblog (a) {placement}")
+            marks = dblog_marks(pg)
+            digests = ch.insert_digests("public__hits")
+            t_restart = time.perf_counter()
+            _, _, restart_s = cli_until(
+                argv, run_dev, lambda: time.perf_counter() > t_restart + 1,
+                DBLOG_SETTLE_S, f"dblog (a) {placement} restart")
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if not on_card and launched:
+            raise AssertionError(f"dblog (a): the --device cpu run "
+                                 f"launched {launched}")
+        if ch.insert_digests("public__hits") != digests or \
+                dblog_marks(pg) != marks:
+            raise AssertionError("dblog (a): the restart changed the target "
+                                 "or wrote watermarks")
+        if sum(d[1] for d in digests) != len(kept_ids):
+            raise AssertionError(f"dblog (a) {placement}: ClickHouse took "
+                                 f"{sum(d[1] for d in digests)} rows, numpy "
+                                 f"keeps {len(kept_ids)}")
+        if on_card:
+            rows = ch.rows("public__hits")
+            ids = np.array(sorted(int(r["id"]) for r in rows))
+            if not np.array_equal(ids, kept_ids):
+                raise AssertionError(
+                    f"dblog (a): {len(ids)} rows, {len(np.unique(ids))} "
+                    f"keys, numpy keeps {len(kept_ids)}")
+            masked = [dblog_masked(f"https://e.test/{u}")
+                      for u in range(997)]
+            bad = [r for r in rows
+                   if ch_text(r["url"]) != masked[int(r["id"]) % 997]]
+            if bad:
+                raise AssertionError(f"dblog (a): url not the hmac: "
+                                     f"{bad[:2]}")
+        if any("signal" in name for name in ch.tables):
+            raise AssertionError(f"dblog (a): signal rows reached "
+                                 f"ClickHouse: {sorted(ch.tables)}")
+        state = cp.get_transfer_state("pg_dblog2ch")
+        want_marks = ["low", "high"] * (DBLOG_ROWS // DBLOG_CHUNK + 1) \
+            + ["success"]
+        if state.get("pg_dblog_done") is not True or marks != want_marks:
+            raise AssertionError(f"dblog (a): state {state}, marks {marks}")
+        return {"seconds": seconds, "rows_per_s": DBLOG_ROWS / seconds,
+                "restart_seconds": restart_s,
+                "ch_rows": sum(d[1] for d in digests),
+                "inserts": len(digests), "digests": digests,
+                "watermarks": len(marks), "state": state,
+                "launched": launched}
+    finally:
+        set_placement(None)
+        pg.stop()
+        ch.stop()
+
+
+def dblog_live_run(tmp: str, changes: list, image: dict, dev) -> dict:
+    """(b) the example with the live writer, on the card, into a memory
+    target (the ClickHouse sink takes inserts only, in both packages:
+    providers/clickhouse/provider.py) through the mask alone (a filter
+    drops every DELETE, whose row carries only its key, and so would an
+    UPDATE moving a row out of it): the latest-wins image of what
+    arrived equals the source's final state, every key no change
+    touched arrived once, and the changes inside the windows superseded
+    chunk rows."""
+    from transferia_tpu_torch.abstract.kinds import Kind
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+
+    pg = FakePG(echo_dml_to_wal=True).start()
+    root = os.path.join(tmp, "coord-live")
+    sink = "chip-dblog-live"
+    store = get_store(sink)
+    store.clear()
+    fed, failure = [], []
+    set_placement("device")
+    try:
+        dblog_table(pg)
+        yaml = example_copy("pg_dblog2ch.yaml", tmp, [
+            ("    port: 5432\n", f"    port: {pg.port}\n"),
+            ("dblog_chunk_rows: 50000", f"dblog_chunk_rows: {DBLOG_CHUNK}"),
+            ("  type: ch\n  params:\n    host: \"${CH_HOST:localhost}\"\n"
+             "    port: 8123\n    database: default\n"
+             "    # each chunk goes out as it is emitted: the replication "
+             "loop waits\n    # for its pushes, which a Bufferer would "
+             "hold until its tick\n    bufferer: null\n",
+             f"  type: memory\n  params:\n    sink_id: {sink}\n"),
+            ("    - filter_rows: {filter: \"region < 400\"}\n", "")])
+        cp = FileStoreCoordinator(root=root)
+
+        def write():
+            try:
+                for j, group in enumerate(changes):
+                    deadline = time.perf_counter() + DBLOG_SETTLE_S
+                    while dblog_marks(pg).count("low") <= j and \
+                            time.perf_counter() < deadline:
+                        time.sleep(0.001)
+                    for c in group:
+                        with pg.lock:
+                            dblog_write(pg, c)
+                    fed.append(pg.wal[-1][0])
+            except BaseException as e:
+                failure.append(e)
+
+        # the writer waits for each window's LOW watermark
+        writer = threading.Thread(target=write, name="dblog-writer",
+                                  daemon=True)
+        writer.start()
+
+        def done():
+            return len(fed) == len(changes) and \
+                pg.flushed_lsn >= fed[-1] and \
+                bool(cp.get_transfer_state("pg_dblog2ch").get(
+                    "pg_dblog_done"))
+
+        with DeltaEnv(PG_HOST="127.0.0.1", PG_PASSWORD="x",
+                      MASK_SALT=DBLOG_SALT), DBLogWindows() as windows:
+            _, _, seconds = cli_until(
+                ["--coordinator", "filestore", "--coordinator-dir", root,
+                 "replicate", "--transfer", yaml], dev, done,
+                DBLOG_SETTLE_S, "dblog (b)")
+        writer.join(30)
+        if failure:
+            raise failure[0]
+        got: dict = {}
+        arrivals: dict = {}
+        for b in store.batches:
+            if str(b.table_id if is_columnar(b) else b[0].table_id) != \
+                    "public.hits":
+                raise AssertionError("dblog (b): a row of another table "
+                                     "reached the target")
+            if is_columnar(b) and b.kinds is None:
+                # a chunk: inserts, read column by column
+                d = b.to_pydict()
+                for i, url, region, score in zip(d["id"], d["url"],
+                                                 d["region"], d["score"]):
+                    arrivals[i] = arrivals.get(i, 0) + 1
+                    got[i] = (url, region, score)
+                continue
+            for r in (b.to_rows() if is_columnar(b) else b):
+                i = r.effective_key()[0]
+                arrivals[i] = arrivals.get(i, 0) + 1
+                if r.kind == Kind.DELETE:
+                    got.pop(i, None)
+                else:
+                    v = r.as_dict()
+                    got[i] = (v["url"], v["region"], v["score"])
+        if got != image:
+            diff = [k for k in set(got) | set(image)
+                    if got.get(k) != image.get(k)]
+            raise AssertionError(f"dblog (b): {len(diff)} keys differ from "
+                                 f"the source's final state, e.g. "
+                                 f"{[(k, got.get(k), image.get(k)) for k in diff[:3]]}")
+        touched = {c[1] for group in changes for c in group}
+        twice = [i for i, n in arrivals.items()
+                 if n != 1 and i not in touched]
+        n_changes = sum(len(g) for g in changes)
+        if twice or windows.superseded == 0 or \
+                windows.in_window * 10 < n_changes:
+            raise AssertionError(
+                f"dblog (b): {len(twice)} untouched keys not once, "
+                f"{windows.superseded} chunk rows superseded, "
+                f"{windows.in_window} of {n_changes} changes in a window")
+        return {"seconds": seconds, "changes": n_changes,
+                "windows": windows.windows,
+                "changes_in_window": windows.in_window,
+                "chunk_rows_superseded": windows.superseded,
+                "rows_arrived": sum(arrivals.values()),
+                "final_keys": len(image)}
+    finally:
+        set_placement(None)
+        store.clear()
+        pg.stop()
+
+
+def dblog_path(dev) -> dict:
+    """The DBLog incremental snapshot on the card: (a) the example YAML
+    into ClickHouse on the card and with --device cpu, byte-identical,
+    and its restart; (b) the live writer's changes.  Every K-A, K-B, K-C
+    (and any K10) launch of this process is held against its plain
+    version; the CPU run launches nothing."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dblog-", dir=str(_build.BUILD_DIR))
+    i = np.arange(DBLOG_ROWS)
+    kept_ids = i[i % 500 < 400]
+    result: dict = {}
+    timings: dict = {}
+    try:
+        t0 = time.perf_counter()
+        changes = dblog_changes()
+        image = dblog_image(changes)
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            runs = {}
+            for placement in ("device", "cpu"):
+                t0 = time.perf_counter()
+                runs[placement] = dblog_ch_run(tmp, placement, kept_ids,
+                                               dev)
+                timings[f"a_{placement}"] = time.perf_counter() - t0
+            # a chunk an insert (no Bufferer): equal inserts, byte for byte
+            if runs["device"].pop("digests") != runs["cpu"].pop("digests"):
+                raise AssertionError("dblog (a): the card's and the CPU's "
+                                     "ClickHouse inserts differ")
+            t0 = time.perf_counter()
+            result["b"] = dblog_live_run(tmp, changes, image, dev)
+            timings["b"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("dblog", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("dblog",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("dblog", launches))
+            held.update(k10.check("dblog", launches))
+            timings["held"] = time.perf_counter() - t0
+        result["a"] = dict(runs)
+        result["a"]["identical_across_placements"] = True
+        result.update(rows=DBLOG_ROWS, chunk_rows=DBLOG_CHUNK,
+                      kept=int(len(kept_ids)), launches=launches,
+                      held_exact=held, part_seconds=timings)
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def airbyte_kept(streams: dict, start: dict) -> dict:
+    """stream -> the ids numpy keeps (active: id % 3 != 0) past start."""
+    return {s: [i for i in range(start.get(s, 0), n) if i % 3 != 0]
+            for s, n in streams.items()}
+
+
+def airbyte_profiles(ch: FakeCH) -> str:
+    """The reference's profiles.yml for the example's ClickHouse target
+    (transform/plugins/dbt.py _profiles_yaml)."""
+    host = ch._srv.server_address[0]
+    return ("transferia:\n  target: t\n  outputs:\n    t:\n"
+            '      type: "clickhouse"\n'
+            f'      host: "{host}"\n      port: 8123\n'
+            '      user: "default"\n      password: ""\n'
+            '      schema: "default"\n')
+
+
+def airbyte_run(tmp: str, placement: str, dev) -> dict:
+    """examples/airbyte2ch.yaml as it is, `activate` through cli.main here
+    on a filestore coordinator into a fake ClickHouse on port 8123 (the
+    dbt step runs the fake dbt), then `upload` of both streams after the
+    connector's source grew: only the new records are read.  The card's
+    run also decodes the rows and checks each."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    ch = ch_on_8123()
+    root = os.path.join(tmp, f"coord-{placement}")
+    record = os.path.join(tmp, f"dbt-{placement}.jsonl")
+    project = os.path.join(tmp, "dbt_project")
+    os.makedirs(project, exist_ok=True)
+    before = _build.launch_counts()
+    set_placement("device" if on_card else "host")
+    env = dict(CH_HOST=ch._srv.server_address[0], MASK_SALT=AIRBYTE_SALT,
+               AIRBYTE_CONNECTOR=str(RECIPES / "airbyte_connector.py"),
+               DBT_EXECUTABLE=str(RECIPES / "fake_dbt.py"),
+               DBT_PROJECT=project, FAKE_DBT_RECORD=record,
+               AIRBYTE_ORDERS=str(AIRBYTE_STREAMS["orders"]),
+               AIRBYTE_EVENTS=str(AIRBYTE_STREAMS["events"]))
+    grown = {s: n + AIRBYTE_MORE[s] for s, n in AIRBYTE_STREAMS.items()}
+    yaml = str(EXAMPLES / "airbyte2ch.yaml")
+    coord = ["--coordinator", "filestore", "--coordinator-dir", root]
+    try:
+        with DeltaEnv(**env):
+            rc, _, se, seconds = cli_main(
+                coord + ["activate", "--transfer", yaml], run_dev)
+            if rc != 0:
+                raise AssertionError(f"airbyte activate: rc {rc}: "
+                                     f"{se[-2000:]}")
+            first = {s: ch.insert_digests(f"airbyte__{s}")
+                     for s in AIRBYTE_STREAMS}
+            with open(record) as fh:
+                dbt_runs = [json.loads(ln) for ln in fh]
+        with DeltaEnv(**{**env, "CH_CLEANUP": "disabled",
+                         "AIRBYTE_ORDERS": str(grown["orders"]),
+                         "AIRBYTE_EVENTS": str(grown["events"])}):
+            # an operation of its own: the staged publish replaces its
+            # parts' partitions, which the activation's operation named
+            rc, _, se, inc_s = cli_main(
+                coord + ["--operation-id", "op-airbyte2ch-inc", "upload",
+                         "--transfer", yaml, "--table",
+                         "airbyte.orders", "--table", "airbyte.events"],
+                run_dev)
+            if rc != 0:
+                raise AssertionError(f"airbyte upload: rc {rc}: "
+                                     f"{se[-2000:]}")
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if not on_card and launched:
+            raise AssertionError(f"airbyte: the --device cpu run launched "
+                                 f"{launched}")
+        digests = {s: ch.insert_digests(f"airbyte__{s}")
+                   for s in AIRBYTE_STREAMS}
+        want = airbyte_kept(grown, {})
+        for s in AIRBYTE_STREAMS:
+            if sum(d[1] for d in digests[s]) != len(want[s]):
+                raise AssertionError(f"airbyte {s}: ClickHouse took "
+                                     f"{sum(d[1] for d in digests[s])} rows, "
+                                     f"numpy keeps {len(want[s])}")
+            if not on_card:
+                continue
+            rows = ch.rows(f"airbyte__{s}")
+            if sorted(int(r["id"]) for r in rows) != want[s]:
+                raise AssertionError(f"airbyte {s}: the ids are not "
+                                     f"numpy's")
+            bad = [r for r in rows if ch_text(r["email"]) != hmac.new(
+                AIRBYTE_SALT.encode(),
+                f"{s}{int(r['id'])}@example.test".encode(),
+                hashlib.sha256).hexdigest()]
+            if bad:
+                raise AssertionError(f"airbyte {s}: email not the hmac: "
+                                     f"{bad[:2]}")
+        from transferia_tpu_torch.coordinator import FileStoreCoordinator
+
+        state = FileStoreCoordinator(root=root).get_transfer_state(
+            "airbyte2ch").get("airbyte_state")
+        if state != {s: {"cursor": n} for s, n in grown.items()}:
+            raise AssertionError(f"airbyte: state {state}")
+        if len(dbt_runs) != 1:
+            raise AssertionError(f"airbyte: dbt ran {len(dbt_runs)} times")
+        argv = dbt_runs[0]["argv"]
+        want_argv = ["run", "--profiles-dir", argv[2], "--project-dir",
+                     project, "--profile", "transferia"]
+        if argv != want_argv or \
+                dbt_runs[0]["profiles"] != airbyte_profiles(ch) or \
+                os.path.exists(argv[2]):
+            raise AssertionError(f"airbyte: dbt ran {dbt_runs[0]}")
+        return {"seconds": seconds,
+                "records_per_s": sum(AIRBYTE_STREAMS.values()) / seconds,
+                "incremental_seconds": inc_s,
+                "incremental_inserts": {s: len(digests[s]) - len(first[s])
+                                        for s in AIRBYTE_STREAMS},
+                "ch_rows": {s: len(want[s]) for s in AIRBYTE_STREAMS},
+                "state": state, "dbt_argv": argv[:2] + ["<tmp>"] + argv[3:],
+                "digests": digests, "launched": launched}
+    finally:
+        set_placement(None)
+        ch.stop()
+
+
+def airbyte_path(dev) -> dict:
+    """An Airbyte connector through the container runner's exec runtime
+    into ClickHouse, incremental, with the dbt step: on the card and with
+    --device cpu, byte-identical.  Every K-A, K-B, K-C and K10 launch is
+    held against its plain version; the CPU run launches nothing."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="airbyte-", dir=str(_build.BUILD_DIR))
+    timings: dict = {}
+    try:
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            runs = {}
+            for placement in ("device", "cpu"):
+                t0 = time.perf_counter()
+                runs[placement] = airbyte_run(tmp, placement, dev)
+                timings[placement] = time.perf_counter() - t0
+            # a batch an insert (no Bufferer): equal inserts, byte for byte
+            if runs["device"].pop("digests") != runs["cpu"].pop("digests"):
+                raise AssertionError("airbyte: the card's and the CPU's "
+                                     "ClickHouse inserts differ")
+            launches = _build.launch_counts()
+            require_launched("airbyte", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("airbyte",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("airbyte", launches))
+            held.update(k10.check("airbyte", launches))
+            timings["held"] = time.perf_counter() - t0
+        return {"records": sum(AIRBYTE_STREAMS.values()),
+                "incremental_records": sum(AIRBYTE_MORE.values()),
+                "runs": runs, "identical_across_placements": True,
+                "launches": launches, "held_exact": held,
+                "part_seconds": timings}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mongo_docs() -> list:
+    """The users collection: an email _id, ten fields, a nested
+    sub-document, an array, an ObjectId and a date."""
+    from transferia_tpu_torch.providers.mongo import bson
+
+    rng = np.random.default_rng(MONGO_SEED)
+    age = rng.integers(18, 90, MONGO_DOCS)
+    score = rng.random(MONGO_DOCS)
+    return [{
+        "_id": f"user{i:07d}@example.test",
+        "name": f"User {i}", "age": int(age[i]),
+        "score": float(score[i]), "active": bool(i % 4),
+        "country": ("de", "us", "fr", "jp")[i % 4],
+        "address": {"city": f"city{i % 211}", "zip": f"{i % 99991:05d}",
+                    "geo": {"lat": (i % 180) - 90.0,
+                            "lon": (i % 360) - 180.0}},
+        "tags": [f"t{i % 7}", f"t{i % 11}"],
+        "ref": bson.ObjectId(i.to_bytes(12, "big")),
+        "created": bson.UTCDateTime(1_700_000_000_000 + i * 1000),
+        "visits": i % 1000,
+    } for i in range(MONGO_DOCS)]
+
+
+def mongo_events() -> list:
+    """MONGO_EVENTS change events on the collection (seed 47): inserts of
+    new users, updates and replaces of live ones, deletes."""
+    rng = np.random.default_rng(MONGO_EVENT_SEED)
+    ops = rng.choice(["insert", "update", "replace", "delete"],
+                     MONGO_EVENTS, p=[0.3, 0.35, 0.2, 0.15])
+    live = list(range(MONGO_DOCS))
+    nxt, out = MONGO_DOCS, []
+    for n, op in enumerate(ops):
+        if op == "insert":
+            i, nxt = nxt, nxt + 1
+            live.append(i)
+        else:
+            pos = int(rng.integers(len(live)))
+            i = live[pos]
+            if op == "delete":
+                live[pos] = live[-1]
+                live.pop()
+        key = f"user{i:07d}@example.test"
+        ev = {"_id": {"_data": f"{n:08d}"}, "operationType": str(op),
+              "ns": {"db": "app", "coll": "users"},
+              "documentKey": {"_id": key}}
+        if op != "delete":
+            ev["fullDocument"] = {"_id": key, "name": f"User {i}",
+                                  "visits": n, "tags": [str(op)]}
+        out.append(ev)
+    return out
+
+
+def mongo_snapshot_run(fake, tmp: str, placement: str, dev) -> dict:
+    """examples/mongo2ch.yaml with only its port changed, `activate`
+    through cli.main here into a fake ClickHouse on port 8123.  The
+    card's run also decodes the rows and checks each id and a
+    document."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    ch = ch_on_8123()
+    before = _build.launch_counts()
+    set_placement("device" if on_card else "host")
+    try:
+        yaml = example_copy("mongo2ch.yaml", tmp, [
+            ("    port: 27017\n", f"    port: {fake.port}\n")])
+        with DeltaEnv(MONGO_HOST="127.0.0.1", MASK_SALT=MONGO_SALT,
+                      CH_HOST=ch._srv.server_address[0]):
+            rc, _, se, seconds = cli_main(["activate", "--transfer", yaml],
+                                          run_dev)
+        if rc != 0:
+            raise AssertionError(f"mongo activate: rc {rc}: {se[-2000:]}")
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if not on_card and launched:
+            raise AssertionError(f"mongo: the --device cpu run launched "
+                                 f"{launched}")
+        digests = ch.insert_digests("app__users")
+        if sum(d[1] for d in digests) != MONGO_DOCS:
+            raise AssertionError(f"mongo snapshot {placement}: ClickHouse "
+                                 f"took {sum(d[1] for d in digests)} rows")
+        if on_card:
+            rows = ch.rows("app__users")
+            ids = sorted(ch_text(r["_id"]) for r in rows)
+            want = sorted(hmac.new(MONGO_SALT.encode(),
+                                   f"user{i:07d}@example.test".encode(),
+                                   hashlib.sha256).hexdigest()
+                          for i in range(MONGO_DOCS))
+            if ids != want:
+                raise AssertionError(f"mongo snapshot: {len(ids)} rows, "
+                                     f"{len(set(ids))} ids")
+            doc = json.loads(ch_text(rows[0]["document"]))
+            if sorted(doc) != sorted(mongo_docs_keys()) or \
+                    "$oid" not in doc["ref"] or "$date" not in doc["created"]:
+                raise AssertionError(f"mongo snapshot: document {doc}")
+        return {"seconds": seconds, "docs_per_s": MONGO_DOCS / seconds,
+                "ch_rows": MONGO_DOCS, "inserts": len(digests),
+                "digests": digests, "launched": launched}
+    finally:
+        set_placement(None)
+        ch.stop()
+
+
+def mongo_docs_keys() -> list:
+    return ["_id", "name", "age", "score", "active", "country", "address",
+            "tags", "ref", "created", "visits"]
+
+
+def mongo_cdc_run(events: list, dev) -> dict:
+    """The change events through run_replication on the card, the mask on
+    _id, into a memory target; stopped once some batches landed and
+    restarted: it resumes from the recorded token, and every event
+    arrives once, in order."""
+    from transferia_tpu_torch.abstract.kinds import Kind
+    from transferia_tpu_torch.providers.mongo import MongoSourceParams
+    from transferia_tpu_torch.recipes.fake_mongo import FakeMongo
+    from transferia_tpu_torch.runtime.local import run_replication
+
+    fake = FakeMongo().start()
+    sink = "chip-mongo-cdc"
+    store = get_store(sink)
+    store.clear()
+    cp = MemoryCoordinator()
+    t = Transfer(id="mongo-cdc", type=TransferType.INCREMENT_ONLY,
+                 src=MongoSourceParams(host="127.0.0.1", port=fake.port,
+                                       database="app",
+                                       batch_rows=MONGO_BATCH),
+                 dst=MemoryTargetParams(sink_id=sink),
+                 transformation={"transformers": [{"mask_field": {
+                     "columns": ["_id"], "salt": MONGO_SALT}}]})
+    set_placement("device")
+    last = events[-1]["_id"]["_data"]
+    try:
+        fake.feed_events(events)
+        seconds, tokens = 0.0, []
+        for stop_at in (len(events) // 2, None):
+            stop = threading.Event()
+            th = threading.Thread(target=run_replication, args=(t, cp),
+                                  kwargs={"stop_event": stop, "device": dev,
+                                          "backoff": 0.1}, daemon=True)
+            t0 = time.perf_counter()
+            th.start()
+            deadline = t0 + CDC_SETTLE_S
+            while time.perf_counter() < deadline and (
+                    store.row_count() < stop_at if stop_at else
+                    cp.get_transfer_state(t.id).get("mongo_resume_token")
+                    != last):
+                time.sleep(0.01)
+            stop.set()
+            th.join(60)
+            seconds += time.perf_counter() - t0
+            if th.is_alive():
+                raise AssertionError("mongo cdc: the stream did not stop")
+            tokens.append(cp.get_transfer_state(t.id).get(
+                "mongo_resume_token"))
+        if fake.resumed_after != [None, tokens[0]] or tokens[1] != last:
+            raise AssertionError(f"mongo cdc: resumed after "
+                                 f"{fake.resumed_after}, tokens {tokens}")
+        got = []
+        for r in store.rows():
+            if r.kind == Kind.DELETE:
+                got.append(("delete", r.old_keys.key_values[0]))
+            else:
+                got.append((r.kind.value, r.as_dict()["_id"],
+                            r.as_dict()["document"]["visits"]))
+        want = []
+        for n, ev in enumerate(events):
+            key = ev["documentKey"]["_id"]
+            if ev["operationType"] == "delete":
+                want.append(("delete", key))
+            else:
+                want.append(("insert" if ev["operationType"] == "insert"
+                             else "update",
+                             hmac.new(MONGO_SALT.encode(), key.encode(),
+                                      hashlib.sha256).hexdigest(), n))
+        if got != want:
+            lost = len(want) - len(got)
+            raise AssertionError(f"mongo cdc: {len(got)} events arrived of "
+                                 f"{len(want)} ({lost} lost or extra)")
+        return {"seconds": seconds, "events": len(events),
+                "events_per_s": len(events) / seconds,
+                "restart_token": tokens[0], "resumed_after":
+                fake.resumed_after}
+    finally:
+        set_placement(None)
+        store.clear()
+        fake.stop()
+
+
+def mongo_path(dev) -> dict:
+    """MongoDB on the card: the users collection in _id-range shards
+    through examples/mongo2ch.yaml into ClickHouse on the card and with
+    --device cpu (byte-identical), then the change stream with a restart
+    mid-stream.  Every K-A and K10 launch (and any of K-B and K-C) is
+    held against its plain version; the CPU run launches nothing."""
+    from transferia_tpu_torch.recipes.fake_mongo import FakeMongo
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="mongo-", dir=str(_build.BUILD_DIR))
+    timings: dict = {}
+    fake = FakeMongo().start()
+    try:
+        t0 = time.perf_counter()
+        fake.seed("app", "users", mongo_docs())
+        events = mongo_events()
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            runs = {}
+            for placement in ("device", "cpu"):
+                t0 = time.perf_counter()
+                runs[placement] = mongo_snapshot_run(fake, tmp, placement,
+                                                     dev)
+                timings[placement] = time.perf_counter() - t0
+            # a batch an insert (no Bufferer): equal inserts, byte for byte
+            if runs["device"].pop("digests") != runs["cpu"].pop("digests"):
+                raise AssertionError("mongo: the card's and the CPU's "
+                                     "ClickHouse inserts differ")
+            t0 = time.perf_counter()
+            cdc = mongo_cdc_run(events, dev)
+            timings["cdc"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("mongo", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("mongo",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("mongo", launches))
+            held.update(k10.check("mongo", launches))
+            timings["held"] = time.perf_counter() - t0
+        return {"docs": MONGO_DOCS,
+                "snapshot": runs,
+                "identical_across_placements": True, "cdc": cdc,
+                "launches": launches, "held_exact": held,
+                "part_seconds": timings}
+    finally:
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -9281,7 +10282,10 @@ def main() -> int:
             ("delta", lambda: delta_path((schema, fixed, var), s3_keep,
                                          dev)),
             ("chaos", lambda: chaos_path(dev)),
-            ("check", lambda: check_path(dev))):
+            ("check", lambda: check_path(dev)),
+            ("dblog", lambda: dblog_path(dev)),
+            ("airbyte", lambda: airbyte_path(dev)),
+            ("mongo", lambda: mongo_path(dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

@@ -103,6 +103,26 @@ def run(pkg: str, argv: list) -> tuple:
     return rc, out.getvalue(), err.getvalue()
 
 
+@pytest.fixture(autouse=True)
+def _jax_ledger_quiescent():
+    """The CLI's commands bill each package's process-wide resource
+    ledger and device counters, and a command can leave the two apart;
+    the JAX package's own conservation tests, run later in the same
+    worker (`tests/unit/test_fleetobs.py::TestEngineExport`), then read
+    that drift as a violation.  Both packages' start from zero again
+    after each test here."""
+    yield
+    from transferia_tpu.stats import ledger as ref_ledger
+    from transferia_tpu.stats import trace as ref_trace
+    from transferia_tpu_torch.stats import ledger as port_ledger
+    from transferia_tpu_torch.stats import trace as port_trace
+
+    for trace_mod, ledger_mod in ((ref_trace, ref_ledger),
+                                  (port_trace, port_ledger)):
+        trace_mod.TELEMETRY.reset()
+        ledger_mod.LEDGER.reset()
+
+
 @pytest.fixture
 def example_env(monkeypatch):
     for k, v in EXAMPLE_ENV.items():

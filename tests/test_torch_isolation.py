@@ -856,11 +856,15 @@ def test_partitioned_worker_and_secondary_need_a_card_or_the_cpu(
 def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     """The binlog tail, the MySQL target and Postgres logical replication
     no longer raise, nor does the SNAPSHOT_AND_INCREMENT activation (the
-    MVCC cutover); its one left-out part, a configured dbt step, and the
-    DBLog snapshot raise naming their items.  Every ROADMAP.md item the
-    port's code names is an open item of ROADMAP.md's queue A."""
-    from transferia_tpu_torch.coordinator import MemoryCoordinator
-    from transferia_tpu_torch.models import Transfer, TransferType
+    MVCC cutover), the DBLog snapshot, a configured dbt step or the
+    airbyte and mongo endpoints; a provider still waiting raises naming
+    its item.  Every ROADMAP.md item the port's code names is an open
+    item of ROADMAP.md's queue A."""
+    from transferia_tpu_torch.cli.config import (
+        ConfigError,
+        parse_transfer_yaml,
+    )
+    from transferia_tpu_torch.models import Transfer
     from transferia_tpu_torch.providers.memory import MemoryTargetParams
     from transferia_tpu_torch.providers.mysql import (
         MySQLSourceParams,
@@ -868,7 +872,7 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     )
     from transferia_tpu_torch.providers.postgres import PGSourceParams
     from transferia_tpu_torch.providers.registry import get_provider
-    from transferia_tpu_torch.tasks import activate_delivery
+    from transferia_tpu_torch.transform.registry import make_transformer
 
     my = get_provider("mysql", Transfer(
         id="t", src=MySQLSourceParams(), dst=MySQLTargetParams()),
@@ -881,13 +885,16 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
         == "PGReplicationSource"
     dblog = Transfer(id="t", src=PGSourceParams(dblog_snapshot=True),
                      dst=MemoryTargetParams(sink_id="t"))
-    with pytest.raises(NotImplementedError, match="DBLog.*ROADMAP.md A7"):
-        get_provider("pg", dblog, device="cpu").source()
-    sni = Transfer(id="t-sni", type=TransferType.SNAPSHOT_AND_INCREMENT,
-                   src=MySQLSourceParams(), dst=MySQLTargetParams(),
-                   transformation={"transformers": [{"dbt": {}}]})
-    with pytest.raises(NotImplementedError, match="dbt.*ROADMAP.md A7"):
-        activate_delivery(sni, MemoryCoordinator(), device="cpu")
+    assert type(get_provider("pg", dblog, device="cpu").source()) \
+        .__name__ == "PGReplicationSource"
+    assert type(make_transformer("dbt", {})).__name__ == "DbtTransformer"
+    for kind in ("airbyte", "mongo"):
+        t = parse_transfer_yaml(f"id: x\nsrc: {{type: {kind}}}\n"
+                                f"dst: {{type: stdout}}\n")
+        assert t.src_provider() == kind
+    with pytest.raises(ConfigError, match="ROADMAP.md A7"):
+        parse_transfer_yaml("id: x\nsrc: {type: oracle}\n"
+                            "dst: {type: stdout}\n")
     import re
 
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()

@@ -421,28 +421,51 @@ def test_activate_pg2ch_equals_jax(monkeypatch, staged, mode):
 
 
 @pytest.mark.parametrize("case", ["snapshot_and_increment", "dbt"])
-def test_activate_left_out_branches_raise(case):
-    """A configured dbt step, the activation's one left-out part, raises
-    naming its ROADMAP item and fails the transfer, in a snapshot and in
+def test_activate_left_out_branches_raise(case, monkeypatch):
+    """A configured dbt step runs after the upload, in a snapshot and in
     a SNAPSHOT_AND_INCREMENT transfer (whose MVCC cutover is ported:
-    tests/test_torch_mvcc.py)."""
-    pg = FakePG().start()
-    try:
-        pg.add_table(FakeTable("public", "hits", HITS, hits_rows(10)))
-        t = Transfer(
-            id="left-out",
-            src=PGSourceParams(host="127.0.0.1", port=pg.port),
-            dst=CHTargetParams(bufferer=None),
-            type=TransferType.SNAPSHOT_AND_INCREMENT
-            if case == "snapshot_and_increment" else
-            TransferType.SNAPSHOT_ONLY,
-            transformation={"transformers": [{"dbt": {}}]})
-        cp = MemoryCoordinator()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            activate_delivery(t, cp, device="cpu")
-        assert cp.get_status("left-out").value == "failed"
-    finally:
-        pg.stop()
+    tests/test_torch_mvcc.py); with no container runtime on the host it
+    raises the JAX package's ContainerError and fails the transfer, the
+    rows already landed, as the JAX package's activation does."""
+    from transferia_tpu.container import ContainerRunner as RefRunner
+    from transferia_tpu.models import TransferType as RefTransferType
+    from transferia_tpu_torch.container import ContainerRunner
+
+    monkeypatch.delenv("TRANSFERIA_CONTAINER_RUNTIME", raising=False)
+    for runner in (ContainerRunner, RefRunner):
+        monkeypatch.setattr(runner, "_detect", staticmethod(lambda: ""))
+
+    def run(pkg):
+        p = PKGS[pkg]
+        types = TransferType if pkg == "port" else RefTransferType
+        pg, ch = p["pg"]().start(), p["ch"]().start()
+        try:
+            pg.add_table(p["table"]("public", "hits", HITS, hits_rows(10)))
+            t = p["transfer"](
+                id="left-out",
+                src=p["params"](host="127.0.0.1", port=pg.port),
+                dst=p["ch_params"](host="127.0.0.1", port=ch.port,
+                                   bufferer=None),
+                type=types.SNAPSHOT_AND_INCREMENT
+                if case == "snapshot_and_increment" else
+                types.SNAPSHOT_ONLY,
+                transformation={"transformers": [{"dbt": {}}]})
+            cp = p["coordinator"]()
+            with pytest.raises(Exception, match="no container runtime") \
+                    as e:
+                p["activate"](t, cp, **p["kw"])
+            return (type(e.value).__name__, str(e.value),
+                    cp.get_status("left-out").value,
+                    sum(len(tb["rows"]) for n, tb in ch.tables.items()
+                        if n == "public__hits"))
+        finally:
+            pg.stop()
+            ch.stop()
+
+    got = run("port")
+    assert got == run("jax")
+    assert got[0] == "ContainerError" and got[2] == "failed"
+    assert got[3] == 10
 
 
 def test_pg_target_and_replication_wait():

@@ -194,18 +194,56 @@ def test_wal2json_decoder_equals_jax(seed):
 
 
 def test_dblog_snapshot_names_its_item():
-    params = PGSourceParams(dblog_snapshot=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        port_repl.PGReplicationSource(params, "t")
-    t = Transfer(id="dblog", type="INCREMENT_ONLY", src=params,
-                 dst=port_memory.MemoryTargetParams(sink_id="dblog"))
-    with pytest.raises(NotImplementedError, match="DBLog.*A7"):
-        get_provider("pg", t, device="cpu").source()
-    # a left-out part fails the replication at once: no retry loop
-    cp = MemoryCoordinator()
-    with pytest.raises(NotImplementedError, match="A7"):
-        run_replication(t, cp, backoff=30, device="cpu")
-    assert cp.get_status("dblog").value == "failed"
+    """`dblog_snapshot` is ported: the source constructs in both
+    packages, and the DBLog runner's filter (wired before every push)
+    drops the signal table's rows, columnar or not, as the JAX runner's
+    does, with no snapshot active.  The runs are in
+    tests/test_torch_dblog.py."""
+    from transferia_tpu.abstract import schema as ref_schema
+    from transferia_tpu.abstract.change_item import ChangeItem as RefItem
+    from transferia_tpu.abstract.kinds import Kind as RefKind
+    from transferia_tpu.columnar.batch import ColumnBatch as RefBatch
+    from transferia_tpu.providers.postgres import dblog as ref_dblog
+    from transferia_tpu_torch.abstract import schema
+    from transferia_tpu_torch.abstract.change_item import ChangeItem
+    from transferia_tpu_torch.abstract.kinds import Kind
+    from transferia_tpu_torch.columnar.batch import ColumnBatch
+    from transferia_tpu_torch.providers.postgres import dblog
+
+    def run(pkg):
+        p = PKGS[pkg]
+        item, batch, mod, kind, sch = (
+            (ChangeItem, ColumnBatch, dblog, Kind, schema)
+            if pkg == "port" else
+            (RefItem, RefBatch, ref_dblog, RefKind, ref_schema))
+        cols = sch.new_table_schema([("mark_id", "utf8", True),
+                                     ("kind", "utf8")])
+        params = p["params"](dblog_snapshot=True, dblog_chunk_rows=7)
+        src = p["repl"].PGReplicationSource(params, "t")
+        t = p["transfer"](id="dblog", type="INCREMENT_ONLY", src=params,
+                          dst=p["memory"].MemoryTargetParams(
+                              sink_id="dblog"))
+        prov = p["provider"]("pg", t, **p["kw"]).source()
+        runner = mod.PGDBLogRunner(params, "t", None, chunk_rows=7)
+
+        def row(table, k):
+            return item(kind=kind.INSERT, schema="public", table=table,
+                        column_names=("mark_id", "kind"),
+                        column_values=(f"m{k}", "low"), table_schema=cols)
+
+        rows = [row("__transferia_signal", 0), row("hits", 1),
+                row("__transferia_signal", 2), row("hits", 3)]
+        kept = runner.filter(rows)
+        signal = batch.from_rows([rows[0], rows[2]])
+        return (type(src).__name__, type(prov).__name__,
+                runner.chunk_rows, runner.already_done(),
+                [norm_item(it) for it in kept], runner.filter(signal),
+                str(mod.SIGNAL_TID))
+
+    got, want = run("port"), run("jax")
+    assert got == want
+    assert got[:2] == ("PGReplicationSource", "PGReplicationSource")
+    assert [it[2] for it in got[4]] == ["hits", "hits"] and got[5] == []
 
 
 # -- replication runs ---------------------------------------------------------

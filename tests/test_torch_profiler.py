@@ -41,9 +41,18 @@ def _burn(deadline):
 
 
 def test_sampler_attributes_hot_function(pkg):
+    """Burns at least 0.4 s, and on until the sampler has taken more
+    than 20 busy samples and this thread has burned 0.4 s of CPU (at
+    most 10 s): under load both threads get fewer slices than the wall
+    clock's."""
     prof = PROF[pkg]
     with prof.profile(hz=250, threads={threading.get_ident()}) as p:
-        _burn(time.perf_counter() + 0.4)
+        live = p._sampler._report
+        start, cpu0 = time.perf_counter(), time.thread_time()
+        _burn(start + 0.4)
+        while (live.samples <= 20 or time.thread_time() - cpu0 < 0.4) \
+                and time.perf_counter() < start + 10.0:
+            _burn(time.perf_counter() + 0.05)
     rep = p.report
     assert rep.samples > 20
     assert any("_burn" in loc for loc, _, _ in rep.top(5)), rep.top(5)

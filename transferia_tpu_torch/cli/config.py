@@ -57,9 +57,8 @@ _KNOWN_KEYS = {
 # the reference's endpoints the port has no params class for yet: all
 # wait under ROADMAP.md A7 ("every other provider"; the `fs` sink with it)
 WAITING_PROVIDERS = frozenset({
-    "airbyte", "arrow_ipc", "elastic", "eventhub", "flight", "greenplum",
-    "kinesis", "logbroker", "mongo", "opensearch", "oracle", "ydb",
-    "yds", "yt", "yt_dyn",
+    "arrow_ipc", "elastic", "eventhub", "flight", "greenplum", "kinesis",
+    "logbroker", "opensearch", "oracle", "ydb", "yds", "yt", "yt_dyn",
 })
 
 

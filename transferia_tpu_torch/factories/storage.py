@@ -10,8 +10,13 @@ from transferia_tpu_torch.providers.registry import get_provider
 from transferia_tpu_torch.stats.registry import Metrics
 
 
-def new_storage(transfer, metrics: Optional[Metrics] = None) -> Storage:
-    provider = get_provider(transfer.src_provider(), transfer, metrics)
+def new_storage(transfer, metrics: Optional[Metrics] = None,
+                coordinator=None) -> Storage:
+    """The source's snapshot storage.  A snapshot hands its coordinator
+    on, so that a storage that keeps state between runs (the Airbyte
+    source's STATE) finds it; the reference passes none (ROADMAP.md C)."""
+    provider = get_provider(transfer.src_provider(), transfer, metrics,
+                            coordinator=coordinator)
     storage = provider.storage()
     if storage is None:
         raise ValueError(

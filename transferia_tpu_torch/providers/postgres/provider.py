@@ -4,15 +4,13 @@ the endpoint params, `PGStorage` (catalog, counts, the WAL position,
 ctid-range sharding, COPY loads, the checksum samples and the
 incremental cursors), `PGSinker` (table DDL, COPY inserts, the staged
 commit, the CDC statements) and the provider's `storage`, `sinker`,
-`source` (logical replication, `replication.py`), `transfer_ddl_objects`
-(the PG -> PG `pg_dump.py` step), `deactivate` (the slot drop), `test`
-and `cleanup`.
+`source` (logical replication, `replication.py`, with the DBLog
+incremental snapshot, `dblog.py`), `transfer_ddl_objects` (the PG -> PG
+`pg_dump.py` step), `deactivate` (the slot drop), `test` and `cleanup`.
 
 Snapshot loads use COPY TO STDOUT (csv) into the port's own decoder
 (`copycsv.py`), which gives the batches the reference's pyarrow reader
-gives.  Left out, raising NotImplementedError naming its ROADMAP.md
-item: the DBLog snapshot of the replication source (`dblog_snapshot`,
-A7).
+gives.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ confirms delivery — the at-least-once checkpoint contract.
 Decode: wal2json format-version 2 (one JSON object per message:
 action I/U/D/B/C/T with columns/identity arrays).
 
-Left out, raising NotImplementedError naming its ROADMAP.md item: the
-DBLog incremental snapshot interleaved with the stream
-(`dblog_snapshot`, A7).
+With `dblog_snapshot` set, the DBLog incremental snapshot
+(`dblog.py`) runs beside the stream once it has started, and every
+flushed run passes through its filter before the push.
 """
 
 from __future__ import annotations
@@ -242,10 +242,6 @@ class PGReplicationSource(Source):
         self._stop = threading.Event()
         self.slot = params.slot_name or f"transferia_{transfer_id}" \
             .replace("-", "_")
-        if getattr(params, "dblog_snapshot", False):
-            raise NotImplementedError(
-                "the DBLog incremental snapshot (dblog_snapshot) is not "
-                "ported to transferia_tpu_torch yet (ROADMAP.md A7)")
 
     def _connect(self) -> ReplicationConnection:
         return ReplicationConnection(
@@ -268,6 +264,7 @@ class PGReplicationSource(Source):
 
     def run(self, sink: AsyncSink) -> None:
         conn = self._connect()
+        dblog = None
         try:
             start_lsn = "0/0"
             if self.cp is not None:
@@ -277,6 +274,23 @@ class PGReplicationSource(Source):
             if start_lsn == "0/0":
                 start_lsn = self.ensure_slot(conn) or "0/0"
             conn.start_replication(self.slot, start_lsn)
+            if getattr(self.params, "dblog_snapshot", False):
+                from transferia_tpu_torch.providers.postgres.dblog import (
+                    PGDBLogRunner,
+                )
+
+                # the runner's filter stays wired even after completion:
+                # residual signal-table echoes replayed from the slot
+                # must never reach the target
+                dblog = PGDBLogRunner(
+                    self.params, self.transfer_id, self.cp,
+                    chunk_rows=self.params.dblog_chunk_rows,
+                    tables=self.params.dblog_tables or None,
+                )
+                if not dblog.already_done():
+                    dblog.start()
+                else:
+                    dblog.done.set()
             items: list[ChangeItem] = []
             futures: list = []
             flushed = lsn_to_int(start_lsn) if start_lsn != "0/0" else 0
@@ -293,6 +307,17 @@ class PGReplicationSource(Source):
                         batch = ColumnBatch.from_rows(run)
                     else:
                         batch = run
+                    if dblog is not None:
+                        # watermark fencing: signal rows are consumed,
+                        # pending chunks emit inline at this position
+                        batch = dblog.filter(batch)
+                        if dblog.error is not None:
+                            raise dblog.error
+                        if isinstance(batch, list) and not batch:
+                            continue
+                        if (isinstance(batch, ColumnBatch)
+                                and batch.n_rows == 0):
+                            continue
                     futures.append(sink.async_push(batch))
                 items = []
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import csv
 import hashlib
+import heapq
 import hmac
 import io
 import json
@@ -184,6 +185,16 @@ class FakePG:
     def stop(self):
         if self._srv:
             self._srv.shutdown()
+
+
+def _order_key(v):
+    """ORDER BY's key for a value: numbers, then text, then NULLs."""
+    if v is None:
+        return (2, 0)
+    try:
+        return (0, float(v))
+    except (TypeError, ValueError):
+        return (1, str(v))
 
 
 class _Session:
@@ -616,22 +627,21 @@ class _Session:
                         return str(v) > raw
                 rows = [r for r in rows if gt(r.get(col))]
         mo = re.search(r"ORDER BY (.+?)(?: LIMIT |$)", sql, re.S)
+        ml = re.search(r"LIMIT (\d+)", sql)
+        if mo and ml and re.fullmatch(r'"\w+"', mo.group(1).strip()):
+            # one ascending key and a limit (a keyset page, as the DBLog
+            # chunks read): the first `limit` rows without sorting them all
+            name = mo.group(1).strip().strip('"')
+            return cols, heapq.nsmallest(
+                int(ml.group(1)), rows,
+                key=lambda r: _order_key(r.get(name)))
         if mo:
             for part in reversed(mo.group(1).split(",")):
                 part = part.strip()
                 desc = part.upper().endswith(" DESC")
                 name = part.split()[0].strip('"')
-
-                def sort_key(r, _n=name):
-                    v = r.get(_n)
-                    if v is None:
-                        return (2, 0)
-                    try:
-                        return (0, float(v))
-                    except (TypeError, ValueError):
-                        return (1, str(v))
-                rows = sorted(rows, key=sort_key, reverse=desc)
-        ml = re.search(r"LIMIT (\d+)", sql)
+                rows = sorted(rows, key=lambda r, _n=name: _order_key(
+                    r.get(_n)), reverse=desc)
         if ml:
             rows = rows[: int(ml.group(1))]
         return cols, rows

@@ -19,8 +19,8 @@ either transfer type.
 `device` is where the snapshot's device work runs (None means CUDA,
 which must be present; "cpu" runs the kernels' plain versions).
 
-Left out, raising NotImplementedError naming itself: a configured `dbt`
-step (ROADMAP.md A7, the dbt transformer).
+A configured `dbt` step (`transform/plugins/dbt.py`) runs against the
+target after the upload, on the main worker only.
 """
 
 from __future__ import annotations
@@ -48,17 +48,6 @@ from transferia_tpu_torch.utils.rollbacks import Rollbacks
 logger = logging.getLogger(__name__)
 
 
-def _left_out(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to transferia_tpu_torch yet (ROADMAP.md A7, "
-        f"the dbt transformer)")
-
-
-def _dbt_steps(transfer) -> list:
-    cfg = getattr(transfer, "transformation", None) or {}
-    return [t for t in (cfg.get("transformers") or []) if "dbt" in t]
-
-
 def activate_delivery(transfer, coordinator: Coordinator,
                       metrics: Optional[Metrics] = None,
                       operation_id: Optional[str] = None,
@@ -71,8 +60,6 @@ def activate_delivery(transfer, coordinator: Coordinator,
     coordinator.set_status(transfer.id, TransferStatus.ACTIVATING)
     rollbacks = Rollbacks()
     try:
-        if ttype != TransferType.INCREMENT_ONLY and _dbt_steps(transfer):
-            raise _left_out("the dbt post-upload step")
         loader = SnapshotLoader(transfer, coordinator,
                                 operation_id=operation_id, metrics=metrics,
                                 device=device)
@@ -147,6 +134,15 @@ def activate_delivery(transfer, coordinator: Coordinator,
         if ttype != TransferType.INCREMENT_ONLY and \
                 hasattr(src_provider, "transfer_ddl_objects"):
             src_provider.transfer_ddl_objects(transfer.dst)
+        # dbt steps run against the target once the snapshot landed (main
+        # worker only) — never for replication-only transfers where no
+        # snapshot exists to transform
+        if ttype != TransferType.INCREMENT_ONLY:
+            from transferia_tpu_torch.transform.plugins.dbt import (
+                run_dbt_transformations,
+            )
+
+            run_dbt_transformations(transfer, coordinator)
         rollbacks.cancel()
         coordinator.set_status(transfer.id, TransferStatus.ACTIVATED)
         coordinator.set_transfer_state(transfer.id, {"status": "activated"})

@@ -211,7 +211,7 @@ class SnapshotLoader:
                       ) -> None:
         """Snapshot the given tables (None = all tables passing the
         transfer's include filter)."""
-        storage = new_storage(self.transfer, self.metrics)
+        storage = new_storage(self.transfer, self.metrics, self.cp)
         # the operation root: every part/batch/device span of this
         # snapshot nests (or flows, across worker threads) under it,
         # and every resource event bills this transfer in the ledger

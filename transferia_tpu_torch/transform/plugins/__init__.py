@@ -2,6 +2,7 @@
 
 from transferia_tpu_torch.transform.plugins import (  # noqa: F401
     convert,
+    dbt,
     filter,
     lambda_tf,
     logger_tf,
