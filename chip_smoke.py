@@ -440,6 +440,31 @@ final line):
      through run_replication, stopped half way and restarted: it
      resumes from the recorded token and every event arrives once, in
      order.  Every K-A and K10 launch is held;
+ 15t. oracle: an ACCOUNTS table of 50,000 rows in the port's fake
+     Oracle (NUMBER key, two VARCHAR2s, a BINARY_FLOAT SCORE with NaN,
+     infinities, -0.0 and nulls, NUMBER(12,2), NUMBER(30), DATE,
+     TIMESTAMP(6)): (a) examples/oracle2ch.yaml with only its port
+     changed, `activate` through cli.main here: 4 ROWID shards read AS
+     OF one SCN while a writer commits 300 changes (none reaches the
+     target), the mask on EMAIL and SCORE > 0.25 into a fake
+     ClickHouse, on the card and with --device cpu (byte-identical
+     inserts, kept ids against numpy, EMAIL against hmac); `checksum`
+     against an unmasked copy, sampled clean and altered, fingerprinted
+     by K10 clean; (b) examples/oracle2yt_dyn.yaml, `replicate` on a
+     filestore coordinator into a sorted YT dynamic table of 4 tablets
+     while a writer commits 10,000 UPDATEs (500 moving a key), 5,000
+     INSERTs and 1,000 DELETEs and feeds their redo (2 % as CSF
+     continuations), stopped by SIGTERM half way and resumed from the
+     SCN checkpoint: the table equals the final image with the mask
+     applied, the proxy takes every change once, the boundary rows are
+     not replayed.  Every K-A, K-B, K-C and K10 launch is held;
+ 15u. yt: a static table of 250,000 rows (an int32 region, a string
+     column of arbitrary bytes) in the port's fake YT proxy: (a)
+     examples/yt2ch.yaml in 4 range parts through the mask on url and
+     region < 400 into a fake ClickHouse, on the card and with --device
+     cpu (byte-identical inserts, every row decoded on the card's run);
+     (b) YT -> YT static of 25,000 rows, twice under TRUNCATE: one copy,
+     the bytes exact.  Every K-A, K-B, K-C and K10 launch is held;
  16. timing: each kernel at its path's shapes, beside its plain version,
      a PyTorch library call where one exists, and its bound on an H100
      (3.35 TB/s HBM; 64 INT32 lanes a SM at the card's maximum SM clock,
@@ -459,11 +484,14 @@ raises and exits non-zero.  Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import calendar
 import ctypes
+import datetime
 import hashlib
 import hmac
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -839,6 +867,18 @@ PATH_KERNELS = {
     # MongoDB: the mask on _id (utf8), the document (ANY) on the host;
     # K10 keys the snapshot's staged pushes
     "mongo": ("sha256_hmac", "rowhash_lanes"),
+    # Oracle: the mask on EMAIL in (a) and on every tail push of (b); the
+    # filter on SCORE, a BINARY_FLOAT (FLOAT, which the device predicate
+    # takes; the table's NUMBERs are int64 or double and its DATE a
+    # DATETIME, which it does not: predicate/device.py _DEVICE_SAFE), in
+    # (a) alone, since a filter drops (b)'s DELETEs; K10 keys (a)'s staged
+    # pushes into ClickHouse and fingerprints the checksum's tables
+    "oracle": ("sha256_hmac", "pred_decode", "pred3vl_mask",
+               "rowhash_lanes"),
+    # YTsaurus: the mask on url and the filter on the int32 region in
+    # (a); K10 keys (a)'s staged pushes into ClickHouse (the YT sinks
+    # stage none, so (b) launches nothing)
+    "yt": ("sha256_hmac", "pred_decode", "pred3vl_mask", "rowhash_lanes"),
 }
 # the first path that lists a kernel reports it
 KERNEL_PATH = {k: p for p, ks in reversed(PATH_KERNELS.items()) for k in ks}
@@ -10148,6 +10188,759 @@ def mongo_path(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Oracle and YTsaurus.  Oracle: an ACCOUNTS table of 50,000
+# rows (200,000 cut for the call's time: PERF.md section 4; seed 53) in
+# the port's fake Oracle: ID NUMBER(10) (the key), EMAIL
+# VARCHAR2(64), NAME VARCHAR2(40), SCORE BINARY_FLOAT (every 13th row NaN,
+# +inf, -inf, -0.0 or null in turn), AMOUNT NUMBER(12,2), BIG NUMBER(30)
+# (26 digits: a decimal string), CREATED DATE and UPDATED TIMESTAMP(6).
+# (a) examples/oracle2ch.yaml, 4 ROWID shards at one SCN, while a writer
+# commits ORA_LOAD_WRITES changes after the first page; then `checksum`
+# against an unmasked ClickHouse copy: the fake reports 100 bytes a row,
+# 5,000,000 B, under the default 20 MiB, so the sampled strategy is
+# asked for with a 4 MiB threshold, clean and with a value altered, and
+# the fingerprint by K10 clean.  (b) examples/oracle2yt_dyn.yaml,
+# SNAPSHOT_AND_INCREMENT into a sorted dynamic table of 4 tablets while a
+# writer commits 10,000 UPDATEs (500 of them moving a row's key), 5,000
+# INSERTs and 1,000 DELETEs (seed 59) and feeds their redo, 2 % of the
+# statements as CSF continuations; the tail stopped once half of them
+# were checkpointed and resumed
+ORA_ROWS, ORA_SEED, ORA_SALT, ORA_PASSWORD = 50_000, 53, "ora-salt", "tiger"
+ORA_UPDATES, ORA_KEY_MOVES, ORA_INSERTS, ORA_DELETES = 10_000, 500, 5_000, \
+    1_000
+ORA_CHANGE_SEED, ORA_CSF_SHARE, ORA_GROUP = 59, 0.02, 250
+ORA_DURING_LOAD = 4_000       # changes the (b) writer commits during the load
+ORA_LOAD_WRITES = 300         # (a)'s writer: 100 updates, deletes, inserts
+ORA_CK_THRESHOLD, ORA_CK_TAMPERED_ID = 4 << 20, 5
+ORA_SETTLE_S = 400.0
+ORA_COLUMNS = [("ID", "NUMBER(10)", True, True),
+               ("EMAIL", "VARCHAR2(64)", False, False),
+               ("NAME", "VARCHAR2(40)", False, False),
+               ("SCORE", "BINARY_FLOAT", False, False),
+               ("AMOUNT", "NUMBER(12,2)", False, False),
+               ("BIG", "NUMBER(30)", False, False),
+               ("CREATED", "DATE", False, False),
+               ("UPDATED", "TIMESTAMP(6)", False, False)]
+ORA_SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0, None)
+ORA_YT_TABLE = "//home/transfer/oracle/ACCOUNTS"
+ORA_PIVOTS = [[]] + [[ORA_ROWS * k // 4] for k in (1, 2, 3)]
+# YTsaurus: a static table of 250,000 rows (500,000 cut for the call's
+# time; seed 61; id int64 key, url utf8, region int32, payload string of
+# 0-32 arbitrary bytes, score double) through examples/yt2ch.yaml in 4
+# range parts of 62,500 rows (its 125,000 cut with the table); then
+# YT -> YT static of its first 25,000 rows, twice under TRUNCATE
+YT_ROWS, YT_PART_ROWS, YT_SEED, YT_SALT = 250_000, 62_500, 61, "yt-salt"
+YT_COPY_ROWS = 25_000
+YT_SCHEMA = [{"name": "id", "type": "int64", "sort_order": "ascending"},
+             {"name": "url", "type": "utf8"},
+             {"name": "region", "type": "int32"},
+             {"name": "payload", "type": "string"},
+             {"name": "score", "type": "double"}]
+ORA_EPOCH = datetime.datetime(1990, 1, 1)
+
+
+def ora_row(i: int, score, cents: int, secs: int, micros: int,
+            name: Optional[str] = None, email: Optional[str] = None) -> dict:
+    return {"ID": i, "EMAIL": email or f"user{i:07d}@example.test",
+            "NAME": name if name is not None else
+            (f"User {i}" if i % 17 else None),
+            "SCORE": score, "AMOUNT": cents / 100, "BIG": 10**25 + 2 * i + 1,
+            "CREATED": ORA_EPOCH + datetime.timedelta(seconds=secs),
+            "UPDATED": ORA_EPOCH + datetime.timedelta(seconds=secs + 7,
+                                                      microseconds=micros)}
+
+
+def ora_table() -> list:
+    """The ACCOUNTS rows, as the fake Oracle holds them."""
+    rng = np.random.default_rng(ORA_SEED)
+    n = ORA_ROWS
+    score = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    cents = rng.integers(0, 10**10, n)
+    secs = rng.integers(0, 10**9, n)
+    micros = rng.integers(0, 10**6, n)
+    return [ora_row(i, ORA_SPECIALS[(i // 13) % len(ORA_SPECIALS)]
+                    if i % 13 == 0 else float(score[i]), int(cents[i]),
+                    int(secs[i]), int(micros[i])) for i in range(n)]
+
+
+def ora_kept(rows) -> np.ndarray:
+    """The ids `SCORE > 0.25` keeps, in float32 as the column holds it
+    (NaN and null are not kept, +inf is)."""
+    score = np.array([np.nan if r["SCORE"] is None else r["SCORE"]
+                      for r in rows], dtype=np.float32)
+    ids = np.array([r["ID"] for r in rows])
+    with np.errstate(invalid="ignore"):
+        return np.sort(ids[score > np.float32(0.25)])
+
+
+def ora_masked(email: str) -> str:
+    return hmac.new(ORA_SALT.encode(), email.encode(),
+                    hashlib.sha256).hexdigest()
+
+
+def ora_literal(col: str, v) -> str:
+    """A value as LogMiner's SQL_REDO writes it (STRING_LITERALS_IN_STMT):
+    quoted text, bare numbers, TO_DATE/TO_TIMESTAMP with their masks."""
+    if v is None:
+        return "NULL"
+    if col in ("EMAIL", "NAME"):
+        return "'" + v.replace("'", "''") + "'"
+    if col == "SCORE":
+        return {"nan": "Nan", "inf": "Inf", "-inf": "-Inf"}.get(
+            repr(v), repr(v))
+    if col == "CREATED":
+        return f"TO_DATE('{v:%Y-%m-%d %H:%M:%S}', 'YYYY-MM-DD HH24:MI:SS')"
+    if col == "UPDATED":
+        return (f"TO_TIMESTAMP('{v:%Y-%m-%d %H:%M:%S.%f}', "
+                "'YYYY-MM-DD HH24:MI:SS.FF6')")
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def ora_where(row: dict) -> str:
+    """The full old image, as supplemental logging of all columns puts it
+    in an UPDATE's WHERE."""
+    return " and ".join(f'"{c}" IS NULL' if row[c] is None else
+                        f'"{c}" = {ora_literal(c, row[c])}'
+                        for c, _, _, _ in ORA_COLUMNS)
+
+
+def ora_changes(rows) -> tuple[list, dict]:
+    """The (b) writer's statements (seed 59) in commit order, each as
+    (op code, SQL_REDO, CSF parts, id it removes or None, row it writes
+    or None), and the table's image after all of them."""
+    rng = np.random.default_rng(ORA_CHANGE_SEED)
+    image = {r["ID"]: r for r in rows}
+    live = list(image)
+    kinds = np.array(["u"] * (ORA_UPDATES - ORA_KEY_MOVES)
+                     + ["k"] * ORA_KEY_MOVES + ["i"] * ORA_INSERTS
+                     + ["d"] * ORA_DELETES)
+    rng.shuffle(kinds)
+    csf = rng.random(len(kinds)) < ORA_CSF_SHARE
+    # the last change before the restart is continued in three parts
+    # (three or four rows of one SCN, as its length divides): the boundary
+    # rows the resumed tail must not replay
+    csf[len(kinds) // 2 - 1] = True
+    score = rng.uniform(-1.0, 1.0, len(kinds)).astype(np.float32)
+    cents = rng.integers(0, 10**10, len(kinds))
+    secs = rng.integers(0, 10**9, len(kinds))
+    micros = rng.integers(0, 10**6, len(kinds))
+    new_id = ORA_ROWS
+    moved_id = 2 * ORA_ROWS
+    table = '"SCOTT"."ACCOUNTS"'
+    out = []
+    for n, kind in enumerate(kinds):
+        s = ORA_SPECIALS[n % len(ORA_SPECIALS)] if n % 29 == 0 \
+            else float(score[n])
+        parts = int(rng.integers(2, 5)) if csf[n] else 1
+        if n == len(kinds) // 2 - 1:
+            parts = 3
+        if kind == "i":
+            row = ora_row(new_id, s, int(cents[n]), int(secs[n]),
+                          int(micros[n]), name=f"New {new_id} o'neil")
+            new_id += 1
+            cols = [c for c, _, _, _ in ORA_COLUMNS]
+            sql = (f"insert into {table}(" + ",".join(f'"{c}"' for c in cols)
+                   + ") values (" + ", ".join(ora_literal(c, row[c])
+                                             for c in cols) + ")")
+            out.append((1, sql, parts, None, row))
+            image[row["ID"]] = row
+            live.append(row["ID"])
+            continue
+        pos = int(rng.integers(len(live)))
+        old = image[live[pos]]
+        if kind == "d":
+            live[pos] = live[-1]
+            live.pop()
+            del image[old["ID"]]
+            out.append((2, f'delete from {table} where "ID" = {old["ID"]}',
+                        parts, old["ID"], None))
+            continue
+        row = dict(old, NAME=f"Upd {n}", SCORE=s,
+                   EMAIL=f"moved{n}@example.test" if kind == "k"
+                   else old["EMAIL"],
+                   UPDATED=old["UPDATED"] + datetime.timedelta(
+                       microseconds=int(micros[n]) + 1))
+        sets = ["NAME", "SCORE", "UPDATED"]
+        if kind == "k":
+            row["ID"] = moved_id
+            moved_id += 1
+            sets = ["ID", "EMAIL"] + sets
+            del image[old["ID"]]
+            live[pos] = row["ID"]
+        image[row["ID"]] = row
+        sql = (f"update {table} set " + ", ".join(
+            f'"{c}" = {ora_literal(c, row[c])}' for c in sets)
+            + f" where {ora_where(old)}")
+        out.append((3, sql, parts, old["ID"] if kind == "k" else None, row))
+    return out, image
+
+
+class OraLoadWriter(threading.Thread):
+    """(a)'s writer: once the first AS OF page of the load is logged,
+    commits 100 updates of NAME, 100 deletes and 100 inserts, each group
+    under its own SCN; none of them may reach the snapshot."""
+
+    def __init__(self, fake):
+        super().__init__(name="ora-load-writer", daemon=True)
+        self.fake = fake
+        self.scns: list = []
+        self.error: Optional[BaseException] = None
+
+    def run(self):
+        try:
+            deadline = time.perf_counter() + ORA_SETTLE_S
+            while not any(" AS OF SCN " in q for q in list(self.fake.queries)):
+                if time.perf_counter() > deadline:
+                    raise AssertionError("oracle (a): no AS OF read seen")
+                time.sleep(0.005)
+            k = ORA_LOAD_WRITES // 3
+            for change in (
+                    lambda rows: rows.__setitem__(slice(0, k), [
+                        dict(r, NAME="written during the load")
+                        for r in rows[:k]]),
+                    lambda rows: rows.__delitem__(slice(k, 2 * k)),
+                    lambda rows: rows.extend(
+                        ora_row(ORA_ROWS + j, 1.0, 1, 1, 1)
+                        for j in range(k))):
+                self.scns.append(self.fake.mutate("SCOTT", "ACCOUNTS",
+                                                  change))
+        except BaseException as e:   # reported by the phase
+            self.error = e
+
+
+def ora_fake(rows):
+    from transferia_tpu_torch.recipes.fake_oracle import (
+        FakeOracle,
+        FakeOraTable,
+    )
+
+    fake = FakeOracle(password=ORA_PASSWORD)
+    fake.add_table(FakeOraTable("SCOTT", "ACCOUNTS", ORA_COLUMNS, rows))
+    return fake.start()
+
+
+def ora_snapshot_run(rows, kept: np.ndarray, tmp: str, placement: str,
+                     dev) -> dict:
+    """(a) examples/oracle2ch.yaml with only its Oracle port changed,
+    `activate` through cli.main here into a fake ClickHouse on port 8123,
+    while OraLoadWriter commits.  The card's run decodes the rows and
+    checks each kept id, the mask and the pinned values; the CPU run is
+    held to its inserts."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    fake = ora_fake(rows)
+    ch = ch_on_8123()
+    writer = OraLoadWriter(fake)
+    before = _build.launch_counts()
+    set_placement("device" if on_card else "host")
+    try:
+        yaml = example_copy("oracle2ch.yaml", tmp, [
+            ("    port: 1521\n", f"    port: {fake.port}\n")])
+        with DeltaEnv(ORACLE_HOST="127.0.0.1", ORACLE_PASSWORD=ORA_PASSWORD,
+                      MASK_SALT=ORA_SALT, CH_HOST=ch._srv.server_address[0]):
+            writer.start()
+            rc, _, se, seconds = cli_main(["activate", "--transfer", yaml],
+                                          run_dev)
+            writer.join(60)
+        if rc != 0:
+            raise AssertionError(f"oracle (a) {placement}: rc {rc}: "
+                                 f"{se[-2000:]}")
+        if writer.error is not None or len(writer.scns) != 3:
+            raise AssertionError(f"oracle (a) writer: {writer.error!r}")
+        scans = sorted(q for q in fake.queries if "ORA_HASH" in q)
+        pinned = {re.search(r"AS OF SCN (\d+)", q).group(1) for q in scans}
+        if len(scans) < 4 or len(pinned) != 1 or \
+                int(min(pinned)) >= min(writer.scns):
+            raise AssertionError(f"oracle (a): scans {len(scans)} pinned "
+                                 f"at {pinned}, writes at {writer.scns}")
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if not on_card and launched:
+            raise AssertionError(f"oracle (a): the --device cpu run "
+                                 f"launched {launched}")
+        digests = ch.insert_digests("SCOTT__ACCOUNTS")
+        if sum(d[1] for d in digests) != len(kept):
+            raise AssertionError(f"oracle (a) {placement}: ClickHouse took "
+                                 f"{sum(d[1] for d in digests)} rows, numpy "
+                                 f"keeps {len(kept)}")
+        if on_card:
+            got = sorted(ch.rows("SCOTT__ACCOUNTS"), key=lambda r: r["ID"])
+            ids = np.array([r["ID"] for r in got])
+            if not np.array_equal(ids, kept):
+                raise AssertionError(f"oracle (a): {len(ids)} rows, numpy "
+                                     f"keeps {len(kept)}")
+            for r in got:
+                src = rows[r["ID"]]
+                if ch_text(r["EMAIL"]) != ora_masked(src["EMAIL"]) or \
+                        r["NAME"] is not None and \
+                        ch_text(r["NAME"]) != src["NAME"] or \
+                        ch_text(r["BIG"]) != str(src["BIG"]):
+                    raise AssertionError(f"oracle (a): row {r} against "
+                                         f"{src}")
+        return {"seconds": seconds, "rows_per_s": ORA_ROWS / seconds,
+                "ch_rows": len(kept), "inserts": len(digests),
+                "digests": digests, "pinned_scn": int(min(pinned)),
+                "writes_at_scn": writer.scns, "launched": launched}
+    finally:
+        set_placement(None)
+        fake.stop()
+        ch.stop()
+
+
+def ora_checksum(rows, tmp: str, dev) -> dict:
+    """`checksum` on the card of the Oracle table against an unmasked
+    ClickHouse copy of it (the example without its transformation):
+    sampled (a 4 MiB threshold under the table's 5,000,000 B), clean
+    (exit 0, as the JAX package's verdict for the same tables,
+    tests/test_torch_oracle.py) and with one value altered (exit 1), and
+    by K10's fingerprint, clean."""
+    fake = ora_fake(rows)
+    ch = ch_on_8123()
+    sub = os.path.join(tmp, "plain")
+    os.makedirs(sub, exist_ok=True)
+    out = {}
+    try:
+        yaml = example_copy("oracle2ch.yaml", sub, [
+            ("    port: 1521\n", f"    port: {fake.port}\n"),
+            ("transformation:\n  transformers:\n", ""),
+            ('    - mask_field: {columns: [EMAIL], salt: "${MASK_SALT}"}\n',
+             ""),
+            ('    - filter_rows: {filter: "SCORE > 0.25"}\n', "")])
+        with DeltaEnv(ORACLE_HOST="127.0.0.1", ORACLE_PASSWORD=ORA_PASSWORD,
+                      CH_HOST=ch._srv.server_address[0]):
+            rc, _, se, s = cli_main(["activate", "--transfer", yaml], dev)
+            if rc != 0:
+                raise AssertionError(f"oracle checksum copy: {se[-2000:]}")
+            out["copy_seconds"] = s
+            sample = ["checksum", "--transfer", yaml, "--size-threshold",
+                      str(ORA_CK_THRESHOLD)]
+            fingerprint = ["checksum", "--transfer", yaml, "--method",
+                           "fingerprint", "--fingerprint-backend", "device"]
+            # the fingerprint altered is left out: its row-level diagnostic
+            # reads both tables whole (210 s at 200,000 rows on an H100
+            # host, PERF.md)
+            for name, argv in (("sample_clean", sample),
+                               ("fingerprint_clean", fingerprint),
+                               ("sample_altered", sample)):
+                if name == "sample_altered":
+                    row = next(r for r in ch.rows("SCOTT__ACCOUNTS")
+                               if r["ID"] == ORA_CK_TAMPERED_ID)
+                    row["EMAIL"] = b"tampered@example.test"
+                k10 = _build.launch_counts()["rowhash_lanes"]
+                rc, so, _, s = cli_main(argv, dev)
+                out[name] = {
+                    "rc": rc, "seconds": s, "report": so.strip()[-300:],
+                    "k10_launches":
+                        _build.launch_counts()["rowhash_lanes"] - k10}
+        want = {"sample_clean": (0, "OK [sample]"),
+                "fingerprint_clean": (0, "OK [fingerprint]"),
+                "sample_altered": (1, "MISMATCH [sample]")}
+        for k, (rc, text) in want.items():
+            if out[k]["rc"] != rc or text not in out[k]["report"]:
+                raise AssertionError(f"oracle checksum {k}: {out[k]}")
+        if dev.type == "cuda" and not out["fingerprint_clean"]["k10_launches"]:
+            raise AssertionError("oracle checksum: K10 never launched")
+        return out
+    finally:
+        fake.stop()
+        ch.stop()
+
+
+class OraCdcWriter(threading.Thread):
+    """(b)'s writer: once the snapshot's first AS OF page is logged, it
+    commits ORA_DURING_LOAD of the changes, then, once the tail mines, the
+    first half; the second half once `resume` is set (the tail stopped and
+    started again).  ORA_GROUP changes a commit of the fake's table (one
+    flashback version), each with its redo fed after it under the fake's
+    lock."""
+
+    def __init__(self, fake, changes: list):
+        super().__init__(name="ora-cdc-writer", daemon=True)
+        self.fake, self.changes = fake, changes
+        self.scns: list = []
+        self.resume = threading.Event()
+        self.error: Optional[BaseException] = None
+
+    def _wait(self, text: str) -> None:
+        deadline = time.perf_counter() + ORA_SETTLE_S
+        while not any(text in q.upper() for q in list(self.fake.queries)):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"oracle (b) writer: no {text} seen")
+            time.sleep(0.005)
+
+    def _commit(self, group: list, cur: dict) -> None:
+        for _, _, _, removed, row in group:
+            if removed is not None:
+                cur.pop(removed, None)
+            if row is not None:
+                cur[row["ID"]] = row
+        with self.fake.lock:
+            live = list(cur.values())
+            self.fake.mutate("SCOTT", "ACCOUNTS",
+                             lambda rows: rows.__setitem__(slice(None),
+                                                           live))
+            for op, sql, parts, _, _ in group:
+                self.scns.append(self.fake.feed_redo(
+                    "SCOTT", "ACCOUNTS", op, sql, xid=f"9.{len(self.scns)}.1",
+                    csf_parts=parts))
+
+    def run(self):
+        try:
+            with self.fake.lock:
+                cur = {r["ID"]: r for r in
+                       self.fake.tables[("SCOTT", "ACCOUNTS")].rows}
+            self._wait(" AS OF SCN ")
+            mid = len(self.changes) // 2
+            bounds = sorted({*range(0, len(self.changes), ORA_GROUP),
+                             ORA_DURING_LOAD, mid, len(self.changes)})
+            for lo, hi in zip(bounds, bounds[1:]):
+                if lo == ORA_DURING_LOAD:
+                    self._wait("V$LOGMNR_CONTENTS")
+                if lo == mid and not self.resume.wait(ORA_SETTLE_S):
+                    raise AssertionError("oracle (b) writer: not resumed")
+                self._commit(self.changes[lo:hi], cur)
+        except BaseException as e:   # reported by the phase
+            self.error = e
+
+
+def ora_yt_expected(image: dict) -> list:
+    """The image as the dynamic table holds it: the mask on EMAIL, the
+    float32 SCORE, epoch seconds and microseconds, the decimal string."""
+    out = []
+    for i in sorted(image):
+        r = image[i]
+        s = r["SCORE"]
+        out.append({
+            "ID": i, "EMAIL": ora_masked(r["EMAIL"]), "NAME": r["NAME"],
+            "SCORE": None if s is None else float(np.float32(s)),
+            "AMOUNT": r["AMOUNT"], "BIG": str(r["BIG"]),
+            "CREATED": calendar.timegm(r["CREATED"].timetuple()),
+            "UPDATED": calendar.timegm(r["UPDATED"].timetuple()) * 1_000_000
+            + r["UPDATED"].microsecond})
+    return out
+
+
+def same_row(got: dict, want: dict) -> bool:
+    if set(got) != set(want):
+        return False
+    for k, v in want.items():
+        g = got[k]
+        if isinstance(v, float) and isinstance(g, float) and \
+                math.isnan(v) and math.isnan(g):
+            continue
+        if isinstance(v, float) and g is not None and \
+                struct.pack(">d", float(g)) != struct.pack(">d", v):
+            return False
+        if not isinstance(v, float) and g != v:
+            return False
+    return True
+
+
+def ora_sai_run(rows, changes: list, image: dict, tmp: str, dev) -> dict:
+    """(b) examples/oracle2yt_dyn.yaml with its Oracle port changed,
+    `replicate` through cli.main here on a filestore coordinator into the
+    port's fake YT (4 tablets at pivots 50,000, 100,000 and 150,000),
+    while OraCdcWriter commits; stopped by SIGTERM once the tail has
+    checkpointed past the middle change, then `replicate` again, which
+    resumes from the checkpoint and is stopped once the last change's SCN
+    is checkpointed.  The table must equal the writer's final image with
+    the mask applied, and the proxy must have taken each change once."""
+    from transferia_tpu_torch.coordinator import FileStoreCoordinator
+    from transferia_tpu_torch.recipes.fake_yt import FakeYT
+
+    fake = ora_fake(rows)
+    yt = FakeYT().start()
+    yt.pivots_on_mount[ORA_YT_TABLE] = ORA_PIVOTS
+    sub = os.path.join(tmp, "sai")
+    os.makedirs(sub, exist_ok=True)
+    root = os.path.join(tmp, "coord-sai")
+    writer = OraCdcWriter(fake, changes)
+    set_placement("device")
+    try:
+        yaml = example_copy("oracle2yt_dyn.yaml", sub, [
+            ("    port: 1521\n", f"    port: {fake.port}\n")])
+        argv = ["--coordinator", "filestore", "--coordinator-dir", root,
+                "replicate", "--transfer", yaml]
+        cp = FileStoreCoordinator(root=root)
+
+        def checkpoint() -> int:
+            return int(cp.get_transfer_state("oracle2yt_dyn").get(
+                "oracle_scn") or 0)
+
+        mid = len(changes) // 2
+
+        def half() -> bool:
+            return len(writer.scns) == mid and \
+                checkpoint() == writer.scns[mid - 1]
+
+        def done() -> bool:
+            return not writer.is_alive() and \
+                len(writer.scns) == len(changes) and \
+                checkpoint() == writer.scns[-1]
+
+        with DeltaEnv(ORACLE_HOST="127.0.0.1", ORACLE_PASSWORD=ORA_PASSWORD,
+                      MASK_SALT=ORA_SALT, YT_PROXY=f"127.0.0.1:{yt.port}"):
+            writer.start()
+            _, _, first_s = cli_until(argv, dev, half, ORA_SETTLE_S,
+                                      "oracle (b) first run")
+            stopped = cp.get_transfer_state("oracle2yt_dyn")
+            snapshot_scn = stopped["snapshot_position"]["scn"]
+            writer.resume.set()
+            _, _, second_s = cli_until(argv, dev, done, ORA_SETTLE_S,
+                                       "oracle (b) resumed run")
+            writer.join(60)
+        if writer.error is not None:
+            raise AssertionError(f"oracle (b) writer: {writer.error!r}")
+        if min(writer.scns) <= snapshot_scn:
+            raise AssertionError(f"oracle (b): a change at or before the "
+                                 f"snapshot's SCN {snapshot_scn}")
+        rows_at = [r for r in fake.redo if r["scn"] == writer.scns[mid - 1]]
+        boundary = sorted([r["scn"], r["rs_id"], r["ssn"]] for r in rows_at)
+        if stopped.get("oracle_scn_rows") != boundary or len(boundary) < 3:
+            raise AssertionError(f"oracle (b): stopped at {stopped}, the "
+                                 f"boundary rows {boundary}")
+        yt.sync_rows()
+        got = yt.nodes[ORA_YT_TABLE]["rows"]
+        want = ora_yt_expected(image)
+        bad = [(g, w) for g, w in zip(got, want) if not same_row(g, w)]
+        if len(got) != len(want) or bad:
+            raise AssertionError(f"oracle (b): {len(got)} rows against "
+                                 f"{len(want)}; first differences "
+                                 f"{bad[:2]}")
+        upserts = ORA_ROWS + ORA_UPDATES + ORA_INSERTS
+        deletes = ORA_DELETES + ORA_KEY_MOVES
+        if yt.rows_in != {"insert_rows": upserts, "delete_rows": deletes}:
+            raise AssertionError(f"oracle (b): the proxy took {yt.rows_in}, "
+                                 f"{upserts} upserts and {deletes} deletes "
+                                 "expected (a change lost or replayed)")
+        attrs = yt.nodes[ORA_YT_TABLE]["attrs"]
+        if attrs.get("pivot_keys") != ORA_PIVOTS or \
+                attrs.get("tablet_count") != 4:
+            raise AssertionError(f"oracle (b): tablets {attrs}")
+        seconds = first_s + second_s
+        return {"seconds": seconds, "first_run_seconds": first_s,
+                "resumed_run_seconds": second_s, "changes": len(changes),
+                "changes_per_s": len(changes) / seconds,
+                "csf_statements": sum(1 for c in changes if c[2] > 1),
+                "snapshot_scn": snapshot_scn,
+                "stopped_at": {k: stopped.get(k) for k in
+                               ("oracle_scn", "oracle_scn_rows")},
+                "rows": len(got), "proxy_rows": dict(yt.rows_in),
+                "requests": {c: yt.requests.count(c) for c in
+                             ("insert_rows", "delete_rows")}}
+    finally:
+        set_placement(None)
+        fake.stop()
+        yt.stop()
+
+
+def oracle_path(dev) -> dict:
+    """Oracle on the card: (a) the ACCOUNTS table through
+    examples/oracle2ch.yaml on the card and with --device cpu
+    (byte-identical inserts, a writer's changes during the load absent),
+    the checksum against an unmasked copy; (b) SNAPSHOT_AND_INCREMENT
+    into a YT dynamic table across a restart.  Every K-A, K-B, K-C and K10
+    launch is held against its plain version; the CPU run launches
+    nothing."""
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="oracle-", dir=str(_build.BUILD_DIR))
+    timings: dict = {}
+    try:
+        t0 = time.perf_counter()
+        rows = ora_table()
+        kept = ora_kept(rows)
+        changes, image = ora_changes(rows)
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            runs = {}
+            for placement in ("device", "cpu"):
+                t0 = time.perf_counter()
+                runs[placement] = ora_snapshot_run(rows, kept, tmp,
+                                                   placement, dev)
+                timings[placement] = time.perf_counter() - t0
+            if runs["device"].pop("digests") != runs["cpu"].pop("digests"):
+                raise AssertionError("oracle (a): the card's and the CPU's "
+                                     "ClickHouse inserts differ")
+            t0 = time.perf_counter()
+            checksum = ora_checksum(rows, tmp, dev)
+            timings["checksum"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sai = ora_sai_run(rows, changes, image, tmp, dev)
+            timings["sai"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("oracle", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("oracle",
+                                            launches["sha256_hmac"])}
+            held.update(preds.check("oracle", launches))
+            held.update(k10.check("oracle", launches))
+            timings["held"] = time.perf_counter() - t0
+        return {"rows": ORA_ROWS, "kept": len(kept), "snapshot": runs,
+                "identical_across_placements": True, "checksum": checksum,
+                "sai": sai, "launches": launches, "held_exact": held,
+                "part_seconds": timings}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def yt_table() -> list:
+    rng = np.random.default_rng(YT_SEED)
+    n = YT_ROWS
+    region = rng.integers(0, 1000, n)
+    lens = rng.integers(0, 33, n)
+    blob = rng.integers(0, 256, int(lens.sum()), dtype=np.uint8)
+    blob[:256] = np.arange(256, dtype=np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [{"id": i, "url": f"https://e.test/{i % 997}/{i}",
+             "region": int(region[i]),
+             "payload": blob[offs[i]:offs[i + 1]].tobytes().decode(
+                 "latin-1"), "score": i * 0.25} for i in range(n)]
+
+
+def yt_ch_run(fake, rows, kept: np.ndarray, tmp: str, placement: str,
+              dev) -> dict:
+    """(a) examples/yt2ch.yaml with its parts of YT_PART_ROWS (the proxy
+    from YT_PROXY), `activate` through cli.main here into a fake ClickHouse on port
+    8123; the card's run decodes every row (the mask, the bytes)."""
+    on_card = placement == "device"
+    run_dev = dev if on_card else torch.device("cpu")
+    ch = ch_on_8123()
+    before = _build.launch_counts()
+    reads = fake.requests.count("read_table")
+    set_placement("device" if on_card else "host")
+    try:
+        yaml = example_copy("yt2ch.yaml", tmp, [
+            ("    desired_part_rows: 125000\n",
+             f"    desired_part_rows: {YT_PART_ROWS}\n")])
+        with DeltaEnv(YT_PROXY=f"127.0.0.1:{fake.port}", MASK_SALT=YT_SALT,
+                      CH_HOST=ch._srv.server_address[0]):
+            rc, _, se, seconds = cli_main(["activate", "--transfer", yaml],
+                                          run_dev)
+        if rc != 0:
+            raise AssertionError(f"yt (a) {placement}: rc {rc}: "
+                                 f"{se[-2000:]}")
+        after = _build.launch_counts()
+        launched = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        if not on_card and launched:
+            raise AssertionError(f"yt (a): the --device cpu run launched "
+                                 f"{launched}")
+        parts = fake.requests.count("read_table") - reads
+        digests = ch.insert_digests("hits")
+        if sum(d[1] for d in digests) != len(kept) or \
+                parts != YT_ROWS // YT_PART_ROWS:
+            raise AssertionError(f"yt (a) {placement}: ClickHouse took "
+                                 f"{sum(d[1] for d in digests)} rows of "
+                                 f"{len(kept)} over {parts} reads")
+        if on_card:
+            got = sorted(ch.rows("hits"), key=lambda r: r["id"])
+            if not np.array_equal(np.array([r["id"] for r in got]), kept):
+                raise AssertionError("yt (a): the kept ids differ")
+            for r in got:
+                src = rows[r["id"]]
+                url = hmac.new(YT_SALT.encode(), src["url"].encode(),
+                               hashlib.sha256).hexdigest()
+                if ch_text(r["url"]) != url or r["payload"] != \
+                        src["payload"].encode("latin-1") or \
+                        r["region"] != src["region"]:
+                    raise AssertionError(f"yt (a): row {r} against {src}")
+        return {"seconds": seconds, "rows_per_s": YT_ROWS / seconds,
+                "ch_rows": len(kept), "inserts": len(digests),
+                "range_reads": parts, "digests": digests,
+                "launched": launched}
+    finally:
+        set_placement(None)
+        ch.stop()
+
+
+def yt_copy_run(fake, rows, tmp: str, dev) -> dict:
+    """(b) YT -> YT static on the card: the first YT_COPY_ROWS rows, their
+    payload bytes 0-255, twice under TRUNCATE: one copy, equal row for
+    row."""
+    from transferia_tpu_torch.providers.yt.client import YTClient
+
+    fake.add_table("//home/db/copy_src", YT_SCHEMA, rows[:YT_COPY_ROWS])
+    yaml = os.path.join(tmp, "yt2yt.yaml")
+    with open(yaml, "w") as fh:
+        fh.write("id: yt2yt\ntype: SNAPSHOT_ONLY\nsrc:\n  type: yt\n"
+                 f"  params:\n    proxy: \"127.0.0.1:{fake.port}\"\n"
+                 "    paths: [\"//home/db/copy_src\"]\n"
+                 f"    desired_part_rows: {YT_COPY_ROWS // 4}\n"
+                 "dst:\n  type: yt\n"
+                 f"  params:\n    proxy: \"127.0.0.1:{fake.port}\"\n"
+                 "    dir: \"//home/copy\"\n    cleanup_policy: truncate\n")
+    seconds = []
+    for _ in range(2):
+        rc, _, se, s = cli_main(["activate", "--transfer", yaml], dev)
+        if rc != 0:
+            raise AssertionError(f"yt (b): rc {rc}: {se[-2000:]}")
+        seconds.append(s)
+    client = YTClient(f"127.0.0.1:{fake.port}")
+    got = sorted((r for b in client.read_table("//home/copy/copy_src")
+                  for r in b), key=lambda r: r["id"])
+    if got != rows[:YT_COPY_ROWS]:
+        raise AssertionError(f"yt (b): {len(got)} rows copied, "
+                             f"{YT_COPY_ROWS} wanted, equal row for row")
+    schema = client.get("//home/copy/copy_src/@schema")
+    if [c["type"] for c in schema] != [c["type"] for c in YT_SCHEMA]:
+        raise AssertionError(f"yt (b): schema {schema}")
+    return {"rows": YT_COPY_ROWS, "seconds": seconds,
+            "rows_per_s": YT_COPY_ROWS / seconds[0], "copies": 1,
+            "payload_bytes": sum(len(r["payload"]) for r in got)}
+
+
+def yt_path(dev) -> dict:
+    """YTsaurus on the card: (a) the static table through
+    examples/yt2ch.yaml on the card and with --device cpu (byte-identical
+    inserts), (b) YT -> YT static with arbitrary bytes.  Every K-A, K-B,
+    K-C and K10 launch is held against its plain version."""
+    from transferia_tpu_torch.recipes.fake_yt import FakeYT
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="yt-", dir=str(_build.BUILD_DIR))
+    timings: dict = {}
+    fake = FakeYT().start()
+    try:
+        t0 = time.perf_counter()
+        rows = yt_table()
+        region = np.array([r["region"] for r in rows])
+        kept = np.flatnonzero(region < 400)
+        fake.add_table("//home/db/hits", YT_SCHEMA, rows)
+        timings["data"] = time.perf_counter() - t0
+        with KALaunches() as ka, PredLaunches() as preds, \
+                RowhashLaunches() as k10:
+            _build.reset_launch_counts()
+            runs = {}
+            for placement in ("device", "cpu"):
+                t0 = time.perf_counter()
+                runs[placement] = yt_ch_run(fake, rows, kept, tmp,
+                                            placement, dev)
+                timings[placement] = time.perf_counter() - t0
+            if runs["device"].pop("digests") != runs["cpu"].pop("digests"):
+                raise AssertionError("yt (a): the card's and the CPU's "
+                                     "ClickHouse inserts differ")
+            t0 = time.perf_counter()
+            copy = yt_copy_run(fake, rows, tmp, dev)
+            timings["copy"] = time.perf_counter() - t0
+            launches = _build.launch_counts()
+            require_launched("yt", launches)
+            t0 = time.perf_counter()
+            held = {"sha256_hmac": ka.check("yt", launches["sha256_hmac"])}
+            held.update(preds.check("yt", launches))
+            held.update(k10.check("yt", launches))
+            timings["held"] = time.perf_counter() - t0
+        return {"rows": YT_ROWS, "kept": len(kept), "static": runs,
+                "identical_across_placements": True, "copy": copy,
+                "launches": launches, "held_exact": held,
+                "part_seconds": timings}
+    finally:
+        fake.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a card",
@@ -10285,7 +11078,9 @@ def main() -> int:
             ("check", lambda: check_path(dev)),
             ("dblog", lambda: dblog_path(dev)),
             ("airbyte", lambda: airbyte_path(dev)),
-            ("mongo", lambda: mongo_path(dev))):
+            ("mongo", lambda: mongo_path(dev)),
+            ("oracle", lambda: oracle_path(dev)),
+            ("yt", lambda: yt_path(dev))):
         t_phase = time.perf_counter()
         result = results[path] = run()
         phase_s[path] = time.perf_counter() - t_phase

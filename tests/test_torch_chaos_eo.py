@@ -24,9 +24,11 @@ import pytest
 from transferia_tpu.chaos import failpoints as ref_fp
 from transferia_tpu.chaos import runner as ref_runner
 from transferia_tpu.chaos import wire_backends as ref_wire
+from transferia_tpu.providers import mq as ref_mq
 from transferia_tpu_torch.chaos import failpoints as port_fp
 from transferia_tpu_torch.chaos import runner as port_runner
 from transferia_tpu_torch.chaos import wire_backends as port_wire
+from transferia_tpu_torch.providers import mq as port_mq
 from tests.torch_chaos_common import CPU, both_trials, trial_view
 
 BACKENDS = ("memory", "postgres", "clickhouse", "kafka", "s3")
@@ -125,8 +127,21 @@ def test_run_trials_reports_the_skips_never_passes(monkeypatch):
 
 def test_replication_trial_equals_jax():
     def run(runner, kw):
-        ref = runner._replication_reference(80, **kw)
-        r = runner.run_replication_trial(0, 7, 80, ref, **kw)
+        # each package's brokers live for the process and keep their
+        # consumer groups' committed offsets; the JAX package's
+        # tests/unit/test_chaos.py replicates from the same two in
+        # whichever process runs it, before or after this test: each
+        # starts them empty
+        mq = ref_mq if runner is ref_runner else port_mq
+        brokers = ("chaos-repl-ref", "chaos-repl-7-0")
+        for broker_id in brokers:
+            mq._BROKERS.pop(broker_id, None)
+        try:
+            ref = runner._replication_reference(80, **kw)
+            r = runner.run_replication_trial(0, 7, 80, ref, **kw)
+        finally:
+            for broker_id in brokers:
+                mq._BROKERS.pop(broker_id, None)
         return ref.fingerprint, ref.rows, r.spec, r.passed, \
             [str(v) for v in r.verdict.violations]
 

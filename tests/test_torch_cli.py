@@ -45,6 +45,7 @@ import pytest
 
 from tests.recipes.fake_postgres import FakePG as RefFakePG
 from tests.recipes.fake_postgres import FakeTable as RefFakeTable
+from tests.torch_quiescent import ledger_quiescent  # noqa: F401
 from transferia_tpu.abstract import change_item as ref_ci
 from transferia_tpu.abstract import schema as ref_schema
 from transferia_tpu.cli import config as ref_config
@@ -66,6 +67,7 @@ from transferia_tpu_torch.utils import logsanitize as port_san
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = sorted(ROOT.glob("examples/*.yaml"))
 EXAMPLE_ENV = {"PG_PASSWORD": "pw", "MASK_SALT": "salt",
+               "ORACLE_PASSWORD": "pw",
                "MYSQL_PASSWORD": "pw", "PII_SALT": "pii"}
 
 YAML = """
@@ -101,26 +103,6 @@ def run(pkg: str, argv: list) -> tuple:
         else:
             rc = ref_main.main(["--log-level", "error"] + argv)
     return rc, out.getvalue(), err.getvalue()
-
-
-@pytest.fixture(autouse=True)
-def _jax_ledger_quiescent():
-    """The CLI's commands bill each package's process-wide resource
-    ledger and device counters, and a command can leave the two apart;
-    the JAX package's own conservation tests, run later in the same
-    worker (`tests/unit/test_fleetobs.py::TestEngineExport`), then read
-    that drift as a violation.  Both packages' start from zero again
-    after each test here."""
-    yield
-    from transferia_tpu.stats import ledger as ref_ledger
-    from transferia_tpu.stats import trace as ref_trace
-    from transferia_tpu_torch.stats import ledger as port_ledger
-    from transferia_tpu_torch.stats import trace as port_trace
-
-    for trace_mod, ledger_mod in ((ref_trace, ref_ledger),
-                                  (port_trace, port_ledger)):
-        trace_mod.TELEMETRY.reset()
-        ledger_mod.LEDGER.reset()
 
 
 @pytest.fixture
@@ -1119,3 +1101,246 @@ def test_fleet_health_panes_equal_jax(fleet_dirs):
                     st_s, sorted(slo["objectives"]))
     assert got["port"] == got["jax"]
     assert got["port"][4] == 200 and got["port"][5]
+
+
+# -- the Oracle and YTsaurus examples, each package over its own fakes --------
+
+ORA_COLUMNS = [("ID", "NUMBER(10)", True, True),
+               ("EMAIL", "VARCHAR2(64)", False, False),
+               ("SCORE", "BINARY_FLOAT", False, False),
+               ("BIG", "NUMBER(30)", False, False),
+               ("CREATED", "DATE", False, False)]
+YT_HITS = [{"name": "id", "type": "int64", "sort_order": "ascending"},
+           {"name": "url", "type": "utf8"},
+           {"name": "region", "type": "int32"},
+           {"name": "payload", "type": "string"}]
+
+
+def ora_rows(n: int, seed: int) -> list:
+    import datetime as dt
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    score = rng.uniform(-1, 1, n).astype(np.float32)
+    specials = (float("nan"), float("inf"), float("-inf"), -0.0, None)
+    return [{"ID": i, "EMAIL": f"u{i}@example.test",
+             "SCORE": specials[i % 5] if i % 9 == 0 else float(score[i]),
+             "BIG": 10**25 + 2 * i + 1,
+             "CREATED": dt.datetime(2020, 1, 1) + dt.timedelta(hours=i)}
+            for i in range(n)]
+
+
+def example_copy(name: str, tmp_path, subs: list) -> str:
+    text = (ROOT / "examples" / name).read_text()
+    for old, new in subs:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    path = tmp_path / name
+    path.write_text(text)
+    return str(path)
+
+
+def fakes_of(pkg: str):
+    if pkg == "port":
+        from transferia_tpu_torch.recipes import fake_clickhouse as ch
+        from transferia_tpu_torch.recipes import fake_oracle as ora
+        from transferia_tpu_torch.recipes import fake_yt as yt
+    else:
+        from tests.recipes import fake_clickhouse as ch
+        from tests.recipes import fake_oracle as ora
+        from tests.recipes import fake_yt as yt
+    return ora, yt, ch
+
+
+def ch_table(ch, name: str) -> list:
+    rows = ch.rows(name)
+    return sorted((tuple(sorted((k, repr(v)) for k, v in r.items()))
+                   for r in rows))
+
+
+def test_oracle2ch_example_activates_equal_jax(tmp_path, monkeypatch):
+    """examples/oracle2ch.yaml as it is but for the ports: 4 ROWID shards
+    at one SCN, the mask and the SCORE filter into ClickHouse."""
+    got = {}
+    rows = ora_rows(1500, seed=31)
+    for pkg in ("port", "jax"):
+        ora, _, chmod = fakes_of(pkg)
+        srv = ora.FakeOracle(service_name="XEPDB1", user="scott",
+                             password="pw")
+        srv.add_table(ora.FakeOraTable("SCOTT", "ACCOUNTS", ORA_COLUMNS,
+                                       rows))
+        srv.start()
+        ch = chmod.FakeCH().start()
+        try:
+            (tmp_path / pkg).mkdir()
+            path = example_copy("oracle2ch.yaml", tmp_path / pkg,
+                                [("    port: 1521\n",
+                                  f"    port: {srv.port}\n"),
+                                 ("    port: 8123\n",
+                                  f"    port: {ch.port}\n")])
+            for k, v in {"ORACLE_HOST": "127.0.0.1", "ORACLE_PASSWORD": "pw",
+                         "MASK_SALT": "ora-salt",
+                         "CH_HOST": "127.0.0.1"}.items():
+                monkeypatch.setenv(k, v)
+            rc, out, err = run(pkg, ["activate", "--transfer", path])
+            assert rc == 0, err
+            scans = sorted(q for q in srv.queries if "ORA_HASH" in q)
+            got[pkg] = (ch_table(ch, "SCOTT__ACCOUNTS"), scans)
+        finally:
+            srv.stop()
+            ch.stop()
+    assert got["port"] == got["jax"]
+    table, scans = got["port"]
+    import numpy as np
+
+    want = [r["ID"] for r in rows if r["SCORE"] is not None and
+            np.float32(r["SCORE"]) > np.float32(0.25)]
+    assert len(table) == len(want) > 0
+    assert len(scans) == 4 and all(" AS OF SCN 1000" in q for q in scans)
+
+
+def test_yt2ch_example_activates_equal_jax(tmp_path, monkeypatch):
+    """examples/yt2ch.yaml with its parts cut to 700 rows for 3,000: the
+    mask on url and the int32 filter into ClickHouse."""
+    got = {}
+    hits = [{"id": i, "url": f"https://e.test/{i % 97}",
+             "region": (i * 37) % 1000,
+             "payload": bytes([i % 256, 255 - i % 256]).decode("latin-1")}
+            for i in range(3000)]
+    for pkg in ("port", "jax"):
+        _, ytmod, chmod = fakes_of(pkg)
+        yt, ch = ytmod.FakeYT().start(), chmod.FakeCH().start()
+        yt.add_table("//home/db/hits", YT_HITS, hits)
+        try:
+            (tmp_path / pkg).mkdir()
+            path = example_copy("yt2ch.yaml", tmp_path / pkg, [
+                ("    port: 8123\n", f"    port: {ch.port}\n"),
+                ("desired_part_rows: 125000", "desired_part_rows: 700")])
+            for k, v in {"YT_PROXY": f"127.0.0.1:{yt.port}",
+                         "MASK_SALT": "yt-salt",
+                         "CH_HOST": "127.0.0.1"}.items():
+                monkeypatch.setenv(k, v)
+            rc, out, err = run(pkg, ["activate", "--transfer", path])
+            assert rc == 0, err
+            got[pkg] = (ch_table(ch, "hits"),
+                        yt.requests.count("read_table"))
+        finally:
+            yt.stop()
+            ch.stop()
+    assert got["port"] == got["jax"]
+    table, reads = got["port"]
+    assert reads == 5
+    assert len(table) == sum(1 for h in hits if h["region"] < 400)
+
+
+def test_oracle2yt_dyn_example_replicates_equal_jax(tmp_path, monkeypatch):
+    """examples/oracle2yt_dyn.yaml through `replicate`: the S&I activation
+    into a sorted dynamic table of 4 tablets, then LogMiner redo fed once
+    the tail mines (updates, a key-changing update, inserts, deletes, a
+    CSF continuation), stopped by SIGTERM once the tail checkpointed the
+    last SCN (polled on the fake's log, as each package's coordinator is
+    its own process's memory)."""
+    got = {}
+    rows = ora_rows(800, seed=37)
+    redo = [(3, 'update "SCOTT"."ACCOUNTS" set "EMAIL" = \'x@e.test\' '
+                'where "ID" = 5 and "SCORE" IS NULL', 1),
+            (3, 'update "SCOTT"."ACCOUNTS" set "ID" = 900 where "ID" = 7 '
+                "and \"EMAIL\" = 'u7@example.test' and \"SCORE\" = "
+                f"{rows[7]['SCORE']!r}", 1),
+            (1, 'insert into "SCOTT"."ACCOUNTS"("ID","EMAIL","SCORE","BIG",'
+                '"CREATED") values (1000, \'' + "n" * 300 + "@e.test', "
+                "'Nan', 100000000000000000000000001, TO_DATE('2026-07-29 "
+                "10:00:00', 'YYYY-MM-DD HH24:MI:SS'))", 4),
+            (2, 'delete from "SCOTT"."ACCOUNTS" where "ID" = 11', 1),
+            (2, 'delete from "SCOTT"."ACCOUNTS" where "ID" = 4242', 1)]
+    for pkg in ("port", "jax"):
+        ora, ytmod, _ = fakes_of(pkg)
+        srv = ora.FakeOracle(service_name="XEPDB1", user="scott",
+                             password="pw")
+        srv.add_table(ora.FakeOraTable("SCOTT", "ACCOUNTS", ORA_COLUMNS,
+                                       rows))
+        srv.start()
+        yt = ytmod.FakeYT().start()
+        table = "//home/transfer/oracle/ACCOUNTS"
+        if pkg == "port":
+            yt.pivots_on_mount[table] = [[], [200], [400], [600]]
+        try:
+            (tmp_path / pkg).mkdir()
+            path = example_copy("oracle2yt_dyn.yaml", tmp_path / pkg,
+                                [("    port: 1521\n",
+                                  f"    port: {srv.port}\n")])
+            for k, v in {"ORACLE_HOST": "127.0.0.1",
+                         "ORACLE_PASSWORD": "pw", "MASK_SALT": "ora-salt",
+                         "YT_PROXY": f"127.0.0.1:{yt.port}"}.items():
+                monkeypatch.setenv(k, v)
+            done = threading.Event()
+            last = []
+
+            def mining():
+                return any("v$logmnr_contents" in q.lower()
+                           for q in list(srv.queries))
+
+            def watch():
+                deadline = time.monotonic() + 120
+                while not mining() and not done.is_set() and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.02)
+                for op, sql, parts in redo:
+                    last.append(srv.feed_redo("SCOTT", "ACCOUNTS", op, sql,
+                                              csf_parts=parts))
+                # the tail mines its checkpoint SCN again (SCN >=) after it
+                # checkpointed the last row: the next START_LOGMNR at it
+                marker = f"STARTSCN => {last[-1]},"
+                while not any(marker in q for q in list(srv.queries)) and \
+                        not done.is_set() and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                if not done.is_set():
+                    os.kill(os.getpid(), signal.SIGTERM)
+
+            previous = {s: signal.getsignal(s)
+                        for s in (signal.SIGINT, signal.SIGTERM)}
+            w = threading.Thread(target=watch, daemon=True)
+            w.start()
+            try:
+                rc, out, err = run(pkg, ["replicate", "--transfer", path])
+            finally:
+                done.set()
+                for s, h in previous.items():
+                    signal.signal(s, h)
+            w.join(10)
+            assert rc == 0, err
+            if hasattr(yt, "sync_rows"):
+                yt.sync_rows()
+            node = yt.nodes[table]
+            got[pkg] = ([tuple(sorted((k, repr(v)) for k, v in r.items()))
+                         for r in node["rows"]],
+                        node["attrs"].get("tablet_count"))
+        finally:
+            srv.stop()
+            yt.stop()
+    assert got["port"][1] == got["jax"][1] == 4
+    port_rows, jax_rows = got["port"][0], got["jax"][0]
+    assert port_rows == jax_rows
+    ids = [dict(r)["ID"] for r in port_rows]
+    assert "'900'" not in ids and "900" in ids and "7" not in ids
+    assert "11" not in ids and "1000" in ids and len(ids) == 800
+
+
+def test_oracle_and_yt_endpoints_are_no_longer_waiting():
+    """`oracle`, `yt` and `yt_dyn` left the CLI's waiting providers: each
+    parses into the port's endpoint, as in the JAX package; the
+    providers still waiting raise naming their item."""
+    assert not {"oracle", "yt", "yt_dyn"} & port_config.WAITING_PROVIDERS
+    assert port_config.WAITING_PROVIDERS == {
+        "arrow_ipc", "elastic", "eventhub", "flight", "greenplum",
+        "kinesis", "logbroker", "opensearch", "ydb", "yds"}
+    for src, dst in (("oracle", "ch"), ("yt", "yt"), ("sample", "yt_dyn")):
+        text = f"id: x\nsrc: {{type: {src}}}\ndst: {{type: {dst}}}\n"
+        got = port_config.parse_transfer_yaml(text)
+        assert (got.src_provider(), got.dst_provider()) == (src, dst)
+        assert got.to_dict() == ref_config.parse_transfer_yaml(text).to_dict()
+    for kind in sorted(port_config.WAITING_PROVIDERS):
+        with pytest.raises(port_config.ConfigError, match="ROADMAP.md A7"):
+            port_config.parse_transfer_yaml(
+                f"id: x\nsrc: {{type: {kind}}}\ndst: {{type: stdout}}\n")

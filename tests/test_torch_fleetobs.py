@@ -32,6 +32,8 @@ from types import SimpleNamespace
 
 import pytest
 
+from tests.torch_quiescent import ledger_quiescent  # noqa: F401
+
 NOW = 100_000.0
 
 

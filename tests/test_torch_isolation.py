@@ -395,7 +395,7 @@ k2fs_kf.stop()
 import contextlib, glob, io, os
 from transferia_tpu_torch.cli.main import main as cli_main
 os.environ.update(PG_PASSWORD="x", MASK_SALT="s", MYSQL_PASSWORD="x",
-                  PII_SALT="s")
+                  PII_SALT="s", ORACLE_PASSWORD="x")
 for path in sorted(glob.glob("examples/*.yaml")):
     out = io.StringIO()
     with contextlib.redirect_stdout(out), \
@@ -857,9 +857,9 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     """The binlog tail, the MySQL target and Postgres logical replication
     no longer raise, nor does the SNAPSHOT_AND_INCREMENT activation (the
     MVCC cutover), the DBLog snapshot, a configured dbt step or the
-    airbyte and mongo endpoints; a provider still waiting raises naming
-    its item.  Every ROADMAP.md item the port's code names is an open
-    item of ROADMAP.md's queue A."""
+    airbyte, mongo, oracle, yt and yt_dyn endpoints; a provider still
+    waiting raises naming its item.  Every ROADMAP.md item the port's
+    code names is an open item of ROADMAP.md's queue A."""
     from transferia_tpu_torch.cli.config import (
         ConfigError,
         parse_transfer_yaml,
@@ -888,12 +888,16 @@ def test_cdc_tails_are_ported_and_left_outs_name_their_items():
     assert type(get_provider("pg", dblog, device="cpu").source()) \
         .__name__ == "PGReplicationSource"
     assert type(make_transformer("dbt", {})).__name__ == "DbtTransformer"
-    for kind in ("airbyte", "mongo"):
+    for kind in ("airbyte", "mongo", "oracle", "yt"):
         t = parse_transfer_yaml(f"id: x\nsrc: {{type: {kind}}}\n"
                                 f"dst: {{type: stdout}}\n")
         assert t.src_provider() == kind
+    for kind in ("yt", "yt_dyn"):
+        t = parse_transfer_yaml(f"id: x\nsrc: {{type: sample}}\n"
+                                f"dst: {{type: {kind}}}\n")
+        assert t.dst_provider() == kind
     with pytest.raises(ConfigError, match="ROADMAP.md A7"):
-        parse_transfer_yaml("id: x\nsrc: {type: oracle}\n"
+        parse_transfer_yaml("id: x\nsrc: {type: ydb}\n"
                             "dst: {type: stdout}\n")
     import re
 
@@ -1108,3 +1112,102 @@ def test_chaos_needs_a_card_or_the_cpu(device, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_main(argv)
     assert cli_main(["--log-level", "error", "check", "--list-rules"]) == 0
+
+
+_ORACLE_YT_CHILD = """
+import sys
+import threading
+import time
+from transferia_tpu_torch.abstract.interfaces import SyncAsAsyncSink
+from transferia_tpu_torch.coordinator import MemoryCoordinator
+from transferia_tpu_torch.models import Transfer
+from transferia_tpu_torch.providers.memory import (MemorySinker,
+    MemoryTargetParams, get_store)
+from transferia_tpu_torch.providers.oracle import OracleSourceParams
+from transferia_tpu_torch.providers.oracle.logminer import (
+    OracleLogMinerSource)
+from transferia_tpu_torch.providers.yt.provider import (
+    YTDynamicTargetParams, YTSourceParams)
+from transferia_tpu_torch.recipes.fake_oracle import FakeOracle, FakeOraTable
+from transferia_tpu_torch.recipes.fake_yt import FakeYT
+from transferia_tpu_torch.tasks import activate_delivery
+
+ora, yt = FakeOracle().start(), FakeYT().start()
+ora.add_table(FakeOraTable("SCOTT", "T", [("ID", "NUMBER(10)", True, True),
+    ("EMAIL", "VARCHAR2(64)", False, False),
+    ("SCORE", "BINARY_FLOAT", False, False)],
+    [{"ID": i, "EMAIL": f"u{i}", "SCORE": i / 8} for i in range(300)]))
+src = OracleSourceParams(host="127.0.0.1", port=ora.port,
+    service_name="XEPDB1", user="scott", password="tiger", owner="SCOTT")
+activate_delivery(Transfer(id="iso-ora", src=src,
+    dst=YTDynamicTargetParams(proxy=f"127.0.0.1:{yt.port}", dir="//iso"),
+    transformation={"transformers": [{"mask_field": {"columns": ["EMAIL"],
+    "salt": "s"}}, {"filter_rows": {"filter": "SCORE > 10"}}]}),
+    MemoryCoordinator(), device="cpu")
+yt.sync_rows()
+assert len(yt.nodes["//iso/T"]["rows"]) == 219
+activate_delivery(Transfer(id="iso-yt", src=YTSourceParams(
+    proxy=f"127.0.0.1:{yt.port}", paths=["//iso/T"]),
+    dst=MemoryTargetParams(sink_id="iso-yt")), MemoryCoordinator(),
+    device="cpu")
+assert get_store("iso-yt").row_count() == 219
+cp = MemoryCoordinator()
+cp.set_transfer_state("iso-cdc", {"oracle_scn": 1000})
+ora.feed_redo("SCOTT", "T", 2, 'delete from "SCOTT"."T" where "ID" = 1')
+lm = OracleLogMinerSource(src, "iso-cdc", cp, poll_interval=0.02)
+th = threading.Thread(target=lm.run, args=(SyncAsAsyncSink(MemorySinker(
+    MemoryTargetParams(sink_id="iso-cdc"), device="cpu")),), daemon=True)
+th.start()
+deadline = time.monotonic() + 30
+while get_store("iso-cdc").row_count() < 1 and time.monotonic() < deadline:
+    time.sleep(0.02)
+lm.stop()
+th.join(10)
+assert get_store("iso-cdc").row_count() == 1
+ora.stop()
+yt.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "pyarrow", "yaml",
+                                    "grpc", "tests", "transferia_tpu"))
+print("LOADED", bad)
+"""
+
+
+def test_oracle_and_yt_import_nothing_of_jax():
+    """The Oracle and YTsaurus providers and the port's own fakes in a
+    fresh interpreter: an Oracle snapshot through the mask and a
+    BINARY_FLOAT filter into a YT dynamic table, that table read back,
+    and a LogMiner delete, on the CPU, with no jax, pyarrow, grpc,
+    `tests` or JAX package module loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", _ORACLE_YT_CHILD],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_oracle_and_yt_need_a_card_or_the_cpu(device, monkeypatch):
+    """An Oracle or YT activation, and the LogMiner tail's replication,
+    raise without a card unless asked for the CPU, before any row is
+    read."""
+    from transferia_tpu_torch.coordinator import MemoryCoordinator
+    from transferia_tpu_torch.models import Transfer, TransferType
+    from transferia_tpu_torch.providers.memory import MemoryTargetParams
+    from transferia_tpu_torch.providers.oracle import OracleSourceParams
+    from transferia_tpu_torch.providers.yt import YTSourceParams
+    from transferia_tpu_torch.runtime.local import run_replication
+    from transferia_tpu_torch.tasks import activate_delivery
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dst = MemoryTargetParams(sink_id="iso-dev")
+    for src in (OracleSourceParams(port=1), YTSourceParams(proxy="h:1")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            activate_delivery(Transfer(id="d", src=src, dst=dst),
+                              MemoryCoordinator(), device=device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_replication(Transfer(id="d", type=TransferType.INCREMENT_ONLY,
+                                 src=OracleSourceParams(port=1), dst=dst),
+                        MemoryCoordinator(), device=device)

@@ -29,6 +29,10 @@ import logging
 from typing import Optional
 
 from transferia_tpu_torch.abstract.commit import find_staged_sink
+from transferia_tpu_torch.abstract.interfaces import (
+    PositionalStorage,
+    SnapshotableStorage,
+)
 from transferia_tpu_torch.abstract.table import (
     OperationTablePart,
     TableDescription,
@@ -75,12 +79,28 @@ def land_snapshot_part(store: MvccStore, coordinator,
 
 def snapshot_into_store(transfer, store: MvccStore,
                         metrics: Optional[Metrics] = None,
-                        tables=None) -> list[str]:
+                        tables=None, coordinator=None) -> list[str]:
     """Read the source snapshot into base versions: one part per table
-    description, epoch 1."""
+    description, epoch 1.
+
+    A storage that pins a consistent read (`SnapshotableStorage`:
+    Oracle's flashback SCN) is pinned for the whole load, and where it
+    was pinned lands in the transfer state as `snapshot_position`, as
+    the snapshot loader records it, so the replication source resumes
+    there.  The reference reads such a storage unpinned on this route and
+    records no position, so its LogMiner tail starts at the current SCN
+    and loses the changes committed during the load (ROADMAP.md C8)."""
     metrics = metrics or Metrics()
     storage = new_storage(transfer, metrics)
+    pinned = isinstance(storage, SnapshotableStorage)
     try:
+        if pinned:
+            storage.begin_snapshot()
+            if isinstance(storage, PositionalStorage):
+                pos = storage.position()
+                if pos and coordinator is not None:
+                    coordinator.set_transfer_state(
+                        transfer.id, {"snapshot_position": pos})
         if tables is None:
             tables = [TableDescription(id=tid)
                       for tid in storage.table_list()]
@@ -92,7 +112,11 @@ def snapshot_into_store(transfer, store: MvccStore,
             landed.append(str(td.id))
         return landed
     finally:
-        storage.close()
+        try:
+            if pinned:
+                storage.end_snapshot()
+        finally:
+            storage.close()
 
 
 def publish_merged(store: MvccStore, transfer,
@@ -182,7 +206,8 @@ def activate_snapshot_and_increment(
         if pump is not None:
             pump.start()
         try:
-            snapshot_into_store(transfer, st, metrics, tables)
+            snapshot_into_store(transfer, st, metrics, tables,
+                                coordinator=coordinator)
             offsets = None
             if pump is not None:
                 pump.drain()

@@ -9,7 +9,9 @@ the `ch` (ClickHouse) sink on one shard and its storage and native
 event target, the `fs` Parquet source, the `pg`
 (Postgres, its DBLog incremental snapshot included) and `mysql`
 sources (snapshot and CDC) and sinks, the `mongo` source (snapshot and
-change streams) and sink, the `airbyte` source (connectors through the
+change streams) and sink, the `oracle` source (SCN-pinned snapshot and
+LogMiner CDC), the `yt` static-table source and sink and the `yt_dyn`
+dynamic-table sink, the `airbyte` source (connectors through the
 container runner), the `s3`
 object-storage source (snapshot and replication) and sink, the `delta`
 (Delta Lake) event-model source, the `coralogix` and `datadog` log
@@ -38,8 +40,10 @@ def load_builtin_providers() -> None:
         mongo,
         mq,
         mysql,
+        oracle,
         postgres,
         s3,
         sample,
         stdout,
+        yt,
     )

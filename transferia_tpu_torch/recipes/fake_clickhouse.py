@@ -13,6 +13,9 @@ with the WHERE (the `rand()` cut, ORed key equalities), ORDER BY and
 LIMIT shapes it emits.  Every query is kept in `queries`.  Runs the
 real CHClient against real sockets; only the server side is fake.  The
 JAX fake's cluster discovery serves a part the port does not have yet.
+Table names keep their case in DROP, TRUNCATE and `SELECT count()`, as
+ClickHouse's do; the JAX fake lowercases them there, so an upper-case
+table (an Oracle one) is never dropped and counts 0 rows.
 """
 
 from __future__ import annotations
@@ -189,11 +192,14 @@ class FakeCH:
             return b""
         m = re.match(r"(drop|truncate) table if exists `?(\w+)`?", low)
         if m:
+            # the name as the query spells it: ClickHouse's names are
+            # case-sensitive (an Oracle table lands as `SCOTT__ACCOUNTS`)
+            name = re.search(r"EXISTS `?(\w+)`?", q, re.I).group(1)
             with self.lock:
                 if m.group(1) == "drop":
-                    self.tables.pop(m.group(2), None)
-                elif m.group(2) in self.tables:
-                    self.tables[m.group(2)]["rows"] = []
+                    self.tables.pop(name, None)
+                elif name in self.tables:
+                    self.tables[name]["rows"] = []
             return b""
         m = re.match(r"insert into `?(\w+)`?\s*\((.*?)\)\s*format rowbinary",
                      low, re.S)
@@ -304,8 +310,9 @@ class FakeCH:
             return json.dumps({"data": data}).encode()
         m = re.match(r"select count\(\) from `?(\w+)`?", low)
         if m:
+            name = re.search(r"FROM `?(\w+)`?", q, re.I).group(1)
             with self.lock:
-                t = self.tables.get(m.group(1))
+                t = self.tables.get(name)
                 n = t.row_count() if t is not None else 0
             return json.dumps({"data": [[n]]}).encode()
         raise ValueError(f"fake CH: unhandled query: {q[:120]}")
